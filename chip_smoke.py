@@ -1,0 +1,551 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port serves on the GPU.
+
+Run from the root of a checkout on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py
+
+Phases, one line each (a failing phase ends the run with a non-zero exit
+and no result line):
+
+1. device: the card's name and power limit (``nvidia-smi``) and CUDA;
+2. build: the kernels of ``llama_fastapi_k8s_gpu_tpu_torch/csrc`` with
+   ``nvcc``, timed;
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the Llama-3-8B shapes the serving path gives it, with kernel, plain,
+   library (one PyTorch call computing the same function) and bound times;
+4. gguf: a synthetic Llama-3-8B-width Q4_K_M-layout GGUF (random valid
+   blocks from a seed) written with the port's own writer into
+   ``.cache/chip_smoke/``, reused when present;
+5. serve: the port's ``Engine`` behind its app on the in-tree httpd at
+   127.0.0.1, three ``/response`` requests at temperature 0 (a short one, a
+   long one whose prompt spans several 256-token prefill slices, and a
+   follow-up turn that takes prefix reuse), then ``GET /health``; the
+   served model's logits must be finite and its flash prompt pass must
+   agree with the plain score-matrix one;
+6. a ``kernels`` JSON line with every kernel's launches in phase 5 beside
+   its phase-3 numbers.
+
+The last line is ``{"ok": true, "device": {...}}``.  No JAX anywhere.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import http.client
+import json
+import os
+import socket
+import subprocess
+import sys
+import threading
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CACHE = os.path.join(HERE, ".cache", "chip_smoke")
+
+#: transformer blocks of the served model (Llama-3-8B has 32; width is never cut)
+DEPTH = 32
+#: the card's published peaks (H100 SXM data sheet): HBM bytes/s, dense bf16 FLOP/s
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+
+REPLACES = {
+    "dequant_q4_k": "llama_fastapi_k8s_gpu_tpu/ops/pallas/dequant.py:120",
+    "q4k_matmul": "llama_fastapi_k8s_gpu_tpu/ops/pallas/qmatmul.py:237",
+    "q6k_matmul": "llama_fastapi_k8s_gpu_tpu/ops/pallas/q6matmul.py:243",
+    "flash_attention": "llama_fastapi_k8s_gpu_tpu/ops/pallas/attention.py:58",
+}
+SOURCES = {
+    "dequant_q4_k": "llama_fastapi_k8s_gpu_tpu_torch/csrc/dequant_q4k.cu",
+    "q4k_matmul": "llama_fastapi_k8s_gpu_tpu_torch/csrc/q4k_matmul.cu",
+    "q6k_matmul": "llama_fastapi_k8s_gpu_tpu_torch/csrc/q6k_matmul.cu",
+    "flash_attention": "llama_fastapi_k8s_gpu_tpu_torch/csrc/flash_attention.cu",
+}
+
+
+def say(phase: str, **kw) -> None:
+    print(f"[{phase}] " + json.dumps(kw, default=str), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# random valid K-quant blocks (kernel inputs and the synthetic GGUF)
+# ---------------------------------------------------------------------------
+
+def rand_q4k(rng, n_out: int, k_in: int):
+    """(n_out, k_in) weights as Q4_K block bytes, zero-mean with standard
+    deviation ≈ k_in^-0.5: w = d·sc·(q − 7.5), the min folded as
+    dmin·mn = 7.5·d·sc."""
+    import numpy as np
+
+    from llama_fastapi_k8s_gpu_tpu_torch.gguf.quants import pack_scale_min_k4
+
+    nb = n_out * k_in // 256
+    blk = np.frombuffer(rng.bytes(nb * 144), np.uint8).reshape(nb, 144).copy()
+    d = np.float16(k_in ** -0.5 / (47.5 * 4.61))
+    blk[:, 0:2] = np.array([d], np.float16).view(np.uint8)
+    blk[:, 2:4] = np.array([np.float16(7.5 * float(d))], np.float16).view(np.uint8)
+    sc = rng.integers(32, 64, (nb, 8), dtype=np.uint8)
+    blk[:, 4:16] = pack_scale_min_k4(sc, sc)
+    return blk.reshape(n_out, -1)
+
+
+def rand_q6k(rng, n_out: int, k_in: int):
+    """(n_out, k_in) weights as Q6_K block bytes, std ≈ k_in^-0.5:
+    w = d·sc·(q − 32) with q uniform in 0..63."""
+    import numpy as np
+
+    nb = n_out * k_in // 256
+    blk = np.frombuffer(rng.bytes(nb * 210), np.uint8).reshape(nb, 210).copy()
+    blk[:, 192:208] = rng.integers(8, 16, (nb, 16), dtype=np.uint8)
+    d = np.float16(k_in ** -0.5 / (11.5 * 18.5))
+    blk[:, 208:210] = np.array([d], np.float16).view(np.uint8)
+    return blk.reshape(n_out, -1)
+
+
+# ---------------------------------------------------------------------------
+# phase 1-2
+# ---------------------------------------------------------------------------
+
+def phase_device() -> dict:
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
+    if not line:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(line, flush=True)
+    info = {"nvidia_smi": line, "torch": torch.__version__,
+            "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
+    say("device", **info)
+    return info
+
+
+def phase_build() -> None:
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import _kernels
+
+    t0 = time.time()
+    _kernels.library()
+    ptxas = [ln.strip() for ln in _kernels.build_info.get("log", "").splitlines()
+             if "registers" in ln or "spill" in ln]
+    say("build", seconds=round(time.time() - t0, 2),
+        built=_kernels.build_info.get("built"), ptxas=ptxas)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version at the serving shapes
+# ---------------------------------------------------------------------------
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` launches after one
+    warm-up, by CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of moving ``nbytes``
+    at the HBM rate and doing ``flops`` at the bf16 peak."""
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / BF16_FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def check_matmul(name, rng, n_out, k_in, B, tol_rel=8e-3) -> dict:
+    import numpy as np
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import q4k, q6k
+
+    mod = q4k if name == "q4k_matmul" else q6k
+    kern = mod.q4k_matmul if name == "q4k_matmul" else mod.q6k_matmul
+    plain = mod.q4k_matmul_plain if name == "q4k_matmul" else mod.q6k_matmul_plain
+    blocks = (rand_q4k if name == "q4k_matmul" else rand_q6k)(rng, n_out, k_in)
+    w = torch.from_numpy(np.ascontiguousarray(blocks)).cuda()
+    x = torch.from_numpy(rng.standard_normal((B, k_in), np.float32)).cuda().to(torch.bfloat16)
+    y = kern(x, w, n_out, k_in)
+    y_ref = plain(x, w, n_out, k_in)
+    torch.cuda.synchronize()
+    err = (y.float() - y_ref.float()).abs().max().item()
+    scale = y_ref.float().abs().max().item()
+    if not (torch.isfinite(y).all() and err <= tol_rel * scale):
+        raise AssertionError(f"{name} ({n_out},{k_in}) B={B}: max |kernel-plain| "
+                             f"{err} > {tol_rel} * {scale}")
+    deq = (q4k.dequant_q4_k_f32 if name == "q4k_matmul"
+           else q6k.dequant_q6_k_f32)(w.reshape(-1)).reshape(n_out, k_in).to(torch.bfloat16)
+    reps = 20 if B == 1 else 5
+    out = {
+        "shape": [n_out, k_in], "B": B, "max_abs_err": err, "tol": tol_rel * scale,
+        "ms": cuda_ms(lambda: kern(x, w, n_out, k_in), reps),
+        "plain_ms": cuda_ms(lambda: plain(x, w, n_out, k_in), 2),
+        "library_ms": cuda_ms(lambda: torch.matmul(x, deq.t()), reps),
+        **bound(x.numel() * 2 + w.numel() + B * n_out * 2, 2.0 * B * n_out * k_in),
+    }
+    del w, x, deq
+    return out
+
+
+def check_flash(rng, S, n_ctx, pos_offset, H=32, n_kv=8, hd=128, tol=2e-2) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import attention
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype="float32")
+                                ).cuda().to(torch.bfloat16)
+
+    q, k, v = rnd(S, H, hd), rnd(n_kv, n_ctx, hd), rnd(n_kv, n_ctx, hd)
+    sm = hd ** -0.5
+    o = attention.flash_attention(q, k, v, pos_offset, sm)
+    o_ref = attention.flash_attention_plain(q, k, v, pos_offset, sm)
+    torch.cuda.synchronize()
+    err = (o.float() - o_ref.float()).abs().max().item()
+    if not (torch.isfinite(o).all() and err <= tol):
+        raise AssertionError(f"flash S={S} n_ctx={n_ctx} off={pos_offset}: "
+                             f"max |kernel-plain| {err} > {tol}")
+    key_end = pos_offset + S
+    group = H // n_kv
+    qh = q.permute(1, 0, 2)[None]                                   # (1, H, S, hd)
+    kh = k[:, :key_end].repeat_interleave(group, 0)[None]          # (1, H, c, hd)
+    vh = v[:, :key_end].repeat_interleave(group, 0)[None]
+    mask = attention.attention_mask(pos_offset + torch.arange(S, device="cuda"),
+                                    key_end, 0)
+    visible = sum(pos_offset + t + 1 for t in range(S))             # causal keys
+    return {
+        "S": S, "n_ctx": n_ctx, "pos_offset": pos_offset, "max_abs_err": err,
+        "tol": tol,
+        "ms": cuda_ms(lambda: attention.flash_attention(q, k, v, pos_offset, sm), 20),
+        "plain_ms": cuda_ms(lambda: attention.flash_attention_plain(
+            q, k, v, pos_offset, sm), 5),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask), 20),
+        **bound(2 * q.numel() * 2 + 2 * n_kv * key_end * hd * 2,
+                4.0 * visible * H * hd),
+    }
+
+
+def check_dequant(rng, n_out=128256, k_in=4096) -> dict:
+    import numpy as np
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import dequant
+
+    raw = torch.from_numpy(np.ascontiguousarray(rand_q4k(rng, n_out, k_in))).cuda()
+    y = dequant.dequant_q4_k(raw)
+    y_ref = dequant.dequant_q4_k_plain(raw)
+    torch.cuda.synchronize()
+    if not torch.equal(y.view(torch.int16), y_ref.view(torch.int16)):
+        raise AssertionError("dequant_q4_k: kernel is not bit-identical to plain")
+    return {
+        "shape": [n_out, k_in], "max_abs_err": 0.0, "tol": 0.0,
+        "ms": cuda_ms(lambda: dequant.dequant_q4_k(raw), 10),
+        "plain_ms": cuda_ms(lambda: dequant.dequant_q4_k_plain(raw), 3),
+        "library_ms": None,
+        **bound(raw.numel() + y.numel() * 2, 2.0 * y.numel()),
+    }
+
+
+def phase_kernels() -> dict:
+    """Per kernel: the per-shape checks, and their times summed over the
+    shapes (each shape one call of the serving path)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1)
+    shapes = {"dequant_q4_k": [check_dequant(rng)], "q4k_matmul": [],
+              "q6k_matmul": [], "flash_attention": []}
+    for B in (1, 256):
+        for n, k in ((4096, 4096), (1024, 4096), (14336, 4096)):
+            shapes["q4k_matmul"].append(check_matmul("q4k_matmul", rng, n, k, B))
+        for n, k in ((1024, 4096), (4096, 14336), (128256, 4096)):
+            shapes["q6k_matmul"].append(check_matmul("q6k_matmul", rng, n, k, B))
+    for off in (0, 256, 768):
+        shapes["flash_attention"].append(check_flash(rng, 256, 1024, off))
+    torch.cuda.empty_cache()
+    out = {}
+    for name, rows in shapes.items():
+        for r in rows:
+            say("kernel", name=name, **r)
+        lib = [r["library_ms"] for r in rows]
+        by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+        out[name] = {
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            # what bounds most of the summed bound
+            "bound_by": "bytes" if 2 * by_bytes >= sum(r["bound_ms"] for r in rows)
+            else "operations",
+            "library_ms": None if None in lib else sum(lib),
+            "shapes": rows,
+        }
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the synthetic Llama-3-8B-width Q4_K_M GGUF
+# ---------------------------------------------------------------------------
+
+def phase_gguf(depth: int = DEPTH) -> str:
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import LLAMA3_8B
+
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=depth)
+    path = os.path.join(CACHE, f"llama3-8b-width-q4km-L{depth}-seed0.gguf")
+    if os.path.exists(path):
+        say("gguf", path=path, reused=True, bytes=os.path.getsize(path))
+        return path
+    os.makedirs(CACHE, exist_ok=True)
+    t0 = time.time()
+    write_gguf(cfg, path)
+    say("gguf", path=path, reused=False, layers=depth, bytes=os.path.getsize(path),
+        seconds=round(time.time() - t0, 1))
+    return path
+
+
+def write_gguf(cfg, path: str, seed: int = 0) -> None:
+    """A Llama GGUF of ``cfg``'s shapes with random valid Q4_K_M-layout
+    blocks from ``seed`` and a byte-level BPE vocabulary."""
+    import numpy as np
+
+    from llama_fastapi_k8s_gpu_tpu_torch.gguf import GGMLType, GGUFWriter
+
+    rng = np.random.default_rng(seed)
+    # byte-level vocabulary (GPT-2 byte table), padded with inert tokens to
+    # Llama-3's 128256, then its control tokens
+    from llama_fastapi_k8s_gpu_tpu_torch.tokenizer.bpe import bytes_to_unicode
+
+    specials = ["<|begin_of_text|>", "<|end_of_text|>", "<|start_header_id|>",
+                "<|end_header_id|>", "<|eot_id|>"]
+    n_pad = cfg.vocab_size - 256 - len(specials)
+    tokens = ([bytes_to_unicode()[b] for b in range(256)]
+              + [f"<pad{i}>" for i in range(n_pad)] + specials)
+    types = [1] * (256 + n_pad) + [3] * len(specials)
+    w = GGUFWriter(path + f".tmp{os.getpid()}")
+    md = {
+        "general.architecture": "llama", "general.name": "llama3-8b-width-synthetic-q4km",
+        "llama.block_count": cfg.n_layers, "llama.context_length": 8192,
+        "llama.embedding_length": cfg.dim, "llama.feed_forward_length": cfg.ffn_dim,
+        "llama.attention.head_count": cfg.n_heads,
+        "llama.attention.head_count_kv": cfg.n_kv_heads,
+        "llama.attention.layer_norm_rms_epsilon": cfg.rms_eps,
+        "llama.rope.freq_base": cfg.rope_theta, "llama.vocab_size": cfg.vocab_size,
+        "tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "llama-bpe",
+        "tokenizer.ggml.tokens": tokens, "tokenizer.ggml.token_type": types,
+        "tokenizer.ggml.merges": [],
+        "tokenizer.ggml.bos_token_id": tokens.index("<|begin_of_text|>"),
+        "tokenizer.ggml.eos_token_id": tokens.index("<|eot_id|>"),
+        "tokenizer.chat_template": (
+            "{{bos_token}}{% for m in messages %}<|start_header_id|>{{m['role']}}"
+            "<|end_header_id|>\n\n{{m['content']}}<|eot_id|>{% endfor %}"),
+    }
+    for k, v in md.items():
+        w.add_metadata(k, v)
+
+    def raw(name, n_out, k_in, kind):
+        blocks = (rand_q4k if kind == GGMLType.Q4_K else rand_q6k)(rng, n_out, k_in)
+        w.add_raw_tensor(name, (k_in, n_out), kind, blocks.reshape(-1))
+
+    def ones(name):
+        w.add_tensor(name, np.ones(cfg.dim, np.float32), GGMLType.F32)
+
+    kv_dim = cfg.n_kv_heads * cfg.head_dim
+    # the tensor types of a Q4_K_M file: Q4_K, with attn_v, ffn_down and the
+    # output head on Q6_K; F32 norms
+    raw("token_embd.weight", cfg.vocab_size, cfg.dim, GGMLType.Q4_K)
+    for i in range(cfg.n_layers):
+        p = f"blk.{i}."
+        ones(p + "attn_norm.weight")
+        raw(p + "attn_q.weight", cfg.dim, cfg.dim, GGMLType.Q4_K)
+        raw(p + "attn_k.weight", kv_dim, cfg.dim, GGMLType.Q4_K)
+        raw(p + "attn_v.weight", kv_dim, cfg.dim, GGMLType.Q6_K)
+        raw(p + "attn_output.weight", cfg.dim, cfg.dim, GGMLType.Q4_K)
+        ones(p + "ffn_norm.weight")
+        raw(p + "ffn_gate.weight", cfg.ffn_dim, cfg.dim, GGMLType.Q4_K)
+        raw(p + "ffn_up.weight", cfg.ffn_dim, cfg.dim, GGMLType.Q4_K)
+        raw(p + "ffn_down.weight", cfg.dim, cfg.ffn_dim, GGMLType.Q6_K)
+    ones("output_norm.weight")
+    raw("output.weight", cfg.vocab_size, cfg.dim, GGMLType.Q6_K)
+    w.write()
+    os.replace(w.path, path)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serve it
+# ---------------------------------------------------------------------------
+
+BOT = {"name": "Alice.f", "appearance": "tall,slim,blonde,loves cats,hates rain"}
+
+
+def body(context: list[tuple[str, str]]) -> dict:
+    return {"bot_profile": BOT, "user_profile": {"name": "Bob"},
+            "context": [{"turn": t, "message": m} for t, m in context]}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(port: int, method: str, path: str, payload=None, timeout=300):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        data = None if payload is None else json.dumps(payload)
+        conn.request(method, path, body=data,
+                     headers={"content-type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read() or b"null")
+    finally:
+        conn.close()
+
+
+def phase_serve(path: str, counters: dict) -> dict:
+    import asyncio
+
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import prefill
+    from llama_fastapi_k8s_gpu_tpu_torch.server import httpd
+    from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    for fn in counters.values():         # the main path starts here: count it
+        fn.launches = 0
+    t0 = time.time()
+    eng = Engine(path)                   # the GPU, auto format and attention
+    eng.warmup()
+    load_s = time.time() - t0
+    say("load", seconds=round(load_s, 1), attn_impl=eng.cfg.attn_impl,
+        formats=eng.params.formats(), weight_gb=round(eng.weight_bytes / 1e9, 3))
+    # the reference's serving defaults, greedy, with a timeout that leaves
+    # room for this run's un-tuned kernels
+    settings = Settings(temperature=0.0, timeout_seconds=600.0)
+    app = create_app(engine=eng, settings=settings)
+    # the in-tree httpd on its own event loop in a thread, at 127.0.0.1
+    port = _free_port()
+    loop = asyncio.new_event_loop()
+    up, stop = asyncio.Event(), asyncio.Event()
+    th = threading.Thread(target=loop.run_until_complete, daemon=True,
+                          args=(httpd.serve(app, "127.0.0.1", port, up, stop),))
+    th.start()
+    t_up = time.time()
+    while not up.is_set():
+        if not th.is_alive() or time.time() - t_up > 120:
+            raise RuntimeError("httpd did not come up")
+        time.sleep(0.05)
+    results = []
+    try:
+        short = [("user", "hi"), ("assistant", "hey"), ("user", "how are you?")]
+        story = ("I spent the morning walking by the river, watching the boats "
+                 "and thinking about the trip we planned last summer. ")
+        # a different opening than the short one, so the long prompt shares
+        # no reusable prefix with it and prefills from slot 0 in slices
+        long_ctx = [("user", "hello, I have a long story to tell you.")]
+        for i in range(2):
+            long_ctx += [("assistant", f"tell me more, part {i}."),
+                         ("user", story[:100])]
+        for label, ctx in (("short", short), ("long", long_ctx)):
+            st, doc = _http(port, "POST", "/response", body(ctx))
+            results.append((label, st, doc, dict(eng.last_timings or {})))
+        follow = long_ctx + [("assistant", results[-1][2].get("response", "")[:40]),
+                             ("user", "and what happened next?")]
+        st, doc = _http(port, "POST", "/response", body(follow))
+        results.append(("follow_up", st, doc, dict(eng.last_timings or {})))
+        hst, hdoc = _http(port, "GET", "/health")
+    finally:
+        loop.call_soon_threadsafe(stop.set)
+        th.join(120)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for label, st, doc, tm in results:
+        text = (doc or {}).get("response", "")
+        say("request", label=label, status=st, chars=len(text),
+            prompt_tokens=tm.get("prompt_tokens"), bucket=tm.get("bucket"),
+            reused=tm.get("prefix_reused_tokens"), ttft_s=tm.get("ttft_s"),
+            completion_tokens=tm.get("completion_tokens"),
+            tokens_per_sec=tm.get("tokens_per_sec"), head=text[:60])
+        if st != 200 or not text:
+            raise AssertionError(f"{label}: status {st}, body {doc}")
+    say("health", status=hst, state=(hdoc or {}).get("state"),
+        engine=(hdoc or {}).get("engine"))
+    if hst != 200 or th.is_alive():
+        raise AssertionError(f"/health {hst}, httpd stopped: {not th.is_alive()}")
+    if not results[2][3].get("prefix_reused_tokens"):
+        raise AssertionError("the follow-up turn did not take prefix reuse")
+
+    # the served model's logits: finite, and the flash prompt pass agrees
+    # with the plain score-matrix one on the long prompt.  Tolerance 5e-2
+    # rel-dev: the plain path rounds its probabilities to bf16 before P·V
+    # (as the reference does), the kernel keeps them in f32, and the
+    # difference passes through every layer.
+    ids = eng.tokenize_messages(
+        [{"role": "user" if t == "user" else "assistant", "content": m}
+         for t, m in long_ctx])
+    toks = torch.tensor(ids, device=eng.device)
+    cache = {k: torch.zeros_like(v) for k, v in eng._cache.items()}
+    lg_flash = prefill(eng.params, eng.cfg, toks, len(ids), cache)
+    cfg_x = dataclasses.replace(eng.cfg, attn_impl="xla")
+    lg_xla = prefill(eng.params, cfg_x, toks, len(ids), cache)
+    finite = bool(torch.isfinite(lg_flash).all() and torch.isfinite(lg_xla).all())
+    rel = ((lg_flash - lg_xla).norm() / lg_xla.norm()).item()
+    say("logits", shape=list(lg_flash.shape), finite=finite, flash_vs_plain_rel=rel,
+        tokens=len(ids))
+    if not finite or lg_flash.shape != (eng.cfg.vocab_size,) or rel > 5e-2:
+        raise AssertionError(f"logits finite={finite} shape={tuple(lg_flash.shape)} "
+                             f"flash vs plain rel-dev {rel}")
+    return launches
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, "llama_fastapi_k8s_gpu_tpu_torch")):
+        print("chip_smoke: run from the root of a checkout of the repository "
+              "(llama_fastapi_k8s_gpu_tpu_torch/ is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 2
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import KERNELS
+
+    # full-f32 products in the plain versions' matmuls (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.time()
+    info = phase_device()
+    phase_build()
+    kernels = phase_kernels()
+    path = phase_gguf()
+    launches = phase_serve(path, KERNELS)
+    for name, n in launches.items():
+        kernels[name]["launches"] = n
+    missing = [n for n, c in launches.items() if c <= 0]
+    summary = {"kernels": [{k: v for k, v in row.items() if k != "shapes"}
+                           for row in kernels.values()]}
+    print(json.dumps(summary), flush=True)
+    if missing:
+        raise AssertionError(f"kernels never launched on the served path: {missing}")
+    say("done", seconds=round(time.time() - t0, 1))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
+                                             "count": info["count"]}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

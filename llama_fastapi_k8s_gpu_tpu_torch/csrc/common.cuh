@@ -1,0 +1,53 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel file exposes one `extern "C"` launcher that takes raw device
+// pointers plus the CUDA stream as `void*` and returns the launch status
+// (cudaGetLastError() right after the launch) as an int: 0 is success, and
+// the Python wrapper raises on anything else.  Launchers never allocate and
+// never synchronise.
+#pragma once
+
+#include <cmath>
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+#define LFKT_API extern "C" __attribute__((visibility("default")))
+
+namespace lfkt {
+
+constexpr int QK_K = 256;          // K-quant super-block (elements)
+constexpr int Q4K_BLOCK = 144;     // f16 d | f16 dmin | 12 B scales | 128 B nibbles
+constexpr int Q6K_BLOCK = 210;     // 128 B ql | 64 B qh | 16 x i8 scales | f16 d
+
+__device__ __forceinline__ float f16_at(const uint8_t* p) {
+    // 2-byte aligned little-endian IEEE half
+    return __half2float(*reinterpret_cast<const __half*>(p));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+
+// get_scale_min_k4: the 6-bit scale and min of sub-block j (0..7) from the
+// 12 packed bytes of a Q4_K/Q5_K super-block header.
+__device__ __forceinline__ void scale_min_k4(const uint8_t* s, int j, int& sc, int& mn) {
+    if (j < 4) {
+        sc = s[j] & 63;
+        mn = s[j + 4] & 63;
+    } else {
+        sc = (s[j + 4] & 0x0F) | ((s[j - 4] >> 6) << 4);
+        mn = (s[j + 4] >> 4) | ((s[j] >> 6) << 4);
+    }
+}
+
+}  // namespace lfkt

@@ -1,0 +1,560 @@
+"""The serial engine: the in-tree replacement for ``llama_cpp.Llama``.
+
+The same contract as the JAX reference's serial ``Engine``
+(llama_fastapi_k8s_gpu_tpu/engine/engine.py): eager load, blocking
+thread-safe generation one request at a time, OpenAI-shaped responses and
+streaming chunks — on PyTorch and one GPU:
+
+- load: GGUF mmap → weights on the device (``q4k``: fused Q4_K/Q6_K block
+  bytes for an 8B model on the GPU; ``bf16`` for small models and the CPU);
+- prefill: the prompt padded to a bucket; a bucket larger than
+  ``prefill_chunk`` runs as slices at growing cache offsets, stopping at
+  the slice that holds the last real token;
+- prefix reuse: when a prompt extends the previous request's tokens, only
+  the suffix is prefilled (the reference's ``_prefix_reuse_len`` rule);
+- decode: chunks of ``decode_chunk`` steps with on-device sampling; chunk
+  k+1 is queued on the device before chunk k's tokens are read, so the
+  host's reading and text emission overlap the device's work;
+- sampling: the llama.cpp-parity chain (sampling/sample.py).
+
+There is no compile-probe and no fallback: a kernel that fails to build or
+launch raises, and the request fails with it.
+"""
+
+from __future__ import annotations
+
+import codecs
+import dataclasses
+import logging
+import threading
+import time
+import uuid
+from typing import Iterator, Sequence
+
+import torch
+
+from ..gguf import GGUFFile
+from ..models.config import ModelConfig
+from ..models.generate import (
+    first_sample,
+    generate_chunk,
+    init_state,
+    prefill,
+    prefill_chunk,
+)
+from ..models.llama import cache_nbytes, init_cache
+from ..models.params import load_params
+from ..ops.attention import HEAD_DIMS
+from ..sampling.sample import SamplingParams, sampling_tensors
+from ..tokenizer import apply_chat_template, detect_chat_template, tokenizer_from_gguf
+from ..utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+DEFAULT_BUCKETS = (128, 256, 512, 1024)
+
+
+class _TextEmitter:
+    """Incremental text emission over the append-only token list: an
+    incremental UTF-8 decoder with stop-string prefix holdback, plus the
+    final flush (the reference's emitter, unchanged)."""
+
+    def __init__(self, engine: "Engine", stops):
+        self._eng = engine
+        self._stops = stops
+        self._dec = codecs.getincrementaldecoder("utf-8")(errors="replace")
+        self._sent_bytes = 0
+        self._held = ""        # withheld text (possible stop-string prefix)
+        self._n_emitted = 0    # characters already yielded
+
+    def process(self, gen: list, live: bool) -> tuple[str, bool]:
+        """One decode of the token stream → (ready_text, stop_hit).  On a
+        stop hit nothing is emitted; with ``live`` False only the stop check
+        runs."""
+        eng = self._eng
+        bts = eng.tokenizer.decode_bytes(gen)
+        text = bts.decode("utf-8", errors="replace")
+        if eng._find_stop_str(text, self._stops) != -1:
+            return "", True
+        if not live:
+            return "", False
+        self._held += self._dec.decode(bts[self._sent_bytes:])
+        self._sent_bytes = len(bts)
+        hold = eng._stop_prefix_holdback(self._held, self._stops)
+        ready = self._held[:len(self._held) - hold]
+        self._held = self._held[len(self._held) - hold:]
+        self._n_emitted += len(ready)
+        return ready, False
+
+    def step(self, gen: list, done: bool, finish: str) -> tuple[str, str, bool]:
+        """(ready_text, finish, done); a stop hit forces ("", "stop", True)."""
+        ready, hit = self.process(gen, live=not done)
+        if hit:
+            return "", "stop", True
+        return ready, finish, done
+
+    def final(self, gen: list, finish: str) -> tuple[str, str]:
+        """(text_tail, finish) once generation has ended."""
+        text = self._eng._decode_text(gen)
+        cut = self._eng._find_stop_str(text, self._stops)
+        if cut != -1:
+            text = text[:cut]
+            finish = "stop"
+        tail = text[self._n_emitted:] if len(text) > self._n_emitted else ""
+        return tail, finish
+
+
+class Engine:
+    """Loads a GGUF model and serves chat completions on one device.
+
+    ``device`` defaults to the GPU and raises without one; pass
+    ``device="cpu"`` to run the plain PyTorch path (tests)."""
+
+    def __init__(
+        self,
+        model_path: str | None,
+        n_ctx: int = 1024,
+        weight_format: str = "auto",
+        decode_chunk: int = 8,
+        prefill_buckets: Sequence[int] = DEFAULT_BUCKETS,
+        max_gen_tokens: int = 512,
+        seed: int = 0,
+        attn_impl: str = "auto",   # auto | xla | flash (prompt passes)
+        prefix_cache: bool = True,  # reuse the previous request's KV prefix
+        prefix_min: int = 32,       # shortest common prefix worth reusing
+        prefill_chunk: int = 256,   # prompt slice size for large buckets
+        device: str | torch.device | None = None,
+        *,
+        _parts: tuple | None = None,  # (params, cfg, tokenizer, template_kind)
+    ):
+        self.n_ctx = n_ctx
+        self.decode_chunk = decode_chunk
+        self.max_gen_tokens = max_gen_tokens
+        self._prefill_chunk = max(1, int(prefill_chunk))
+        self._lock = threading.Lock()    # one generation at a time
+        self._base_seed = seed
+        self._id_lock = threading.Lock()
+        self._requests = 0
+        #: per-phase timings of the most recent completed request
+        self.last_timings: dict | None = None
+        if _parts is not None:
+            self.params, self.cfg, self.tokenizer, self.template_kind = _parts
+            self.device = self.params.tok_emb.device
+            self.model_name = "in-memory"
+        else:
+            self.device = resolve_device(device)
+            t0 = time.time()
+            gf = GGUFFile(model_path)
+            self.model_name = gf.metadata.get("general.name", model_path)
+            self.cfg = ModelConfig.from_gguf(gf, n_ctx=n_ctx)
+            self.tokenizer = tokenizer_from_gguf(gf)
+            if weight_format == "auto":
+                # small models keep exact bf16; an 8B model serves its
+                # Q4_K/Q6_K blocks fused on the GPU.  The CPU has only the
+                # plain versions of the fused kernels, which dequantize on
+                # every call, so it keeps bf16 at any size.
+                n_lin = self.cfg.n_layers * (
+                    4 * self.cfg.dim * self.cfg.dim
+                    + 3 * self.cfg.dim * self.cfg.ffn_dim)
+                weight_format = ("q4k" if n_lin * 2 > 4e9
+                                 and self.device.type == "cuda" else "bf16")
+            self.params = load_params(gf, self.cfg, weight_format, self.device)
+            self.template_kind = detect_chat_template(
+                gf.metadata.get("tokenizer.chat_template"), self.tokenizer)
+            logger.info("loaded %s (%s, %d layers, fmt=%s, %s) in %.1fs",
+                        model_path, gf.architecture, self.cfg.n_layers,
+                        weight_format, self.device, time.time() - t0)
+        if attn_impl == "auto":
+            group = self.cfg.n_heads // self.cfg.n_kv_heads
+            attn_impl = ("flash" if self.device.type == "cuda"
+                         and self.cfg.head_dim in HEAD_DIMS and 16 % group == 0
+                         else "xla")
+        if attn_impl not in ("xla", "flash"):
+            raise ValueError(f"attn_impl must be auto|xla|flash, got {attn_impl!r}")
+        if attn_impl != self.cfg.attn_impl:
+            self.cfg = dataclasses.replace(self.cfg, attn_impl=attn_impl)
+        self.prefill_buckets = sorted(b for b in prefill_buckets if b <= self.cfg.n_ctx)
+        if not self.prefill_buckets or self.prefill_buckets[-1] < self.cfg.n_ctx:
+            self.prefill_buckets.append(self.cfg.n_ctx)
+        self._cache = init_cache(self.cfg, self.device)
+        # prompt-prefix KV reuse: the token ids whose KV occupy ring slots
+        # [0, len) — read and written only under self._lock
+        self._prefix_cache = bool(prefix_cache)
+        self._prefix_min = max(1, int(prefix_min))
+        self._prefix_ids: list[int] = []
+
+    @property
+    def kv_cache_bytes(self) -> int:
+        """Device bytes of the KV ring."""
+        return cache_nbytes(self.cfg)
+
+    @property
+    def weight_bytes(self) -> int:
+        """Device bytes of the weights."""
+        return self.params.nbytes()
+
+    @classmethod
+    def from_parts(cls, params, cfg: ModelConfig, tokenizer,
+                   template_kind: str = "llama3", **kw) -> "Engine":
+        """Build from in-memory parts (tests); the device is the params'."""
+        return cls(None, n_ctx=cfg.n_ctx,
+                   _parts=(params, cfg, tokenizer, template_kind), **kw)
+
+    # ------------------------------------------------------------------
+    def warmup(self):
+        """Build the kernels and size the allocator before the first
+        request: one short greedy completion, then one prompt pass at the
+        largest bucket (the most activation memory a request can take)."""
+        t0 = time.time()
+        self.create_chat_completion(
+            [{"role": "user", "content": "hi hi hi hi hi hi hi hi"}],
+            max_tokens=2 * self.decode_chunk + 1, temperature=0.0)
+        with self._lock:
+            b = self.prefill_buckets[-1]
+            self._prefix_ids = []
+            logits = self._prefill_padded([0] * (b - 1), b - 1, b)
+            logits.cpu()
+        logger.info("warmup done in %.1fs", time.time() - t0)
+
+    def _prefill_padded(self, ids: list, n_prompt: int, bucket: int):
+        """Bucket prefill, whole or sliced; returns the last real token's
+        logits.  Slicing stops at the slice holding the last real token:
+        later slices would only write padding that is never attended."""
+        padded = torch.zeros(bucket, dtype=torch.int64)
+        padded[:n_prompt] = torch.tensor(ids, dtype=torch.int64)
+        padded = padded.to(self.device)
+        if bucket <= self._prefill_chunk:
+            return prefill(self.params, self.cfg, padded, n_prompt, self._cache)
+        C = self._prefill_chunk
+        logits = None
+        off = 0
+        last = n_prompt - 1
+        while off <= last:
+            n = min(C, bucket - off)
+            li = min(max(last - off, 0), n - 1)
+            lg = prefill_chunk(self.params, self.cfg, padded[off:off + n], off,
+                               li, self._cache)
+            if off <= last < off + n:
+                logits = lg
+            off += n
+        return logits
+
+    def _next_seed(self) -> int:
+        with self._id_lock:
+            s = self._base_seed + self._requests
+            self._requests += 1
+            return s
+
+    def _record_timings(self, timings: dict) -> None:
+        with self._id_lock:
+            self.last_timings = timings
+
+    @staticmethod
+    def _deadline_hit(ctx) -> bool:
+        """True when the caller's deadline passed or its abort callback
+        fired; the decode loop checks once per chunk, so a timed-out or
+        abandoned request frees the device within one chunk."""
+        abort = ctx.get("abort")
+        if abort is not None and abort():
+            return True
+        deadline = ctx.get("deadline")
+        return deadline is not None and time.time() > deadline
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.prefill_buckets:
+            if n <= b:
+                return b
+        return self.cfg.n_ctx
+
+    def tokenize_messages(self, messages: Sequence[dict]) -> list[int]:
+        return apply_chat_template(self.tokenizer, messages, kind=self.template_kind)
+
+    # ------------------------------------------------------------------
+    def create_chat_completion(
+        self,
+        messages: Sequence[dict],
+        stream: bool = False,
+        temperature: float = 0.2,
+        top_p: float = 0.95,
+        top_k: int = 40,
+        min_p: float = 0.05,
+        frequency_penalty: float = 0.0,
+        presence_penalty: float = 0.0,
+        repeat_penalty: float = 1.1,
+        max_tokens: int | None = None,
+        stop: Sequence[str] | str | None = None,
+        seed: int | None = None,
+        deadline: float | None = None,
+        abort=None,
+    ):
+        """OpenAI-chat-shaped completion (dict), or an iterator of chunks
+        when ``stream=True``.  Safe to call from a worker thread.
+        ``deadline`` (absolute ``time.time()``) and ``abort`` (a callable
+        that returns True when the caller gave up) end the generation
+        within one decode chunk with ``finish_reason="deadline"``."""
+        if stop is None:
+            stop = []
+        elif isinstance(stop, str):
+            stop = [stop]
+        sp = SamplingParams(
+            temperature=temperature, top_p=top_p, top_k=top_k, min_p=min_p,
+            frequency_penalty=frequency_penalty, presence_penalty=presence_penalty,
+            repeat_penalty=repeat_penalty,
+        )
+        if stream:
+            return self._generate_stream(messages, sp, max_tokens, stop, seed,
+                                         deadline=deadline, abort=abort)
+        return self._generate(messages, sp, max_tokens, stop, seed,
+                              deadline=deadline, abort=abort)
+
+    # ------------------------------------------------------------------
+    def _start(self, messages, sp: SamplingParams, seed):
+        """Prefill + first token.  Returns the mutable generation context."""
+        t0 = time.time()
+        ids = self.tokenize_messages(messages)
+        n_prompt = len(ids)
+        if n_prompt >= self.cfg.n_ctx:
+            raise ValueError(
+                f"Requested tokens ({n_prompt}) exceed context window of {self.cfg.n_ctx}")
+        bucket = self._bucket_for(n_prompt)
+        st = sampling_tensors(sp, self.device)
+        explicit_seed = seed is not None
+        if seed is None:
+            seed = self._next_seed()
+        else:
+            self._next_seed()  # keep the auto-seed sequence advancing
+        # an explicit seed asks for reproducibility: the reuse pass scores
+        # bf16-rounded cached K/V where a full prefill scores fresh ones,
+        # so same-seed calls always take the full prefill
+        reuse = 0 if explicit_seed else self._prefix_reuse_len(ids, n_prompt, bucket)
+        # claim nothing while this request is in flight: an exception past
+        # here must not leave a claim over a ring of unknown contents
+        self._prefix_ids = []
+        if reuse:
+            suffix = ids[reuse:]
+            s = len(suffix)
+            sbucket = self._bucket_for(s)
+            tokens = torch.tensor(suffix + [0] * (sbucket - s), dtype=torch.int64,
+                                  device=self.device)
+            logits = prefill_chunk(self.params, self.cfg, tokens, reuse, s - 1,
+                                   self._cache)
+        else:
+            logits = self._prefill_padded(ids, n_prompt, bucket)
+        state = init_state(self._cache, ids, seed, self.device)
+        first = int(first_sample(logits, state, st, top_k=sp.top_k))  # host sync
+        ttft_s = time.time() - t0
+        return {
+            "state": state, "st": st, "sp": sp, "n_prompt": n_prompt,
+            "ids": [], "prompt_ids": ids, "first": first, "t0": t0,
+            "reused": reuse, "ttft_s": ttft_s, "bucket": bucket,
+        }
+
+    def _prefix_reuse_len(self, ids: list, n_prompt: int, bucket: int) -> int:
+        """Longest usable common prefix of ``ids`` and the KV resident in
+        the ring, or 0 when reuse is off, too short, or would not shrink the
+        prefill bucket.  Always leaves ≥ 1 token to prefill, and keeps the
+        padded suffix inside the ring (shortening the reuse near n_ctx)."""
+        if not self._prefix_cache:
+            return 0
+        prev = self._prefix_ids
+        lim = min(len(prev), n_prompt - 1)
+        i = 0
+        while i < lim and prev[i] == ids[i]:
+            i += 1
+        if i < self._prefix_min:
+            return 0
+        for b in self.prefill_buckets:
+            if b >= bucket:
+                break  # the suffix pads into as large a pass: nothing saved
+            r = min(i, self.cfg.n_ctx - b)
+            if r >= self._prefix_min and n_prompt - r <= b:
+                return r
+        return 0
+
+    def _finish(self, ctx) -> dict:
+        """Record the ring's new prefix claim and the request's timings."""
+        decode_s = time.time() - ctx["t0"] - ctx["ttft_s"]
+        n = len(ctx["ids"])
+        if self._prefix_cache:
+            # ring slots [0, n_prompt + n - 1) hold the prompt and every
+            # generated token but the last (it is never fed)
+            keep = ctx["n_prompt"] + max(n - 1, 0)
+            self._prefix_ids = (ctx["prompt_ids"] + ctx["ids"])[:keep]
+        timings = {
+            "ttft_s": ctx["ttft_s"],
+            "decode_s": decode_s,
+            "prompt_tokens": ctx["n_prompt"],
+            "completion_tokens": n,
+            "prefix_reused_tokens": ctx.get("reused", 0),
+            "bucket": ctx.get("bucket", 0),
+            "model": self.model_name,
+            # the first token came out of prefill; decode produced n-1
+            "tokens_per_sec": (n - 1) / decode_s if n > 1 and decode_s > 0 else 0.0,
+        }
+        self._record_timings(timings)
+        return timings
+
+    def _token_budget(self, max_tokens, n_prompt):
+        budget = self.max_gen_tokens if max_tokens is None else max_tokens
+        return max(0, min(budget, self.cfg.n_ctx - n_prompt - 1))
+
+    def _decode_text(self, all_ids):
+        return self.tokenizer.decode(all_ids, skip_special=True)
+
+    @staticmethod
+    def _find_stop_str(text: str, stops) -> int:
+        cut = -1
+        for s in stops:
+            i = text.find(s)
+            if i != -1 and (cut == -1 or i < cut):
+                cut = i
+        return cut
+
+    @staticmethod
+    def _stop_prefix_holdback(text: str, stops) -> int:
+        """Length of the longest suffix of ``text`` that is a proper prefix
+        of a stop string; streaming withholds it until the next chunk shows
+        whether the stop completes."""
+        best = 0
+        for s in stops:
+            for k in range(min(len(s) - 1, len(text)), best, -1):
+                if text.endswith(s[:k]):
+                    best = k
+                    break
+        return best
+
+    def _next_steps(self, produced: int, pos: int, budget: int) -> int:
+        """Size of the next decode chunk from host-tracked progress."""
+        n = min(self.decode_chunk, budget - produced)
+        n = min(n, self.cfg.n_ctx - pos - 1)  # cache slots n_prompt..n_ctx-1
+        return max(0, n)
+
+    def _decode_chunk(self, ctx, n_steps: int) -> torch.Tensor:
+        return generate_chunk(self.params, self.cfg, ctx["state"], ctx["st"],
+                              n_steps, top_k=ctx["sp"].top_k)
+
+    def _run(self, ctx, max_tokens, stops):
+        """Generate; yields (new_text, done, finish_reason) increments.
+
+        Pipelined: chunk k+1 is queued on the device before chunk k's
+        tokens are read.  If a stop lands mid-chunk, the extra chunk's cache
+        writes are harmless: attention masks by position and the next
+        request prefills over them."""
+        stop_ids = self.tokenizer.stop_ids
+        budget = self._token_budget(max_tokens, ctx["n_prompt"])
+        gen: list[int] = []
+        em = _TextEmitter(self, stops)
+        finish = "length"
+        first = ctx["first"]
+        if budget <= 0:
+            yield "", True, "length"
+            return
+        if first in stop_ids:
+            yield "", True, "stop"
+            return
+        gen.append(first)
+
+        pos = ctx["n_prompt"]
+        n_cur = self._next_steps(len(gen), pos, budget)
+        pending = self._decode_chunk(ctx, n_cur) if n_cur > 0 else None
+        done = pending is None
+        # emit the first token's text now, while chunk 1 runs
+        ready, finish, done = em.step(gen, done, finish)
+        if ready:
+            yield ready, False, finish
+        while not done:
+            if self._deadline_hit(ctx):
+                finish = "deadline"
+                break
+            pos += n_cur
+            n_nxt = self._next_steps(len(gen) + n_cur, pos, budget)
+            nxt = self._decode_chunk(ctx, n_nxt) if n_nxt > 0 else None
+            for t in pending.tolist():          # host sync, overlapped
+                if t in stop_ids:
+                    finish = "stop"
+                    done = True
+                    break
+                gen.append(t)
+            pending, n_cur = nxt, n_nxt
+            if pending is None:
+                done = True
+            ready, finish, done = em.step(gen, done, finish)
+            if ready:
+                yield ready, False, finish
+
+        ctx["ids"] = gen
+        tail, finish = em.final(gen, finish)
+        yield tail, True, finish
+
+    # ------------------------------------------------------------------
+    def _generate(self, messages, sp, max_tokens, stops, seed,
+                  deadline=None, abort=None) -> dict:
+        with self._lock:
+            t0 = time.time()
+            ctx = self._start(messages, sp, seed)
+            ctx["deadline"] = deadline
+            ctx["abort"] = abort
+            parts = []
+            finish = "stop"
+            for text, _done, fr in self._run(ctx, max_tokens, stops):
+                parts.append(text)
+                finish = fr
+            timings = self._finish(ctx)
+        completion_tokens = len(ctx["ids"])
+        logger.info("generation: %.2fs, finish=%s", time.time() - t0, finish)
+        return {
+            "lfkt_timings": timings,
+            "id": f"chatcmpl-{uuid.uuid4().hex}",
+            "object": "chat.completion",
+            "created": int(time.time()),
+            "model": self.model_name,
+            "choices": [{
+                "index": 0,
+                "message": {"role": "assistant", "content": "".join(parts)},
+                "finish_reason": finish,
+            }],
+            "usage": {
+                "prompt_tokens": ctx["n_prompt"],
+                "completion_tokens": completion_tokens,
+                "total_tokens": ctx["n_prompt"] + completion_tokens,
+            },
+        }
+
+    def _generate_stream(self, messages, sp, max_tokens, stops, seed,
+                         deadline=None, abort=None) -> Iterator[dict]:
+        with self._lock:
+            ctx = self._start(messages, sp, seed)
+            ctx["deadline"] = deadline
+            ctx["abort"] = abort
+            cid = f"chatcmpl-{uuid.uuid4().hex}"
+            created = int(time.time())
+
+            def chunk(delta: dict, finish=None):
+                return {
+                    "id": cid,
+                    "object": "chat.completion.chunk",
+                    "created": created,
+                    "model": self.model_name,
+                    "choices": [{
+                        "index": 0, "delta": delta, "finish_reason": finish,
+                    }],
+                }
+
+            finished = False
+            try:
+                yield chunk({"role": "assistant"})
+                finish = "stop"
+                for text, _done, fr in self._run(ctx, max_tokens, stops):
+                    finish = fr
+                    if text:
+                        yield chunk({"content": text})
+                timings = self._finish(ctx)
+                finished = True
+                final = chunk({}, finish=finish)
+                final["lfkt_timings"] = timings
+                yield final
+            finally:
+                if not finished:
+                    # closed early (client gone): still record the claim
+                    # and timings so the next request sees a consistent ring
+                    self._finish(ctx)

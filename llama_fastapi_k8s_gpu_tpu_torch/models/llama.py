@@ -1,0 +1,165 @@
+"""Llama-family transformer in PyTorch: the per-layer path.
+
+The same graph as the JAX reference (llama_fastapi_k8s_gpu_tpu/models/
+llama.py): RMSNorm → GQA attention with interleaved RoPE → SwiGLU, over a
+preallocated KV ring laid out head-major, ``(L, n_kv, n_ctx, hd)`` bf16.
+The dtype flow follows the reference step for step (bf16 activations,
+norms and RoPE in f32, f32 attention scores), so the two agree at the
+bf16-rounding scale.
+
+The KV ring is updated **in place**: a forward pass writes the S new
+tokens' slots of every layer into the ``cache`` tensors it was given —
+where JAX donated the cache and got a new one back.  Eager PyTorch has no
+compile step, so no prompt needs padding for the graph's sake; the engine
+still pads to buckets to keep its prefix-reuse decisions those of the
+reference.
+
+Prompt passes (S > 1) go through the flash kernel when ``cfg.attn_impl ==
+"flash"``; decode (S = 1) and ``"xla"`` prompt passes use the plain score
+matrix of :func:`xla_attention`.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.attention import attention_mask, flash_attention
+from ..ops.linear import linear
+from .config import ModelConfig
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    x32 = x.float()
+    inv = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return ((x32 * inv) * w.float()).to(x.dtype)
+
+
+def rope_interleaved(x: torch.Tensor, positions: torch.Tensor,
+                     theta: float) -> torch.Tensor:
+    """x: (S, H, hd); rotate pairs (2i, 2i+1) by pos · theta^(-2i/hd) — the
+    ggml "NORM" rotation GGUF Q/K weights are permuted for."""
+    hd = x.shape[-1]
+    half = hd // 2
+    # the exponent in f32, the power in f64 rounded once to f32: the
+    # reference's frequencies bit for bit (an f32 pow is off by an ulp for
+    # some i, and the angle error grows with the position)
+    expo = -torch.arange(half, dtype=torch.float32, device=x.device) / half
+    freqs = (theta ** expo.double()).float()
+    ang = positions[:, None].float() * freqs[None, :]              # (S, half)
+    cos = torch.cos(ang)[:, None, :]
+    sin = torch.sin(ang)[:, None, :]
+    xf = x.float()
+    x1 = xf[..., 0::2]
+    x2 = xf[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x1 * sin + x2 * cos
+    return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def init_cache(cfg: ModelConfig, device: torch.device,
+               dtype=torch.bfloat16) -> dict:
+    """KV ring, head-major: ``{"k", "v"}`` each (L, n_kv, n_ctx, hd)."""
+    shape = (cfg.n_layers, cfg.n_kv_heads, cfg.n_ctx, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_nbytes(cfg: ModelConfig) -> int:
+    """Device bytes of one bf16 cache ring under ``cfg``."""
+    return 2 * cfg.n_layers * cfg.n_kv_heads * cfg.n_ctx * cfg.head_dim * 2
+
+
+def xla_attention(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
+                  positions: torch.Tensor, cfg: ModelConfig, out_dtype,
+                  key_end: int | None = None) -> torch.Tensor:
+    """The score-matrix attention (the reference's XLA path, in plain
+    torch): q (S, H, hd); kk, vv (n_kv, n_ctx, hd) one layer's ring.
+    Scores and softmax in f32, probabilities rounded to bf16 before P·V as
+    the reference does.  ``key_end`` (default: the whole ring) is one past
+    the last query position: every key from there on is masked, so the
+    score matrix stops there."""
+    S = q.shape[0]
+    n_kv, group, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    if key_end is None:
+        key_end = kk.shape[1]
+    qg = q.reshape(S, n_kv, group, hd).permute(1, 2, 0, 3)         # (n_kv, g, S, hd)
+    scores = torch.matmul(qg.float(), kk[:, None, :key_end].float().transpose(-1, -2)
+                          ) * (hd ** -0.5)                          # (n_kv, g, S, c)
+    mask = attention_mask(positions, key_end, cfg.sliding_window)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(vv.dtype)
+    ctx = torch.matmul(probs.float(), vv[:, None, :key_end].float()).to(vv.dtype)
+    return ctx.permute(2, 0, 1, 3).reshape(S, cfg.n_heads * hd).to(out_dtype)
+
+
+def _layer(h: torch.Tensor, layer, i: int, cache: dict,
+           positions: torch.Tensor, pos_offset: int,
+           cfg: ModelConfig) -> torch.Tensor:
+    """One transformer block over S tokens; writes the S new K/V slots of
+    layer ``i`` into ``cache`` in place."""
+    S = h.shape[0]
+    n_kv, hd = cfg.n_kv_heads, cfg.head_dim
+
+    hn = rms_norm(h, layer.attn_norm, cfg.rms_eps)
+    q = linear(hn, layer.wq).reshape(S, cfg.n_heads, hd)
+    k = linear(hn, layer.wk).reshape(S, n_kv, hd)
+    v = linear(hn, layer.wv).reshape(S, n_kv, hd)
+    q = rope_interleaved(q, positions, cfg.rope_theta)
+    k = rope_interleaved(k, positions, cfg.rope_theta)
+
+    ck, cv = cache["k"][i], cache["v"][i]                          # (n_kv, n_ctx, hd)
+    ck[:, pos_offset:pos_offset + S] = k.transpose(0, 1).to(ck.dtype)
+    cv[:, pos_offset:pos_offset + S] = v.transpose(0, 1).to(cv.dtype)
+
+    if cfg.attn_impl == "flash" and S > 1:
+        ctx = flash_attention(q, ck, cv, pos_offset, sm_scale=hd ** -0.5,
+                              sliding_window=cfg.sliding_window
+                              ).reshape(S, cfg.n_heads * hd).to(h.dtype)
+    else:
+        ctx = xla_attention(q, ck, cv, positions, cfg, h.dtype,
+                            key_end=pos_offset + S)
+    h = h + linear(ctx, layer.wo)
+
+    hn = rms_norm(h, layer.ffn_norm, cfg.rms_eps)
+    gated = F.silu(linear(hn, layer.w_gate).float()).to(h.dtype)
+    return h + linear(gated * linear(hn, layer.w_up), layer.w_down)
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, pos_offset: int,
+            cache: dict, last_idx: int | None = None,
+            return_all: bool = False) -> torch.Tensor:
+    """Run S tokens through the stack, writing their K/V into ``cache`` in
+    place.  Returns f32 logits: (vocab,) at ``last_idx`` (default S-1), or
+    (S, vocab) with ``return_all``."""
+    S = tokens.shape[0]
+    if pos_offset < 0 or pos_offset + S > cfg.n_ctx:
+        raise ValueError(f"tokens at {pos_offset}..{pos_offset + S} do not fit "
+                         f"the {cfg.n_ctx}-slot KV ring")
+    if len(params.layers) != cfg.n_layers:
+        raise ValueError(f"params have {len(params.layers)} layers but "
+                         f"cfg.n_layers={cfg.n_layers}")
+    h = params.tok_emb[tokens].to(torch.bfloat16)
+    positions = pos_offset + torch.arange(S, device=h.device)
+    for i, layer in enumerate(params.layers):
+        h = _layer(h, layer, i, cache, positions, pos_offset, cfg)
+    if return_all:
+        hn = rms_norm(h, params.out_norm, cfg.rms_eps)
+        return linear(hn, params.output).float()
+    if last_idx is None:
+        last_idx = S - 1
+    hn = rms_norm(h[last_idx:last_idx + 1], params.out_norm, cfg.rms_eps)
+    return linear(hn, params.output).float()[0]
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, length: int,
+            cache: dict) -> torch.Tensor:
+    """Prompt pass from cache slot 0: ``tokens`` padded, ``length`` real.
+    Returns the logits at the last real token."""
+    return forward(params, cfg, tokens, 0, cache, last_idx=length - 1)
+
+
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: int,
+                cache: dict) -> torch.Tensor:
+    """One autoregressive step: ``token`` (0-d) at cache position ``pos``."""
+    return forward(params, cfg, token.reshape(1), pos, cache)

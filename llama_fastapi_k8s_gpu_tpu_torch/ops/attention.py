@@ -1,0 +1,89 @@
+"""Causal (+ sliding-window) GQA flash attention over the head-major KV ring.
+
+``flash_attention`` launches the CUDA kernel in ``csrc/flash_attention.cu``
+for CUDA tensors and runs :func:`flash_attention_plain` for CPU tensors.
+It serves prompt passes (S > 1): whole-bucket prefill, the 256-token
+prefill slices at ``pos_offset`` 0, 256, … and the prefix-reuse suffix.
+The ring slots past ``pos_offset + S`` may hold stale keys from an earlier
+request; the causal mask ``key_pos <= q_pos`` is what hides them, exactly.
+
+Replaces the Pallas kernel llama_fastapi_k8s_gpu_tpu/ops/pallas/attention.py::
+_attn_kernel (``flash_attention``), bf16 branch.  The int8-cache branch
+comes with the int8 KV cache.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ._kernels import check, library, require_cuda, stream_ptr
+
+#: head sizes the CUDA kernel is compiled for
+HEAD_DIMS = (64, 128)
+#: query rows per CUDA block; the GQA group must divide it
+_ROWS = 16
+
+
+def attention_mask(q_pos: torch.Tensor, key_end: int,
+                   sliding_window: int) -> torch.Tensor:
+    """(S, key_end) bool: key ``c`` is visible to the query at ``q_pos``."""
+    key_pos = torch.arange(key_end, device=q_pos.device)
+    mask = key_pos[None, :] <= q_pos[:, None]
+    if sliding_window:
+        mask &= key_pos[None, :] > q_pos[:, None] - sliding_window
+    return mask
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          pos_offset: int, sm_scale: float,
+                          sliding_window: int = 0) -> torch.Tensor:
+    """Plain PyTorch version: the full score matrix in f32, softmax in f32,
+    f32 probabilities times V, rounded to ``q.dtype`` once — the kernel's
+    arithmetic without its tiling.  A row with no visible key is zero."""
+    S, H, hd = q.shape
+    n_kv = k.shape[0]
+    group = H // n_kv
+    key_end = min(k.shape[1], pos_offset + S)
+    qg = q.reshape(S, n_kv, group, hd).permute(1, 2, 0, 3).float()
+    scores = torch.matmul(qg, k[:, None, :key_end].float().transpose(-1, -2)) * sm_scale
+    q_pos = pos_offset + torch.arange(S, device=q.device)
+    mask = attention_mask(q_pos, key_end, sliding_window)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).nan_to_num(0.0)
+    ctx = torch.matmul(probs, v[:, None, :key_end].float())      # (n_kv, g, S, hd)
+    return ctx.permute(2, 0, 1, 3).reshape(S, H, hd).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    pos_offset: int, sm_scale: float,
+                    sliding_window: int = 0) -> torch.Tensor:
+    """q (S, H, hd) bf16 queries at cache positions ``pos_offset ..
+    pos_offset+S-1``; k, v (n_kv, n_ctx, hd) bf16, one layer's ring.
+    Returns (S, H, hd) bf16."""
+    S, H, hd = q.shape
+    n_kv, n_ctx, _ = k.shape
+    if H % n_kv or k.shape != v.shape or k.shape[2] != hd:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
+                         f"k {tuple(k.shape)} / v {tuple(v.shape)}")
+    if pos_offset < 0 or pos_offset + S > n_ctx:
+        raise ValueError(f"flash_attention: positions {pos_offset}..{pos_offset + S} "
+                         f"outside the {n_ctx}-slot ring")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, pos_offset, sm_scale, sliding_window)
+    if hd not in HEAD_DIMS or _ROWS % (H // n_kv):
+        raise ValueError(f"flash_attention: kernel takes head_dim in {HEAD_DIMS} "
+                         f"and a GQA group dividing {_ROWS}, got hd={hd}, "
+                         f"group={H // n_kv}")
+    q = q.contiguous()
+    require_cuda("flash_attention", q, k, v,
+                 dtypes=(torch.bfloat16, torch.bfloat16, torch.bfloat16))
+    out = torch.empty_like(q)
+    check(library().lfkt_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), S, H, n_kv,
+        n_ctx, hd, pos_offset, float(sm_scale), int(sliding_window),
+        stream_ptr(q)), "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

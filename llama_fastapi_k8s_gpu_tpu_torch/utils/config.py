@@ -1,0 +1,63 @@
+"""Env-overridable runtime settings: the ``LFKT_*`` knobs the port reads.
+
+The same names and defaults as the JAX package's registry
+(llama_fastapi_k8s_gpu_tpu/utils/config.py), limited to what the serial
+``/response`` path reads.  The reference's constants (model dir and name,
+1024-token context, 25 s timeout, queue of 5) stay the defaults.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+
+@dataclasses.dataclass(frozen=True)
+class Settings:
+    model_dir: str = "models"
+    model_name: str = "Lexi-Llama-3-8B-Uncensored_Q4_K_M.gguf"
+    max_context_tokens: int = 1024
+    timeout_seconds: float = 25.0
+    max_queue_size: int = 5
+    # graceful-shutdown budget and slowloris guard of the in-tree httpd
+    drain_seconds: float = 30.0
+    read_timeout: float = 30.0
+    # the sampling parameters the reference passes on every request
+    temperature: float = 1.2
+    top_p: float = 0.9
+    frequency_penalty: float = 0.7
+    presence_penalty: float = 0.8
+    max_gen_tokens: int = 512
+    decode_chunk: int = 8              # decode steps per host read
+    prefill_buckets: str = "128,256,512,1024"
+    weight_format: str = "auto"        # auto | bf16 | q4k
+    attn_impl: str = "auto"            # auto | xla | flash (prompt passes)
+    prefix_cache: bool = True          # reuse the previous request's KV prefix
+    prefill_chunk: int = 256           # prompt slice size for large buckets
+    host: str = "0.0.0.0"
+    port: int = 8000
+
+    @property
+    def model_path(self) -> str:
+        return os.path.join(self.model_dir, self.model_name)
+
+    @property
+    def prefill_bucket_list(self) -> list[int]:
+        return sorted(int(x) for x in self.prefill_buckets.split(",") if x.strip())
+
+
+def _env(name: str, default, cast):
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    if cast is bool:
+        return raw.strip().lower() in ("1", "true", "yes", "on")
+    return cast(raw)
+
+
+def get_settings() -> Settings:
+    """Settings with every field overridden by ``LFKT_<FIELD>`` when set."""
+    kw = {}
+    for f in dataclasses.fields(Settings):
+        kw[f.name] = _env(f"LFKT_{f.name.upper()}", f.default, type(f.default))
+    return Settings(**kw)

@@ -1,0 +1,93 @@
+"""The port's serial engine: streaming, deadlines and aborts, seeds and
+prefix reuse, on the tiny GGUF and the CPU path.  Its bytes are held to
+the JAX engine's through the server (tests/test_torch_server.py)."""
+
+from __future__ import annotations
+
+import time
+
+import pytest
+import torch
+
+from llama_fastapi_k8s_gpu_tpu.gguf import GGMLType as JGGMLType
+from llama_fastapi_k8s_gpu_tpu.testing import write_tiny_llama_gguf
+from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+
+torch.set_num_threads(1)
+MSGS = [{"role": "user", "content": "tell me a story about a cat " * 6}]
+
+
+@pytest.fixture(scope="module")
+def engine(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("eng") / "tiny.gguf")
+    write_tiny_llama_gguf(path, quant=JGGMLType.F16)
+    # 64-token slices: prompts in the 64 bucket take the whole-bucket
+    # pass, larger ones the sliced pass, follow-ups the reuse suffix
+    return Engine(path, n_ctx=512, max_gen_tokens=20, prefill_chunk=64,
+                  prefill_buckets=(64, 128, 512), device="cpu")
+
+
+def test_stream_concatenates_to_the_completion(engine):
+    full = engine.create_chat_completion(MSGS, temperature=0.0, seed=1)
+    chunks = list(engine.create_chat_completion(MSGS, temperature=0.0, seed=1,
+                                                stream=True))
+    assert chunks[0]["choices"][0]["delta"] == {"role": "assistant"}
+    text = "".join(c["choices"][0]["delta"].get("content", "") for c in chunks)
+    assert text == full["choices"][0]["message"]["content"]
+    assert chunks[-1]["choices"][0]["finish_reason"] == \
+        full["choices"][0]["finish_reason"]
+    assert full["usage"]["completion_tokens"] == 20
+
+
+def test_sliced_prefill_equals_whole_prefill(engine):
+    """A 128-bucket prompt runs as two 64-token slices; the same prompt
+    through the whole-bucket program gives the same logits."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import prefill
+
+    ids = engine.tokenize_messages(MSGS)[:100]
+    with engine._lock:
+        sliced = engine._prefill_padded(ids, len(ids), 128)
+        padded = torch.zeros(128, dtype=torch.int64)
+        padded[:100] = torch.tensor(ids)
+        whole = prefill(engine.params, engine.cfg, padded, 100, engine._cache)
+        engine._prefix_ids = []
+    assert torch.allclose(sliced, whole, atol=1e-3)
+
+
+def test_prefix_reuse_only_without_explicit_seed(engine):
+    first = engine.create_chat_completion(MSGS, temperature=0.0)
+    reply = first["choices"][0]["message"]["content"]
+    follow = MSGS + [{"role": "assistant", "content": reply},
+                     {"role": "user", "content": "and then?"}]
+    reused = engine.create_chat_completion(follow, temperature=0.0)
+    assert reused["lfkt_timings"]["prefix_reused_tokens"] >= 32
+    engine.create_chat_completion(MSGS, temperature=0.0)
+    seeded = engine.create_chat_completion(follow, temperature=0.0, seed=5)
+    assert seeded["lfkt_timings"]["prefix_reused_tokens"] == 0
+    # greedy tokens of the reused and the full prefill agree here
+    assert seeded["choices"][0]["message"]["content"] == \
+        reused["choices"][0]["message"]["content"]
+
+
+def test_seeded_sampling_is_reproducible(engine):
+    kw = dict(temperature=1.0, top_p=0.95, seed=42)
+    a = engine.create_chat_completion(MSGS, **kw)
+    b = engine.create_chat_completion(MSGS, **kw)
+    assert a["choices"][0]["message"]["content"] == b["choices"][0]["message"]["content"]
+
+
+def test_deadline_and_abort_stop_within_a_chunk(engine):
+    past = engine.create_chat_completion(MSGS, temperature=0.0,
+                                         deadline=time.time() - 1)
+    assert past["choices"][0]["finish_reason"] == "deadline"
+    assert past["usage"]["completion_tokens"] <= 1 + engine.decode_chunk
+    aborted = engine.create_chat_completion(MSGS, temperature=0.0, abort=lambda: True)
+    assert aborted["choices"][0]["finish_reason"] == "deadline"
+
+
+def test_oversized_prompt_and_warmup(engine):
+    with pytest.raises(ValueError, match="exceed context window"):
+        engine.create_chat_completion([{"role": "user", "content": "x" * 600}])
+    engine.warmup()
+    assert engine.create_chat_completion(MSGS, temperature=0.0)["usage"][
+        "completion_tokens"] == 20

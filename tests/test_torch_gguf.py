@@ -1,0 +1,133 @@
+"""Port GGUF container and codecs against the JAX package's.
+
+Integer and format work must be bit-identical: the reader's header,
+metadata and tensor bytes, the writer's file bytes, the numpy codecs, and
+the plain Q4_K → bf16 dequant (what the CUDA kernel is held to on the card)
+against the reference codec followed by its bf16 cast and against the
+reference's Pallas kernel in interpret mode.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from llama_fastapi_k8s_gpu_tpu.gguf import GGMLType as JGGMLType
+from llama_fastapi_k8s_gpu_tpu.gguf import GGUFFile as JGGUFFile
+from llama_fastapi_k8s_gpu_tpu.gguf import GGUFWriter as JGGUFWriter
+from llama_fastapi_k8s_gpu_tpu.gguf import quants as jq
+from llama_fastapi_k8s_gpu_tpu.ops.pallas.dequant import dequant_q4_k_device
+from llama_fastapi_k8s_gpu_tpu.testing import write_tiny_llama_gguf
+from llama_fastapi_k8s_gpu_tpu_torch.gguf import GGMLType, GGUFFile, GGUFWriter, quants
+from llama_fastapi_k8s_gpu_tpu_torch.ops.dequant import dequant_q4_k
+
+torch.set_num_threads(1)
+
+
+def _rand_blocks(rng, nb: int, size: int, valid: bool) -> np.ndarray:
+    """Random block bytes; ``valid`` pins the f16 scale fields to finite
+    values (the garbage variant decodes to inf/NaN, also defined)."""
+    blk = rng.integers(0, 256, (nb, size), dtype=np.uint8)
+    if valid:
+        d = rng.uniform(1e-4, 1e-2, (nb, 2)).astype(np.float16).view(np.uint8)
+        if size == 144:
+            blk[:, 0:4] = d.reshape(nb, 4)
+        else:
+            blk[:, 208:210] = d[:, :2]
+    return blk.reshape(-1)
+
+
+def test_reader_matches_reference(tmp_path):
+    path = str(tmp_path / "tiny.gguf")
+    write_tiny_llama_gguf(path, quant=JGGMLType.Q4_K, ffn_quant=JGGMLType.Q6_K)
+    ref, got = JGGUFFile(path), GGUFFile(path)
+    assert (got.version, got.alignment, got.data_offset) == \
+        (ref.version, ref.alignment, ref.data_offset)
+    assert got.metadata == ref.metadata
+    assert list(got.tensors) == list(ref.tensors)
+    for name, rt in ref.tensors.items():
+        gt = got[name]
+        assert (gt.shape, int(gt.ggml_type), gt.offset, gt.nbytes) == \
+            (rt.shape, int(rt.ggml_type), rt.offset, rt.nbytes)
+        assert np.array_equal(np.asarray(gt.raw()), np.asarray(rt.raw()))
+
+
+def test_writer_matches_reference(tmp_path):
+    rng = np.random.default_rng(0)
+    arrays = {
+        "a.weight": (rng.standard_normal((8, 256)).astype(np.float32), "Q4_K"),
+        "b.weight": (rng.standard_normal((4, 512)).astype(np.float32), "Q6_K"),
+        "c.weight": (rng.standard_normal((3, 5)).astype(np.float32), "F16"),
+        "n.weight": (rng.standard_normal(7).astype(np.float32), "F32"),
+    }
+    meta = {"general.architecture": "llama", "llama.block_count": 2,
+            "llama.rope.freq_base": 500000.0, "tokenizer.ggml.tokens": ["a", "b"],
+            "tokenizer.ggml.token_type": [1, 3], "flag": True, "neg": -5}
+    files = []
+    for W, T, name in ((JGGUFWriter, JGGMLType, "ref"), (GGUFWriter, GGMLType, "port")):
+        p = str(tmp_path / f"{name}.gguf")
+        w = W(p)
+        for k, v in meta.items():
+            w.add_metadata(k, v)
+        for n, (a, t) in arrays.items():
+            w.add_tensor(n, a, T[t])
+        w.add_raw_tensor("r.weight", (256, 1), T["Q4_K"],
+                         _rand_blocks(np.random.default_rng(1), 1, 144, True))
+        w.write()
+        files.append(open(p, "rb").read())
+    assert files[0] == files[1]
+
+
+@pytest.mark.parametrize("gtype", ["F32", "F16", "Q4_K", "Q6_K"])
+def test_codecs_bit_identical(gtype):
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal(4096) * 0.05).astype(np.float32)
+    raw = jq.quantize(x, JGGMLType[gtype])
+    assert np.array_equal(quants.quantize(x, GGMLType[gtype]), raw)
+    assert np.array_equal(quants.dequantize(raw, GGMLType[gtype], x.size),
+                          jq.dequantize(raw, JGGMLType[gtype], x.size))
+
+
+@pytest.mark.parametrize("gtype,size", [("Q4_K", 144), ("Q6_K", 210)])
+@pytest.mark.parametrize("valid", [True, False])
+def test_dequantize_random_blocks(gtype, size, valid):
+    rng = np.random.default_rng(size + valid)
+    raw = _rand_blocks(rng, 64, size, valid)
+    n = 64 * 256
+    assert np.array_equal(quants.dequantize(raw, GGMLType[gtype], n),
+                          jq.dequantize(raw, JGGMLType[gtype], n), equal_nan=True)
+
+
+def test_unpack_scale_min_k4():
+    s = np.random.default_rng(4).integers(0, 256, (100, 12), dtype=np.uint8)
+    for a, b in zip(quants.unpack_scale_min_k4(s), jq.unpack_scale_min_k4(s)):
+        assert np.array_equal(a, b)
+
+
+def test_unsupported_type_raises():
+    with pytest.raises(NotImplementedError):
+        quants.dequantize(np.zeros(34, np.uint8), GGMLType.Q8_0, 32)
+
+
+@pytest.mark.parametrize("nb", [1, 300])
+def test_plain_dequant_q4_k_bit_identical_to_reference_bf16(nb):
+    """The kernel's plain version: flat Q4_K bytes → bf16, bit for bit the
+    numpy codec cast to bf16 (the cast the JAX load path applies) and the
+    reference's Pallas kernel in interpret mode."""
+    raw = _rand_blocks(np.random.default_rng(nb), nb, 144, True)
+    n = nb * 256
+    got = dequant_q4_k(torch.from_numpy(raw)).view(torch.int16).numpy()
+    want = np.asarray(jnp.asarray(jq.dequantize(raw, JGGMLType.Q4_K, n),
+                                  jnp.bfloat16)).view(np.int16)
+    assert got.shape == (n,)
+    assert np.array_equal(got, want)
+    pallas = np.asarray(dequant_q4_k_device(raw, n, jnp.bfloat16, interpret=True))
+    assert np.array_equal(got, pallas.view(np.int16))
+
+
+def test_dequant_q4_k_rejects_partial_blocks():
+    with pytest.raises(ValueError):
+        dequant_q4_k(torch.zeros(100, dtype=torch.uint8))

@@ -1,0 +1,161 @@
+"""Port kernels' plain versions against the JAX package's kernels.
+
+On the CPU each port wrapper runs its plain PyTorch version, which is what
+the CUDA kernel is held to on the card (tests/test_torch_cuda.py,
+chip_smoke.py).  Here the plain versions meet the reference: the fused
+Q4_K/Q6_K matmuls against the Pallas kernels in interpret mode, the flash
+attention against the Pallas flash kernel (interpret) and the XLA
+score-matrix path, and the model's small f32 ops exactly.
+
+Tolerances:
+- fused matmuls, rel-dev ‖y−y_ref‖/‖y_ref‖ ≤ 5·10⁻³ — the reference's own
+  fused-matmul gate — against the exact product of the codec's weights;
+  against the reference kernel, the gate plus that kernel's own distance
+  from the exact product (it folds the scales, mins and sub-block sums of
+  x to bf16; the port keeps them in f32);
+- flash attention, max-abs ≤ 2·10⁻² — the reference sums bf16
+  probabilities times bf16 V, the port f32 probabilities, in another order;
+- rms_norm and RoPE in f32, within 1e-6.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from llama_fastapi_k8s_gpu_tpu.gguf.quants import dequantize as j_dequantize
+from llama_fastapi_k8s_gpu_tpu.gguf import GGMLType as JGGMLType
+from llama_fastapi_k8s_gpu_tpu.models.config import ModelConfig as JModelConfig
+from llama_fastapi_k8s_gpu_tpu.models.llama import rms_norm as j_rms_norm
+from llama_fastapi_k8s_gpu_tpu.models.llama import rope_interleaved as j_rope
+from llama_fastapi_k8s_gpu_tpu.models.llama import xla_attention as j_xla_attention
+from llama_fastapi_k8s_gpu_tpu.ops.linear import make_linear_q4k, make_linear_q6k
+from llama_fastapi_k8s_gpu_tpu.ops.pallas.attention import flash_attention as j_flash
+from llama_fastapi_k8s_gpu_tpu.ops.pallas.qmatmul import q4k_matmul as j_q4k_matmul
+from llama_fastapi_k8s_gpu_tpu.ops.pallas.q6matmul import q6k_matmul as j_q6k_matmul
+from llama_fastapi_k8s_gpu_tpu_torch.gguf.quants import quant_q4_k, quant_q6_k
+from llama_fastapi_k8s_gpu_tpu_torch.models.llama import rms_norm, rope_interleaved
+from llama_fastapi_k8s_gpu_tpu_torch.ops.linear import Linear
+from llama_fastapi_k8s_gpu_tpu_torch.ops.attention import flash_attention
+from llama_fastapi_k8s_gpu_tpu_torch.ops.q4k import q4k_matmul
+from llama_fastapi_k8s_gpu_tpu_torch.ops.q6k import q6k_matmul
+
+torch.set_num_threads(1)
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _bf16(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16)
+
+
+@pytest.fixture(scope="module")
+def fused_weights():
+    """(fmt, n, k) → (raw GGUF blocks, f32 weights) from one seed."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for n, k in ((256, 2048), (256, 4096)):
+        w = (rng.standard_normal((n, k)) * k ** -0.5).astype(np.float32)
+        out[("q4k", n, k)] = (quant_q4_k(w.reshape(-1)), w)
+        out[("q6k", n, k)] = (quant_q6_k(w.reshape(-1)), w)
+    return out
+
+
+@pytest.mark.parametrize("fmt", ["q4k", "q6k"])
+@pytest.mark.parametrize("n,k", [(256, 2048), (256, 4096)])
+@pytest.mark.parametrize("B", [1, 17, 256])
+def test_fused_matmul_matches_reference_kernel(fused_weights, fmt, n, k, B):
+    raw, w = fused_weights[(fmt, n, k)]
+    x = np.random.default_rng(B).standard_normal((B, k)).astype(np.float32)
+    xb = _bf16(x)
+    port = q4k_matmul if fmt == "q4k" else q6k_matmul
+    got = port(xb, torch.from_numpy(raw).reshape(n, -1), n, k).float().numpy()
+    assert got.shape == (B, n)
+    jw = (make_linear_q4k if fmt == "q4k" else make_linear_q6k)(w)
+    jfn = j_q4k_matmul if fmt == "q4k" else j_q6k_matmul
+    ref = np.asarray(jfn(jnp.asarray(xb.float().numpy(), jnp.bfloat16), jw,
+                         interpret=True)).astype(np.float32)
+    wq = j_dequantize(raw, JGGMLType.Q4_K if fmt == "q4k" else JGGMLType.Q6_K,
+                      n * k).reshape(n, k)
+    exact = xb.float().numpy() @ wq.T
+    # the gate, against the exact product of the numpy codec's weights
+    assert _rel(got, exact) <= 5e-3
+    # and against the reference kernel: no farther from it than the gate
+    # plus the reference's own distance from the exact product (its bf16
+    # folding puts it 0.45-0.81% away at these shapes, above the gate)
+    assert _rel(got, ref) <= _rel(ref, exact) + 5e-3
+
+
+def test_linear_dispatch_and_shape_checks(fused_weights):
+    raw, _ = fused_weights[("q4k", 256, 2048)]
+    w = torch.from_numpy(raw).reshape(256, -1)
+    lin = Linear("q4k", w, 256, 2048)
+    x = torch.zeros(3, 5, 2048, dtype=torch.bfloat16)
+    assert lin(x).shape == (3, 5, 256)
+    with pytest.raises(ValueError):
+        q4k_matmul(x, w, 256, 4096)
+    with pytest.raises(ValueError):
+        q6k_matmul(x, w, 256, 2048)
+    with pytest.raises(ValueError):
+        Linear("int8", w, 256, 2048)
+
+
+def _attn_inputs(S, n_ctx, H=8, n_kv=2, hd=128, seed=0):
+    """Queries and a full random ring: slots past the queries' positions
+    hold stale keys that only the causal mask hides."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((S, H, hd)).astype(np.float32)
+    k = rng.standard_normal((n_kv, n_ctx, hd)).astype(np.float32)
+    v = rng.standard_normal((n_kv, n_ctx, hd)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("S,offsets", [(1, (0, 64, 511)), (64, (0, 64, 448)),
+                                       (256, (0, 64, 256))])
+@pytest.mark.parametrize("window", [0, 128])
+def test_flash_attention_matches_reference(S, offsets, window):
+    n_ctx, H, n_kv, hd = 512, 8, 2, 128
+    q, k, v = _attn_inputs(S, n_ctx, H, n_kv, hd, seed=S + window)
+    qb, kb, vb = _bf16(q), _bf16(k), _bf16(v)
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (qb, kb, vb))
+    cfg = JModelConfig(vocab_size=1, dim=H * hd, n_layers=1, n_heads=H,
+                       n_kv_heads=n_kv, ffn_dim=1, n_ctx=n_ctx,
+                       sliding_window=window)
+    for off in offsets:
+        got = flash_attention(qb, kb, vb, off, hd ** -0.5, window).float().numpy()
+        ref_flash = np.asarray(j_flash(jq, jk, jv, jnp.int32(off), sm_scale=hd ** -0.5,
+                                       sliding_window=window, interpret=True),
+                               np.float32)
+        pos = jnp.arange(off, off + S, dtype=jnp.int32)
+        ref_xla = np.asarray(j_xla_attention(jq, jk, jv, None, None, pos, cfg,
+                                             jnp.bfloat16), np.float32)
+        assert np.isfinite(got).all()
+        assert np.abs(got - ref_flash).max() <= 2e-2, (off, window)
+        assert np.abs(got.reshape(S, -1) - ref_xla).max() <= 2e-2, (off, window)
+
+
+def test_flash_attention_rejects_out_of_ring_positions():
+    q, k, v = (_bf16(t) for t in _attn_inputs(4, 16, 4, 1, 64))
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, 13, 0.125)
+
+
+def test_rms_norm_and_rope_match_reference():
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((7, 4, 64)).astype(np.float32)
+    w = rng.standard_normal(64).astype(np.float32)
+    got = rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-5).numpy()
+    ref = np.asarray(j_rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-5))
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+    pos = np.array([0, 1, 5, 100, 1000, 4000, 8191], np.int32)
+    for theta in (10000.0, 500000.0, 1e6):
+        got = rope_interleaved(torch.from_numpy(x), torch.from_numpy(pos).long(),
+                               theta).numpy()
+        ref = np.asarray(j_rope(jnp.asarray(x), jnp.asarray(pos), theta))
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)

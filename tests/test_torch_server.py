@@ -1,0 +1,200 @@
+"""The port's server against the JAX package's, driven in-process through
+raw ASGI calls.
+
+At ``LFKT_TEMPERATURE=0`` both apps, each over its own engine on the same
+tiny GGUF, answer ``/response`` with identical bytes — a first turn and a
+follow-up that takes prefix reuse.  Errors (422 bodies, the 400 for an
+unknown model, 404/405, 500 from the engine) and ``/items`` match byte for
+byte; ``/health`` carries the reference's keys for what the slice serves.
+Admission (queue(5) → 503, timeout → 408) runs over a slow fake engine.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import time
+
+import pytest
+import torch
+
+from llama_fastapi_k8s_gpu_tpu.engine import Engine as JEngine
+from llama_fastapi_k8s_gpu_tpu.gguf import GGMLType as JGGMLType
+from llama_fastapi_k8s_gpu_tpu.server.app import create_app as j_create_app
+from llama_fastapi_k8s_gpu_tpu.testing import write_tiny_llama_gguf
+from llama_fastapi_k8s_gpu_tpu.utils.config import Settings as JSettings
+from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
+from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+torch.set_num_threads(1)
+
+BODY = {
+    "bot_profile": {"name": "Alice.f", "appearance": "tall,slim,blonde,loves cats,hates rain"},
+    "user_profile": {"name": "Bob"},
+    "context": [
+        {"turn": "user", "message": "hi"},
+        {"turn": "assistant", "message": "hey"},
+        {"turn": "user", "message": "how are you?"},
+    ],
+}
+
+
+async def call(app, method: str, path: str, body=None, raw: bytes | None = None):
+    """One HTTP request through the ASGI interface → (status, body bytes)."""
+    data = raw if raw is not None else (b"" if body is None else json.dumps(body).encode())
+    inbox = [{"type": "http.request", "body": data, "more_body": False}]
+    sent = []
+
+    async def receive():
+        return inbox.pop(0) if inbox else {"type": "http.disconnect"}
+
+    async def send(message):
+        sent.append(message)
+
+    scope = {"type": "http", "method": method, "path": path, "query_string": b"",
+             "headers": [(b"host", b"test"), (b"content-type", b"application/json")]}
+    await app(scope, receive, send)
+    return sent[0]["status"], b"".join(m.get("body", b"") for m in sent[1:])
+
+
+async def both(apps, method, path, body=None, raw=None):
+    return [await call(a, method, path, body, raw) for a in apps]
+
+
+def serve(apps, fn):
+    """Run ``fn(apps)`` between the apps' startup and shutdown hooks."""
+    async def main():
+        for a in apps:
+            await a.router.startup()
+        try:
+            return await fn(apps)
+        finally:
+            for a in apps:
+                await a.router.shutdown()
+    return asyncio.run(main())
+
+
+@pytest.fixture(scope="module")
+def engines(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("srv") / "tiny.gguf")
+    write_tiny_llama_gguf(path, quant=JGGMLType.F16)
+    # 16 tokens a turn: at the follow-up's 20th greedy step the two runs
+    # part on a tie — two tokens whose bf16 logits differ by less than one
+    # bf16 step (ROADMAP.md, queue C)
+    return (JEngine(path, n_ctx=1024, max_gen_tokens=16),
+            Engine(path, n_ctx=1024, max_gen_tokens=16, device="cpu"))
+
+
+def _apps(engines, **kw):
+    je, te = engines
+    return [j_create_app(engine=je, settings=JSettings(temperature=0.0, **kw)),
+            create_app(engine=te, settings=Settings(temperature=0.0, **kw))]
+
+
+def test_response_bytes_identical_with_prefix_reuse(engines):
+    follow = {**BODY, "context": BODY["context"] + [
+        {"turn": "assistant", "message": "fine"},
+        {"turn": "user", "message": "tell me about cats, please"}]}
+
+    async def go(apps):
+        first = await both(apps, "POST", "/response", BODY)
+        second = await both(apps, "POST", "/response", follow)
+        return first, second
+
+    first, second = serve(_apps(engines), go)
+    for ref, got in (first, second):
+        assert ref[0] == got[0] == 200
+        assert got[1] == ref[1]
+        assert json.loads(got[1])["response"]
+    assert engines[1].last_timings["prefix_reused_tokens"] > 0
+    assert engines[1].last_timings["prefix_reused_tokens"] == \
+        engines[0].last_timings["prefix_reused_tokens"]
+
+
+BAD_BODIES = [
+    None,
+    {},
+    {**BODY, "bot_profile": 3, "context": {"a": 1}},
+    {**BODY, "context": [{"turn": "user", "message": 5}, 7, {"turn": None}]},
+    {**BODY, "bot_profile": {"name": 1.5, "appearance": True, "system_prompt": 5},
+     "user_profile": [], "model": 3},
+]
+
+
+def test_errors_and_items_bytes_identical(engines):
+    async def go(apps):
+        out = [await both(apps, "POST", "/response", b) for b in BAD_BODIES]
+        out.append(await both(apps, "POST", "/response", raw=b"{not json"))
+        out.append(await both(apps, "POST", "/response", {**BODY, "model": "other"}))
+        for path in ("/items/7", "/items/x", "/nope"):
+            out.append(await both(apps, "GET", path))
+        out.append(await both(apps, "GET", "/response"))
+        out.append(await both(apps, "GET", "/health/ready"))
+        return out
+
+    for ref, got in serve(_apps(engines), go):
+        assert got == ref
+
+
+def test_health_document(engines):
+    async def go(apps):
+        return await both(apps, "GET", "/health"), await both(apps, "GET", "/health/live")
+
+    (ref, got), (ref_live, got_live) = serve(_apps(engines), go)
+    assert ref[0] == got[0] == 200 and ref_live[0] == got_live[0] == 200
+    ref, got = json.loads(ref[1]), json.loads(got[1])
+    assert set(got) <= set(ref)
+    for k in ("status", "state", "model_loaded", "queue_depth", "max_queue_size"):
+        assert got[k] == ref[k]
+    for k in ("model", "n_ctx", "attn_impl", "kv_dtype", "kv_cache_bytes"):
+        assert got["engine"][k] == ref["engine"][k]
+    for k, v in ref["engine"]["weight_formats"].items():
+        assert got["engine"]["weight_formats"][k] == v
+    assert got["resilience"]["health"]["state"] == "READY"
+    assert json.loads(got_live[1])["alive"] is True
+
+
+class FakeEngine:
+    """Replies after ``delay`` seconds, or raises ``fail``."""
+
+    model_name = "fake"
+
+    def __init__(self, delay=0.0, fail=None):
+        self.delay, self.fail = delay, fail
+
+    def create_chat_completion(self, messages, **kw):
+        time.sleep(self.delay)
+        if self.fail is not None:
+            raise self.fail
+        return {"choices": [{"message": {"role": "assistant", "content": "ok"}}]}
+
+
+def test_engine_error_500_identical():
+    boom = RuntimeError("boom")
+    apps = [j_create_app(engine=FakeEngine(fail=boom), settings=JSettings()),
+            create_app(engine=FakeEngine(fail=boom), settings=Settings())]
+
+    async def go(apps):
+        return await both(apps, "POST", "/response", BODY)
+
+    ref, got = serve(apps, go)
+    assert ref == got and got[0] == 500
+
+
+def test_queue_overflow_503_and_timeout_408():
+    async def burst(apps):
+        return await asyncio.gather(*[call(apps[0], "POST", "/response", BODY)
+                                      for _ in range(4)])
+
+    codes = sorted(s for s, _ in serve(
+        [create_app(engine=FakeEngine(delay=0.3),
+                    settings=Settings(max_queue_size=1, timeout_seconds=5))], burst))
+    assert 503 in codes and 200 in codes
+
+    async def one(apps):
+        return await call(apps[0], "POST", "/response", BODY)
+
+    status, body = serve([create_app(engine=FakeEngine(delay=0.5),
+                                     settings=Settings(timeout_seconds=0.1))], one)
+    assert status == 408 and json.loads(body) == {"detail": "Generation timed out"}
