@@ -12,19 +12,22 @@ and no result line):
 2. build: the kernels of ``llama_fastapi_k8s_gpu_tpu_torch/csrc`` with
    ``nvcc``, timed;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the Llama-3-8B shapes the serving path gives it, with kernel, plain,
+   the Llama-3-8B shapes the serving paths give it, with kernel, plain,
    library (one PyTorch call computing the same function) and bound times;
-4. gguf: a synthetic Llama-3-8B-width Q4_K_M-layout GGUF (random valid
-   blocks from a seed) written with the port's own writer into
-   ``.cache/chip_smoke/``, reused when present;
-5. serve: the port's ``Engine`` behind its app on the in-tree httpd at
-   127.0.0.1, three ``/response`` requests at temperature 0 (a short one, a
-   long one whose prompt spans several 256-token prefill slices, and a
-   follow-up turn that takes prefix reuse), then ``GET /health``; the
-   served model's logits must be finite and its flash prompt pass must
-   agree with the plain score-matrix one;
-6. a ``kernels`` JSON line with every kernel's launches in phase 5 beside
-   its phase-3 numbers.
+4. gguf: three synthetic Llama-3-8B-width GGUFs (random valid blocks from a
+   seed) in the tensor types of a Q4_K_M, a Q5_K_M and a Q8_0 file, written
+   with the port's own writer into ``.cache/chip_smoke/`` and reused when
+   present;
+5. serve: per file, the port's ``Engine`` behind its app on the in-tree
+   httpd at 127.0.0.1, ``/response`` requests at temperature 0 (a short
+   one, a long one whose prompt spans several 256-token prefill slices,
+   and — on the Q4_K_M file — a follow-up turn that takes prefix reuse),
+   then ``GET /health``; every linear must serve fused in the file's
+   formats, the served model's logits must be finite and its flash prompt
+   pass must agree with the plain score-matrix one.  Each file's kernel
+   launches go on a line of their own;
+6. a ``kernels`` JSON line with every kernel's launches summed over the
+   files of phase 5 beside its phase-3 numbers.
 
 The last line is ``{"ok": true, "device": {...}}``.  No JAX anywhere.
 """
@@ -32,9 +35,11 @@ The last line is ``{"ok": true, "device": {...}}``.  No JAX anywhere.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import http.client
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -44,8 +49,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(HERE, ".cache", "chip_smoke")
 
-#: transformer blocks of the served model (Llama-3-8B has 32; width is never cut)
+#: transformer blocks of the served models (Llama-3-8B has 32; width is never cut)
 DEPTH = 32
+#: the served files: tensor types of each llama.cpp recipe
+LAYOUTS = ("q4km", "q5km", "q8_0")
 #: the card's published peaks (H100 SXM data sheet): HBM bytes/s, dense bf16 FLOP/s
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
@@ -55,12 +62,20 @@ REPLACES = {
     "q4k_matmul": "llama_fastapi_k8s_gpu_tpu/ops/pallas/qmatmul.py:237",
     "q6k_matmul": "llama_fastapi_k8s_gpu_tpu/ops/pallas/q6matmul.py:243",
     "flash_attention": "llama_fastapi_k8s_gpu_tpu/ops/pallas/attention.py:58",
+    "dequant_q5_k": "llama_fastapi_k8s_gpu_tpu/ops/pallas/dequant.py:197",
+    "q5k_matmul": "llama_fastapi_k8s_gpu_tpu/ops/pallas/q5matmul.py:276",
+    "dequant_q8_0": "llama_fastapi_k8s_gpu_tpu/ops/pallas/dequant.py:78",
+    "q8_matmul": "llama_fastapi_k8s_gpu_tpu/ops/pallas/q8matmul.py:99",
 }
 SOURCES = {
     "dequant_q4_k": "llama_fastapi_k8s_gpu_tpu_torch/csrc/dequant_q4k.cu",
     "q4k_matmul": "llama_fastapi_k8s_gpu_tpu_torch/csrc/q4k_matmul.cu",
     "q6k_matmul": "llama_fastapi_k8s_gpu_tpu_torch/csrc/q6k_matmul.cu",
     "flash_attention": "llama_fastapi_k8s_gpu_tpu_torch/csrc/flash_attention.cu",
+    "dequant_q5_k": "llama_fastapi_k8s_gpu_tpu_torch/csrc/dequant_q5k.cu",
+    "q5k_matmul": "llama_fastapi_k8s_gpu_tpu_torch/csrc/q5k_matmul.cu",
+    "dequant_q8_0": "llama_fastapi_k8s_gpu_tpu_torch/csrc/dequant_q8_0.cu",
+    "q8_matmul": "llama_fastapi_k8s_gpu_tpu_torch/csrc/q8_matmul.cu",
 }
 
 
@@ -69,7 +84,7 @@ def say(phase: str, **kw) -> None:
 
 
 # ---------------------------------------------------------------------------
-# random valid K-quant blocks (kernel inputs and the synthetic GGUF)
+# random valid blocks (kernel inputs and the synthetic GGUFs)
 # ---------------------------------------------------------------------------
 
 def rand_q4k(rng, n_out: int, k_in: int):
@@ -87,6 +102,35 @@ def rand_q4k(rng, n_out: int, k_in: int):
     blk[:, 2:4] = np.array([np.float16(7.5 * float(d))], np.float16).view(np.uint8)
     sc = rng.integers(32, 64, (nb, 8), dtype=np.uint8)
     blk[:, 4:16] = pack_scale_min_k4(sc, sc)
+    return blk.reshape(n_out, -1)
+
+
+def rand_q5k(rng, n_out: int, k_in: int):
+    """(n_out, k_in) weights as Q5_K block bytes, zero-mean with standard
+    deviation ≈ k_in^-0.5: w = d·sc·(q − 15.5) with q uniform in 0..31 (the
+    std of which is 9.23), the min folded as dmin·mn = 15.5·d·sc."""
+    import numpy as np
+
+    from llama_fastapi_k8s_gpu_tpu_torch.gguf.quants import pack_scale_min_k4
+
+    nb = n_out * k_in // 256
+    blk = np.frombuffer(rng.bytes(nb * 176), np.uint8).reshape(nb, 176).copy()
+    d = np.float16(k_in ** -0.5 / (47.5 * 9.23))
+    blk[:, 0:2] = np.array([d], np.float16).view(np.uint8)
+    blk[:, 2:4] = np.array([np.float16(15.5 * float(d))], np.float16).view(np.uint8)
+    sc = rng.integers(32, 64, (nb, 8), dtype=np.uint8)
+    blk[:, 4:16] = pack_scale_min_k4(sc, sc)
+    return blk.reshape(n_out, -1)
+
+
+def rand_q8_0(rng, n_out: int, k_in: int):
+    """(n_out, k_in) weights as Q8_0 block bytes, std ≈ k_in^-0.5: w = d·q
+    with q uniform in −128..127 (std 73.9)."""
+    import numpy as np
+
+    nb = n_out * k_in // 32
+    blk = np.frombuffer(rng.bytes(nb * 34), np.uint8).reshape(nb, 34).copy()
+    blk[:, 0:2] = np.array([np.float16(k_in ** -0.5 / 73.9)], np.float16).view(np.uint8)
     return blk.reshape(n_out, -1)
 
 
@@ -163,17 +207,29 @@ def bound(nbytes: float, flops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def fused_formats() -> dict:
+    """Fused matmul name → (kernel wrapper, plain version, block generator,
+    dequantizer to f32)."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import dequant, q4k, q5k, q6k, q8
+
+    return {
+        "q4k_matmul": (q4k.q4k_matmul, q4k.q4k_matmul_plain, rand_q4k,
+                       dequant.dequant_q4_k_f32),
+        "q5k_matmul": (q5k.q5k_matmul, q5k.q5k_matmul_plain, rand_q5k,
+                       dequant.dequant_q5_k_f32),
+        "q6k_matmul": (q6k.q6k_matmul, q6k.q6k_matmul_plain, rand_q6k,
+                       q6k.dequant_q6_k_f32),
+        "q8_matmul": (q8.q8_matmul, q8.q8_matmul_plain, rand_q8_0,
+                      dequant.dequant_q8_0_f32),
+    }
+
+
 def check_matmul(name, rng, n_out, k_in, B, tol_rel=8e-3) -> dict:
     import numpy as np
     import torch
 
-    from llama_fastapi_k8s_gpu_tpu_torch.ops import q4k, q6k
-
-    mod = q4k if name == "q4k_matmul" else q6k
-    kern = mod.q4k_matmul if name == "q4k_matmul" else mod.q6k_matmul
-    plain = mod.q4k_matmul_plain if name == "q4k_matmul" else mod.q6k_matmul_plain
-    blocks = (rand_q4k if name == "q4k_matmul" else rand_q6k)(rng, n_out, k_in)
-    w = torch.from_numpy(np.ascontiguousarray(blocks)).cuda()
+    kern, plain, rand, dequant_f32 = fused_formats()[name]
+    w = torch.from_numpy(np.ascontiguousarray(rand(rng, n_out, k_in))).cuda()
     x = torch.from_numpy(rng.standard_normal((B, k_in), np.float32)).cuda().to(torch.bfloat16)
     y = kern(x, w, n_out, k_in)
     y_ref = plain(x, w, n_out, k_in)
@@ -183,8 +239,7 @@ def check_matmul(name, rng, n_out, k_in, B, tol_rel=8e-3) -> dict:
     if not (torch.isfinite(y).all() and err <= tol_rel * scale):
         raise AssertionError(f"{name} ({n_out},{k_in}) B={B}: max |kernel-plain| "
                              f"{err} > {tol_rel} * {scale}")
-    deq = (q4k.dequant_q4_k_f32 if name == "q4k_matmul"
-           else q6k.dequant_q6_k_f32)(w.reshape(-1)).reshape(n_out, k_in).to(torch.bfloat16)
+    deq = dequant_f32(w.reshape(-1)).reshape(n_out, k_in).to(torch.bfloat16)
     reps = 20 if B == 1 else 5
     out = {
         "shape": [n_out, k_in], "B": B, "max_abs_err": err, "tol": tol_rel * scale,
@@ -237,43 +292,62 @@ def check_flash(rng, S, n_ctx, pos_offset, H=32, n_kv=8, hd=128, tol=2e-2) -> di
     }
 
 
-def check_dequant(rng, n_out=128256, k_in=4096) -> dict:
+def check_dequant(name, rng, n_out=128256, k_in=4096) -> dict:
+    """A dequant kernel against its plain version, bit for bit, on a
+    ``token_embd``-sized tensor."""
     import numpy as np
     import torch
 
     from llama_fastapi_k8s_gpu_tpu_torch.ops import dequant
 
-    raw = torch.from_numpy(np.ascontiguousarray(rand_q4k(rng, n_out, k_in))).cuda()
-    y = dequant.dequant_q4_k(raw)
-    y_ref = dequant.dequant_q4_k_plain(raw)
+    rand = {"dequant_q4_k": rand_q4k, "dequant_q5_k": rand_q5k,
+            "dequant_q8_0": rand_q8_0}[name]
+    kern, plain = getattr(dequant, name), getattr(dequant, name + "_plain")
+    raw = torch.from_numpy(np.ascontiguousarray(rand(rng, n_out, k_in))).cuda()
+    y = kern(raw)
+    y_ref = plain(raw)
     torch.cuda.synchronize()
     if not torch.equal(y.view(torch.int16), y_ref.view(torch.int16)):
-        raise AssertionError("dequant_q4_k: kernel is not bit-identical to plain")
-    return {
+        raise AssertionError(f"{name}: kernel is not bit-identical to plain")
+    out = {
         "shape": [n_out, k_in], "max_abs_err": 0.0, "tol": 0.0,
-        "ms": cuda_ms(lambda: dequant.dequant_q4_k(raw), 10),
-        "plain_ms": cuda_ms(lambda: dequant.dequant_q4_k_plain(raw), 3),
+        "ms": cuda_ms(lambda: kern(raw), 10),
+        "plain_ms": cuda_ms(lambda: plain(raw), 3),
         "library_ms": None,
         **bound(raw.numel() + y.numel() * 2, 2.0 * y.numel()),
     }
+    del raw, y, y_ref
+    return out
 
 
-def phase_kernels() -> dict:
-    """Per kernel: the per-shape checks, and their times summed over the
-    shapes (each shape one call of the serving path)."""
+#: the (N, K) each fused matmul meets on the 8B serving paths: Q4_K and Q5_K
+#: on attn_q/k/output and ffn_gate/up, Q6_K on attn_v, ffn_down and the
+#: output head, Q8_0 on all of them
+_QK = ((4096, 4096), (1024, 4096), (14336, 4096))
+MATMUL_SHAPES = {
+    "q4k_matmul": _QK,
+    "q5k_matmul": _QK,
+    "q6k_matmul": ((1024, 4096), (4096, 14336), (128256, 4096)),
+    "q8_matmul": (*_QK, (4096, 14336), (128256, 4096)),
+}
+
+
+def phase_kernels(names) -> dict:
+    """Per kernel in ``names``: the per-shape checks, and their times summed
+    over the shapes (each shape one call of the serving path)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(1)
-    shapes = {"dequant_q4_k": [check_dequant(rng)], "q4k_matmul": [],
-              "q6k_matmul": [], "flash_attention": []}
-    for B in (1, 256):
-        for n, k in ((4096, 4096), (1024, 4096), (14336, 4096)):
-            shapes["q4k_matmul"].append(check_matmul("q4k_matmul", rng, n, k, B))
-        for n, k in ((1024, 4096), (4096, 14336), (128256, 4096)):
-            shapes["q6k_matmul"].append(check_matmul("q6k_matmul", rng, n, k, B))
-    for off in (0, 256, 768):
-        shapes["flash_attention"].append(check_flash(rng, 256, 1024, off))
+    shapes = {}
+    for name in names:
+        if name.startswith("dequant_"):
+            shapes[name] = [check_dequant(name, rng)]
+        elif name == "flash_attention":
+            shapes[name] = [check_flash(rng, 256, 1024, off) for off in (0, 256, 768)]
+        else:
+            shapes[name] = [check_matmul(name, rng, n, k, B) for B in (1, 256)
+                            for n, k in MATMUL_SHAPES[name]]
     torch.cuda.empty_cache()
     out = {}
     for name, rows in shapes.items():
@@ -298,28 +372,54 @@ def phase_kernels() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the synthetic Llama-3-8B-width Q4_K_M GGUF
+# phase 4: the synthetic Llama-3-8B-width GGUFs
 # ---------------------------------------------------------------------------
 
-def phase_gguf(depth: int = DEPTH) -> str:
+def phase_gguf(layout: str, depth: int = DEPTH) -> str:
     from llama_fastapi_k8s_gpu_tpu_torch.models.config import LLAMA3_8B
 
     cfg = dataclasses.replace(LLAMA3_8B, n_layers=depth)
-    path = os.path.join(CACHE, f"llama3-8b-width-q4km-L{depth}-seed0.gguf")
-    if os.path.exists(path):
-        say("gguf", path=path, reused=True, bytes=os.path.getsize(path))
-        return path
+    path = os.path.join(CACHE, f"llama3-8b-width-{layout}-L{depth}-seed0.gguf")
     os.makedirs(CACHE, exist_ok=True)
+    free_gb = round(shutil.disk_usage(CACHE).free / 1e9, 1)
+    if os.path.exists(path):
+        say("gguf", path=path, reused=True, bytes=os.path.getsize(path),
+            disk_free_gb=free_gb)
+        return path
     t0 = time.time()
-    write_gguf(cfg, path)
+    write_gguf(cfg, path, layout)
     say("gguf", path=path, reused=False, layers=depth, bytes=os.path.getsize(path),
-        seconds=round(time.time() - t0, 1))
+        seconds=round(time.time() - t0, 1), disk_free_gb=free_gb)
     return path
 
 
-def write_gguf(cfg, path: str, seed: int = 0) -> None:
-    """A Llama GGUF of ``cfg``'s shapes with random valid Q4_K_M-layout
-    blocks from ``seed`` and a byte-level BPE vocabulary."""
+def file_types(layout: str) -> dict:
+    """GGML type name of each tensor kind in a ``layout`` file: llama.cpp's
+    recipe, with the names it mixes per layer (attn_v, ffn_down) kept
+    uniform on the finer type."""
+    if layout == "q8_0":
+        return dict.fromkeys(("token_embd", "attn_q", "attn_k", "attn_v",
+                              "attn_output", "ffn_gate", "ffn_up", "ffn_down",
+                              "output"), "Q8_0")
+    main = {"q4km": "Q4_K", "q5km": "Q5_K"}[layout]
+    return {**dict.fromkeys(("token_embd", "attn_q", "attn_k", "attn_output",
+                             "ffn_gate", "ffn_up"), main),
+            **dict.fromkeys(("attn_v", "ffn_down", "output"), "Q6_K")}
+
+
+def served_formats(layout: str) -> dict:
+    """The Linear kinds a ``layout`` file must serve with: every linear fused."""
+    kinds = {"Q4_K": "q4k", "Q5_K": "q5k", "Q6_K": "q6k", "Q8_0": "q8"}
+    t = file_types(layout)
+    names = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v", "wo": "attn_output",
+             "w_gate": "ffn_gate", "w_up": "ffn_up", "w_down": "ffn_down",
+             "output": "output"}
+    return {short: kinds[t[long]] for short, long in names.items()}
+
+
+def write_gguf(cfg, path: str, layout: str, seed: int = 0) -> None:
+    """A Llama GGUF of ``cfg``'s shapes with random valid blocks from
+    ``seed`` in ``layout``'s tensor types and a byte-level BPE vocabulary."""
     import numpy as np
 
     from llama_fastapi_k8s_gpu_tpu_torch.gguf import GGMLType, GGUFWriter
@@ -337,7 +437,8 @@ def write_gguf(cfg, path: str, seed: int = 0) -> None:
     types = [1] * (256 + n_pad) + [3] * len(specials)
     w = GGUFWriter(path + f".tmp{os.getpid()}")
     md = {
-        "general.architecture": "llama", "general.name": "llama3-8b-width-synthetic-q4km",
+        "general.architecture": "llama",
+        "general.name": f"llama3-8b-width-synthetic-{layout}",
         "llama.block_count": cfg.n_layers, "llama.context_length": 8192,
         "llama.embedding_length": cfg.dim, "llama.feed_forward_length": cfg.ffn_dim,
         "llama.attention.head_count": cfg.n_heads,
@@ -356,30 +457,32 @@ def write_gguf(cfg, path: str, seed: int = 0) -> None:
     for k, v in md.items():
         w.add_metadata(k, v)
 
-    def raw(name, n_out, k_in, kind):
-        blocks = (rand_q4k if kind == GGMLType.Q4_K else rand_q6k)(rng, n_out, k_in)
-        w.add_raw_tensor(name, (k_in, n_out), kind, blocks.reshape(-1))
+    types = file_types(layout)
+    rand = {"Q4_K": rand_q4k, "Q5_K": rand_q5k, "Q6_K": rand_q6k, "Q8_0": rand_q8_0}
+
+    def raw(name, n_out, k_in):
+        kind = types[name.split(".")[-2]]
+        blocks = rand[kind](rng, n_out, k_in)
+        w.add_raw_tensor(name, (k_in, n_out), GGMLType[kind], blocks.reshape(-1))
 
     def ones(name):
         w.add_tensor(name, np.ones(cfg.dim, np.float32), GGMLType.F32)
 
     kv_dim = cfg.n_kv_heads * cfg.head_dim
-    # the tensor types of a Q4_K_M file: Q4_K, with attn_v, ffn_down and the
-    # output head on Q6_K; F32 norms
-    raw("token_embd.weight", cfg.vocab_size, cfg.dim, GGMLType.Q4_K)
+    raw("token_embd.weight", cfg.vocab_size, cfg.dim)
     for i in range(cfg.n_layers):
         p = f"blk.{i}."
         ones(p + "attn_norm.weight")
-        raw(p + "attn_q.weight", cfg.dim, cfg.dim, GGMLType.Q4_K)
-        raw(p + "attn_k.weight", kv_dim, cfg.dim, GGMLType.Q4_K)
-        raw(p + "attn_v.weight", kv_dim, cfg.dim, GGMLType.Q6_K)
-        raw(p + "attn_output.weight", cfg.dim, cfg.dim, GGMLType.Q4_K)
+        raw(p + "attn_q.weight", cfg.dim, cfg.dim)
+        raw(p + "attn_k.weight", kv_dim, cfg.dim)
+        raw(p + "attn_v.weight", kv_dim, cfg.dim)
+        raw(p + "attn_output.weight", cfg.dim, cfg.dim)
         ones(p + "ffn_norm.weight")
-        raw(p + "ffn_gate.weight", cfg.ffn_dim, cfg.dim, GGMLType.Q4_K)
-        raw(p + "ffn_up.weight", cfg.ffn_dim, cfg.dim, GGMLType.Q4_K)
-        raw(p + "ffn_down.weight", cfg.dim, cfg.ffn_dim, GGMLType.Q6_K)
+        raw(p + "ffn_gate.weight", cfg.ffn_dim, cfg.dim)
+        raw(p + "ffn_up.weight", cfg.ffn_dim, cfg.dim)
+        raw(p + "ffn_down.weight", cfg.dim, cfg.ffn_dim)
     ones("output_norm.weight")
-    raw("output.weight", cfg.vocab_size, cfg.dim, GGMLType.Q6_K)
+    raw("output.weight", cfg.vocab_size, cfg.dim)
     w.write()
     os.replace(w.path, path)
 
@@ -414,7 +517,8 @@ def _http(port: int, method: str, path: str, payload=None, timeout=300):
         conn.close()
 
 
-def phase_serve(path: str, counters: dict) -> dict:
+def phase_serve(layout: str, path: str, counters: dict, follow_up: bool) -> dict:
+    """Serve ``path`` and return each kernel's launches on that path."""
     import asyncio
 
     import torch
@@ -431,8 +535,12 @@ def phase_serve(path: str, counters: dict) -> dict:
     eng = Engine(path)                   # the GPU, auto format and attention
     eng.warmup()
     load_s = time.time() - t0
-    say("load", seconds=round(load_s, 1), attn_impl=eng.cfg.attn_impl,
-        formats=eng.params.formats(), weight_gb=round(eng.weight_bytes / 1e9, 3))
+    formats = eng.params.formats()
+    say("load", file=layout, seconds=round(load_s, 1), attn_impl=eng.cfg.attn_impl,
+        formats=formats, weight_gb=round(eng.weight_bytes / 1e9, 3))
+    if formats != served_formats(layout):
+        raise AssertionError(f"{layout}: served formats {formats}, expected "
+                             f"{served_formats(layout)}")
     # the reference's serving defaults, greedy, with a timeout that leaves
     # room for this run's un-tuned kernels
     settings = Settings(temperature=0.0, timeout_seconds=600.0)
@@ -463,29 +571,32 @@ def phase_serve(path: str, counters: dict) -> dict:
         for label, ctx in (("short", short), ("long", long_ctx)):
             st, doc = _http(port, "POST", "/response", body(ctx))
             results.append((label, st, doc, dict(eng.last_timings or {})))
-        follow = long_ctx + [("assistant", results[-1][2].get("response", "")[:40]),
-                             ("user", "and what happened next?")]
-        st, doc = _http(port, "POST", "/response", body(follow))
-        results.append(("follow_up", st, doc, dict(eng.last_timings or {})))
+        if follow_up:
+            follow = long_ctx + [("assistant", results[-1][2].get("response", "")[:40]),
+                                 ("user", "and what happened next?")]
+            st, doc = _http(port, "POST", "/response", body(follow))
+            results.append(("follow_up", st, doc, dict(eng.last_timings or {})))
         hst, hdoc = _http(port, "GET", "/health")
     finally:
         loop.call_soon_threadsafe(stop.set)
         th.join(120)
     launches = {name: fn.launches for name, fn in counters.items()}
+    say("launches", file=layout, **launches)
     for label, st, doc, tm in results:
         text = (doc or {}).get("response", "")
-        say("request", label=label, status=st, chars=len(text),
+        say("request", file=layout, label=label, status=st, chars=len(text),
             prompt_tokens=tm.get("prompt_tokens"), bucket=tm.get("bucket"),
             reused=tm.get("prefix_reused_tokens"), ttft_s=tm.get("ttft_s"),
             completion_tokens=tm.get("completion_tokens"),
             tokens_per_sec=tm.get("tokens_per_sec"), head=text[:60])
         if st != 200 or not text:
             raise AssertionError(f"{label}: status {st}, body {doc}")
-    say("health", status=hst, state=(hdoc or {}).get("state"),
+    say("health", file=layout, status=hst, state=(hdoc or {}).get("state"),
         engine=(hdoc or {}).get("engine"))
     if hst != 200 or th.is_alive():
         raise AssertionError(f"/health {hst}, httpd stopped: {not th.is_alive()}")
-    if not results[2][3].get("prefix_reused_tokens"):
+    loop.close()
+    if follow_up and not results[2][3].get("prefix_reused_tokens"):
         raise AssertionError("the follow-up turn did not take prefix reuse")
 
     # the served model's logits: finite, and the flash prompt pass agrees
@@ -503,11 +614,15 @@ def phase_serve(path: str, counters: dict) -> dict:
     lg_xla = prefill(eng.params, cfg_x, toks, len(ids), cache)
     finite = bool(torch.isfinite(lg_flash).all() and torch.isfinite(lg_xla).all())
     rel = ((lg_flash - lg_xla).norm() / lg_xla.norm()).item()
-    say("logits", shape=list(lg_flash.shape), finite=finite, flash_vs_plain_rel=rel,
-        tokens=len(ids))
+    say("logits", file=layout, shape=list(lg_flash.shape), finite=finite,
+        flash_vs_plain_rel=rel, tokens=len(ids))
     if not finite or lg_flash.shape != (eng.cfg.vocab_size,) or rel > 5e-2:
         raise AssertionError(f"logits finite={finite} shape={tuple(lg_flash.shape)} "
                              f"flash vs plain rel-dev {rel}")
+    # free this engine's weights before the next file loads
+    del app, eng, cache, lg_flash, lg_xla
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -530,9 +645,14 @@ def main() -> int:
     t0 = time.time()
     info = phase_device()
     phase_build()
-    kernels = phase_kernels()
-    path = phase_gguf()
-    launches = phase_serve(path, KERNELS)
+    kernels = phase_kernels(KERNELS)
+    paths = {layout: phase_gguf(layout) for layout in LAYOUTS}
+    launches = dict.fromkeys(KERNELS, 0)
+    for layout, path in paths.items():
+        # the prefix-reuse follow-up rides on the Q4_K_M file only
+        served = phase_serve(layout, path, KERNELS, follow_up=layout == "q4km")
+        for name, n in served.items():
+            launches[name] += n
     for name, n in launches.items():
         kernels[name]["launches"] = n
     missing = [n for n, c in launches.items() if c <= 0]
@@ -540,7 +660,7 @@ def main() -> int:
                            for row in kernels.values()]}
     print(json.dumps(summary), flush=True)
     if missing:
-        raise AssertionError(f"kernels never launched on the served path: {missing}")
+        raise AssertionError(f"kernels never launched on the served paths: {missing}")
     say("done", seconds=round(time.time() - t0, 1))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                              "count": info["count"]}}), flush=True)

@@ -19,11 +19,22 @@ namespace lfkt {
 
 constexpr int QK_K = 256;          // K-quant super-block (elements)
 constexpr int Q4K_BLOCK = 144;     // f16 d | f16 dmin | 12 B scales | 128 B nibbles
+constexpr int Q5K_BLOCK = 176;     // Q4_K's 16 B header | 32 B qh | 128 B nibbles
 constexpr int Q6K_BLOCK = 210;     // 128 B ql | 64 B qh | 16 x i8 scales | f16 d
+constexpr int QK8_0 = 32;          // Q8_0 block (elements)
+constexpr int Q8_0_BLOCK = 34;     // f16 d | 32 x i8
 
 __device__ __forceinline__ float f16_at(const uint8_t* p) {
     // 2-byte aligned little-endian IEEE half
     return __half2float(*reinterpret_cast<const __half*>(p));
+}
+
+// 8 bytes at a 2-byte aligned address, as four 16-bit loads (Q6_K and
+// Q8_0 blocks are only 2-byte aligned: 210 and 34 are not multiples of 4)
+__device__ __forceinline__ void load8_a2(const uint8_t* p, uint32_t& lo, uint32_t& hi) {
+    const uint16_t* h = reinterpret_cast<const uint16_t*>(p);
+    lo = static_cast<uint32_t>(h[0]) | (static_cast<uint32_t>(h[1]) << 16);
+    hi = static_cast<uint32_t>(h[2]) | (static_cast<uint32_t>(h[3]) << 16);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -1,0 +1,126 @@
+// Fused Q5_K dequant-matmul: y (B, N) bf16 = x (B, K) bf16 . W^T, with W
+// (N, K) held as its raw GGUF Q5_K blocks (176 bytes per 256 weights), one
+// row of K/256 blocks per output feature.  f32 accumulation, bf16 out.
+//
+// Replaces: llama_fastapi_k8s_gpu_tpu/ops/pallas/q5matmul.py::
+// _q5k_pre_kernel (the JAX default layout) and _q5k_matmul_kernel (the
+// `cur` split layout).  Both compute one function from two TPU repacks of
+// the same blocks (a pre-combined int8 plane, or nibble and hi-bit planes,
+// with bf16-folded scales and correction columns); this kernel decodes the
+// file's own bytes in registers, so loading a weight is an upload.  Element
+// i of sub-block j is q = nibble(qs[(j/2)*32 + i], high if j odd)
+// + 16*((qh[i] >> j) & 1), and w = d*sc[j]*q - dmin*mn[j] with d*sc and
+// dmin*mn exact in f32.
+//
+// Bound on the H100: bytes at decode (B = 1: ~5.5 bits/weight read once,
+// 2 flops/weight), operations at prefill (B = 256).  Same design as
+// q4k_matmul.cu, CUDA cores only:
+//   - a block of WARPS warps owns WARPS consecutive output rows, one warp
+//     per row; grid.y tiles the activation rows by RB;
+//   - the warp walks the row's super-blocks; lane l decodes the 8 weights
+//     (sub-block l/4, elements (l%4)*8..+8) from one 8-byte load of
+//     nibbles, one 8-byte load of the matching qh bytes (blk + 16 + e0:
+//     the 176-byte stride keeps both 8-byte aligned) and the shared 16-byte
+//     header, and reuses them for all RB activation rows;
+//   - the RB x 256 activation slice of the super-block is staged in padded
+//     shared memory as f32;
+//   - per activation row the lane keeps sum(q*x) and sum(x), and applies
+//     the sub-block scale and min once per 8 weights; a warp reduction
+//     finishes the row.
+#include "common.cuh"
+
+namespace {
+
+constexpr int XPAD = lfkt::QK_K + lfkt::QK_K / 8;   // 288 floats per staged row
+
+__device__ __forceinline__ int xslot(int c) { return c + (c >> 3); }
+
+template <int WARPS, int RB>
+__global__ void __launch_bounds__(WARPS * 32)
+q5k_matmul_kernel(const __nv_bfloat16* __restrict__ x,
+                  const uint8_t* __restrict__ w,
+                  __nv_bfloat16* __restrict__ y, int B, int N, int K) {
+    __shared__ float xs[RB][XPAD];
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int n = blockIdx.x * WARPS + warp;
+    const int b0 = blockIdx.y * RB;
+    const int nb = K / lfkt::QK_K;
+    const int j = lane >> 2;              // sub-block 0..7
+    const int e0 = (lane & 3) * 8;        // first element within it
+    const int shift = (j & 1) * 4;
+    const uint8_t* wrow = w + static_cast<size_t>(n < N ? n : 0) * nb * lfkt::Q5K_BLOCK;
+
+    float acc[RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) acc[r] = 0.f;
+
+    for (int sb = 0; sb < nb; ++sb) {
+        __syncthreads();
+        for (int i = threadIdx.x; i < RB * lfkt::QK_K; i += WARPS * 32) {
+            const int r = i / lfkt::QK_K, c = i % lfkt::QK_K;
+            const int b = b0 + r;
+            xs[r][xslot(c)] = b < B
+                ? __bfloat162float(x[static_cast<size_t>(b) * K + sb * lfkt::QK_K + c])
+                : 0.f;
+        }
+        __syncthreads();
+        if (n >= N) continue;
+        const uint8_t* blk = wrow + static_cast<size_t>(sb) * lfkt::Q5K_BLOCK;
+        const float d = lfkt::f16_at(blk);
+        const float dmin = lfkt::f16_at(blk + 2);
+        int sc, mn;
+        lfkt::scale_min_k4(blk + 4, j, sc, mn);
+        const uint2 qs = *reinterpret_cast<const uint2*>(blk + 48 + (j >> 1) * 32 + e0);
+        const uint2 qh = *reinterpret_cast<const uint2*>(blk + 16 + e0);
+        float q[8];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const uint32_t n0 = (qs.x >> (8 * k + shift)) & 0x0F;
+            const uint32_t n1 = (qs.y >> (8 * k + shift)) & 0x0F;
+            const uint32_t h0 = (qh.x >> (8 * k + j)) & 1;
+            const uint32_t h1 = (qh.y >> (8 * k + j)) & 1;
+            q[k] = static_cast<float>(n0 + 16 * h0);
+            q[k + 4] = static_cast<float>(n1 + 16 * h1);
+        }
+        const float scale = d * static_cast<float>(sc);
+        const float minv = dmin * static_cast<float>(mn);
+        const int c0 = j * 32 + e0;
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+            float sqx = 0.f, sx = 0.f;
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+                const float xv = xs[r][xslot(c0 + k)];
+                sqx = fmaf(q[k], xv, sqx);
+                sx += xv;
+            }
+            acc[r] += scale * sqx - minv * sx;
+        }
+    }
+    if (n >= N) return;
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+        const float v = lfkt::warp_sum(acc[r]);
+        if (lane == 0 && b0 + r < B) y[static_cast<size_t>(b0 + r) * N + n] = __float2bfloat16_rn(v);
+    }
+}
+
+template <int WARPS, int RB>
+int launch(const void* x, const void* w, void* y, int B, int N, int K, cudaStream_t s) {
+    dim3 grid((N + WARPS - 1) / WARPS, (B + RB - 1) / RB);
+    q5k_matmul_kernel<WARPS, RB><<<grid, WARPS * 32, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
+        static_cast<__nv_bfloat16*>(y), B, N, K);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+LFKT_API int lfkt_q5k_matmul(const void* x, const void* w, void* y, int B, int N,
+                             int K, void* stream) {
+    if (B <= 0 || N <= 0) return 0;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (B == 1) return launch<8, 1>(x, w, y, B, N, K, s);
+    return launch<16, 8>(x, w, y, B, N, K, s);
+}

@@ -3,8 +3,9 @@
 // row of K/256 blocks per output feature.  f32 accumulation, bf16 out.
 //
 // Replaces: llama_fastapi_k8s_gpu_tpu/ops/pallas/q6matmul.py::
-// _q6k_matmul_kernel (q6k_matmul / q6k_matmul_stacked, default `cur`).  The
-// Pallas kernel took a host repack (nibble and crumb planes, element-major
+// _q6k_matmul_kernel (q6k_matmul / q6k_matmul_stacked, default `cur`) and
+// _q6k_pre_kernel (the `pre` layout of the same function).  The Pallas
+// kernels took a host repack (nibble and crumb planes, element-major
 // columns, bf16-folded d*sc and 256 correction columns).  Here the block
 // bytes are decoded in registers: q6 = (ql nibble) | (qh crumb << 4),
 // w = d * sc[16-element sub-block] * (q6 - 32), with d*sc exact in f32.
@@ -24,12 +25,6 @@ namespace {
 constexpr int XPAD = lfkt::QK_K + lfkt::QK_K / 8;
 
 __device__ __forceinline__ int xslot(int c) { return c + (c >> 3); }
-
-__device__ __forceinline__ void load8(const uint8_t* p, uint32_t& lo, uint32_t& hi) {
-    const uint16_t* h = reinterpret_cast<const uint16_t*>(p);
-    lo = static_cast<uint32_t>(h[0]) | (static_cast<uint32_t>(h[1]) << 16);
-    hi = static_cast<uint32_t>(h[2]) | (static_cast<uint32_t>(h[3]) << 16);
-}
 
 template <int WARPS, int RB>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -71,8 +66,8 @@ q6k_matmul_kernel(const __nv_bfloat16* __restrict__ x,
         const float scale = lfkt::f16_at(blk + 208) *
                             static_cast<float>(static_cast<int8_t>(blk[192 + sub]));
         uint32_t l0, l1, h0, h1;
-        load8(blk + ql_off, l0, l1);
-        load8(blk + qh_off, h0, h1);
+        lfkt::load8_a2(blk + ql_off, l0, l1);
+        lfkt::load8_a2(blk + qh_off, h0, h1);
         float q[8];
 #pragma unroll
         for (int k = 0; k < 4; ++k) {

@@ -150,7 +150,8 @@ class Engine:
             self.tokenizer = tokenizer_from_gguf(gf)
             if weight_format == "auto":
                 # small models keep exact bf16; an 8B model serves its
-                # Q4_K/Q6_K blocks fused on the GPU.  The CPU has only the
+                # Q4_K/Q5_K/Q6_K/Q8_0 blocks fused on the GPU ("q4k" names
+                # the fused formats, as in the reference).  The CPU has only the
                 # plain versions of the fused kernels, which dequantize on
                 # every call, so it keeps bf16 at any size.
                 n_lin = self.cfg.n_layers * (

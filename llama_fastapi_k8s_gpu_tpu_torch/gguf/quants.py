@@ -1,19 +1,24 @@
-"""Numpy reference codecs for the GGML formats a Llama-3 Q4_K_M file holds.
+"""Numpy reference codecs for the GGML formats of Llama-3 Q4_K_M, Q5_K_M
+and Q8_0 files.
 
 These are the host-side bit oracle for the port's CUDA kernels
-(``ops/dequant.py``, ``ops/q4k.py``, ``ops/q6k.py``): each kernel decodes the
-same block bytes and is held against these functions.  Only the formats the
-main serving path meets are kept: F32 and F16 (norms, small test files), Q4_K
-(most linears and ``token_embd``) and Q6_K (``attn_v``/``ffn_down``/
-``output`` in Q4_K_M files).  Quantizers exist so tests and model synthesis
-can build valid GGUF files; they use straightforward affine fits per
-sub-block (not llama.cpp's iterative search) — only the *decode* layout is
-contractual.
+(``ops/dequant.py``, ``ops/q4k.py``, ``ops/q5k.py``, ``ops/q6k.py``,
+``ops/q8.py``): each kernel decodes the same block bytes and is held against
+these functions.  Only the formats the serving path meets are kept: F32 and
+F16 (norms, small test files), Q4_K / Q5_K (most linears and ``token_embd``
+of Q4_K_M / Q5_K_M files), Q6_K (``attn_v``/``ffn_down``/``output`` in
+those files) and Q8_0 (every tensor of a Q8_0 file).  Quantizers exist so
+tests and model synthesis can build valid GGUF files; they use
+straightforward affine fits per sub-block (not llama.cpp's iterative
+search) — only the *decode* layout is contractual.
 
 Layout notes (all little-endian):
 
+- ``Q8_0``  block=32:   f16 d | 32×i8            y = d*q
 - ``Q4_K``  block=256:  f16 d | f16 dmin | 12B 6-bit scales/mins | 128B nibbles
                         y = d*sc[j]*q - dmin*m[j], 8 sub-blocks of 32
+- ``Q5_K``  block=256:  Q4_K's header | 32B qh | 128B nibbles
+                        q = nibble + 16*((qh >> j) & 1), then as Q4_K
 - ``Q6_K``  block=256:  128B ql | 64B qh | 16×i8 scales | f16 d
                         y = d*sc[j]*(q-32), 16 sub-blocks of 16, q 6-bit
 """
@@ -48,6 +53,31 @@ def dequant_f32(buf: np.ndarray, n: int) -> np.ndarray:
 
 def dequant_f16(buf: np.ndarray, n: int) -> np.ndarray:
     return buf[: n * 2].view(np.float16).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Q8_0
+# ---------------------------------------------------------------------------
+
+@_garbage_tolerant
+def dequant_q8_0(buf: np.ndarray, n: int) -> np.ndarray:
+    nb = n // 32
+    blocks = buf[: nb * 34].reshape(nb, 34)
+    d = _f16(blocks[:, :2].reshape(-1))  # (nb,)
+    q = blocks[:, 2:].view(np.int8).astype(np.float32)  # (nb, 32)
+    return (d[:, None] * q).reshape(-1)
+
+
+def quant_q8_0(x: np.ndarray) -> np.ndarray:
+    x = np.ascontiguousarray(x, dtype=np.float32).reshape(-1, 32)
+    amax = np.abs(x).max(axis=1)
+    d = (amax / 127.0).astype(np.float16)
+    inv = np.where(d > 0, 1.0 / d.astype(np.float32), 0.0)
+    q = np.clip(np.round(x * inv[:, None]), -128, 127).astype(np.int8)
+    out = np.empty((x.shape[0], 34), dtype=np.uint8)
+    out[:, :2] = d.view(np.uint8).reshape(-1, 2)
+    out[:, 2:] = q.view(np.uint8)
+    return out.reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +167,76 @@ def quant_q4_k(x: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# Q5_K
+# ---------------------------------------------------------------------------
+
+@_garbage_tolerant
+def dequant_q5_k(buf: np.ndarray, n: int) -> np.ndarray:
+    nb = n // QK_K
+    bs = GGML_BLOCK_SIZES[GGMLType.Q5_K][1]  # 176
+    blocks = buf[: nb * bs].reshape(nb, bs)
+    d = _f16(blocks[:, 0:2].reshape(-1))
+    dmin = _f16(blocks[:, 2:4].reshape(-1))
+    sc, mn = unpack_scale_min_k4(blocks[:, 4:16])
+    qh = blocks[:, 16:48]                      # (nb, 32)
+    qs = blocks[:, 48:].reshape(nb, 4, 32)
+    lo = (qs & 0x0F).astype(np.uint8)
+    hi = (qs >> 4).astype(np.uint8)
+    # sub-block j (0..7) gets high bit (qh >> j) & 1; even j from low nibble,
+    # odd j from high nibble (u1=1,u2=2 doubling per 64-group in llama.cpp).
+    shifts = np.arange(8, dtype=np.uint8)
+    hibits = ((qh[:, None, :] >> shifts[None, :, None]) & 1).astype(np.uint8)  # (nb, 8, 32)
+    q = np.empty((nb, 8, 32), dtype=np.float32)
+    q[:, 0::2, :] = lo
+    q[:, 1::2, :] = hi
+    q += hibits.astype(np.float32) * 16.0
+    scale = d[:, None] * sc.astype(np.float32)
+    minv = dmin[:, None] * mn.astype(np.float32)
+    y = scale[:, :, None] * q - minv[:, :, None]
+    return y.reshape(-1)
+
+
+def quant_q5_k(x: np.ndarray) -> np.ndarray:
+    x = np.ascontiguousarray(x, dtype=np.float32).reshape(-1, 8, 32)
+    nb = x.shape[0]
+    vmin = np.minimum(x.min(axis=2), 0.0)
+    vmax = x.max(axis=2)
+    sub_scale = np.maximum((vmax - vmin) / 31.0, 0.0)
+    d = (sub_scale.max(axis=1) / 63.0).astype(np.float16)
+    dmin = ((-vmin).max(axis=1) / 63.0).astype(np.float16)
+    df = d.astype(np.float32)
+    dminf = dmin.astype(np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sc = np.where(df[:, None] > 0, np.round(sub_scale / df[:, None]), 0)
+        mn = np.where(dminf[:, None] > 0, np.round(-vmin / dminf[:, None]), 0)
+    sc = np.clip(sc, 0, 63).astype(np.uint8)
+    mn = np.clip(mn, 0, 63).astype(np.uint8)
+    eff_scale = df[:, None] * sc
+    eff_min = dminf[:, None] * mn
+    with np.errstate(divide="ignore", invalid="ignore"):
+        q = np.where(
+            eff_scale[:, :, None] > 0,
+            np.round((x + eff_min[:, :, None]) / eff_scale[:, :, None]),
+            0,
+        )
+    q = np.clip(q, 0, 31).astype(np.uint8)            # (nb, 8, 32), 5-bit
+    lo = q & 0x0F
+    hb = (q >> 4) & 1
+    shifts = np.arange(8, dtype=np.uint8)
+    qh = np.zeros((nb, 32), dtype=np.uint8)
+    for j in range(8):
+        qh |= (hb[:, j, :] << shifts[j])
+    packed = lo[:, 0::2, :] | (lo[:, 1::2, :] << 4)   # (nb, 4, 32)
+    out = np.empty((nb, 176), dtype=np.uint8)
+    out[:, 0:2] = d.view(np.uint8).reshape(-1, 2)
+    out[:, 2:4] = dmin.view(np.uint8).reshape(-1, 2)
+    out[:, 4:16] = pack_scale_min_k4(sc, mn)
+    out[:, 16:48] = qh
+    out[:, 48:] = packed.reshape(nb, 128)
+    return out.reshape(-1)
+
+
+# ---------------------------------------------------------------------------
 # Q6_K
 # ---------------------------------------------------------------------------
 
@@ -203,14 +303,18 @@ def quant_q6_k(x: np.ndarray) -> np.ndarray:
 DEQUANT = {
     GGMLType.F32: dequant_f32,
     GGMLType.F16: dequant_f16,
+    GGMLType.Q8_0: dequant_q8_0,
     GGMLType.Q4_K: dequant_q4_k,
+    GGMLType.Q5_K: dequant_q5_k,
     GGMLType.Q6_K: dequant_q6_k,
 }
 
 QUANT = {
     GGMLType.F32: lambda x: np.ascontiguousarray(x, dtype=np.float32).view(np.uint8),
     GGMLType.F16: lambda x: np.ascontiguousarray(x, dtype=np.float32).astype(np.float16).view(np.uint8),
+    GGMLType.Q8_0: quant_q8_0,
     GGMLType.Q4_K: quant_q4_k,
+    GGMLType.Q5_K: quant_q5_k,
     GGMLType.Q6_K: quant_q6_k,
 }
 

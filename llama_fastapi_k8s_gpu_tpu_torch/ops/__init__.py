@@ -5,25 +5,33 @@ Each kernel module pairs a wrapper that launches the CUDA kernel (for CUDA
 tensors) with its plain PyTorch version (for CPU tensors) and counts its
 launches in ``<wrapper>.launches``:
 
-- :mod:`.dequant` — load-time Q4_K → bf16 (``token_embd``);
-- :mod:`.q4k` / :mod:`.q6k` — fused Q4_K / Q6_K dequant-matmuls;
+- :mod:`.dequant` — load-time Q4_K / Q5_K / Q8_0 → bf16 (``token_embd``);
+- :mod:`.q4k` / :mod:`.q5k` / :mod:`.q6k` / :mod:`.q8` — fused Q4_K /
+  Q5_K / Q6_K / Q8_0 dequant-matmuls;
 - :mod:`.attention` — causal GQA flash attention for prompt passes.
 
 Kernels are built from ``csrc/`` at first use (:mod:`._kernels`).
 """
 
 from .attention import flash_attention
-from .dequant import dequant_q4_k
+from .dequant import dequant_q4_k, dequant_q5_k, dequant_q8_0
 from .q4k import q4k_matmul
+from .q5k import q5k_matmul
 from .q6k import q6k_matmul
+from .q8 import q8_matmul
 
-#: every kernel wrapper of the serving path, by the name chip runs report
+#: every kernel wrapper of the serving paths, by the name chip runs report
 KERNELS = {
     "dequant_q4_k": dequant_q4_k,
     "q4k_matmul": q4k_matmul,
     "q6k_matmul": q6k_matmul,
     "flash_attention": flash_attention,
+    "dequant_q5_k": dequant_q5_k,
+    "q5k_matmul": q5k_matmul,
+    "dequant_q8_0": dequant_q8_0,
+    "q8_matmul": q8_matmul,
 }
 
-__all__ = ["KERNELS", "dequant_q4_k", "flash_attention", "q4k_matmul",
-           "q6k_matmul"]
+__all__ = ["KERNELS", "dequant_q4_k", "dequant_q5_k", "dequant_q8_0",
+           "flash_attention", "q4k_matmul", "q5k_matmul", "q6k_matmul",
+           "q8_matmul"]

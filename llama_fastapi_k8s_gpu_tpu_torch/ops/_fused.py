@@ -1,0 +1,52 @@
+"""The shared wrapper of the fused dequant-matmuls (``q4k``, ``q5k``,
+``q6k``, ``q8``).
+
+Each format keeps its weight as the file's own block bytes, one row of
+blocks per output feature: ``(N, K / block_elems · block_bytes)`` uint8.
+:func:`fused_matmul` checks the shapes, runs the format's plain version for
+a CPU tensor, and otherwise launches the format's CUDA kernel and counts
+the launch on the public wrapper it was given.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ._kernels import check, library, require_cuda, stream_ptr
+
+
+def matmul_plain(dequant_f32, x: torch.Tensor, w: torch.Tensor, n_out: int,
+                 k_in: int) -> torch.Tensor:
+    """The plain version of every fused matmul: dequantize W to f32 with
+    the codec's arithmetic, multiply in f32, round the result to
+    ``x.dtype``."""
+    wf = dequant_f32(w.reshape(-1)).reshape(n_out, k_in)
+    return torch.matmul(x.float(), wf.t()).to(x.dtype)
+
+
+def fused_matmul(wrapper, plain, launcher: str, x: torch.Tensor, w: torch.Tensor,
+                 n_out: int, k_in: int, block_elems: int, block_bytes: int,
+                 align: int) -> torch.Tensor:
+    """x (..., K) bf16 → (..., N) bf16 against the block rows ``w``.
+
+    ``align`` is the byte alignment the kernel's widest weight load needs
+    of ``w``'s base address (the row stride keeps it for every row)."""
+    name = wrapper.__name__
+    if k_in % block_elems or w.shape != (n_out, k_in // block_elems * block_bytes):
+        raise ValueError(f"{name}: weight {tuple(w.shape)} is not ({n_out}, {k_in}) "
+                         f"in {block_bytes}-byte blocks of {block_elems}")
+    if x.shape[-1] != k_in:
+        raise ValueError(f"{name}: x has K={x.shape[-1]}, weight {k_in}")
+    if x.device.type == "cpu":
+        return plain(x, w, n_out, k_in)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k_in).contiguous()
+    require_cuda(name, x2, w, dtypes=(torch.bfloat16, torch.uint8))
+    if w.data_ptr() % align:
+        raise ValueError(f"{name}: weight address not {align}-byte aligned")
+    y = torch.empty(x2.shape[0], n_out, dtype=torch.bfloat16, device=x.device)
+    check(getattr(library(), launcher)(x2.data_ptr(), w.data_ptr(), y.data_ptr(),
+                                       x2.shape[0], n_out, k_in, stream_ptr(x)),
+          name)
+    wrapper.launches += 1
+    return y.reshape(*lead, n_out)

@@ -38,8 +38,12 @@ _I = ctypes.c_int
 #: C signature of every exported launcher (all return the cudaError_t)
 SIGNATURES = {
     "lfkt_dequant_q4k": [_P, _P, ctypes.c_longlong, _P],
+    "lfkt_dequant_q5k": [_P, _P, ctypes.c_longlong, _P],
+    "lfkt_dequant_q8_0": [_P, _P, ctypes.c_longlong, _P],
     "lfkt_q4k_matmul": [_P, _P, _P, _I, _I, _I, _P],
+    "lfkt_q5k_matmul": [_P, _P, _P, _I, _I, _I, _P],
     "lfkt_q6k_matmul": [_P, _P, _P, _I, _I, _I, _P],
+    "lfkt_q8_matmul": [_P, _P, _P, _I, _I, _I, _P],
     "lfkt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              ctypes.c_float, _I, _P],
 }

@@ -1,13 +1,19 @@
-"""Load-time Q4_K → bf16 dequantization (``token_embd`` of a Q4_K_M file).
+"""Load-time dequantization of ``token_embd``: Q4_K, Q5_K and Q8_0 → bf16.
 
-``dequant_q4_k`` launches the CUDA kernel in ``csrc/dequant_q4k.cu`` for a
-CUDA tensor of raw GGUF block bytes, and runs its plain PyTorch version,
-:func:`dequant_q4_k_plain`, for a CPU tensor.  Both are bit-identical to the
-numpy codec (gguf/quants.py::dequant_q4_k) cast to bf16.
+Each wrapper (``dequant_q4_k``, ``dequant_q5_k``, ``dequant_q8_0``)
+launches its CUDA kernel (``csrc/dequant_q4k.cu``, ``csrc/dequant_q5k.cu``,
+``csrc/dequant_q8_0.cu``) for a CUDA tensor of raw GGUF block bytes, and
+runs its plain PyTorch version (``*_plain``) for a CPU tensor.  Both are
+bit-identical to the numpy codec (gguf/quants.py) cast to bf16.
 
-Replaces the Pallas kernel llama_fastapi_k8s_gpu_tpu/ops/pallas/dequant.py::
-_q4_k_kernel.  Unlike the JAX ``device_dequant`` there is no latch that
-falls back to the host codec: a kernel that fails to build or launch raises.
+Replace the Pallas kernels llama_fastapi_k8s_gpu_tpu/ops/pallas/dequant.py::
+_q4_k_kernel, _q5_k_kernel and _q8_0_kernel.  Unlike the JAX
+``device_dequant`` there is no latch that falls back to the host codec: a
+kernel that fails to build or launch raises.
+
+The ``*_f32`` helpers are the codecs' arithmetic in PyTorch (each step
+rounded in f32 as numpy rounds it); the fused matmuls' plain versions
+dequantize with them too.
 """
 
 from __future__ import annotations
@@ -18,52 +24,114 @@ from ._kernels import check, library, require_cuda, stream_ptr
 
 QK_K = 256
 Q4K_BLOCK = 144
+Q5K_BLOCK = 176
+QK8_0 = 32
+Q8_0_BLOCK = 34
 
 
-def _q4k_parts(blocks: torch.Tensor):
-    """(nb, 144) uint8 → (q (nb, 8, 32) f32, scale (nb, 8) f32, min (nb, 8)
-    f32): the decoded nibbles and the per-sub-block d*sc and dmin*mn."""
-    nb = blocks.shape[0]
-    d = blocks[:, 0:2].contiguous().view(torch.float16).float()      # (nb, 1)
-    dmin = blocks[:, 2:4].contiguous().view(torch.float16).float()
+def _f16(blocks: torch.Tensor, at: int) -> torch.Tensor:
+    """(nb, size) uint8 → (nb, 1) f32 of the f16 at byte ``at`` of each block."""
+    return blocks[:, at:at + 2].contiguous().view(torch.float16).float()
+
+
+def _k4_scales(blocks: torch.Tensor):
+    """The per-sub-block d*sc and dmin*mn (nb, 8) f32 of Q4_K/Q5_K blocks."""
     s = blocks[:, 4:16].to(torch.int32)
     sc = torch.cat([s[:, 0:4] & 63, (s[:, 8:12] & 0x0F) | ((s[:, 0:4] >> 6) << 4)], 1)
     mn = torch.cat([s[:, 4:8] & 63, (s[:, 8:12] >> 4) | ((s[:, 4:8] >> 6) << 4)], 1)
-    qs = blocks[:, 16:].reshape(nb, 4, 1, 32)
-    q = torch.cat([qs & 0x0F, qs >> 4], dim=2).reshape(nb, 8, 32).float()
-    return q, d * sc.float(), dmin * mn.float()
+    return _f16(blocks, 0) * sc.float(), _f16(blocks, 2) * mn.float()
+
+
+def _nibbles(qs: torch.Tensor) -> torch.Tensor:
+    """(nb, 128) packed nibbles → (nb, 8, 32): byte g*32+i holds element i
+    of sub-block 2g (low nibble) and 2g+1 (high)."""
+    q = qs.reshape(-1, 4, 1, 32)
+    return torch.cat([q & 0x0F, q >> 4], dim=2).reshape(-1, 8, 32)
 
 
 def dequant_q4_k_f32(raw: torch.Tensor) -> torch.Tensor:
-    """Flat Q4_K block bytes → flat f32, the numpy codec's arithmetic
-    (d*sc, then scale*q, then minus dmin*mn, each rounded in f32)."""
+    """Flat Q4_K block bytes → flat f32 (d*sc, then scale*q, then minus
+    dmin*mn, each rounded in f32)."""
     blocks = raw.reshape(-1, Q4K_BLOCK)
-    q, scale, minv = _q4k_parts(blocks)
+    scale, minv = _k4_scales(blocks)
+    q = _nibbles(blocks[:, 16:]).float()
     return (scale[:, :, None] * q - minv[:, :, None]).reshape(-1)
 
 
+def dequant_q5_k_f32(raw: torch.Tensor) -> torch.Tensor:
+    """Flat Q5_K block bytes → flat f32: Q4_K's arithmetic on
+    ``q = nibble + 16·((qh >> j) & 1)`` for sub-block ``j``."""
+    blocks = raw.reshape(-1, Q5K_BLOCK)
+    scale, minv = _k4_scales(blocks)
+    shifts = torch.arange(8, dtype=torch.uint8, device=raw.device)
+    hb = (blocks[:, None, 16:48] >> shifts[None, :, None]) & 1      # (nb, 8, 32)
+    q = (_nibbles(blocks[:, 48:]) + 16 * hb).float()
+    return (scale[:, :, None] * q - minv[:, :, None]).reshape(-1)
+
+
+def dequant_q8_0_f32(raw: torch.Tensor) -> torch.Tensor:
+    """Flat Q8_0 block bytes → flat f32, ``d·q`` per 32-element block."""
+    blocks = raw.reshape(-1, Q8_0_BLOCK)
+    q = blocks[:, 2:].contiguous().view(torch.int8).float()
+    return (_f16(blocks, 0) * q).reshape(-1)
+
+
 def dequant_q4_k_plain(raw: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: flat bytes → flat bf16."""
+    """Plain PyTorch version of the Q4_K kernel: flat bytes → flat bf16."""
     return dequant_q4_k_f32(raw).to(torch.bfloat16)
 
 
-def dequant_q4_k(raw: torch.Tensor) -> torch.Tensor:
-    """Raw Q4_K bytes (any shape, ``numel % 144 == 0``) → flat bf16 of
-    ``numel / 144 * 256`` elements.  CUDA tensors launch the kernel; CPU
-    tensors take :func:`dequant_q4_k_plain`."""
-    if raw.dtype != torch.uint8 or raw.numel() % Q4K_BLOCK:
-        raise ValueError(f"dequant_q4_k: need uint8 bytes in whole {Q4K_BLOCK}-byte "
+def dequant_q5_k_plain(raw: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the Q5_K kernel: flat bytes → flat bf16."""
+    return dequant_q5_k_f32(raw).to(torch.bfloat16)
+
+
+def dequant_q8_0_plain(raw: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the Q8_0 kernel: flat bytes → flat bf16."""
+    return dequant_q8_0_f32(raw).to(torch.bfloat16)
+
+
+def _dequant(wrapper, plain, launcher: str, raw: torch.Tensor, block_bytes: int,
+             block_elems: int) -> torch.Tensor:
+    """Raw bytes (any shape, whole blocks) → flat bf16: the kernel for a
+    CUDA tensor (counted on ``wrapper.launches``), ``plain`` for a CPU one."""
+    name = wrapper.__name__
+    if raw.dtype != torch.uint8 or raw.numel() % block_bytes:
+        raise ValueError(f"{name}: need uint8 bytes in whole {block_bytes}-byte "
                          f"blocks, got {raw.dtype} x {raw.numel()}")
     if raw.device.type == "cpu":
-        return dequant_q4_k_plain(raw)
+        return plain(raw)
     raw = raw.contiguous()
-    require_cuda("dequant_q4_k", raw)
-    nb = raw.numel() // Q4K_BLOCK
-    out = torch.empty(nb * QK_K, dtype=torch.bfloat16, device=raw.device)
-    check(library().lfkt_dequant_q4k(raw.data_ptr(), out.data_ptr(), nb,
-                                     stream_ptr(raw)), "dequant_q4_k")
-    dequant_q4_k.launches += 1
+    require_cuda(name, raw)
+    nb = raw.numel() // block_bytes
+    out = torch.empty(nb * block_elems, dtype=torch.bfloat16, device=raw.device)
+    check(getattr(library(), launcher)(raw.data_ptr(), out.data_ptr(), nb,
+                                       stream_ptr(raw)), name)
+    wrapper.launches += 1
     return out
 
 
+def dequant_q4_k(raw: torch.Tensor) -> torch.Tensor:
+    """Raw Q4_K bytes (``numel % 144 == 0``) → flat bf16 of ``numel / 144 ·
+    256`` elements."""
+    return _dequant(dequant_q4_k, dequant_q4_k_plain, "lfkt_dequant_q4k", raw,
+                    Q4K_BLOCK, QK_K)
+
+
+def dequant_q5_k(raw: torch.Tensor) -> torch.Tensor:
+    """Raw Q5_K bytes (``numel % 176 == 0``) → flat bf16 of ``numel / 176 ·
+    256`` elements."""
+    return _dequant(dequant_q5_k, dequant_q5_k_plain, "lfkt_dequant_q5k", raw,
+                    Q5K_BLOCK, QK_K)
+
+
+def dequant_q8_0(raw: torch.Tensor) -> torch.Tensor:
+    """Raw Q8_0 bytes (``numel % 34 == 0``) → flat bf16 of ``numel / 34 ·
+    32`` elements."""
+    return _dequant(dequant_q8_0, dequant_q8_0_plain, "lfkt_dequant_q8_0", raw,
+                    Q8_0_BLOCK, QK8_0)
+
+
 dequant_q4_k.launches = 0
+dequant_q5_k.launches = 0
+dequant_q8_0.launches = 0

@@ -1,11 +1,12 @@
 """Linear-layer formats and the matmul dispatch.
 
-A :class:`Linear` holds one weight in one of three formats, named by
-``kind``:
+A :class:`Linear` holds one weight in one format, named by ``kind``:
 
 - ``"bf16"`` — a (out, in) bf16 plane, multiplied with ``torch.matmul``;
-- ``"q4k"`` / ``"q6k"`` — the GGUF block bytes, (out, in/256 · block) uint8,
-  multiplied by the fused kernels of :mod:`.q4k` / :mod:`.q6k`.
+- ``"q4k"`` / ``"q5k"`` / ``"q6k"`` / ``"q8"`` — the GGUF Q4_K / Q5_K /
+  Q6_K / Q8_0 block bytes, (out, in/block · block bytes) uint8, multiplied
+  by the fused kernels of :mod:`.q4k` / :mod:`.q5k` / :mod:`.q6k` /
+  :mod:`.q8`.
 
 Each layer keeps its own weights (models/params.py holds them in an
 ``nn.ModuleList``), so there is no stacked-layer indexing.  The int8 format
@@ -18,9 +19,12 @@ import torch
 from torch import nn
 
 from .q4k import q4k_matmul
+from .q5k import q5k_matmul
 from .q6k import q6k_matmul
+from .q8 import q8_matmul
 
-_FUSED = {"q4k": q4k_matmul, "q6k": q6k_matmul}
+_FUSED = {"q4k": q4k_matmul, "q5k": q5k_matmul, "q6k": q6k_matmul,
+          "q8": q8_matmul}
 
 
 class Linear(nn.Module):
@@ -29,7 +33,7 @@ class Linear(nn.Module):
     def __init__(self, kind: str, weight: torch.Tensor, n_out: int, k_in: int):
         super().__init__()
         if kind != "bf16" and kind not in _FUSED:
-            raise ValueError(f"linear kind must be bf16|q4k|q6k, got {kind!r}")
+            raise ValueError(f"linear kind must be bf16|{'|'.join(_FUSED)}, got {kind!r}")
         self.kind = kind
         self.n_out = n_out
         self.k_in = k_in

@@ -3,20 +3,23 @@
 ``q6k_matmul`` launches the CUDA kernel in ``csrc/q6k_matmul.cu`` for CUDA
 tensors and runs :func:`q6k_matmul_plain` for CPU tensors.  The weight is
 the file's own bytes, ``(N, K/256 · 210)`` uint8, one row of super-blocks
-per output feature.  Q4_K_M files keep ``attn_v``, ``ffn_down`` and
-``output`` in this format.
+per output feature.  Q4_K_M and Q5_K_M files keep ``attn_v``, ``ffn_down``
+and ``output`` in this format.
 
-Replaces the Pallas kernel llama_fastapi_k8s_gpu_tpu/ops/pallas/q6matmul.py::
+Replaces the Pallas kernels llama_fastapi_k8s_gpu_tpu/ops/pallas/q6matmul.py::
 _q6k_matmul_kernel (``q6k_matmul`` / ``q6k_matmul_stacked``, default
-``cur``).  ``w = d · sc[16-element sub-block] · (q6 − 32)`` with the scale
-exact in f32, where the Pallas kernel folds it to bf16.
+``cur``) and _q6k_pre_kernel (the ``LFKT_Q6K_KERNEL=pre`` layout): the two
+compute one function from two TPU repacks of the same blocks, and this
+kernel computes it from the blocks themselves.  ``w = d · sc[16-element
+sub-block] · (q6 − 32)`` with the scale exact in f32, where the Pallas
+kernels fold it to bf16.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ._kernels import check, library, require_cuda, stream_ptr
+from ._fused import fused_matmul, matmul_plain
 from .dequant import QK_K
 
 Q6K_BLOCK = 210
@@ -41,30 +44,15 @@ def q6k_matmul_plain(x: torch.Tensor, w: torch.Tensor, n_out: int,
                      k_in: int) -> torch.Tensor:
     """Plain PyTorch version: dequantize W to f32, multiply in f32, round
     the result to ``x.dtype``."""
-    wf = dequant_q6_k_f32(w.reshape(-1)).reshape(n_out, k_in)
-    return torch.matmul(x.float(), wf.t()).to(x.dtype)
+    return matmul_plain(dequant_q6_k_f32, x, w, n_out, k_in)
 
 
 def q6k_matmul(x: torch.Tensor, w: torch.Tensor, n_out: int,
                k_in: int) -> torch.Tensor:
     """x (..., K) bf16 → (..., N) bf16 against the Q6_K block rows ``w``
     (N, K/256·210) uint8."""
-    if k_in % QK_K or w.shape != (n_out, k_in // QK_K * Q6K_BLOCK):
-        raise ValueError(f"q6k_matmul: weight {tuple(w.shape)} is not ({n_out}, "
-                         f"{k_in}) in Q6_K blocks")
-    if x.shape[-1] != k_in:
-        raise ValueError(f"q6k_matmul: x has K={x.shape[-1]}, weight {k_in}")
-    if x.device.type == "cpu":
-        return q6k_matmul_plain(x, w, n_out, k_in)
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, k_in).contiguous()
-    require_cuda("q6k_matmul", x2, w, dtypes=(torch.bfloat16, torch.uint8))
-    y = torch.empty(x2.shape[0], n_out, dtype=torch.bfloat16, device=x.device)
-    check(library().lfkt_q6k_matmul(x2.data_ptr(), w.data_ptr(), y.data_ptr(),
-                                    x2.shape[0], n_out, k_in, stream_ptr(x)),
-          "q6k_matmul")
-    q6k_matmul.launches += 1
-    return y.reshape(*lead, n_out)
+    return fused_matmul(q6k_matmul, q6k_matmul_plain, "lfkt_q6k_matmul", x, w,
+                        n_out, k_in, QK_K, Q6K_BLOCK, align=2)
 
 
 q6k_matmul.launches = 0

@@ -2,9 +2,9 @@
 
 Integer and format work must be bit-identical: the reader's header,
 metadata and tensor bytes, the writer's file bytes, the numpy codecs, and
-the plain Q4_K → bf16 dequant (what the CUDA kernel is held to on the card)
-against the reference codec followed by its bf16 cast and against the
-reference's Pallas kernel in interpret mode.
+the plain Q4_K / Q5_K / Q8_0 → bf16 dequants (what the CUDA kernels are
+held to on the card) against the reference codec followed by its bf16 cast
+and against the reference's Pallas kernels in interpret mode.
 """
 
 from __future__ import annotations
@@ -19,22 +19,29 @@ from llama_fastapi_k8s_gpu_tpu.gguf import GGMLType as JGGMLType
 from llama_fastapi_k8s_gpu_tpu.gguf import GGUFFile as JGGUFFile
 from llama_fastapi_k8s_gpu_tpu.gguf import GGUFWriter as JGGUFWriter
 from llama_fastapi_k8s_gpu_tpu.gguf import quants as jq
-from llama_fastapi_k8s_gpu_tpu.ops.pallas.dequant import dequant_q4_k_device
+from llama_fastapi_k8s_gpu_tpu.ops.pallas.dequant import (
+    dequant_q4_k_device,
+    dequant_q5_k_device,
+    dequant_q8_0_device,
+)
 from llama_fastapi_k8s_gpu_tpu.testing import write_tiny_llama_gguf
 from llama_fastapi_k8s_gpu_tpu_torch.gguf import GGMLType, GGUFFile, GGUFWriter, quants
-from llama_fastapi_k8s_gpu_tpu_torch.ops.dequant import dequant_q4_k
+from llama_fastapi_k8s_gpu_tpu_torch.ops.dequant import dequant_q4_k, dequant_q5_k, dequant_q8_0
 
 torch.set_num_threads(1)
 
 
 def _rand_blocks(rng, nb: int, size: int, valid: bool) -> np.ndarray:
-    """Random block bytes; ``valid`` pins the f16 scale fields to finite
-    values (the garbage variant decodes to inf/NaN, also defined)."""
+    """Random block bytes (Q4_K 144, Q5_K 176, Q6_K 210, Q8_0 34 bytes);
+    ``valid`` pins the f16 scale fields to finite values (the garbage
+    variant decodes to inf/NaN, also defined)."""
     blk = rng.integers(0, 256, (nb, size), dtype=np.uint8)
     if valid:
         d = rng.uniform(1e-4, 1e-2, (nb, 2)).astype(np.float16).view(np.uint8)
-        if size == 144:
+        if size in (144, 176):
             blk[:, 0:4] = d.reshape(nb, 4)
+        elif size == 34:
+            blk[:, 0:2] = d[:, :2]
         else:
             blk[:, 208:210] = d[:, :2]
     return blk.reshape(-1)
@@ -81,7 +88,7 @@ def test_writer_matches_reference(tmp_path):
     assert files[0] == files[1]
 
 
-@pytest.mark.parametrize("gtype", ["F32", "F16", "Q4_K", "Q6_K"])
+@pytest.mark.parametrize("gtype", ["F32", "F16", "Q4_K", "Q6_K", "Q5_K", "Q8_0"])
 def test_codecs_bit_identical(gtype):
     rng = np.random.default_rng(3)
     x = (rng.standard_normal(4096) * 0.05).astype(np.float32)
@@ -91,12 +98,13 @@ def test_codecs_bit_identical(gtype):
                           jq.dequantize(raw, JGGMLType[gtype], x.size))
 
 
-@pytest.mark.parametrize("gtype,size", [("Q4_K", 144), ("Q6_K", 210)])
+@pytest.mark.parametrize("gtype,size", [("Q4_K", 144), ("Q6_K", 210), ("Q5_K", 176),
+                                        ("Q8_0", 34)])
 @pytest.mark.parametrize("valid", [True, False])
 def test_dequantize_random_blocks(gtype, size, valid):
     rng = np.random.default_rng(size + valid)
     raw = _rand_blocks(rng, 64, size, valid)
-    n = 64 * 256
+    n = 64 * (32 if gtype == "Q8_0" else 256)
     assert np.array_equal(quants.dequantize(raw, GGMLType[gtype], n),
                           jq.dequantize(raw, JGGMLType[gtype], n), equal_nan=True)
 
@@ -109,7 +117,7 @@ def test_unpack_scale_min_k4():
 
 def test_unsupported_type_raises():
     with pytest.raises(NotImplementedError):
-        quants.dequantize(np.zeros(34, np.uint8), GGMLType.Q8_0, 32)
+        quants.dequantize(np.zeros(18, np.uint8), GGMLType.Q4_0, 32)
 
 
 @pytest.mark.parametrize("nb", [1, 300])
@@ -128,6 +136,33 @@ def test_plain_dequant_q4_k_bit_identical_to_reference_bf16(nb):
     assert np.array_equal(got, pallas.view(np.int16))
 
 
+# the reference's Pallas tile is 256 rows (ops/pallas/dequant.py _TILE) and
+# its codec decodes the tail: Q5_K, one row per super-block, 300 = 256 + 44;
+# Q8_0, four blocks a row, 1101 = 4·256 + 4·19 + 1
+@pytest.mark.parametrize("gtype,nb", [("Q5_K", 1), ("Q5_K", 300), ("Q8_0", 3),
+                                      ("Q8_0", 1101)])
+def test_plain_dequant_q5_k_and_q8_0_bit_identical_to_reference_bf16(gtype, nb):
+    """As the Q4_K case: flat bytes → bf16, bit for bit the numpy codec cast
+    to bf16 and the reference's Pallas kernel in interpret mode, over a
+    tail that is not a whole Pallas tile."""
+    size, elems, port, pallas_fn = {
+        "Q5_K": (176, 256, dequant_q5_k, dequant_q5_k_device),
+        "Q8_0": (34, 32, dequant_q8_0, dequant_q8_0_device)}[gtype]
+    raw = _rand_blocks(np.random.default_rng(nb), nb, size, True)
+    n = nb * elems
+    got = port(torch.from_numpy(raw)).view(torch.int16).numpy()
+    want = np.asarray(jnp.asarray(jq.dequantize(raw, JGGMLType[gtype], n),
+                                  jnp.bfloat16)).view(np.int16)
+    assert got.shape == (n,)
+    assert np.array_equal(got, want)
+    pallas = np.asarray(pallas_fn(raw, n, jnp.bfloat16, interpret=True))
+    assert np.array_equal(got, pallas.view(np.int16))
+
+
 def test_dequant_q4_k_rejects_partial_blocks():
     with pytest.raises(ValueError):
         dequant_q4_k(torch.zeros(100, dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        dequant_q5_k(torch.zeros(144, dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        dequant_q8_0(torch.zeros(35, dtype=torch.uint8))

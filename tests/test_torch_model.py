@@ -4,10 +4,14 @@
   ``from_jax_params``; ``forward`` logits agree to rel-dev ≤ 1e-2 (bf16
   activations rounded at the same steps, sums in another order) and 16
   greedy decode tokens are identical;
-- one Q4_K + Q6_K file at dim 2048 (1 layer, 16 heads of 128, ffn 2048),
-  loaded by both: the reference's fused Pallas path (interpret) with its
-  flash kernel against the port's fused + flash plain path, logits rel-dev
-  ≤ 2·10⁻², and the port within 5·10⁻³ of the reference's exact bf16 load.
+- one Q4_K + Q6_K, one Q5_K + Q6_K and one Q8_0 file at dim 2048 (1 layer,
+  16 heads of 128, ffn 2048), loaded by both: the reference's fused Pallas
+  path (interpret) with its flash kernel against the port's fused + flash
+  plain path, logits rel-dev ≤ 2·10⁻², and the port within 5·10⁻³ of the
+  reference's exact bf16 load;
+- which names fuse, and as what, in files that mix types per layer, against
+  the reference's rule; ``token_embd`` of each type with a dequant kernel
+  against the codec.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from llama_fastapi_k8s_gpu_tpu.models.llama import forward as j_forward
 from llama_fastapi_k8s_gpu_tpu.models.llama import init_cache as j_init_cache
 from llama_fastapi_k8s_gpu_tpu.models.params import load_params as j_load_params
 from llama_fastapi_k8s_gpu_tpu.testing import write_tiny_llama_gguf
-from llama_fastapi_k8s_gpu_tpu_torch.gguf import GGUFFile
+from llama_fastapi_k8s_gpu_tpu_torch.gguf import GGMLType, GGUFFile, GGUFWriter, quants
 from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
 from llama_fastapi_k8s_gpu_tpu_torch.models.llama import decode_step, forward, init_cache
 from llama_fastapi_k8s_gpu_tpu_torch.models.params import from_jax_params, load_params
@@ -104,12 +108,14 @@ def test_greedy_decode_16_tokens_identical(tiny):
     assert t_tokens == j_tokens
 
 
-def test_q4km_fused_flash_path_matches_reference(tmp_path):
+def _fused_file_matches_reference(tmp_path, quant, ffn_quant, formats):
+    """A dim-2048 file with ``quant`` attention and ``ffn_quant`` FFN
+    linears: the port's fused + flash forward against the reference's
+    (``fmt="q4k"``, Pallas in interpret mode) and its exact bf16 load."""
     jcfg = JModelConfig(vocab_size=263, dim=2048, n_layers=1, n_heads=16,
                         n_kv_heads=4, ffn_dim=2048, n_ctx=256)
-    path = str(tmp_path / "q4km.gguf")
-    jcfg = write_tiny_llama_gguf(path, cfg=jcfg, quant=JGGMLType.Q4_K,
-                                 ffn_quant=JGGMLType.Q6_K)
+    path = str(tmp_path / "fused.gguf")
+    jcfg = write_tiny_llama_gguf(path, cfg=jcfg, quant=quant, ffn_quant=ffn_quant)
     jgf = JGGUFFile(path)
     jcfg_p = dataclasses.replace(jcfg, attn_impl="pallas")
     toks = np.random.default_rng(0).integers(0, jcfg.vocab_size, 64)
@@ -123,15 +129,138 @@ def test_q4km_fused_flash_path_matches_reference(tmp_path):
     gf = GGUFFile(path)
     cfg = dataclasses.replace(ModelConfig.from_gguf(gf, n_ctx=256), attn_impl="flash")
     params = load_params(gf, cfg, "q4k", device="cpu")
-    assert params.formats() == {"wq": "q4k", "wk": "q4k", "wv": "q4k", "wo": "q4k",
-                                "w_gate": "q6k", "w_up": "q6k", "w_down": "q6k",
-                                "output": "bf16"}
+    assert params.formats() == formats
     with torch.inference_mode():
         got = forward(params, cfg, torch.from_numpy(toks), 0, init_cache(cfg, CPU),
                       return_all=True).numpy()
     assert np.isfinite(got).all()
     assert _rel(got, np.asarray(ref)) <= 2e-2
     assert _rel(got, np.asarray(exact)) <= 5e-3
+
+
+def test_q4km_fused_flash_path_matches_reference(tmp_path):
+    _fused_file_matches_reference(
+        tmp_path, JGGMLType.Q4_K, JGGMLType.Q6_K,
+        {"wq": "q4k", "wk": "q4k", "wv": "q4k", "wo": "q4k", "w_gate": "q6k",
+         "w_up": "q6k", "w_down": "q6k", "output": "bf16"})
+
+
+@pytest.mark.parametrize("layout", ["q5km", "q8_0"])
+def test_q5km_and_q8_0_fused_flash_path_matches_reference(tmp_path, layout):
+    """Q5_K (+ Q6_K FFN) and Q8_0 files, every linear fused; the reference
+    runs its default Q5_K layout (``pre``) and its Q8_0 kernel."""
+    if layout == "q5km":
+        quant, ffn_quant = JGGMLType.Q5_K, JGGMLType.Q6_K
+        formats = {"wq": "q5k", "wk": "q5k", "wv": "q5k", "wo": "q5k",
+                   "w_gate": "q6k", "w_up": "q6k", "w_down": "q6k"}
+    else:
+        quant, ffn_quant = JGGMLType.Q8_0, None
+        formats = dict.fromkeys(("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"),
+                                "q8")
+    _fused_file_matches_reference(tmp_path, quant, ffn_quant,
+                                  {**formats, "output": "bf16"})
+
+
+def _write_file(path: str, cfg: ModelConfig, types, seed: int = 0) -> None:
+    """A Llama GGUF of ``cfg``'s shapes, random weights from ``seed``;
+    ``types(name, layer)`` gives each linear's GGML type (``layer`` is None
+    for token_embd and output)."""
+    rng = np.random.default_rng(seed)
+    w = GGUFWriter(path)
+    for k, v in {"general.architecture": "llama", "llama.block_count": cfg.n_layers,
+                 "llama.embedding_length": cfg.dim,
+                 "llama.feed_forward_length": cfg.ffn_dim,
+                 "llama.attention.head_count": cfg.n_heads,
+                 "llama.attention.head_count_kv": cfg.n_kv_heads,
+                 "llama.vocab_size": cfg.vocab_size}.items():
+        w.add_metadata(k, v)
+
+    def t(name, shape, gtype):
+        w.add_tensor(name, rng.standard_normal(shape).astype(np.float32)
+                     * shape[-1] ** -0.5, gtype)
+
+    kv_dim = cfg.n_kv_heads * cfg.head_dim
+    shapes = {"attn_q": (cfg.dim, cfg.dim), "attn_k": (kv_dim, cfg.dim),
+              "attn_v": (kv_dim, cfg.dim), "attn_output": (cfg.dim, cfg.dim),
+              "ffn_gate": (cfg.ffn_dim, cfg.dim), "ffn_up": (cfg.ffn_dim, cfg.dim),
+              "ffn_down": (cfg.dim, cfg.ffn_dim)}
+    t("token_embd.weight", (cfg.vocab_size, cfg.dim), types("token_embd", None))
+    for i in range(cfg.n_layers):
+        for n, shape in shapes.items():
+            t(f"blk.{i}.{n}.weight", shape, types(n, i))
+        t(f"blk.{i}.attn_norm.weight", (cfg.dim,), GGMLType.F32)
+        t(f"blk.{i}.ffn_norm.weight", (cfg.dim,), GGMLType.F32)
+    t("output_norm.weight", (cfg.dim,), GGMLType.F32)
+    t("output.weight", (cfg.vocab_size, cfg.dim), types("output", None))
+    w.write()
+
+
+#: the reference's fused layouts, by the key of their value plane
+_J_KINDS = {"qs": "q4k", "q5p": "q5k", "q5s": "q5k", "q4": "q6k", "q6p": "q6k",
+            "q8": "q8"}
+
+
+def test_mixed_names_fuse_as_the_reference_decides(tmp_path):
+    """A name mixing Q4_K and Q5_K promotes to Q5_K, requantized with the
+    Q5_K quantizer; a name mixing Q8_0 with a K-quant does not fuse (int8 in
+    the reference, bf16 in the port until its int8 format lands); uniform
+    names keep their type.  Each name fuses as the reference's load does."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.params import _fused_names
+
+    cfg = ModelConfig(vocab_size=16, dim=2048, n_layers=2, n_heads=16, n_kv_heads=4,
+                      ffn_dim=2048, n_ctx=16)
+    mixed = {"ffn_down": [GGMLType.Q4_K, GGMLType.Q5_K],
+             "attn_v": [GGMLType.Q8_0, GGMLType.Q4_K],
+             "attn_k": [GGMLType.Q8_0, GGMLType.Q8_0]}
+    path = str(tmp_path / "mixed.gguf")
+    _write_file(path, cfg, lambda n, i: GGMLType.F16 if i is None
+                else mixed.get(n, [GGMLType.Q4_K] * 2)[i])
+    gf = GGUFFile(path)
+    names = _fused_names(gf, cfg)
+    assert names["ffn_down"] == GGMLType.Q5_K and "attn_v" not in names
+    params = load_params(gf, cfg, "q4k", device="cpu")
+    formats = params.formats()
+    assert formats == {"wq": "q4k", "wk": "q8", "wv": "bf16", "wo": "q4k",
+                       "w_gate": "q4k", "w_up": "q4k", "w_down": "q5k",
+                       "output": "bf16"}
+    src = gf["blk.0.ffn_down.weight"].astype_f32()
+    assert np.array_equal(params.layers[0].w_down.weight.numpy().reshape(-1),
+                          quants.quant_q5_k(src.reshape(-1)))
+    jcfg = JModelConfig(vocab_size=16, dim=2048, n_layers=2, n_heads=16,
+                        n_kv_heads=4, ffn_dim=2048, n_ctx=16)
+    jlayers = j_load_params(JGGUFFile(path), jcfg, fmt="q4k", on_device=False)["layers"]
+    for name, kind in formats.items():
+        if name == "output":
+            continue
+        keys = set(jlayers[name]) & set(_J_KINDS)
+        jkind = _J_KINDS[keys.pop()] if keys else "bf16"
+        assert jkind == kind, (name, sorted(jlayers[name]))
+
+
+@pytest.mark.parametrize("gtype", ["Q4_K", "Q5_K", "Q8_0"])
+def test_token_embd_dequant_matches_codec(tmp_path, gtype):
+    """``token_embd`` in each type with a dequant kernel expands (on the
+    CPU: through the kernel's plain version) to the codec's values in
+    bf16, bit for bit."""
+    cfg = ModelConfig(vocab_size=24, dim=512, n_layers=1, n_heads=4, n_kv_heads=4,
+                      ffn_dim=256, n_ctx=16)
+    path = str(tmp_path / "emb.gguf")
+    _write_file(path, cfg, lambda n, i: GGMLType[gtype] if n == "token_embd"
+                else GGMLType.F16)
+    gf = GGUFFile(path)
+    params = load_params(gf, cfg, "bf16", device="cpu")
+    te = gf["token_embd.weight"]
+    want = torch.from_numpy(te.astype_f32()).reshape(24, 512).to(torch.bfloat16)
+    assert params.tok_emb.dtype == torch.bfloat16
+    assert torch.equal(params.tok_emb.view(torch.int16), want.view(torch.int16))
+
+
+def test_from_jax_params_refuses_fused_layouts(tiny):
+    jcfg, jparams, cfg, _ = tiny
+    tree = _numpy_tree(jparams)
+    tree["layers"]["wq"] = {"qs": np.zeros(1), "sm": np.zeros(1)}
+    with pytest.raises(ValueError, match="wq"):
+        from_jax_params(tree, cfg, device="cpu")
 
 
 def test_mixed_k_quant_name_promotes_to_q6k(tmp_path):

@@ -3,7 +3,9 @@
 On the CPU each port wrapper runs its plain PyTorch version, which is what
 the CUDA kernel is held to on the card (tests/test_torch_cuda.py,
 chip_smoke.py).  Here the plain versions meet the reference: the fused
-Q4_K/Q6_K matmuls against the Pallas kernels in interpret mode, the flash
+Q4_K/Q5_K/Q6_K/Q8_0 matmuls against the Pallas kernels in interpret mode —
+for Q5_K under both of its TPU layouts (``pre``, the default, and ``cur``)
+and for Q6_K under ``pre`` too, each layout a kernel body of its own — the flash
 attention against the Pallas flash kernel (interpret) and the XLA
 score-matrix path, and the model's small f32 ops exactly.
 
@@ -32,16 +34,30 @@ from llama_fastapi_k8s_gpu_tpu.models.config import ModelConfig as JModelConfig
 from llama_fastapi_k8s_gpu_tpu.models.llama import rms_norm as j_rms_norm
 from llama_fastapi_k8s_gpu_tpu.models.llama import rope_interleaved as j_rope
 from llama_fastapi_k8s_gpu_tpu.models.llama import xla_attention as j_xla_attention
-from llama_fastapi_k8s_gpu_tpu.ops.linear import make_linear_q4k, make_linear_q6k
+from llama_fastapi_k8s_gpu_tpu.ops.linear import (
+    make_linear_q4k,
+    make_linear_q5k,
+    make_linear_q6k,
+    make_linear_q8,
+)
 from llama_fastapi_k8s_gpu_tpu.ops.pallas.attention import flash_attention as j_flash
 from llama_fastapi_k8s_gpu_tpu.ops.pallas.qmatmul import q4k_matmul as j_q4k_matmul
+from llama_fastapi_k8s_gpu_tpu.ops.pallas.q5matmul import q5k_matmul as j_q5k_matmul
 from llama_fastapi_k8s_gpu_tpu.ops.pallas.q6matmul import q6k_matmul as j_q6k_matmul
-from llama_fastapi_k8s_gpu_tpu_torch.gguf.quants import quant_q4_k, quant_q6_k
+from llama_fastapi_k8s_gpu_tpu.ops.pallas.q8matmul import q8_matmul as j_q8_matmul
+from llama_fastapi_k8s_gpu_tpu_torch.gguf.quants import (
+    quant_q4_k,
+    quant_q5_k,
+    quant_q6_k,
+    quant_q8_0,
+)
 from llama_fastapi_k8s_gpu_tpu_torch.models.llama import rms_norm, rope_interleaved
 from llama_fastapi_k8s_gpu_tpu_torch.ops.linear import Linear
 from llama_fastapi_k8s_gpu_tpu_torch.ops.attention import flash_attention
 from llama_fastapi_k8s_gpu_tpu_torch.ops.q4k import q4k_matmul
+from llama_fastapi_k8s_gpu_tpu_torch.ops.q5k import q5k_matmul
 from llama_fastapi_k8s_gpu_tpu_torch.ops.q6k import q6k_matmul
+from llama_fastapi_k8s_gpu_tpu_torch.ops.q8 import q8_matmul
 
 torch.set_num_threads(1)
 
@@ -55,6 +71,16 @@ def _bf16(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16)
 
 
+#: per format: the port's wrapper, its quantizer, the GGML type, and the
+#: reference's weight maker and fused matmul
+FORMATS = {
+    "q4k": (q4k_matmul, quant_q4_k, JGGMLType.Q4_K, make_linear_q4k, j_q4k_matmul),
+    "q5k": (q5k_matmul, quant_q5_k, JGGMLType.Q5_K, make_linear_q5k, j_q5k_matmul),
+    "q6k": (q6k_matmul, quant_q6_k, JGGMLType.Q6_K, make_linear_q6k, j_q6k_matmul),
+    "q8": (q8_matmul, quant_q8_0, JGGMLType.Q8_0, make_linear_q8, j_q8_matmul),
+}
+
+
 @pytest.fixture(scope="module")
 def fused_weights():
     """(fmt, n, k) → (raw GGUF blocks, f32 weights) from one seed."""
@@ -62,27 +88,27 @@ def fused_weights():
     out = {}
     for n, k in ((256, 2048), (256, 4096)):
         w = (rng.standard_normal((n, k)) * k ** -0.5).astype(np.float32)
-        out[("q4k", n, k)] = (quant_q4_k(w.reshape(-1)), w)
-        out[("q6k", n, k)] = (quant_q6_k(w.reshape(-1)), w)
+        for fmt, (_, quant, *_) in FORMATS.items():
+            out[(fmt, n, k)] = (quant(w.reshape(-1)), w)
     return out
 
 
-@pytest.mark.parametrize("fmt", ["q4k", "q6k"])
-@pytest.mark.parametrize("n,k", [(256, 2048), (256, 4096)])
-@pytest.mark.parametrize("B", [1, 17, 256])
-def test_fused_matmul_matches_reference_kernel(fused_weights, fmt, n, k, B):
+def _check_fused(fused_weights, fmt, n, k, B, layout=None):
+    """The port's fused matmul against the exact product of the codec's
+    weights and against the reference kernel (interpret mode) on the
+    weights the reference prepared, in ``layout`` where given."""
+    port, _, gtype, make, jfn = FORMATS[fmt]
     raw, w = fused_weights[(fmt, n, k)]
     x = np.random.default_rng(B).standard_normal((B, k)).astype(np.float32)
     xb = _bf16(x)
-    port = q4k_matmul if fmt == "q4k" else q6k_matmul
     got = port(xb, torch.from_numpy(raw).reshape(n, -1), n, k).float().numpy()
     assert got.shape == (B, n)
-    jw = (make_linear_q4k if fmt == "q4k" else make_linear_q6k)(w)
-    jfn = j_q4k_matmul if fmt == "q4k" else j_q6k_matmul
+    jw = make(w)
+    if layout is not None:
+        assert layout in jw, sorted(jw)
     ref = np.asarray(jfn(jnp.asarray(xb.float().numpy(), jnp.bfloat16), jw,
                          interpret=True)).astype(np.float32)
-    wq = j_dequantize(raw, JGGMLType.Q4_K if fmt == "q4k" else JGGMLType.Q6_K,
-                      n * k).reshape(n, k)
+    wq = j_dequantize(raw, gtype, n * k).reshape(n, k)
     exact = xb.float().numpy() @ wq.T
     # the gate, against the exact product of the numpy codec's weights
     assert _rel(got, exact) <= 5e-3
@@ -90,6 +116,45 @@ def test_fused_matmul_matches_reference_kernel(fused_weights, fmt, n, k, B):
     # plus the reference's own distance from the exact product (its bf16
     # folding puts it 0.45-0.81% away at these shapes, above the gate)
     assert _rel(got, ref) <= _rel(ref, exact) + 5e-3
+
+
+@pytest.mark.parametrize("fmt", ["q4k", "q6k", "q5k", "q8"])
+@pytest.mark.parametrize("n,k", [(256, 2048), (256, 4096)])
+@pytest.mark.parametrize("B", [1, 17, 256])
+def test_fused_matmul_matches_reference_kernel(fused_weights, fmt, n, k, B):
+    """Under each format's default layout (Q5_K: ``pre``, whose body is
+    ``_q5k_pre_kernel``; Q6_K: ``cur``)."""
+    _check_fused(fused_weights, fmt, n, k, B,
+                 layout={"q5k": "q5p", "q6k": "q4"}.get(fmt))
+
+
+@pytest.mark.parametrize("fmt,env,layout", [
+    ("q5k", ("LFKT_Q5K_KERNEL", "cur"), "q5s"),    # _q5k_matmul_kernel
+    ("q6k", ("LFKT_Q6K_KERNEL", "pre"), "q6p"),    # _q6k_pre_kernel
+])
+@pytest.mark.parametrize("n,k", [(256, 2048), (256, 4096)])
+def test_fused_matmul_matches_reference_layout_variant(fused_weights, monkeypatch,
+                                                       fmt, env, layout, n, k):
+    """The reference's other layout of the same function (another Pallas
+    kernel body) against the same port kernel, which decodes the blocks
+    themselves and has no layout of its own."""
+    monkeypatch.setenv(*env)
+    _check_fused(fused_weights, fmt, n, k, 17, layout=layout)
+
+
+def test_q8_matmul_unaligned_row_stride():
+    """K = 4128 (129 Q8_0 blocks, 4386-byte rows): fusable for Q8_0, not a
+    whole 256-element chunk — the CUDA kernel's partial last chunk; the
+    plain version against the exact product of the codec's weights."""
+    n, k = 40, 4128
+    rng = np.random.default_rng(4128)
+    w = (rng.standard_normal((n, k)) * k ** -0.5).astype(np.float32)
+    raw = quant_q8_0(w.reshape(-1))
+    xb = _bf16(rng.standard_normal((5, k)).astype(np.float32))
+    got = q8_matmul(xb, torch.from_numpy(raw).reshape(n, -1), n, k).float().numpy()
+    exact = xb.float().numpy() @ j_dequantize(raw, JGGMLType.Q8_0, n * k).reshape(n, k).T
+    assert got.shape == (5, n)
+    assert _rel(got, exact) <= 5e-3
 
 
 def test_linear_dispatch_and_shape_checks(fused_weights):
@@ -103,7 +168,14 @@ def test_linear_dispatch_and_shape_checks(fused_weights):
     with pytest.raises(ValueError):
         q6k_matmul(x, w, 256, 2048)
     with pytest.raises(ValueError):
+        q5k_matmul(x, w, 256, 2048)
+    with pytest.raises(ValueError):
+        q8_matmul(x, w, 256, 2048)
+    with pytest.raises(ValueError):
         Linear("int8", w, 256, 2048)
+    raw8, _ = fused_weights[("q8", 256, 2048)]
+    assert Linear("q8", torch.from_numpy(raw8).reshape(256, -1), 256, 2048)(x).shape \
+        == (3, 5, 256)
 
 
 def _attn_inputs(S, n_ctx, H=8, n_kv=2, hd=128, seed=0):

@@ -3,7 +3,8 @@ raw ASGI calls.
 
 At ``LFKT_TEMPERATURE=0`` both apps, each over its own engine on the same
 tiny GGUF, answer ``/response`` with identical bytes — a first turn and a
-follow-up that takes prefix reuse.  Errors (422 bodies, the 400 for an
+follow-up that takes prefix reuse, on an F16 file and on the JAX package's
+default tiny file (Q8_0).  Errors (422 bodies, the 400 for an
 unknown model, 404/405, 500 from the engine) and ``/items`` match byte for
 byte; ``/health`` carries the reference's keys for what the slice serves.
 Admission (queue(5) → 503, timeout → 408) runs over a slow fake engine.
@@ -110,6 +111,39 @@ def test_response_bytes_identical_with_prefix_reuse(engines):
     assert engines[1].last_timings["prefix_reused_tokens"] > 0
     assert engines[1].last_timings["prefix_reused_tokens"] == \
         engines[0].last_timings["prefix_reused_tokens"]
+
+
+@pytest.fixture(scope="module")
+def q8_path(tmp_path_factory):
+    """The JAX package's default tiny file: every linear in Q8_0."""
+    path = str(tmp_path_factory.mktemp("srv8") / "tiny-q8_0.gguf")
+    write_tiny_llama_gguf(path)
+    return path
+
+
+def test_default_tiny_q8_0_file_response_bytes_identical(q8_path):
+    """Both engines load the Q8_0 file in their CPU default (bf16 from the
+    codecs) and answer with the same bytes; the port's fused format serves
+    every linear of it through the Q8_0 matmul, as ``/health`` reports."""
+    engines = (JEngine(q8_path, n_ctx=1024, max_gen_tokens=16),
+               Engine(q8_path, n_ctx=1024, max_gen_tokens=16, device="cpu"))
+    fused = Engine(q8_path, n_ctx=1024, max_gen_tokens=16, weight_format="q4k",
+                   device="cpu")
+
+    async def go(apps):
+        return (await both(apps[:2], "POST", "/response", BODY),
+                await call(apps[2], "GET", "/health"),
+                await call(apps[2], "POST", "/response", BODY))
+
+    apps = _apps(engines) + [create_app(engine=fused, settings=Settings(temperature=0.0))]
+    (ref, got), health, answer = serve(apps, go)
+    assert ref[0] == got[0] == 200
+    assert got[1] == ref[1]
+    assert json.loads(got[1])["response"]
+    formats = json.loads(health[1])["engine"]["weight_formats"]
+    assert formats == {**dict.fromkeys(("wq", "wk", "wv", "wo", "w_gate", "w_up",
+                                        "w_down"), "q8"), "output": "bf16"}
+    assert answer[0] == 200 and json.loads(answer[1])["response"]
 
 
 BAD_BODIES = [
