@@ -14,18 +14,21 @@ and no result line):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the Llama-3-8B shapes the serving paths give it, with kernel, plain,
    library (one PyTorch call computing the same function) and bound times;
-4. gguf: three synthetic Llama-3-8B-width GGUFs (random valid blocks from a
-   seed) in the tensor types of a Q4_K_M, a Q5_K_M and a Q8_0 file, written
-   with the port's own writer into ``.cache/chip_smoke/`` and reused when
-   present;
+4. gguf: four synthetic Llama-3-8B-width GGUFs (random valid blocks from a
+   seed) in the tensor types of a Q4_K_M, a Q5_K_M, a Q8_0 and a Q6_K
+   file, written with the port's own writer into ``.cache/chip_smoke/``
+   and reused when present (about 26 GB);
 5. serve: per file, the port's ``Engine`` behind its app on the in-tree
-   httpd at 127.0.0.1, ``/response`` requests at temperature 0 (a short
-   one, a long one whose prompt spans several 256-token prefill slices,
-   and — on the Q4_K_M file — a follow-up turn that takes prefix reuse),
-   then ``GET /health``; every linear must serve fused in the file's
-   formats, the served model's logits must be finite and its flash prompt
-   pass must agree with the plain score-matrix one.  Each file's kernel
-   launches go on a line of their own;
+   httpd at 127.0.0.1 — the Q6_K file over the int8 KV cache
+   (``kv_dtype="int8"``) — ``/response`` requests at temperature 0 (a
+   short one, a long one whose prompt spans several 256-token prefill
+   slices, and — on the Q4_K_M and the Q6_K file — a follow-up turn that
+   takes prefix reuse), then ``GET /health``; every linear must serve fused
+   in the file's formats, ``/health`` must report the file's KV dtype and
+   ring bytes, the served model's logits must be finite and its flash
+   prompt pass must agree with the plain score-matrix one.  Each file's
+   kernel launches go on a line of their own, and so do the launches of
+   one decode token and of one 256-token prompt slice;
 6. a ``kernels`` JSON line with every kernel's launches summed over the
    files of phase 5 beside its phase-3 numbers.
 
@@ -52,7 +55,9 @@ CACHE = os.path.join(HERE, ".cache", "chip_smoke")
 #: transformer blocks of the served models (Llama-3-8B has 32; width is never cut)
 DEPTH = 32
 #: the served files: tensor types of each llama.cpp recipe
-LAYOUTS = ("q4km", "q5km", "q8_0")
+LAYOUTS = ("q4km", "q5km", "q8_0", "q6_k")
+#: the KV cache each file is served with (bf16 where not named)
+KV_DTYPES = {"q6_k": "int8"}
 #: the card's published peaks (H100 SXM data sheet): HBM bytes/s, dense bf16 FLOP/s
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
@@ -66,6 +71,9 @@ REPLACES = {
     "q5k_matmul": "llama_fastapi_k8s_gpu_tpu/ops/pallas/q5matmul.py:276",
     "dequant_q8_0": "llama_fastapi_k8s_gpu_tpu/ops/pallas/dequant.py:78",
     "q8_matmul": "llama_fastapi_k8s_gpu_tpu/ops/pallas/q8matmul.py:99",
+    "kv_quantize": "llama_fastapi_k8s_gpu_tpu/ops/pallas/kvquant.py:64",
+    "flash_attention_int8": "llama_fastapi_k8s_gpu_tpu/ops/pallas/attention.py:58",
+    "dequant_q6_k": "llama_fastapi_k8s_gpu_tpu/ops/pallas/dequant.py:261",
 }
 SOURCES = {
     "dequant_q4_k": "llama_fastapi_k8s_gpu_tpu_torch/csrc/dequant_q4k.cu",
@@ -76,6 +84,9 @@ SOURCES = {
     "q5k_matmul": "llama_fastapi_k8s_gpu_tpu_torch/csrc/q5k_matmul.cu",
     "dequant_q8_0": "llama_fastapi_k8s_gpu_tpu_torch/csrc/dequant_q8_0.cu",
     "q8_matmul": "llama_fastapi_k8s_gpu_tpu_torch/csrc/q8_matmul.cu",
+    "kv_quantize": "llama_fastapi_k8s_gpu_tpu_torch/csrc/kv_quantize.cu",
+    "flash_attention_int8": "llama_fastapi_k8s_gpu_tpu_torch/csrc/flash_attention.cu",
+    "dequant_q6_k": "llama_fastapi_k8s_gpu_tpu_torch/csrc/dequant_q6k.cu",
 }
 
 
@@ -218,7 +229,7 @@ def fused_formats() -> dict:
         "q5k_matmul": (q5k.q5k_matmul, q5k.q5k_matmul_plain, rand_q5k,
                        dequant.dequant_q5_k_f32),
         "q6k_matmul": (q6k.q6k_matmul, q6k.q6k_matmul_plain, rand_q6k,
-                       q6k.dequant_q6_k_f32),
+                       dequant.dequant_q6_k_f32),
         "q8_matmul": (q8.q8_matmul, q8.q8_matmul_plain, rand_q8_0,
                       dequant.dequant_q8_0_f32),
     }
@@ -292,6 +303,87 @@ def check_flash(rng, S, n_ctx, pos_offset, H=32, n_kv=8, hd=128, tol=2e-2) -> di
     }
 
 
+def check_flash_int8(rng, S, n_ctx, pos_offset, H=32, n_kv=8, hd=128, tol=2e-2) -> dict:
+    """The int8-ring flash kernel against its plain version; the library
+    time is SDPA over the ring dequantized to bf16 beforehand (the
+    dequantize is not timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import attention, kvquant
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype="float32")).cuda()
+
+    q = rnd(S, H, hd).to(torch.bfloat16)
+    kq, ks = kvquant.quantize_kv_plain(rnd(n_kv, n_ctx, hd).to(torch.bfloat16))
+    vq, vs = kvquant.quantize_kv_plain(rnd(n_kv, n_ctx, hd).to(torch.bfloat16))
+    sm = hd ** -0.5
+    o = attention.flash_attention_int8(q, kq, vq, ks, vs, pos_offset, sm)
+    o_ref = attention.flash_attention_int8_plain(q, kq, vq, ks, vs, pos_offset, sm)
+    torch.cuda.synchronize()
+    err = (o.float() - o_ref.float()).abs().max().item()
+    if not (torch.isfinite(o).all() and err <= tol):
+        raise AssertionError(f"flash int8 S={S} n_ctx={n_ctx} off={pos_offset}: "
+                             f"max |kernel-plain| {err} > {tol}")
+    key_end = pos_offset + S
+    group = H // n_kv
+    qh = q.permute(1, 0, 2)[None]
+    kh = kvquant.dequantize_kv(kq[:, :key_end], ks[:, :key_end]).repeat_interleave(group, 0)[None]
+    vh = kvquant.dequantize_kv(vq[:, :key_end], vs[:, :key_end]).repeat_interleave(group, 0)[None]
+    mask = attention.attention_mask(pos_offset + torch.arange(S, device="cuda"),
+                                    key_end, 0)
+    visible = sum(pos_offset + t + 1 for t in range(S))
+    return {
+        "S": S, "n_ctx": n_ctx, "pos_offset": pos_offset, "max_abs_err": err,
+        "tol": tol,
+        "ms": cuda_ms(lambda: attention.flash_attention_int8(
+            q, kq, vq, ks, vs, pos_offset, sm), 20),
+        "plain_ms": cuda_ms(lambda: attention.flash_attention_int8_plain(
+            q, kq, vq, ks, vs, pos_offset, sm), 5),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask), 20),
+        # q in, out; int8 K/V and their f32 scales up to the last query
+        **bound(2 * q.numel() * 2 + 2 * n_kv * key_end * (hd + 4),
+                4.0 * visible * H * hd),
+    }
+
+
+def check_kv_quantize(rng, S, pos_offset, n_kv=8, hd=128, n_ctx=1024) -> dict:
+    """The KV write-quantize kernel against its plain version, bit for
+    bit, writing one layer's ring at ``pos_offset``."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import kvquant
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype="float32")
+                                ).cuda().to(torch.bfloat16)
+
+    k, v = rnd(S, n_kv, hd), rnd(S, n_kv, hd)
+    rings = [torch.zeros(n_kv, n_ctx, hd, dtype=torch.int8, device="cuda") for _ in range(4)]
+    scales = [torch.zeros(n_kv, n_ctx, device="cuda") for _ in range(4)]
+    kvquant.kv_quantize(k, v, rings[0], rings[1], scales[0], scales[1], pos_offset)
+    kvquant.kv_quantize_plain(k, v, rings[2], rings[3], scales[2], scales[3], pos_offset)
+    torch.cuda.synchronize()
+    if not (torch.equal(rings[0], rings[2]) and torch.equal(rings[1], rings[3])
+            and torch.equal(scales[0].view(torch.int32), scales[2].view(torch.int32))
+            and torch.equal(scales[1].view(torch.int32), scales[3].view(torch.int32))):
+        raise AssertionError(f"kv_quantize S={S}: kernel is not bit-identical to plain")
+    return {
+        "S": S, "n_kv": n_kv, "hd": hd, "pos_offset": pos_offset, "max_abs_err": 0.0,
+        "tol": 0.0,
+        "ms": cuda_ms(lambda: kvquant.kv_quantize(k, v, rings[0], rings[1], scales[0],
+                                                  scales[1], pos_offset), 50),
+        "plain_ms": cuda_ms(lambda: kvquant.kv_quantize_plain(
+            k, v, rings[2], rings[3], scales[2], scales[3], pos_offset), 10),
+        "library_ms": None,
+        # bf16 K and V in; int8 values and f32 scales out; |x|, max,
+        # multiply and round per element
+        **bound(2 * k.numel() * 2 + 2 * (k.numel() + 4 * S * n_kv), 4.0 * 2 * k.numel()),
+    }
+
+
 def check_dequant(name, rng, n_out=128256, k_in=4096) -> dict:
     """A dequant kernel against its plain version, bit for bit, on a
     ``token_embd``-sized tensor."""
@@ -301,7 +393,7 @@ def check_dequant(name, rng, n_out=128256, k_in=4096) -> dict:
     from llama_fastapi_k8s_gpu_tpu_torch.ops import dequant
 
     rand = {"dequant_q4_k": rand_q4k, "dequant_q5_k": rand_q5k,
-            "dequant_q8_0": rand_q8_0}[name]
+            "dequant_q6_k": rand_q6k, "dequant_q8_0": rand_q8_0}[name]
     kern, plain = getattr(dequant, name), getattr(dequant, name + "_plain")
     raw = torch.from_numpy(np.ascontiguousarray(rand(rng, n_out, k_in))).cuda()
     y = kern(raw)
@@ -322,13 +414,15 @@ def check_dequant(name, rng, n_out=128256, k_in=4096) -> dict:
 
 #: the (N, K) each fused matmul meets on the 8B serving paths: Q4_K and Q5_K
 #: on attn_q/k/output and ffn_gate/up, Q6_K on attn_v, ffn_down and the
-#: output head, Q8_0 on all of them
+#: output head of the K-quant files and on all of them in the Q6_K file,
+#: Q8_0 on all of them
 _QK = ((4096, 4096), (1024, 4096), (14336, 4096))
+_ALL = (*_QK, (4096, 14336), (128256, 4096))
 MATMUL_SHAPES = {
     "q4k_matmul": _QK,
     "q5k_matmul": _QK,
-    "q6k_matmul": ((1024, 4096), (4096, 14336), (128256, 4096)),
-    "q8_matmul": (*_QK, (4096, 14336), (128256, 4096)),
+    "q6k_matmul": _ALL,
+    "q8_matmul": _ALL,
 }
 
 
@@ -345,6 +439,11 @@ def phase_kernels(names) -> dict:
             shapes[name] = [check_dequant(name, rng)]
         elif name == "flash_attention":
             shapes[name] = [check_flash(rng, 256, 1024, off) for off in (0, 256, 768)]
+        elif name == "flash_attention_int8":
+            shapes[name] = [check_flash_int8(rng, 256, 1024, off) for off in (0, 256, 768)]
+        elif name == "kv_quantize":
+            # a decode token at slot 700, a 256-token prompt slice at 256
+            shapes[name] = [check_kv_quantize(rng, 1, 700), check_kv_quantize(rng, 256, 256)]
         else:
             shapes[name] = [check_matmul(name, rng, n, k, B) for B in (1, 256)
                             for n, k in MATMUL_SHAPES[name]]
@@ -397,10 +496,10 @@ def file_types(layout: str) -> dict:
     """GGML type name of each tensor kind in a ``layout`` file: llama.cpp's
     recipe, with the names it mixes per layer (attn_v, ffn_down) kept
     uniform on the finer type."""
-    if layout == "q8_0":
+    if layout in ("q8_0", "q6_k"):
         return dict.fromkeys(("token_embd", "attn_q", "attn_k", "attn_v",
                               "attn_output", "ffn_gate", "ffn_up", "ffn_down",
-                              "output"), "Q8_0")
+                              "output"), layout.upper())
     main = {"q4km": "Q4_K", "q5km": "Q5_K"}[layout]
     return {**dict.fromkeys(("token_embd", "attn_q", "attn_k", "attn_output",
                              "ffn_gate", "ffn_up"), main),
@@ -517,14 +616,17 @@ def _http(port: int, method: str, path: str, payload=None, timeout=300):
         conn.close()
 
 
-def phase_serve(layout: str, path: str, counters: dict, follow_up: bool) -> dict:
-    """Serve ``path`` and return each kernel's launches on that path."""
+def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
+                kv_dtype: str = "bf16") -> dict:
+    """Serve ``path`` over a ``kv_dtype`` KV cache and return each kernel's
+    launches on that path."""
     import asyncio
 
     import torch
 
     from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
-    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import prefill
+    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import prefill, prefill_chunk
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import decode_step
     from llama_fastapi_k8s_gpu_tpu_torch.server import httpd
     from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
     from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
@@ -532,15 +634,25 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool) -> dict
     for fn in counters.values():         # the main path starts here: count it
         fn.launches = 0
     t0 = time.time()
-    eng = Engine(path)                   # the GPU, auto format and attention
+    eng = Engine(path, kv_dtype=kv_dtype)   # the GPU, auto format and attention
     eng.warmup()
     load_s = time.time() - t0
     formats = eng.params.formats()
     say("load", file=layout, seconds=round(load_s, 1), attn_impl=eng.cfg.attn_impl,
-        formats=formats, weight_gb=round(eng.weight_bytes / 1e9, 3))
+        kv_dtype=eng.cfg.kv_dtype, formats=formats,
+        weight_gb=round(eng.weight_bytes / 1e9, 3))
     if formats != served_formats(layout):
         raise AssertionError(f"{layout}: served formats {formats}, expected "
                              f"{served_formats(layout)}")
+    # the ring's bytes by the reference's formula (2 * L * n_kv * n_ctx *
+    # (hd + 4) in int8, 2 * hd in bf16) and as allocated
+    cfg = eng.cfg
+    per_head = cfg.head_dim + 4 if kv_dtype == "int8" else 2 * cfg.head_dim
+    ring_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.n_ctx * per_head
+    live = sum(t.numel() * t.element_size() for t in eng._cache.values())
+    if not eng.kv_cache_bytes == live == ring_bytes:
+        raise AssertionError(f"{layout}: kv_cache_bytes {eng.kv_cache_bytes}, "
+                             f"allocated {live}, expected {ring_bytes}")
     # the reference's serving defaults, greedy, with a timeout that leaves
     # room for this run's un-tuned kernels
     settings = Settings(temperature=0.0, timeout_seconds=600.0)
@@ -591,36 +703,59 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool) -> dict
             tokens_per_sec=tm.get("tokens_per_sec"), head=text[:60])
         if st != 200 or not text:
             raise AssertionError(f"{label}: status {st}, body {doc}")
+    engine_doc = (hdoc or {}).get("engine") or {}
     say("health", file=layout, status=hst, state=(hdoc or {}).get("state"),
-        engine=(hdoc or {}).get("engine"))
+        engine=engine_doc)
     if hst != 200 or th.is_alive():
         raise AssertionError(f"/health {hst}, httpd stopped: {not th.is_alive()}")
+    if (engine_doc.get("kv_dtype"), engine_doc.get("kv_cache_bytes")) != (kv_dtype, ring_bytes):
+        raise AssertionError(f"/health reports kv_dtype {engine_doc.get('kv_dtype')} and "
+                             f"{engine_doc.get('kv_cache_bytes')} bytes, expected "
+                             f"{kv_dtype} and {ring_bytes}")
     loop.close()
     if follow_up and not results[2][3].get("prefix_reused_tokens"):
         raise AssertionError("the follow-up turn did not take prefix reuse")
 
+    # launches of one decode token and of one 256-token prompt slice, on a
+    # scratch ring (not part of the served path's counts above)
+    scratch = {k: torch.zeros_like(v) for k, v in eng._cache.items()}
+    per = {}
+    for what, fn in (
+            ("token", lambda: decode_step(eng.params, cfg, torch.tensor(5, device=eng.device),
+                                          300, scratch)),
+            ("slice", lambda: prefill_chunk(eng.params, cfg, torch.full(
+                (256,), 5, device=eng.device), 256, 255, scratch))):
+        for c in counters.values():
+            c.launches = 0
+        with torch.inference_mode():
+            fn()
+        per[what] = {n: c.launches for n, c in counters.items() if c.launches}
+    say("per_token", file=layout, **per["token"])
+    say("per_slice", file=layout, **per["slice"])
+
     # the served model's logits: finite, and the flash prompt pass agrees
-    # with the plain score-matrix one on the long prompt.  Tolerance 5e-2
-    # rel-dev: the plain path rounds its probabilities to bf16 before P·V
-    # (as the reference does), the kernel keeps them in f32, and the
-    # difference passes through every layer.
+    # with the plain score-matrix one on the long prompt (over the int8
+    # ring, the int8 flash kernel with the score-matrix path's folded
+    # scales).  Tolerance 5e-2 rel-dev: the plain path rounds its
+    # probabilities to bf16 before P·V (as the reference does), the kernel
+    # keeps them in f32, and the difference passes through every layer.
     ids = eng.tokenize_messages(
         [{"role": "user" if t == "user" else "assistant", "content": m}
          for t, m in long_ctx])
     toks = torch.tensor(ids, device=eng.device)
-    cache = {k: torch.zeros_like(v) for k, v in eng._cache.items()}
+    cache = scratch
     lg_flash = prefill(eng.params, eng.cfg, toks, len(ids), cache)
     cfg_x = dataclasses.replace(eng.cfg, attn_impl="xla")
     lg_xla = prefill(eng.params, cfg_x, toks, len(ids), cache)
     finite = bool(torch.isfinite(lg_flash).all() and torch.isfinite(lg_xla).all())
     rel = ((lg_flash - lg_xla).norm() / lg_xla.norm()).item()
     say("logits", file=layout, shape=list(lg_flash.shape), finite=finite,
-        flash_vs_plain_rel=rel, tokens=len(ids))
+        kv_dtype=kv_dtype, flash_vs_plain_rel=rel, tokens=len(ids))
     if not finite or lg_flash.shape != (eng.cfg.vocab_size,) or rel > 5e-2:
         raise AssertionError(f"logits finite={finite} shape={tuple(lg_flash.shape)} "
                              f"flash vs plain rel-dev {rel}")
     # free this engine's weights before the next file loads
-    del app, eng, cache, lg_flash, lg_xla
+    del app, eng, cache, scratch, lg_flash, lg_xla
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -649,8 +784,10 @@ def main() -> int:
     paths = {layout: phase_gguf(layout) for layout in LAYOUTS}
     launches = dict.fromkeys(KERNELS, 0)
     for layout, path in paths.items():
-        # the prefix-reuse follow-up rides on the Q4_K_M file only
-        served = phase_serve(layout, path, KERNELS, follow_up=layout == "q4km")
+        # the prefix-reuse follow-up rides on the Q4_K_M file and, over the
+        # int8 ring, on the Q6_K file
+        served = phase_serve(layout, path, KERNELS, follow_up=layout in ("q4km", "q6_k"),
+                             kv_dtype=KV_DTYPES.get(layout, "bf16"))
         for name, n in served.items():
             launches[name] += n
     for name, n in launches.items():

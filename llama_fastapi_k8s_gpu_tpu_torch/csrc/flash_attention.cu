@@ -3,10 +3,17 @@
 //   q   (S, H, HD)       bf16   queries, token-major (the model's layout)
 //   k,v (n_kv, n_ctx, HD) bf16  the ring; slots past pos_offset+S may hold
 //                               stale data and are hidden by the causal mask
+//       or int8, with ks,vs (n_kv, n_ctx) f32 per-token scales (the int8 KV
+//                               cache, ops/kvquant.py)
 //   out (S, H, HD)       bf16
 //
 // Replaces: llama_fastapi_k8s_gpu_tpu/ops/pallas/attention.py::_attn_kernel
-// (flash_attention), bf16 branch.  As there, the `group = H / n_kv` query
+// (flash_attention), both branches: the kernel is templated on the K/V
+// element type.  The int8 branch is the reference's scale-last form: the
+// raw int8 tile is staged (half the bf16 bytes) with its keys' scales
+// beside it, score = (q . k_int8) * sm_scale * ks[key], and vs[key] is
+// folded into the key's probability before P.V, so no bf16 ring is ever
+// materialized.  As there, the `group = H / n_kv` query
 // heads sharing one KV head are folded into one block's rows, so each K/V
 // tile fetched from memory serves all of them; the softmax is online in
 // f32 and K/V tiles wholly in the masked future are never visited.  Unlike
@@ -18,7 +25,7 @@
 // path's sizes the work is small (a few GFLOP per layer).  First, simple
 // design on CUDA cores: a block of 16 warps, one warp per (token, head)
 // row, 16/group tokens per block; per 32-key tile the block stages K and V
-// in shared memory (rows padded to HD+2 bf16 so lane j's K row and its
+// in shared memory (rows padded by one 32-bit word so lane j's K row and its
 // neighbours' fall in distinct banks); lane j scores key j against the
 // row's query (held in shared memory as f32), the warp runs the online
 // softmax update, then each lane accumulates HD/32 output dims of P.V with
@@ -34,20 +41,30 @@ namespace {
 constexpr int ROWS = 16;      // warps (query rows) per block
 constexpr int BK = 32;        // keys per tile = one per lane
 
-template <int HD>
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+
+// T is __nv_bfloat16 (plain ring) or int8_t (quantized ring, scales in ks/vs)
+template <int HD, typename T>
 __global__ void __launch_bounds__(ROWS * 32)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
+                       const T* __restrict__ k,
+                       const T* __restrict__ v,
+                       const float* __restrict__ ks,
+                       const float* __restrict__ vs,
                        __nv_bfloat16* __restrict__ out,
                        int S, int H, int n_ctx, int group, int pos_offset,
                        float sm_scale, int window) {
-    constexpr int KS = HD + 2;                 // padded K/V row (bf16)
-    constexpr int DPL = HD / 32;               // output dims per lane
+    constexpr bool QUANT = sizeof(T) == 1;
+    constexpr int WPR = HD * static_cast<int>(sizeof(T)) / 4;   // 32-bit words per K/V row
+    constexpr int KSW = WPR + 1;                                // padded row (words)
+    constexpr int DPL = HD / 32;                                // output dims per lane
     extern __shared__ __align__(16) unsigned char smem[];
-    float* qs = reinterpret_cast<float*>(smem);                      // [ROWS][HD]
-    __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(qs + ROWS * HD);  // [BK][KS]
-    __nv_bfloat16* vs = ks + BK * KS;                                 // [BK][KS]
+    float* qs = reinterpret_cast<float*>(smem);                  // [ROWS][HD]
+    uint32_t* kt = reinterpret_cast<uint32_t*>(qs + ROWS * HD);  // [BK][KSW]
+    uint32_t* vt = kt + BK * KSW;                                // [BK][KSW]
+    float* ksc = reinterpret_cast<float*>(vt + BK * KSW);        // [BK] (int8 only)
+    float* vsc = ksc + BK;                                       // [BK]
 
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
@@ -72,8 +89,8 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncwarp();
 
-    const __nv_bfloat16* kh = k + static_cast<size_t>(kvh) * n_ctx * HD;
-    const __nv_bfloat16* vh = v + static_cast<size_t>(kvh) * n_ctx * HD;
+    const uint32_t* kh = reinterpret_cast<const uint32_t*>(k + static_cast<size_t>(kvh) * n_ctx * HD);
+    const uint32_t* vh = reinterpret_cast<const uint32_t*>(v + static_cast<size_t>(kvh) * n_ctx * HD);
     float m = -INFINITY, l = 0.f;
     float acc[DPL];
 #pragma unroll
@@ -81,17 +98,23 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
 
     for (int kb = key_begin; kb < key_end; kb += BK) {
         __syncthreads();
-        // stage the tile: BK rows of HD bf16, 2 bf16 (one word) per step
-        for (int i = threadIdx.x; i < BK * HD / 2; i += ROWS * 32) {
-            const int r = i / (HD / 2), c = (i % (HD / 2)) * 2;
+        // stage the tile: BK rows of WPR words each (2 bf16 or 4 int8 a word)
+        for (int i = threadIdx.x; i < BK * WPR; i += ROWS * 32) {
+            const int r = i / WPR, c = i % WPR;
             const int key = kb + r;
             uint32_t kw = 0, vw = 0;
             if (key < n_ctx) {
-                kw = *reinterpret_cast<const uint32_t*>(kh + static_cast<size_t>(key) * HD + c);
-                vw = *reinterpret_cast<const uint32_t*>(vh + static_cast<size_t>(key) * HD + c);
+                kw = kh[static_cast<size_t>(key) * WPR + c];
+                vw = vh[static_cast<size_t>(key) * WPR + c];
             }
-            *reinterpret_cast<uint32_t*>(ks + r * KS + c) = kw;
-            *reinterpret_cast<uint32_t*>(vs + r * KS + c) = vw;
+            kt[r * KSW + c] = kw;
+            vt[r * KSW + c] = vw;
+        }
+        if constexpr (QUANT) {
+            const int r = threadIdx.x & (BK - 1);
+            const int key = kb + r;
+            if (threadIdx.x < BK) ksc[r] = key < n_ctx ? ks[static_cast<size_t>(kvh) * n_ctx + key] : 0.f;
+            else if (threadIdx.x < 2 * BK) vsc[r] = key < n_ctx ? vs[static_cast<size_t>(kvh) * n_ctx + key] : 0.f;
         }
         __syncthreads();
         if (!valid) continue;
@@ -101,16 +124,28 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
         if (window > 0) vis = vis && key > q_pos - window;
         float s = -INFINITY;
         if (vis) {
-            const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(ks + lane * KS);
             const float* qr = qs + warp * HD;
             float dot = 0.f;
+            if constexpr (QUANT) {
+                const uint32_t* kr = kt + lane * KSW;
+#pragma unroll 8
+                for (int w = 0; w < WPR; ++w) {
+                    const uint32_t word = kr[w];
+#pragma unroll
+                    for (int b = 0; b < 4; ++b)
+                        dot = fmaf(qr[4 * w + b], static_cast<float>(static_cast<int8_t>(word >> (8 * b))), dot);
+                }
+                s = dot * sm_scale * ksc[lane];
+            } else {
+                const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(kt + lane * KSW);
 #pragma unroll 16
-            for (int d = 0; d < HD / 2; ++d) {
-                const float2 kf = __bfloat1622float2(kr[d]);
-                dot = fmaf(qr[2 * d], kf.x, dot);
-                dot = fmaf(qr[2 * d + 1], kf.y, dot);
+                for (int d = 0; d < HD / 2; ++d) {
+                    const float2 kf = __bfloat1622float2(kr[d]);
+                    dot = fmaf(qr[2 * d], kf.x, dot);
+                    dot = fmaf(qr[2 * d + 1], kf.y, dot);
+                }
+                s = dot * sm_scale;
             }
-            s = dot * sm_scale;
         }
         const float m_tile = lfkt::warp_max(s);
         if (m_tile == -INFINITY) continue;         // nothing visible for this row
@@ -118,14 +153,16 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
         const float alpha = __expf(m - m_new);     // m = -inf on the first tile -> 0
         const float p = vis ? __expf(s - m_new) : 0.f;
         l = l * alpha + lfkt::warp_sum(p);
+        // the value scale folds into the key's probability: p.(q.s) == (p.s).q
+        const float pv = QUANT ? p * vsc[lane] : p;
 #pragma unroll
         for (int i = 0; i < DPL; ++i) acc[i] *= alpha;
         for (int j = 0; j < BK; ++j) {
-            const float pj = __shfl_sync(0xffffffffu, p, j);
+            const float pj = __shfl_sync(0xffffffffu, pv, j);
             if (pj == 0.f) continue;               // warp-uniform: pj is broadcast
-            const __nv_bfloat16* vr = vs + j * KS + lane * DPL;
+            const T* vr = reinterpret_cast<const T*>(vt + j * KSW) + lane * DPL;
 #pragma unroll
-            for (int i = 0; i < DPL; ++i) acc[i] = fmaf(pj, __bfloat162float(vr[i]), acc[i]);
+            for (int i = 0; i < DPL; ++i) acc[i] = fmaf(pj, to_f32(vr[i]), acc[i]);
         }
         m = m_new;
     }
@@ -136,33 +173,55 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < DPL; ++i) orow[i] = __float2bfloat16_rn(acc[i] * inv);
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int S, int H,
-           int n_kv, int n_ctx, int pos_offset, float sm_scale, int window,
-           cudaStream_t s) {
+template <int HD, typename T>
+int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+           void* out, int S, int H, int n_kv, int n_ctx, int pos_offset, float sm_scale,
+           int window, cudaStream_t s) {
     const int group = H / n_kv;
     const int tpb = ROWS / group;
-    const size_t smem = sizeof(float) * ROWS * HD + 2 * sizeof(__nv_bfloat16) * BK * (HD + 2);
+    const int ksw = HD * static_cast<int>(sizeof(T)) / 4 + 1;
+    const size_t smem = sizeof(float) * ROWS * HD + 2 * sizeof(uint32_t) * BK * ksw
+                        + 2 * sizeof(float) * BK;
     dim3 grid((S + tpb - 1) / tpb, n_kv);
-    flash_attention_kernel<HD><<<grid, ROWS * 32, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+    flash_attention_kernel<HD, T><<<grid, ROWS * 32, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const float*>(ks),
+        static_cast<const float*>(vs), static_cast<__nv_bfloat16*>(out),
         S, H, n_ctx, group, pos_offset, sm_scale, window);
     return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+             void* out, int S, int H, int n_kv, int n_ctx, int hd, int pos_offset,
+             float sm_scale, int window, void* stream) {
+    if (S <= 0) return 0;
+    if (n_kv <= 0 || H % n_kv != 0 || ROWS % (H / n_kv) != 0) return 1;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (hd == 128)
+        return launch<128, T>(q, k, v, ks, vs, out, S, H, n_kv, n_ctx, pos_offset, sm_scale, window, s);
+    if (hd == 64)
+        return launch<64, T>(q, k, v, ks, vs, out, S, H, n_kv, n_ctx, pos_offset, sm_scale, window, s);
+    return 1;
+}
+
 }  // namespace
 
-// Returns cudaErrorInvalidValue (1) for a geometry the kernel does not take:
-// HD must be 64 or 128 and the GQA group must divide 16.
+// Both return cudaErrorInvalidValue (1) for a geometry the kernel does not
+// take: HD must be 64 or 128 and the GQA group must divide 16.
 LFKT_API int lfkt_flash_attention(const void* q, const void* k, const void* v, void* out,
                                   int S, int H, int n_kv, int n_ctx, int hd,
                                   int pos_offset, float sm_scale, int window,
                                   void* stream) {
-    if (S <= 0) return 0;
-    if (n_kv <= 0 || H % n_kv != 0 || ROWS % (H / n_kv) != 0) return 1;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (hd == 128) return launch<128>(q, k, v, out, S, H, n_kv, n_ctx, pos_offset, sm_scale, window, s);
-    if (hd == 64) return launch<64>(q, k, v, out, S, H, n_kv, n_ctx, pos_offset, sm_scale, window, s);
-    return 1;
+    return dispatch<__nv_bfloat16>(q, k, v, nullptr, nullptr, out, S, H, n_kv, n_ctx, hd,
+                                   pos_offset, sm_scale, window, stream);
+}
+
+LFKT_API int lfkt_flash_attention_int8(const void* q, const void* kq, const void* vq,
+                                       const void* ks, const void* vs, void* out,
+                                       int S, int H, int n_kv, int n_ctx, int hd,
+                                       int pos_offset, float sm_scale, int window,
+                                       void* stream) {
+    return dispatch<int8_t>(q, kq, vq, ks, vs, out, S, H, n_kv, n_ctx, hd, pos_offset,
+                            sm_scale, window, stream);
 }

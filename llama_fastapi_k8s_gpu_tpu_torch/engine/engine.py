@@ -5,8 +5,11 @@ The same contract as the JAX reference's serial ``Engine``
 thread-safe generation one request at a time, OpenAI-shaped responses and
 streaming chunks — on PyTorch and one GPU:
 
-- load: GGUF mmap → weights on the device (``q4k``: fused Q4_K/Q6_K block
-  bytes for an 8B model on the GPU; ``bf16`` for small models and the CPU);
+- load: GGUF mmap → weights on the device (``q4k``: fused Q4_K/Q5_K/Q6_K/
+  Q8_0 block bytes for an 8B model on the GPU; ``bf16`` for small models
+  and the CPU);
+- KV cache: a head-major ring in bf16, or int8 with per-token scales
+  (``kv_dtype="int8"``, ops/kvquant.py);
 - prefill: the prompt padded to a bucket; a bucket larger than
   ``prefill_chunk`` runs as slices at growing cache offsets, stopping at
   the slice that holds the last real token;
@@ -120,6 +123,7 @@ class Engine:
         max_gen_tokens: int = 512,
         seed: int = 0,
         attn_impl: str = "auto",   # auto | xla | flash (prompt passes)
+        kv_dtype: str | None = None,  # bf16 | int8 KV cache; None keeps the cfg's
         prefix_cache: bool = True,  # reuse the previous request's KV prefix
         prefix_min: int = 32,       # shortest common prefix worth reusing
         prefill_chunk: int = 256,   # prompt slice size for large buckets
@@ -127,6 +131,10 @@ class Engine:
         *,
         _parts: tuple | None = None,  # (params, cfg, tokenizer, template_kind)
     ):
+        # validated before the file is read: a wrong LFKT_KV_DTYPE fails at
+        # once, not after a multi-GB load
+        if kv_dtype is not None and kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype must be bf16|int8, got {kv_dtype!r}")
         self.n_ctx = n_ctx
         self.decode_chunk = decode_chunk
         self.max_gen_tokens = max_gen_tokens
@@ -165,6 +173,8 @@ class Engine:
             logger.info("loaded %s (%s, %d layers, fmt=%s, %s) in %.1fs",
                         model_path, gf.architecture, self.cfg.n_layers,
                         weight_format, self.device, time.time() - t0)
+        if kv_dtype is not None and kv_dtype != self.cfg.kv_dtype:
+            self.cfg = dataclasses.replace(self.cfg, kv_dtype=kv_dtype)
         if attn_impl == "auto":
             group = self.cfg.n_heads // self.cfg.n_kv_heads
             attn_impl = ("flash" if self.device.type == "cuda"
@@ -186,7 +196,7 @@ class Engine:
 
     @property
     def kv_cache_bytes(self) -> int:
-        """Device bytes of the KV ring."""
+        """Device bytes of the KV ring (bf16 or int8, as ``cfg.kv_dtype``)."""
         return cache_nbytes(self.cfg)
 
     @property

@@ -30,6 +30,9 @@ class ModelConfig:
     # streams K/V through the hand-written flash kernel (ops/attention.py)
     # for prompt passes (S > 1).  Decode (S == 1) is always the plain path.
     attn_impl: str = "xla"
+    # "bf16" keeps the KV ring in bf16; "int8" stores int8 values plus a
+    # per-head, per-token f32 scale (ops/kvquant.py)
+    kv_dtype: str = "bf16"
 
     @property
     def head_dim(self) -> int:

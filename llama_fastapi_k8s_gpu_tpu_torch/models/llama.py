@@ -2,10 +2,11 @@
 
 The same graph as the JAX reference (llama_fastapi_k8s_gpu_tpu/models/
 llama.py): RMSNorm → GQA attention with interleaved RoPE → SwiGLU, over a
-preallocated KV ring laid out head-major, ``(L, n_kv, n_ctx, hd)`` bf16.
-The dtype flow follows the reference step for step (bf16 activations,
-norms and RoPE in f32, f32 attention scores), so the two agree at the
-bf16-rounding scale.
+preallocated KV ring laid out head-major, ``(L, n_kv, n_ctx, hd)`` bf16 —
+or, under ``cfg.kv_dtype == "int8"``, int8 values with per-head, per-token
+f32 scales (ops/kvquant.py).  The dtype flow follows the reference step
+for step (bf16 activations, norms and RoPE in f32, f32 attention scores),
+so the two agree at the bf16-rounding scale.
 
 The KV ring is updated **in place**: a forward pass writes the S new
 tokens' slots of every layer into the ``cache`` tensors it was given —
@@ -15,8 +16,9 @@ still pads to buckets to keep its prefix-reuse decisions those of the
 reference.
 
 Prompt passes (S > 1) go through the flash kernel when ``cfg.attn_impl ==
-"flash"``; decode (S = 1) and ``"xla"`` prompt passes use the plain score
-matrix of :func:`xla_attention`.
+"flash"`` (its int8 variant over an int8 ring); decode (S = 1) and
+``"xla"`` prompt passes use the plain score matrix of :func:`xla_attention`,
+which folds an int8 ring's scales into its products as the reference does.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import attention_mask, flash_attention
+from ..ops.attention import attention_mask, flash_attention, flash_attention_int8
+from ..ops.kvquant import kv_quantize
 from ..ops.linear import linear
 from .config import ModelConfig
 
@@ -59,26 +62,45 @@ def rope_interleaved(x: torch.Tensor, positions: torch.Tensor,
 
 def init_cache(cfg: ModelConfig, device: torch.device,
                dtype=torch.bfloat16) -> dict:
-    """KV ring, head-major: ``{"k", "v"}`` each (L, n_kv, n_ctx, hd)."""
+    """KV ring, head-major: ``{"k", "v"}`` each (L, n_kv, n_ctx, hd) — or,
+    under ``cfg.kv_dtype == "int8"``, ``{"k_q", "v_q"}`` int8 (L, n_kv,
+    n_ctx, hd) and ``{"k_s", "v_s"}`` f32 (L, n_kv, n_ctx), the reference's
+    four-leaf layout."""
     shape = (cfg.n_layers, cfg.n_kv_heads, cfg.n_ctx, cfg.head_dim)
+    if cfg.kv_dtype == "int8":
+        return {"k_q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_s": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                "v_s": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
+    if cfg.kv_dtype != "bf16":
+        raise ValueError(f"kv_dtype must be bf16|int8, got {cfg.kv_dtype!r}")
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def cache_nbytes(cfg: ModelConfig) -> int:
-    """Device bytes of one bf16 cache ring under ``cfg``."""
-    return 2 * cfg.n_layers * cfg.n_kv_heads * cfg.n_ctx * cfg.head_dim * 2
+    """Device bytes of one cache ring under ``cfg``: ``2·hd`` bytes per
+    token-head in bf16, ``hd + 4`` in int8 (the reference's formula)."""
+    int8 = cfg.kv_dtype == "int8"
+    per_tok_head = cfg.head_dim * (1 if int8 else 2) + (4 if int8 else 0)
+    return 2 * cfg.n_layers * cfg.n_kv_heads * cfg.n_ctx * per_tok_head
 
 
 def xla_attention(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
                   positions: torch.Tensor, cfg: ModelConfig, out_dtype,
-                  key_end: int | None = None) -> torch.Tensor:
+                  key_end: int | None = None, cks: torch.Tensor | None = None,
+                  cvs: torch.Tensor | None = None) -> torch.Tensor:
     """The score-matrix attention (the reference's XLA path, in plain
     torch): q (S, H, hd); kk, vv (n_kv, n_ctx, hd) one layer's ring.
     Scores and softmax in f32, probabilities rounded to bf16 before P·V as
     the reference does.  ``key_end`` (default: the whole ring) is one past
     the last query position: every key from there on is masked, so the
-    score matrix stops there."""
+    score matrix stops there.
+
+    With ``cks``/``cvs`` (n_kv, n_ctx), the int8 ring's scales: scores are
+    ``(q·k_int8)·hd^-0.5·cks`` and the probabilities are multiplied by
+    ``cvs`` before they are rounded to bf16, so no dequantized ring is
+    materialized."""
     S = q.shape[0]
     n_kv, group, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
     if key_end is None:
@@ -86,10 +108,15 @@ def xla_attention(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
     qg = q.reshape(S, n_kv, group, hd).permute(1, 2, 0, 3)         # (n_kv, g, S, hd)
     scores = torch.matmul(qg.float(), kk[:, None, :key_end].float().transpose(-1, -2)
                           ) * (hd ** -0.5)                          # (n_kv, g, S, c)
+    if cks is not None:
+        scores = scores * cks[:, None, None, :key_end]
     mask = attention_mask(positions, key_end, cfg.sliding_window)
     scores = scores.masked_fill(~mask, float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(vv.dtype)
-    ctx = torch.matmul(probs.float(), vv[:, None, :key_end].float()).to(vv.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if cvs is not None:
+        probs = probs * cvs[:, None, None, :key_end]
+    probs = probs.to(q.dtype)
+    ctx = torch.matmul(probs.float(), vv[:, None, :key_end].float()).to(q.dtype)
     return ctx.permute(2, 0, 1, 3).reshape(S, cfg.n_heads * hd).to(out_dtype)
 
 
@@ -108,17 +135,29 @@ def _layer(h: torch.Tensor, layer, i: int, cache: dict,
     q = rope_interleaved(q, positions, cfg.rope_theta)
     k = rope_interleaved(k, positions, cfg.rope_theta)
 
-    ck, cv = cache["k"][i], cache["v"][i]                          # (n_kv, n_ctx, hd)
-    ck[:, pos_offset:pos_offset + S] = k.transpose(0, 1).to(ck.dtype)
-    cv[:, pos_offset:pos_offset + S] = v.transpose(0, 1).to(cv.dtype)
+    if cfg.kv_dtype == "int8":
+        # quantize the S new tokens' K and V straight into the ring slots
+        ck, cv = cache["k_q"][i], cache["v_q"][i]                  # (n_kv, n_ctx, hd)
+        cks, cvs = cache["k_s"][i], cache["v_s"][i]                # (n_kv, n_ctx)
+        kv_quantize(k, v, ck, cv, cks, cvs, pos_offset)
+    else:
+        ck, cv = cache["k"][i], cache["v"][i]                      # (n_kv, n_ctx, hd)
+        cks = cvs = None
+        ck[:, pos_offset:pos_offset + S] = k.transpose(0, 1).to(ck.dtype)
+        cv[:, pos_offset:pos_offset + S] = v.transpose(0, 1).to(cv.dtype)
 
     if cfg.attn_impl == "flash" and S > 1:
-        ctx = flash_attention(q, ck, cv, pos_offset, sm_scale=hd ** -0.5,
-                              sliding_window=cfg.sliding_window
-                              ).reshape(S, cfg.n_heads * hd).to(h.dtype)
+        if cks is None:
+            ctx = flash_attention(q, ck, cv, pos_offset, sm_scale=hd ** -0.5,
+                                  sliding_window=cfg.sliding_window)
+        else:
+            ctx = flash_attention_int8(q, ck, cv, cks, cvs, pos_offset,
+                                       sm_scale=hd ** -0.5,
+                                       sliding_window=cfg.sliding_window)
+        ctx = ctx.reshape(S, cfg.n_heads * hd).to(h.dtype)
     else:
         ctx = xla_attention(q, ck, cv, positions, cfg, h.dtype,
-                            key_end=pos_offset + S)
+                            key_end=pos_offset + S, cks=cks, cvs=cvs)
     h = h + linear(ctx, layer.wo)
 
     hn = rms_norm(h, layer.ffn_norm, cfg.rms_eps)

@@ -15,8 +15,8 @@ Formats (``ops.linear.Linear.kind``):
   are requantized onto that grid.  A name mixing Q8_0 with anything else
   takes bf16.
 
-``token_embd`` of a Q4_K, Q5_K or Q8_0 file is uploaded as block bytes and
-expanded to bf16 on the device by that format's dequant kernel.
+``token_embd`` of a Q4_K, Q5_K, Q6_K or Q8_0 file is uploaded as block
+bytes and expanded to bf16 on the device by that format's dequant kernel.
 
 GGUF tensor names follow llama.cpp: ``token_embd.weight``,
 ``blk.{i}.attn_{q,k,v,output}.weight``, ``blk.{i}.ffn_{gate,up,down}.weight``,
@@ -35,7 +35,7 @@ from torch import nn
 from ..gguf import GGMLType, GGUFFile
 from ..gguf.constants import GGML_BLOCK_SIZES
 from ..gguf.quants import quantize
-from ..ops.dequant import dequant_q4_k, dequant_q5_k, dequant_q8_0
+from ..ops.dequant import dequant_q4_k, dequant_q5_k, dequant_q6_k, dequant_q8_0
 from ..ops.linear import Linear
 from ..utils.device import resolve_device
 from .config import ModelConfig
@@ -50,7 +50,7 @@ FUSED_KINDS = {GGMLType.Q4_K: "q4k", GGMLType.Q5_K: "q5k",
 _K_RANK = {GGMLType.Q4_K: 0, GGMLType.Q5_K: 1, GGMLType.Q6_K: 2}
 #: GGML types whose token_embd expands on the device, by dequant kernel
 _EMB_DEQUANT = {GGMLType.Q4_K: dequant_q4_k, GGMLType.Q5_K: dequant_q5_k,
-                GGMLType.Q8_0: dequant_q8_0}
+                GGMLType.Q6_K: dequant_q6_k, GGMLType.Q8_0: dequant_q8_0}
 
 _LINEARS = {"attn_q": "wq", "attn_k": "wk", "attn_v": "wv",
             "attn_output": "wo", "ffn_gate": "w_gate", "ffn_up": "w_up",

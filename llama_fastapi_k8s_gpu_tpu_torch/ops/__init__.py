@@ -5,16 +5,20 @@ Each kernel module pairs a wrapper that launches the CUDA kernel (for CUDA
 tensors) with its plain PyTorch version (for CPU tensors) and counts its
 launches in ``<wrapper>.launches``:
 
-- :mod:`.dequant` — load-time Q4_K / Q5_K / Q8_0 → bf16 (``token_embd``);
+- :mod:`.dequant` — load-time Q4_K / Q5_K / Q6_K / Q8_0 → bf16
+  (``token_embd``);
 - :mod:`.q4k` / :mod:`.q5k` / :mod:`.q6k` / :mod:`.q8` — fused Q4_K /
   Q5_K / Q6_K / Q8_0 dequant-matmuls;
-- :mod:`.attention` — causal GQA flash attention for prompt passes.
+- :mod:`.attention` — causal GQA flash attention for prompt passes, over
+  the bf16 or the int8 KV ring;
+- :mod:`.kvquant` — the int8 KV cache's write-quantize.
 
 Kernels are built from ``csrc/`` at first use (:mod:`._kernels`).
 """
 
-from .attention import flash_attention
-from .dequant import dequant_q4_k, dequant_q5_k, dequant_q8_0
+from .attention import flash_attention, flash_attention_int8
+from .dequant import dequant_q4_k, dequant_q5_k, dequant_q6_k, dequant_q8_0
+from .kvquant import kv_quantize
 from .q4k import q4k_matmul
 from .q5k import q5k_matmul
 from .q6k import q6k_matmul
@@ -30,8 +34,11 @@ KERNELS = {
     "q5k_matmul": q5k_matmul,
     "dequant_q8_0": dequant_q8_0,
     "q8_matmul": q8_matmul,
+    "kv_quantize": kv_quantize,
+    "flash_attention_int8": flash_attention_int8,
+    "dequant_q6_k": dequant_q6_k,
 }
 
-__all__ = ["KERNELS", "dequant_q4_k", "dequant_q5_k", "dequant_q8_0",
-           "flash_attention", "q4k_matmul", "q5k_matmul", "q6k_matmul",
-           "q8_matmul"]
+__all__ = ["KERNELS", "dequant_q4_k", "dequant_q5_k", "dequant_q6_k",
+           "dequant_q8_0", "flash_attention", "flash_attention_int8",
+           "kv_quantize", "q4k_matmul", "q5k_matmul", "q6k_matmul", "q8_matmul"]

@@ -39,6 +39,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "lfkt_dequant_q4k": [_P, _P, ctypes.c_longlong, _P],
     "lfkt_dequant_q5k": [_P, _P, ctypes.c_longlong, _P],
+    "lfkt_dequant_q6k": [_P, _P, ctypes.c_longlong, _P],
     "lfkt_dequant_q8_0": [_P, _P, ctypes.c_longlong, _P],
     "lfkt_q4k_matmul": [_P, _P, _P, _I, _I, _I, _P],
     "lfkt_q5k_matmul": [_P, _P, _P, _I, _I, _I, _P],
@@ -46,6 +47,9 @@ SIGNATURES = {
     "lfkt_q8_matmul": [_P, _P, _P, _I, _I, _I, _P],
     "lfkt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              ctypes.c_float, _I, _P],
+    "lfkt_flash_attention_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  ctypes.c_float, _I, _P],
+    "lfkt_kv_quantize": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -7,9 +7,18 @@ prefill slices at ``pos_offset`` 0, 256, … and the prefix-reuse suffix.
 The ring slots past ``pos_offset + S`` may hold stale keys from an earlier
 request; the causal mask ``key_pos <= q_pos`` is what hides them, exactly.
 
+``flash_attention_int8`` is the same kernel over the int8 KV cache
+(ops/kvquant.py): int8 K/V rings with per-token f32 scales, folded in the
+reference's scale-last form — ``score = (q·k_int8)·sm_scale·ks[key]`` and
+``vs[key]`` multiplied into the key's probability before P·V — so no bf16
+ring is ever materialized.  It has a launch counter of its own, and its
+plain version is :func:`flash_attention_int8_plain`.
+
 Replaces the Pallas kernel llama_fastapi_k8s_gpu_tpu/ops/pallas/attention.py::
-_attn_kernel (``flash_attention``), bf16 branch.  The int8-cache branch
-comes with the int8 KV cache.
+_attn_kernel (``flash_attention``), its bf16 branch and its int8 branch
+(``k_scale``/``v_scale``).  As everywhere in the port, a kernel that fails
+to build or launch raises: there is no compile probe that degrades to the
+score-matrix path.
 """
 
 from __future__ import annotations
@@ -54,36 +63,95 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ctx.permute(2, 0, 1, 3).reshape(S, H, hd).to(q.dtype)
 
 
+def flash_attention_int8_plain(q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
+                               ks: torch.Tensor, vs: torch.Tensor, pos_offset: int,
+                               sm_scale: float, sliding_window: int = 0) -> torch.Tensor:
+    """Plain PyTorch version over the int8 ring: f32 scores ``(q·k_int8)
+    ·sm_scale·ks``, f32 softmax, f32 probabilities times ``vs`` times the
+    int8 values, rounded to ``q.dtype`` once — the kernel's arithmetic
+    without its tiling.  (The JAX reference rounds ``p·vs`` to bf16 before
+    P·V.)  A row with no visible key is zero."""
+    S, H, hd = q.shape
+    n_kv = kq.shape[0]
+    group = H // n_kv
+    key_end = min(kq.shape[1], pos_offset + S)
+    qg = q.reshape(S, n_kv, group, hd).permute(1, 2, 0, 3).float()
+    scores = torch.matmul(qg, kq[:, None, :key_end].float().transpose(-1, -2)) * sm_scale
+    scores = scores * ks[:, None, None, :key_end]
+    q_pos = pos_offset + torch.arange(S, device=q.device)
+    mask = attention_mask(q_pos, key_end, sliding_window)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).nan_to_num(0.0) * vs[:, None, None, :key_end]
+    ctx = torch.matmul(probs, vq[:, None, :key_end].float())     # (n_kv, g, S, hd)
+    return ctx.permute(2, 0, 1, 3).reshape(S, H, hd).to(q.dtype)
+
+
+def _check_geometry(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    pos_offset: int) -> None:
+    S, H, hd = q.shape
+    n_kv, n_ctx, _ = k.shape
+    if H % n_kv or k.shape != v.shape or k.shape[2] != hd:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not fit "
+                         f"k {tuple(k.shape)} / v {tuple(v.shape)}")
+    if pos_offset < 0 or pos_offset + S > n_ctx:
+        raise ValueError(f"{name}: positions {pos_offset}..{pos_offset + S} "
+                         f"outside the {n_ctx}-slot ring")
+
+
+def _launch(wrapper, launcher: str, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, scales: tuple, pos_offset: int, sm_scale: float,
+            sliding_window: int) -> torch.Tensor:
+    """Launch the kernel (``scales`` = (ks, vs) for the int8 ring, () for
+    bf16) and count it on ``wrapper``."""
+    name = wrapper.__name__
+    S, H, hd = q.shape
+    n_kv, n_ctx, _ = k.shape
+    if hd not in HEAD_DIMS or _ROWS % (H // n_kv):
+        raise ValueError(f"{name}: kernel takes head_dim in {HEAD_DIMS} "
+                         f"and a GQA group dividing {_ROWS}, got hd={hd}, "
+                         f"group={H // n_kv}")
+    q = q.contiguous()
+    kv_dtype = torch.int8 if scales else torch.bfloat16
+    require_cuda(name, q, k, v, *scales,
+                 dtypes=(torch.bfloat16, kv_dtype, kv_dtype) + (torch.float32,) * len(scales))
+    out = torch.empty_like(q)
+    check(getattr(library(), launcher)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *(t.data_ptr() for t in scales),
+        out.data_ptr(), S, H, n_kv, n_ctx, hd, pos_offset, float(sm_scale),
+        int(sliding_window), stream_ptr(q)), name)
+    wrapper.launches += 1
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     pos_offset: int, sm_scale: float,
                     sliding_window: int = 0) -> torch.Tensor:
     """q (S, H, hd) bf16 queries at cache positions ``pos_offset ..
     pos_offset+S-1``; k, v (n_kv, n_ctx, hd) bf16, one layer's ring.
     Returns (S, H, hd) bf16."""
-    S, H, hd = q.shape
-    n_kv, n_ctx, _ = k.shape
-    if H % n_kv or k.shape != v.shape or k.shape[2] != hd:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
-                         f"k {tuple(k.shape)} / v {tuple(v.shape)}")
-    if pos_offset < 0 or pos_offset + S > n_ctx:
-        raise ValueError(f"flash_attention: positions {pos_offset}..{pos_offset + S} "
-                         f"outside the {n_ctx}-slot ring")
+    _check_geometry("flash_attention", q, k, v, pos_offset)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, pos_offset, sm_scale, sliding_window)
-    if hd not in HEAD_DIMS or _ROWS % (H // n_kv):
-        raise ValueError(f"flash_attention: kernel takes head_dim in {HEAD_DIMS} "
-                         f"and a GQA group dividing {_ROWS}, got hd={hd}, "
-                         f"group={H // n_kv}")
-    q = q.contiguous()
-    require_cuda("flash_attention", q, k, v,
-                 dtypes=(torch.bfloat16, torch.bfloat16, torch.bfloat16))
-    out = torch.empty_like(q)
-    check(library().lfkt_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), S, H, n_kv,
-        n_ctx, hd, pos_offset, float(sm_scale), int(sliding_window),
-        stream_ptr(q)), "flash_attention")
-    flash_attention.launches += 1
-    return out
+    return _launch(flash_attention, "lfkt_flash_attention", q, k, v, (), pos_offset,
+                   sm_scale, sliding_window)
+
+
+def flash_attention_int8(q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
+                         ks: torch.Tensor, vs: torch.Tensor, pos_offset: int,
+                         sm_scale: float, sliding_window: int = 0) -> torch.Tensor:
+    """As :func:`flash_attention` over one layer's int8 ring: ``kq``, ``vq``
+    (n_kv, n_ctx, hd) int8 and their scales ``ks``, ``vs`` (n_kv, n_ctx)
+    f32.  Returns (S, H, hd) bf16."""
+    _check_geometry("flash_attention_int8", q, kq, vq, pos_offset)
+    if ks.shape != kq.shape[:2] or vs.shape != ks.shape:
+        raise ValueError(f"flash_attention_int8: scales {tuple(ks.shape)} / "
+                         f"{tuple(vs.shape)} do not fit the ring {tuple(kq.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_int8_plain(q, kq, vq, ks, vs, pos_offset, sm_scale,
+                                          sliding_window)
+    return _launch(flash_attention_int8, "lfkt_flash_attention_int8", q, kq, vq,
+                   (ks, vs), pos_offset, sm_scale, sliding_window)
 
 
 flash_attention.launches = 0
+flash_attention_int8.launches = 0

@@ -1,13 +1,14 @@
-"""Load-time dequantization of ``token_embd``: Q4_K, Q5_K and Q8_0 → bf16.
+"""Load-time dequantization of ``token_embd``: Q4_K, Q5_K, Q6_K and Q8_0 → bf16.
 
-Each wrapper (``dequant_q4_k``, ``dequant_q5_k``, ``dequant_q8_0``)
-launches its CUDA kernel (``csrc/dequant_q4k.cu``, ``csrc/dequant_q5k.cu``,
-``csrc/dequant_q8_0.cu``) for a CUDA tensor of raw GGUF block bytes, and
-runs its plain PyTorch version (``*_plain``) for a CPU tensor.  Both are
-bit-identical to the numpy codec (gguf/quants.py) cast to bf16.
+Each wrapper (``dequant_q4_k``, ``dequant_q5_k``, ``dequant_q6_k``,
+``dequant_q8_0``) launches its CUDA kernel (``csrc/dequant_q4k.cu``,
+``csrc/dequant_q5k.cu``, ``csrc/dequant_q6k.cu``, ``csrc/dequant_q8_0.cu``)
+for a CUDA tensor of raw GGUF block bytes, and runs its plain PyTorch
+version (``*_plain``) for a CPU tensor.  Both are bit-identical to the
+numpy codec (gguf/quants.py) cast to bf16.
 
 Replace the Pallas kernels llama_fastapi_k8s_gpu_tpu/ops/pallas/dequant.py::
-_q4_k_kernel, _q5_k_kernel and _q8_0_kernel.  Unlike the JAX
+_q4_k_kernel, _q5_k_kernel, _q6_k_kernel and _q8_0_kernel.  Unlike the JAX
 ``device_dequant`` there is no latch that falls back to the host codec: a
 kernel that fails to build or launch raises.
 
@@ -25,6 +26,7 @@ from ._kernels import check, library, require_cuda, stream_ptr
 QK_K = 256
 Q4K_BLOCK = 144
 Q5K_BLOCK = 176
+Q6K_BLOCK = 210
 QK8_0 = 32
 Q8_0_BLOCK = 34
 
@@ -69,6 +71,21 @@ def dequant_q5_k_f32(raw: torch.Tensor) -> torch.Tensor:
     return (scale[:, :, None] * q - minv[:, :, None]).reshape(-1)
 
 
+def dequant_q6_k_f32(raw: torch.Tensor) -> torch.Tensor:
+    """Flat Q6_K block bytes → flat f32, the numpy codec's arithmetic
+    (gguf/quants.py::dequant_q6_k: d·sc, then times q−32)."""
+    blocks = raw.reshape(-1, Q6K_BLOCK)
+    nb = blocks.shape[0]
+    ql = blocks[:, 0:128].reshape(nb, 2, 64)
+    qh = blocks[:, 128:192].reshape(nb, 2, 32)
+    sc = blocks[:, 192:208].contiguous().view(torch.int8).float()       # (nb, 16)
+    d = _f16(blocks, 208)                                               # (nb, 1)
+    low = torch.cat([ql & 0x0F, ql >> 4], dim=2)                        # (nb, 2, 128)
+    hi = torch.cat([(qh >> s) & 3 for s in (0, 2, 4, 6)], dim=2)        # (nb, 2, 128)
+    q = (low | (hi << 4)).float() - 32.0
+    return ((d * sc)[:, :, None] * q.reshape(nb, 16, 16)).reshape(-1)
+
+
 def dequant_q8_0_f32(raw: torch.Tensor) -> torch.Tensor:
     """Flat Q8_0 block bytes → flat f32, ``d·q`` per 32-element block."""
     blocks = raw.reshape(-1, Q8_0_BLOCK)
@@ -84,6 +101,11 @@ def dequant_q4_k_plain(raw: torch.Tensor) -> torch.Tensor:
 def dequant_q5_k_plain(raw: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the Q5_K kernel: flat bytes → flat bf16."""
     return dequant_q5_k_f32(raw).to(torch.bfloat16)
+
+
+def dequant_q6_k_plain(raw: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the Q6_K kernel: flat bytes → flat bf16."""
+    return dequant_q6_k_f32(raw).to(torch.bfloat16)
 
 
 def dequant_q8_0_plain(raw: torch.Tensor) -> torch.Tensor:
@@ -125,6 +147,13 @@ def dequant_q5_k(raw: torch.Tensor) -> torch.Tensor:
                     Q5K_BLOCK, QK_K)
 
 
+def dequant_q6_k(raw: torch.Tensor) -> torch.Tensor:
+    """Raw Q6_K bytes (``numel % 210 == 0``) → flat bf16 of ``numel / 210 ·
+    256`` elements."""
+    return _dequant(dequant_q6_k, dequant_q6_k_plain, "lfkt_dequant_q6k", raw,
+                    Q6K_BLOCK, QK_K)
+
+
 def dequant_q8_0(raw: torch.Tensor) -> torch.Tensor:
     """Raw Q8_0 bytes (``numel % 34 == 0``) → flat bf16 of ``numel / 34 ·
     32`` elements."""
@@ -134,4 +163,5 @@ def dequant_q8_0(raw: torch.Tensor) -> torch.Tensor:
 
 dequant_q4_k.launches = 0
 dequant_q5_k.launches = 0
+dequant_q6_k.launches = 0
 dequant_q8_0.launches = 0

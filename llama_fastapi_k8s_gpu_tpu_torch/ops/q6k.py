@@ -20,24 +20,7 @@ from __future__ import annotations
 import torch
 
 from ._fused import fused_matmul, matmul_plain
-from .dequant import QK_K
-
-Q6K_BLOCK = 210
-
-
-def dequant_q6_k_f32(raw: torch.Tensor) -> torch.Tensor:
-    """Flat Q6_K block bytes → flat f32, the numpy codec's arithmetic
-    (gguf/quants.py::dequant_q6_k: d·sc, then times q−32)."""
-    blocks = raw.reshape(-1, Q6K_BLOCK)
-    nb = blocks.shape[0]
-    ql = blocks[:, 0:128].reshape(nb, 2, 64)
-    qh = blocks[:, 128:192].reshape(nb, 2, 32)
-    sc = blocks[:, 192:208].contiguous().view(torch.int8).float()       # (nb, 16)
-    d = blocks[:, 208:210].contiguous().view(torch.float16).float()     # (nb, 1)
-    low = torch.cat([ql & 0x0F, ql >> 4], dim=2)                        # (nb, 2, 128)
-    hi = torch.cat([(qh >> s) & 3 for s in (0, 2, 4, 6)], dim=2)        # (nb, 2, 128)
-    q = (low | (hi << 4)).float() - 32.0
-    return ((d * sc)[:, :, None] * q.reshape(nb, 16, 16)).reshape(-1)
+from .dequant import Q6K_BLOCK, QK_K, dequant_q6_k_f32
 
 
 def q6k_matmul_plain(x: torch.Tensor, w: torch.Tensor, n_out: int,

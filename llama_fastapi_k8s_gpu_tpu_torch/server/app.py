@@ -239,7 +239,7 @@ def create_app(engine=None, settings: Settings | None = None,
             "n_ctx": getattr(cfg, "n_ctx", None),
             "attn_impl": getattr(cfg, "attn_impl", None),
             "weight_formats": params.formats() if hasattr(params, "formats") else None,
-            "kv_dtype": "bf16",
+            "kv_dtype": getattr(cfg, "kv_dtype", None),
             "kv_cache_bytes": getattr(eng, "kv_cache_bytes", None),
             "device": str(getattr(eng, "device", None)),
         }
@@ -282,6 +282,7 @@ def _default_engine_factory(settings: Settings):
             prefill_buckets=settings.prefill_bucket_list,
             max_gen_tokens=settings.max_gen_tokens,
             attn_impl=settings.attn_impl,
+            kv_dtype=settings.kv_dtype,
             prefix_cache=settings.prefix_cache,
             prefill_chunk=settings.prefill_chunk,
         )

@@ -32,6 +32,7 @@ class Settings:
     prefill_buckets: str = "128,256,512,1024"
     weight_format: str = "auto"        # auto | bf16 | q4k
     attn_impl: str = "auto"            # auto | xla | flash (prompt passes)
+    kv_dtype: str = "bf16"             # bf16 | int8 KV cache
     prefix_cache: bool = True          # reuse the previous request's KV prefix
     prefill_chunk: int = 256           # prompt slice size for large buckets
     host: str = "0.0.0.0"

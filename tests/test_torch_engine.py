@@ -91,3 +91,12 @@ def test_oversized_prompt_and_warmup(engine):
     engine.warmup()
     assert engine.create_chat_completion(MSGS, temperature=0.0)["usage"][
         "completion_tokens"] == 20
+
+
+def test_kv_dtype_is_checked_before_the_file_is_read(tmp_path):
+    """An unknown ``kv_dtype`` raises ValueError at once: the file named is
+    never opened (it does not exist)."""
+    with pytest.raises(ValueError, match="kv_dtype"):
+        Engine(str(tmp_path / "absent.gguf"), kv_dtype="fp8", device="cpu")
+    with pytest.raises(FileNotFoundError):
+        Engine(str(tmp_path / "absent.gguf"), kv_dtype="int8", device="cpu")

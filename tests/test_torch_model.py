@@ -1,14 +1,18 @@
 """The port's model against the JAX reference's on the same weights.
 
-- tiny Llama, bf16: the JAX param pytree crosses over through
+- tiny Llama, bf16 weights: the JAX param pytree crosses over through
   ``from_jax_params``; ``forward`` logits agree to rel-dev ≤ 1e-2 (bf16
   activations rounded at the same steps, sums in another order) and 16
-  greedy decode tokens are identical;
-- one Q4_K + Q6_K, one Q5_K + Q6_K and one Q8_0 file at dim 2048 (1 layer,
-  16 heads of 128, ffn 2048), loaded by both: the reference's fused Pallas
-  path (interpret) with its flash kernel against the port's fused + flash
-  plain path, logits rel-dev ≤ 2·10⁻², and the port within 5·10⁻³ of the
-  reference's exact bf16 load;
+  greedy decode tokens are identical — over the bf16 KV ring, and over the
+  int8 ring against the reference's int8 ring (never against bf16: the
+  reference's own int8-vs-bf16 greedy run parts at one seed, ROADMAP C.3);
+- one Q4_K + Q6_K, one Q5_K + Q6_K, one Q8_0 and one Q6_K file at dim 2048
+  (1 layer, 16 heads of 128, ffn 2048), loaded by both: the reference's
+  fused Pallas path (interpret) with its flash kernel against the port's
+  fused + flash plain path, logits rel-dev ≤ 2·10⁻², and the port within
+  5·10⁻³ of the reference's exact bf16 load (the Q6_K file with the int8
+  KV cache on all three);
+- the int8 cache's layout, dtypes and byte count against the reference's;
 - which names fuse, and as what, in files that mix types per layer, against
   the reference's rule; ``token_embd`` of each type with a dequant kernel
   against the codec.
@@ -28,6 +32,7 @@ import jax.numpy as jnp
 from llama_fastapi_k8s_gpu_tpu.gguf import GGMLType as JGGMLType
 from llama_fastapi_k8s_gpu_tpu.gguf import GGUFFile as JGGUFFile
 from llama_fastapi_k8s_gpu_tpu.models.config import ModelConfig as JModelConfig
+from llama_fastapi_k8s_gpu_tpu.models.llama import cache_nbytes as j_cache_nbytes
 from llama_fastapi_k8s_gpu_tpu.models.llama import decode_step as j_decode_step
 from llama_fastapi_k8s_gpu_tpu.models.llama import forward as j_forward
 from llama_fastapi_k8s_gpu_tpu.models.llama import init_cache as j_init_cache
@@ -35,7 +40,12 @@ from llama_fastapi_k8s_gpu_tpu.models.params import load_params as j_load_params
 from llama_fastapi_k8s_gpu_tpu.testing import write_tiny_llama_gguf
 from llama_fastapi_k8s_gpu_tpu_torch.gguf import GGMLType, GGUFFile, GGUFWriter, quants
 from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
-from llama_fastapi_k8s_gpu_tpu_torch.models.llama import decode_step, forward, init_cache
+from llama_fastapi_k8s_gpu_tpu_torch.models.llama import (
+    cache_nbytes,
+    decode_step,
+    forward,
+    init_cache,
+)
 from llama_fastapi_k8s_gpu_tpu_torch.models.params import from_jax_params, load_params
 
 torch.set_num_threads(1)
@@ -76,12 +86,50 @@ def test_forward_logits_match(tiny, window):
     assert _rel(got.numpy(), np.asarray(ref)) <= 1e-2
 
 
-def test_greedy_decode_16_tokens_identical(tiny):
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+def test_forward_logits_match_int8_kv(tiny, impl):
+    """The int8 KV ring on both sides: the score-matrix path with the
+    scales folded in, and the flash path (the reference's Pallas kernel in
+    interpret mode against the port's int8 flash plain version)."""
+    jcfg, jparams, cfg, params = tiny
+    jcfg = dataclasses.replace(jcfg, kv_dtype="int8",
+                               attn_impl={"xla": "xla", "flash": "pallas"}[impl])
+    cfg = dataclasses.replace(cfg, kv_dtype="int8", attn_impl=impl)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, 24)
+    ref, _ = j_forward(jparams, jcfg, jnp.asarray(toks, jnp.int32), jnp.int32(0),
+                       j_init_cache(jcfg), return_all=True)
+    with torch.inference_mode():
+        got = forward(params, cfg, torch.from_numpy(toks), 0, init_cache(cfg, CPU),
+                      return_all=True)
+    assert got.shape == (24, cfg.vocab_size)
+    assert _rel(got.numpy(), np.asarray(ref)) <= 1e-2
+
+
+def test_int8_cache_layout_and_bytes_match_reference(tiny):
+    jcfg, _, cfg, _ = tiny
+    for kv_dtype in ("bf16", "int8"):
+        jc = dataclasses.replace(jcfg, kv_dtype=kv_dtype)
+        c = dataclasses.replace(cfg, kv_dtype=kv_dtype)
+        jcache, cache = j_init_cache(jc), init_cache(c, CPU)
+        assert set(cache) == set(jcache)
+        for name, leaf in cache.items():
+            assert tuple(leaf.shape) == jcache[name].shape, name
+            assert str(leaf.dtype).split(".")[-1] == str(jcache[name].dtype), name
+            assert not leaf.any()
+        live = sum(t.numel() * t.element_size() for t in cache.values())
+        assert cache_nbytes(c) == j_cache_nbytes(jc) == live, kv_dtype
+    with pytest.raises(ValueError, match="kv_dtype"):
+        init_cache(dataclasses.replace(cfg, kv_dtype="fp8"), CPU)
+
+
+def _greedy_16_identical(tiny, kv_dtype: str) -> None:
     """Prefill 12 tokens, then 16 greedy steps on both sides.  A flip is
     allowed only where the reference's own top-2 margin is under the
     logits tolerance — and then the run is a finding for ROADMAP, not a
     silent pass; no flip occurs on this model."""
     jcfg, jparams, cfg, params = tiny
+    jcfg = dataclasses.replace(jcfg, kv_dtype=kv_dtype)
+    cfg = dataclasses.replace(cfg, kv_dtype=kv_dtype)
     prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, 12)
     jcache = j_init_cache(jcfg)
     jl, jcache = j_forward(jparams, jcfg, jnp.asarray(prompt, jnp.int32),
@@ -108,14 +156,27 @@ def test_greedy_decode_16_tokens_identical(tiny):
     assert t_tokens == j_tokens
 
 
-def _fused_file_matches_reference(tmp_path, quant, ffn_quant, formats):
+def test_greedy_decode_16_tokens_identical(tiny):
+    _greedy_16_identical(tiny, "bf16")
+
+
+def test_greedy_decode_16_tokens_identical_int8_kv(tiny):
+    """The int8 ring on both sides: the write-quantize of every step and
+    the scale-folded decode attention."""
+    _greedy_16_identical(tiny, "int8")
+
+
+def _fused_file_matches_reference(tmp_path, quant, ffn_quant, formats,
+                                  kv_dtype="bf16"):
     """A dim-2048 file with ``quant`` attention and ``ffn_quant`` FFN
     linears: the port's fused + flash forward against the reference's
-    (``fmt="q4k"``, Pallas in interpret mode) and its exact bf16 load."""
+    (``fmt="q4k"``, Pallas in interpret mode) and its exact bf16 load, all
+    three over a ``kv_dtype`` KV ring."""
     jcfg = JModelConfig(vocab_size=263, dim=2048, n_layers=1, n_heads=16,
                         n_kv_heads=4, ffn_dim=2048, n_ctx=256)
     path = str(tmp_path / "fused.gguf")
     jcfg = write_tiny_llama_gguf(path, cfg=jcfg, quant=quant, ffn_quant=ffn_quant)
+    jcfg = dataclasses.replace(jcfg, kv_dtype=kv_dtype)
     jgf = JGGUFFile(path)
     jcfg_p = dataclasses.replace(jcfg, attn_impl="pallas")
     toks = np.random.default_rng(0).integers(0, jcfg.vocab_size, 64)
@@ -127,7 +188,8 @@ def _fused_file_matches_reference(tmp_path, quant, ffn_quant, formats):
                          jcfg, jtok, jnp.int32(0), j_init_cache(jcfg), return_all=True)
 
     gf = GGUFFile(path)
-    cfg = dataclasses.replace(ModelConfig.from_gguf(gf, n_ctx=256), attn_impl="flash")
+    cfg = dataclasses.replace(ModelConfig.from_gguf(gf, n_ctx=256), attn_impl="flash",
+                              kv_dtype=kv_dtype)
     params = load_params(gf, cfg, "q4k", device="cpu")
     assert params.formats() == formats
     with torch.inference_mode():
@@ -159,6 +221,16 @@ def test_q5km_and_q8_0_fused_flash_path_matches_reference(tmp_path, layout):
                                 "q8")
     _fused_file_matches_reference(tmp_path, quant, ffn_quant,
                                   {**formats, "output": "bf16"})
+
+
+def test_q6k_file_int8_kv_fused_flash_path_matches_reference(tmp_path):
+    """Every linear Q6_K, the int8 KV cache: the reference's fused Q6_K
+    kernel and int8 flash (interpret) against the port's fused Q6_K and
+    int8 flash plain versions."""
+    _fused_file_matches_reference(
+        tmp_path, JGGMLType.Q6_K, None,
+        {**dict.fromkeys(("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"), "q6k"),
+         "output": "bf16"}, kv_dtype="int8")
 
 
 def _write_file(path: str, cfg: ModelConfig, types, seed: int = 0) -> None:
@@ -237,7 +309,7 @@ def test_mixed_names_fuse_as_the_reference_decides(tmp_path):
         assert jkind == kind, (name, sorted(jlayers[name]))
 
 
-@pytest.mark.parametrize("gtype", ["Q4_K", "Q5_K", "Q8_0"])
+@pytest.mark.parametrize("gtype", ["Q4_K", "Q5_K", "Q6_K", "Q8_0"])
 def test_token_embd_dequant_matches_codec(tmp_path, gtype):
     """``token_embd`` in each type with a dequant kernel expands (on the
     CPU: through the kernel's plain version) to the codec's values in

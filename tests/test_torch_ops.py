@@ -6,8 +6,10 @@ chip_smoke.py).  Here the plain versions meet the reference: the fused
 Q4_K/Q5_K/Q6_K/Q8_0 matmuls against the Pallas kernels in interpret mode —
 for Q5_K under both of its TPU layouts (``pre``, the default, and ``cur``)
 and for Q6_K under ``pre`` too, each layout a kernel body of its own — the flash
-attention against the Pallas flash kernel (interpret) and the XLA
-score-matrix path, and the model's small f32 ops exactly.
+attention, over the bf16 and the int8 ring, against the Pallas flash kernel
+(interpret) and the XLA score-matrix path, the int8 KV write-quantize and
+the Q6_K dequant against theirs bit for bit, and the model's small f32 ops
+exactly.
 
 Tolerances:
 - fused matmuls, rel-dev ‖y−y_ref‖/‖y_ref‖ ≤ 5·10⁻³ — the reference's own
@@ -16,7 +18,9 @@ Tolerances:
   from the exact product (it folds the scales, mins and sub-block sums of
   x to bf16; the port keeps them in f32);
 - flash attention, max-abs ≤ 2·10⁻² — the reference sums bf16
-  probabilities times bf16 V, the port f32 probabilities, in another order;
+  probabilities times bf16 V, the port f32 probabilities, in another order
+  (over the int8 ring: bf16 ``p·vs`` times int8 V against f32);
+- the KV write-quantize and the Q6_K dequant: bit-identical;
 - rms_norm and RoPE in f32, within 1e-6.
 """
 
@@ -41,6 +45,8 @@ from llama_fastapi_k8s_gpu_tpu.ops.linear import (
     make_linear_q8,
 )
 from llama_fastapi_k8s_gpu_tpu.ops.pallas.attention import flash_attention as j_flash
+from llama_fastapi_k8s_gpu_tpu.ops.pallas.dequant import dequant_q6_k_device
+from llama_fastapi_k8s_gpu_tpu.ops.pallas.kvquant import quantize_kv_pallas, quantize_kv_xla
 from llama_fastapi_k8s_gpu_tpu.ops.pallas.qmatmul import q4k_matmul as j_q4k_matmul
 from llama_fastapi_k8s_gpu_tpu.ops.pallas.q5matmul import q5k_matmul as j_q5k_matmul
 from llama_fastapi_k8s_gpu_tpu.ops.pallas.q6matmul import q6k_matmul as j_q6k_matmul
@@ -53,7 +59,9 @@ from llama_fastapi_k8s_gpu_tpu_torch.gguf.quants import (
 )
 from llama_fastapi_k8s_gpu_tpu_torch.models.llama import rms_norm, rope_interleaved
 from llama_fastapi_k8s_gpu_tpu_torch.ops.linear import Linear
-from llama_fastapi_k8s_gpu_tpu_torch.ops.attention import flash_attention
+from llama_fastapi_k8s_gpu_tpu_torch.ops.attention import flash_attention, flash_attention_int8
+from llama_fastapi_k8s_gpu_tpu_torch.ops.dequant import dequant_q6_k
+from llama_fastapi_k8s_gpu_tpu_torch.ops.kvquant import kv_quantize, quantize_kv_plain
 from llama_fastapi_k8s_gpu_tpu_torch.ops.q4k import q4k_matmul
 from llama_fastapi_k8s_gpu_tpu_torch.ops.q5k import q5k_matmul
 from llama_fastapi_k8s_gpu_tpu_torch.ops.q6k import q6k_matmul
@@ -231,3 +239,117 @@ def test_rms_norm_and_rope_match_reference():
                                theta).numpy()
         ref = np.asarray(j_rope(jnp.asarray(x), jnp.asarray(pos), theta))
         np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+
+
+def _kv_inputs(seed: int) -> np.ndarray:
+    """(n_kv, S, hd) bf16-valued K/V slabs: random rows at mixed scales, an
+    all-zero row, and a row whose scaled values sit exactly half-way
+    between two integers (max 127 → s = 1: 2.5 → 2, -3.5 → -4, 0.5 → 0)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((4, 37, 128)) * rng.uniform(1e-3, 1e2, (4, 37, 1))
+    x[1, 3] = 0.0
+    x[2, 5] = 0.0
+    x[2, 5, :4] = (127.0, 2.5, -3.5, 0.5)
+    return _bf16(x).float().numpy()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_quantize_kv_matches_reference_bit_for_bit(seed):
+    """The plain quantize against the reference's XLA formulation: int8
+    values and f32 scales bit-identical, the zero row stored as zeros and
+    the half-way row rounded to even.  Against the Pallas kernel (interpret
+    mode), bit-identical on every row where that kernel's scale is the
+    IEEE ``max/127``: it folds the division into a multiply by ``1/127``,
+    so some scales sit one ulp off, with values within ±1 — its own
+    agreement with the XLA path (tests/test_kv_quant.py)."""
+    x = _kv_inputs(seed)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    q, s = quantize_kv_plain(torch.from_numpy(x).to(torch.bfloat16))
+    q, s = q.numpy(), s.numpy()
+    q0, s0 = (np.asarray(a) for a in quantize_kv_xla(jx))
+    assert q.dtype == np.int8 and s.dtype == np.float32
+    assert np.array_equal(q, q0) and np.array_equal(s.view(np.int32), s0.view(np.int32))
+    assert not q[1, 3].any() and s[1, 3] == 0.0
+    assert s[2, 5] == 1.0 and list(q[2, 5, :4]) == [127, 2, -4, 0]
+    q1, s1 = (np.asarray(a) for a in quantize_kv_pallas(jx, interpret=True))
+    same = s1 == s
+    assert same.mean() > 0.5
+    assert np.array_equal(q[same], q1[same])
+    assert np.abs(s.view(np.int32)[~same] - s1.view(np.int32)[~same]).max(initial=0) <= 1
+    assert np.abs(q.astype(np.int32) - q1).max() <= 1
+
+
+@pytest.mark.parametrize("S,pos_offset", [(1, 0), (1, 61), (37, 0), (37, 20)])
+def test_kv_quantize_writes_the_reference_ring_slots(S, pos_offset):
+    """The in-place write (the kernel's function, on the CPU its plain
+    version) equals ``quantize_kv_xla`` of the head-major slab followed by
+    the reference's ``dynamic_update_slice``s, and leaves the other slots
+    alone."""
+    n_kv, n_ctx, hd = 4, 64, 128
+    rng = np.random.default_rng(S + pos_offset)
+    k = _bf16(rng.standard_normal((S, n_kv, hd)) * 3.0)
+    v = _bf16(rng.standard_normal((S, n_kv, hd)))
+    rings = [torch.full((n_kv, n_ctx, hd), 7, dtype=torch.int8) for _ in range(2)]
+    scales = [torch.full((n_kv, n_ctx), 0.5) for _ in range(2)]
+    kv_quantize(k, v, *rings, *scales, pos_offset)
+    for x, ring, sc in ((k, rings[0], scales[0]), (v, rings[1], scales[1])):
+        jq, js = quantize_kv_xla(jnp.asarray(x.float().numpy(), jnp.bfloat16).transpose(1, 0, 2))
+        want_q = np.full((n_kv, n_ctx, hd), 7, np.int8)
+        want_s = np.full((n_kv, n_ctx), 0.5, np.float32)
+        want_q[:, pos_offset:pos_offset + S] = np.asarray(jq)
+        want_s[:, pos_offset:pos_offset + S] = np.asarray(js)
+        assert np.array_equal(ring.numpy(), want_q)
+        assert np.array_equal(sc.numpy().view(np.int32), want_s.view(np.int32))
+    with pytest.raises(ValueError):
+        kv_quantize(k, v, *rings, *scales, n_ctx - S + 1)
+
+
+@pytest.mark.parametrize("S,offsets", [(1, (0, 64, 511)), (64, (0, 64, 448)),
+                                       (256, (0, 64, 256))])
+@pytest.mark.parametrize("window", [0, 128])
+def test_flash_attention_int8_matches_reference(S, offsets, window):
+    """Over an int8 ring quantized by the reference: the port's int8 flash
+    (its plain version) against the Pallas flash kernel with ``k_scale``/
+    ``v_scale`` (interpret) and against the XLA score-matrix path with the
+    scales folded in, max |Δ| ≤ 2·10⁻²."""
+    n_ctx, H, n_kv, hd = 512, 8, 2, 128
+    q, k, v = _attn_inputs(S, n_ctx, H, n_kv, hd, seed=S + window)
+    qb = _bf16(q)
+    jq = jnp.asarray(qb.float().numpy(), jnp.bfloat16)
+    jkq, jks = quantize_kv_xla(jnp.asarray(_bf16(k).float().numpy(), jnp.bfloat16))
+    jvq, jvs = quantize_kv_xla(jnp.asarray(_bf16(v).float().numpy(), jnp.bfloat16))
+    kq, ks, vq, vs = (torch.from_numpy(np.array(a)) for a in (jkq, jks, jvq, jvs))
+    cfg = JModelConfig(vocab_size=1, dim=H * hd, n_layers=1, n_heads=H,
+                       n_kv_heads=n_kv, ffn_dim=1, n_ctx=n_ctx,
+                       sliding_window=window, kv_dtype="int8")
+    for off in offsets:
+        got = flash_attention_int8(qb, kq, vq, ks, vs, off, hd ** -0.5,
+                                   window).float().numpy()
+        ref_flash = np.asarray(j_flash(jq, jkq, jvq, jnp.int32(off), sm_scale=hd ** -0.5,
+                                       sliding_window=window, k_scale=jks, v_scale=jvs,
+                                       interpret=True), np.float32)
+        pos = jnp.arange(off, off + S, dtype=jnp.int32)
+        ref_xla = np.asarray(j_xla_attention(jq, jkq, jvq, jks, jvs, pos, cfg,
+                                             jnp.bfloat16), np.float32)
+        assert np.isfinite(got).all()
+        assert np.abs(got - ref_flash).max() <= 2e-2, (off, window)
+        assert np.abs(got.reshape(S, -1) - ref_xla).max() <= 2e-2, (off, window)
+
+
+def test_dequant_q6_k_matches_reference_kernel():
+    """150 blocks: the reference splits them into 256 rows for its Pallas
+    kernel (interpret) and a 44-row tail for numpy.  The plain version is
+    bit-identical to both parts cast to bf16, and to the codec."""
+    nb = 150
+    rng = np.random.default_rng(6)
+    w = (rng.standard_normal(nb * 256) * 0.05).astype(np.float32)
+    raw = quant_q6_k(w)
+    got = dequant_q6_k(torch.from_numpy(raw))
+    ref = np.array(jnp.asarray(dequant_q6_k_device(raw, nb * 256, interpret=True),
+                               jnp.bfloat16).astype(jnp.float32))
+    codec = torch.from_numpy(j_dequantize(raw, JGGMLType.Q6_K, nb * 256)).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (nb * 256,)
+    assert torch.equal(got.view(torch.int16), _bf16(ref).view(torch.int16))
+    assert torch.equal(got.view(torch.int16), codec.view(torch.int16))
+    with pytest.raises(ValueError):
+        dequant_q6_k(torch.from_numpy(raw[:-1]))

@@ -4,9 +4,10 @@ raw ASGI calls.
 At ``LFKT_TEMPERATURE=0`` both apps, each over its own engine on the same
 tiny GGUF, answer ``/response`` with identical bytes — a first turn and a
 follow-up that takes prefix reuse, on an F16 file and on the JAX package's
-default tiny file (Q8_0).  Errors (422 bodies, the 400 for an
-unknown model, 404/405, 500 from the engine) and ``/items`` match byte for
-byte; ``/health`` carries the reference's keys for what the slice serves.
+default tiny file (Q8_0), there also over the int8 KV cache.  Errors (422
+bodies, the 400 for an unknown model, 404/405, 500 from the engine) and
+``/items`` match byte for byte; ``/health`` carries the reference's keys
+for what the slice serves.
 Admission (queue(5) → 503, timeout → 408) runs over a slow fake engine.
 """
 
@@ -24,9 +25,11 @@ from llama_fastapi_k8s_gpu_tpu.gguf import GGMLType as JGGMLType
 from llama_fastapi_k8s_gpu_tpu.server.app import create_app as j_create_app
 from llama_fastapi_k8s_gpu_tpu.testing import write_tiny_llama_gguf
 from llama_fastapi_k8s_gpu_tpu.utils.config import Settings as JSettings
+from llama_fastapi_k8s_gpu_tpu.utils.config import get_settings as j_get_settings
+from llama_fastapi_k8s_gpu_tpu_torch import engine as engine_pkg
 from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
-from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
-from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+from llama_fastapi_k8s_gpu_tpu_torch.server.app import _default_engine_factory, create_app
+from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings, get_settings
 
 torch.set_num_threads(1)
 
@@ -144,6 +147,63 @@ def test_default_tiny_q8_0_file_response_bytes_identical(q8_path):
     assert formats == {**dict.fromkeys(("wq", "wk", "wv", "wo", "w_gate", "w_up",
                                         "w_down"), "q8"), "output": "bf16"}
     assert answer[0] == 200 and json.loads(answer[1])["response"]
+
+
+def test_int8_kv_response_bytes_identical_and_health(q8_path):
+    """``kv_dtype="int8"`` on both engines: a first turn and a follow-up
+    that takes prefix reuse over the int8 ring answer with the same bytes,
+    and ``/health`` reports the int8 ring and its bytes as the reference
+    does."""
+    engines = (JEngine(q8_path, n_ctx=1024, max_gen_tokens=16, kv_dtype="int8"),
+               Engine(q8_path, n_ctx=1024, max_gen_tokens=16, kv_dtype="int8",
+                      device="cpu"))
+    follow = {**BODY, "context": BODY["context"] + [
+        {"turn": "assistant", "message": "fine"},
+        {"turn": "user", "message": "tell me about cats, please"}]}
+
+    async def go(apps):
+        return (await both(apps, "POST", "/response", BODY),
+                await both(apps, "POST", "/response", follow),
+                await both(apps, "GET", "/health"))
+
+    first, second, health = serve(_apps(engines), go)
+    for ref, got in (first, second):
+        assert ref[0] == got[0] == 200
+        assert got[1] == ref[1]
+        assert json.loads(got[1])["response"]
+    assert engines[1].last_timings["prefix_reused_tokens"] > 0
+    assert engines[1].last_timings["prefix_reused_tokens"] == \
+        engines[0].last_timings["prefix_reused_tokens"]
+    ref, got = (json.loads(b)["engine"] for _, b in health)
+    assert got["kv_dtype"] == ref["kv_dtype"] == "int8"
+    assert got["kv_cache_bytes"] == ref["kv_cache_bytes"] == engines[1].kv_cache_bytes
+    assert engines[1].kv_cache_bytes < Engine(q8_path, n_ctx=1024,
+                                              device="cpu").kv_cache_bytes
+
+
+def test_lfkt_kv_dtype_reaches_the_engine(monkeypatch):
+    """``LFKT_KV_DTYPE`` is read as the reference reads it and the default
+    engine factory hands it to the engine; an unknown value raises there
+    before the model file is looked at."""
+    seen = {}
+
+    class Recorder:
+        def __init__(self, path, **kw):
+            seen.update(kw)
+
+        def warmup(self):
+            pass
+
+    assert get_settings().kv_dtype == j_get_settings().kv_dtype == "bf16"
+    monkeypatch.setenv("LFKT_KV_DTYPE", "int8")
+    assert get_settings().kv_dtype == j_get_settings().kv_dtype == "int8"
+    with monkeypatch.context() as m:
+        m.setattr(engine_pkg, "Engine", Recorder)
+        _default_engine_factory(get_settings())()
+    assert seen["kv_dtype"] == "int8"
+    monkeypatch.setenv("LFKT_KV_DTYPE", "fp8")
+    with pytest.raises(ValueError, match="kv_dtype"):
+        _default_engine_factory(get_settings())()
 
 
 BAD_BODIES = [
