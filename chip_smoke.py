@@ -13,7 +13,12 @@ and no result line):
    ``nvcc``, timed;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the Llama-3-8B shapes the serving paths give it, with kernel, plain,
-   library (one PyTorch call computing the same function) and bound times;
+   library (one PyTorch call computing the same function) and bound times
+   — the dequants in both outputs (bf16 and f32), the layer-looped decode
+   kernel in its four variants (bf16/int8 weights × bf16/int8 KV ring) over
+   two full-width layers of random weights and a ring filled to slot 700;
+   and, as ``int8_linear`` lines, the int8 linear the int8 engines serve
+   (``torch._int_mm``, a library call) at the 8B shapes;
 4. gguf: four synthetic Llama-3-8B-width GGUFs (random valid blocks from a
    seed) in the tensor types of a Q4_K_M, a Q5_K_M, a Q8_0 and a Q6_K
    file, written with the port's own writer into ``.cache/chip_smoke/``
@@ -28,7 +33,14 @@ and no result line):
    ring bytes, the served model's logits must be finite and its flash
    prompt pass must agree with the plain score-matrix one.  Each file's
    kernel launches go on a line of their own, and so do the launches of
-   one decode token and of one 256-token prompt slice;
+   one decode token and of one 256-token prompt slice.  Two more engines
+   serve files already written, with the layer-looped decode armed: the
+   Q4_K_M file as int8 weights with one looped launch a token
+   (``decode_layer_unroll=-1``), and the Q8_0 file as bf16 weights over the
+   int8 ring with four (``decode_layer_unroll=8``); each checks ``/health``'s
+   effective unroll, the looped launches of one token, 16 teacher-forced
+   decode steps against the per-layer path on the same weights, and times
+   both paths' decode ms/token;
 6. a ``kernels`` JSON line with every kernel's launches summed over the
    files of phase 5 beside its phase-3 numbers.
 
@@ -58,9 +70,11 @@ DEPTH = 32
 LAYOUTS = ("q4km", "q5km", "q8_0", "q6_k")
 #: the KV cache each file is served with (bf16 where not named)
 KV_DTYPES = {"q6_k": "int8"}
-#: the card's published peaks (H100 SXM data sheet): HBM bytes/s, dense bf16 FLOP/s
+#: the card's published peaks (H100 SXM data sheet): HBM bytes/s, dense bf16
+#: FLOP/s, dense int8 OP/s
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 
 REPLACES = {
     "dequant_q4_k": "llama_fastapi_k8s_gpu_tpu/ops/pallas/dequant.py:120",
@@ -74,6 +88,7 @@ REPLACES = {
     "kv_quantize": "llama_fastapi_k8s_gpu_tpu/ops/pallas/kvquant.py:64",
     "flash_attention_int8": "llama_fastapi_k8s_gpu_tpu/ops/pallas/attention.py:58",
     "dequant_q6_k": "llama_fastapi_k8s_gpu_tpu/ops/pallas/dequant.py:261",
+    "decode_loop": "llama_fastapi_k8s_gpu_tpu/ops/pallas/decode_loop.py:142",
 }
 SOURCES = {
     "dequant_q4_k": "llama_fastapi_k8s_gpu_tpu_torch/csrc/dequant_q4k.cu",
@@ -87,7 +102,22 @@ SOURCES = {
     "kv_quantize": "llama_fastapi_k8s_gpu_tpu_torch/csrc/kv_quantize.cu",
     "flash_attention_int8": "llama_fastapi_k8s_gpu_tpu_torch/csrc/flash_attention.cu",
     "dequant_q6_k": "llama_fastapi_k8s_gpu_tpu_torch/csrc/dequant_q6k.cu",
+    "decode_loop": "llama_fastapi_k8s_gpu_tpu_torch/csrc/decode_loop.cu",
 }
+#: the engines served with the layer-looped decode: (label, file, weight
+#: format, KV dtype, decode_layer_unroll, expected effective unroll)
+LOOPED = (("q4km-int8-loop", "q4km", "int8", "bf16", -1, 32),
+          ("q8_0-bf16-loop", "q8_0", "bf16", "int8", 8, 8))
+#: the looped kernel's agreement with its plain version over one launch of
+#: two layers (phase 3): h and the ring slot written (bf16 values, or int8
+#: values times their scales) within this rel-dev, int8 codes within one
+LOOP_TOL = 2e-2
+#: the served looped path's agreement with the per-layer path over 32
+#: layers and 16 teacher-forced steps: logits and every ring slot written
+#: within this rel-dev — one launch's differences (phase 3: under 1%) pass
+#: through 32 layers, and under int8 weights through each layer's
+#: activation quantize, where a one-step difference moves a code
+SERVED_TOL = 5e-2
 
 
 def say(phase: str, **kw) -> None:
@@ -210,10 +240,11 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, rate: float = BF16_FLOPS) -> dict:
     """The least time the card could take: the larger of moving ``nbytes``
-    at the HBM rate and doing ``flops`` at the bf16 peak."""
-    t_bytes, t_ops = nbytes / HBM_BPS, flops / BF16_FLOPS
+    at the HBM rate and doing ``flops`` at ``rate`` (the bf16 peak unless
+    named)."""
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / rate
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -384,9 +415,10 @@ def check_kv_quantize(rng, S, pos_offset, n_kv=8, hd=128, n_ctx=1024) -> dict:
     }
 
 
-def check_dequant(name, rng, n_out=128256, k_in=4096) -> dict:
+def check_dequant(name, rng, n_out=128256, k_in=4096, dtype="bfloat16") -> dict:
     """A dequant kernel against its plain version, bit for bit, on a
-    ``token_embd``-sized tensor."""
+    ``token_embd``-sized tensor, into bf16 (``token_embd``, the bf16 load)
+    or f32 (the int8 load)."""
     import numpy as np
     import torch
 
@@ -395,20 +427,143 @@ def check_dequant(name, rng, n_out=128256, k_in=4096) -> dict:
     rand = {"dequant_q4_k": rand_q4k, "dequant_q5_k": rand_q5k,
             "dequant_q6_k": rand_q6k, "dequant_q8_0": rand_q8_0}[name]
     kern, plain = getattr(dequant, name), getattr(dequant, name + "_plain")
+    dt = getattr(torch, dtype)
     raw = torch.from_numpy(np.ascontiguousarray(rand(rng, n_out, k_in))).cuda()
-    y = kern(raw)
-    y_ref = plain(raw)
+    y = kern(raw, dt)
+    y_ref = plain(raw, dt)
     torch.cuda.synchronize()
-    if not torch.equal(y.view(torch.int16), y_ref.view(torch.int16)):
-        raise AssertionError(f"{name}: kernel is not bit-identical to plain")
+    bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+    if y.dtype != dt or not torch.equal(y.view(bits), y_ref.view(bits)):
+        raise AssertionError(f"{name} ({dtype}): kernel is not bit-identical to plain")
     out = {
-        "shape": [n_out, k_in], "max_abs_err": 0.0, "tol": 0.0,
-        "ms": cuda_ms(lambda: kern(raw), 10),
-        "plain_ms": cuda_ms(lambda: plain(raw), 3),
+        "shape": [n_out, k_in], "out": dtype, "max_abs_err": 0.0, "tol": 0.0,
+        "ms": cuda_ms(lambda: kern(raw, dt), 10),
+        "plain_ms": cuda_ms(lambda: plain(raw, dt), 3),
         "library_ms": None,
-        **bound(raw.numel() + y.numel() * 2, 2.0 * y.numel()),
+        **bound(raw.numel() + y.numel() * y.element_size(), 2.0 * y.numel()),
     }
     del raw, y, y_ref
+    return out
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def check_slots(got: dict, want: dict, where, tol: float, codes: bool) -> dict:
+    """Ring slots ``where`` (an index into each value leaf) of two caches:
+    bf16 values, or int8 values times their scales, within ``tol``
+    rel-dev; with ``codes``, an int8 ring's codes also within one of each
+    other (otherwise their largest difference is only reported)."""
+    if "k" in got:
+        out = {"slot_rel": max(_rel(got[n][where], want[n][where]) for n in ("k", "v"))}
+        ok = out["slot_rel"] <= tol
+    else:
+        def deq(c, n):
+            return c[n + "_q"][where].float() * c[n + "_s"][where][..., None]
+
+        out = {"slot_rel": max(_rel(deq(got, n), deq(want, n)) for n in ("k", "v")),
+               "slot_code_diff": max((got[n][where].int() - want[n][where].int()
+                                      ).abs().max().item() for n in ("k_q", "v_q"))}
+        ok = out["slot_rel"] <= tol and (not codes or out["slot_code_diff"] <= 1)
+    if not ok:
+        raise AssertionError(f"ring slots disagree: {out} (tolerance {tol})")
+    return out
+
+
+def check_decode_loop(w_int8: bool, kv_int8: bool, K: int = 2, pos: int = 700,
+                      n_ctx: int = 1024) -> dict:
+    """The layer-looped decode kernel against its plain version (the
+    per-layer arithmetic) over K full-width Llama-3-8B layers of random
+    weights, one decode token at ring slot ``pos`` with slots 0..pos-1
+    filled: the output h within LOOP_TOL rel-dev, the slot written at
+    ``pos`` as :func:`check_slots`."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import LLAMA3_8B
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import init_cache
+    from llama_fastapi_k8s_gpu_tpu_torch.models.params import LOOP_LINEARS, synth_params
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import decode_loop, kvquant
+
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=K, vocab_size=256, n_ctx=n_ctx,
+                              kv_dtype="int8" if kv_int8 else "bf16")
+    fmt = "int8" if w_int8 else "bf16"
+    params = synth_params(cfg, fmt, seed=3, device="cuda")
+    fmts = dict.fromkeys(LOOP_LINEARS, fmt)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cache = init_cache(cfg, torch.device("cuda"))
+    shape = (K, cfg.n_kv_heads, pos, cfg.head_dim)
+    for n in ("k", "v"):
+        x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        if kv_int8:
+            cache[n + "_q"][:, :, :pos], cache[n + "_s"][:, :, :pos] = kvquant.quantize_kv_plain(x)
+        else:
+            cache[n][:, :, :pos] = x
+    h = torch.randn(1, cfg.dim, generator=g, device="cuda").to(torch.bfloat16)
+    got_c = {k: v.clone() for k, v in cache.items()}
+    want_c = {k: v.clone() for k, v in cache.items()}
+    got = decode_loop.decode_loop_step(params, got_c, h, pos, 0, cfg, fmts, K)
+    want = decode_loop.decode_loop_plain(params, want_c, h, pos, 0, cfg, fmts, K)
+    torch.cuda.synchronize()
+    rel = _rel(got, want)
+    if not (torch.isfinite(got).all() and rel <= LOOP_TOL):
+        raise AssertionError(f"decode_loop w_int8={w_int8} kv_int8={kv_int8}: h rel-dev "
+                             f"{rel} > {LOOP_TOL}")
+    slots = check_slots(got_c, want_c, (slice(None), slice(None), pos), LOOP_TOL, codes=True)
+    wbytes = sum(b.numel() * b.element_size() for layer in params.layers
+                 for b in layer.buffers())
+    keys = pos + 1
+    ring = 2 * K * cfg.n_kv_heads * keys * (cfg.head_dim * (1 if kv_int8 else 2)
+                                            + (4 if kv_int8 else 0))
+    weights = sum(getattr(layer, n).weight.numel() for layer in params.layers
+                  for n in LOOP_LINEARS)
+    ops = 2.0 * weights + 4.0 * K * cfg.n_heads * keys * cfg.head_dim
+    out = {
+        "variant": f"{fmt} weights, {cfg.kv_dtype} ring", "layers": K, "pos": pos,
+        "dim": cfg.dim, "ffn": cfg.ffn_dim, "max_abs_err": (got.float() - want.float()).abs().max().item(),
+        "h_rel": rel, "tol": LOOP_TOL, **slots,
+        "ms": cuda_ms(lambda: decode_loop.decode_loop_step(params, got_c, h, pos, 0, cfg, fmts, K), 20),
+        "plain_ms": cuda_ms(lambda: decode_loop.decode_loop_plain(params, want_c, h, pos, 0, cfg,
+                                                                  fmts, K), 5),
+        "library_ms": None,
+        # the K layers' weights, scales and norms and the ring's keys read
+        # once, h in and out; a multiply-add a weight, the attention's two
+        # products (int8 weights: the int8 peak)
+        **bound(wbytes + ring + 4 * cfg.dim, ops, INT8_OPS if w_int8 else BF16_FLOPS),
+    }
+    del params, cache, got_c, want_c
+    return out
+
+
+def check_int8_linear(n_out: int, k_in: int, B: int, seed: int = 7) -> dict:
+    """The int8 linear as the int8 engines serve it (``ops.linear``: the
+    per-row activation quantize, ``torch._int_mm`` — rows padded to 17 —
+    and the f32 rescale) at one 8B shape: a library call, not a kernel of
+    the port, timed beside ``torch._int_mm`` alone and the bf16
+    ``torch.matmul`` of the same weights, and checked bit for bit against
+    its CPU result (an int32 ``matmul``) at B=1 up to 14336 rows."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.ops.linear import linear, make_linear_int8
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(n_out, k_in, generator=g, device="cuda") * k_in ** -0.5
+    x = torch.randn(B, k_in, generator=g, device="cuda").to(torch.bfloat16)
+    lin = make_linear_int8(w)
+    y = linear(x, lin)
+    if B == 1 and n_out <= 14336:
+        want = linear(x.cpu(), make_linear_int8(w.cpu()))
+        if not torch.equal(y.cpu().view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"int8 linear ({n_out},{k_in}) B={B}: card != CPU")
+    wb = w.to(torch.bfloat16)
+    xq = torch.zeros(max(B, 17), k_in, dtype=torch.int8, device="cuda")
+    out = {"shape": [n_out, k_in], "B": B,
+           "ms": cuda_ms(lambda: linear(x, lin), 20),
+           "int_mm_ms": cuda_ms(lambda: torch._int_mm(xq, lin.weight.t()), 20),
+           "bf16_matmul_ms": cuda_ms(lambda: torch.matmul(x, wb.t()), 20),
+           **bound(n_out * k_in + 4 * n_out + 4 * B * (k_in + n_out),
+                   2.0 * B * n_out * k_in, INT8_OPS)}
+    del w, lin, wb
     return out
 
 
@@ -436,7 +591,11 @@ def phase_kernels(names) -> dict:
     shapes = {}
     for name in names:
         if name.startswith("dequant_"):
-            shapes[name] = [check_dequant(name, rng)]
+            shapes[name] = [check_dequant(name, rng, dtype=dt)
+                            for dt in ("bfloat16", "float32")]
+        elif name == "decode_loop":
+            shapes[name] = [check_decode_loop(w8, kv8) for w8 in (False, True)
+                            for kv8 in (False, True)]
         elif name == "flash_attention":
             shapes[name] = [check_flash(rng, 256, 1024, off) for off in (0, 256, 768)]
         elif name == "flash_attention_int8":
@@ -447,6 +606,9 @@ def phase_kernels(names) -> dict:
         else:
             shapes[name] = [check_matmul(name, rng, n, k, B) for B in (1, 256)
                             for n, k in MATMUL_SHAPES[name]]
+    for B in (1, 256):
+        for n, k in _ALL:
+            say("int8_linear", **check_int8_linear(n, k, B))
     torch.cuda.empty_cache()
     out = {}
     for name, rows in shapes.items():
@@ -617,9 +779,11 @@ def _http(port: int, method: str, path: str, payload=None, timeout=300):
 
 
 def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
-                kv_dtype: str = "bf16") -> dict:
-    """Serve ``path`` over a ``kv_dtype`` KV cache and return each kernel's
-    launches on that path."""
+                kv_dtype: str = "bf16", weight_format: str = "auto", unroll: int = 0,
+                label: str | None = None, expect_unroll: int = 0) -> dict:
+    """Serve ``path`` in ``weight_format`` over a ``kv_dtype`` KV cache with
+    ``decode_layer_unroll=unroll`` and return each kernel's launches on that
+    path."""
     import asyncio
 
     import torch
@@ -627,23 +791,28 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
     from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
     from llama_fastapi_k8s_gpu_tpu_torch.models.generate import prefill, prefill_chunk
     from llama_fastapi_k8s_gpu_tpu_torch.models.llama import decode_step
+    from llama_fastapi_k8s_gpu_tpu_torch.models.params import LOOP_LINEARS
     from llama_fastapi_k8s_gpu_tpu_torch.server import httpd
     from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
     from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
 
     for fn in counters.values():         # the main path starts here: count it
         fn.launches = 0
+    label = label or layout
     t0 = time.time()
-    eng = Engine(path, kv_dtype=kv_dtype)   # the GPU, auto format and attention
+    # the GPU, auto attention
+    eng = Engine(path, kv_dtype=kv_dtype, weight_format=weight_format,
+                 decode_layer_unroll=unroll)
     eng.warmup()
     load_s = time.time() - t0
     formats = eng.params.formats()
-    say("load", file=layout, seconds=round(load_s, 1), attn_impl=eng.cfg.attn_impl,
-        kv_dtype=eng.cfg.kv_dtype, formats=formats,
+    say("load", file=label, seconds=round(load_s, 1), attn_impl=eng.cfg.attn_impl,
+        kv_dtype=eng.cfg.kv_dtype, formats=formats, decode_layer_unroll=unroll,
         weight_gb=round(eng.weight_bytes / 1e9, 3))
-    if formats != served_formats(layout):
-        raise AssertionError(f"{layout}: served formats {formats}, expected "
-                             f"{served_formats(layout)}")
+    want = (served_formats(layout) if weight_format == "auto"
+            else dict.fromkeys((*LOOP_LINEARS, "output"), weight_format))
+    if formats != want:
+        raise AssertionError(f"{label}: served formats {formats}, expected {want}")
     # the ring's bytes by the reference's formula (2 * L * n_kv * n_ctx *
     # (hd + 4) in int8, 2 * hd in bf16) and as allocated
     cfg = eng.cfg
@@ -651,7 +820,7 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
     ring_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.n_ctx * per_head
     live = sum(t.numel() * t.element_size() for t in eng._cache.values())
     if not eng.kv_cache_bytes == live == ring_bytes:
-        raise AssertionError(f"{layout}: kv_cache_bytes {eng.kv_cache_bytes}, "
+        raise AssertionError(f"{label}: kv_cache_bytes {eng.kv_cache_bytes}, "
                              f"allocated {live}, expected {ring_bytes}")
     # the reference's serving defaults, greedy, with a timeout that leaves
     # room for this run's un-tuned kernels
@@ -680,9 +849,9 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
         for i in range(2):
             long_ctx += [("assistant", f"tell me more, part {i}."),
                          ("user", story[:100])]
-        for label, ctx in (("short", short), ("long", long_ctx)):
+        for req, ctx in (("short", short), ("long", long_ctx)):
             st, doc = _http(port, "POST", "/response", body(ctx))
-            results.append((label, st, doc, dict(eng.last_timings or {})))
+            results.append((req, st, doc, dict(eng.last_timings or {})))
         if follow_up:
             follow = long_ctx + [("assistant", results[-1][2].get("response", "")[:40]),
                                  ("user", "and what happened next?")]
@@ -693,18 +862,18 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
         loop.call_soon_threadsafe(stop.set)
         th.join(120)
     launches = {name: fn.launches for name, fn in counters.items()}
-    say("launches", file=layout, **launches)
-    for label, st, doc, tm in results:
+    say("launches", file=label, **launches)
+    for req, st, doc, tm in results:
         text = (doc or {}).get("response", "")
-        say("request", file=layout, label=label, status=st, chars=len(text),
+        say("request", file=label, label=req, status=st, chars=len(text),
             prompt_tokens=tm.get("prompt_tokens"), bucket=tm.get("bucket"),
             reused=tm.get("prefix_reused_tokens"), ttft_s=tm.get("ttft_s"),
             completion_tokens=tm.get("completion_tokens"),
             tokens_per_sec=tm.get("tokens_per_sec"), head=text[:60])
         if st != 200 or not text:
-            raise AssertionError(f"{label}: status {st}, body {doc}")
+            raise AssertionError(f"{req}: status {st}, body {doc}")
     engine_doc = (hdoc or {}).get("engine") or {}
-    say("health", file=layout, status=hst, state=(hdoc or {}).get("state"),
+    say("health", file=label, status=hst, state=(hdoc or {}).get("state"),
         engine=engine_doc)
     if hst != 200 or th.is_alive():
         raise AssertionError(f"/health {hst}, httpd stopped: {not th.is_alive()}")
@@ -712,6 +881,9 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
         raise AssertionError(f"/health reports kv_dtype {engine_doc.get('kv_dtype')} and "
                              f"{engine_doc.get('kv_cache_bytes')} bytes, expected "
                              f"{kv_dtype} and {ring_bytes}")
+    if engine_doc.get("decode_layer_unroll") != expect_unroll:
+        raise AssertionError(f"/health reports decode_layer_unroll "
+                             f"{engine_doc.get('decode_layer_unroll')}, expected {expect_unroll}")
     loop.close()
     if follow_up and not results[2][3].get("prefix_reused_tokens"):
         raise AssertionError("the follow-up turn did not take prefix reuse")
@@ -730,8 +902,12 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
         with torch.inference_mode():
             fn()
         per[what] = {n: c.launches for n, c in counters.items() if c.launches}
-    say("per_token", file=layout, **per["token"])
-    say("per_slice", file=layout, **per["slice"])
+    say("per_token", file=label, **per["token"])
+    say("per_slice", file=label, **per["slice"])
+    if expect_unroll and per["token"].get("decode_loop") != cfg.n_layers // expect_unroll:
+        raise AssertionError(f"{label}: one decode token launched the looped kernel "
+                             f"{per['token'].get('decode_loop')} times, expected "
+                             f"{cfg.n_layers // expect_unroll}")
 
     # the served model's logits: finite, and the flash prompt pass agrees
     # with the plain score-matrix one on the long prompt (over the int8
@@ -749,16 +925,77 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
     lg_xla = prefill(eng.params, cfg_x, toks, len(ids), cache)
     finite = bool(torch.isfinite(lg_flash).all() and torch.isfinite(lg_xla).all())
     rel = ((lg_flash - lg_xla).norm() / lg_xla.norm()).item()
-    say("logits", file=layout, shape=list(lg_flash.shape), finite=finite,
+    say("logits", file=label, shape=list(lg_flash.shape), finite=finite,
         kv_dtype=kv_dtype, flash_vs_plain_rel=rel, tokens=len(ids))
     if not finite or lg_flash.shape != (eng.cfg.vocab_size,) or rel > 5e-2:
         raise AssertionError(f"logits finite={finite} shape={tuple(lg_flash.shape)} "
                              f"flash vs plain rel-dev {rel}")
+    if expect_unroll:
+        check_looped_path(label, eng, toks)
     # free this engine's weights before the next file loads
     del app, eng, cache, scratch, lg_flash, lg_xla
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def check_looped_path(label: str, eng, toks, steps: int = 16, timed: int = 32) -> None:
+    """The served looped decode against the per-layer path on the same
+    weights: prefill ``toks`` once, then ``steps`` decode steps teacher
+    forced on the per-layer path's greedy tokens — logits within
+    SERVED_TOL rel-dev at every step, every layer's ring slots of those
+    steps as :func:`check_slots` — and each path's decode ms/token over
+    ``timed`` tokens by CUDA events.  The first step whose greedy token
+    differs is information, not a gate: random weights give near-ties."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import prefill
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import decode_step
+
+    cfg_loop = eng.cfg
+    cfg_layer = dataclasses.replace(cfg_loop, decode_layer_unroll=0)
+    n = len(toks)
+    a = {k: torch.zeros_like(v) for k, v in eng._cache.items()}
+    lg = prefill(eng.params, cfg_layer, toks, n, a)
+    b = {k: v.clone() for k, v in a.items()}
+    tok = lg.argmax()
+    worst, first_div = 0.0, None
+    with torch.inference_mode():
+        for step in range(steps):
+            la = decode_step(eng.params, cfg_loop, tok, n + step, a)
+            lb = decode_step(eng.params, cfg_layer, tok, n + step, b)
+            worst = max(worst, _rel(la, lb))
+            if first_div is None and int(la.argmax()) != int(lb.argmax()):
+                first_div = step
+            tok = lb.argmax()
+        torch.cuda.synchronize()
+
+        def ms_per_token(cfg, cache, start):
+            t = torch.tensor(5, device=eng.device)
+            decode_step(eng.params, cfg, t, start, cache)
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            for i in range(timed):
+                decode_step(eng.params, cfg, t, start + 1 + i, cache)
+            e1.record()
+            torch.cuda.synchronize()
+            return e0.elapsed_time(e1) / timed
+
+        # time on copies: the compared rings keep the 16 steps' slots
+        start = n + steps
+        per_layer_ms = ms_per_token(cfg_layer, {k: v.clone() for k, v in b.items()}, start)
+        looped_ms = ms_per_token(cfg_loop, {k: v.clone() for k, v in a.items()}, start)
+    say("looped", file=label, steps=steps, logits_rel_max=worst, tol=SERVED_TOL,
+        first_greedy_divergence=first_div, positions=[n, n + steps - 1],
+        looped_ms_per_token=looped_ms, per_layer_ms_per_token=per_layer_ms,
+        timed_tokens=timed)
+    slots = check_slots(a, b, (slice(None), slice(None), slice(n, n + steps)), SERVED_TOL,
+                        codes=False)
+    say("looped_slots", file=label, layers=eng.cfg.n_layers, **slots, tol=SERVED_TOL)
+    if not worst <= SERVED_TOL:
+        raise AssertionError(f"{label}: looped vs per-layer logits rel-dev {worst} > "
+                             f"{SERVED_TOL}")
 
 
 def main() -> int:
@@ -788,6 +1025,12 @@ def main() -> int:
         # int8 ring, on the Q6_K file
         served = phase_serve(layout, path, KERNELS, follow_up=layout in ("q4km", "q6_k"),
                              kv_dtype=KV_DTYPES.get(layout, "bf16"))
+        for name, n in served.items():
+            launches[name] += n
+    for label, layout, fmt, kv_dtype, unroll, expect in LOOPED:
+        served = phase_serve(layout, paths[layout], KERNELS, follow_up=False,
+                             kv_dtype=kv_dtype, weight_format=fmt, unroll=unroll,
+                             label=label, expect_unroll=expect)
         for name, n in served.items():
             launches[name] += n
     for name, n in launches.items():

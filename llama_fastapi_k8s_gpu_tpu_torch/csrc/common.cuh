@@ -37,6 +37,10 @@ __device__ __forceinline__ void load8_a2(const uint8_t* p, uint32_t& lo, uint32_
     hi = static_cast<uint32_t>(h[2]) | (static_cast<uint32_t>(h[3]) << 16);
 }
 
+// One dequantized value into a bf16 (round to nearest even) or an f32 output
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float y) { *p = __float2bfloat16_rn(y); }
+__device__ __forceinline__ void store_out(float* p, float y) { *p = y; }
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -47,6 +51,24 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
     return v;
+}
+
+// The int8 KV cache's quantize of one head row (csrc/kv_quantize.cu, and the
+// ring write of csrc/decode_loop.cu), bit-exact with the reference's
+// quantize_kv_xla: the scale s = max|x| / 127 over the row (one warp holds
+// the row: `lane_amax` is the lane's part of the max) and inv = 1 / s, both
+// IEEE-rounded (0 for an all-zero row, whose values then quantize to 0)...
+__device__ __forceinline__ float kv_row_scale(float lane_amax, float& inv) {
+    const float s = __fdiv_rn(warp_max(lane_amax), 127.0f);
+    inv = s > 0.f ? __frcp_rn(s) : 0.f;
+    return s;
+}
+
+// ...then q = clip(round_half_even(x * inv), -127, 127): rintf rounds half to
+// even as jnp.round does (roundf would round half away from zero).
+__device__ __forceinline__ int8_t kv_quantize_value(float x, float inv) {
+    const float y = rintf(__fmul_rn(x, inv));
+    return static_cast<int8_t>(fminf(fmaxf(y, -127.f), 127.f));
 }
 
 // get_scale_min_k4: the 6-bit scale and min of sub-block j (0..7) from the

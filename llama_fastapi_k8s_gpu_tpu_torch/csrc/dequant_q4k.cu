@@ -1,6 +1,10 @@
-// Whole-tensor Q4_K -> bf16 dequantization (the load-time path of
+// Whole-tensor Q4_K -> bf16 or f32 dequantization (the load-time path of
 // `token_embd`, whose 128256 x 4096 Q4_K blocks become the bf16 embedding
 // table).
+//
+// Output: bf16 (`token_embd`, and every linear under weight_format=bf16) or
+// f32 (the int8 load requantizes from it, as the reference's on-device load
+// does from its f32 dequant): the kernel is templated on the output type.
 //
 // Replaces: llama_fastapi_k8s_gpu_tpu/ops/pallas/dequant.py::_q4_k_kernel
 // (launched by dequant_q4_k_device via device_dequant).  The Pallas kernel
@@ -24,8 +28,8 @@
 
 namespace {
 
-__global__ void dequant_q4k_kernel(const uint8_t* __restrict__ raw,
-                                   __nv_bfloat16* __restrict__ out) {
+template <typename T>
+__global__ void dequant_q4k_kernel(const uint8_t* __restrict__ raw, T* __restrict__ out) {
     const long long blk = blockIdx.x;
     const int t = threadIdx.x;           // element within the super-block
     const uint8_t* b = raw + blk * lfkt::Q4K_BLOCK;
@@ -41,16 +45,22 @@ __global__ void dequant_q4k_kernel(const uint8_t* __restrict__ raw,
     const float scale = __fmul_rn(d, static_cast<float>(sc));
     const float minv = __fmul_rn(dmin, static_cast<float>(mn));
     const float y = __fsub_rn(__fmul_rn(scale, q), minv);
-    out[blk * lfkt::QK_K + t] = __float2bfloat16_rn(y);
+    lfkt::store_out(out + blk * lfkt::QK_K + t, y);
+}
+
+template <typename T>
+int launch(const void* raw, void* out, long long n_blocks, cudaStream_t stream) {
+    dequant_q4k_kernel<<<dim3(static_cast<unsigned>(n_blocks)), 256, 0, stream>>>(
+        static_cast<const uint8_t*>(raw), static_cast<T*>(out));
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 LFKT_API int lfkt_dequant_q4k(const void* raw, void* out, long long n_blocks,
-                              void* stream) {
+                              int out_f32, void* stream) {
     if (n_blocks <= 0) return 0;
-    dequant_q4k_kernel<<<dim3(static_cast<unsigned>(n_blocks)), 256, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(raw), static_cast<__nv_bfloat16*>(out));
-    return static_cast<int>(cudaGetLastError());
+    auto s = static_cast<cudaStream_t>(stream);
+    return out_f32 ? launch<float>(raw, out, n_blocks, s)
+                   : launch<__nv_bfloat16>(raw, out, n_blocks, s);
 }

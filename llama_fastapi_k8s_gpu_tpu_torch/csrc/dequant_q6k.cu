@@ -1,6 +1,10 @@
-// Whole-tensor Q6_K -> bf16 dequantization (the load-time path of
+// Whole-tensor Q6_K -> bf16 or f32 dequantization (the load-time path of
 // `token_embd` in a Q6_K file, whose 128256 x 4096 Q6_K blocks become the
 // bf16 embedding table).
+//
+// Output: bf16 (`token_embd`, and every linear under weight_format=bf16) or
+// f32 (the int8 load requantizes from it, as the reference's on-device load
+// does from its f32 dequant): the kernel is templated on the output type.
 //
 // Replaces: llama_fastapi_k8s_gpu_tpu/ops/pallas/dequant.py::_q6_k_kernel
 // (launched by dequant_q6_k_device via device_dequant).  The Pallas kernel
@@ -32,9 +36,23 @@ namespace {
 
 constexpr int WARPS = 8;
 
+// lane's 8 outputs, elements lane*8 + 0..7: one 16-byte store in bf16, two in f32
+__device__ __forceinline__ void store8(__nv_bfloat16* out, const float* y) {
+    uint32_t b[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) b[k] = __bfloat16_as_ushort(__float2bfloat16_rn(y[k]));
+    *reinterpret_cast<uint4*>(out) =
+        make_uint4(b[0] | (b[1] << 16), b[2] | (b[3] << 16), b[4] | (b[5] << 16), b[6] | (b[7] << 16));
+}
+
+__device__ __forceinline__ void store8(float* out, const float* y) {
+    reinterpret_cast<float4*>(out)[0] = make_float4(y[0], y[1], y[2], y[3]);
+    reinterpret_cast<float4*>(out)[1] = make_float4(y[4], y[5], y[6], y[7]);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
-dequant_q6k_kernel(const uint8_t* __restrict__ raw, __nv_bfloat16* __restrict__ out,
-                   long long n_blocks) {
+dequant_q6k_kernel(const uint8_t* __restrict__ raw, T* __restrict__ out, long long n_blocks) {
     const long long blk = static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
     if (blk >= n_blocks) return;
     const int lane = threadIdx.x & 31;
@@ -48,26 +66,31 @@ dequant_q6k_kernel(const uint8_t* __restrict__ raw, __nv_bfloat16* __restrict__ 
     lfkt::load8_a2(b + 128 + h * 32 + (r0 & 31), h0, h1);
     const float scale = __fmul_rn(lfkt::f16_at(b + 208),
                                   static_cast<float>(static_cast<int8_t>(b[192 + (lane >> 1)])));
-    uint32_t y[8];                       // bf16 bits of elements lane*8 + 0..7
+    float y[8];                          // elements lane*8 + 0..7
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
         const int a0 = ((l0 >> (8 * k + ql_shift)) & 0x0F) | (((h0 >> (8 * k + qh_shift)) & 3) << 4);
         const int a1 = ((l1 >> (8 * k + ql_shift)) & 0x0F) | (((h1 >> (8 * k + qh_shift)) & 3) << 4);
-        y[k] = __bfloat16_as_ushort(__float2bfloat16_rn(__fmul_rn(scale, static_cast<float>(a0 - 32))));
-        y[k + 4] = __bfloat16_as_ushort(__float2bfloat16_rn(__fmul_rn(scale, static_cast<float>(a1 - 32))));
+        y[k] = __fmul_rn(scale, static_cast<float>(a0 - 32));
+        y[k + 4] = __fmul_rn(scale, static_cast<float>(a1 - 32));
     }
-    *reinterpret_cast<uint4*>(out + blk * lfkt::QK_K + lane * 8) =
-        make_uint4(y[0] | (y[1] << 16), y[2] | (y[3] << 16), y[4] | (y[5] << 16), y[6] | (y[7] << 16));
+    store8(out + blk * lfkt::QK_K + lane * 8, y);
+}
+
+template <typename T>
+int launch(const void* raw, void* out, long long n_blocks, cudaStream_t stream) {
+    const long long grid = (n_blocks + WARPS - 1) / WARPS;
+    dequant_q6k_kernel<<<dim3(static_cast<unsigned>(grid)), WARPS * 32, 0, stream>>>(
+        static_cast<const uint8_t*>(raw), static_cast<T*>(out), n_blocks);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 LFKT_API int lfkt_dequant_q6k(const void* raw, void* out, long long n_blocks,
-                              void* stream) {
+                              int out_f32, void* stream) {
     if (n_blocks <= 0) return 0;
-    const long long grid = (n_blocks + WARPS - 1) / WARPS;
-    dequant_q6k_kernel<<<dim3(static_cast<unsigned>(grid)), WARPS * 32, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(raw), static_cast<__nv_bfloat16*>(out), n_blocks);
-    return static_cast<int>(cudaGetLastError());
+    auto s = static_cast<cudaStream_t>(stream);
+    return out_f32 ? launch<float>(raw, out, n_blocks, s)
+                   : launch<__nv_bfloat16>(raw, out, n_blocks, s);
 }

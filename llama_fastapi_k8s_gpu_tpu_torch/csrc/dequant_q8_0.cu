@@ -1,6 +1,10 @@
-// Whole-tensor Q8_0 -> bf16 dequantization (the load-time path of
+// Whole-tensor Q8_0 -> bf16 or f32 dequantization (the load-time path of
 // `token_embd` in a Q8_0 file, whose 128256 x 4096 Q8_0 blocks become the
 // bf16 embedding table).
+//
+// Output: bf16 (`token_embd`, and every linear under weight_format=bf16) or
+// f32 (the int8 load requantizes from it, as the reference's on-device load
+// does from its f32 dequant): the kernel is templated on the output type.
 //
 // Replaces: llama_fastapi_k8s_gpu_tpu/ops/pallas/dequant.py::_q8_0_kernel
 // (launched by dequant_q8_0_device via device_dequant).  The Pallas kernel
@@ -22,24 +26,31 @@
 
 namespace {
 
-__global__ void dequant_q8_0_kernel(const uint8_t* __restrict__ raw,
-                                    __nv_bfloat16* __restrict__ out, long long n) {
+template <typename T>
+__global__ void dequant_q8_0_kernel(const uint8_t* __restrict__ raw, T* __restrict__ out,
+                                    long long n) {
     const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const uint8_t* b = raw + (i / lfkt::QK8_0) * lfkt::Q8_0_BLOCK;
     const float d = lfkt::f16_at(b);
     const float q = static_cast<float>(static_cast<int8_t>(b[2 + i % lfkt::QK8_0]));
-    out[i] = __float2bfloat16_rn(__fmul_rn(d, q));
+    lfkt::store_out(out + i, __fmul_rn(d, q));
+}
+
+template <typename T>
+int launch(const void* raw, void* out, long long n_blocks, cudaStream_t stream) {
+    const long long n = n_blocks * lfkt::QK8_0;
+    dequant_q8_0_kernel<<<dim3(static_cast<unsigned>((n + 255) / 256)), 256, 0, stream>>>(
+        static_cast<const uint8_t*>(raw), static_cast<T*>(out), n);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 LFKT_API int lfkt_dequant_q8_0(const void* raw, void* out, long long n_blocks,
-                               void* stream) {
+                               int out_f32, void* stream) {
     if (n_blocks <= 0) return 0;
-    const long long n = n_blocks * lfkt::QK8_0;
-    dequant_q8_0_kernel<<<dim3(static_cast<unsigned>((n + 255) / 256)), 256, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(raw), static_cast<__nv_bfloat16*>(out), n);
-    return static_cast<int>(cudaGetLastError());
+    auto s = static_cast<cudaStream_t>(stream);
+    return out_f32 ? launch<float>(raw, out, n_blocks, s)
+                   : launch<__nv_bfloat16>(raw, out, n_blocks, s);
 }

@@ -18,7 +18,9 @@
 // the division and the reciprocal are IEEE-rounded (__fdiv_rn, __frcp_rn),
 // the product x * inv is rounded on its own (__fmul_rn), and rintf rounds
 // half to even as jnp.round does (roundf would round half away from zero).
-// Built without --use_fast_math.
+// Built without --use_fast_math.  The arithmetic lives in common.cuh
+// (kv_row_scale, kv_quantize_value), shared with decode_loop.cu's ring
+// write.
 //
 // Bound on the H100: bytes, and tiny ones (decode: 2 x 8 rows of 128 bf16 a
 // layer).  Design: one warp per (token, head) row of K or V, 8 rows per
@@ -49,13 +51,10 @@ kv_quantize_kernel(const __nv_bfloat16* __restrict__ k,
 
     float amax = 0.f;
     for (int d = lane; d < hd; d += 32) amax = fmaxf(amax, fabsf(__bfloat162float(x[d])));
-    amax = lfkt::warp_max(amax);
-    const float s = __fdiv_rn(amax, 127.0f);
-    const float inv = s > 0.f ? __frcp_rn(s) : 0.f;
-    for (int d = lane; d < hd; d += 32) {
-        const float y = rintf(__fmul_rn(__bfloat162float(x[d]), inv));
-        q[d] = static_cast<int8_t>(fminf(fmaxf(y, -127.f), 127.f));
-    }
+    float inv;
+    const float s = lfkt::kv_row_scale(amax, inv);
+    for (int d = lane; d < hd; d += 32)
+        q[d] = lfkt::kv_quantize_value(__bfloat162float(x[d]), inv);
     if (lane == 0) (is_v ? vs : ks)[slot] = s;
 }
 

@@ -7,7 +7,7 @@ streaming chunks — on PyTorch and one GPU:
 
 - load: GGUF mmap → weights on the device (``q4k``: fused Q4_K/Q5_K/Q6_K/
   Q8_0 block bytes for an 8B model on the GPU; ``bf16`` for small models
-  and the CPU);
+  and the CPU; ``int8`` on request);
 - KV cache: a head-major ring in bf16, or int8 with per-token scales
   (``kv_dtype="int8"``, ops/kvquant.py);
 - prefill: the prompt padded to a bucket; a bucket larger than
@@ -17,7 +17,9 @@ streaming chunks — on PyTorch and one GPU:
   the suffix is prefilled (the reference's ``_prefix_reuse_len`` rule);
 - decode: chunks of ``decode_chunk`` steps with on-device sampling; chunk
   k+1 is queued on the device before chunk k's tokens are read, so the
-  host's reading and text emission overlap the device's work;
+  host's reading and text emission overlap the device's work; under
+  ``decode_layer_unroll`` a step's layer stack is L/K launches of the
+  layer-looped kernel (ops/decode_loop.py) over bf16 or int8 weights;
 - sampling: the llama.cpp-parity chain (sampling/sample.py).
 
 There is no compile-probe and no fallback: a kernel that fails to build or
@@ -46,7 +48,7 @@ from ..models.generate import (
     prefill_chunk,
 )
 from ..models.llama import cache_nbytes, init_cache
-from ..models.params import load_params
+from ..models.params import decode_loop_plan, load_params
 from ..ops.attention import HEAD_DIMS
 from ..sampling.sample import SamplingParams, sampling_tensors
 from ..tokenizer import apply_chat_template, detect_chat_template, tokenizer_from_gguf
@@ -124,6 +126,7 @@ class Engine:
         seed: int = 0,
         attn_impl: str = "auto",   # auto | xla | flash (prompt passes)
         kv_dtype: str | None = None,  # bf16 | int8 KV cache; None keeps the cfg's
+        decode_layer_unroll: int | None = None,  # layers per decode launch; None: settings
         prefix_cache: bool = True,  # reuse the previous request's KV prefix
         prefix_min: int = 32,       # shortest common prefix worth reusing
         prefill_chunk: int = 256,   # prompt slice size for large buckets
@@ -135,6 +138,15 @@ class Engine:
         # once, not after a multi-GB load
         if kv_dtype is not None and kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be bf16|int8, got {kv_dtype!r}")
+        if decode_layer_unroll is None:
+            from ..utils.config import get_settings
+
+            decode_layer_unroll = get_settings().decode_layer_unroll
+        decode_layer_unroll = int(decode_layer_unroll)
+        if decode_layer_unroll < -1:
+            raise ValueError(
+                f"decode_layer_unroll must be >= -1 (0 = off, -1 = all layers "
+                f"per launch), got {decode_layer_unroll}")
         self.n_ctx = n_ctx
         self.decode_chunk = decode_chunk
         self.max_gen_tokens = max_gen_tokens
@@ -184,6 +196,18 @@ class Engine:
             raise ValueError(f"attn_impl must be auto|xla|flash, got {attn_impl!r}")
         if attn_impl != self.cfg.attn_impl:
             self.cfg = dataclasses.replace(self.cfg, attn_impl=attn_impl)
+        if decode_layer_unroll:
+            # the reference's plan decision: fused layouts serve per-layer
+            # decode (logged with the reason); a kernel that then fails to
+            # build or launch raises, as every kernel of the port does
+            fmts, reason = decode_loop_plan(self.params, self.cfg)
+            if reason is not None:
+                logger.warning("layer-looped decode unavailable (%s); serving "
+                               "per-layer decode", reason)
+                decode_layer_unroll = 0
+        if decode_layer_unroll != self.cfg.decode_layer_unroll:
+            self.cfg = dataclasses.replace(self.cfg,
+                                           decode_layer_unroll=decode_layer_unroll)
         self.prefill_buckets = sorted(b for b in prefill_buckets if b <= self.cfg.n_ctx)
         if not self.prefill_buckets or self.prefill_buckets[-1] < self.cfg.n_ctx:
             self.prefill_buckets.append(self.cfg.n_ctx)

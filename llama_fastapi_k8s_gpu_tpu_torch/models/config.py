@@ -33,6 +33,11 @@ class ModelConfig:
     # "bf16" keeps the KV ring in bf16; "int8" stores int8 values plus a
     # per-head, per-token f32 scale (ops/kvquant.py)
     kv_dtype: str = "bf16"
+    # layer-looped decode (ops/decode_loop.py): layers per kernel launch on
+    # a decode step (S == 1) — 0 = off (the per-layer path), -1 = all
+    # layers in one launch, K > 0 = K layers (clamped to a divisor of
+    # n_layers); bf16 and int8 linears only (params.decode_loop_plan)
+    decode_layer_unroll: int = 0
 
     @property
     def head_dim(self) -> int:

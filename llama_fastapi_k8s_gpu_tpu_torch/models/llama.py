@@ -19,9 +19,14 @@ Prompt passes (S > 1) go through the flash kernel when ``cfg.attn_impl ==
 "flash"`` (its int8 variant over an int8 ring); decode (S = 1) and
 ``"xla"`` prompt passes use the plain score matrix of :func:`xla_attention`,
 which folds an int8 ring's scales into its products as the reference does.
+A decode step under ``cfg.decode_layer_unroll`` runs the whole layer stack
+through the layer-looped kernel instead (ops/decode_loop.py), K layers a
+launch.
 """
 
 from __future__ import annotations
+
+import logging
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +36,8 @@ from ..ops.kvquant import kv_quantize
 from ..ops.linear import linear
 from .config import ModelConfig
 
+logger = logging.getLogger(__name__)
+
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.float()
@@ -38,20 +45,37 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return ((x32 * inv) * w.float()).to(x.dtype)
 
 
+#: rotation frequencies by (head_dim, theta, device): computed once
+_FREQS: dict = {}
+
+
+def rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
+    """(hd/2,) f32 rotation frequencies ``theta^(-2i/hd)``: the exponent in
+    f32, the power in f64 rounded once to f32 — the reference's frequencies
+    bit for bit (an f32 pow is off by an ulp for some i, and the angle error
+    grows with the position)."""
+    key = (hd, float(theta), torch.device(device))
+    freqs = _FREQS.get(key)
+    if freqs is None:
+        half = hd // 2
+        expo = -torch.arange(half, dtype=torch.float32, device=device) / half
+        freqs = _FREQS[key] = (theta ** expo.double()).float()
+    return freqs
+
+
+def rope_cos_sin(positions: torch.Tensor, hd: int,
+                 theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(S, hd/2) f32 cos and sin of the rotation angles at ``positions``."""
+    ang = positions[:, None].float() * rope_freqs(hd, theta, positions.device)[None, :]
+    return torch.cos(ang), torch.sin(ang)
+
+
 def rope_interleaved(x: torch.Tensor, positions: torch.Tensor,
                      theta: float) -> torch.Tensor:
     """x: (S, H, hd); rotate pairs (2i, 2i+1) by pos · theta^(-2i/hd) — the
     ggml "NORM" rotation GGUF Q/K weights are permuted for."""
-    hd = x.shape[-1]
-    half = hd // 2
-    # the exponent in f32, the power in f64 rounded once to f32: the
-    # reference's frequencies bit for bit (an f32 pow is off by an ulp for
-    # some i, and the angle error grows with the position)
-    expo = -torch.arange(half, dtype=torch.float32, device=x.device) / half
-    freqs = (theta ** expo.double()).float()
-    ang = positions[:, None].float() * freqs[None, :]              # (S, half)
-    cos = torch.cos(ang)[:, None, :]
-    sin = torch.sin(ang)[:, None, :]
+    cos, sin = rope_cos_sin(positions, x.shape[-1], theta)
+    cos, sin = cos[:, None, :], sin[:, None, :]
     xf = x.float()
     x1 = xf[..., 0::2]
     x2 = xf[..., 1::2]
@@ -122,9 +146,11 @@ def xla_attention(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
 
 def _layer(h: torch.Tensor, layer, i: int, cache: dict,
            positions: torch.Tensor, pos_offset: int,
-           cfg: ModelConfig) -> torch.Tensor:
+           cfg: ModelConfig, quantize=kv_quantize) -> torch.Tensor:
     """One transformer block over S tokens; writes the S new K/V slots of
-    layer ``i`` into ``cache`` in place."""
+    layer ``i`` into ``cache`` in place (over the int8 ring through
+    ``quantize``: the kernel's wrapper, or the layer-looped decode's plain
+    version passes ``kv_quantize_plain``)."""
     S = h.shape[0]
     n_kv, hd = cfg.n_kv_heads, cfg.head_dim
 
@@ -139,7 +165,7 @@ def _layer(h: torch.Tensor, layer, i: int, cache: dict,
         # quantize the S new tokens' K and V straight into the ring slots
         ck, cv = cache["k_q"][i], cache["v_q"][i]                  # (n_kv, n_ctx, hd)
         cks, cvs = cache["k_s"][i], cache["v_s"][i]                # (n_kv, n_ctx)
-        kv_quantize(k, v, ck, cv, cks, cvs, pos_offset)
+        quantize(k, v, ck, cv, cks, cvs, pos_offset)
     else:
         ck, cv = cache["k"][i], cache["v"][i]                      # (n_kv, n_ctx, hd)
         cks = cvs = None
@@ -165,12 +191,39 @@ def _layer(h: torch.Tensor, layer, i: int, cache: dict,
     return h + linear(gated * linear(hn, layer.w_up), layer.w_down)
 
 
+#: loop-plan refusals already logged by this process
+_REFUSALS: set = set()
+
+
+def _loop_unroll(params, cfg: ModelConfig, S: int) -> tuple[int, dict | None]:
+    """(layers per looped launch, weight plan) for a pass of S tokens —
+    (0, None) selects the per-layer path: the loop is off, the pass is a
+    prompt pass (S > 1), or the weights refuse it (a fused layout; the
+    reason is logged once)."""
+    if not cfg.decode_layer_unroll or S != 1:
+        return 0, None
+    from ..ops.decode_loop import effective_unroll, loop_plan
+
+    fmts, reason = loop_plan(params, cfg)
+    if reason is not None:
+        if reason not in _REFUSALS:
+            _REFUSALS.add(reason)
+            logger.warning("layer-looped decode unavailable (%s): serving "
+                           "per-layer decode", reason)
+        return 0, None
+    return effective_unroll(cfg), fmts
+
+
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, pos_offset: int,
             cache: dict, last_idx: int | None = None,
             return_all: bool = False) -> torch.Tensor:
     """Run S tokens through the stack, writing their K/V into ``cache`` in
     place.  Returns f32 logits: (vocab,) at ``last_idx`` (default S-1), or
-    (S, vocab) with ``return_all``."""
+    (S, vocab) with ``return_all``.
+
+    A decode step (S == 1) under ``cfg.decode_layer_unroll`` runs the layer
+    stack as L/K launches of the layer-looped kernel (ops/decode_loop.py);
+    the output norm and head stay outside the loop, as in the reference."""
     S = tokens.shape[0]
     if pos_offset < 0 or pos_offset + S > cfg.n_ctx:
         raise ValueError(f"tokens at {pos_offset}..{pos_offset + S} do not fit "
@@ -179,9 +232,15 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, pos_offset: int,
         raise ValueError(f"params have {len(params.layers)} layers but "
                          f"cfg.n_layers={cfg.n_layers}")
     h = params.tok_emb[tokens].to(torch.bfloat16)
-    positions = pos_offset + torch.arange(S, device=h.device)
-    for i, layer in enumerate(params.layers):
-        h = _layer(h, layer, i, cache, positions, pos_offset, cfg)
+    K, fmts = _loop_unroll(params, cfg, S)
+    if K:
+        from ..ops.decode_loop import forward_layers_looped
+
+        h = forward_layers_looped(params, cfg, h, pos_offset, cache, K, fmts)
+    else:
+        positions = pos_offset + torch.arange(S, device=h.device)
+        for i, layer in enumerate(params.layers):
+            h = _layer(h, layer, i, cache, positions, pos_offset, cfg)
     if return_all:
         hn = rms_norm(h, params.out_norm, cfg.rms_eps)
         return linear(hn, params.output).float()

@@ -2,8 +2,12 @@
 
 Formats (``ops.linear.Linear.kind``):
 
-- ``bf16`` — every linear dequantized once on the host (numpy codecs) and
-  held as a bf16 plane; 2 B/weight.  Small models and the CPU tests.
+- ``bf16`` — every linear expanded once and held as a bf16 plane;
+  2 B/weight (16 GB at 8B: fits the card).  Small models and the CPU
+  tests;
+- ``int8`` — every linear expanded to f32 and requantized per output row
+  (``ops.linear.make_linear_int8``); 1 B/weight, ~8.5 GB at 8B with the
+  bf16 embedding table;
 - ``q4k`` — fused serving: Q4_K, Q5_K, Q6_K and Q8_0 tensors stay in their
   GGUF block bytes on the device (4.5 / 5.5 / 6.6 / 8.5 bit/weight) and run
   through the fused kernels (kinds ``q4k`` / ``q5k`` / ``q6k`` / ``q8``);
@@ -13,10 +17,19 @@ Formats (``ops.linear.Linear.kind``):
   Q4_K_M / Q5_K_M put some layers of attn_v and ffn_down on Q6_K) is
   promoted to the highest of them (Q4_K < Q5_K < Q6_K) — the other layers
   are requantized onto that grid.  A name mixing Q8_0 with anything else
-  takes bf16.
+  takes bf16 (the reference gives it int8: ROADMAP, "envelope
+  difference").
 
-``token_embd`` of a Q4_K, Q5_K, Q6_K or Q8_0 file is uploaded as block
-bytes and expanded to bf16 on the device by that format's dequant kernel.
+Expansion happens on the device, as the reference's ``on_device`` load: a
+Q4_K, Q5_K, Q6_K or Q8_0 tensor (``token_embd``, and every linear under
+``bf16``/``int8``) is uploaded as its block bytes and expanded by that
+format's dequant kernel — to bf16, or to f32 for the int8 requantization;
+F16/F32 tensors are uploaded as they are and converted by torch; any other
+type goes through the host codec.
+
+:func:`decode_loop_plan` says whether loaded weights can serve the
+layer-looped decode kernel (ops/decode_loop.py): only bf16 and int8
+linears can.
 
 GGUF tensor names follow llama.cpp: ``token_embd.weight``,
 ``blk.{i}.attn_{q,k,v,output}.weight``, ``blk.{i}.ffn_{gate,up,down}.weight``,
@@ -36,7 +49,7 @@ from ..gguf import GGMLType, GGUFFile
 from ..gguf.constants import GGML_BLOCK_SIZES
 from ..gguf.quants import quantize
 from ..ops.dequant import dequant_q4_k, dequant_q5_k, dequant_q6_k, dequant_q8_0
-from ..ops.linear import Linear
+from ..ops.linear import Linear, make_linear_int8
 from ..utils.device import resolve_device
 from .config import ModelConfig
 
@@ -48,13 +61,20 @@ FUSED_KINDS = {GGMLType.Q4_K: "q4k", GGMLType.Q5_K: "q5k",
 #: the K-quants a mixed name promotes among, coarsest first (the JAX
 #: reference's ranking)
 _K_RANK = {GGMLType.Q4_K: 0, GGMLType.Q5_K: 1, GGMLType.Q6_K: 2}
-#: GGML types whose token_embd expands on the device, by dequant kernel
-_EMB_DEQUANT = {GGMLType.Q4_K: dequant_q4_k, GGMLType.Q5_K: dequant_q5_k,
-                GGMLType.Q6_K: dequant_q6_k, GGMLType.Q8_0: dequant_q8_0}
+#: GGML types that expand on the device, by dequant kernel
+_DEQUANT = {GGMLType.Q4_K: dequant_q4_k, GGMLType.Q5_K: dequant_q5_k,
+            GGMLType.Q6_K: dequant_q6_k, GGMLType.Q8_0: dequant_q8_0}
+#: GGML float types uploaded as they are
+_FLOAT = {GGMLType.F16: np.float16, GGMLType.F32: np.float32}
+#: the load formats
+FORMATS = ("bf16", "int8", "q4k")
 
 _LINEARS = {"attn_q": "wq", "attn_k": "wk", "attn_v": "wv",
             "attn_output": "wo", "ffn_gate": "w_gate", "ffn_up": "w_up",
             "ffn_down": "w_down"}
+#: a layer's linear names, in the order the layer-looped decode kernel's
+#: weight table lists them
+LOOP_LINEARS = tuple(_LINEARS.values())
 
 
 class Layer(nn.Module):
@@ -121,18 +141,29 @@ def _fused_names(gf: GGUFFile, cfg: ModelConfig) -> dict[str, GGMLType]:
     return ok
 
 
-def _bf16(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
-        device=device, dtype=torch.bfloat16)
+def _expand(t, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """One GGUF tensor → ``dtype`` on ``device``, shaped (out, in): block
+    types through their dequant kernel, F16/F32 converted by torch, any
+    other type through the host codec."""
+    shape = tuple(reversed(t.shape))
+    if t.ggml_type in _DEQUANT:
+        raw = torch.from_numpy(np.array(t.raw(), np.uint8)).to(device)
+        return _DEQUANT[t.ggml_type](raw, dtype).reshape(shape)
+    if t.ggml_type in _FLOAT:
+        a = np.array(t.raw(), np.uint8).view(_FLOAT[t.ggml_type])
+    else:
+        a = np.ascontiguousarray(t.astype_f32(), np.float32)
+    return torch.from_numpy(a).to(device).to(dtype).reshape(shape)
 
 
 def load_params(gf: GGUFFile, cfg: ModelConfig, fmt: str = "bf16",
                 device: str | torch.device | None = None) -> LlamaParams:
     """Load every tensor of ``gf`` onto ``device`` (default: the GPU; raises
-    without one) in format ``fmt`` (``bf16`` | ``q4k``, the fused formats
-    — named, as in the JAX reference, after the first of them)."""
-    if fmt not in ("bf16", "q4k"):
-        raise ValueError(f"fmt must be bf16|q4k, got {fmt!r}")
+    without one) in format ``fmt``: ``bf16``, ``int8``, or ``q4k`` (the
+    fused formats — named, as in the JAX reference, after the first of
+    them)."""
+    if fmt not in FORMATS:
+        raise ValueError(f"fmt must be {'|'.join(FORMATS)}, got {fmt!r}")
     device = resolve_device(device)
     fused = _fused_names(gf, cfg) if fmt == "q4k" else {}
 
@@ -142,7 +173,9 @@ def load_params(gf: GGUFFile, cfg: ModelConfig, fmt: str = "bf16",
         short = name.split(".")[-2] if name.startswith("blk.") else name.split(".")[0]
         target = fused.get(short)
         if target is None:
-            return Linear("bf16", _bf16(t.astype_f32(), device), n_out, k_in)
+            if fmt == "int8":
+                return make_linear_int8(_expand(t, device, torch.float32))
+            return Linear("bf16", _expand(t, device, torch.bfloat16), n_out, k_in)
         raw = np.asarray(t.raw())
         if t.ggml_type != target:
             # K-quant promotion: requantize this layer onto the name's grid
@@ -162,12 +195,7 @@ def load_params(gf: GGUFFile, cfg: ModelConfig, fmt: str = "bf16",
             **{short: lin(p + long + ".weight") for long, short in _LINEARS.items()}))
         logger.debug("loaded layer %d/%d", i + 1, cfg.n_layers)
 
-    te = gf["token_embd.weight"]
-    if te.ggml_type in _EMB_DEQUANT:
-        raw = torch.from_numpy(np.array(te.raw(), np.uint8)).to(device)
-        emb = _EMB_DEQUANT[te.ggml_type](raw).reshape(tuple(reversed(te.shape)))
-    else:
-        emb = _bf16(te.astype_f32(), device)
+    emb = _expand(gf["token_embd.weight"], device, torch.bfloat16)
     if cfg.tie_embeddings or "output.weight" not in gf.tensors:
         output = Linear("bf16", emb, cfg.vocab_size, cfg.dim)
     else:
@@ -177,39 +205,109 @@ def load_params(gf: GGUFFile, cfg: ModelConfig, fmt: str = "bf16",
 
 def from_jax_params(tree: dict, cfg: ModelConfig,
                     device: str | torch.device | None = None) -> LlamaParams:
-    """The JAX reference's bf16 param pytree, as numpy arrays, → the port's
+    """The JAX reference's param pytree, as numpy arrays, → the port's
     modules: stacked ``(L, …)`` leaves are split per layer, ``{"w"}``
-    linears become bf16 :class:`Linear` s, norms stay f32.  Tests use it to
-    run both frameworks on the same weights.  Only bf16 pytrees cross: a
-    linear in one of the reference's TPU layouts (fused planes, int8) raises
+    linears become bf16 :class:`Linear` s and ``{"q", "s"}`` linears int8
+    ones, norms stay f32.  Tests use it to run both frameworks on the same
+    weights.  A linear in one of the reference's fused TPU layouts raises
     ``ValueError`` naming it — load the GGUF file with :func:`load_params`
     instead."""
     device = resolve_device(device)
-    keys = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
 
     def t(a, dtype):
         return torch.from_numpy(np.array(a, np.float32)).to(device=device,
                                                               dtype=dtype)
 
-    def w(leaf: dict, name: str):
-        if "w" not in leaf:
-            raise ValueError(f"from_jax_params: linear {name!r} holds "
-                             f"{sorted(leaf)}, not a bf16 'w' (only bf16 pytrees "
-                             f"cross; load the GGUF file with load_params)")
-        return leaf["w"]
+    def lin(leaf: dict, name: str, i: int | None = None) -> Linear:
+        def at(a):
+            return a if i is None else a[i]
 
-    def lin(a) -> Linear:
-        a = np.asarray(a, np.float32)
-        return Linear("bf16", t(a, torch.bfloat16), a.shape[0], a.shape[1])
+        if "w" in leaf:
+            w = np.asarray(at(leaf["w"]), np.float32)
+            return Linear("bf16", t(w, torch.bfloat16), w.shape[0], w.shape[1])
+        if set(leaf) == {"q", "s"}:
+            q = np.asarray(at(leaf["q"]), np.float32)
+            return Linear("int8", t(q, torch.int8), q.shape[0], q.shape[1],
+                          scale=t(at(leaf["s"]), torch.float32))
+        raise ValueError(f"from_jax_params: linear {name!r} holds {sorted(leaf)}, "
+                         f"not a bf16 'w' or an int8 'q'/'s' (fused layouts do "
+                         f"not cross; load the GGUF file with load_params)")
 
     st = tree["layers"]
-    stacked = {k: w(st[k], f"layers.{k}") for k in keys}
     layers = [
         Layer(attn_norm=t(st["attn_norm"][i], torch.float32),
               ffn_norm=t(st["ffn_norm"][i], torch.float32),
-              **{k: lin(stacked[k][i]) for k in keys})
+              **{k: lin(st[k], f"layers.{k}", i) for k in LOOP_LINEARS})
         for i in range(cfg.n_layers)
     ]
     return LlamaParams(t(tree["tok_emb"], torch.bfloat16), layers,
                        t(tree["out_norm"], torch.float32),
-                       lin(w(tree["output"], "output")))
+                       lin(tree["output"], "output"))
+
+
+def synth_params(cfg: ModelConfig, fmt: str = "bf16", seed: int = 0,
+                 device: str | torch.device | None = None) -> LlamaParams:
+    """Random weights with the structure :func:`load_params` gives in
+    ``fmt`` (``bf16`` or ``int8``), drawn on ``device`` from ``seed``:
+    linears N(0, 1/in), norms 1 + N(0, 0.1²), embedding N(0, 1/dim).  For
+    kernel checks at real widths without a file (chip_smoke.py, the CUDA
+    tests); its numbers are not the reference's ``synth_params``'."""
+    if fmt not in ("bf16", "int8"):
+        raise ValueError(f"fmt must be bf16|int8, got {fmt!r}")
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=device) * std
+
+    def lin(n_out: int, k_in: int) -> Linear:
+        w = randn(n_out, k_in, std=k_in ** -0.5)
+        if fmt == "int8":
+            return make_linear_int8(w)
+        return Linear("bf16", w.to(torch.bfloat16), n_out, k_in)
+
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    shapes = {"wq": (cfg.dim, cfg.dim), "wk": (kvd, cfg.dim), "wv": (kvd, cfg.dim),
+              "wo": (cfg.dim, cfg.dim), "w_gate": (cfg.ffn_dim, cfg.dim),
+              "w_up": (cfg.ffn_dim, cfg.dim), "w_down": (cfg.dim, cfg.ffn_dim)}
+    layers = [Layer(attn_norm=1 + randn(cfg.dim, std=0.1),
+                    ffn_norm=1 + randn(cfg.dim, std=0.1),
+                    **{n: lin(*shape) for n, shape in shapes.items()})
+              for _ in range(cfg.n_layers)]
+    emb = randn(cfg.vocab_size, cfg.dim, std=cfg.dim ** -0.5).to(torch.bfloat16)
+    return LlamaParams(emb, layers, 1 + randn(cfg.dim, std=0.1), lin(cfg.vocab_size, cfg.dim))
+
+
+def decode_loop_plan(params, cfg: ModelConfig):
+    """The weight plan of the layer-looped decode kernel
+    (ops/decode_loop.py): ``(fmts, None)`` — ``fmts`` maps each
+    :data:`LOOP_LINEARS` name to ``"bf16"`` or ``"int8"`` — or ``(None,
+    reason)`` when the loaded weights cannot serve it.  The reference's
+    rule (llama_fastapi_k8s_gpu_tpu/models/params.py::decode_loop_plan):
+    the fused Q4_K/Q5_K/Q6_K/Q8_0 layouts refuse, and the reason names the
+    linear.  The port's kernel also takes one weight kind for a whole
+    layer, so a plan that mixes bf16 and int8 linears refuses (no load
+    format produces one)."""
+    layers = getattr(params, "layers", None)
+    if not layers:
+        return None, "params carry no layers"
+    if len(layers) != cfg.n_layers:
+        return None, f"params have {len(layers)} layers but cfg.n_layers={cfg.n_layers}"
+    fmts: dict[str, str] = {}
+    for name in LOOP_LINEARS:
+        kinds = {getattr(layer, name).kind for layer in layers
+                 if isinstance(getattr(layer, name, None), Linear)}
+        if len(kinds) != 1 or any(not hasattr(layer, name) for layer in layers):
+            return None, f"linear {name!r} missing from params or of mixed kinds {sorted(kinds)}"
+        kind = kinds.pop()
+        if kind not in ("bf16", "int8"):
+            return None, (
+                f"linear {name!r} is a fused quantized layout (kind {kind!r}): "
+                "the in-kernel fused K-quant matmul needs its block planes "
+                "restacked per layer — serve per-layer decode")
+        fmts[name] = kind
+    if len(set(fmts.values())) > 1:
+        return None, (f"linears mix bf16 and int8 ({fmts}): the looped kernel "
+                      "takes one weight kind for a whole layer")
+    return fmts, None

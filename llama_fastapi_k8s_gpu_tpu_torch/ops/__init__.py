@@ -11,12 +11,18 @@ launches in ``<wrapper>.launches``:
   Q5_K / Q6_K / Q8_0 dequant-matmuls;
 - :mod:`.attention` — causal GQA flash attention for prompt passes, over
   the bf16 or the int8 KV ring;
-- :mod:`.kvquant` — the int8 KV cache's write-quantize.
+- :mod:`.kvquant` — the int8 KV cache's write-quantize;
+- :mod:`.decode_loop` — the layer-looped decode step (K whole layers of a
+  decode token per launch, over bf16 or int8 linears).
+
+``torch._int_mm``, which the int8 linear calls on the card (:mod:`.linear`),
+is a library call, not a kernel of the port.
 
 Kernels are built from ``csrc/`` at first use (:mod:`._kernels`).
 """
 
 from .attention import flash_attention, flash_attention_int8
+from .decode_loop import decode_loop_step
 from .dequant import dequant_q4_k, dequant_q5_k, dequant_q6_k, dequant_q8_0
 from .kvquant import kv_quantize
 from .q4k import q4k_matmul
@@ -37,8 +43,9 @@ KERNELS = {
     "kv_quantize": kv_quantize,
     "flash_attention_int8": flash_attention_int8,
     "dequant_q6_k": dequant_q6_k,
+    "decode_loop": decode_loop_step,
 }
 
-__all__ = ["KERNELS", "dequant_q4_k", "dequant_q5_k", "dequant_q6_k",
+__all__ = ["KERNELS", "decode_loop_step", "dequant_q4_k", "dequant_q5_k", "dequant_q6_k",
            "dequant_q8_0", "flash_attention", "flash_attention_int8",
            "kv_quantize", "q4k_matmul", "q5k_matmul", "q6k_matmul", "q8_matmul"]

@@ -37,10 +37,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C signature of every exported launcher (all return the cudaError_t)
 SIGNATURES = {
-    "lfkt_dequant_q4k": [_P, _P, ctypes.c_longlong, _P],
-    "lfkt_dequant_q5k": [_P, _P, ctypes.c_longlong, _P],
-    "lfkt_dequant_q6k": [_P, _P, ctypes.c_longlong, _P],
-    "lfkt_dequant_q8_0": [_P, _P, ctypes.c_longlong, _P],
+    "lfkt_dequant_q4k": [_P, _P, ctypes.c_longlong, _I, _P],
+    "lfkt_dequant_q5k": [_P, _P, ctypes.c_longlong, _I, _P],
+    "lfkt_dequant_q6k": [_P, _P, ctypes.c_longlong, _I, _P],
+    "lfkt_dequant_q8_0": [_P, _P, ctypes.c_longlong, _I, _P],
     "lfkt_q4k_matmul": [_P, _P, _P, _I, _I, _I, _P],
     "lfkt_q5k_matmul": [_P, _P, _P, _I, _I, _I, _P],
     "lfkt_q6k_matmul": [_P, _P, _P, _I, _I, _I, _P],
@@ -50,6 +50,7 @@ SIGNATURES = {
     "lfkt_flash_attention_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   ctypes.c_float, _I, _P],
     "lfkt_kv_quantize": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "lfkt_decode_loop": [_P] * 12 + [_I] * 10 + [ctypes.c_float] * 2 + [_I, _I, _P],
 }
 
 _lock = threading.Lock()

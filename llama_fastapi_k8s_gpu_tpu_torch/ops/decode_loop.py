@@ -1,0 +1,219 @@
+"""Layer-looped decode: K transformer layers of one decode token per launch.
+
+The per-layer decode step launches every linear, norm, RoPE, ring write and
+attention op of every layer on its own — some 1,300 launches a token at 32
+layers, each costing the host tens of microseconds.  Under
+``cfg.decode_layer_unroll`` (``LFKT_DECODE_LAYER_UNROLL``) a decode step
+(S == 1) runs the layer stack instead as L/K launches of one kernel
+(``csrc/decode_loop.cu``): ``-1`` (or K ≥ L) is one launch a token, any
+other K is clamped to a divisor of L.  Prompt passes never loop, and the
+output norm, head and sampling stay outside the loop, as in the reference.
+Only bf16 and int8 linears can loop (``models.params.decode_loop_plan``);
+the fused formats serve per-layer.
+
+- :func:`decode_loop_step` — the wrapper: launches the kernel for CUDA
+  tensors (counted on ``decode_loop_step.launches``) and runs
+  :func:`decode_loop_plain` for CPU tensors;
+- :func:`decode_loop_plain` — the per-layer arithmetic of layers
+  ``[layer0, layer0 + K)``, through the plain functions only (the linears,
+  ``kv_quantize_plain``, ``xla_attention``), never a kernel: on the CPU the
+  looped forward is therefore bit-identical to the per-layer forward;
+- :func:`forward_layers_looped` — the L/K launches of a decode step.
+
+Replaces the Pallas kernel llama_fastapi_k8s_gpu_tpu/ops/pallas/
+decode_loop.py::_loop_kernel.  The reference's compile probe and its
+degrade-to-per-layer pin (``disable_decode_loop``) are not ported: a kernel
+that fails to build or launch raises.  The plan refusal of a fused layout
+is the reference's own decision and is kept (the engine logs it and serves
+per-layer).
+"""
+
+from __future__ import annotations
+
+import weakref
+
+import torch
+
+from ._kernels import check, library, require_cuda, stream_ptr
+
+#: per params object: its loop plan and, on the card, its weight table
+_PARAMS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+#: per device: the grid barrier's counter (zero before the first launch)
+_BARRIERS: dict = {}
+#: pointers a layer has in the kernel's weight table (csrc/decode_loop.cu)
+_TABLE = 16
+#: head sizes the kernel takes
+HEAD_DIMS = (32, 64, 128, 256)
+
+
+def effective_unroll(cfg) -> int:
+    """``cfg.decode_layer_unroll`` clamped to a divisor of ``n_layers``:
+    ``-1`` (or K ≥ L) puts all layers in one launch; any other K walks down
+    to the nearest divisor, so the launches cover every layer once.  0 stays
+    0; K < -1 raises ``ValueError`` (the reference's clamp)."""
+    K = int(cfg.decode_layer_unroll)
+    L = int(cfg.n_layers)
+    if K == 0:
+        return 0
+    if K < -1:
+        raise ValueError(
+            f"decode_layer_unroll must be >= -1, got {K} "
+            "(0 = off, -1 = all layers per launch)")
+    if K < 0 or K >= L:
+        return L
+    while K > 1 and L % K:
+        K -= 1
+    return K
+
+
+def _entry(params) -> dict:
+    entry = _PARAMS.get(params)
+    if entry is None:
+        entry = _PARAMS[params] = {}
+    return entry
+
+
+def loop_plan(params, cfg):
+    """:func:`models.params.decode_loop_plan` of ``params``, computed once
+    per params object (and layer count)."""
+    from ..models.params import decode_loop_plan
+
+    entry = _entry(params)
+    key = ("plan", cfg.n_layers)
+    if key not in entry:
+        entry[key] = decode_loop_plan(params, cfg)
+    return entry[key]
+
+
+def _weight_table(params, cfg, int8: bool) -> torch.Tensor:
+    """(L, 16) int64 on the card: each layer's seven weight planes, their
+    seven int8 scale vectors (0 for bf16) and its two norms, by address —
+    built once per params object, checked as it is built."""
+    from ..models.params import LOOP_LINEARS
+
+    entry = _entry(params)
+    table = entry.get("table")
+    if table is not None:
+        return table
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    shapes = {"wq": (cfg.dim, cfg.dim), "wk": (kvd, cfg.dim), "wv": (kvd, cfg.dim),
+              "wo": (cfg.dim, cfg.dim), "w_gate": (cfg.ffn_dim, cfg.dim),
+              "w_up": (cfg.ffn_dim, cfg.dim), "w_down": (cfg.dim, cfg.ffn_dim)}
+    wdtype = torch.int8 if int8 else torch.bfloat16
+    rows = []
+    for i, layer in enumerate(params.layers):
+        lins = [getattr(layer, n) for n in LOOP_LINEARS]
+        for n, lin in zip(LOOP_LINEARS, lins):
+            if tuple(lin.weight.shape) != shapes[n]:
+                raise ValueError(f"decode_loop: layer {i} {n} is {tuple(lin.weight.shape)}, "
+                                 f"expected {shapes[n]}")
+            require_cuda(f"decode_loop: layer {i} {n}", lin.weight, dtypes=(wdtype,))
+            if int8:
+                require_cuda(f"decode_loop: layer {i} {n} scale", lin.scale,
+                             dtypes=(torch.float32,))
+        norms = (layer.attn_norm, layer.ffn_norm)
+        require_cuda(f"decode_loop: layer {i} norms", *norms,
+                     dtypes=(torch.float32, torch.float32))
+        rows.append([lin.weight.data_ptr() for lin in lins]
+                    + [lin.scale.data_ptr() if int8 else 0 for lin in lins]
+                    + [t.data_ptr() for t in norms])
+    device = params.layers[0].wq.weight.device
+    table = torch.tensor(rows, dtype=torch.int64).to(device)
+    entry["table"] = table
+    return table
+
+
+def _barrier(device: torch.device) -> torch.Tensor:
+    bar = _BARRIERS.get(device)
+    if bar is None:
+        bar = _BARRIERS[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return bar
+
+
+def decode_loop_plain(params, cache: dict, h: torch.Tensor, pos: int, layer0: int,
+                      cfg, fmts: dict, K: int) -> torch.Tensor:
+    """Plain PyTorch version: layers ``[layer0, layer0 + K)`` of one decode
+    token, one after the other, through the per-layer source with the
+    plain KV quantize.  h (1, dim) bf16 → h; the ring slots at ``pos`` are
+    written in place."""
+    from ..models.llama import _layer
+    from .kvquant import kv_quantize_plain
+
+    positions = pos + torch.arange(1, device=h.device)
+    for i in range(layer0, layer0 + K):
+        h = _layer(h, params.layers[i], i, cache, positions, pos, cfg,
+                   quantize=kv_quantize_plain)
+    return h
+
+
+def decode_loop_step(params, cache: dict, h: torch.Tensor, pos: int, layer0: int,
+                     cfg, fmts: dict, K: int) -> torch.Tensor:
+    """Layers ``[layer0, layer0 + K)`` of one decode token at ring slot
+    ``pos``: h (1, dim) bf16 → the new h; each layer's K/V slot at ``pos``
+    is written into ``cache`` in place.  ``fmts`` is the weight plan
+    (:func:`models.params.decode_loop_plan`).  One kernel launch for CUDA
+    tensors, the plain version for CPU ones."""
+    L = cfg.n_layers
+    if not (K >= 1 and 0 <= layer0 and layer0 + K <= L):
+        raise ValueError(f"decode_loop: layers {layer0}..{layer0 + K} outside 0..{L}")
+    if not 0 <= pos < cfg.n_ctx:
+        raise ValueError(f"decode_loop: position {pos} outside the {cfg.n_ctx}-slot ring")
+    if tuple(h.shape) != (1, cfg.dim):
+        raise ValueError(f"decode_loop: h is {tuple(h.shape)}, expected (1, {cfg.dim})")
+    if h.device.type == "cpu":
+        return decode_loop_plain(params, cache, h, pos, layer0, cfg, fmts, K)
+    kinds = set(fmts.values())
+    if len(kinds) != 1 or not kinds <= {"bf16", "int8"}:
+        raise ValueError(f"decode_loop: the kernel takes one weight kind, bf16 or "
+                         f"int8, for every linear; got {fmts}")
+    hd = cfg.head_dim
+    if (hd not in HEAD_DIMS or cfg.n_heads * hd != cfg.dim or cfg.n_heads % cfg.n_kv_heads
+            or cfg.dim % 16 or cfg.ffn_dim % 16):
+        raise ValueError(f"decode_loop: unsupported geometry dim {cfg.dim}, ffn "
+                         f"{cfg.ffn_dim}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {hd}")
+    w_int8 = kinds == {"int8"}
+    kv_int8 = cfg.kv_dtype == "int8"
+    ring_shape = (L, cfg.n_kv_heads, cfg.n_ctx, hd)
+    if kv_int8:
+        ring = (cache["k_q"], cache["v_q"], cache["k_s"], cache["v_s"])
+        dtypes = (torch.int8, torch.int8, torch.float32, torch.float32)
+        shapes = (ring_shape, ring_shape, ring_shape[:-1], ring_shape[:-1])
+    else:
+        ring = (cache["k"], cache["v"])
+        dtypes = (torch.bfloat16, torch.bfloat16)
+        shapes = (ring_shape, ring_shape)
+    for t, shape in zip(ring, shapes):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"decode_loop: ring leaf {tuple(t.shape)}, expected {shape}")
+    h = h.reshape(-1).clone()
+    require_cuda("decode_loop", h, *ring, dtypes=(torch.bfloat16, *dtypes))
+    from ..models.llama import rope_cos_sin
+
+    table = _weight_table(params, cfg, w_int8)
+    cos, sin = rope_cos_sin(torch.full((1,), pos, device=h.device), hd, cfg.rope_theta)
+    kvd = cfg.n_kv_heads * hd
+    qkv = torch.empty(cfg.dim + 2 * kvd, dtype=torch.bfloat16, device=h.device)
+    ctx = torch.empty(cfg.dim, dtype=torch.bfloat16, device=h.device)
+    act = torch.empty(cfg.ffn_dim, dtype=torch.bfloat16, device=h.device)
+    ks, vs = (ring[2].data_ptr(), ring[3].data_ptr()) if kv_int8 else (None, None)
+    check(library().lfkt_decode_loop(
+        table.data_ptr(), h.data_ptr(), ring[0].data_ptr(), ring[1].data_ptr(), ks, vs,
+        qkv.data_ptr(), ctx.data_ptr(), act.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        _barrier(h.device).data_ptr(), layer0, K, cfg.dim, cfg.ffn_dim, cfg.n_heads,
+        cfg.n_kv_heads, hd, cfg.n_ctx, pos, cfg.sliding_window, cfg.rms_eps, hd ** -0.5,
+        int(w_int8), int(kv_int8), stream_ptr(h)), "decode_loop")
+    decode_loop_step.launches += 1
+    return h.reshape(1, cfg.dim)
+
+
+decode_loop_step.launches = 0
+
+
+def forward_layers_looped(params, cfg, h: torch.Tensor, pos: int, cache: dict,
+                          K: int, fmts: dict) -> torch.Tensor:
+    """The layer stack of one decode token as L/K launches of
+    :func:`decode_loop_step`, in order.  ``K`` divides ``n_layers``
+    (:func:`effective_unroll`) and ``fmts`` is the weight plan."""
+    for layer0 in range(0, cfg.n_layers, K):
+        h = decode_loop_step(params, cache, h, pos, layer0, cfg, fmts, K)
+    return h

@@ -1,11 +1,14 @@
-"""Load-time dequantization of ``token_embd``: Q4_K, Q5_K, Q6_K and Q8_0 → bf16.
+"""Load-time dequantization: Q4_K, Q5_K, Q6_K and Q8_0 → bf16 or f32.
 
 Each wrapper (``dequant_q4_k``, ``dequant_q5_k``, ``dequant_q6_k``,
 ``dequant_q8_0``) launches its CUDA kernel (``csrc/dequant_q4k.cu``,
 ``csrc/dequant_q5k.cu``, ``csrc/dequant_q6k.cu``, ``csrc/dequant_q8_0.cu``)
 for a CUDA tensor of raw GGUF block bytes, and runs its plain PyTorch
 version (``*_plain``) for a CPU tensor.  Both are bit-identical to the
-numpy codec (gguf/quants.py) cast to bf16.
+numpy codec (gguf/quants.py), in f32 or cast to bf16.  The bf16 output
+expands ``token_embd`` and, under ``weight_format="bf16"``, every linear;
+the f32 output feeds the int8 requantization of ``weight_format="int8"``
+(models/params.py), as the reference's ``on_device`` load does.
 
 Replace the Pallas kernels llama_fastapi_k8s_gpu_tpu/ops/pallas/dequant.py::
 _q4_k_kernel, _q5_k_kernel, _q6_k_kernel and _q8_0_kernel.  Unlike the JAX
@@ -93,72 +96,76 @@ def dequant_q8_0_f32(raw: torch.Tensor) -> torch.Tensor:
     return (_f16(blocks, 0) * q).reshape(-1)
 
 
-def dequant_q4_k_plain(raw: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the Q4_K kernel: flat bytes → flat bf16."""
-    return dequant_q4_k_f32(raw).to(torch.bfloat16)
+def dequant_q4_k_plain(raw: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of the Q4_K kernel: flat bytes → flat ``dtype``."""
+    return dequant_q4_k_f32(raw).to(dtype)
 
 
-def dequant_q5_k_plain(raw: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the Q5_K kernel: flat bytes → flat bf16."""
-    return dequant_q5_k_f32(raw).to(torch.bfloat16)
+def dequant_q5_k_plain(raw: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of the Q5_K kernel: flat bytes → flat ``dtype``."""
+    return dequant_q5_k_f32(raw).to(dtype)
 
 
-def dequant_q6_k_plain(raw: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the Q6_K kernel: flat bytes → flat bf16."""
-    return dequant_q6_k_f32(raw).to(torch.bfloat16)
+def dequant_q6_k_plain(raw: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of the Q6_K kernel: flat bytes → flat ``dtype``."""
+    return dequant_q6_k_f32(raw).to(dtype)
 
 
-def dequant_q8_0_plain(raw: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the Q8_0 kernel: flat bytes → flat bf16."""
-    return dequant_q8_0_f32(raw).to(torch.bfloat16)
+def dequant_q8_0_plain(raw: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of the Q8_0 kernel: flat bytes → flat ``dtype``."""
+    return dequant_q8_0_f32(raw).to(dtype)
 
 
 def _dequant(wrapper, plain, launcher: str, raw: torch.Tensor, block_bytes: int,
-             block_elems: int) -> torch.Tensor:
-    """Raw bytes (any shape, whole blocks) → flat bf16: the kernel for a
-    CUDA tensor (counted on ``wrapper.launches``), ``plain`` for a CPU one."""
+             block_elems: int, dtype) -> torch.Tensor:
+    """Raw bytes (any shape, whole blocks) → flat ``dtype`` (bf16 or f32):
+    the kernel for a CUDA tensor (counted on ``wrapper.launches``),
+    ``plain`` for a CPU one."""
     name = wrapper.__name__
     if raw.dtype != torch.uint8 or raw.numel() % block_bytes:
         raise ValueError(f"{name}: need uint8 bytes in whole {block_bytes}-byte "
                          f"blocks, got {raw.dtype} x {raw.numel()}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: dtype must be bfloat16 or float32, got {dtype}")
     if raw.device.type == "cpu":
-        return plain(raw)
+        return plain(raw, dtype)
     raw = raw.contiguous()
     require_cuda(name, raw)
     nb = raw.numel() // block_bytes
-    out = torch.empty(nb * block_elems, dtype=torch.bfloat16, device=raw.device)
+    out = torch.empty(nb * block_elems, dtype=dtype, device=raw.device)
     check(getattr(library(), launcher)(raw.data_ptr(), out.data_ptr(), nb,
-                                       stream_ptr(raw)), name)
+                                       int(dtype == torch.float32), stream_ptr(raw)),
+          name)
     wrapper.launches += 1
     return out
 
 
-def dequant_q4_k(raw: torch.Tensor) -> torch.Tensor:
-    """Raw Q4_K bytes (``numel % 144 == 0``) → flat bf16 of ``numel / 144 ·
-    256`` elements."""
+def dequant_q4_k(raw: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Raw Q4_K bytes (``numel % 144 == 0``) → flat ``dtype`` (bf16 or f32)
+    of ``numel / 144 · 256`` elements."""
     return _dequant(dequant_q4_k, dequant_q4_k_plain, "lfkt_dequant_q4k", raw,
-                    Q4K_BLOCK, QK_K)
+                    Q4K_BLOCK, QK_K, dtype)
 
 
-def dequant_q5_k(raw: torch.Tensor) -> torch.Tensor:
-    """Raw Q5_K bytes (``numel % 176 == 0``) → flat bf16 of ``numel / 176 ·
-    256`` elements."""
+def dequant_q5_k(raw: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Raw Q5_K bytes (``numel % 176 == 0``) → flat ``dtype`` (bf16 or f32)
+    of ``numel / 176 · 256`` elements."""
     return _dequant(dequant_q5_k, dequant_q5_k_plain, "lfkt_dequant_q5k", raw,
-                    Q5K_BLOCK, QK_K)
+                    Q5K_BLOCK, QK_K, dtype)
 
 
-def dequant_q6_k(raw: torch.Tensor) -> torch.Tensor:
-    """Raw Q6_K bytes (``numel % 210 == 0``) → flat bf16 of ``numel / 210 ·
-    256`` elements."""
+def dequant_q6_k(raw: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Raw Q6_K bytes (``numel % 210 == 0``) → flat ``dtype`` (bf16 or f32)
+    of ``numel / 210 · 256`` elements."""
     return _dequant(dequant_q6_k, dequant_q6_k_plain, "lfkt_dequant_q6k", raw,
-                    Q6K_BLOCK, QK_K)
+                    Q6K_BLOCK, QK_K, dtype)
 
 
-def dequant_q8_0(raw: torch.Tensor) -> torch.Tensor:
-    """Raw Q8_0 bytes (``numel % 34 == 0``) → flat bf16 of ``numel / 34 ·
-    32`` elements."""
+def dequant_q8_0(raw: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Raw Q8_0 bytes (``numel % 34 == 0``) → flat ``dtype`` (bf16 or f32)
+    of ``numel / 34 · 32`` elements."""
     return _dequant(dequant_q8_0, dequant_q8_0_plain, "lfkt_dequant_q8_0", raw,
-                    Q8_0_BLOCK, QK8_0)
+                    Q8_0_BLOCK, QK8_0, dtype)
 
 
 dequant_q4_k.launches = 0

@@ -241,6 +241,7 @@ def create_app(engine=None, settings: Settings | None = None,
             "weight_formats": params.formats() if hasattr(params, "formats") else None,
             "kv_dtype": getattr(cfg, "kv_dtype", None),
             "kv_cache_bytes": getattr(eng, "kv_cache_bytes", None),
+            "decode_layer_unroll": _effective_unroll(cfg),
             "device": str(getattr(eng, "device", None)),
         }
         return {
@@ -270,6 +271,16 @@ def create_app(engine=None, settings: Settings | None = None,
     return app
 
 
+def _effective_unroll(cfg) -> int | None:
+    """The layers per decode launch ``cfg`` serves — the ``-1`` / divisor
+    clamp applied — or None for an engine without the field (fakes)."""
+    if getattr(cfg, "decode_layer_unroll", None) is None:
+        return None
+    from ..ops.decode_loop import effective_unroll
+
+    return effective_unroll(cfg)
+
+
 def _default_engine_factory(settings: Settings):
     def factory():
         from ..engine import Engine
@@ -283,6 +294,7 @@ def _default_engine_factory(settings: Settings):
             max_gen_tokens=settings.max_gen_tokens,
             attn_impl=settings.attn_impl,
             kv_dtype=settings.kv_dtype,
+            decode_layer_unroll=settings.decode_layer_unroll,
             prefix_cache=settings.prefix_cache,
             prefill_chunk=settings.prefill_chunk,
         )

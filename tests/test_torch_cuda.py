@@ -8,10 +8,16 @@ no card and no ``nvcc``).  On the GPU machine:
 (``--noconftest``: tests/conftest.py sets up JAX, which the GPU image does
 not carry; this file imports only the port.)  The first test builds the
 kernels from ``csrc/``.  Tolerances: the Q4_K / Q5_K / Q6_K / Q8_0
-dequants and the int8 KV write-quantize are bit-exact; the fused matmuls
-agree with the plain f32 product to one bf16 step of the output's scale;
-flash attention, over the bf16 and the int8 ring, to 2·10⁻² max-abs
-(``__expf`` and another summation order than the plain softmax).
+dequants (bf16 and f32 outputs), the int8 KV write-quantize and the int8
+linear through ``torch._int_mm`` are bit-exact; the fused matmuls agree
+with the plain f32 product to one bf16 step of the output's scale; flash
+attention, over the bf16 and the int8 ring, to 2·10⁻² max-abs (``__expf``
+and another summation order than the plain softmax); the layer-looped
+decode kernel's output ``h`` to 2·10⁻² rel-dev from its plain version and
+its ring slot to 2·10⁻² rel-dev in bf16, ±1 in int8 with scales within
+2·10⁻² (dot products, the rms and the softmax sum in another order, and
+an int8 activation code can move by one where its bf16 input moved a
+step).
 """
 
 from __future__ import annotations
@@ -218,3 +224,104 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     w = torch.zeros(8, 144, dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
         q4k.q4k_matmul(torch.zeros(1, 256, device=cuda), w, 8, 256)   # f32 x
+
+
+@pytest.mark.parametrize("gtype", ["Q4_K", "Q5_K", "Q6_K", "Q8_0"])
+def test_dequant_f32_output_bit_exact(cuda, gtype):
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import dequant
+
+    size = {"Q4_K": 144, "Q5_K": 176, "Q6_K": 210, "Q8_0": 34}[gtype]
+    raw = _blocks(np.random.default_rng(3), 37, 4352, size).to(cuda)
+    fn = getattr(dequant, f"dequant_{gtype.lower()}")
+    plain = getattr(dequant, f"dequant_{gtype.lower()}_plain")
+    before = fn.launches
+    got = fn(raw, torch.float32)
+    want = plain(raw, torch.float32)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("B", [1, 17, 256])
+def test_int8_linear_through_int_mm_bit_exact(cuda, B):
+    """The int8 linear on the card (``torch._int_mm``, rows padded to 17)
+    against its CPU result (an int32 ``matmul``)."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops.linear import linear, make_linear_int8
+
+    g = torch.Generator().manual_seed(B)
+    w = torch.randn(1024, 4096, generator=g) * 4096 ** -0.5
+    x = (torch.randn(B, 4096, generator=g) * 3).to(torch.bfloat16)
+    lin = make_linear_int8(w)
+    want = linear(x, lin)
+    got = linear(x.to(cuda), make_linear_int8(w.to(cuda)))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+def _loop_case(cuda, w_int8: bool, kv_int8: bool, window: int, pos: int = 100):
+    """A dim-256 4-layer model of random weights and a ring filled with
+    random K/V up to ``pos``."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import init_cache
+    from llama_fastapi_k8s_gpu_tpu_torch.models.params import synth_params
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import kvquant
+
+    cfg = ModelConfig(vocab_size=64, dim=256, n_layers=4, n_heads=4, n_kv_heads=2,
+                      ffn_dim=512, n_ctx=128, sliding_window=window,
+                      kv_dtype="int8" if kv_int8 else "bf16")
+    params = synth_params(cfg, "int8" if w_int8 else "bf16", seed=5, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    cache = init_cache(cfg, cuda)
+    shape = (cfg.n_layers, cfg.n_kv_heads, pos, cfg.head_dim)
+    for name in ("k", "v"):
+        x = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+        if kv_int8:
+            cache[name + "_q"][:, :, :pos], cache[name + "_s"][:, :, :pos] = \
+                kvquant.quantize_kv_plain(x)
+        else:
+            cache[name][:, :, :pos] = x
+    h = torch.randn(1, cfg.dim, generator=g, device=cuda).to(torch.bfloat16)
+    return cfg, params, cache, h
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.parametrize("w_int8", [False, True])
+@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("window", [0, 16])
+def test_decode_loop_matches_plain(cuda, w_int8, kv_int8, window):
+    """The four kernel variants against the plain looped step, for K = 1,
+    2 and 4 layers ending at the last layer."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.params import LOOP_LINEARS
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import decode_loop
+
+    pos = 100
+    cfg, params, cache, h = _loop_case(cuda, w_int8, kv_int8, window, pos)
+    fmts = dict.fromkeys(LOOP_LINEARS, "int8" if w_int8 else "bf16")
+    for K in (1, 2, 4):
+        layer0 = cfg.n_layers - K
+        got_cache = {k: v.clone() for k, v in cache.items()}
+        want_cache = {k: v.clone() for k, v in cache.items()}
+        before = decode_loop.decode_loop_step.launches
+        got = decode_loop.decode_loop_step(params, got_cache, h, pos, layer0, cfg, fmts, K)
+        want = decode_loop.decode_loop_plain(params, want_cache, h, pos, layer0, cfg, fmts, K)
+        torch.cuda.synchronize()
+        assert decode_loop.decode_loop_step.launches == before + 1
+        assert torch.isfinite(got).all() and _rel(got, want) <= 2e-2, K
+        layers = slice(layer0, cfg.n_layers)
+        if kv_int8:
+            for name in ("k", "v"):
+                q, s = got_cache[name + "_q"], got_cache[name + "_s"]
+                wq, ws = want_cache[name + "_q"], want_cache[name + "_s"]
+                assert (q[layers, :, pos].int() - wq[layers, :, pos].int()).abs().max() <= 1
+                assert _rel(s[layers, :, pos], ws[layers, :, pos]) <= 2e-2
+                assert torch.equal(q[:, :, :pos], wq[:, :, :pos])
+        else:
+            for name in ("k", "v"):
+                assert _rel(got_cache[name][layers, :, pos],
+                            want_cache[name][layers, :, pos]) <= 2e-2
+        # no slot of a layer outside the launch, or of another position, moved
+        for name, leaf in got_cache.items():
+            assert torch.equal(leaf[:layer0], cache[name][:layer0]), name

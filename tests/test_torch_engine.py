@@ -94,9 +94,30 @@ def test_oversized_prompt_and_warmup(engine):
 
 
 def test_kv_dtype_is_checked_before_the_file_is_read(tmp_path):
-    """An unknown ``kv_dtype`` raises ValueError at once: the file named is
-    never opened (it does not exist)."""
+    """An unknown ``kv_dtype`` or a ``decode_layer_unroll`` below -1 raises
+    ValueError at once: the file named is never opened (it does not
+    exist)."""
     with pytest.raises(ValueError, match="kv_dtype"):
         Engine(str(tmp_path / "absent.gguf"), kv_dtype="fp8", device="cpu")
+    with pytest.raises(ValueError, match="decode_layer_unroll"):
+        Engine(str(tmp_path / "absent.gguf"), decode_layer_unroll=-2, device="cpu")
     with pytest.raises(FileNotFoundError):
         Engine(str(tmp_path / "absent.gguf"), kv_dtype="int8", device="cpu")
+
+
+def test_looped_int8_engine_matches_its_per_layer_twin(tmp_path):
+    """``weight_format="int8"`` with one looped launch a token: the greedy
+    completion is the per-layer engine's on the same weights (on the CPU
+    the looped step is the per-layer arithmetic), and the engine's config
+    carries the unroll."""
+    path = str(tmp_path / "tiny.gguf")
+    write_tiny_llama_gguf(path, quant=JGGMLType.F16)
+    kw = dict(n_ctx=256, max_gen_tokens=12, weight_format="int8", device="cpu")
+    looped = Engine(path, decode_layer_unroll=-1, **kw)
+    plain = Engine(path, decode_layer_unroll=0, **kw)
+    assert looped.cfg.decode_layer_unroll == -1 and plain.cfg.decode_layer_unroll == 0
+    assert set(looped.params.formats().values()) == {"int8"}
+    a = looped.create_chat_completion(MSGS, temperature=0.0, seed=3)
+    b = plain.create_chat_completion(MSGS, temperature=0.0, seed=3)
+    assert a["choices"][0]["message"] == b["choices"][0]["message"]
+    assert a["usage"]["completion_tokens"] == 12

@@ -15,7 +15,11 @@
 - the int8 cache's layout, dtypes and byte count against the reference's;
 - which names fuse, and as what, in files that mix types per layer, against
   the reference's rule; ``token_embd`` of each type with a dequant kernel
-  against the codec.
+  against the codec;
+- ``load_params(fmt="int8")`` leaf for leaf against the reference's int8
+  load (``on_device=False``: its numpy codecs and requantizer), bit for
+  bit — the port expands the blocks through its dequant kernels' f32
+  output (on the CPU, their plain versions) and requantizes with torch.
 """
 
 from __future__ import annotations
@@ -376,3 +380,40 @@ def test_mixed_k_quant_name_promotes_to_q6k(tmp_path):
     src = gf["blk.0.ffn_down.weight"].astype_f32()
     got = params.layers[0].w_down(x).float().numpy()
     assert _rel(got, x.float().numpy() @ src.T) <= 2e-2
+
+
+@pytest.mark.parametrize("layout", ["q4k_q6k", "q8_0"])
+def test_load_params_int8_matches_reference_leaf_for_leaf(tmp_path, layout):
+    """A dim-256 Q4_K (+ Q6_K FFN) file and the reference's default tiny
+    Q8_0 file: every int8 linear's ``q`` and ``s``, the norms and the
+    embedding are the reference's bits."""
+    path = str(tmp_path / "int8.gguf")
+    if layout == "q8_0":
+        jcfg = write_tiny_llama_gguf(path)
+    else:
+        jcfg = write_tiny_llama_gguf(
+            path, cfg=JModelConfig(vocab_size=263, dim=256, n_layers=2, n_heads=2,
+                                   n_kv_heads=1, ffn_dim=512, n_ctx=64),
+            quant=JGGMLType.Q4_K, ffn_quant=JGGMLType.Q6_K)
+    ref = j_load_params(JGGUFFile(path), jcfg, fmt="int8", on_device=False)
+    cfg = ModelConfig.from_gguf(GGUFFile(path), n_ctx=jcfg.n_ctx)
+    got = load_params(GGUFFile(path), cfg, "int8", device="cpu")
+    assert set(got.formats().values()) == {"int8"}
+
+    def same(t: torch.Tensor, a) -> bool:
+        a = np.asarray(jnp.asarray(a).astype(jnp.float32))
+        return np.array_equal(t.float().numpy().view(np.int32), a.view(np.int32))
+
+    def same_linear(lin, leaf) -> bool:
+        return (lin.weight.dtype == torch.int8 and lin.scale.dtype == torch.float32
+                and same(lin.weight, leaf["q"]) and same(lin.scale, leaf["s"]))
+
+    assert got.tok_emb.dtype == torch.bfloat16 and same(got.tok_emb, ref["tok_emb"])
+    assert same(got.out_norm, ref["out_norm"])
+    assert same_linear(got.output, ref["output"])
+    for i, layer in enumerate(got.layers):
+        for name in ("attn_norm", "ffn_norm"):
+            assert same(getattr(layer, name), ref["layers"][name][i]), (i, name)
+        for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            leaf = {k: v[i] for k, v in ref["layers"][name].items()}
+            assert same_linear(getattr(layer, name), leaf), (i, name)

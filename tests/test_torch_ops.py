@@ -21,6 +21,10 @@ Tolerances:
   probabilities times bf16 V, the port f32 probabilities, in another order
   (over the int8 ring: bf16 ``p·vs`` times int8 V against f32);
 - the KV write-quantize and the Q6_K dequant: bit-identical;
+- the int8 linear: ``make_linear_int8`` (q and s) and the product itself
+  bit-identical to the reference's (the int32 accumulation is exact, and
+  the activation quantize and the f32 rescale round at the same steps);
+- the dequants' f32 outputs: bit-identical to the codecs';
 - rms_norm and RoPE in f32, within 1e-6.
 """
 
@@ -38,6 +42,8 @@ from llama_fastapi_k8s_gpu_tpu.models.config import ModelConfig as JModelConfig
 from llama_fastapi_k8s_gpu_tpu.models.llama import rms_norm as j_rms_norm
 from llama_fastapi_k8s_gpu_tpu.models.llama import rope_interleaved as j_rope
 from llama_fastapi_k8s_gpu_tpu.models.llama import xla_attention as j_xla_attention
+from llama_fastapi_k8s_gpu_tpu.ops.linear import linear as j_linear
+from llama_fastapi_k8s_gpu_tpu.ops.linear import make_linear_int8 as j_make_linear_int8
 from llama_fastapi_k8s_gpu_tpu.ops.linear import (
     make_linear_q4k,
     make_linear_q5k,
@@ -58,7 +64,8 @@ from llama_fastapi_k8s_gpu_tpu_torch.gguf.quants import (
     quant_q8_0,
 )
 from llama_fastapi_k8s_gpu_tpu_torch.models.llama import rms_norm, rope_interleaved
-from llama_fastapi_k8s_gpu_tpu_torch.ops.linear import Linear
+from llama_fastapi_k8s_gpu_tpu_torch.ops import dequant
+from llama_fastapi_k8s_gpu_tpu_torch.ops.linear import Linear, linear, make_linear_int8
 from llama_fastapi_k8s_gpu_tpu_torch.ops.attention import flash_attention, flash_attention_int8
 from llama_fastapi_k8s_gpu_tpu_torch.ops.dequant import dequant_q6_k
 from llama_fastapi_k8s_gpu_tpu_torch.ops.kvquant import kv_quantize, quantize_kv_plain
@@ -353,3 +360,57 @@ def test_dequant_q6_k_matches_reference_kernel():
     assert torch.equal(got.view(torch.int16), codec.view(torch.int16))
     with pytest.raises(ValueError):
         dequant_q6_k(torch.from_numpy(raw[:-1]))
+
+
+def _int8_weights(rng, n=96, k=256):
+    """(n, k) f32 weights with an all-zero row and a row of one value."""
+    w = (rng.standard_normal((n, k)) * k ** -0.5).astype(np.float32)
+    w[3] = 0.0
+    w[5] = 0.25
+    return w
+
+
+def test_make_linear_int8_bit_identical_to_reference():
+    w = _int8_weights(np.random.default_rng(11))
+    ref = j_make_linear_int8(w)
+    got = make_linear_int8(torch.from_numpy(w))
+    assert got.kind == "int8" and (got.n_out, got.k_in) == w.shape
+    assert got.weight.dtype == torch.int8 and got.scale.dtype == torch.float32
+    assert np.array_equal(got.weight.numpy(), np.asarray(ref["q"]))
+    assert np.array_equal(got.scale.numpy().view(np.int32),
+                          np.asarray(ref["s"]).view(np.int32))
+    assert got.scale[3] == 1.0 and not got.weight[3].any()
+
+
+@pytest.mark.parametrize("B", [1, 17, 256])
+def test_int8_linear_bit_identical_to_reference(B):
+    """The same x through both int8 linears, an all-zero row of x included."""
+    rng = np.random.default_rng(B)
+    w = _int8_weights(rng)
+    x = rng.standard_normal((B, w.shape[1])).astype(np.float32) * 3.0
+    x[0] = 0.0
+    xb = _bf16(x)
+    got = linear(xb, make_linear_int8(torch.from_numpy(w)))
+    ref = j_linear(jnp.asarray(xb.float().numpy(), jnp.bfloat16), j_make_linear_int8(w))
+    assert got.dtype == torch.bfloat16 and got.shape == (B, w.shape[0])
+    assert torch.equal(got.view(torch.int16),
+                       _bf16(np.asarray(ref.astype(jnp.float32))).view(torch.int16))
+
+
+@pytest.mark.parametrize("gtype", ["Q4_K", "Q5_K", "Q6_K", "Q8_0"])
+def test_dequant_f32_output_bit_identical_to_codec(gtype):
+    """Each dequant's f32 output (the int8 load's input) against the JAX
+    package's codec, bit for bit; its bf16 output is that value rounded."""
+    n = 40 * 256
+    w = (np.random.default_rng(12).standard_normal(n) * 0.05).astype(np.float32)
+    quant = {"Q4_K": quant_q4_k, "Q5_K": quant_q5_k, "Q6_K": quant_q6_k,
+             "Q8_0": quant_q8_0}[gtype]
+    raw = torch.from_numpy(quant(w))
+    fn = getattr(dequant, f"dequant_{gtype.lower()}")
+    got = fn(raw, torch.float32)
+    codec = j_dequantize(raw.numpy(), JGGMLType[gtype], n)
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    assert np.array_equal(got.numpy().view(np.int32), codec.view(np.int32))
+    assert torch.equal(fn(raw).view(torch.int16), got.to(torch.bfloat16).view(torch.int16))
+    with pytest.raises(ValueError, match="dtype"):
+        fn(raw, torch.float16)

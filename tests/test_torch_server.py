@@ -4,7 +4,8 @@ raw ASGI calls.
 At ``LFKT_TEMPERATURE=0`` both apps, each over its own engine on the same
 tiny GGUF, answer ``/response`` with identical bytes — a first turn and a
 follow-up that takes prefix reuse, on an F16 file and on the JAX package's
-default tiny file (Q8_0), there also over the int8 KV cache.  Errors (422
+default tiny file (Q8_0), there also over the int8 KV cache and, with the
+layer-looped decode armed, over int8 and bf16 weights.  Errors (422
 bodies, the 400 for an unknown model, 404/405, 500 from the engine) and
 ``/items`` match byte for byte; ``/health`` carries the reference's keys
 for what the slice serves.
@@ -206,6 +207,76 @@ def test_lfkt_kv_dtype_reaches_the_engine(monkeypatch):
         _default_engine_factory(get_settings())()
 
 
+@pytest.mark.parametrize("weight_format,kv_dtype,unroll", [
+    ("int8", "bf16", -1),     # one looped launch a token
+    ("bf16", "int8", 2),
+])
+def test_looped_decode_response_bytes_identical_and_health(q8_path, weight_format,
+                                                           kv_dtype, unroll):
+    """Both engines with ``decode_layer_unroll`` armed over the same weight
+    format and KV dtype answer with the same bytes; ``/health`` reports the
+    effective unroll (the 2-layer file: 2 for both) and the int8 formats."""
+    kw = dict(n_ctx=1024, max_gen_tokens=16, weight_format=weight_format,
+              kv_dtype=kv_dtype, decode_layer_unroll=unroll)
+    engines = (JEngine(q8_path, **kw), Engine(q8_path, device="cpu", **kw))
+
+    async def go(apps):
+        return (await both(apps, "POST", "/response", BODY),
+                await both(apps, "GET", "/health"))
+
+    (ref, got), health = serve(_apps(engines), go)
+    assert ref[0] == got[0] == 200
+    assert got[1] == ref[1]
+    assert json.loads(got[1])["response"]
+    ref_h, got_h = (json.loads(b)["engine"] for _, b in health)
+    assert got_h["decode_layer_unroll"] == ref_h["decode_layer_unroll"] == 2
+    assert got_h["weight_formats"] == dict.fromkeys(
+        ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "output"), weight_format)
+    for name, kind in ref_h["weight_formats"].items():
+        assert got_h["weight_formats"][name] == kind == weight_format
+
+
+def test_health_reports_no_unroll_after_a_plan_refusal(q8_path):
+    """Fused weights refuse the looped kernel: the engine serves per-layer
+    decode and ``/health`` says 0."""
+    eng = Engine(q8_path, n_ctx=1024, max_gen_tokens=4, weight_format="q4k",
+                 decode_layer_unroll=-1, device="cpu")
+    assert eng.cfg.decode_layer_unroll == 0
+
+    async def go(apps):
+        return await call(apps[0], "GET", "/health")
+
+    status, body = serve([create_app(engine=eng, settings=Settings(temperature=0.0))], go)
+    assert status == 200 and json.loads(body)["engine"]["decode_layer_unroll"] == 0
+
+
+def test_lfkt_decode_layer_unroll_and_weight_format_reach_the_engine(monkeypatch):
+    """``LFKT_DECODE_LAYER_UNROLL`` and ``LFKT_WEIGHT_FORMAT=int8`` are read
+    as the reference reads them and reach the engine; an unroll below -1
+    raises there before the model file is looked at."""
+    seen = {}
+
+    class Recorder:
+        def __init__(self, path, **kw):
+            seen.update(kw)
+
+        def warmup(self):
+            pass
+
+    assert get_settings().decode_layer_unroll == j_get_settings().decode_layer_unroll == 0
+    monkeypatch.setenv("LFKT_DECODE_LAYER_UNROLL", "-1")
+    monkeypatch.setenv("LFKT_WEIGHT_FORMAT", "int8")
+    assert get_settings().decode_layer_unroll == j_get_settings().decode_layer_unroll == -1
+    assert get_settings().weight_format == j_get_settings().weight_format == "int8"
+    with monkeypatch.context() as m:
+        m.setattr(engine_pkg, "Engine", Recorder)
+        _default_engine_factory(get_settings())()
+    assert seen["decode_layer_unroll"] == -1 and seen["weight_format"] == "int8"
+    monkeypatch.setenv("LFKT_DECODE_LAYER_UNROLL", "-2")
+    with pytest.raises(ValueError, match="decode_layer_unroll"):
+        _default_engine_factory(get_settings())()
+
+
 BAD_BODIES = [
     None,
     {},
@@ -241,7 +312,8 @@ def test_health_document(engines):
     assert set(got) <= set(ref)
     for k in ("status", "state", "model_loaded", "queue_depth", "max_queue_size"):
         assert got[k] == ref[k]
-    for k in ("model", "n_ctx", "attn_impl", "kv_dtype", "kv_cache_bytes"):
+    for k in ("model", "n_ctx", "attn_impl", "kv_dtype", "kv_cache_bytes",
+              "decode_layer_unroll"):
         assert got["engine"][k] == ref["engine"][k]
     for k, v in ref["engine"]["weight_formats"].items():
         assert got["engine"]["weight_formats"][k] == v
