@@ -18,7 +18,12 @@ and no result line):
    kernel in its four variants (bf16/int8 weights × bf16/int8 KV ring) over
    two full-width layers of random weights and a ring filled to slot 700;
    and, as ``int8_linear`` lines, the int8 linear the int8 engines serve
-   (``torch._int_mm``, a library call) at the 8B shapes;
+   (``torch._int_mm``, a library call) at the 8B shapes.  The fused
+   matmuls' lines name the launcher's path (``tc``: the tensor-core
+   template, ``cuda_core``) and the distance from the library's result;
+   ``route_sweep`` lines time both paths of ``q5k_matmul`` and
+   ``q6k_matmul`` at B = 1..16, the measurement behind the launchers'
+   threshold;
 4. gguf: four synthetic Llama-3-8B-width GGUFs (random valid blocks from a
    seed) in the tensor types of a Q4_K_M, a Q5_K_M, a Q8_0 and a Q6_K
    file, written with the port's own writer into ``.cache/chip_smoke/``
@@ -214,10 +219,17 @@ def phase_build() -> None:
 
     t0 = time.time()
     _kernels.library()
-    ptxas = [ln.strip() for ln in _kernels.build_info.get("log", "").splitlines()
-             if "registers" in ln or "spill" in ln]
+    log = _kernels.build_info.get("log", "").splitlines()
+    ptxas = [ln.strip() for ln in log if "registers" in ln or "spill" in ln]
+    # the tensor-core template's instantiations by decoder, tile edge and
+    # alignment (Q5KDecoderELi128ELb1: Q5_K, 128 x 128, 16-byte copies)
+    qmma = {}
+    for i, ln in enumerate(log):
+        if "Function properties for" in ln and "qmma_kernel" in ln:
+            key = ln[ln.index("Q"):].split("EEEv")[0]
+            qmma[key] = " | ".join(x.strip() for x in log[i + 1:i + 3])
     say("build", seconds=round(time.time() - t0, 2),
-        built=_kernels.build_info.get("built"), ptxas=ptxas)
+        built=_kernels.build_info.get("built"), ptxas=ptxas, qmma=qmma)
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +247,32 @@ def cuda_ms(fn, reps: int) -> float:
     a.record()
     for _ in range(reps):
         fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` calls captured in
+    one CUDA graph and replayed: the kernels' time without the host's
+    launch overhead, which ``cuda_ms`` includes where it exceeds the
+    kernel."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
@@ -267,30 +305,71 @@ def fused_formats() -> dict:
 
 
 def check_matmul(name, rng, n_out, k_in, B, tol_rel=8e-3) -> dict:
+    """A fused matmul against its plain version (the f32 product) within
+    ``tol_rel``·max|y|, timed beside the library call (bf16 ``torch.matmul``
+    on the pre-dequantized plane); ``path`` is the launcher's route for this
+    B (``tc`` or ``cuda_core``) and ``library_max_abs_err`` the distance
+    from the library's result (on the tensor cores the same arithmetic:
+    the sums' order and a bf16 step apart).  ``ms`` / ``library_ms`` time
+    eager calls, as every kernel line does; ``graph_ms`` /
+    ``library_graph_ms`` the same calls replayed from a CUDA graph (device
+    time alone)."""
     import numpy as np
     import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import _fused
 
     kern, plain, rand, dequant_f32 = fused_formats()[name]
     w = torch.from_numpy(np.ascontiguousarray(rand(rng, n_out, k_in))).cuda()
     x = torch.from_numpy(rng.standard_normal((B, k_in), np.float32)).cuda().to(torch.bfloat16)
     y = kern(x, w, n_out, k_in)
     y_ref = plain(x, w, n_out, k_in)
+    deq = dequant_f32(w.reshape(-1)).reshape(n_out, k_in).to(torch.bfloat16)
+    y_lib = torch.matmul(x, deq.t())
     torch.cuda.synchronize()
     err = (y.float() - y_ref.float()).abs().max().item()
     scale = y_ref.float().abs().max().item()
     if not (torch.isfinite(y).all() and err <= tol_rel * scale):
         raise AssertionError(f"{name} ({n_out},{k_in}) B={B}: max |kernel-plain| "
                              f"{err} > {tol_rel} * {scale}")
-    deq = dequant_f32(w.reshape(-1)).reshape(n_out, k_in).to(torch.bfloat16)
     reps = 20 if B == 1 else 5
     out = {
-        "shape": [n_out, k_in], "B": B, "max_abs_err": err, "tol": tol_rel * scale,
+        "shape": [n_out, k_in], "B": B, "path": _fused.route(name, B),
+        "max_abs_err": err, "tol": tol_rel * scale,
+        "library_max_abs_err": (y.float() - y_lib.float()).abs().max().item(),
         "ms": cuda_ms(lambda: kern(x, w, n_out, k_in), reps),
         "plain_ms": cuda_ms(lambda: plain(x, w, n_out, k_in), 2),
         "library_ms": cuda_ms(lambda: torch.matmul(x, deq.t()), reps),
+        "graph_ms": graph_ms(lambda: kern(x, w, n_out, k_in)),
+        "library_graph_ms": graph_ms(lambda: torch.matmul(x, deq.t())),
         **bound(x.numel() * 2 + w.numel() + B * n_out * 2, 2.0 * B * n_out * k_in),
     }
-    del w, x, deq
+    del w, x, deq, y_lib
+    return out
+
+
+def route_sweep(name, rng, n_out, k_in, batches=(1, 2, 4, 8, 9, 12, 16)) -> dict:
+    """The two paths of a tensor-core fused matmul at small B, each forced
+    in turn (device ms, :func:`graph_ms`): what the launcher's threshold
+    rests on."""
+    import numpy as np
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import _fused
+
+    kern = fused_formats()[name][0]
+    w = torch.from_numpy(np.ascontiguousarray(fused_formats()[name][2](rng, n_out, k_in))).cuda()
+    out = {"name": name, "shape": [n_out, k_in], "cuda_core_ms": [], "tc_ms": [],
+           "B": list(batches), "threshold": _fused.tc_min_batch()}
+    try:
+        for B in batches:
+            x = torch.from_numpy(rng.standard_normal((B, k_in), np.float32)).cuda().to(torch.bfloat16)
+            for path, min_batch in (("cuda_core", 1 << 30), ("tc", 1)):
+                _fused.tc_config(min_batch)
+                out[path + "_ms"].append(graph_ms(lambda: kern(x, w, n_out, k_in)))
+    finally:
+        _fused.tc_config(out["threshold"])
+    del w
     return out
 
 
@@ -579,6 +658,10 @@ MATMUL_SHAPES = {
     "q6k_matmul": _ALL,
     "q8_matmul": _ALL,
 }
+#: the B each fused matmul is checked at: a decode token and a 256-token
+#: prompt slice; the tensor-core kernels also at 128, the bucket of short
+#: prompts and follow-ups
+MATMUL_BATCHES = {"q5k_matmul": (1, 128, 256), "q6k_matmul": (1, 128, 256)}
 
 
 def phase_kernels(names) -> dict:
@@ -604,8 +687,12 @@ def phase_kernels(names) -> dict:
             # a decode token at slot 700, a 256-token prompt slice at 256
             shapes[name] = [check_kv_quantize(rng, 1, 700), check_kv_quantize(rng, 256, 256)]
         else:
-            shapes[name] = [check_matmul(name, rng, n, k, B) for B in (1, 256)
+            shapes[name] = [check_matmul(name, rng, n, k, B)
+                            for B in MATMUL_BATCHES.get(name, (1, 256))
                             for n, k in MATMUL_SHAPES[name]]
+    for name in ("q5k_matmul", "q6k_matmul"):
+        for n, k in MATMUL_SHAPES[name][:4]:
+            say("route_sweep", **route_sweep(name, rng, n, k))
     for B in (1, 256):
         for n, k in _ALL:
             say("int8_linear", **check_int8_linear(n, k, B))

@@ -12,19 +12,70 @@
 //
 // Bound on the H100: bytes at decode (~6.6 bits/weight read once per
 // token; the 128256 x 4096 output head alone is 431 MB), operations at
-// prefill.  Same design as q4k_matmul.cu: one warp per output row, WARPS
+// prefill.  Two paths, chosen by B alone (qmma_route.cu): at and above the
+// route's threshold (every prompt pass) the tensor-core template of
+// qmma.cuh with the Q6_K decoder below; under it (decode) the CUDA-core
+// kernel, the same design as q4k_matmul.cu: one warp per output row, WARPS
 // rows per block, RB activation rows per block staged in padded shared
 // memory; lane l owns elements l*8..l*8+7 of each super-block, which sit in
 // one 16-element sub-block, one 8-byte run of ql and one of qh.  A 210-byte
 // block is only 2-byte aligned when rows hold an odd number of blocks, so
 // the ql/qh runs are read as four 16-bit words each.
-#include "common.cuh"
+#include "qmma.cuh"
 
 namespace {
 
 constexpr int XPAD = lfkt::QK_K + lfkt::QK_K / 8;
 
 __device__ __forceinline__ int xslot(int c) { return c + (c >> 3); }
+
+// 32 bytes at a 2-byte aligned shared address as 8 words: nine aligned
+// loads, shifted by 16 bits when the address is not 4-byte aligned
+__device__ __forceinline__ void load32_a2(const uint8_t* p, uint32_t (&v)[8]) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(a & ~uintptr_t(3));
+    const uint32_t sh = static_cast<uint32_t>(a & 2) * 8;
+    uint32_t lo = w[0];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const uint32_t hi = w[i + 1];
+        v[i] = __funnelshift_r(lo, hi, sh);
+        lo = hi;
+    }
+}
+
+// Weights 32c..32c+31 of the Q6_K block at `blk` (2-byte aligned in shared
+// memory: a 210-byte block sits at any even offset of its 16-byte span) as
+// 16 bf16 pairs.  Chunk c is quarter q = c%4 of half h = c/4: its ql run
+// (32 bytes, low nibbles for q < 2), its qh run (the half's 32 bytes, crumb
+// q) and two 16-element scales; w = (d*sc)*(q6 - 32) rounded in f32 as the
+// codec rounds it, then to bf16.
+struct Q6KDecoder {
+    static constexpr int BLOCK = lfkt::Q6K_BLOCK;
+    static constexpr int SLOT = 240;         // 210 + up to 14 of offset, odd chunks
+    static __device__ __forceinline__ void decode32(const uint8_t* blk, int c,
+                                                    uint32_t (&out)[16]) {
+        const int h = c >> 2, q = c & 3;
+        uint32_t ql[8], qh[8];
+        load32_a2(blk + h * 64 + (q & 1) * 32, ql);
+        load32_a2(blk + 128 + h * 32, qh);
+        const int lsh = (q >> 1) * 4, hsh = q * 2;
+        const float d = lfkt::f16_at(blk + 208);
+        const float s0 = d * static_cast<float>(static_cast<int8_t>(blk[192 + 2 * c]));
+        const float s1 = d * static_cast<float>(static_cast<int8_t>(blk[193 + 2 * c]));
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const uint32_t v = ((ql[i] >> lsh) & 0x0F0F0F0Fu) | (((qh[i] >> hsh) & 0x03030303u) << 4);
+            const float sc = i < 4 ? s0 : s1;
+            float f[4];
+#pragma unroll
+            for (int b = 0; b < 4; ++b)   // 2^23 + q6, less 2^23 + 32
+                f[b] = __fmul_rn(sc, __fsub_rn(lfkt::qmma::byte_f(v, b), 8388640.0f));
+            out[2 * i] = lfkt::qmma::pack_bf16(f[0], f[1]);
+            out[2 * i + 1] = lfkt::qmma::pack_bf16(f[2], f[3]);
+        }
+    }
+};
 
 template <int WARPS, int RB>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -110,6 +161,7 @@ LFKT_API int lfkt_q6k_matmul(const void* x, const void* w, void* y, int B, int N
                              int K, void* stream) {
     if (B <= 0 || N <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (lfkt::qmma::use_tc(B)) return lfkt::qmma::launch<Q6KDecoder>(x, w, y, B, N, K, s);
     if (B == 1) return launch<8, 1>(x, w, y, B, N, K, s);
     return launch<16, 8>(x, w, y, B, N, K, s);
 }

@@ -6,6 +6,12 @@ blocks per output feature: ``(N, K / block_elems · block_bytes)`` uint8.
 :func:`fused_matmul` checks the shapes, runs the format's plain version for
 a CPU tensor, and otherwise launches the format's CUDA kernel and counts
 the launch on the public wrapper it was given.
+
+The Q5_K and Q6_K launchers take one of two paths by the number of
+activation rows alone: the tensor-core template (``csrc/qmma.cuh``) at and
+above a threshold — every prompt pass — and their CUDA-core kernels below
+it; :func:`route` says which.  The Q4_K and Q8_0 launchers have the
+CUDA-core path only.
 """
 
 from __future__ import annotations
@@ -22,6 +28,31 @@ def matmul_plain(dequant_f32, x: torch.Tensor, w: torch.Tensor, n_out: int,
     ``x.dtype``."""
     wf = dequant_f32(w.reshape(-1)).reshape(n_out, k_in)
     return torch.matmul(x.float(), wf.t()).to(x.dtype)
+
+
+#: the fused matmuls whose launchers take the tensor cores at large B
+TC_KERNELS = ("q5k_matmul", "q6k_matmul")
+
+
+def route(name: str, batch: int) -> str:
+    """The path the launcher of fused matmul ``name`` takes on the card for
+    ``batch`` activation rows: ``"tc"`` (tensor cores) or ``"cuda_core"``.
+    The library, whose launchers make the choice, answers."""
+    if name in TC_KERNELS and library().lfkt_fused_tc_route(batch):
+        return "tc"
+    return "cuda_core"
+
+
+def tc_min_batch() -> int:
+    """The smallest B the Q5_K / Q6_K launchers send to the tensor cores."""
+    lib = library()
+    return next(b for b in range(1, 1 << 16) if lib.lfkt_fused_tc_route(b))
+
+
+def tc_config(min_batch: int) -> None:
+    """For measurement: make the Q5_K / Q6_K launchers take the tensor
+    cores from ``min_batch`` rows on."""
+    check(library().lfkt_fused_tc_config(min_batch), "tc_config")
 
 
 def fused_matmul(wrapper, plain, launcher: str, x: torch.Tensor, w: torch.Tensor,

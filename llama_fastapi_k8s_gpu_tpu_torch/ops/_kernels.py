@@ -45,6 +45,8 @@ SIGNATURES = {
     "lfkt_q5k_matmul": [_P, _P, _P, _I, _I, _I, _P],
     "lfkt_q6k_matmul": [_P, _P, _P, _I, _I, _I, _P],
     "lfkt_q8_matmul": [_P, _P, _P, _I, _I, _I, _P],
+    "lfkt_fused_tc_route": [_I],
+    "lfkt_fused_tc_config": [_I],
     "lfkt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              ctypes.c_float, _I, _P],
     "lfkt_flash_attention_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -1,7 +1,9 @@
 """Fused Q5_K dequant-matmul: ``y = x · Wᵀ`` with W kept as GGUF Q5_K blocks.
 
 ``q5k_matmul`` launches the CUDA kernel in ``csrc/q5k_matmul.cu`` for CUDA
-tensors and runs :func:`q5k_matmul_plain` for CPU tensors.  The weight is
+tensors — the tensor-core template of ``csrc/qmma.cuh`` for a prompt pass,
+the CUDA-core kernel for a decode step (``_fused.route``) — and runs
+:func:`q5k_matmul_plain` for CPU tensors.  The weight is
 the file's own bytes, ``(N, K/256 · 176)`` uint8, one row of super-blocks
 per output feature.  Q5_K_M files keep attn_q/k/output and ffn_gate/up in
 this format.

@@ -1,7 +1,9 @@
 """Fused Q6_K dequant-matmul: ``y = x · Wᵀ`` with W kept as GGUF Q6_K blocks.
 
 ``q6k_matmul`` launches the CUDA kernel in ``csrc/q6k_matmul.cu`` for CUDA
-tensors and runs :func:`q6k_matmul_plain` for CPU tensors.  The weight is
+tensors — the tensor-core template of ``csrc/qmma.cuh`` for a prompt pass,
+the CUDA-core kernel for a decode step (``_fused.route``) — and runs
+:func:`q6k_matmul_plain` for CPU tensors.  The weight is
 the file's own bytes, ``(N, K/256 · 210)`` uint8, one row of super-blocks
 per output feature.  Q4_K_M and Q5_K_M files keep ``attn_v``, ``ffn_down``
 and ``output`` in this format.

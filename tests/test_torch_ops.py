@@ -157,6 +157,32 @@ def test_fused_matmul_matches_reference_layout_variant(fused_weights, monkeypatc
     _check_fused(fused_weights, fmt, n, k, 17, layout=layout)
 
 
+@pytest.mark.parametrize("fmt", ["q5k", "q6k"])
+@pytest.mark.parametrize("n,k", [(256, 2048), (256, 4096)])
+@pytest.mark.parametrize("B", [17, 128, 256])
+def test_bf16_weight_product_within_gate(fused_weights, fmt, n, k, B):
+    """The arithmetic of the Q5_K / Q6_K tensor-core path (csrc/qmma.cuh):
+    every weight the codec's f32 value rounded to bf16 once, x · Wᵀ summed
+    in f32, the result rounded to bf16.  Held to the exact product of the
+    codec's weights within the 5·10⁻³ gate, and to the reference kernel
+    (interpret mode) within the gate plus that kernel's own distance from
+    the exact product."""
+    _, _, gtype, make, jfn = FORMATS[fmt]
+    raw, w = fused_weights[(fmt, n, k)]
+    deq = {"q5k": dequant.dequant_q5_k_f32, "q6k": dequant.dequant_q6_k_f32}[fmt]
+    wq = j_dequantize(raw, gtype, n * k).reshape(n, k)
+    wf = deq(torch.from_numpy(raw)).reshape(n, k)
+    assert np.array_equal(wf.numpy(), wq)          # the port's codec is the reference's
+    xb = _bf16(np.random.default_rng(B).standard_normal((B, k)).astype(np.float32))
+    got = torch.matmul(xb.float(), wf.to(torch.bfloat16).float().t()).to(torch.bfloat16)
+    got = got.float().numpy()
+    exact = xb.float().numpy() @ wq.T
+    ref = np.asarray(jfn(jnp.asarray(xb.float().numpy(), jnp.bfloat16), make(w),
+                         interpret=True)).astype(np.float32)
+    assert _rel(got, exact) <= 5e-3
+    assert _rel(got, ref) <= _rel(ref, exact) + 5e-3
+
+
 def test_q8_matmul_unaligned_row_stride():
     """K = 4128 (129 Q8_0 blocks, 4386-byte rows): fusable for Q8_0, not a
     whole 256-element chunk — the CUDA kernel's partial last chunk; the
