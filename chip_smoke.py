@@ -21,9 +21,9 @@ and no result line):
    (``torch._int_mm``, a library call) at the 8B shapes.  The fused
    matmuls' lines name the launcher's path (``tc``: the tensor-core
    template, ``cuda_core``) and the distance from the library's result;
-   ``route_sweep`` lines time both paths of ``q5k_matmul`` and
-   ``q6k_matmul`` at B = 1..16, the measurement behind the launchers'
-   threshold;
+   ``route_sweep`` lines time both paths of the four fused matmuls at
+   B = 1..16, and ``route_layer`` lines sum them over one layer's linears
+   of each file: the measurement behind the launchers' thresholds;
 4. gguf: four synthetic Llama-3-8B-width GGUFs (random valid blocks from a
    seed) in the tensor types of a Q4_K_M, a Q5_K_M, a Q8_0 and a Q6_K
    file, written with the port's own writer into ``.cache/chip_smoke/``
@@ -125,6 +125,23 @@ LOOP_TOL = 2e-2
 SERVED_TOL = 5e-2
 
 
+#: bytes of shared memory a tensor-core decoder stages per weight row and
+#: super-block (the decoders' SLOT, csrc/q{4k,5k,6k,8}_matmul.cu)
+QMMA_SLOTS = {"Q4K": 144, "Q5K": 176, "Q6K": 240, "Q8": 272}
+
+
+def qmma_smem(slot: int, tile: int) -> int:
+    """Dynamic shared memory of a tensor-core tile (csrc/qmma.cuh
+    ``smem_bytes`` at ``xstages``): three x stages where the tile keeps its
+    blocks per SM (one at 128, two at 64) within the H100's 227 KB a block
+    and 228 KB an SM (1 KB reserved a block), else two."""
+    def size(xs):
+        return 1024 + (xs + 2) * 2 * tile * 128 + 2 * tile * slot
+
+    fits = size(3) <= 232448 and (1 if tile == 128 else 2) * (size(3) + 1024) <= 233472
+    return size(3 if fits else 2)
+
+
 def say(phase: str, **kw) -> None:
     print(f"[{phase}] " + json.dumps(kw, default=str), flush=True)
 
@@ -222,12 +239,17 @@ def phase_build() -> None:
     log = _kernels.build_info.get("log", "").splitlines()
     ptxas = [ln.strip() for ln in log if "registers" in ln or "spill" in ln]
     # the tensor-core template's instantiations by decoder, tile edge and
-    # alignment (Q5KDecoderELi128ELb1: Q5_K, 128 x 128, 16-byte copies)
+    # alignment (Q5KDecoderELi128ELb1: Q5_K, 128 x 128, 16-byte copies):
+    # ptxas's registers and spills, and the dynamic shared memory the
+    # launcher asks for
     qmma = {}
     for i, ln in enumerate(log):
         if "Function properties for" in ln and "qmma_kernel" in ln:
             key = ln[ln.index("Q"):].split("EEEv")[0]
-            qmma[key] = " | ".join(x.strip() for x in log[i + 1:i + 3])
+            smem = qmma_smem(QMMA_SLOTS[key.split("Decoder")[0]],
+                             int(key.split("ELi")[1].split("E")[0]))
+            qmma[key] = " | ".join([*(x.strip() for x in log[i + 1:i + 3]),
+                                    f"{smem} bytes dynamic smem"])
     say("build", seconds=round(time.time() - t0, 2),
         built=_kernels.build_info.get("built"), ptxas=ptxas, qmma=qmma)
 
@@ -334,7 +356,7 @@ def check_matmul(name, rng, n_out, k_in, B, tol_rel=8e-3) -> dict:
                              f"{err} > {tol_rel} * {scale}")
     reps = 20 if B == 1 else 5
     out = {
-        "shape": [n_out, k_in], "B": B, "path": _fused.route(name, B),
+        "shape": [n_out, k_in], "B": B, "path": _fused.route(name, B, k_in),
         "max_abs_err": err, "tol": tol_rel * scale,
         "library_max_abs_err": (y.float() - y_lib.float()).abs().max().item(),
         "ms": cuda_ms(lambda: kern(x, w, n_out, k_in), reps),
@@ -348,7 +370,10 @@ def check_matmul(name, rng, n_out, k_in, B, tol_rel=8e-3) -> dict:
     return out
 
 
-def route_sweep(name, rng, n_out, k_in, batches=(1, 2, 4, 8, 9, 12, 16)) -> dict:
+SWEEP_BATCHES = (1, 2, 4, 8, 9, 12, 16)
+
+
+def route_sweep(name, rng, n_out, k_in, batches=SWEEP_BATCHES) -> dict:
     """The two paths of a tensor-core fused matmul at small B, each forced
     in turn (device ms, :func:`graph_ms`): what the launcher's threshold
     rests on."""
@@ -360,15 +385,15 @@ def route_sweep(name, rng, n_out, k_in, batches=(1, 2, 4, 8, 9, 12, 16)) -> dict
     kern = fused_formats()[name][0]
     w = torch.from_numpy(np.ascontiguousarray(fused_formats()[name][2](rng, n_out, k_in))).cuda()
     out = {"name": name, "shape": [n_out, k_in], "cuda_core_ms": [], "tc_ms": [],
-           "B": list(batches), "threshold": _fused.tc_min_batch()}
+           "B": list(batches), "threshold": _fused.tc_min_batch(name)}
     try:
         for B in batches:
             x = torch.from_numpy(rng.standard_normal((B, k_in), np.float32)).cuda().to(torch.bfloat16)
             for path, min_batch in (("cuda_core", 1 << 30), ("tc", 1)):
-                _fused.tc_config(min_batch)
+                _fused.tc_config(name, min_batch)
                 out[path + "_ms"].append(graph_ms(lambda: kern(x, w, n_out, k_in)))
     finally:
-        _fused.tc_config(out["threshold"])
+        _fused.tc_config(name, out["threshold"])
     del w
     return out
 
@@ -658,10 +683,38 @@ MATMUL_SHAPES = {
     "q6k_matmul": _ALL,
     "q8_matmul": _ALL,
 }
-#: the B each fused matmul is checked at: a decode token and a 256-token
-#: prompt slice; the tensor-core kernels also at 128, the bucket of short
-#: prompts and follow-ups
-MATMUL_BATCHES = {"q5k_matmul": (1, 128, 256), "q6k_matmul": (1, 128, 256)}
+#: the B each fused matmul is checked at: a decode token (CUDA cores), the
+#: bucket of short prompts and follow-ups and a 256-token prompt slice
+#: (tensor cores)
+MATMUL_BATCHES = (1, 128, 256)
+#: the (N, K) of a layer's seven linears (attn_q, attn_k, attn_v,
+#: attn_output, ffn_gate, ffn_up, ffn_down)
+LAYER_SHAPES = {"wq": (4096, 4096), "wk": (1024, 4096), "wv": (1024, 4096),
+                "wo": (4096, 4096), "w_gate": (14336, 4096), "w_up": (14336, 4096),
+                "w_down": (4096, 14336)}
+
+
+def route_layer(sweeps: list) -> list:
+    """Per served file, the ``route_sweep`` times summed over one layer's
+    linears in the file's formats, per path and B, in all and by format:
+    what each format's threshold rests on."""
+    t = {(r["name"], tuple(r["shape"])): r for r in sweeps}
+    out = []
+    for layout in LAYOUTS:
+        kinds = served_formats(layout)
+        row = {"file": layout, "B": list(SWEEP_BATCHES), "by_format": {}}
+        for path in ("cuda_core", "tc"):
+            total = [0.0] * len(SWEEP_BATCHES)
+            for lin, shape in LAYER_SHAPES.items():
+                name = kinds[lin] + "_matmul"
+                part = row["by_format"].setdefault(name, {}).setdefault(
+                    path + "_ms", [0.0] * len(SWEEP_BATCHES))
+                for i, ms in enumerate(t[(name, shape)][path + "_ms"]):
+                    part[i] += ms
+                    total[i] += ms
+            row[path + "_ms"] = total
+        out.append(row)
+    return out
 
 
 def phase_kernels(names) -> dict:
@@ -669,6 +722,8 @@ def phase_kernels(names) -> dict:
     over the shapes (each shape one call of the serving path)."""
     import numpy as np
     import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import _fused
 
     rng = np.random.default_rng(1)
     shapes = {}
@@ -687,12 +742,15 @@ def phase_kernels(names) -> dict:
             # a decode token at slot 700, a 256-token prompt slice at 256
             shapes[name] = [check_kv_quantize(rng, 1, 700), check_kv_quantize(rng, 256, 256)]
         else:
-            shapes[name] = [check_matmul(name, rng, n, k, B)
-                            for B in MATMUL_BATCHES.get(name, (1, 256))
+            shapes[name] = [check_matmul(name, rng, n, k, B) for B in MATMUL_BATCHES
                             for n, k in MATMUL_SHAPES[name]]
-    for name in ("q5k_matmul", "q6k_matmul"):
-        for n, k in MATMUL_SHAPES[name][:4]:
-            say("route_sweep", **route_sweep(name, rng, n, k))
+    sweeps = []
+    for name in _fused.TC_KERNELS:
+        for n, k in MATMUL_SHAPES[name][:4]:       # the layers' shapes, not the head
+            sweeps.append(route_sweep(name, rng, n, k))
+            say("route_sweep", **sweeps[-1])
+    for row in route_layer(sweeps):
+        say("route_layer", **row)
     for B in (1, 256):
         for n, k in _ALL:
             say("int8_linear", **check_int8_linear(n, k, B))

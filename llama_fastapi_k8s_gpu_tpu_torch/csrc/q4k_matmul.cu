@@ -13,8 +13,13 @@
 //
 // Bound on the H100: bytes at decode (B = 1: every weight byte is read
 // once, ~4.5 bits/weight, 2 flops/weight), operations at prefill (B = 256:
-// 512 flops/weight, ~900 per weight byte).  First, simple design, CUDA
-// cores only:
+// 512 flops/weight, ~900 per weight byte).  Two paths, chosen by B alone
+// (qmma_route.cu):
+//   - B >= the route's threshold (every prompt pass): the tensor-core
+//     template of qmma.cuh with the Q4_K decoder below, which turns 32
+//     weights of a staged block into bf16 — each the f32 codec's value
+//     rounded once, so the product is the bf16 plane's;
+//   - below it (decode): the CUDA-core kernel:
 //   - a block of WARPS warps owns WARPS consecutive output rows, one warp
 //     per row; grid.y tiles the activation rows by RB;
 //   - the warp walks the row's super-blocks; lane l decodes the 8 weights
@@ -26,15 +31,46 @@
 //   - per activation row the lane keeps sum(q*x) and sum(x); the sub-block
 //     scale and min apply once per 8 weights: acc += d*sc*sum(qx) -
 //     dmin*mn*sum(x); a warp reduction finishes the row.
-// The tensor cores are unused here (wgmma would need a dequantized tile in
-// shared memory) — the obvious next step for the prefill shapes.
-#include "common.cuh"
+#include "qmma.cuh"
 
 namespace {
 
 constexpr int XPAD = lfkt::QK_K + lfkt::QK_K / 8;   // 288 floats per staged row
 
 __device__ __forceinline__ int xslot(int c) { return c + (c >> 3); }
+
+// Weights 32c..32c+31 (sub-block j = c) of the Q4_K block at `blk` (16-byte
+// aligned in shared memory) as 16 bf16 pairs: the nibbles of one 32-byte
+// run (low for even j, high for odd j), w = d*sc*q - dmin*mn rounded in
+// f32 as the codec rounds it (d*sc*q is exact: 11 + 6 + 4 bits, so one
+// fused multiply-add rounds as its multiply and subtract do), then to bf16.
+struct Q4KDecoder {
+    static constexpr int BLOCK = lfkt::Q4K_BLOCK;
+    static constexpr int SLOT = 144;         // nine 16-byte chunks: an odd count
+    static __device__ __forceinline__ void decode32(const uint8_t* blk, int j,
+                                                    uint32_t (&out)[16]) {
+        const float d = lfkt::f16_at(blk);
+        const float dmin = lfkt::f16_at(blk + 2);
+        int sc, mn;
+        lfkt::scale_min_k4(blk + 4, j, sc, mn);
+        const float scale = d * static_cast<float>(sc);
+        const float minv = dmin * static_cast<float>(mn);
+        const uint4* qs4 = reinterpret_cast<const uint4*>(blk + 16 + (j >> 1) * 32);
+        const uint4 s0 = qs4[0], s1 = qs4[1];
+        const uint32_t qs[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+        const int nsh = (j & 1) * 4;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const uint32_t q = (qs[i] >> nsh) & 0x0F0F0F0Fu;
+            float f[4];
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+                f[b] = __fmaf_rn(scale, __fsub_rn(lfkt::qmma::byte_f(q, b), 8388608.0f), -minv);
+            out[2 * i] = lfkt::qmma::pack_bf16(f[0], f[1]);
+            out[2 * i + 1] = lfkt::qmma::pack_bf16(f[2], f[3]);
+        }
+    }
+};
 
 template <int WARPS, int RB>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -117,6 +153,8 @@ LFKT_API int lfkt_q4k_matmul(const void* x, const void* w, void* y, int B, int N
                              int K, void* stream) {
     if (B <= 0 || N <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (lfkt::qmma::use_tc(lfkt::qmma::FMT_Q4K, B, K))
+        return lfkt::qmma::launch<Q4KDecoder>(x, w, y, B, N, K, s);
     if (B == 1) return launch<8, 1>(x, w, y, B, N, K, s);
     return launch<16, 8>(x, w, y, B, N, K, s);
 }

@@ -162,7 +162,8 @@ LFKT_API int lfkt_q5k_matmul(const void* x, const void* w, void* y, int B, int N
                              int K, void* stream) {
     if (B <= 0 || N <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (lfkt::qmma::use_tc(B)) return lfkt::qmma::launch<Q5KDecoder>(x, w, y, B, N, K, s);
+    if (lfkt::qmma::use_tc(lfkt::qmma::FMT_Q5K, B, K))
+        return lfkt::qmma::launch<Q5KDecoder>(x, w, y, B, N, K, s);
     if (B == 1) return launch<8, 1>(x, w, y, B, N, K, s);
     return launch<16, 8>(x, w, y, B, N, K, s);
 }

@@ -29,21 +29,6 @@ constexpr int XPAD = lfkt::QK_K + lfkt::QK_K / 8;
 
 __device__ __forceinline__ int xslot(int c) { return c + (c >> 3); }
 
-// 32 bytes at a 2-byte aligned shared address as 8 words: nine aligned
-// loads, shifted by 16 bits when the address is not 4-byte aligned
-__device__ __forceinline__ void load32_a2(const uint8_t* p, uint32_t (&v)[8]) {
-    const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(a & ~uintptr_t(3));
-    const uint32_t sh = static_cast<uint32_t>(a & 2) * 8;
-    uint32_t lo = w[0];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        const uint32_t hi = w[i + 1];
-        v[i] = __funnelshift_r(lo, hi, sh);
-        lo = hi;
-    }
-}
-
 // Weights 32c..32c+31 of the Q6_K block at `blk` (2-byte aligned in shared
 // memory: a 210-byte block sits at any even offset of its 16-byte span) as
 // 16 bf16 pairs.  Chunk c is quarter q = c%4 of half h = c/4: its ql run
@@ -57,8 +42,8 @@ struct Q6KDecoder {
                                                     uint32_t (&out)[16]) {
         const int h = c >> 2, q = c & 3;
         uint32_t ql[8], qh[8];
-        load32_a2(blk + h * 64 + (q & 1) * 32, ql);
-        load32_a2(blk + 128 + h * 32, qh);
+        lfkt::qmma::load32_a2(blk + h * 64 + (q & 1) * 32, ql);
+        lfkt::qmma::load32_a2(blk + 128 + h * 32, qh);
         const int lsh = (q >> 1) * 4, hsh = q * 2;
         const float d = lfkt::f16_at(blk + 208);
         const float s0 = d * static_cast<float>(static_cast<int8_t>(blk[192 + 2 * c]));
@@ -161,7 +146,8 @@ LFKT_API int lfkt_q6k_matmul(const void* x, const void* w, void* y, int B, int N
                              int K, void* stream) {
     if (B <= 0 || N <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (lfkt::qmma::use_tc(B)) return lfkt::qmma::launch<Q6KDecoder>(x, w, y, B, N, K, s);
+    if (lfkt::qmma::use_tc(lfkt::qmma::FMT_Q6K, B, K))
+        return lfkt::qmma::launch<Q6KDecoder>(x, w, y, B, N, K, s);
     if (B == 1) return launch<8, 1>(x, w, y, B, N, K, s);
     return launch<16, 8>(x, w, y, B, N, K, s);
 }

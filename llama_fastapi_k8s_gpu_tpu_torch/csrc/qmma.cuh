@@ -1,21 +1,24 @@
 // Tensor-core GEMM over GGUF block rows, the prompt-pass path of the fused
-// K-quant matmuls: y (B, N) bf16 = x (B, K) bf16 . W^T, with W (N, K) held
-// as the file's own super-blocks (one row of K/256 blocks per output
-// feature).  Each weight is decoded once per block tile into bf16 (the
-// value the f32 codec gives, rounded to bf16 once) and multiplied on
-// Hopper's tensor cores (wgmma) with f32 accumulators.  The format lives
-// in a decoder (a struct with BLOCK, SLOT and decode32(); see
-// q5k_matmul.cu and q6k_matmul.cu); everything here is format-free.
+// dequant-matmuls: y (B, N) bf16 = x (B, K) bf16 . W^T, with W (N, K) held
+// as the file's own blocks (one row of K/256 super-blocks per output
+// feature; for Q8_0 a "super-block" is a group of eight 32-element blocks).
+// Each weight is decoded once per block tile into bf16 (the value the f32
+// codec gives, rounded to bf16 once) and multiplied on Hopper's tensor
+// cores (wgmma) with f32 accumulators.  The format lives in a decoder (a
+// struct with BLOCK, SLOT and decode32(); see q4k_matmul.cu, q5k_matmul.cu,
+// q6k_matmul.cu and q8_matmul.cu); everything here is format-free.
 //
 // A block owns a T x T output tile (tokens x features, T = 64 or 128) and
 // walks K in steps of BK = 128 (half a super-block).  A tile of a step is
 // two 64-wide atoms of 128-byte rows in the 128-byte swizzle (16-byte chunk
 // c of row r at chunk c ^ (r % 8)), the layout wgmma reads.  At step s:
-//   - cp.async copies the x tile of step s+2 and, every other step, the
-//     raw bytes of a super-block of the tile's T weight rows, two steps
-//     before they are decoded (double-buffered); rows whose blocks are not
-//     16-byte aligned (Q6_K's 210-byte blocks in rows of an odd number of
-//     them) are copied as 16-bit words;
+//   - cp.async copies the x tile of step s+2 (s+1 where three x tiles
+//     would cost the tile its blocks per SM: Q8_0's 272-byte slots) and,
+//     every other step, the raw bytes of a super-block of the tile's T
+//     weight rows, two steps before they are decoded (double-buffered);
+//     rows whose blocks are not 16-byte aligned (Q6_K's 210-byte blocks in
+//     rows of an odd number of them, or a base the wrapper aligned to 2 or
+//     8 bytes only) are copied as 16-bit words;
 //   - T/64 warpgroups each start m64nTk16 wgmmas over their 64 rows of x
 //     and the bf16 W tile of step s, both read from shared memory through
 //     descriptors, asynchronously;
@@ -25,8 +28,8 @@
 //   - the epilogue rounds to bf16 and masks the ragged B and N edges.
 // One launch per call, no split-K.  B up to 64, and grids of 128 x 128
 // tiles too small for half the SMs, take the 64 x 64 tile (four times the
-// blocks, two to an SM; a 128 x 128 tile takes 221 KB of shared memory,
-// one to an SM).
+// blocks, two to an SM; a 128 x 128 tile takes up to 221 KB of shared
+// memory, one to an SM).
 #pragma once
 
 #include "common.cuh"
@@ -37,11 +40,36 @@ namespace qmma {
 constexpr int BK = 128;                // K elements a pipeline step
 constexpr int ROWB = 128;              // bytes of a row of one 64-wide atom
 constexpr int STEPS_PER_SB = QK_K / BK;
-constexpr int XSTAGES = 3;             // x tiles in flight: this step's and two ahead
+// the H100's shared memory: at most 227 KB a block, 228 KB an SM of which
+// 1 KB is reserved per block
+constexpr int SMEM_BLOCK_MAX = 232448;
+constexpr int SMEM_SM = 233472;
+constexpr int SMEM_RESERVED = 1024;
 
-// B at and above which the launchers take this path (the CUDA-core kernels
-// below it); qmma_route.cu holds it and lets a measurement change it.
-extern int g_tc_min_batch;
+// dynamic shared memory of a T x T tile with XS x stages: the 1024-byte
+// alignment slack, the x stages and two W buffers of two atoms, and the
+// raw double buffer
+template <class Dec, int T, int XS>
+__host__ __device__ constexpr int smem_bytes() { return 1024 + (XS + 2) * 2 * T * ROWB + 2 * T * Dec::SLOT; }
+
+// x tiles in flight: this step's and two ahead, or one ahead where three
+// would leave the tile fewer blocks per SM than it is built for (one at
+// 128, two at 64) — a decoder with a large SLOT (Q8_0)
+template <class Dec, int T>
+__host__ __device__ constexpr int xstages() {
+    constexpr int bytes = smem_bytes<Dec, T, 3>();
+    return bytes <= SMEM_BLOCK_MAX && (T == 128 ? 1 : 2) * (bytes + SMEM_RESERVED) <= SMEM_SM
+               ? 3 : 2;
+}
+
+// the fused formats, indexing the route's thresholds (the order of
+// ops/_fused.py's TC_KERNELS)
+enum Format { FMT_Q4K, FMT_Q5K, FMT_Q6K, FMT_Q8_0, N_FORMATS };
+
+// per format, the B at and above which its launcher takes this path (its
+// CUDA-core kernel below it); qmma_route.cu holds them and lets a
+// measurement change them.
+extern int g_tc_min_batch[N_FORMATS];
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -56,9 +84,10 @@ __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// all but the newest committed group have landed
-__device__ __forceinline__ void cp_async_wait_prior() {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+// all but the newest N committed groups have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // byte offset of 16-byte chunk `ch` (0..7) of row `row` of an atom in the
@@ -76,6 +105,22 @@ __device__ __forceinline__ float byte_f(uint32_t v, int b) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 32 bytes at a 2-byte aligned shared address as 8 words: nine aligned
+// loads, shifted by 16 bits when the address is not 4-byte aligned (the
+// payloads of Q6_K's 210-byte and Q8_0's 34-byte blocks)
+__device__ __forceinline__ void load32_a2(const uint8_t* p, uint32_t (&v)[8]) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(a & ~uintptr_t(3));
+    const uint32_t sh = static_cast<uint32_t>(a & 2) * 8;
+    uint32_t lo = w[0];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const uint32_t hi = w[i + 1];
+        v[i] = __funnelshift_r(lo, hi, sh);
+        lo = hi;
+    }
 }
 
 // Descriptor of a K-major bf16 tile with 128-byte rows in the 128-byte
@@ -163,12 +208,14 @@ qmma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
             __nv_bfloat16* __restrict__ y, int B, int N, int K) {
     constexpr int THREADS = T * 2;                   // a warpgroup per 64 rows; two
                                                      // decoding threads a weight row
+    constexpr int XS = xstages<Dec, T>();
+    constexpr int AHEAD = XS - 1;                    // steps an x tile is copied ahead
     extern __shared__ uint8_t smem_raw[];
     // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
     uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
     constexpr int ATOM = T * ROWB;                   // bytes of one atom
-    uint8_t* xs = smem;                              // [XSTAGES][2][T][ROWB]
-    uint8_t* ws = xs + XSTAGES * 2 * ATOM;           // [2][2][T][ROWB]
+    uint8_t* xs = smem;                              // [XS][2][T][ROWB]
+    uint8_t* ws = xs + XS * 2 * ATOM;                // [2][2][T][ROWB]
     uint8_t* raw = ws + 2 * 2 * ATOM;                // [2][T][SLOT]
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -179,7 +226,7 @@ qmma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
     const int steps = nb * STEPS_PER_SB;
 
     auto load_x = [&](int s) {
-        uint8_t* dst = xs + (s % XSTAGES) * 2 * ATOM;
+        uint8_t* dst = xs + (s % XS) * 2 * ATOM;
         const int k0 = s * BK;
         for (int i = tid; i < T * 16; i += THREADS) {
             const int r = i >> 4, c = i & 15;
@@ -240,14 +287,16 @@ qmma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < T / 2; ++i) acc[i] = 0.f;
 
-    // x(0), x(1) and the first two super-blocks in flight; decode W(0)
+    // x(0) (and x(1)) and the first two super-blocks in flight; decode W(0)
     load_raw(0);
     load_x(0);
-    cp_async_commit();
-    load_x(1);
+    if constexpr (AHEAD == 2) {
+        cp_async_commit();
+        load_x(1);
+    }
     if (nb > 1) load_raw(1);
     cp_async_commit();
-    cp_async_wait_prior();
+    cp_async_wait<AHEAD - 1>();
     __syncthreads();
     {
         uint32_t v0[16], v1[16];
@@ -255,15 +304,15 @@ qmma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
         store_w(0, v0, v1);
     }
     for (int s = 0; s < steps; ++s) {
-        cp_async_wait_prior();                       // x(s) and raw((s+1)/4) landed
+        cp_async_wait<AHEAD - 1>();                  // x(s) and raw((s+1)/2) landed
         fence_proxy_async();                         // this thread's x and W stores
         __syncthreads();                             // ...for every thread
-        if (s + 2 < steps) load_x(s + 2);
+        if (s + AHEAD < steps) load_x(s + AHEAD);
         // super-block sb is decoded at steps 2sb and 2sb+1, in iterations
         // 2sb-1 and 2sb: it is copied in iteration 2sb-3
         if ((s & 1) && (s + 3) / 2 < nb) load_raw((s + 3) / 2);
         cp_async_commit();
-        const uint8_t* xb = xs + (s % XSTAGES) * 2 * ATOM + wg * 64 * ROWB;
+        const uint8_t* xb = xs + (s % XS) * 2 * ATOM + wg * 64 * ROWB;
         const uint8_t* wb = ws + (s & 1) * 2 * ATOM;
         fence_regs(acc);
         wgmma_fence();
@@ -304,7 +353,8 @@ qmma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
 
 template <class Dec, int T, bool A16>
 int launch_tile(const void* x, const void* w, void* y, int B, int N, int K, cudaStream_t s) {
-    constexpr int SMEM = 1024 + (XSTAGES + 2) * 2 * T * ROWB + 2 * T * Dec::SLOT;
+    constexpr int SMEM = smem_bytes<Dec, T, xstages<Dec, T>()>();
+    static_assert(SMEM <= SMEM_BLOCK_MAX, "tile does not fit a block's shared memory");
     auto kern = qmma_kernel<Dec, T, A16>;
     // above 48 KB of dynamic shared memory a kernel must opt in, per device
     int dev = 0;
@@ -356,8 +406,13 @@ int launch(const void* x, const void* w, void* y, int B, int N, int K, cudaStrea
     return launch_a<Dec, false>(x, w, y, B, N, K, s);
 }
 
-// the route of a call with B activation rows: 1 = tensor cores
-inline bool use_tc(int B) { return B >= g_tc_min_batch; }
+// the route of a call of format fmt with B activation rows and depth K:
+// tensor cores at and above the format's threshold, where K is whole
+// 256-element groups (always for the K-quants; Q8_0 rows may end in a
+// partial group)
+inline bool use_tc(Format fmt, int B, int K) {
+    return B >= g_tc_min_batch[fmt] && K % QK_K == 0;
+}
 
 }  // namespace qmma
 }  // namespace lfkt

@@ -7,11 +7,12 @@ blocks per output feature: ``(N, K / block_elems · block_bytes)`` uint8.
 a CPU tensor, and otherwise launches the format's CUDA kernel and counts
 the launch on the public wrapper it was given.
 
-The Q5_K and Q6_K launchers take one of two paths by the number of
-activation rows alone: the tensor-core template (``csrc/qmma.cuh``) at and
-above a threshold — every prompt pass — and their CUDA-core kernels below
-it; :func:`route` says which.  The Q4_K and Q8_0 launchers have the
-CUDA-core path only.
+Every launcher takes one of two paths by the number of activation rows:
+the tensor-core template (``csrc/qmma.cuh``) from its format's threshold on
+— every prompt pass — and its format's CUDA-core kernel below it.  The
+template takes whole 256-element groups only, so a Q8_0 weight whose K is
+not a multiple of 256 takes the CUDA-core kernel at every B; :func:`route`
+says which path a call takes.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ._kernels import check, library, require_cuda, stream_ptr
+from .dequant import QK_K
 
 
 def matmul_plain(dequant_f32, x: torch.Tensor, w: torch.Tensor, n_out: int,
@@ -30,29 +32,31 @@ def matmul_plain(dequant_f32, x: torch.Tensor, w: torch.Tensor, n_out: int,
     return torch.matmul(x.float(), wf.t()).to(x.dtype)
 
 
-#: the fused matmuls whose launchers take the tensor cores at large B
-TC_KERNELS = ("q5k_matmul", "q6k_matmul")
+#: the fused matmuls whose launchers take the tensor cores at large B, in
+#: the order of csrc/qmma.cuh's ``Format`` (the index of a format's threshold)
+TC_KERNELS = ("q4k_matmul", "q5k_matmul", "q6k_matmul", "q8_matmul")
 
 
-def route(name: str, batch: int) -> str:
+def route(name: str, batch: int, k_in: int) -> str:
     """The path the launcher of fused matmul ``name`` takes on the card for
-    ``batch`` activation rows: ``"tc"`` (tensor cores) or ``"cuda_core"``.
-    The library, whose launchers make the choice, answers."""
-    if name in TC_KERNELS and library().lfkt_fused_tc_route(batch):
+    ``batch`` activation rows of depth ``k_in``: ``"tc"`` (tensor cores) or
+    ``"cuda_core"``.  The library, whose launchers make the choice,
+    answers."""
+    if name in TC_KERNELS and library().lfkt_fused_tc_route(TC_KERNELS.index(name),
+                                                             batch, k_in):
         return "tc"
     return "cuda_core"
 
 
-def tc_min_batch() -> int:
-    """The smallest B the Q5_K / Q6_K launchers send to the tensor cores."""
-    lib = library()
-    return next(b for b in range(1, 1 << 16) if lib.lfkt_fused_tc_route(b))
+def tc_min_batch(name: str) -> int:
+    """The smallest B the launcher of ``name`` sends to the tensor cores."""
+    return next(b for b in range(1, 1 << 16) if route(name, b, QK_K) == "tc")
 
 
-def tc_config(min_batch: int) -> None:
-    """For measurement: make the Q5_K / Q6_K launchers take the tensor
-    cores from ``min_batch`` rows on."""
-    check(library().lfkt_fused_tc_config(min_batch), "tc_config")
+def tc_config(name: str, min_batch: int) -> None:
+    """For measurement: make the launcher of ``name`` take the tensor cores
+    from ``min_batch`` rows on."""
+    check(library().lfkt_fused_tc_config(TC_KERNELS.index(name), min_batch), "tc_config")
 
 
 def fused_matmul(wrapper, plain, launcher: str, x: torch.Tensor, w: torch.Tensor,

@@ -45,8 +45,8 @@ SIGNATURES = {
     "lfkt_q5k_matmul": [_P, _P, _P, _I, _I, _I, _P],
     "lfkt_q6k_matmul": [_P, _P, _P, _I, _I, _I, _P],
     "lfkt_q8_matmul": [_P, _P, _P, _I, _I, _I, _P],
-    "lfkt_fused_tc_route": [_I],
-    "lfkt_fused_tc_config": [_I],
+    "lfkt_fused_tc_route": [_I, _I, _I],
+    "lfkt_fused_tc_config": [_I, _I],
     "lfkt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              ctypes.c_float, _I, _P],
     "lfkt_flash_attention_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -57,7 +57,8 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
-#: wall seconds and ptxas report of the build this process loaded
+#: wall seconds and ptxas report of the build this process loaded (its
+#: log also when another process built it)
 build_info: dict = {}
 
 
@@ -137,6 +138,10 @@ def library() -> ctypes.CDLL:
             else:
                 build_info.setdefault("built", False)
                 build_info.setdefault("seconds", 0.0)
+                log = os.path.join(out_dir, "build.log")
+                if os.path.exists(log):
+                    with open(log) as fh:
+                        build_info.setdefault("log", fh.read())
         lib = ctypes.CDLL(path)
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

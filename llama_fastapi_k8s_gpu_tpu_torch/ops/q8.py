@@ -1,7 +1,10 @@
 """Fused Q8_0 dequant-matmul: ``y = x · Wᵀ`` with W kept as GGUF Q8_0 blocks.
 
 ``q8_matmul`` launches the CUDA kernel in ``csrc/q8_matmul.cu`` for CUDA
-tensors and runs :func:`q8_matmul_plain` for CPU tensors.  The weight is
+tensors — the tensor-core template of ``csrc/qmma.cuh`` for a prompt pass
+where K is a multiple of 256, the CUDA-core kernel for a decode step and
+for any other K (``_fused.route``) — and runs :func:`q8_matmul_plain` for
+CPU tensors.  The weight is
 the file's own bytes, ``(N, K/32 · 34)`` uint8 — per 32-element block an
 f16 ``d`` and 32 int8 — one row of blocks per output feature.  A Q8_0 file
 keeps every linear and the output head in this format.
@@ -9,7 +12,8 @@ keeps every linear and the output head in this format.
 Replaces the Pallas kernel llama_fastapi_k8s_gpu_tpu/ops/pallas/q8matmul.py::
 _q8_matmul_kernel (``q8_matmul`` / ``q8_matmul_stacked``).  That kernel
 folds ``d`` to bf16 on an element-major TPU layout; this one multiplies by
-the exact f16 ``d`` in f32.
+the exact f16 ``d`` in f32 (on the tensor cores, rounding each ``d·q`` once
+to bf16).
 """
 
 from __future__ import annotations

@@ -17,10 +17,11 @@ decode kernel's output ``h`` to 2·10⁻² rel-dev from its plain version and
 its ring slot to 2·10⁻² rel-dev in bf16, ±1 in int8 with scales within
 2·10⁻² (dot products, the rms and the softmax sum in another order, and
 an int8 activation code can move by one where its bf16 input moved a
-step).  The Q5_K and Q6_K tensor-core path (B at or above the launchers'
-threshold) agrees element by element with ``torch.matmul`` on the
-bf16-dequantized plane — the same arithmetic, summed in another order — to
-one bf16 step of each element plus 10⁻⁴ of the output's largest magnitude.
+step).  The tensor-core path of the four fused formats (B at or above the
+launchers' threshold) agrees element by element with ``torch.matmul`` on
+the bf16-dequantized plane — the same arithmetic, summed in another order
+— to one bf16 step of each element plus 10⁻⁴ of the output's largest
+magnitude.
 """
 
 from __future__ import annotations
@@ -42,9 +43,9 @@ def cuda():
 
 #: bytes per block of each format
 SIZES = {"q4k": 144, "q5k": 176, "q6k": 210, "q8": 34}
-#: the smallest B the Q5_K / Q6_K launchers send to the tensor cores
+#: per format, the smallest B its launcher sends to the tensor cores
 #: (csrc/qmma_route.cu; pinned by test_fused_route_by_batch)
-TC_MIN_BATCH = 8
+TC_MIN_BATCH = {"q4k": 8, "q5k": 8, "q6k": 8, "q8": 9}
 
 
 def _blocks(rng, n_out, k_in, size):
@@ -102,9 +103,10 @@ def test_dequant_q5_k_and_q8_0_bit_exact(cuda, fmt, n_out, k_in):
 
 @pytest.mark.parametrize("fmt", ["q4k", "q6k", "q5k", "q8"])
 @pytest.mark.parametrize("n,k", [(256, 2048), (40, 4352)])
-@pytest.mark.parametrize("B", sorted({1, 7, 256, TC_MIN_BATCH - 1, TC_MIN_BATCH, 128, 200}))
+@pytest.mark.parametrize("B", sorted({1, 7, 128, 200, 256, *TC_MIN_BATCH.values(),
+                                     *(b - 1 for b in TC_MIN_BATCH.values())}))
 def test_fused_matmul_matches_plain(cuda, fmt, n, k, B):
-    """Every B on both sides of the Q5_K / Q6_K threshold; (40, 4352): N
+    """Every B on both sides of the tensor-core threshold; (40, 4352): N
     not a multiple of any tile, and Q6_K rows of 17 blocks, 2-byte aligned
     only."""
     kern, plain = _kernel(fmt)
@@ -120,22 +122,24 @@ def test_fused_matmul_matches_plain(cuda, fmt, n, k, B):
 
 
 def test_fused_route_by_batch(cuda):
-    """The launchers' route depends on B alone: Q5_K and Q6_K take the
-    tensor cores from TC_MIN_BATCH rows on, Q4_K and Q8_0 never; a
+    """The launchers' route: each fused format takes the tensor cores from
+    its TC_MIN_BATCH rows on, except Q8_0 at a K that is not whole
+    256-element groups, which keeps the CUDA-core kernel at every B; a
     threshold under one row is refused with an error."""
     from llama_fastapi_k8s_gpu_tpu_torch.ops import _fused
 
-    assert _fused.tc_min_batch() == TC_MIN_BATCH
-    for name in ("q5k_matmul", "q6k_matmul"):
-        assert _fused.route(name, 1) == _fused.route(name, TC_MIN_BATCH - 1) == "cuda_core"
-        assert _fused.route(name, TC_MIN_BATCH) == _fused.route(name, 256) == "tc"
-    assert _fused.route("q4k_matmul", 256) == _fused.route("q8_matmul", 256) == "cuda_core"
+    for fmt, tc_min in TC_MIN_BATCH.items():
+        name = f"{fmt}_matmul"
+        assert _fused.tc_min_batch(name) == tc_min
+        assert _fused.route(name, 1, 4096) == _fused.route(name, tc_min - 1, 4096) == "cuda_core"
+        assert _fused.route(name, tc_min, 4096) == _fused.route(name, 256, 4096) == "tc"
+    assert _fused.route("q8_matmul", 256, 4128) == "cuda_core"
     with pytest.raises(RuntimeError):
-        _fused.tc_config(0)
-    assert _fused.tc_min_batch() == TC_MIN_BATCH
+        _fused.tc_config("q5k_matmul", 0)
+    assert _fused.tc_min_batch("q5k_matmul") == TC_MIN_BATCH["q5k"]
 
 
-@pytest.mark.parametrize("fmt", ["q5k", "q6k"])
+@pytest.mark.parametrize("fmt", ["q5k", "q6k", "q4k", "q8"])
 def test_fused_matmul_8b_shape(cuda, fmt):
     """ffn_gate/up of Llama-3-8B, 14336 x 4096, at a 256-token prompt slice."""
     kern, plain = _kernel(fmt)
@@ -148,26 +152,56 @@ def test_fused_matmul_8b_shape(cuda, fmt):
     assert (got.float() - want.float()).abs().max() <= 8e-3 * want.float().abs().max()
 
 
-@pytest.mark.parametrize("fmt", ["q5k", "q6k"])
-@pytest.mark.parametrize("n,k", [(256, 2048), (40, 4352), (1024, 4096)])
-@pytest.mark.parametrize("B", [TC_MIN_BATCH, 128, 256])
-def test_tensor_core_path_matches_bf16_plane(cuda, fmt, n, k, B):
-    """The tensor-core path is the library's arithmetic: each weight the
-    f32 codec's value rounded to bf16 once, f32 sums, a bf16 result —
-    against ``torch.matmul`` on that plane, element by element."""
-    from llama_fastapi_k8s_gpu_tpu_torch.ops import _fused, dequant
+def _matches_bf16_plane(fmt, x, w, n, k) -> bool:
+    """The kernel's result element by element against ``torch.matmul`` on
+    the f32 codec's plane rounded to bf16: within one bf16 step of each
+    element plus 10⁻⁴ of the largest."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import dequant
 
+    deq = {"q4k": dequant.dequant_q4_k_f32, "q5k": dequant.dequant_q5_k_f32,
+           "q6k": dequant.dequant_q6_k_f32, "q8": dequant.dequant_q8_0_f32}[fmt]
     kern, _ = _kernel(fmt)
-    deq = {"q5k": dequant.dequant_q5_k_f32, "q6k": dequant.dequant_q6_k_f32}[fmt]
-    rng = np.random.default_rng(n * B)
-    w = _blocks(rng, n, k, SIZES[fmt]).to(cuda)
-    x = torch.from_numpy(rng.standard_normal((B, k), np.float32)).to(cuda, torch.bfloat16)
-    assert _fused.route(f"{fmt}_matmul", B) == "tc"
     got = kern(x, w, n, k).float()
     want = torch.matmul(x, deq(w.reshape(-1)).reshape(n, k).to(torch.bfloat16).t()).float()
     torch.cuda.synchronize()
     step = torch.maximum(got.abs(), want.abs()) * 2.0 ** -7
-    assert ((got - want).abs() <= step + 1e-4 * want.abs().max()).all()
+    return bool(((got - want).abs() <= step + 1e-4 * want.abs().max()).all())
+
+
+@pytest.mark.parametrize("fmt", ["q5k", "q6k", "q4k", "q8"])
+@pytest.mark.parametrize("n,k", [(256, 2048), (40, 4352), (1024, 4096)])
+@pytest.mark.parametrize("B", ["threshold", 128, 256])
+def test_tensor_core_path_matches_bf16_plane(cuda, fmt, n, k, B):
+    """The tensor-core path is the library's arithmetic: each weight the
+    f32 codec's value rounded to bf16 once, f32 sums, a bf16 result —
+    against ``torch.matmul`` on that plane, element by element, from the
+    format's threshold on."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import _fused
+
+    B = TC_MIN_BATCH[fmt] if B == "threshold" else B
+    rng = np.random.default_rng(n * B)
+    w = _blocks(rng, n, k, SIZES[fmt]).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((B, k), np.float32)).to(cuda, torch.bfloat16)
+    assert _fused.route(f"{fmt}_matmul", B, k) == "tc"
+    assert _matches_bf16_plane(fmt, x, w, n, k)
+
+
+@pytest.mark.parametrize("fmt,offset", [("q4k", 8), ("q5k", 8), ("q6k", 2), ("q8", 2)])
+@pytest.mark.parametrize("B", ["threshold", 256])
+def test_tensor_core_path_weight_base_aligned_to_the_wrapper_minimum(cuda, fmt, offset, B):
+    """A weight whose base is only as aligned as the wrapper demands (8
+    bytes for Q4_K / Q5_K, 2 for Q6_K / Q8_0): the template copies its
+    rows as 16-bit words, with the same result."""
+    B = TC_MIN_BATCH[fmt] if B == "threshold" else B
+    n, k = 72, 2048
+    rng = np.random.default_rng(offset + B)
+    w0 = _blocks(rng, n, k, SIZES[fmt]).to(cuda)
+    buf = torch.zeros(w0.numel() + offset, dtype=torch.uint8, device=cuda)
+    w = buf[offset:].view(n, -1)
+    w.copy_(w0)
+    assert w.data_ptr() % 16 == offset
+    x = torch.from_numpy(rng.standard_normal((B, k), np.float32)).to(cuda, torch.bfloat16)
+    assert _matches_bf16_plane(fmt, x, w, n, k)
 
 
 @pytest.mark.parametrize("B", [1, 7, 256])

@@ -157,19 +157,20 @@ def test_fused_matmul_matches_reference_layout_variant(fused_weights, monkeypatc
     _check_fused(fused_weights, fmt, n, k, 17, layout=layout)
 
 
-@pytest.mark.parametrize("fmt", ["q5k", "q6k"])
+@pytest.mark.parametrize("fmt", ["q5k", "q6k", "q4k", "q8"])
 @pytest.mark.parametrize("n,k", [(256, 2048), (256, 4096)])
 @pytest.mark.parametrize("B", [17, 128, 256])
 def test_bf16_weight_product_within_gate(fused_weights, fmt, n, k, B):
-    """The arithmetic of the Q5_K / Q6_K tensor-core path (csrc/qmma.cuh):
-    every weight the codec's f32 value rounded to bf16 once, x · Wᵀ summed
-    in f32, the result rounded to bf16.  Held to the exact product of the
-    codec's weights within the 5·10⁻³ gate, and to the reference kernel
-    (interpret mode) within the gate plus that kernel's own distance from
-    the exact product."""
+    """The arithmetic of the fused matmuls' tensor-core path
+    (csrc/qmma.cuh): every weight the codec's f32 value rounded to bf16
+    once (for Q8_0, d·q), x · Wᵀ summed in f32, the result rounded to
+    bf16.  Held to the exact product of the codec's weights within the
+    5·10⁻³ gate, and to the reference kernel (interpret mode) within the
+    gate plus that kernel's own distance from the exact product."""
     _, _, gtype, make, jfn = FORMATS[fmt]
     raw, w = fused_weights[(fmt, n, k)]
-    deq = {"q5k": dequant.dequant_q5_k_f32, "q6k": dequant.dequant_q6_k_f32}[fmt]
+    deq = {"q4k": dequant.dequant_q4_k_f32, "q5k": dequant.dequant_q5_k_f32,
+           "q6k": dequant.dequant_q6_k_f32, "q8": dequant.dequant_q8_0_f32}[fmt]
     wq = j_dequantize(raw, gtype, n * k).reshape(n, k)
     wf = deq(torch.from_numpy(raw)).reshape(n, k)
     assert np.array_equal(wf.numpy(), wq)          # the port's codec is the reference's
