@@ -14,9 +14,13 @@ and no result line):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the Llama-3-8B shapes the serving paths give it, with kernel, plain,
    library (one PyTorch call computing the same function) and bound times
-   — the dequants in both outputs (bf16 and f32), the layer-looped decode
-   kernel in its four variants (bf16/int8 weights × bf16/int8 KV ring) over
-   two full-width layers of random weights and a ring filled to slot 700;
+   — the dequants in both outputs (bf16 and f32), flash attention over
+   both rings at the served prompt slices (S = 256 at offsets 0, 256 and
+   512, and at 768; the 86-token follow-up suffix at 745), with a
+   ``flash_slice`` line per ring summing the served shapes' times over 32
+   layers, the layer-looped decode kernel in its four variants (bf16/int8
+   weights × bf16/int8 KV ring) over two full-width layers of random
+   weights and a ring filled to slot 700;
    and, as ``int8_linear`` lines, the int8 linear the int8 engines serve
    (``torch._int_mm``, a library call) at the 8B shapes.  The fused
    matmuls' lines name the launcher's path (``tc``: the tensor-core
@@ -399,6 +403,12 @@ def route_sweep(name, rng, n_out, k_in, batches=SWEEP_BATCHES) -> dict:
 
 
 def check_flash(rng, S, n_ctx, pos_offset, H=32, n_kv=8, hd=128, tol=2e-2) -> dict:
+    """The bf16-ring flash kernel against its plain version; the library
+    time is SDPA with the causal mask over K/V repeated to the query heads.
+    ``ms`` / ``library_ms`` time eager calls, ``graph_ms`` /
+    ``library_graph_ms`` the same calls replayed from a CUDA graph (device
+    time alone: an eager call of a few tens of microseconds is mostly the
+    host's)."""
     import torch
     import torch.nn.functional as F
 
@@ -433,6 +443,9 @@ def check_flash(rng, S, n_ctx, pos_offset, H=32, n_kv=8, hd=128, tol=2e-2) -> di
             q, k, v, pos_offset, sm), 5),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=mask), 20),
+        "graph_ms": graph_ms(lambda: attention.flash_attention(q, k, v, pos_offset, sm)),
+        "library_graph_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask)),
         **bound(2 * q.numel() * 2 + 2 * n_kv * key_end * hd * 2,
                 4.0 * visible * H * hd),
     }
@@ -478,10 +491,33 @@ def check_flash_int8(rng, S, n_ctx, pos_offset, H=32, n_kv=8, hd=128, tol=2e-2) 
             q, kq, vq, ks, vs, pos_offset, sm), 5),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=mask), 20),
+        "graph_ms": graph_ms(lambda: attention.flash_attention_int8(
+            q, kq, vq, ks, vs, pos_offset, sm)),
+        "library_graph_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask)),
         # q in, out; int8 K/V and their f32 scales up to the last query
         **bound(2 * q.numel() * 2 + 2 * n_kv * key_end * (hd + 4),
                 4.0 * visible * H * hd),
     }
+
+
+#: (S, pos_offset) of the flash lines: the 256-token prompt slices at 0, 256
+#: and 512 (a long prompt's three), the same at 768, and the prefix-reuse
+#: follow-up's 86-token suffix at 745
+FLASH_SHAPES = ((256, 0), (256, 256), (256, 512), (256, 768), (86, 745))
+#: the shapes the served requests give the kernel
+FLASH_SERVED = ((256, 0), (256, 256), (256, 512), (86, 745))
+
+
+def flash_slice(name: str, rows: list) -> dict:
+    """A flash kernel's time in the served prompt passes: each served
+    shape's kernel ms (eager) times the model's 32 layers, and their sum;
+    the same from a CUDA graph."""
+    served = [r for r in rows if (r["S"], r["pos_offset"]) in FLASH_SERVED]
+    per = {f"S{r['S']}@{r['pos_offset']}": r["ms"] * DEPTH for r in served}
+    return {"name": name, "layers": DEPTH, "ms_x_layers": per,
+            "total_ms": sum(per.values()),
+            "graph_total_ms": sum(r["graph_ms"] * DEPTH for r in served)}
 
 
 def check_kv_quantize(rng, S, pos_offset, n_kv=8, hd=128, n_ctx=1024) -> dict:
@@ -735,9 +771,9 @@ def phase_kernels(names) -> dict:
             shapes[name] = [check_decode_loop(w8, kv8) for w8 in (False, True)
                             for kv8 in (False, True)]
         elif name == "flash_attention":
-            shapes[name] = [check_flash(rng, 256, 1024, off) for off in (0, 256, 768)]
+            shapes[name] = [check_flash(rng, S, 1024, off) for S, off in FLASH_SHAPES]
         elif name == "flash_attention_int8":
-            shapes[name] = [check_flash_int8(rng, 256, 1024, off) for off in (0, 256, 768)]
+            shapes[name] = [check_flash_int8(rng, S, 1024, off) for S, off in FLASH_SHAPES]
         elif name == "kv_quantize":
             # a decode token at slot 700, a 256-token prompt slice at 256
             shapes[name] = [check_kv_quantize(rng, 1, 700), check_kv_quantize(rng, 256, 256)]
@@ -759,6 +795,8 @@ def phase_kernels(names) -> dict:
     for name, rows in shapes.items():
         for r in rows:
             say("kernel", name=name, **r)
+        if name.startswith("flash_attention"):
+            say("flash_slice", **flash_slice(name, rows))
         lib = [r["library_ms"] for r in rows]
         by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
         out[name] = {

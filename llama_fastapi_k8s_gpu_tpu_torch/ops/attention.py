@@ -1,7 +1,10 @@
 """Causal (+ sliding-window) GQA flash attention over the head-major KV ring.
 
 ``flash_attention`` launches the CUDA kernel in ``csrc/flash_attention.cu``
-for CUDA tensors and runs :func:`flash_attention_plain` for CPU tensors.
+(both products on the tensor cores, the probability tile rounded to bf16
+before P·V as the reference rounds it) for CUDA tensors and runs
+:func:`flash_attention_plain`, the same arithmetic without the tiling, for
+CPU tensors.
 It serves prompt passes (S > 1): whole-bucket prefill, the 256-token
 prefill slices at ``pos_offset`` 0, 256, … and the prefix-reuse suffix.
 The ring slots past ``pos_offset + S`` may hold stale keys from an earlier
@@ -29,8 +32,9 @@ from ._kernels import check, library, require_cuda, stream_ptr
 
 #: head sizes the CUDA kernel is compiled for
 HEAD_DIMS = (64, 128)
-#: query rows per CUDA block; the GQA group must divide it
-_ROWS = 16
+#: query rows per CUDA block (64/group tokens × the group heads of one KV
+#: head); the GQA group must divide it
+_ROWS = 64
 
 
 def attention_mask(q_pos: torch.Tensor, key_end: int,
@@ -43,12 +47,33 @@ def attention_mask(q_pos: torch.Tensor, key_end: int,
     return mask
 
 
+def _softmax_pv(scores: torch.Tensor, mask: torch.Tensor, v: torch.Tensor,
+                vs: torch.Tensor | None, out_dtype: torch.dtype) -> torch.Tensor:
+    """The reference's arithmetic after the scores, without its tiling:
+    ``p = exp(s - m)`` and ``l = sum(p)`` in f32, ``p`` (times ``vs``) rounded
+    to bf16 and multiplied by bf16 V with f32 accumulation, divided by
+    ``l``, rounded to ``out_dtype`` once.  A row with no visible key is
+    zero.  ``scores`` (n_kv, g, S, c) f32, ``v`` (n_kv, c, hd) bf16 or int8."""
+    scores = scores.masked_fill(~mask, float("-inf"))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m.masked_fill(m == float("-inf"), 0.0))   # all masked: p = 0
+    l = p.sum(dim=-1, keepdim=True)
+    if vs is not None:
+        p = p * vs[:, None, None, :]
+    pb = p.to(torch.bfloat16).float()
+    ctx = torch.matmul(pb, v[:, None].to(torch.bfloat16).float())  # (n_kv, g, S, hd)
+    ctx = ctx / l.masked_fill(l == 0, 1.0)                          # p = 0: ctx = 0
+    S, hd = ctx.shape[2], ctx.shape[3]
+    return ctx.permute(2, 0, 1, 3).reshape(S, -1, hd).to(out_dtype)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           pos_offset: int, sm_scale: float,
                           sliding_window: int = 0) -> torch.Tensor:
-    """Plain PyTorch version: the full score matrix in f32, softmax in f32,
-    f32 probabilities times V, rounded to ``q.dtype`` once — the kernel's
-    arithmetic without its tiling.  A row with no visible key is zero."""
+    """Plain PyTorch version: the reference's arithmetic without its tiling
+    — f32 scores, ``p = exp(s - max)`` and its row sum in f32, bf16 ``p``
+    times bf16 V with f32 accumulation, divided by the sum and rounded to
+    ``q.dtype`` once.  A row with no visible key is zero."""
     S, H, hd = q.shape
     n_kv = k.shape[0]
     group = H // n_kv
@@ -57,20 +82,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.matmul(qg, k[:, None, :key_end].float().transpose(-1, -2)) * sm_scale
     q_pos = pos_offset + torch.arange(S, device=q.device)
     mask = attention_mask(q_pos, key_end, sliding_window)
-    scores = scores.masked_fill(~mask, float("-inf"))
-    probs = torch.softmax(scores, dim=-1).nan_to_num(0.0)
-    ctx = torch.matmul(probs, v[:, None, :key_end].float())      # (n_kv, g, S, hd)
-    return ctx.permute(2, 0, 1, 3).reshape(S, H, hd).to(q.dtype)
+    return _softmax_pv(scores, mask, v[:, :key_end], None, q.dtype)
 
 
 def flash_attention_int8_plain(q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
                                ks: torch.Tensor, vs: torch.Tensor, pos_offset: int,
                                sm_scale: float, sliding_window: int = 0) -> torch.Tensor:
-    """Plain PyTorch version over the int8 ring: f32 scores ``(q·k_int8)
-    ·sm_scale·ks``, f32 softmax, f32 probabilities times ``vs`` times the
-    int8 values, rounded to ``q.dtype`` once — the kernel's arithmetic
-    without its tiling.  (The JAX reference rounds ``p·vs`` to bf16 before
-    P·V.)  A row with no visible key is zero."""
+    """Plain PyTorch version over the int8 ring, in the reference's
+    scale-last form without its tiling: f32 scores ``(q·k_int8)·sm_scale·
+    ks``, ``p = exp(s - max)`` and its row sum in f32, ``p·vs`` rounded to
+    bf16 times the int8 values (exact in bf16) with f32 accumulation,
+    divided by the sum and rounded to ``q.dtype`` once.  A row with no
+    visible key is zero."""
     S, H, hd = q.shape
     n_kv = kq.shape[0]
     group = H // n_kv
@@ -80,10 +103,7 @@ def flash_attention_int8_plain(q: torch.Tensor, kq: torch.Tensor, vq: torch.Tens
     scores = scores * ks[:, None, None, :key_end]
     q_pos = pos_offset + torch.arange(S, device=q.device)
     mask = attention_mask(q_pos, key_end, sliding_window)
-    scores = scores.masked_fill(~mask, float("-inf"))
-    probs = torch.softmax(scores, dim=-1).nan_to_num(0.0) * vs[:, None, None, :key_end]
-    ctx = torch.matmul(probs, vq[:, None, :key_end].float())     # (n_kv, g, S, hd)
-    return ctx.permute(2, 0, 1, 3).reshape(S, H, hd).to(q.dtype)
+    return _softmax_pv(scores, mask, vq[:, :key_end], vs[:, :key_end], q.dtype)
 
 
 def _check_geometry(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,6 +135,9 @@ def _launch(wrapper, launcher: str, q: torch.Tensor, k: torch.Tensor,
     require_cuda(name, q, k, v, *scales,
                  dtypes=(torch.bfloat16, kv_dtype, kv_dtype) + (torch.float32,) * len(scales))
     out = torch.empty_like(q)
+    if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError(f"{name}: q, k, v and out must be 16-byte aligned "
+                         f"(the kernel copies 16-byte chunks)")
     check(getattr(library(), launcher)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *(t.data_ptr() for t in scales),
         out.data_ptr(), S, H, n_kv, n_ctx, hd, pos_offset, float(sm_scale),

@@ -11,8 +11,9 @@ kernels from ``csrc/``.  Tolerances: the Q4_K / Q5_K / Q6_K / Q8_0
 dequants (bf16 and f32 outputs), the int8 KV write-quantize and the int8
 linear through ``torch._int_mm`` are bit-exact; the fused matmuls agree
 with the plain f32 product to one bf16 step of the output's scale; flash
-attention, over the bf16 and the int8 ring, to 2·10⁻² max-abs (``__expf``
-and another summation order than the plain softmax); the layer-looped
+attention, over the bf16 and the int8 ring, to 2·10⁻² max-abs (the kernel
+rounds P to bf16 from its running row max, the plain version from the
+global one; ``ex2.approx`` and another summation order); the layer-looped
 decode kernel's output ``h`` to 2·10⁻² rel-dev from its plain version and
 its ring slot to 2·10⁻² rel-dev in bf16, ±1 in int8 with scales within
 2·10⁻² (dot products, the rms and the softmax sum in another order, and
@@ -219,11 +220,19 @@ def test_q8_matmul_unaligned_row_stride(cuda, B):
     assert (got.float() - want.float()).abs().max() <= 8e-3 * want.float().abs().max()
 
 
-@pytest.mark.parametrize("S,n_ctx,offsets", [(1, 512, (0, 300, 511)),
-                                             (256, 1024, (0, 256, 768)),
-                                             (37, 256, (0, 100, 219))])
+#: the kernel's tile edges: one query; a 256-token slice; 37 and 17 tokens
+#: (partial 64-row tiles) whose last key is not a multiple of 64; the
+#: follow-up suffix of 86 tokens at 745 (the served shape, and a small grid)
+FLASH_SPANS = [(1, 512, (0, 300, 511)), (256, 1024, (0, 256, 768)),
+               (37, 256, (0, 100, 219)), (17, 256, (0, 130, 239)),
+               (86, 1024, (745,))]
+#: GQA groups 4, 1, 2, 8 and 16 (the window of 100 ends inside a 64-key tile)
+FLASH_HEADS = [(32, 8, 128), (8, 8, 64), (16, 8, 128), (64, 8, 128), (32, 2, 64)]
+
+
+@pytest.mark.parametrize("S,n_ctx,offsets", FLASH_SPANS)
 @pytest.mark.parametrize("window", [0, 100])
-@pytest.mark.parametrize("H,n_kv,hd", [(32, 8, 128), (8, 8, 64)])
+@pytest.mark.parametrize("H,n_kv,hd", FLASH_HEADS)
 def test_flash_attention_matches_plain(cuda, S, n_ctx, offsets, window, H, n_kv, hd):
     from llama_fastapi_k8s_gpu_tpu_torch.ops import attention
 
@@ -232,9 +241,11 @@ def test_flash_attention_matches_plain(cuda, S, n_ctx, offsets, window, H, n_kv,
     k = torch.randn(n_kv, n_ctx, hd, generator=g, device=cuda).to(torch.bfloat16)
     v = torch.randn(n_kv, n_ctx, hd, generator=g, device=cuda).to(torch.bfloat16)
     for off in offsets:
+        before = attention.flash_attention.launches
         got = attention.flash_attention(q, k, v, off, hd ** -0.5, window)
         want = attention.flash_attention_plain(q, k, v, off, hd ** -0.5, window)
         torch.cuda.synchronize()
+        assert attention.flash_attention.launches == before + 1
         assert torch.isfinite(got).all()
         assert (got.float() - want.float()).abs().max() <= 2e-2, off
 
@@ -281,11 +292,9 @@ def test_kv_quantize_bit_exact(cuda, S, pos_offset, n_kv, hd):
     assert rings[1][0, pos_offset, :4].tolist() == [127, 2, -4, 0]
 
 
-@pytest.mark.parametrize("S,n_ctx,offsets", [(1, 512, (0, 300, 511)),
-                                             (256, 1024, (0, 256, 768)),
-                                             (37, 256, (0, 100, 219))])
+@pytest.mark.parametrize("S,n_ctx,offsets", FLASH_SPANS)
 @pytest.mark.parametrize("window", [0, 100])
-@pytest.mark.parametrize("H,n_kv,hd", [(32, 8, 128), (8, 8, 64)])
+@pytest.mark.parametrize("H,n_kv,hd", FLASH_HEADS)
 def test_flash_attention_int8_matches_plain(cuda, S, n_ctx, offsets, window, H, n_kv, hd):
     from llama_fastapi_k8s_gpu_tpu_torch.ops import attention, kvquant
 
@@ -310,6 +319,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     kv = torch.zeros(2, 16, 96, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         attention.flash_attention(q, kv, kv, 0, 0.1)            # head_dim 96
+    kv64 = torch.zeros(2, 16, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):                              # group 3 ∤ 64 rows
+        attention.flash_attention(torch.zeros(4, 6, 64, dtype=torch.bfloat16, device=cuda),
+                                  kv64, kv64, 0, 0.1)
     q4 = torch.zeros(4, 4, 64, dtype=torch.bfloat16, device=cuda)
     kv8 = torch.zeros(2, 16, 64, dtype=torch.int8, device=cuda)
     s16 = torch.zeros(2, 16, dtype=torch.bfloat16, device=cuda)

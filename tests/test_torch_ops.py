@@ -17,9 +17,11 @@ Tolerances:
   against the reference kernel, the gate plus that kernel's own distance
   from the exact product (it folds the scales, mins and sub-block sums of
   x to bf16; the port keeps them in f32);
-- flash attention, max-abs ≤ 2·10⁻² — the reference sums bf16
-  probabilities times bf16 V, the port f32 probabilities, in another order
-  (over the int8 ring: bf16 ``p·vs`` times int8 V against f32);
+- flash attention, max-abs ≤ 2·10⁻² against the Pallas kernel and the XLA
+  score-matrix path, and ≤ 4·10⁻³ against the Pallas kernel alone: the
+  plain versions round the probabilities (times ``vs`` on the int8 ring)
+  to bf16 before P·V as that kernel does, from the global row max where it
+  uses its running max;
 - the KV write-quantize and the Q6_K dequant: bit-identical;
 - the int8 linear: ``make_linear_int8`` (q and s) and the product itself
   bit-identical to the reference's (the int32 accumulation is exact, and
@@ -368,6 +370,43 @@ def test_flash_attention_int8_matches_reference(S, offsets, window):
         assert np.isfinite(got).all()
         assert np.abs(got - ref_flash).max() <= 2e-2, (off, window)
         assert np.abs(got.reshape(S, -1) - ref_xla).max() <= 2e-2, (off, window)
+
+
+@pytest.mark.parametrize("S,offsets", [(1, (0, 64, 511)), (64, (0, 64, 448)),
+                                       (256, (0, 64, 256))])
+@pytest.mark.parametrize("window", [0, 128])
+@pytest.mark.parametrize("ring", ["bf16", "int8"])
+def test_flash_plain_rounds_p_as_the_reference(S, offsets, window, ring):
+    """The plain versions (what the CUDA kernel is held to) compute the
+    Pallas kernel's arithmetic: f32 scores and softmax state, the
+    unnormalised probabilities (times ``vs`` on the int8 ring) rounded to
+    bf16 before P·V.  Against that kernel in interpret mode, max |Δ| ≤
+    4·10⁻³, five times tighter than the gate above; measured here ≤
+    1.96·10⁻³ over this grid on both rings (one or two bf16 steps at the
+    outputs' scale, from the reference's running max), where plain
+    versions that kept P in f32 were up to 1.56·10⁻² off."""
+    n_ctx, H, n_kv, hd = 512, 8, 2, 128
+    q, k, v = _attn_inputs(S, n_ctx, H, n_kv, hd, seed=S + window)
+    qb = _bf16(q)
+    jq = jnp.asarray(qb.float().numpy(), jnp.bfloat16)
+    jk, jv = (jnp.asarray(_bf16(t).float().numpy(), jnp.bfloat16) for t in (k, v))
+    if ring == "int8":
+        (jk, jks), (jv, jvs) = quantize_kv_xla(jk), quantize_kv_xla(jv)
+        scales = {"k_scale": jks, "v_scale": jvs}
+        kq, ks, vq, vs = (torch.from_numpy(np.array(a)) for a in (jk, jks, jv, jvs))
+    else:
+        scales = {}
+        kb, vb = (torch.from_numpy(np.asarray(t, np.float32)).to(torch.bfloat16)
+                  for t in (jk, jv))
+    for off in offsets:
+        if ring == "int8":
+            got = flash_attention_int8(qb, kq, vq, ks, vs, off, hd ** -0.5, window)
+        else:
+            got = flash_attention(qb, kb, vb, off, hd ** -0.5, window)
+        ref = np.asarray(j_flash(jq, jk, jv, jnp.int32(off), sm_scale=hd ** -0.5,
+                                 sliding_window=window, interpret=True, **scales),
+                         np.float32)
+        assert np.abs(got.float().numpy() - ref).max() <= 4e-3, (off, window)
 
 
 def test_dequant_q6_k_matches_reference_kernel():
