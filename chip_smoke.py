@@ -25,9 +25,14 @@ and no result line):
    (``torch._int_mm``, a library call) at the 8B shapes.  The fused
    matmuls' lines name the launcher's path (``tc``: the tensor-core
    template, ``cuda_core``) and the distance from the library's result;
-   ``route_sweep`` lines time both paths of the four fused matmuls at
-   B = 1..16, and ``route_layer`` lines sum them over one layer's linears
-   of each file: the measurement behind the launchers' thresholds;
+   at B=1 (a decode token) they also time kernel and library cold, the
+   weight (the library's bf16 plane) rotated through copies that together
+   exceed the 50 MB L2 (``cold_graph_ms``), and a ``fused_token`` line per
+   fused file sums one decode token's fused linears (calls × B=1 time)
+   beside its bound; ``route_sweep`` lines time both paths of the four
+   fused matmuls cold at B = 1..16, and ``route_layer`` lines sum them
+   over one layer's linears of each file: the measurement behind the
+   launchers' thresholds;
 4. gguf: four synthetic Llama-3-8B-width GGUFs (random valid blocks from a
    seed) in the tensor types of a Q4_K_M, a Q5_K_M, a Q8_0 and a Q6_K
    file, written with the port's own writer into ``.cache/chip_smoke/``
@@ -59,6 +64,7 @@ The last line is ``{"ok": true, "device": {...}}``.  No JAX anywhere.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import http.client
 import json
@@ -278,22 +284,49 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def graph_ms(fn, reps: int = 20) -> float:
+#: bytes that pass between two uses of one copy in a cold timing: twice
+#: the H100's 50 MB L2
+COLD_FLUSH_BYTES = 100_000_000
+
+
+def cold_copies(nbytes: int, flush: int = COLD_FLUSH_BYTES) -> int:
+    """Distinct copies of an operand of ``nbytes`` that a cold timing
+    rotates through: ⌈flush ÷ nbytes⌉, at least 2, so that ``flush`` bytes
+    of other copies pass between two uses of one."""
+    return max(2, -(-flush // nbytes))
+
+
+def graph_calls(fn, reps: int, copies: int = 0) -> list:
+    """The calls a timing graph captures: ``reps`` calls of ``fn()``; in
+    cold mode (``copies`` > 0) calls of ``fn(i % copies)``, the caller's
+    i-th copy of its large operands, ``reps`` rounded up to a multiple of
+    ``copies`` so that every other copy is used between two uses of one
+    (also across replays)."""
+    if not copies:
+        return [fn] * reps
+    return [functools.partial(fn, i % copies) for i in range(-(-reps // copies) * copies)]
+
+
+def graph_ms(fn, reps: int = 20, copies: int = 0) -> float:
     """Mean device milliseconds of ``fn()`` over ``reps`` calls captured in
     one CUDA graph and replayed: the kernels' time without the host's
     launch overhead, which ``cuda_ms`` includes where it exceeds the
-    kernel."""
+    kernel.  Warm: every call finds its operands in the L2 where they fit
+    (50 MB).  Cold (``copies`` > 0, :func:`graph_calls`): call i runs on
+    copy i % copies; with :func:`cold_copies` copies each call finds them
+    out of the L2, as a decode step finds its weights."""
     import torch
 
+    calls = graph_calls(fn, reps, copies)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        calls[0]()
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
+        for call in calls:
+            call()
     g.replay()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -301,7 +334,18 @@ def graph_ms(fn, reps: int = 20) -> float:
     g.replay()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    return a.elapsed_time(b) / len(calls)
+
+
+def cold_graph_ms(fn, operand, reps: int = 20) -> float:
+    """:func:`graph_ms` in cold mode over copies of ``operand`` (the
+    weight, or the library's bf16 plane): ``fn(t)`` runs on one copy."""
+    copies = [operand] + [operand.clone()
+                          for _ in range(cold_copies(operand.numel() * operand.element_size()) - 1)]
+    try:
+        return graph_ms(lambda i: fn(copies[i]), reps, len(copies))
+    finally:
+        del copies
 
 
 def bound(nbytes: float, flops: float, rate: float = BF16_FLOPS) -> dict:
@@ -339,7 +383,8 @@ def check_matmul(name, rng, n_out, k_in, B, tol_rel=8e-3) -> dict:
     the sums' order and a bf16 step apart).  ``ms`` / ``library_ms`` time
     eager calls, as every kernel line does; ``graph_ms`` /
     ``library_graph_ms`` the same calls replayed from a CUDA graph (device
-    time alone)."""
+    time alone); at B=1 ``cold_graph_ms`` / ``library_cold_graph_ms`` the
+    same with the weight (the library's bf16 plane) out of the L2."""
     import numpy as np
     import torch
 
@@ -370,17 +415,20 @@ def check_matmul(name, rng, n_out, k_in, B, tol_rel=8e-3) -> dict:
         "library_graph_ms": graph_ms(lambda: torch.matmul(x, deq.t())),
         **bound(x.numel() * 2 + w.numel() + B * n_out * 2, 2.0 * B * n_out * k_in),
     }
+    if B == 1:      # a decode step: its weights come cold from device memory
+        out["cold_graph_ms"] = cold_graph_ms(lambda t: kern(x, t, n_out, k_in), w)
+        out["library_cold_graph_ms"] = cold_graph_ms(lambda t: torch.matmul(x, t.t()), deq)
     del w, x, deq, y_lib
     return out
 
 
-SWEEP_BATCHES = (1, 2, 4, 8, 9, 12, 16)
+SWEEP_BATCHES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 16)
 
 
 def route_sweep(name, rng, n_out, k_in, batches=SWEEP_BATCHES) -> dict:
     """The two paths of a tensor-core fused matmul at small B, each forced
-    in turn (device ms, :func:`graph_ms`): what the launcher's threshold
-    rests on."""
+    in turn (device ms, :func:`cold_graph_ms`: served weights are cold):
+    what the launcher's threshold rests on."""
     import numpy as np
     import torch
 
@@ -395,7 +443,7 @@ def route_sweep(name, rng, n_out, k_in, batches=SWEEP_BATCHES) -> dict:
             x = torch.from_numpy(rng.standard_normal((B, k_in), np.float32)).cuda().to(torch.bfloat16)
             for path, min_batch in (("cuda_core", 1 << 30), ("tc", 1)):
                 _fused.tc_config(name, min_batch)
-                out[path + "_ms"].append(graph_ms(lambda: kern(x, w, n_out, k_in)))
+                out[path + "_ms"].append(cold_graph_ms(lambda t: kern(x, t, n_out, k_in), w))
     finally:
         _fused.tc_config(name, out["threshold"])
     del w
@@ -730,6 +778,44 @@ LAYER_SHAPES = {"wq": (4096, 4096), "wk": (1024, 4096), "wv": (1024, 4096),
                 "w_down": (4096, 14336)}
 
 
+#: the (N, K) of the output head
+HEAD_SHAPE = (128256, 4096)
+
+
+def token_recipe(layout: str) -> dict:
+    """The fused matmul calls of one decode token of a ``layout`` file:
+    (kernel name, (N, K)) → calls — each layer's seven linears once a layer
+    (:data:`LAYER_SHAPES` in :func:`served_formats`), the output head once.
+    Q4_K_M: 160 q4k + 65 q6k; Q5_K_M: 160 q5k + 65 q6k; Q8_0: 225 q8;
+    Q6_K: 225 q6k."""
+    kinds = served_formats(layout)
+    recipe: dict = {}
+    for key, calls in [*(((kinds[lin] + "_matmul", shape), DEPTH)
+                         for lin, shape in LAYER_SHAPES.items()),
+                       ((kinds["output"] + "_matmul", HEAD_SHAPE), 1)]:
+        recipe[key] = recipe.get(key, 0) + calls
+    return recipe
+
+
+def fused_token(layout: str, rows: dict) -> dict:
+    """One decode token's fused linears in a ``layout`` file: Σ calls ×
+    the B=1 time of each shape (cold and warm from a CUDA graph, and the
+    library's cold time) beside Σ calls × its bound, in all and by kernel.
+    ``rows`` maps (kernel name, (N, K)) to that shape's B=1
+    :func:`check_matmul` line."""
+    recipe = token_recipe(layout)
+    keys = ("cold_graph_ms", "graph_ms", "library_cold_graph_ms", "bound_ms")
+    by_kernel: dict = {}
+    for (name, shape), calls in recipe.items():
+        part = by_kernel.setdefault(name, {"calls": 0, **dict.fromkeys(keys, 0.0)})
+        part["calls"] += calls
+        for k in keys:
+            part[k] += calls * rows[(name, shape)][k]
+    return {"file": layout, "calls": sum(p["calls"] for p in by_kernel.values()),
+            **{k: sum(p[k] for p in by_kernel.values()) for k in keys},
+            "by_kernel": by_kernel}
+
+
 def route_layer(sweeps: list) -> list:
     """Per served file, the ``route_sweep`` times summed over one layer's
     linears in the file's formats, per path and B, in all and by format:
@@ -791,6 +877,11 @@ def phase_kernels(names) -> dict:
         for n, k in _ALL:
             say("int8_linear", **check_int8_linear(n, k, B))
     torch.cuda.empty_cache()
+    b1 = {(name, tuple(r["shape"])): r for name, rows in shapes.items()
+          for r in rows if name in _fused.TC_KERNELS and r["B"] == 1}
+    for layout in LAYOUTS:
+        if all(key in b1 for key in token_recipe(layout)):
+            say("fused_token", **fused_token(layout, b1))
     out = {}
     for name, rows in shapes.items():
         for r in rows:

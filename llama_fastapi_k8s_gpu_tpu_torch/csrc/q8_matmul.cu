@@ -19,25 +19,24 @@
 //     bf16 — d*q exact in f32, rounded once, so the product is the bf16
 //     plane's;
 //   - otherwise (decode; any K that is a multiple of 32 only): the
-//     CUDA-core kernel, the same design as q4k_matmul.cu: one warp per
-//     output row, WARPS rows per block, RB activation rows per block staged
-//     in padded shared memory as f32.  The warp walks K in chunks of 256 (8
-//     Q8_0 blocks); lane l owns block l/4 of the chunk, elements
-//     (l%4)*8..+8.  K needs only be a multiple of 32, so the last chunk may
-//     be partial: its staged columns past K are zero and its lanes past the
-//     last block skip.
+//     CUDA-core path of qgemv.cuh with the Q8_0 unit decoder below
+//     (Q8Gemv).  A warp step is 32 blocks of a row (1,088 bytes, 16-byte
+//     aligned at every 8B shape); lane l decodes block l of the step:
+//     acc += d*sum(q*x), d exact f32.
 //
-// Alignment: a 34-byte block is only 2-byte aligned, so a lane's 8 payload
-// bytes (at 34*b + 2 + e0) are read as four 16-bit words, and the f16 d as
-// one; a 4- or 8-byte load there would fault with a misaligned address.
+// Alignment: a 34-byte block is only 2-byte aligned, so no lane can load
+// its own 32 payload bytes wide.  The warp loads the step's 1,088 bytes as
+// 68 16-byte vectors (where the row allows; as 16-bit words otherwise),
+// stores them to a buffer of its own in shared memory and reads its block
+// back as nine aligned words shifted by 16 bits where needed — the
+// exchange is within the warp (__syncwarp), with no block barrier.  Chosen
+// over shuffles: a block spans three vectors at a lane-dependent byte
+// offset, which shuffles would need a run-time register index (or a chain
+// of selects) to realign; shared memory realigns by address.
+#include "qgemv.cuh"
 #include "qmma.cuh"
 
 namespace {
-
-constexpr int CHUNK = 256;                      // elements per step (8 blocks)
-constexpr int XPAD = CHUNK + CHUNK / 8;
-
-__device__ __forceinline__ int xslot(int c) { return c + (c >> 3); }
 
 // Weights 32c..32c+31 — Q8_0 block c of a group of eight, at byte 34c of
 // the 272-byte group (16-byte aligned in shared memory) — as 16 bf16
@@ -70,76 +69,103 @@ struct Q8Decoder {
     }
 };
 
-__device__ __forceinline__ float i8(uint32_t word, int k) {
-    return static_cast<float>(static_cast<int8_t>((word >> (8 * k)) & 0xFF));
-}
+// The decode path's unit: lane l of step s decodes block 32s + l (its 32
+// int8, as segments g = 0, 1 of 16) after the warp's exchange of the
+// step's bytes through shared memory (see the header).  A lane past the
+// row's last block (a partial last step) gets d = 0.
+struct Q8Gemv {
+    static constexpr int ELEMS = lfkt::QK8_0, BYTES = lfkt::Q8_0_BLOCK;
+    static constexpr int STEP = 32 * lfkt::QK8_0;
+    static constexpr int SPAN = 32 * lfkt::Q8_0_BLOCK;    // 1,088 bytes of a row a step
+    static constexpr int SEGS = 2;
+    static constexpr bool MIN = false;
+    static constexpr float Q0 = 0.f;
+    static constexpr int XSW = 3;               // a lane's x run: 2^XSW 16-byte chunks
+    static constexpr int STAGE = lfkt::qgemv::NR * SPAN;  // one span per weight row
+    static constexpr int AHEAD = 2;
+    static constexpr bool REFILL_EARLY = true;     // the unit holds the exchanged bytes
+    struct RawV { uint4 v[3]; };           // vectors l, 32 + l and (lanes 0..3) 64 + l
+    struct RawH { uint32_t h[17]; };       // 16-bit words l + 32i
+    template <bool A16> using Raw = typename std::conditional<A16, RawV, RawH>::type;
+    struct Unit { float d; uint32_t q[8]; };
 
-template <int WARPS, int RB>
-__global__ void __launch_bounds__(WARPS * 32)
-q8_matmul_kernel(const __nv_bfloat16* __restrict__ x,
-                 const uint8_t* __restrict__ w,
-                 __nv_bfloat16* __restrict__ y, int B, int N, int K) {
-    __shared__ float xs[RB][XPAD];
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int n = blockIdx.x * WARPS + warp;
-    const int b0 = blockIdx.y * RB;
-    const int nblk = K / lfkt::QK8_0;
-    const int bl = lane >> 2;             // block 0..7 within the chunk
-    const int e0 = (lane & 3) * 8;        // first element within it
-    const uint8_t* wrow = w + static_cast<size_t>(n < N ? n : 0) * nblk * lfkt::Q8_0_BLOCK;
-
-    float acc[RB];
+    static __device__ __forceinline__ int blk(int s, int lane) { return s * 32 + lane; }
+    static __device__ __forceinline__ bool valid(int s, int lane, int K) {
+        return blk(s, lane) < K / lfkt::QK8_0;
+    }
+    static __device__ __forceinline__ int x_offset(int s, int lane, int g, int K) {
+        return valid(s, lane, K) ? blk(s, lane) * lfkt::QK8_0 + g * 16 : 0;
+    }
+    // the step's bytes in the row (fewer than SPAN in a last, partial step)
+    static __device__ __forceinline__ int span(int s, int K) {
+        return min(SPAN, (K / lfkt::QK8_0 - s * 32) * lfkt::Q8_0_BLOCK);
+    }
+    template <bool A16>
+    static __device__ __forceinline__ void load(Raw<A16>& r, const uint8_t* row, int s, int lane,
+                                                int K) {
+        const int rem = span(s, K);
+        const uint8_t* p = row + static_cast<size_t>(s) * SPAN;
+        if constexpr (A16) {                // rem is whole vectors: A16 rows are
+            const uint4 z = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-    for (int r = 0; r < RB; ++r) acc[r] = 0.f;
-
-    for (int k0 = 0; k0 < K; k0 += CHUNK) {
-        __syncthreads();
-        for (int i = threadIdx.x; i < RB * CHUNK; i += WARPS * 32) {
-            const int r = i / CHUNK, c = i % CHUNK;
-            const int b = b0 + r;
-            xs[r][xslot(c)] = (b < B && k0 + c < K)
-                ? __bfloat162float(x[static_cast<size_t>(b) * K + k0 + c])
-                : 0.f;
-        }
-        __syncthreads();
-        const int gb = k0 / lfkt::QK8_0 + bl;
-        if (n >= N || gb >= nblk) continue;
-        const uint8_t* blk = wrow + static_cast<size_t>(gb) * lfkt::Q8_0_BLOCK;
-        const float d = lfkt::f16_at(blk);
-        uint32_t lo, hi;
-        lfkt::load8_a2(blk + 2 + e0, lo, hi);
-        float q[8];
+            for (int i = 0; i < 3; ++i) {
+                const int v = lane + 32 * i;
+                r.v[i] = v < SPAN / 16 && 16 * v < rem ? lfkt::qgemv::ld_stream16(p + 16 * v) : z;
+            }
+        } else {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            q[k] = i8(lo, k);
-            q[k + 4] = i8(hi, k);
-        }
-        const int c0 = bl * lfkt::QK8_0 + e0;
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-            float sqx = 0.f;
-#pragma unroll
-            for (int k = 0; k < 8; ++k) sqx = fmaf(q[k], xs[r][xslot(c0 + k)], sqx);
-            acc[r] = fmaf(d, sqx, acc[r]);
+            for (int i = 0; i < 17; ++i) {
+                const int k = lane + 32 * i;
+                r.h[i] = 2 * k < rem ? lfkt::qgemv::ld_stream2(p + 2 * k) : 0u;
+            }
         }
     }
-    if (n >= N) return;
+    template <bool A16>
+    static __device__ __forceinline__ void unpack(const Raw<A16> (&r)[lfkt::qgemv::NR],
+                                                  Unit (&u)[lfkt::qgemv::NR], int lane,
+                                                  uint8_t* st, int s, int K) {
+        __syncwarp();                       // every lane has read the last step's span
 #pragma unroll
-    for (int r = 0; r < RB; ++r) {
-        const float v = lfkt::warp_sum(acc[r]);
-        if (lane == 0 && b0 + r < B) y[static_cast<size_t>(b0 + r) * N + n] = __float2bfloat16_rn(v);
+        for (int n = 0; n < lfkt::qgemv::NR; ++n) {
+            uint8_t* dst = st + n * SPAN;
+            if constexpr (A16) {
+#pragma unroll
+                for (int i = 0; i < 3; ++i) {
+                    const int v = lane + 32 * i;
+                    if (v < SPAN / 16) *reinterpret_cast<uint4*>(dst + 16 * v) = r[n].v[i];
+                }
+            } else {
+#pragma unroll
+                for (int i = 0; i < 17; ++i)
+                    reinterpret_cast<uint16_t*>(dst)[lane + 32 * i] =
+                        static_cast<uint16_t>(r[n].h[i]);
+            }
+        }
+        __syncwarp();
+        const bool ok = valid(s, lane, K);
+#pragma unroll
+        for (int n = 0; n < lfkt::qgemv::NR; ++n) {
+            const int off = n * SPAN + lane * lfkt::Q8_0_BLOCK;
+            u[n].d = ok ? lfkt::f16_at(st + off) : 0.f;
+            lfkt::qgemv::load_a2<8>(st, off + 2, u[n].q);
+        }
     }
-}
-
-template <int WARPS, int RB>
-int launch(const void* x, const void* w, void* y, int B, int N, int K, cudaStream_t s) {
-    dim3 grid((N + WARPS - 1) / WARPS, (B + RB - 1) / RB);
-    q8_matmul_kernel<WARPS, RB><<<grid, WARPS * 32, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
-        static_cast<__nv_bfloat16*>(y), B, N, K);
-    return static_cast<int>(cudaGetLastError());
-}
+    // q from each byte exactly: b ^ 0x80 is q + 128, 2^23 + q + 128 through
+    // byte_f, less 2^23 + 128
+    template <class Raw>
+    static __device__ __forceinline__ void segment(const Unit& u, const Raw&, int g,
+                                                   float (&q)[16], float& a, float& m) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const uint32_t v = u.q[4 * g + i] ^ 0x80808080u;
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+                q[4 * i + b] = __fsub_rn(lfkt::qmma::byte_f(v, b), 8388736.0f);
+        }
+        a = u.d;
+        m = 0.f;
+    }
+};
 
 }  // namespace
 
@@ -149,6 +175,5 @@ LFKT_API int lfkt_q8_matmul(const void* x, const void* w, void* y, int B, int N,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (lfkt::qmma::use_tc(lfkt::qmma::FMT_Q8_0, B, K))
         return lfkt::qmma::launch<Q8Decoder>(x, w, y, B, N, K, s);
-    if (B == 1) return launch<8, 1>(x, w, y, B, N, K, s);
-    return launch<16, 8>(x, w, y, B, N, K, s);
+    return lfkt::qgemv::launch<Q8Gemv>(x, w, y, B, N, K, s);
 }

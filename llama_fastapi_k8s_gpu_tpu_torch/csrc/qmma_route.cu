@@ -8,12 +8,15 @@ namespace lfkt {
 namespace qmma {
 
 // chip_smoke.py's route_layer lines on the H100 (both paths forced in turn,
-// summed over one layer's linears of each file): from 8 rows on the tensor
-// cores take less time over a layer of a Q4_K_M, Q5_K_M or Q6_K file; over
-// a Q8_0 file's layer they lose by 13% at 8 rows and win by ~40% from 9,
-// where the CUDA-core kernel needs a second pass over the weights (RB = 8
-// rows a pass); below 8 the two trade places by shape
-int g_tc_min_batch[N_FORMATS] = {8, 8, 8, 9};
+// the weights cold, summed over one layer's linears of each format): Q4_K
+// from 7 rows on — since its decode path moved to qgemv.cuh, its layer
+// takes 284-287 us on the CUDA cores against 316-319 on the tensor cores
+// at 6 rows, and 324-327 against 292-294 at 7; Q8_0 from 9 — its layer
+// takes 401-404 us on the CUDA cores against 548-549 at 8 rows, and
+// 748-752 against 548-552 at 9, where the CUDA-core path needs a second
+// pass over the weights (8 rows a pass); Q5_K and Q6_K from 8, as their
+// CUDA-core kernels left them
+int g_tc_min_batch[N_FORMATS] = {7, 8, 8, 9};
 
 }  // namespace qmma
 }  // namespace lfkt

@@ -2,9 +2,9 @@
 
 ``q4k_matmul`` launches the CUDA kernel in ``csrc/q4k_matmul.cu`` for CUDA
 tensors — the tensor-core template of ``csrc/qmma.cuh`` for a prompt pass,
-the CUDA-core kernel for a decode step (``_fused.route``) — and runs
-:func:`q4k_matmul_plain` for CPU tensors.  The weight is
-the file's own bytes, ``(N, K/256 · 144)`` uint8 — one row of super-blocks
+the CUDA-core path of ``csrc/qgemv.cuh`` for a decode step
+(``_fused.route``) — and runs :func:`q4k_matmul_plain` for CPU tensors.
+The weight is the file's own bytes, ``(N, K/256 · 144)`` uint8 — one row of super-blocks
 per output feature — so loading a Q4_K tensor is an upload with no repack.
 
 Replaces the Pallas kernel llama_fastapi_k8s_gpu_tpu/ops/pallas/qmatmul.py::

@@ -2,10 +2,10 @@
 
 ``q8_matmul`` launches the CUDA kernel in ``csrc/q8_matmul.cu`` for CUDA
 tensors — the tensor-core template of ``csrc/qmma.cuh`` for a prompt pass
-where K is a multiple of 256, the CUDA-core kernel for a decode step and
-for any other K (``_fused.route``) — and runs :func:`q8_matmul_plain` for
-CPU tensors.  The weight is
-the file's own bytes, ``(N, K/32 · 34)`` uint8 — per 32-element block an
+where K is a multiple of 256, the CUDA-core path of ``csrc/qgemv.cuh``
+for a decode step and for any other K (``_fused.route``) — and runs
+:func:`q8_matmul_plain` for CPU tensors.  The weight is the file's own
+bytes, ``(N, K/32 · 34)`` uint8 — per 32-element block an
 f16 ``d`` and 32 int8 — one row of blocks per output feature.  A Q8_0 file
 keeps every linear and the output head in this format.
 

@@ -1,0 +1,74 @@
+"""The pure helpers of ``chip_smoke.py`` (the H100 smoke run at the repo
+root): the cold timings' copy count and call rotation, and the decode
+token's recipe of fused matmul calls that its ``fused_token`` lines sum.
+These run on the CPU; the timings themselves need the card."""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+
+
+@pytest.mark.parametrize("nbytes,copies", [
+    (2_359_296, 43),        # Q4_K 1024 x 4096: 2.4 MB
+    (33_030_144, 4),        # Q4_K 14336 x 4096
+    (50_000_000, 2),        # exactly half the flush
+    (558_366_720, 2),       # Q8_0 128256 x 4096: at least 2
+    (100_000_000, 2),
+])
+def test_cold_copies_pass_the_flush_bytes_between_uses(nbytes, copies):
+    assert chip_smoke.cold_copies(nbytes) == copies
+    # the other copies between two uses of one hold at least the flush bytes
+    assert (copies - 1) * nbytes >= chip_smoke.COLD_FLUSH_BYTES - nbytes
+
+
+@pytest.mark.parametrize("reps,copies", [(20, 43), (20, 2), (20, 3), (5, 1)])
+def test_graph_calls_rotate_whole_cycles_of_copies(reps, copies):
+    calls = chip_smoke.graph_calls(lambda i: i, reps, copies)
+    got = [c() for c in calls]
+    assert len(got) >= reps and len(got) % copies == 0
+    assert got == [i % copies for i in range(len(got))]
+
+
+def test_graph_calls_warm_mode_repeats_the_call():
+    calls = chip_smoke.graph_calls(lambda: 7, 4)
+    assert len(calls) == 4 and {c() for c in calls} == {7}
+
+
+@pytest.mark.parametrize("layout,calls", [
+    ("q4km", {"q4k_matmul": 160, "q6k_matmul": 65}),
+    ("q5km", {"q5k_matmul": 160, "q6k_matmul": 65}),
+    ("q8_0", {"q8_matmul": 225}),
+    ("q6_k", {"q6k_matmul": 225}),
+])
+def test_token_recipe_counts_a_decode_token(layout, calls):
+    """Seven linears a layer times 32 layers, and the output head once."""
+    recipe = chip_smoke.token_recipe(layout)
+    by_kernel: dict = {}
+    for (name, _), n in recipe.items():
+        by_kernel[name] = by_kernel.get(name, 0) + n
+    assert by_kernel == calls
+    # every shape is one phase 3 times at B=1
+    for name, shape in recipe:
+        assert shape in chip_smoke.MATMUL_SHAPES[name]
+    assert recipe[(chip_smoke.served_formats(layout)["output"] + "_matmul",
+                   chip_smoke.HEAD_SHAPE)] == 1
+
+
+def test_fused_token_sums_calls_times_times():
+    recipe = chip_smoke.token_recipe("q8_0")
+    rows = {key: {"cold_graph_ms": 1.0, "graph_ms": 0.5, "library_cold_graph_ms": 2.0,
+                  "bound_ms": 0.25 * (key[1] == chip_smoke.HEAD_SHAPE)}
+            for key in recipe}
+    line = chip_smoke.fused_token("q8_0", rows)
+    assert line["calls"] == 225
+    assert line["cold_graph_ms"] == 225.0 and line["graph_ms"] == 112.5
+    assert line["library_cold_graph_ms"] == 450.0 and line["bound_ms"] == 0.25
+    assert line["by_kernel"]["q8_matmul"]["calls"] == 225

@@ -46,7 +46,7 @@ def cuda():
 SIZES = {"q4k": 144, "q5k": 176, "q6k": 210, "q8": 34}
 #: per format, the smallest B its launcher sends to the tensor cores
 #: (csrc/qmma_route.cu; pinned by test_fused_route_by_batch)
-TC_MIN_BATCH = {"q4k": 8, "q5k": 8, "q6k": 8, "q8": 9}
+TC_MIN_BATCH = {"q4k": 7, "q5k": 8, "q6k": 8, "q8": 9}
 
 
 def _blocks(rng, n_out, k_in, size):
@@ -104,12 +104,13 @@ def test_dequant_q5_k_and_q8_0_bit_exact(cuda, fmt, n_out, k_in):
 
 @pytest.mark.parametrize("fmt", ["q4k", "q6k", "q5k", "q8"])
 @pytest.mark.parametrize("n,k", [(256, 2048), (40, 4352)])
-@pytest.mark.parametrize("B", sorted({1, 7, 128, 200, 256, *TC_MIN_BATCH.values(),
+@pytest.mark.parametrize("B", sorted({1, 2, 3, 5, 7, 128, 200, 256, *TC_MIN_BATCH.values(),
                                      *(b - 1 for b in TC_MIN_BATCH.values())}))
 def test_fused_matmul_matches_plain(cuda, fmt, n, k, B):
-    """Every B on both sides of the tensor-core threshold; (40, 4352): N
-    not a multiple of any tile, and Q6_K rows of 17 blocks, 2-byte aligned
-    only."""
+    """Every B on both sides of the tensor-core threshold, and the decode
+    path's row templates (1, 2, 4 and 8 activation rows, 3 and 5 with rows
+    masked); (40, 4352): N not a multiple of any tile, and Q6_K rows of 17
+    blocks, 2-byte aligned only."""
     kern, plain = _kernel(fmt)
     rng = np.random.default_rng(n + B)
     w = _blocks(rng, n, k, SIZES[fmt]).to(cuda)
@@ -203,6 +204,62 @@ def test_tensor_core_path_weight_base_aligned_to_the_wrapper_minimum(cuda, fmt, 
     assert w.data_ptr() % 16 == offset
     x = torch.from_numpy(rng.standard_normal((B, k), np.float32)).to(cuda, torch.bfloat16)
     assert _matches_bf16_plane(fmt, x, w, n, k)
+
+
+#: the 8B shapes of the redesigned decode path (chip_smoke.py's MATMUL_SHAPES)
+DECODE_SHAPES = {"q4k": [(4096, 4096), (1024, 4096), (14336, 4096)],
+                 "q8": [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
+                        (128256, 4096)]}
+
+
+@pytest.mark.parametrize("fmt,n,k", [(fmt, n, k) for fmt, shapes in DECODE_SHAPES.items()
+                                     for n, k in shapes])
+def test_decode_path_8b_shapes(cuda, fmt, n, k):
+    """A decode token (B=1) at every 8B shape of q4k and q8: the launches
+    that split K over a block's warps (1024 and 4096 rows) and those that
+    give each warp whole rows (14336 and 128256)."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import _fused
+
+    kern, plain = _kernel(fmt)
+    rng = np.random.default_rng(n + k)
+    w = _blocks(rng, n, k, SIZES[fmt]).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((1, k), np.float32)).to(cuda, torch.bfloat16)
+    assert _fused.route(f"{fmt}_matmul", 1, k) == "cuda_core"
+    got, want = kern(x, w, n, k), plain(x, w, n, k)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max() <= 8e-3 * want.float().abs().max()
+
+
+@pytest.mark.parametrize("fmt,w_offset,x_offset", [("q4k", 8, 0), ("q8", 2, 0),
+                                                   ("q4k", 0, 2), ("q8", 0, 2)])
+@pytest.mark.parametrize("B", [1, "below"])
+def test_decode_path_base_aligned_to_the_wrapper_minimum(cuda, fmt, w_offset, x_offset, B):
+    """The decode path with a weight whose base is only as aligned as the
+    wrapper demands (8 bytes for Q4_K, 2 for Q8_0), or with x 2-byte
+    aligned: the narrow loads, with the same result as the plain version,
+    at one row and at the most rows the path takes ("below": one under the
+    format's tensor-core threshold)."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import _fused
+
+    B = TC_MIN_BATCH[fmt] - 1 if B == "below" else B
+    kern, plain = _kernel(fmt)
+    n, k = 72, 2048
+    rng = np.random.default_rng(w_offset + x_offset + B)
+    w0 = _blocks(rng, n, k, SIZES[fmt]).to(cuda)
+    buf = torch.zeros(w0.numel() + w_offset, dtype=torch.uint8, device=cuda)
+    w = buf[w_offset:].view(n, -1)
+    w.copy_(w0)
+    x0 = torch.from_numpy(rng.standard_normal((B, k), np.float32)).to(cuda, torch.bfloat16)
+    xbuf = torch.zeros(x0.numel() + x_offset // 2, dtype=torch.bfloat16, device=cuda)
+    x = xbuf[x_offset // 2:].view(B, k)
+    x.copy_(x0)
+    assert (w.data_ptr() % 16, x.data_ptr() % 16) == (w_offset, x_offset)
+    assert _fused.route(f"{fmt}_matmul", B, k) == "cuda_core"
+    got, want = kern(x, w, n, k), plain(x, w, n, k)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max() <= 8e-3 * want.float().abs().max()
 
 
 @pytest.mark.parametrize("B", [1, 7, 256])

@@ -137,10 +137,11 @@ def _check_fused(fused_weights, fmt, n, k, B, layout=None):
 
 @pytest.mark.parametrize("fmt", ["q4k", "q6k", "q5k", "q8"])
 @pytest.mark.parametrize("n,k", [(256, 2048), (256, 4096)])
-@pytest.mark.parametrize("B", [1, 17, 256])
+@pytest.mark.parametrize("B", [1, 3, 17, 256])
 def test_fused_matmul_matches_reference_kernel(fused_weights, fmt, n, k, B):
     """Under each format's default layout (Q5_K: ``pre``, whose body is
-    ``_q5k_pre_kernel``; Q6_K: ``cur``)."""
+    ``_q5k_pre_kernel``; Q6_K: ``cur``); B = 3: a decode step of a few
+    rows, whose kernel masks rows of its 4-row template."""
     _check_fused(fused_weights, fmt, n, k, B,
                  layout={"q5k": "q5p", "q6k": "q4"}.get(fmt))
 
