@@ -30,9 +30,11 @@ and no result line):
    exceed the 50 MB L2 (``cold_graph_ms``), and a ``fused_token`` line per
    fused file sums one decode token's fused linears (calls × B=1 time)
    beside its bound; ``route_sweep`` lines time both paths of the four
-   fused matmuls cold at B = 1..16, and ``route_layer`` lines sum them
-   over one layer's linears of each file: the measurement behind the
-   launchers' thresholds;
+   fused matmuls cold at B = 1..16, ``route_layer`` lines sum them over
+   one layer's linears of each file, and a ``route_threshold`` line per
+   format reads from its file's layer the smallest B from which the
+   tensor cores win at every larger B, beside the launcher's threshold:
+   the measurement behind the launchers' thresholds;
 4. gguf: four synthetic Llama-3-8B-width GGUFs (random valid blocks from a
    seed) in the tensor types of a Q4_K_M, a Q5_K_M, a Q8_0 and a Q6_K
    file, written with the port's own writer into ``.cache/chip_smoke/``
@@ -839,6 +841,47 @@ def route_layer(sweeps: list) -> list:
     return out
 
 
+def route_threshold(batches, cuda_core_ms, tc_ms):
+    """The smallest swept B from which the tensor-core path takes less time
+    than the CUDA-core path at that B and at every larger swept B; None
+    where it does not win at the largest."""
+    found = None
+    for B, cc, tc in reversed(list(zip(batches, cuda_core_ms, tc_ms))):
+        if not tc < cc:
+            break
+        found = B
+    return found
+
+
+#: the served file whose layer sets each fused format's threshold: the
+#: file that serves it on the most linears
+THRESHOLD_FILE = {"q4k_matmul": "q4km", "q5k_matmul": "q5km", "q6k_matmul": "q6_k",
+                  "q8_matmul": "q8_0"}
+
+
+def route_thresholds(layers: list, launcher: dict) -> list:
+    """Per fused format, the threshold :func:`route_threshold` reads from
+    its share of the :data:`THRESHOLD_FILE` layer (``route_layer`` rows)
+    beside the launcher's current one (``launcher``: name → B), and at that
+    B its tensor-core time over its CUDA-core time in every file's layer
+    that holds it."""
+    rows = {r["file"]: r for r in layers}
+    out = []
+    for name, home in THRESHOLD_FILE.items():
+        part = rows[home]["by_format"][name]
+        B = route_threshold(rows[home]["B"], part["cuda_core_ms"], part["tc_ms"])
+        ratio = {}
+        if B is not None:
+            for r in layers:
+                share = r["by_format"].get(name)
+                if share:
+                    i = r["B"].index(B)
+                    ratio[r["file"]] = share["tc_ms"][i] / share["cuda_core_ms"][i]
+        out.append({"name": name, "file": home, "measured": B, "launcher": launcher[name],
+                    "tc_over_cuda_core_at_measured": ratio})
+    return out
+
+
 def phase_kernels(names) -> dict:
     """Per kernel in ``names``: the per-shape checks, and their times summed
     over the shapes (each shape one call of the serving path)."""
@@ -871,8 +914,11 @@ def phase_kernels(names) -> dict:
         for n, k in MATMUL_SHAPES[name][:4]:       # the layers' shapes, not the head
             sweeps.append(route_sweep(name, rng, n, k))
             say("route_sweep", **sweeps[-1])
-    for row in route_layer(sweeps):
+    layers = route_layer(sweeps)
+    for row in layers:
         say("route_layer", **row)
+    for row in route_thresholds(layers, {n: _fused.tc_min_batch(n) for n in _fused.TC_KERNELS}):
+        say("route_threshold", **row)
     for B in (1, 256):
         for n, k in _ALL:
             say("int8_linear", **check_int8_linear(n, k, B))

@@ -15,19 +15,24 @@
 // prefill.  Two paths, chosen by B alone (qmma_route.cu): at and above the
 // route's threshold (every prompt pass) the tensor-core template of
 // qmma.cuh with the Q6_K decoder below; under it (decode) the CUDA-core
-// kernel, the same design as q4k_matmul.cu: one warp per output row, WARPS
-// rows per block, RB activation rows per block staged in padded shared
-// memory; lane l owns elements l*8..l*8+7 of each super-block, which sit in
-// one 16-element sub-block, one 8-byte run of ql and one of qh.  A 210-byte
-// block is only 2-byte aligned when rows hold an odd number of blocks, so
-// the ql/qh runs are read as four 16-bit words each.
+// path of qgemv.cuh with the Q6_K unit decoder below (Q6KGemv).  A warp
+// step is 8 super-blocks of a row (1,680 bytes, 16-byte aligned where the
+// row is: rows of a multiple of 8 blocks, every 8B shape); lane l decodes
+// 64 weights of super-block l / 4 — 16 of each quarter of one half, which
+// share 16 bytes of each ql run and 16 bytes of qh, so a lane reads 48
+// bytes for its 64 weights.  Per 16-element segment acc += d*sc*sum(q6*x)
+// - 32*d*sc*sum(x), d*sc exact in f32.
+//
+// Alignment: a 210-byte block is only 2-byte aligned, so no lane can load
+// its own bytes wide.  As for Q8_0 (q8_matmul.cu), the warp loads a step's
+// bytes as aligned 16-byte vectors (16-bit words where the row is not
+// 16-byte aligned), stores them to a buffer of its own in shared memory
+// and each lane reads its runs back as aligned words shifted by 16 bits
+// where needed — within the warp (__syncwarp), no block barrier.
+#include "qgemv.cuh"
 #include "qmma.cuh"
 
 namespace {
-
-constexpr int XPAD = lfkt::QK_K + lfkt::QK_K / 8;
-
-__device__ __forceinline__ int xslot(int c) { return c + (c >> 3); }
 
 // Weights 32c..32c+31 of the Q6_K block at `blk` (2-byte aligned in shared
 // memory: a 210-byte block sits at any even offset of its 16-byte span) as
@@ -62,83 +67,137 @@ struct Q6KDecoder {
     }
 };
 
-template <int WARPS, int RB>
-__global__ void __launch_bounds__(WARPS * 32)
-q6k_matmul_kernel(const __nv_bfloat16* __restrict__ x,
-                  const uint8_t* __restrict__ w,
-                  __nv_bfloat16* __restrict__ y, int B, int N, int K) {
-    __shared__ float xs[RB][XPAD];
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int n = blockIdx.x * WARPS + warp;
-    const int b0 = blockIdx.y * RB;
-    const int nb = K / lfkt::QK_K;
-    // element i = lane*8 + k: half h = i/128, r = i%128 within the half
-    const int h = lane >> 4;
-    const int r0 = (lane & 15) * 8;
-    const int ql_off = h * 64 + (r0 & 63);
-    const int ql_shift = (r0 >= 64) ? 4 : 0;
-    const int qh_off = 128 + h * 32 + (r0 & 31);
-    const int qh_shift = 2 * (r0 >> 5);
-    const int sub = lane >> 1;           // 16-element sub-block 0..15
-    const uint8_t* wrow = w + static_cast<size_t>(n < N ? n : 0) * nb * lfkt::Q6K_BLOCK;
+// The decode path's unit: lane l of step s decodes super-block
+// 8s + l / 4, its half h = (l % 4) / 2 and within each quarter q of the
+// half the elements 16p .. 16p + 15, p = l % 2 — segments g = q (elements
+// 128h + 32g + 16p ..), one int8 scale each, sc[8h + 2g + p].  Element
+// 32q + i of the half (i = 16p .. 16p + 15) is nibble q / 2 of ql byte
+// 64h + 32(q % 2) + i and crumb q of qh byte 32h + i: 16 bytes of each of
+// the two ql runs and 16 of qh serve the lane's four segments.  They come
+// out of the warp's exchange (see the header); a lane past the row's last
+// super-block (a partial last step) gets d = 0.
+struct Q6KGemv {
+    static constexpr int ELEMS = lfkt::QK_K, BYTES = lfkt::Q6K_BLOCK;
+    static constexpr int STEP = 8 * lfkt::QK_K;
+    static constexpr int SPAN = 8 * lfkt::Q6K_BLOCK;   // 1,680 bytes of a row a step
+    static constexpr int VECS = SPAN / 16;             // 105
+    static constexpr int WORDS = SPAN / 2;             // 840
+    static constexpr int SEGS = 4;
+    static constexpr bool MIN = true;
+    static constexpr float Q0 = 0.5f;                  // q6 handed out as 0.5 + q6 / 256
+    // a lane's x segments lie 32 elements apart: swizzled by bits 5..7 of
+    // the chunk index (h and the super-block's two low bits), eight lanes
+    // of a phase hit eight distinct bank groups
+    static constexpr int XSW = 5;
+    static constexpr int STAGE = lfkt::qgemv::NR * SPAN;  // one span per weight row
+    static constexpr int AHEAD = 1;
+    static constexpr bool REFILL_EARLY = true;     // the unit holds the exchanged bytes
+    struct RawV { uint4 v[4]; };       // vectors l + 32i (i = 3: lanes 0..8)
+    struct RawH { uint32_t h[14]; };   // 16-bit words l + 32i, two a register (i even: low)
+    template <bool A16> using Raw = typename std::conditional<A16, RawV, RawH>::type;
+    // ql bytes of quarters 0/2 (lo) and 1/3 (hi), qh bytes, the four
+    // segments' scales as bytes, d
+    struct Unit { uint32_t lo[4], hi[4], qh[4], sc; float d; };
 
-    float acc[RB];
+    static __device__ __forceinline__ int sb(int s, int lane) { return s * 8 + (lane >> 2); }
+    static __device__ __forceinline__ bool valid(int s, int lane, int K) {
+        return sb(s, lane) < K / lfkt::QK_K;
+    }
+    static __device__ __forceinline__ int x_offset(int s, int lane, int g, int K) {
+        return valid(s, lane, K)
+            ? sb(s, lane) * lfkt::QK_K + ((lane >> 1) & 1) * 128 + g * 32 + (lane & 1) * 16 : 0;
+    }
+    // the step's bytes in the row (fewer than SPAN in a last, partial step)
+    static __device__ __forceinline__ int span(int s, int K) {
+        return min(SPAN, (K / lfkt::QK_K - s * 8) * lfkt::Q6K_BLOCK);
+    }
+    template <bool A16>
+    static __device__ __forceinline__ void load(Raw<A16>& r, const uint8_t* row, int s, int lane,
+                                                int K) {
+        const uint8_t* p = row + static_cast<size_t>(s) * SPAN;
+        if constexpr (A16) {                // 16-byte aligned rows hold a multiple of 8
+            const uint4 z = make_uint4(0u, 0u, 0u, 0u);   // blocks: whole steps
 #pragma unroll
-    for (int r = 0; r < RB; ++r) acc[r] = 0.f;
-
-    for (int sb = 0; sb < nb; ++sb) {
-        __syncthreads();
-        for (int i = threadIdx.x; i < RB * lfkt::QK_K; i += WARPS * 32) {
-            const int r = i / lfkt::QK_K, c = i % lfkt::QK_K;
-            const int b = b0 + r;
-            xs[r][xslot(c)] = b < B
-                ? __bfloat162float(x[static_cast<size_t>(b) * K + sb * lfkt::QK_K + c])
-                : 0.f;
-        }
-        __syncthreads();
-        if (n >= N) continue;
-        const uint8_t* blk = wrow + static_cast<size_t>(sb) * lfkt::Q6K_BLOCK;
-        const float scale = lfkt::f16_at(blk + 208) *
-                            static_cast<float>(static_cast<int8_t>(blk[192 + sub]));
-        uint32_t l0, l1, h0, h1;
-        lfkt::load8_a2(blk + ql_off, l0, l1);
-        lfkt::load8_a2(blk + qh_off, h0, h1);
-        float q[8];
+            for (int i = 0; i < 4; ++i) {
+                const int v = lane + 32 * i;
+                r.v[i] = v < VECS ? lfkt::qgemv::ld_stream16(p + 16 * v) : z;
+            }
+        } else {
+            const int rem = span(s, K);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            const int a0 = ((l0 >> (8 * k + ql_shift)) & 0x0F) |
-                           (((h0 >> (8 * k + qh_shift)) & 3) << 4);
-            const int a1 = ((l1 >> (8 * k + ql_shift)) & 0x0F) |
-                           (((h1 >> (8 * k + qh_shift)) & 3) << 4);
-            q[k] = static_cast<float>(a0 - 32);
-            q[k + 4] = static_cast<float>(a1 - 32);
-        }
-        const int c0 = lane * 8;
+            for (int i = 0; i < 14; ++i) {
+                uint32_t pair = 0u;
 #pragma unroll
-        for (int r = 0; r < RB; ++r) {
-            float sqx = 0.f;
-#pragma unroll
-            for (int k = 0; k < 8; ++k) sqx = fmaf(q[k], xs[r][xslot(c0 + k)], sqx);
-            acc[r] = fmaf(scale, sqx, acc[r]);
+                for (int e = 0; e < 2; ++e) {
+                    const int k = lane + 32 * (2 * i + e);
+                    if (k < WORDS && 2 * k < rem) pair |= lfkt::qgemv::ld_stream2(p + 2 * k) << (16 * e);
+                }
+                r.h[i] = pair;
+            }
         }
     }
-    if (n >= N) return;
+    template <bool A16>
+    static __device__ __forceinline__ void unpack(const Raw<A16> (&r)[lfkt::qgemv::NR],
+                                                  Unit (&u)[lfkt::qgemv::NR], int lane,
+                                                  uint8_t* st, int s, int K) {
+        __syncwarp();                       // every lane has read the last step's span
 #pragma unroll
-    for (int r = 0; r < RB; ++r) {
-        const float v = lfkt::warp_sum(acc[r]);
-        if (lane == 0 && b0 + r < B) y[static_cast<size_t>(b0 + r) * N + n] = __float2bfloat16_rn(v);
+        for (int n = 0; n < lfkt::qgemv::NR; ++n) {
+            uint8_t* dst = st + n * SPAN;
+            if constexpr (A16) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int v = lane + 32 * i;
+                    if (v < VECS) *reinterpret_cast<uint4*>(dst + 16 * v) = r[n].v[i];
+                }
+            } else {
+#pragma unroll
+                for (int i = 0; i < 14; ++i)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int k = lane + 32 * (2 * i + e);
+                        if (k < WORDS)
+                            reinterpret_cast<uint16_t*>(dst)[k] =
+                                static_cast<uint16_t>(r[n].h[i] >> (16 * e));
+                    }
+            }
+        }
+        __syncwarp();
+        const bool ok = valid(s, lane, K);
+        const int h = (lane >> 1) & 1, p = lane & 1;
+#pragma unroll
+        for (int n = 0; n < lfkt::qgemv::NR; ++n) {
+            const int blk = n * SPAN + (lane >> 2) * lfkt::Q6K_BLOCK;
+            lfkt::qgemv::load_a2<4>(st, blk + 64 * h + 16 * p, u[n].lo);
+            lfkt::qgemv::load_a2<4>(st, blk + 64 * h + 32 + 16 * p, u[n].hi);
+            lfkt::qgemv::load_a2<4>(st, blk + 128 + 32 * h + 16 * p, u[n].qh);
+            uint32_t sc[2];                 // sc[8h .. 8h + 7]
+            lfkt::qgemv::load_a2<2>(st, blk + 192 + 8 * h, sc);
+            u[n].sc = __byte_perm(sc[0], sc[1], p ? 0x7531u : 0x6420u);  // sc[8h + 2g + p]
+            u[n].d = ok ? lfkt::f16_at(st + blk + 208) : 0.f;
+        }
     }
-}
-
-template <int WARPS, int RB>
-int launch(const void* x, const void* w, void* y, int B, int N, int K, cudaStream_t s) {
-    dim3 grid((N + WARPS - 1) / WARPS, (B + RB - 1) / RB);
-    q6k_matmul_kernel<WARPS, RB><<<grid, WARPS * 32, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
-        static_cast<__nv_bfloat16*>(y), B, N, K);
-    return static_cast<int>(cudaGetLastError());
-}
+    // segment g (quarter g of the half) as 0.5 + q6 / 256, exactly: the
+    // nibble g / 2 of its ql run and, shifted to bits 4..5, crumb g of qh
+    // make the byte q6, placed in bits 16..23 under 0x3F (sign 0, exponent
+    // 2^-1) by one byte permute; the -32 goes into the min, 32*d*sc (exact)
+    template <class Raw>
+    static __device__ __forceinline__ void segment(const Unit& u, const Raw&, int g,
+                                                   float (&q)[16], float& a, float& m) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const uint32_t l = (g & 1) ? u.hi[i] : u.lo[i];
+            const uint32_t v = ((l >> (4 * (g >> 1))) & 0x0F0F0F0Fu) |
+                               (((u.qh[i] >> (2 * g)) << 4) & 0x30303030u);
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+                q[4 * i + b] = __uint_as_float(__byte_perm(v, 0x3F000000u, 0x7044u | (b << 8)));
+        }
+        const float ds = u.d * static_cast<float>(static_cast<int8_t>((u.sc >> (8 * g)) & 0xFFu));
+        a = ds * 256.f;
+        m = ds * 32.f;
+    }
+};
 
 }  // namespace
 
@@ -148,6 +207,5 @@ LFKT_API int lfkt_q6k_matmul(const void* x, const void* w, void* y, int B, int N
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (lfkt::qmma::use_tc(lfkt::qmma::FMT_Q6K, B, K))
         return lfkt::qmma::launch<Q6KDecoder>(x, w, y, B, N, K, s);
-    if (B == 1) return launch<8, 1>(x, w, y, B, N, K, s);
-    return launch<16, 8>(x, w, y, B, N, K, s);
+    return lfkt::qgemv::launch<Q6KGemv>(x, w, y, B, N, K, s);
 }

@@ -3,16 +3,17 @@
 // activation rows (B below the route's threshold, qmma_route.cu; any B for a
 // Q8_0 weight whose K is not whole 256-element groups), with W (N, K) held
 // as the file's own blocks.  f32 accumulation, a bf16 result.  The format
-// lives in a decoder (Q4KGemv in q4k_matmul.cu, Q8Gemv in q8_matmul.cu);
-// the loop, the row template and the split-K reduction here are
-// format-free.
+// lives in a decoder (Q4KGemv in q4k_matmul.cu, Q5KGemv in q5k_matmul.cu,
+// Q6KGemv in q6k_matmul.cu, Q8Gemv in q8_matmul.cu); the loop, the row
+// template and the split-K reduction here are format-free.
 //
 // Bound on the H100: bytes.  At B = 1 every weight byte is read once and
-// used for one multiply-add (Q4_K: 0.5625 bytes a weight, Q8_0: 1.0625),
-// so the card streams the weight at 3.35 TB/s only if enough bytes are in
-// flight (Little's law: ~1 us of loaded DRAM latency x 3.35 TB/s / 132 SMs,
-// 20-25 KB an SM) and the decode keeps pace: at Q4_K's byte rate the SMs
-// have ~5 instructions a weight to spend.  The design:
+// used for one multiply-add (Q4_K: 0.5625 bytes a weight, Q5_K: 0.6875,
+// Q6_K: 0.8203, Q8_0: 1.0625), so the card streams the weight at 3.35
+// TB/s only if enough bytes are in flight (Little's law: ~1 us of loaded
+// DRAM latency x 3.35 TB/s / 132 SMs, 20-25 KB an SM) and the decode keeps
+// pace: at Q4_K's byte rate the SMs have ~5 instructions a weight to
+// spend.  The design:
 //   - no barrier in the loop over K: a warp walks K in steps of Dec::STEP
 //     elements; in a step each lane holds 16-byte units of weight bytes
 //     (streamed: read once) for NR = 2 weight rows, in a ring of
@@ -25,7 +26,9 @@
 //     a row;
 //   - small N fills the card by splitting K over the warps of a block
 //     instead (kw = 2, 4 or 8 warps a row pair, chosen at launch so that
-//     about 16 warps an SM have work), each warp taking every kw-th step;
+//     about 12 warps an SM have work: 4096 rows, 15.5 pairs an SM, take
+//     whole rows in one wave, which beats split K in two waves of blocks
+//     that each copy x), each warp taking every kw-th step;
 //     the partial sums meet once, after the loop, in shared memory, in a
 //     fixed order: no atomics, so a result does not depend on the schedule;
 //   - a lane's unit decodes into 16-element segments, each with a scale a
@@ -47,8 +50,8 @@
 //     B above 8 loops over row groups by grid.y;
 //   - loads 16 bytes wide where the weight's base and row stride and x's
 //     base allow (every 8B shape), else as narrow as the wrapper's
-//     alignment (8 bytes Q4_K, 2 Q8_0; x as 16-bit words): chosen at
-//     launch.
+//     alignment (8 bytes Q4_K and Q5_K, 2 Q6_K and Q8_0; x as 16-bit
+//     words): chosen at launch.
 #pragma once
 
 #include <algorithm>
@@ -62,7 +65,7 @@ namespace qgemv {
 constexpr int WARPS = 8;               // warps a block
 constexpr int NR = 2;                  // weight rows a warp
 constexpr int SEG = 16;                // elements of a segment
-constexpr int FILL_WARPS_PER_SM = 16;  // warps with work that fill an SM
+constexpr int FILL_WARPS_PER_SM = 12;  // warps with work that fill an SM
 constexpr size_t XS_MAX_BYTES = 64 * 1024;   // largest f32 copy of x a block stages
 
 // weight bytes, read once a call: streamed past the caches

@@ -395,8 +395,9 @@ int launch_a(const void* x, const void* w, void* y, int B, int N, int K, cudaStr
 }
 
 // The tensor-core path for any whole-block shape: x must be 16-byte aligned
-// (the wrapper guarantees it); W takes 16-byte copies where its base and row
-// stride allow them, 16-bit copies otherwise.
+// (ops/_fused.py hands over an aligned copy of any other x; a misaligned x
+// is refused here as the last guard); W takes 16-byte copies where its base
+// and row stride allow them, 16-bit copies otherwise.
 template <class Dec>
 int launch(const void* x, const void* w, void* y, int B, int N, int K, cudaStream_t s) {
     if (reinterpret_cast<uintptr_t>(x) % 16) return static_cast<int>(cudaErrorMisalignedAddress);

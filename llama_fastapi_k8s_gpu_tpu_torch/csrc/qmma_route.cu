@@ -1,22 +1,24 @@
 // The route of the fused dequant-matmuls (q4k_matmul.cu, q5k_matmul.cu,
 // q6k_matmul.cu, q8_matmul.cu): the tensor-core template of qmma.cuh from
 // the format's threshold on, where K is whole 256-element groups, the
-// CUDA-core kernels otherwise.
+// matrix-vector template of qgemv.cuh otherwise.
 #include "qmma.cuh"
 
 namespace lfkt {
 namespace qmma {
 
 // chip_smoke.py's route_layer lines on the H100 (both paths forced in turn,
-// the weights cold, summed over one layer's linears of each format): Q4_K
-// from 7 rows on — since its decode path moved to qgemv.cuh, its layer
-// takes 284-287 us on the CUDA cores against 316-319 on the tensor cores
-// at 6 rows, and 324-327 against 292-294 at 7; Q8_0 from 9 — its layer
-// takes 401-404 us on the CUDA cores against 548-549 at 8 rows, and
-// 748-752 against 548-552 at 9, where the CUDA-core path needs a second
-// pass over the weights (8 rows a pass); Q5_K and Q6_K from 8, as their
-// CUDA-core kernels left them
-int g_tc_min_batch[N_FORMATS] = {7, 8, 8, 9};
+// the weights cold, summed over one layer's linears of each format in the
+// file that serves it most; two runs): a format takes the tensor cores
+// from the smallest B from which they win at every larger B.  Q4_K from 7
+// rows on — its layer takes 285-287 us on the CUDA cores against 322 on
+// the tensor cores at 6 rows, 326-329 against 294-295 at 7; Q5_K from 7 —
+// 288-293 against 326-327 at 6, 331-333 against 301-302 at 7; Q6_K from 9
+// (the Q6_K file's layer) — 435-437 against 532-533 at 8, 822-837 against
+// 514 at 9, where the CUDA-core path needs a second pass over the weights
+// (8 rows a pass); Q8_0 from 9 — 403-406 against 548-550 at 8, 750-751
+// against 545-548 at 9
+int g_tc_min_batch[N_FORMATS] = {7, 7, 9, 9};
 
 }  // namespace qmma
 }  // namespace lfkt

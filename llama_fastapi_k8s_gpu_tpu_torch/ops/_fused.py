@@ -9,10 +9,12 @@ the launch on the public wrapper it was given.
 
 Every launcher takes one of two paths by the number of activation rows:
 the tensor-core template (``csrc/qmma.cuh``) from its format's threshold on
-— every prompt pass — and its format's CUDA-core kernel below it.  The
+— every prompt pass — and below it the matrix-vector template
+(``csrc/qgemv.cuh``) with its format's unit decoder.  The tensor-core
 template takes whole 256-element groups only, so a Q8_0 weight whose K is
-not a multiple of 256 takes the CUDA-core kernel at every B; :func:`route`
-says which path a call takes.
+not a multiple of 256 takes the matrix-vector path at every B, and an x
+16-byte aligned only, so the wrapper copies any other x it sends there;
+:func:`route` says which path a call takes.
 """
 
 from __future__ import annotations
@@ -59,6 +61,13 @@ def tc_config(name: str, min_batch: int) -> None:
     check(library().lfkt_fused_tc_config(TC_KERNELS.index(name), min_batch), "tc_config")
 
 
+def aligned_rows(x: torch.Tensor, align: int) -> torch.Tensor:
+    """``x`` itself where its address is a multiple of ``align`` bytes, else
+    a fresh copy of it: a new tensor's storage starts far more aligned
+    (64 bytes on the CPU, 512 on the card)."""
+    return x if x.data_ptr() % align == 0 else x.clone()
+
+
 def fused_matmul(wrapper, plain, launcher: str, x: torch.Tensor, w: torch.Tensor,
                  n_out: int, k_in: int, block_elems: int, block_bytes: int,
                  align: int) -> torch.Tensor:
@@ -79,6 +88,11 @@ def fused_matmul(wrapper, plain, launcher: str, x: torch.Tensor, w: torch.Tensor
     require_cuda(name, x2, w, dtypes=(torch.bfloat16, torch.uint8))
     if w.data_ptr() % align:
         raise ValueError(f"{name}: weight address not {align}-byte aligned")
+    # the tensor cores copy x in 16-byte units (csrc/qmma.cuh); the decode
+    # path reads any x, 16 bytes wide where it is aligned.  The route (a
+    # library call) is asked only for an x off a 16-byte boundary
+    if x2.data_ptr() % 16 and route(name, x2.shape[0], k_in) == "tc":
+        x2 = aligned_rows(x2, 16)
     y = torch.empty(x2.shape[0], n_out, dtype=torch.bfloat16, device=x.device)
     check(getattr(library(), launcher)(x2.data_ptr(), w.data_ptr(), y.data_ptr(),
                                        x2.shape[0], n_out, k_in, stream_ptr(x)),

@@ -2,11 +2,11 @@
 
 ``q5k_matmul`` launches the CUDA kernel in ``csrc/q5k_matmul.cu`` for CUDA
 tensors — the tensor-core template of ``csrc/qmma.cuh`` for a prompt pass,
-the CUDA-core kernel for a decode step (``_fused.route``) — and runs
-:func:`q5k_matmul_plain` for CPU tensors.  The weight is
-the file's own bytes, ``(N, K/256 · 176)`` uint8, one row of super-blocks
-per output feature.  Q5_K_M files keep attn_q/k/output and ffn_gate/up in
-this format.
+the matrix-vector template of ``csrc/qgemv.cuh`` for a decode step
+(``_fused.route``) — and runs :func:`q5k_matmul_plain` for CPU tensors.
+The weight is the file's own bytes, ``(N, K/256 · 176)`` uint8, one row of
+super-blocks per output feature.  Q5_K_M files keep attn_q/k/output and
+ffn_gate/up in this format.
 
 Replaces the Pallas kernels llama_fastapi_k8s_gpu_tpu/ops/pallas/q5matmul.py::
 _q5k_pre_kernel (the JAX default layout) and _q5k_matmul_kernel (the

@@ -2,11 +2,11 @@
 
 ``q6k_matmul`` launches the CUDA kernel in ``csrc/q6k_matmul.cu`` for CUDA
 tensors — the tensor-core template of ``csrc/qmma.cuh`` for a prompt pass,
-the CUDA-core kernel for a decode step (``_fused.route``) — and runs
-:func:`q6k_matmul_plain` for CPU tensors.  The weight is
-the file's own bytes, ``(N, K/256 · 210)`` uint8, one row of super-blocks
-per output feature.  Q4_K_M and Q5_K_M files keep ``attn_v``, ``ffn_down``
-and ``output`` in this format.
+the matrix-vector template of ``csrc/qgemv.cuh`` for a decode step
+(``_fused.route``) — and runs :func:`q6k_matmul_plain` for CPU tensors.
+The weight is the file's own bytes, ``(N, K/256 · 210)`` uint8, one row of
+super-blocks per output feature.  Q4_K_M and Q5_K_M files keep ``attn_v``,
+``ffn_down`` and ``output`` in this format.
 
 Replaces the Pallas kernels llama_fastapi_k8s_gpu_tpu/ops/pallas/q6matmul.py::
 _q6k_matmul_kernel (``q6k_matmul`` / ``q6k_matmul_stacked``, default

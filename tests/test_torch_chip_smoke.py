@@ -72,3 +72,50 @@ def test_fused_token_sums_calls_times_times():
     assert line["cold_graph_ms"] == 225.0 and line["graph_ms"] == 112.5
     assert line["library_cold_graph_ms"] == 450.0 and line["bound_ms"] == 0.25
     assert line["by_kernel"]["q8_matmul"]["calls"] == 225
+
+
+B = list(chip_smoke.SWEEP_BATCHES)              # 1..9, 12, 16
+
+
+@pytest.mark.parametrize("tc,want", [
+    # a clean crossover: the tensor cores win from 4 rows on
+    ([3.5] * 11, 4),
+    # they win at 2 and 3, lose at 4, and win again from 5 on
+    ([5.0, 1.5, 2.5, 4.5, *[4.0] * 7], 5),
+    # a tie is not a win
+    ([4.0] * 11, 5),
+    # they win only at the smallest B and lose at the largest: never
+    ([0.5, *[20.0] * 10], None),
+    ([*[0.5] * 10, 20.0], None),
+    # they win everywhere
+    ([0.5] * 11, 1),
+])
+def test_route_threshold_reads_the_last_crossover(tc, want):
+    """The CUDA-core path's time grows with B (here 1 ms a row); the
+    tensor cores' stays nearly flat."""
+    cuda_core = [float(b) for b in B]
+    assert chip_smoke.route_threshold(B, cuda_core, tc) == want
+
+
+def test_route_thresholds_read_each_format_from_its_file():
+    """Made-up sweeps through ``route_layer``: each format's threshold comes
+    from its own file's layer; q6k's share of the Q4_K_M layer is reported
+    at that B."""
+    sweeps = []
+    for name, shapes in chip_smoke.MATMUL_SHAPES.items():
+        cross = {"q4k_matmul": 7, "q5k_matmul": 3, "q6k_matmul": 5, "q8_matmul": None}[name]
+        for shape in shapes[:4]:
+            tc = [1.0 if cross and b >= cross else 3.0 for b in B]
+            sweeps.append({"name": name, "shape": list(shape),
+                           "cuda_core_ms": [2.0] * len(B), "tc_ms": tc})
+    layers = chip_smoke.route_layer(sweeps)
+    launcher = {"q4k_matmul": 7, "q5k_matmul": 8, "q6k_matmul": 8, "q8_matmul": 9}
+    got = {r["name"]: r for r in chip_smoke.route_thresholds(layers, launcher)}
+    assert {n: r["measured"] for n, r in got.items()} == {
+        "q4k_matmul": 7, "q5k_matmul": 3, "q6k_matmul": 5, "q8_matmul": None}
+    assert {n: r["file"] for n, r in got.items()} == chip_smoke.THRESHOLD_FILE
+    assert got["q6k_matmul"]["launcher"] == 8
+    # q6k serves in three files' layers; at 5 rows its tensor cores take half
+    assert got["q6k_matmul"]["tc_over_cuda_core_at_measured"] == {
+        "q4km": 0.5, "q5km": 0.5, "q6_k": 0.5}
+    assert got["q8_matmul"]["tc_over_cuda_core_at_measured"] == {}

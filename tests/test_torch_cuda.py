@@ -46,7 +46,7 @@ def cuda():
 SIZES = {"q4k": 144, "q5k": 176, "q6k": 210, "q8": 34}
 #: per format, the smallest B its launcher sends to the tensor cores
 #: (csrc/qmma_route.cu; pinned by test_fused_route_by_batch)
-TC_MIN_BATCH = {"q4k": 7, "q5k": 8, "q6k": 8, "q8": 9}
+TC_MIN_BATCH = {"q4k": 7, "q5k": 7, "q6k": 9, "q8": 9}
 
 
 def _blocks(rng, n_out, k_in, size):
@@ -206,18 +206,18 @@ def test_tensor_core_path_weight_base_aligned_to_the_wrapper_minimum(cuda, fmt, 
     assert _matches_bf16_plane(fmt, x, w, n, k)
 
 
-#: the 8B shapes of the redesigned decode path (chip_smoke.py's MATMUL_SHAPES)
-DECODE_SHAPES = {"q4k": [(4096, 4096), (1024, 4096), (14336, 4096)],
-                 "q8": [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
-                        (128256, 4096)]}
+#: the 8B shapes of the decode path (chip_smoke.py's MATMUL_SHAPES)
+_QK = [(4096, 4096), (1024, 4096), (14336, 4096)]
+_ALL = [*_QK, (4096, 14336), (128256, 4096)]
+DECODE_SHAPES = {"q4k": _QK, "q5k": _QK, "q6k": _ALL, "q8": _ALL}
 
 
 @pytest.mark.parametrize("fmt,n,k", [(fmt, n, k) for fmt, shapes in DECODE_SHAPES.items()
                                      for n, k in shapes])
 def test_decode_path_8b_shapes(cuda, fmt, n, k):
-    """A decode token (B=1) at every 8B shape of q4k and q8: the launches
-    that split K over a block's warps (1024 and 4096 rows) and those that
-    give each warp whole rows (14336 and 128256)."""
+    """A decode token (B=1) at every 8B shape of the four formats: the
+    launches that split K over a block's warps (1024 and 4096 rows) and
+    those that give each warp whole rows (14336 and 128256)."""
     from llama_fastapi_k8s_gpu_tpu_torch.ops import _fused
 
     kern, plain = _kernel(fmt)
@@ -231,15 +231,16 @@ def test_decode_path_8b_shapes(cuda, fmt, n, k):
     assert (got.float() - want.float()).abs().max() <= 8e-3 * want.float().abs().max()
 
 
-@pytest.mark.parametrize("fmt,w_offset,x_offset", [("q4k", 8, 0), ("q8", 2, 0),
-                                                   ("q4k", 0, 2), ("q8", 0, 2)])
+@pytest.mark.parametrize("fmt,w_offset,x_offset", [
+    ("q4k", 8, 0), ("q5k", 8, 0), ("q6k", 2, 0), ("q8", 2, 0),
+    ("q4k", 0, 2), ("q5k", 0, 2), ("q6k", 0, 2), ("q8", 0, 2)])
 @pytest.mark.parametrize("B", [1, "below"])
 def test_decode_path_base_aligned_to_the_wrapper_minimum(cuda, fmt, w_offset, x_offset, B):
     """The decode path with a weight whose base is only as aligned as the
-    wrapper demands (8 bytes for Q4_K, 2 for Q8_0), or with x 2-byte
-    aligned: the narrow loads, with the same result as the plain version,
-    at one row and at the most rows the path takes ("below": one under the
-    format's tensor-core threshold)."""
+    wrapper demands (8 bytes for Q4_K / Q5_K, 2 for Q6_K / Q8_0), or with x
+    2-byte aligned: the narrow loads, with the same result as the plain
+    version, at one row and at the most rows the path takes ("below": one
+    under the format's tensor-core threshold)."""
     from llama_fastapi_k8s_gpu_tpu_torch.ops import _fused
 
     B = TC_MIN_BATCH[fmt] - 1 if B == "below" else B
@@ -258,6 +259,62 @@ def test_decode_path_base_aligned_to_the_wrapper_minimum(cuda, fmt, w_offset, x_
     assert _fused.route(f"{fmt}_matmul", B, k) == "cuda_core"
     got, want = kern(x, w, n, k), plain(x, w, n, k)
     torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max() <= 8e-3 * want.float().abs().max()
+
+
+@pytest.mark.parametrize("fmt", ["q4k", "q5k", "q6k", "q8"])
+@pytest.mark.parametrize("B", ["below", "threshold"])
+def test_decode_path_agrees_with_tensor_core_path_at_the_threshold(cuda, fmt, B):
+    """One B on each side of the format's threshold, at an 8B shape: the
+    decode path and the tensor-core path (each forced in turn) on the same
+    inputs agree within 8·10⁻³ of the output's largest magnitude."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import _fused
+
+    name, tc_min = f"{fmt}_matmul", TC_MIN_BATCH[fmt]
+    B = tc_min - 1 if B == "below" else tc_min
+    kern, _ = _kernel(fmt)
+    n, k = 1024, 4096
+    rng = np.random.default_rng(B)
+    w = _blocks(rng, n, k, SIZES[fmt]).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((B, k), np.float32)).to(cuda, torch.bfloat16)
+    got = {}
+    try:
+        for path, min_batch in (("cuda_core", 1 << 30), ("tc", 1)):
+            _fused.tc_config(name, min_batch)
+            assert _fused.route(name, B, k) == path
+            got[path] = kern(x, w, n, k).float()
+    finally:
+        _fused.tc_config(name, tc_min)
+    torch.cuda.synchronize()
+    scale = got["tc"].abs().max()
+    assert (got["cuda_core"] - got["tc"]).abs().max() <= 8e-3 * scale
+
+
+@pytest.mark.parametrize("fmt", ["q4k", "q5k", "q6k", "q8"])
+@pytest.mark.parametrize("B", ["threshold", 128])
+def test_tensor_core_path_takes_x_at_an_odd_element_offset(cuda, fmt, B):
+    """x a contiguous view at an odd bf16 offset of a larger buffer (2 bytes
+    past a 16-byte boundary): the wrapper hands the tensor cores, which copy
+    x in 16-byte units, an aligned copy, and the result is the plain
+    version's."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import _fused
+
+    B = TC_MIN_BATCH[fmt] if B == "threshold" else B
+    kern, plain = _kernel(fmt)
+    n, k = 256, 2048
+    rng = np.random.default_rng(B + 1)
+    w = _blocks(rng, n, k, SIZES[fmt]).to(cuda)
+    x0 = torch.from_numpy(rng.standard_normal((B, k), np.float32)).to(cuda, torch.bfloat16)
+    buf = torch.zeros(1 + B * k, dtype=torch.bfloat16, device=cuda)
+    x = buf[1:].view(B, k)
+    x.copy_(x0)
+    assert x.data_ptr() % 16 == 2
+    assert _fused.route(f"{fmt}_matmul", B, k) == "tc"
+    before = kern.launches
+    got, want = kern(x, w, n, k), plain(x0, w, n, k)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
     assert torch.isfinite(got).all()
     assert (got.float() - want.float()).abs().max() <= 8e-3 * want.float().abs().max()
 

@@ -202,6 +202,27 @@ def test_q8_matmul_unaligned_row_stride():
     assert _rel(got, exact) <= 5e-3
 
 
+@pytest.mark.parametrize("offset", [0, 1, 3, 7, 8])
+def test_aligned_rows_copies_only_an_x_off_a_16_byte_boundary(offset):
+    """The fused wrapper's x for the tensor cores: a contiguous view at an
+    odd bf16 offset of a larger buffer comes back 16-byte aligned with the
+    same values; a view on a 16-byte boundary (offsets 0 and 8) comes back
+    as itself, with no copy."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import _fused
+
+    B, k = 3, 256
+    buf = torch.arange(offset + B * k, dtype=torch.float32).to(torch.bfloat16)
+    assert buf.data_ptr() % 16 == 0
+    x = buf[offset:offset + B * k].view(B, k)
+    got = _fused.aligned_rows(x, 16)
+    assert got.data_ptr() % 16 == 0 and got.shape == x.shape and got.is_contiguous()
+    assert torch.equal(got, x)
+    if offset % 8 == 0:
+        assert got is x
+    else:
+        assert got.data_ptr() != x.data_ptr()
+
+
 def test_linear_dispatch_and_shape_checks(fused_weights):
     raw, _ = fused_weights[("q4k", 256, 2048)]
     w = torch.from_numpy(raw).reshape(256, -1)
