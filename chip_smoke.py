@@ -20,7 +20,10 @@ and no result line):
    ``flash_slice`` line per ring summing the served shapes' times over 32
    layers, the layer-looped decode kernel in its four variants (bf16/int8
    weights × bf16/int8 KV ring) over two full-width layers of random
-   weights and a ring filled to slot 700;
+   weights and a ring filled to slot 700, with a ``loop_positions`` line
+   timing it at slots 0, 255, 512, 700, 768 and 1023 beside its bound
+   (the served requests decode at slots 460–1023), the KV write-quantize
+   eager and from a CUDA graph (``graph_ms``, its device time);
    and, as ``int8_linear`` lines, the int8 linear the int8 engines serve
    (``torch._int_mm``, a library call) at the 8B shapes.  The fused
    matmuls' lines name the launcher's path (``tc``: the tensor-core
@@ -129,6 +132,8 @@ LOOPED = (("q4km-int8-loop", "q4km", "int8", "bf16", -1, 32),
 #: two layers (phase 3): h and the ring slot written (bf16 values, or int8
 #: values times their scales) within this rel-dev, int8 codes within one
 LOOP_TOL = 2e-2
+#: ring slots at which phase 3 times the looped kernel (``loop_positions``)
+LOOP_SLOTS = (0, 255, 512, 700, 768, 1023)
 #: the served looped path's agreement with the per-layer path over 32
 #: layers and 16 teacher-forced steps: logits and every ring slot written
 #: within this rel-dev — one launch's differences (phase 3: under 1%) pass
@@ -596,6 +601,9 @@ def check_kv_quantize(rng, S, pos_offset, n_kv=8, hd=128, n_ctx=1024) -> dict:
         "tol": 0.0,
         "ms": cuda_ms(lambda: kvquant.kv_quantize(k, v, rings[0], rings[1], scales[0],
                                                   scales[1], pos_offset), 50),
+        # the device time alone: the eager launch is bound by the host
+        "graph_ms": graph_ms(lambda: kvquant.kv_quantize(k, v, rings[0], rings[1], scales[0],
+                                                         scales[1], pos_offset)),
         "plain_ms": cuda_ms(lambda: kvquant.kv_quantize_plain(
             k, v, rings[2], rings[3], scales[2], scales[3], pos_offset), 10),
         "library_ms": None,
@@ -661,13 +669,40 @@ def check_slots(got: dict, want: dict, where, tol: float, codes: bool) -> dict:
     return out
 
 
+def loop_bound(weight_bytes: int, weights: int, layers: int, n_kv: int, n_heads: int,
+               hd: int, dim: int, keys: int, w_int8: bool, kv_int8: bool) -> dict:
+    """:func:`bound` of one launch of the looped kernel over ``layers``
+    layers with ``keys`` keys in the ring: the layers' weights, scales and
+    norms (``weight_bytes``) and the ring's keys (int8 values and their f32
+    scales, or bf16) read once, h in and out; a multiply-add a weight
+    (``weights``) and the attention's two products, at the int8 peak for
+    int8 weights."""
+    ring = 2 * layers * n_kv * keys * (hd * (1 if kv_int8 else 2) + (4 if kv_int8 else 0))
+    ops = 2.0 * weights + 4.0 * layers * n_heads * keys * hd
+    return bound(weight_bytes + ring + 4 * dim, ops, INT8_OPS if w_int8 else BF16_FLOPS)
+
+
+def loop_positions(rows: list) -> dict:
+    """The ``loop_positions`` line from the looped kernel's rows (one a
+    variant, each with its ``positions``: ms and bound at a slot): per
+    variant and slot the ms, the bound and its share of the time
+    (bound ÷ ms), and the last slot's time over the first's."""
+    out = []
+    for r in rows:
+        slots = [{**p, "share_of_bound": p["bound_ms"] / p["ms"]} for p in r["positions"]]
+        out.append({"variant": r["variant"], "layers": r["layers"], "slots": slots,
+                    "last_over_first": slots[-1]["ms"] / slots[0]["ms"]})
+    return {"variants": out}
+
+
 def check_decode_loop(w_int8: bool, kv_int8: bool, K: int = 2, pos: int = 700,
-                      n_ctx: int = 1024) -> dict:
+                      n_ctx: int = 1024, sweep=LOOP_SLOTS) -> dict:
     """The layer-looped decode kernel against its plain version (the
     per-layer arithmetic) over K full-width Llama-3-8B layers of random
     weights, one decode token at ring slot ``pos`` with slots 0..pos-1
     filled: the output h within LOOP_TOL rel-dev, the slot written at
-    ``pos`` as :func:`check_slots`."""
+    ``pos`` as :func:`check_slots`; then the kernel's time and bound at each
+    slot of ``sweep`` (``positions``, for :func:`loop_positions`)."""
     import torch
 
     from llama_fastapi_k8s_gpu_tpu_torch.models.config import LLAMA3_8B
@@ -702,24 +737,31 @@ def check_decode_loop(w_int8: bool, kv_int8: bool, K: int = 2, pos: int = 700,
     slots = check_slots(got_c, want_c, (slice(None), slice(None), pos), LOOP_TOL, codes=True)
     wbytes = sum(b.numel() * b.element_size() for layer in params.layers
                  for b in layer.buffers())
-    keys = pos + 1
-    ring = 2 * K * cfg.n_kv_heads * keys * (cfg.head_dim * (1 if kv_int8 else 2)
-                                            + (4 if kv_int8 else 0))
     weights = sum(getattr(layer, n).weight.numel() for layer in params.layers
                   for n in LOOP_LINEARS)
-    ops = 2.0 * weights + 4.0 * K * cfg.n_heads * keys * cfg.head_dim
+
+    def bound_at(slot):
+        return loop_bound(wbytes, weights, K, cfg.n_kv_heads, cfg.n_heads, cfg.head_dim,
+                          cfg.dim, slot + 1, w_int8, kv_int8)
+
     out = {
         "variant": f"{fmt} weights, {cfg.kv_dtype} ring", "layers": K, "pos": pos,
         "dim": cfg.dim, "ffn": cfg.ffn_dim, "max_abs_err": (got.float() - want.float()).abs().max().item(),
         "h_rel": rel, "tol": LOOP_TOL, **slots,
         "ms": cuda_ms(lambda: decode_loop.decode_loop_step(params, got_c, h, pos, 0, cfg, fmts, K), 20),
+        # the device time alone: the eager launch also pays the wrapper's
+        # host work (the RoPE angles, the checks), which is near the
+        # kernel's time at two layers
+        "graph_ms": graph_ms(lambda: decode_loop.decode_loop_step(params, got_c, h, pos, 0, cfg,
+                                                                  fmts, K)),
         "plain_ms": cuda_ms(lambda: decode_loop.decode_loop_plain(params, want_c, h, pos, 0, cfg,
                                                                   fmts, K), 5),
         "library_ms": None,
-        # the K layers' weights, scales and norms and the ring's keys read
-        # once, h in and out; a multiply-add a weight, the attention's two
-        # products (int8 weights: the int8 peak)
-        **bound(wbytes + ring + 4 * cfg.dim, ops, INT8_OPS if w_int8 else BF16_FLOPS),
+        **bound_at(pos),
+        # slots past the filled ones hold zeros: the time does not read them
+        "positions": [{"pos": p, "ms": cuda_ms(lambda: decode_loop.decode_loop_step(
+            params, got_c, h, p, 0, cfg, fmts, K), 20), "bound_ms": bound_at(p)["bound_ms"]}
+            for p in sweep],
     }
     del params, cache, got_c, want_c
     return out
@@ -899,6 +941,9 @@ def phase_kernels(names) -> dict:
         elif name == "decode_loop":
             shapes[name] = [check_decode_loop(w8, kv8) for w8 in (False, True)
                             for kv8 in (False, True)]
+            say("loop_positions", **loop_positions(shapes[name]))
+            for r in shapes[name]:
+                del r["positions"]
         elif name == "flash_attention":
             shapes[name] = [check_flash(rng, S, 1024, off) for S, off in FLASH_SHAPES]
         elif name == "flash_attention_int8":

@@ -18,6 +18,8 @@ the fused formats serve per-layer.
   ``[layer0, layer0 + K)``, through the plain functions only (the linears,
   ``kv_quantize_plain``, ``xla_attention``), never a kernel: on the CPU the
   looped forward is therefore bit-identical to the per-layer forward;
+- :func:`split_attention_plain` — the kernel's attention split over key
+  chunks, in plain PyTorch, for the tests;
 - :func:`forward_layers_looped` — the L/K launches of a decode step.
 
 Replaces the Pallas kernel llama_fastapi_k8s_gpu_tpu/ops/pallas/
@@ -40,6 +42,12 @@ from ._kernels import check, library, require_cuda, stream_ptr
 _PARAMS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 #: per device: the grid barrier's counter (zero before the first launch)
 _BARRIERS: dict = {}
+#: per device and geometry: the attention's scratch and per-KV-head
+#: arrival counters (zero between launches)
+_ATTENTION: dict = {}
+#: the smallest key chunk of an attention item (csrc/decode_loop.cu
+#: CHUNK_MIN): the partials hold ⌈n_ctx / CHUNK_MIN⌉ chunks a query head
+CHUNK_MIN = 8
 #: pointers a layer has in the kernel's weight table (csrc/decode_loop.cu)
 _TABLE = 16
 #: head sizes the kernel takes
@@ -130,6 +138,65 @@ def _barrier(device: torch.device) -> torch.Tensor:
     return bar
 
 
+def _attention_scratch(device: torch.device, cfg) -> tuple:
+    """(partials, counters, max_chunks) of the kernel's attention phase:
+    per query head and key chunk the chunk's P·V sums (hd f32) and its
+    (max, sum), then per query head its scores over the ring — f32,
+    n_heads × (max_chunks × (hd + 2) + n_ctx) — and two arrival counters
+    per KV head, which every launch returns to zero."""
+    max_chunks = (cfg.n_ctx - 1) // CHUNK_MIN + 1
+    key = (device, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_ctx)
+    entry = _ATTENTION.get(key)
+    if entry is None:
+        part = torch.empty(cfg.n_heads * (max_chunks * (cfg.head_dim + 2) + cfg.n_ctx),
+                           dtype=torch.float32, device=device)
+        cnt = torch.zeros(2 * cfg.n_kv_heads, dtype=torch.int32, device=device)
+        entry = _ATTENTION[key] = (part, cnt, max_chunks)
+    return entry
+
+
+def split_attention_plain(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor, pos: int,
+                          cfg, chunk: int, cks: torch.Tensor | None = None,
+                          cvs: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel's attention decomposition in plain PyTorch, for the tests
+    (the main path never calls it): one decode query at ring slot ``pos``
+    over the keys [lo, pos] of a layer's ring, split into chunks of
+    ``chunk`` slots aligned to multiples of ``chunk``.  q (1, H, hd) bf16
+    after RoPE; kk, vv (n_kv, n_ctx, hd) the layer's ring with slot ``pos``
+    written (bf16, or int8 with ``cks``/``cvs`` (n_kv, n_ctx) scales).
+
+    Step 1, per chunk and query head: scores s = (q·k)·hd^-0.5 [· k_s] in
+    f32, the chunk's max m and sum l = Σ exp(s − m).  Step 2: the head's
+    M = max m and L = Σ l·exp(m − M); per chunk p = bf16(exp(s − M) / L
+    [· v_s]) and o = p·v in f32; ctx = bf16(Σ o) over the chunks.
+    → (1, H·hd) bf16."""
+    n_kv, hd = cfg.n_kv_heads, cfg.head_dim
+    group = cfg.n_heads // n_kv
+    lo = max(0, pos - cfg.sliding_window + 1) if cfg.sliding_window else 0
+    qg = q.reshape(n_kv, group, hd).float()
+    chunks = [(max(lo, c * chunk), min(pos + 1, (c + 1) * chunk))
+              for c in range(lo // chunk, pos // chunk + 1)]
+    scores, ms, ls = [], [], []
+    for c0, c1 in chunks:
+        s = torch.matmul(qg, kk[:, c0:c1].float().transpose(-1, -2)) * hd ** -0.5
+        if cks is not None:
+            s = s * cks[:, None, c0:c1]
+        m = s.amax(-1, keepdim=True)                                # (n_kv, g, 1)
+        scores.append(s)
+        ms.append(m)
+        ls.append(torch.exp(s - m).sum(-1, keepdim=True))
+    m = torch.stack(ms)                                             # (chunks, n_kv, g, 1)
+    M = m.amax(0)
+    L = (torch.stack(ls) * torch.exp(m - M)).sum(0)
+    ctx = torch.zeros(n_kv, group, hd, device=q.device)
+    for s, (c0, c1) in zip(scores, chunks):
+        p = torch.exp(s - M) / L
+        if cvs is not None:
+            p = p * cvs[:, None, c0:c1]
+        ctx = ctx + torch.matmul(p.to(torch.bfloat16).float(), vv[:, c0:c1].float())
+    return ctx.to(torch.bfloat16).reshape(1, cfg.n_heads * hd)
+
+
 def decode_loop_plain(params, cache: dict, h: torch.Tensor, pos: int, layer0: int,
                       cfg, fmts: dict, K: int) -> torch.Tensor:
     """Plain PyTorch version: layers ``[layer0, layer0 + K)`` of one decode
@@ -152,7 +219,11 @@ def decode_loop_step(params, cache: dict, h: torch.Tensor, pos: int, layer0: int
     ``pos``: h (1, dim) bf16 → the new h; each layer's K/V slot at ``pos``
     is written into ``cache`` in place.  ``fmts`` is the weight plan
     (:func:`models.params.decode_loop_plan`).  One kernel launch for CUDA
-    tensors, the plain version for CPU ones."""
+    tensors, the plain version for CPU ones.
+
+    The grid barrier's counter and the attention's scratch and counters are
+    one set per device (and geometry), not per stream: launches on one card
+    must run one after another, never on two streams at once."""
     L = cfg.n_layers
     if not (K >= 1 and 0 <= layer0 and layer0 + K <= L):
         raise ValueError(f"decode_loop: layers {layer0}..{layer0 + K} outside 0..{L}")
@@ -196,12 +267,14 @@ def decode_loop_step(params, cache: dict, h: torch.Tensor, pos: int, layer0: int
     ctx = torch.empty(cfg.dim, dtype=torch.bfloat16, device=h.device)
     act = torch.empty(cfg.ffn_dim, dtype=torch.bfloat16, device=h.device)
     ks, vs = (ring[2].data_ptr(), ring[3].data_ptr()) if kv_int8 else (None, None)
+    part, cnt, max_chunks = _attention_scratch(h.device, cfg)
     check(library().lfkt_decode_loop(
         table.data_ptr(), h.data_ptr(), ring[0].data_ptr(), ring[1].data_ptr(), ks, vs,
         qkv.data_ptr(), ctx.data_ptr(), act.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-        _barrier(h.device).data_ptr(), layer0, K, cfg.dim, cfg.ffn_dim, cfg.n_heads,
-        cfg.n_kv_heads, hd, cfg.n_ctx, pos, cfg.sliding_window, cfg.rms_eps, hd ** -0.5,
-        int(w_int8), int(kv_int8), stream_ptr(h)), "decode_loop")
+        _barrier(h.device).data_ptr(), part.data_ptr(), cnt.data_ptr(), layer0, K, cfg.dim,
+        cfg.ffn_dim, cfg.n_heads, cfg.n_kv_heads, hd, cfg.n_ctx, pos, cfg.sliding_window,
+        max_chunks, cfg.rms_eps, hd ** -0.5, int(w_int8), int(kv_int8), stream_ptr(h)),
+        "decode_loop")
     decode_loop_step.launches += 1
     return h.reshape(1, cfg.dim)
 

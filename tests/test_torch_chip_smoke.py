@@ -1,6 +1,7 @@
 """The pure helpers of ``chip_smoke.py`` (the H100 smoke run at the repo
-root): the cold timings' copy count and call rotation, and the decode
-token's recipe of fused matmul calls that its ``fused_token`` lines sum.
+root): the cold timings' copy count and call rotation, the decode
+token's recipe of fused matmul calls that its ``fused_token`` lines sum,
+and the looped kernel's bound and ``loop_positions`` line.
 These run on the CPU; the timings themselves need the card."""
 
 from __future__ import annotations
@@ -119,3 +120,41 @@ def test_route_thresholds_read_each_format_from_its_file():
     assert got["q6k_matmul"]["tc_over_cuda_core_at_measured"] == {
         "q4km": 0.5, "q5km": 0.5, "q6_k": 0.5}
     assert got["q8_matmul"]["tc_over_cuda_core_at_measured"] == {}
+
+
+@pytest.mark.parametrize("w_int8,kv_int8", [(False, False), (False, True), (True, False),
+                                            (True, True)])
+def test_loop_bound_counts_weights_ring_and_h(w_int8, kv_int8):
+    # two 8B layers at slot 700: 701 keys of 8 KV heads of 128
+    wbytes, weights = 436_000_000, 218_000_000
+    got = chip_smoke.loop_bound(wbytes, weights, 2, 8, 32, 128, 4096, 701, w_int8, kv_int8)
+    ring = 2 * 2 * 8 * 701 * (128 + 4 if kv_int8 else 256)
+    assert got["bound_by"] == "bytes"
+    assert got["bound_ms"] == pytest.approx(1e3 * (wbytes + ring + 4 * 4096)
+                                            / chip_smoke.HBM_BPS)
+    # the ring's bytes grow with the keys, the weights' stay
+    more = chip_smoke.loop_bound(wbytes, weights, 2, 8, 32, 128, 4096, 1024, w_int8, kv_int8)
+    assert more["bound_ms"] > got["bound_ms"]
+
+
+@pytest.mark.parametrize("w_int8,rate", [(False, "BF16_FLOPS"), (True, "INT8_OPS")])
+def test_loop_bound_turns_to_operations_past_the_ridge(w_int8, rate):
+    # more multiply-adds than bytes can carry: the weights' peak rate bounds it
+    got = chip_smoke.loop_bound(1000, 10 ** 12, 1, 8, 32, 128, 4096, 1, w_int8, False)
+    assert got["bound_by"] == "operations"
+    assert got["bound_ms"] == pytest.approx(
+        1e3 * (2.0 * 10 ** 12 + 4.0 * 32 * 128) / getattr(chip_smoke, rate))
+
+
+def test_loop_positions_reads_share_and_growth():
+    rows = [{"variant": "bf16 weights, bf16 ring", "layers": 2,
+             "positions": [{"pos": 0, "ms": 0.4, "bound_ms": 0.2},
+                           {"pos": 1023, "ms": 0.5, "bound_ms": 0.25}]},
+            {"variant": "int8 weights, int8 ring", "layers": 2,
+             "positions": [{"pos": 0, "ms": 0.2, "bound_ms": 0.1}]}]
+    got = chip_smoke.loop_positions(rows)["variants"]
+    assert [v["variant"] for v in got] == [r["variant"] for r in rows]
+    assert [s["share_of_bound"] for s in got[0]["slots"]] == [0.5, 0.5]
+    assert got[0]["slots"][1]["pos"] == 1023
+    assert got[0]["last_over_first"] == pytest.approx(1.25)
+    assert got[1]["last_over_first"] == 1.0

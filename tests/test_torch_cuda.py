@@ -27,6 +27,8 @@ magnitude.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -479,17 +481,20 @@ def test_int8_linear_through_int_mm_bit_exact(cuda, B):
     assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
 
 
-def _loop_case(cuda, w_int8: bool, kv_int8: bool, window: int, pos: int = 100):
-    """A dim-256 4-layer model of random weights and a ring filled with
-    random K/V up to ``pos``."""
+def _loop_case(cuda, w_int8: bool, kv_int8: bool, window: int, pos: int = 100,
+               n_kv: int = 2, n_heads: int = 4, n_ctx: int = 128, cfg=None):
+    """A model of random weights — by default dim 256, 4 layers, ``n_heads``
+    query heads of 256 / n_heads over ``n_kv`` KV heads — and a ring filled
+    with random K/V up to ``pos``."""
     from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
     from llama_fastapi_k8s_gpu_tpu_torch.models.llama import init_cache
     from llama_fastapi_k8s_gpu_tpu_torch.models.params import synth_params
     from llama_fastapi_k8s_gpu_tpu_torch.ops import kvquant
 
-    cfg = ModelConfig(vocab_size=64, dim=256, n_layers=4, n_heads=4, n_kv_heads=2,
-                      ffn_dim=512, n_ctx=128, sliding_window=window,
-                      kv_dtype="int8" if kv_int8 else "bf16")
+    if cfg is None:
+        cfg = ModelConfig(vocab_size=64, dim=256, n_layers=4, n_heads=n_heads, n_kv_heads=n_kv,
+                          ffn_dim=512, n_ctx=n_ctx)
+    cfg = dataclasses.replace(cfg, sliding_window=window, kv_dtype="int8" if kv_int8 else "bf16")
     params = synth_params(cfg, "int8" if w_int8 else "bf16", seed=5, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(6)
     cache = init_cache(cfg, cuda)
@@ -509,40 +514,87 @@ def _rel(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
+def _check_loop_launch(cfg, params, cache, h, pos, layer0, K, w_int8):
+    """One kernel launch of layers [layer0, layer0 + K) at slot ``pos``
+    against the plain looped step, each on its own copy of ``cache``: h
+    within 2e-2 rel-dev, the slot written within 2e-2 (int8 codes within
+    one), nothing else moved.  Returns the kernel's copy."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.params import LOOP_LINEARS
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import decode_loop
+
+    fmts = dict.fromkeys(LOOP_LINEARS, "int8" if w_int8 else "bf16")
+    got_cache = {k: v.clone() for k, v in cache.items()}
+    want_cache = {k: v.clone() for k, v in cache.items()}
+    before = decode_loop.decode_loop_step.launches
+    got = decode_loop.decode_loop_step(params, got_cache, h, pos, layer0, cfg, fmts, K)
+    want = decode_loop.decode_loop_plain(params, want_cache, h, pos, layer0, cfg, fmts, K)
+    torch.cuda.synchronize()
+    where = (pos, layer0, K)
+    assert decode_loop.decode_loop_step.launches == before + 1
+    assert torch.isfinite(got).all() and _rel(got, want) <= 2e-2, where
+    layers = slice(layer0, layer0 + K)
+    if cfg.kv_dtype == "int8":
+        for name in ("k", "v"):
+            q, s = got_cache[name + "_q"], got_cache[name + "_s"]
+            wq, ws = want_cache[name + "_q"], want_cache[name + "_s"]
+            assert (q[layers, :, pos].int() - wq[layers, :, pos].int()).abs().max() <= 1, where
+            assert _rel(s[layers, :, pos], ws[layers, :, pos]) <= 2e-2, where
+    else:
+        for name in ("k", "v"):
+            assert _rel(got_cache[name][layers, :, pos],
+                        want_cache[name][layers, :, pos]) <= 2e-2, where
+    # no slot of a layer outside the launch, or of another position, moved
+    for name, leaf in got_cache.items():
+        assert torch.equal(leaf[:layer0], cache[name][:layer0]), (name, where)
+        assert torch.equal(leaf[layer0 + K:], cache[name][layer0 + K:]), (name, where)
+        assert torch.equal(leaf[:, :, :pos], cache[name][:, :, :pos]), (name, where)
+    return got_cache
+
+
+#: ring slots of the small loop cases: the first and the last, and both
+#: sides of the attention's key-chunk edges (aligned multiples of 8 at this
+#: size, where every item has a block of its own)
+LOOP_SLOTS = (0, 7, 8, 9, 15, 16, 17, 63, 64, 65, 126)
+
+
 @pytest.mark.parametrize("w_int8", [False, True])
 @pytest.mark.parametrize("kv_int8", [False, True])
 @pytest.mark.parametrize("window", [0, 16])
 def test_decode_loop_matches_plain(cuda, w_int8, kv_int8, window):
-    """The four kernel variants against the plain looped step, for K = 1,
-    2 and 4 layers ending at the last layer."""
-    from llama_fastapi_k8s_gpu_tpu_torch.models.params import LOOP_LINEARS
-    from llama_fastapi_k8s_gpu_tpu_torch.ops import decode_loop
-
-    pos = 100
-    cfg, params, cache, h = _loop_case(cuda, w_int8, kv_int8, window, pos)
-    fmts = dict.fromkeys(LOOP_LINEARS, "int8" if w_int8 else "bf16")
+    """The four kernel variants against the plain looped step: K = 1, 2
+    and 4 layers ending at the last layer at slot 100; then, at GQA groups
+    4, 2 and 1, one layer at every slot of LOOP_SLOTS (window 16: its edge
+    falls inside a chunk) and a second launch at the next slot on the
+    caches the first left — the per-head arrival counters are back at zero,
+    or its combine would come early or never."""
+    cfg, params, cache, h = _loop_case(cuda, w_int8, kv_int8, window)
     for K in (1, 2, 4):
-        layer0 = cfg.n_layers - K
-        got_cache = {k: v.clone() for k, v in cache.items()}
-        want_cache = {k: v.clone() for k, v in cache.items()}
-        before = decode_loop.decode_loop_step.launches
-        got = decode_loop.decode_loop_step(params, got_cache, h, pos, layer0, cfg, fmts, K)
-        want = decode_loop.decode_loop_plain(params, want_cache, h, pos, layer0, cfg, fmts, K)
-        torch.cuda.synchronize()
-        assert decode_loop.decode_loop_step.launches == before + 1
-        assert torch.isfinite(got).all() and _rel(got, want) <= 2e-2, K
-        layers = slice(layer0, cfg.n_layers)
-        if kv_int8:
-            for name in ("k", "v"):
-                q, s = got_cache[name + "_q"], got_cache[name + "_s"]
-                wq, ws = want_cache[name + "_q"], want_cache[name + "_s"]
-                assert (q[layers, :, pos].int() - wq[layers, :, pos].int()).abs().max() <= 1
-                assert _rel(s[layers, :, pos], ws[layers, :, pos]) <= 2e-2
-                assert torch.equal(q[:, :, :pos], wq[:, :, :pos])
-        else:
-            for name in ("k", "v"):
-                assert _rel(got_cache[name][layers, :, pos],
-                            want_cache[name][layers, :, pos]) <= 2e-2
-        # no slot of a layer outside the launch, or of another position, moved
-        for name, leaf in got_cache.items():
-            assert torch.equal(leaf[:layer0], cache[name][:layer0]), name
+        _check_loop_launch(cfg, params, cache, h, 100, cfg.n_layers - K, K, w_int8)
+    for n_kv in (1, 2, 4):
+        for pos in LOOP_SLOTS:
+            cfg, params, cache, h = _loop_case(cuda, w_int8, kv_int8, window, pos, n_kv)
+            got = _check_loop_launch(cfg, params, cache, h, pos, cfg.n_layers - 1, 1, w_int8)
+            _check_loop_launch(cfg, params, got, h, pos + 1, cfg.n_layers - 1, 1, w_int8)
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("pos,window", [(4095, 0), (2047, 0), (4095, 1000)])
+def test_decode_loop_items_wrap_the_grid(cuda, kv_int8, pos, window):
+    """A 4096-slot ring over 8 KV heads of 32 (group 1): up to 64-slot
+    chunks and more attention items than blocks, so blocks take several
+    items each (and a window's keys start mid-ring)."""
+    cfg, params, cache, h = _loop_case(cuda, False, kv_int8, window, pos, n_kv=8, n_heads=8,
+                                       n_ctx=4096)
+    _check_loop_launch(cfg, params, cache, h, pos, cfg.n_layers - 1, 1, False)
+
+
+@pytest.mark.parametrize("w_int8", [False, True])
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_decode_loop_8b_width_last_slot(cuda, w_int8, kv_int8):
+    """One Llama-3-8B-width layer (32 query heads over 8 KV heads of 128)
+    at the last slot of a 1024-slot ring, 1023 keys filled."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import LLAMA3_8B
+
+    cfg8 = dataclasses.replace(LLAMA3_8B, n_layers=1, vocab_size=256, n_ctx=1024)
+    cfg, params, cache, h = _loop_case(cuda, w_int8, kv_int8, 0, 1023, cfg=cfg8)
+    _check_loop_launch(cfg, params, cache, h, 1023, 0, 1, w_int8)
