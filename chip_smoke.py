@@ -22,8 +22,13 @@ and no result line):
    weights × bf16/int8 KV ring) over two full-width layers of random
    weights and a ring filled to slot 700, with a ``loop_positions`` line
    timing it at slots 0, 255, 512, 700, 768 and 1023 beside its bound
-   (the served requests decode at slots 460–1023), the KV write-quantize
-   eager and from a CUDA graph (``graph_ms``, its device time);
+   (the served requests decode at slots 460–1023), the int8 KV write
+   (K's RoPE, then the quantize, into the ring) eager and from a CUDA graph
+   (``graph_ms``, its device time) beside the device time of the plain
+   torch it absorbed (``absorbed_graph_ms``: the table and k's rotation);
+   the dequants also at every shape the loads give them, into bf16 and
+   f32, from a graph beside the byte bound (a ``dequant_shapes`` line
+   each);
    and, as ``int8_linear`` lines, the int8 linear the int8 engines serve
    (``torch._int_mm``, a library call) at the 8B shapes.  The fused
    matmuls' lines name the launcher's path (``tc``: the tensor-core
@@ -52,7 +57,9 @@ and no result line):
    ring bytes, the served model's logits must be finite and its flash
    prompt pass must agree with the plain score-matrix one.  Each file's
    kernel launches go on a line of their own, and so do the launches of
-   one decode token and of one 256-token prompt slice.  Two more engines
+   one decode token and of one 256-token prompt slice (``per_token``,
+   ``per_slice``: the port's kernels by their counters, and every CUDA
+   kernel as ``torch.profiler`` records it, ``cuda_kernels``).  Two more engines
    serve files already written, with the layer-looped decode armed: the
    Q4_K_M file as int8 weights with one looped launch a token
    (``decode_layer_unroll=-1``), and the Q8_0 file as bf16 weights over the
@@ -60,8 +67,11 @@ and no result line):
    effective unroll, the looped launches of one token, 16 teacher-forced
    decode steps against the per-layer path on the same weights, and times
    both paths' decode ms/token;
-6. a ``kernels`` JSON line with every kernel's launches summed over the
-   files of phase 5 beside its phase-3 numbers.
+6. a ``dequant_rank`` line: each dequant's launches × (time − bound)
+   over the six engines' loads, shape by shape (launches from the load
+   plan, checked against the wrappers' counters of phase 5), largest
+   first; then a ``kernels`` JSON line with every kernel's launches summed
+   over the engines of phase 5 beside its phase-3 numbers.
 
 The last line is ``{"ok": true, "device": {...}}``.  No JAX anywhere.
 """
@@ -71,6 +81,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import gc
+import hashlib
 import http.client
 import json
 import os
@@ -575,22 +586,41 @@ def flash_slice(name: str, rows: list) -> dict:
             "graph_total_ms": sum(r["graph_ms"] * DEPTH for r in served)}
 
 
-def check_kv_quantize(rng, S, pos_offset, n_kv=8, hd=128, n_ctx=1024) -> dict:
-    """The KV write-quantize kernel against its plain version, bit for
-    bit, writing one layer's ring at ``pos_offset``."""
+def check_kv_quantize(rng, S, pos_offset, n_kv=8, hd=128, n_ctx=1024,
+                      theta=500000.0) -> dict:
+    """The int8 KV write kernel against its plain version, bit for bit: one
+    layer's un-rotated k and v and the pass's RoPE table at ``pos_offset``
+    into that layer's ring.  ``graph_ms`` is the kernel's device time from
+    a CUDA graph, ``absorbed_graph_ms`` that of the plain torch it took
+    over: the table and k's rotation (``rope_interleaved`` on k, which
+    calls ``rope_cos_sin``), 13 launches a layer before the kernel rotated
+    k itself."""
     import torch
 
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import rope_interleaved
     from llama_fastapi_k8s_gpu_tpu_torch.ops import kvquant
+    from llama_fastapi_k8s_gpu_tpu_torch.ops.rope import rope_cos_sin
 
     def rnd(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype="float32")
                                 ).cuda().to(torch.bfloat16)
 
     k, v = rnd(S, n_kv, hd), rnd(S, n_kv, hd)
+    positions = pos_offset + torch.arange(S, device="cuda")
+    cos, sin = rope_cos_sin(positions, hd, theta)
     rings = [torch.zeros(n_kv, n_ctx, hd, dtype=torch.int8, device="cuda") for _ in range(4)]
     scales = [torch.zeros(n_kv, n_ctx, device="cuda") for _ in range(4)]
-    kvquant.kv_quantize(k, v, rings[0], rings[1], scales[0], scales[1], pos_offset)
-    kvquant.kv_quantize_plain(k, v, rings[2], rings[3], scales[2], scales[3], pos_offset)
+
+    def kern():
+        kvquant.kv_quantize(k, v, cos, sin, rings[0], rings[1], scales[0], scales[1],
+                            pos_offset)
+
+    def plain():
+        kvquant.kv_quantize_plain(k, v, cos, sin, rings[2], rings[3], scales[2], scales[3],
+                                  pos_offset)
+
+    kern()
+    plain()
     torch.cuda.synchronize()
     if not (torch.equal(rings[0], rings[2]) and torch.equal(rings[1], rings[3])
             and torch.equal(scales[0].view(torch.int32), scales[2].view(torch.int32))
@@ -599,24 +629,27 @@ def check_kv_quantize(rng, S, pos_offset, n_kv=8, hd=128, n_ctx=1024) -> dict:
     return {
         "S": S, "n_kv": n_kv, "hd": hd, "pos_offset": pos_offset, "max_abs_err": 0.0,
         "tol": 0.0,
-        "ms": cuda_ms(lambda: kvquant.kv_quantize(k, v, rings[0], rings[1], scales[0],
-                                                  scales[1], pos_offset), 50),
+        "ms": cuda_ms(kern, 50),
         # the device time alone: the eager launch is bound by the host
-        "graph_ms": graph_ms(lambda: kvquant.kv_quantize(k, v, rings[0], rings[1], scales[0],
-                                                         scales[1], pos_offset)),
-        "plain_ms": cuda_ms(lambda: kvquant.kv_quantize_plain(
-            k, v, rings[2], rings[3], scales[2], scales[3], pos_offset), 10),
+        "graph_ms": graph_ms(kern),
+        "absorbed_graph_ms": graph_ms(lambda: rope_interleaved(k, positions, theta)),
+        "plain_ms": cuda_ms(plain, 10),
         "library_ms": None,
-        # bf16 K and V in; int8 values and f32 scales out; |x|, max,
-        # multiply and round per element
-        **bound(2 * k.numel() * 2 + 2 * (k.numel() + 4 * S * n_kv), 4.0 * 2 * k.numel()),
+        # bf16 K and V and the f32 table in; int8 values and f32 scales
+        # out; the rotation's 6 operations a K pair, |x|, max, multiply and
+        # round per element
+        **bound(2 * k.numel() * 2 + 2 * cos.numel() * 4 + 2 * (k.numel() + 4 * S * n_kv),
+                3.0 * k.numel() + 4.0 * 2 * k.numel()),
     }
 
 
-def check_dequant(name, rng, n_out=128256, k_in=4096, dtype="bfloat16") -> dict:
-    """A dequant kernel against its plain version, bit for bit, on a
-    ``token_embd``-sized tensor, into bf16 (``token_embd``, the bf16 load)
-    or f32 (the int8 load)."""
+def check_dequant(name, rng, n_out=128256, k_in=4096, dtype="bfloat16",
+                  plain: bool = True) -> dict:
+    """A dequant kernel against its plain version, bit for bit, on an
+    (``n_out``, ``k_in``) tensor (by default ``token_embd``'s), into bf16
+    (``token_embd``, the bf16 load) or f32 (the int8 load); timed eager
+    (``ms``) and from a CUDA graph (``graph_ms``, the device time), the
+    plain version only with ``plain``."""
     import numpy as np
     import torch
 
@@ -624,23 +657,27 @@ def check_dequant(name, rng, n_out=128256, k_in=4096, dtype="bfloat16") -> dict:
 
     rand = {"dequant_q4_k": rand_q4k, "dequant_q5_k": rand_q5k,
             "dequant_q6_k": rand_q6k, "dequant_q8_0": rand_q8_0}[name]
-    kern, plain = getattr(dequant, name), getattr(dequant, name + "_plain")
+    kern, plain_fn = getattr(dequant, name), getattr(dequant, name + "_plain")
     dt = getattr(torch, dtype)
     raw = torch.from_numpy(np.ascontiguousarray(rand(rng, n_out, k_in))).cuda()
     y = kern(raw, dt)
-    y_ref = plain(raw, dt)
+    y_ref = plain_fn(raw, dt)
     torch.cuda.synchronize()
     bits = torch.int16 if dt == torch.bfloat16 else torch.int32
     if y.dtype != dt or not torch.equal(y.view(bits), y_ref.view(bits)):
-        raise AssertionError(f"{name} ({dtype}): kernel is not bit-identical to plain")
+        raise AssertionError(f"{name} ({n_out}x{k_in}, {dtype}): kernel is not "
+                             f"bit-identical to plain")
+    del y_ref
     out = {
         "shape": [n_out, k_in], "out": dtype, "max_abs_err": 0.0, "tol": 0.0,
         "ms": cuda_ms(lambda: kern(raw, dt), 10),
-        "plain_ms": cuda_ms(lambda: plain(raw, dt), 3),
+        "graph_ms": graph_ms(lambda: kern(raw, dt), 10),
+        "plain_ms": cuda_ms(lambda: plain_fn(raw, dt), 3) if plain else None,
         "library_ms": None,
         **bound(raw.numel() + y.numel() * y.element_size(), 2.0 * y.numel()),
     }
-    del raw, y, y_ref
+    del raw, y
+    torch.cuda.empty_cache()
     return out
 
 
@@ -924,9 +961,85 @@ def route_thresholds(layers: list, launcher: dict) -> list:
     return out
 
 
-def phase_kernels(names) -> dict:
+#: the (N, K) the loads hand a dequant: a layer's linears (attn_q/output,
+#: attn_k/v, ffn_gate/up, ffn_down) and token_embd / the output head
+DEQUANT_SHAPES = ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336), HEAD_SHAPE)
+#: the dequant kernel of each GGML block type
+DEQUANT_OF = {"Q4_K": "dequant_q4_k", "Q5_K": "dequant_q5_k", "Q6_K": "dequant_q6_k",
+              "Q8_0": "dequant_q8_0"}
+#: the six engines of phase 5: (file, weight format); "auto" serves fused
+ENGINES = (*((layout, "auto") for layout in LAYOUTS),
+           *((layout, fmt) for _, layout, fmt, *_ in LOOPED))
+
+
+def dequant_shapes(name: str, rng, head_rows: list) -> dict:
+    """The ``dequant_shapes`` line of one dequant: :func:`check_dequant` at
+    every shape of :data:`DEQUANT_SHAPES` into bf16 and f32, the plain
+    version timed only at the head's shape (``head_rows``, the kernel
+    lines) — each with its graph time over its bound."""
+    rows = []
+    for n, k in DEQUANT_SHAPES:
+        for dt in ("bfloat16", "float32"):
+            r = (next(r for r in head_rows if r["out"] == dt) if (n, k) == HEAD_SHAPE
+                 else check_dequant(name, rng, n, k, dt, plain=False))
+            rows.append({key: r[key] for key in ("shape", "out", "ms", "graph_ms", "bound_ms")}
+                        | {"over_bound": r["graph_ms"] / r["bound_ms"]})
+    return {"name": name, "shapes": rows}
+
+
+def load_dequants(layout: str, weight_format: str) -> dict:
+    """The dequant launches of one load of a ``layout`` file in
+    ``weight_format``, from the load plan (models/params.py): token_embd
+    into bf16; under ``bf16`` every linear and the output head into bf16,
+    under ``int8`` into f32 (the requantize's input); fused linears
+    (``auto`` at 8B) launch none.  (kernel, (N, K), out) → launches."""
+    types = file_types(layout)
+    plan = {(DEQUANT_OF[types["token_embd"]], HEAD_SHAPE, "bfloat16"): 1}
+    if weight_format == "auto":
+        return plan
+    out = {"bf16": "bfloat16", "int8": "float32"}[weight_format]
+    for short, long in GGUF_NAMES.items():
+        shape, calls = (HEAD_SHAPE, 1) if short == "output" else (LAYER_SHAPES[short], DEPTH)
+        key = (DEQUANT_OF[types[long]], shape, out)
+        plan[key] = plan.get(key, 0) + calls
+    return plan
+
+
+def dequant_rank(lines: list, launches: dict | None = None) -> dict:
+    """The ``dequant_rank`` line: per dequant, Σ launches × (graph time −
+    bound) over the six engines' loads, shape by shape (``lines``: the
+    ``dequant_shapes`` lines), the launches from :func:`load_dequants`;
+    with ``launches`` (the wrappers' counters over phase 5) each kernel's
+    planned total must equal its count.  Largest loss first."""
+    times = {(ln["name"], tuple(r["shape"]), r["out"]): r for ln in lines
+             for r in ln["shapes"]}
+    by = {ln["name"]: {"name": ln["name"], "launches": 0, "gap_ms": 0.0, "ms": 0.0,
+                       "bound_ms": 0.0, "by_shape": {}} for ln in lines}
+    for layout, fmt in ENGINES:
+        for (name, shape, out), n in load_dequants(layout, fmt).items():
+            r, row = times[(name, shape, out)], by[name]
+            row["launches"] += n
+            row["gap_ms"] += n * (r["graph_ms"] - r["bound_ms"])
+            row["ms"] += n * r["graph_ms"]
+            row["bound_ms"] += n * r["bound_ms"]
+            key = f"{shape[0]}x{shape[1]} {out}"
+            row["by_shape"][key] = row["by_shape"].get(key, 0) + n
+    out = {"source": "launches from the load plan (models/params.py)",
+           "ranked": sorted(by.values(), key=lambda r: -r["gap_ms"])}
+    if launches is not None:
+        counted = {n: launches[n] for n in by}
+        out["source"] += ", checked against the wrappers' counters over phase 5"
+        out["counters"] = counted
+        planned = {n: r["launches"] for n, r in by.items()}
+        if counted != planned:
+            raise AssertionError(f"dequant launches: plan {planned} != counters {counted}")
+    return out
+
+
+def phase_kernels(names) -> tuple[dict, list]:
     """Per kernel in ``names``: the per-shape checks, and their times summed
-    over the shapes (each shape one call of the serving path)."""
+    over the shapes (each shape one call of the serving path); and the
+    dequants' ``dequant_shapes`` lines."""
     import numpy as np
     import torch
 
@@ -934,10 +1047,13 @@ def phase_kernels(names) -> dict:
 
     rng = np.random.default_rng(1)
     shapes = {}
+    deq_lines = []
     for name in names:
         if name.startswith("dequant_"):
             shapes[name] = [check_dequant(name, rng, dtype=dt)
                             for dt in ("bfloat16", "float32")]
+            deq_lines.append(dequant_shapes(name, rng, shapes[name]))
+            say("dequant_shapes", **deq_lines[-1])
         elif name == "decode_loop":
             shapes[name] = [check_decode_loop(w8, kv8) for w8 in (False, True)
                             for kv8 in (False, True)]
@@ -994,7 +1110,7 @@ def phase_kernels(names) -> dict:
             "library_ms": None if None in lib else sum(lib),
             "shapes": rows,
         }
-    return out
+    return out, deq_lines
 
 
 # ---------------------------------------------------------------------------
@@ -1033,14 +1149,18 @@ def file_types(layout: str) -> dict:
             **dict.fromkeys(("attn_v", "ffn_down", "output"), "Q6_K")}
 
 
+#: the GGUF tensor kind of each linear (``blk.N.<kind>.weight``; the head's
+#: is ``output.weight``)
+GGUF_NAMES = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v", "wo": "attn_output",
+              "w_gate": "ffn_gate", "w_up": "ffn_up", "w_down": "ffn_down",
+              "output": "output"}
+
+
 def served_formats(layout: str) -> dict:
     """The Linear kinds a ``layout`` file must serve with: every linear fused."""
     kinds = {"Q4_K": "q4k", "Q5_K": "q5k", "Q6_K": "q6k", "Q8_0": "q8"}
     t = file_types(layout)
-    names = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v", "wo": "attn_output",
-             "w_gate": "ffn_gate", "w_up": "ffn_up", "w_down": "ffn_down",
-             "output": "output"}
-    return {short: kinds[t[long]] for short, long in names.items()}
+    return {short: kinds[t[long]] for short, long in GGUF_NAMES.items()}
 
 
 def write_gguf(cfg, path: str, layout: str, seed: int = 0) -> None:
@@ -1231,6 +1351,7 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
     for req, st, doc, tm in results:
         text = (doc or {}).get("response", "")
         say("request", file=label, label=req, status=st, chars=len(text),
+            sha256=hashlib.sha256(text.encode()).hexdigest()[:16],
             prompt_tokens=tm.get("prompt_tokens"), bucket=tm.get("bucket"),
             reused=tm.get("prefix_reused_tokens"), ttft_s=tm.get("ttft_s"),
             completion_tokens=tm.get("completion_tokens"),
@@ -1254,7 +1375,8 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
         raise AssertionError("the follow-up turn did not take prefix reuse")
 
     # launches of one decode token and of one 256-token prompt slice, on a
-    # scratch ring (not part of the served path's counts above)
+    # scratch ring (not part of the served path's counts above): the port's
+    # kernels by their counters, and every CUDA kernel by the profiler
     scratch = {k: torch.zeros_like(v) for k, v in eng._cache.items()}
     per = {}
     for what, fn in (
@@ -1265,8 +1387,11 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
         for c in counters.values():
             c.launches = 0
         with torch.inference_mode():
-            fn()
+            kernels, why = profiled_kernels(fn)
         per[what] = {n: c.launches for n, c in counters.items() if c.launches}
+        per[what]["cuda_kernels"] = kernels
+        if why:
+            per[what]["cuda_kernels_missing"] = why
     say("per_token", file=label, **per["token"])
     say("per_slice", file=label, **per["slice"])
     if expect_unroll and per["token"].get("decode_loop") != cfg.n_layers // expect_unroll:
@@ -1302,6 +1427,30 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def device_kernels(events) -> int:
+    """The CUDA kernels among profiler ``events`` (``FunctionEvent``s):
+    device events that are not a copy or a fill."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset")))
+
+
+def profiled_kernels(fn) -> tuple[int | None, str | None]:
+    """(kernels, None): the CUDA kernels one call of ``fn`` launches, as
+    ``torch.profiler`` records them; (None, reason) where it records no
+    device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()            # no earlier kernel runs inside the window
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = device_kernels(prof.events())
+    return (n, None) if n else (None, "torch.profiler recorded no CUDA kernel event")
 
 
 def check_looped_path(label: str, eng, toks, steps: int = 16, timed: int = 32) -> None:
@@ -1382,7 +1531,7 @@ def main() -> int:
     t0 = time.time()
     info = phase_device()
     phase_build()
-    kernels = phase_kernels(KERNELS)
+    kernels, deq_lines = phase_kernels(KERNELS)
     paths = {layout: phase_gguf(layout) for layout in LAYOUTS}
     launches = dict.fromkeys(KERNELS, 0)
     for layout, path in paths.items():
@@ -1398,6 +1547,7 @@ def main() -> int:
                              label=label, expect_unroll=expect)
         for name, n in served.items():
             launches[name] += n
+    say("dequant_rank", **dequant_rank(deq_lines, launches))
     for name, n in launches.items():
         kernels[name]["launches"] = n
     missing = [n for n, c in launches.items() if c <= 0]

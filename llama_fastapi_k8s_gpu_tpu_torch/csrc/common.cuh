@@ -37,9 +37,28 @@ __device__ __forceinline__ void load8_a2(const uint8_t* p, uint32_t& lo, uint32_
     hi = static_cast<uint32_t>(h[2]) | (static_cast<uint32_t>(h[3]) << 16);
 }
 
+// the bf16 pair (low, high) of a 32-bit word as floats
+__device__ __forceinline__ float lo_bf(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_bf(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+
 // One dequantized value into a bf16 (round to nearest even) or an f32 output
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float y) { *p = __float2bfloat16_rn(y); }
 __device__ __forceinline__ void store_out(float* p, float y) { *p = y; }
+
+// 8 consecutive dequantized values at a 16-byte aligned address: one
+// 16-byte store in bf16 (round to nearest even), two in f32
+__device__ __forceinline__ void store8(__nv_bfloat16* out, const float* y) {
+    uint32_t b[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) b[k] = __bfloat16_as_ushort(__float2bfloat16_rn(y[k]));
+    *reinterpret_cast<uint4*>(out) =
+        make_uint4(b[0] | (b[1] << 16), b[2] | (b[3] << 16), b[4] | (b[5] << 16), b[6] | (b[7] << 16));
+}
+
+__device__ __forceinline__ void store8(float* out, const float* y) {
+    reinterpret_cast<float4*>(out)[0] = make_float4(y[0], y[1], y[2], y[3]);
+    reinterpret_cast<float4*>(out)[1] = make_float4(y[4], y[5], y[6], y[7]);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -69,6 +88,17 @@ __device__ __forceinline__ float kv_row_scale(float lane_amax, float& inv) {
 __device__ __forceinline__ int8_t kv_quantize_value(float x, float inv) {
     const float y = rintf(__fmul_rn(x, inv));
     return static_cast<int8_t>(fminf(fmaxf(y, -127.f), 127.f));
+}
+
+// The interleaved RoPE of pair i of a head row (elements 2i, 2i+1), from
+// the pass's table (c, s = cos, sin of the angle): (x1, x2) -> (o1, o2),
+// each rounded to bf16 as the plain path casts its result.  Every product
+// and the sum are rounded on their own, as the plain path's f32 torch ops
+// round them (nvcc would contract x1*c - x2*s into an FMA).
+__device__ __forceinline__ void rope_pair(float x1, float x2, float c, float s, float& o1,
+                                          float& o2) {
+    o1 = __bfloat162float(__float2bfloat16_rn(__fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s))));
+    o2 = __bfloat162float(__float2bfloat16_rn(__fadd_rn(__fmul_rn(x1, s), __fmul_rn(x2, c))));
 }
 
 // get_scale_min_k4: the 6-bit scale and min of sub-block j (0..7) from the

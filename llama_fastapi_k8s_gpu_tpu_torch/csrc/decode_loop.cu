@@ -162,9 +162,8 @@ __device__ __forceinline__ float ld_bf(const __nv_bfloat16* p) { return bf(__ldc
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return bf(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 
-// bf16 pair (low, high) of a 32-bit word as floats
-__device__ __forceinline__ float lo_bf(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float hi_bf(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+using lfkt::hi_bf;
+using lfkt::lo_bf;
 
 // 16 bytes global -> shared, asynchronously (L2 only), and the wait for all
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -424,13 +423,6 @@ __device__ __forceinline__ void linear_rows(const void* const (&w)[R], const voi
     }
 }
 
-// the interleaved RoPE of pair i of a head row: (x1, x2) -> bf16 (o1, o2)
-__device__ __forceinline__ void rope_pair(float x1, float x2, float c, float s, float& o1,
-                                          float& o2) {
-    o1 = round_bf(__fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s)));
-    o2 = round_bf(__fadd_rn(__fmul_rn(x1, s), __fmul_rn(x2, c)));
-}
-
 // The new slot of KV head j, by one warp: k after RoPE (or v) into the ring
 // at pos — bf16, or int8 codes and their scale, bit-exact with
 // kv_quantize — and the same values into the item's staged row.
@@ -447,7 +439,7 @@ __device__ __forceinline__ void new_slot(const LoopArgs& a, int j, bool is_v, KT
         const int i = lane + 32 * p;
         if (2 * i < hd) {
             float x1 = ld_bf(src + 2 * i), x2 = ld_bf(src + 2 * i + 1);
-            if (!is_v) rope_pair(x1, x2, __ldg(a.cos_t + i), __ldg(a.sin_t + i), x1, x2);
+            if (!is_v) lfkt::rope_pair(x1, x2, __ldg(a.cos_t + i), __ldg(a.sin_t + i), x1, x2);
             x[2 * p] = x1;
             x[2 * p + 1] = x2;
             amax = fmaxf(amax, fmaxf(fabsf(x1), fabsf(x2)));
@@ -566,7 +558,7 @@ __device__ void attention_phase(const LoopArgs& a, int layer, unsigned char* sm,
             const int g = i / half, pr = i - g * half;
             const __nv_bfloat16* src = a.qkv + (j * group + g) * hd + 2 * pr;
             float o1, o2;
-            rope_pair(ld_bf(src), ld_bf(src + 1), __ldg(a.cos_t + pr), __ldg(a.sin_t + pr), o1, o2);
+            lfkt::rope_pair(ld_bf(src), ld_bf(src + 1), __ldg(a.cos_t + pr), __ldg(a.sin_t + pr), o1, o2);
             qf[g * (hd + 4) + 2 * pr] = o1;
             qf[g * (hd + 4) + 2 * pr + 1] = o2;
         }

@@ -36,20 +36,6 @@ namespace {
 
 constexpr int WARPS = 8;
 
-// lane's 8 outputs, elements lane*8 + 0..7: one 16-byte store in bf16, two in f32
-__device__ __forceinline__ void store8(__nv_bfloat16* out, const float* y) {
-    uint32_t b[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) b[k] = __bfloat16_as_ushort(__float2bfloat16_rn(y[k]));
-    *reinterpret_cast<uint4*>(out) =
-        make_uint4(b[0] | (b[1] << 16), b[2] | (b[3] << 16), b[4] | (b[5] << 16), b[6] | (b[7] << 16));
-}
-
-__device__ __forceinline__ void store8(float* out, const float* y) {
-    reinterpret_cast<float4*>(out)[0] = make_float4(y[0], y[1], y[2], y[3]);
-    reinterpret_cast<float4*>(out)[1] = make_float4(y[4], y[5], y[6], y[7]);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
 dequant_q6k_kernel(const uint8_t* __restrict__ raw, T* __restrict__ out, long long n_blocks) {
@@ -74,7 +60,7 @@ dequant_q6k_kernel(const uint8_t* __restrict__ raw, T* __restrict__ out, long lo
         y[k] = __fmul_rn(scale, static_cast<float>(a0 - 32));
         y[k + 4] = __fmul_rn(scale, static_cast<float>(a1 - 32));
     }
-    store8(out + blk * lfkt::QK_K + lane * 8, y);
+    lfkt::store8(out + blk * lfkt::QK_K + lane * 8, y);
 }
 
 template <typename T>

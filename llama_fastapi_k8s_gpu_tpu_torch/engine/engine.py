@@ -49,7 +49,7 @@ from ..models.generate import (
 )
 from ..models.llama import cache_nbytes, init_cache
 from ..models.params import decode_loop_plan, load_params
-from ..ops.attention import HEAD_DIMS
+from ..ops.attention import flash_takes
 from ..sampling.sample import SamplingParams, sampling_tensors
 from ..tokenizer import apply_chat_template, detect_chat_template, tokenizer_from_gguf
 from ..utils.device import resolve_device
@@ -109,6 +109,23 @@ class _TextEmitter:
         return tail, finish
 
 
+#: prompt attention by name: the reference's ``xla`` and ``pallas``, and
+#: ``flash``, the port's name of the kernel path that ``pallas`` selects
+ATTN_IMPLS = {"xla": "xla", "pallas": "flash", "flash": "flash"}
+
+
+def resolve_attn_impl(attn_impl: str, cfg: ModelConfig, device: torch.device) -> str:
+    """``cfg.attn_impl`` for a requested ``attn_impl`` (``auto`` or a key of
+    :data:`ATTN_IMPLS`): ``auto`` takes the flash kernel on the GPU where
+    it takes the model's head size and GQA group, else the score matrix."""
+    if attn_impl == "auto":
+        return ("flash" if device.type == "cuda"
+                and flash_takes(cfg.head_dim, cfg.n_heads // cfg.n_kv_heads) else "xla")
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be auto|{'|'.join(ATTN_IMPLS)}, got {attn_impl!r}")
+    return ATTN_IMPLS[attn_impl]
+
+
 class Engine:
     """Loads a GGUF model and serves chat completions on one device.
 
@@ -124,7 +141,7 @@ class Engine:
         prefill_buckets: Sequence[int] = DEFAULT_BUCKETS,
         max_gen_tokens: int = 512,
         seed: int = 0,
-        attn_impl: str = "auto",   # auto | xla | flash (prompt passes)
+        attn_impl: str = "auto",   # auto | xla | pallas (= flash) (prompt passes)
         kv_dtype: str | None = None,  # bf16 | int8 KV cache; None keeps the cfg's
         decode_layer_unroll: int | None = None,  # layers per decode launch; None: settings
         prefix_cache: bool = True,  # reuse the previous request's KV prefix
@@ -187,13 +204,7 @@ class Engine:
                         weight_format, self.device, time.time() - t0)
         if kv_dtype is not None and kv_dtype != self.cfg.kv_dtype:
             self.cfg = dataclasses.replace(self.cfg, kv_dtype=kv_dtype)
-        if attn_impl == "auto":
-            group = self.cfg.n_heads // self.cfg.n_kv_heads
-            attn_impl = ("flash" if self.device.type == "cuda"
-                         and self.cfg.head_dim in HEAD_DIMS and 16 % group == 0
-                         else "xla")
-        if attn_impl not in ("xla", "flash"):
-            raise ValueError(f"attn_impl must be auto|xla|flash, got {attn_impl!r}")
+        attn_impl = resolve_attn_impl(attn_impl, self.cfg, self.device)
         if attn_impl != self.cfg.attn_impl:
             self.cfg = dataclasses.replace(self.cfg, attn_impl=attn_impl)
         if decode_layer_unroll:

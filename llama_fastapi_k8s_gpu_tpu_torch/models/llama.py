@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from ..ops.attention import attention_mask, flash_attention, flash_attention_int8
 from ..ops.kvquant import kv_quantize
 from ..ops.linear import linear
+from ..ops.rope import rope_cos_sin, rope_rotate
 from .config import ModelConfig
 
 logger = logging.getLogger(__name__)
@@ -45,43 +46,12 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return ((x32 * inv) * w.float()).to(x.dtype)
 
 
-#: rotation frequencies by (head_dim, theta, device): computed once
-_FREQS: dict = {}
-
-
-def rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
-    """(hd/2,) f32 rotation frequencies ``theta^(-2i/hd)``: the exponent in
-    f32, the power in f64 rounded once to f32 — the reference's frequencies
-    bit for bit (an f32 pow is off by an ulp for some i, and the angle error
-    grows with the position)."""
-    key = (hd, float(theta), torch.device(device))
-    freqs = _FREQS.get(key)
-    if freqs is None:
-        half = hd // 2
-        expo = -torch.arange(half, dtype=torch.float32, device=device) / half
-        freqs = _FREQS[key] = (theta ** expo.double()).float()
-    return freqs
-
-
-def rope_cos_sin(positions: torch.Tensor, hd: int,
-                 theta: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """(S, hd/2) f32 cos and sin of the rotation angles at ``positions``."""
-    ang = positions[:, None].float() * rope_freqs(hd, theta, positions.device)[None, :]
-    return torch.cos(ang), torch.sin(ang)
-
-
 def rope_interleaved(x: torch.Tensor, positions: torch.Tensor,
                      theta: float) -> torch.Tensor:
     """x: (S, H, hd); rotate pairs (2i, 2i+1) by pos · theta^(-2i/hd) — the
-    ggml "NORM" rotation GGUF Q/K weights are permuted for."""
-    cos, sin = rope_cos_sin(positions, x.shape[-1], theta)
-    cos, sin = cos[:, None, :], sin[:, None, :]
-    xf = x.float()
-    x1 = xf[..., 0::2]
-    x2 = xf[..., 1::2]
-    o1 = x1 * cos - x2 * sin
-    o2 = x1 * sin + x2 * cos
-    return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
+    reference's ``rope_interleaved``: the table at ``positions``, then the
+    rotation that reads it (ops/rope.py)."""
+    return rope_rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
 
 
 def init_cache(cfg: ModelConfig, device: torch.device,
@@ -146,10 +116,12 @@ def xla_attention(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
 
 def _layer(h: torch.Tensor, layer, i: int, cache: dict,
            positions: torch.Tensor, pos_offset: int,
-           cfg: ModelConfig, quantize=kv_quantize) -> torch.Tensor:
+           cfg: ModelConfig, rope: tuple, quantize=kv_quantize) -> torch.Tensor:
     """One transformer block over S tokens; writes the S new K/V slots of
-    layer ``i`` into ``cache`` in place (over the int8 ring through
-    ``quantize``: the kernel's wrapper, or the layer-looped decode's plain
+    layer ``i`` into ``cache`` in place.  ``rope`` is the pass's rotation
+    table (cos, sin) at ``positions`` (ops/rope.py): q is rotated by it, and
+    k too over the bf16 ring; over the int8 ring ``quantize`` rotates k as
+    it writes it (the kernel's wrapper, or the layer-looped decode's plain
     version passes ``kv_quantize_plain``)."""
     S = h.shape[0]
     n_kv, hd = cfg.n_kv_heads, cfg.head_dim
@@ -158,15 +130,15 @@ def _layer(h: torch.Tensor, layer, i: int, cache: dict,
     q = linear(hn, layer.wq).reshape(S, cfg.n_heads, hd)
     k = linear(hn, layer.wk).reshape(S, n_kv, hd)
     v = linear(hn, layer.wv).reshape(S, n_kv, hd)
-    q = rope_interleaved(q, positions, cfg.rope_theta)
-    k = rope_interleaved(k, positions, cfg.rope_theta)
+    q = rope_rotate(q, *rope)
 
     if cfg.kv_dtype == "int8":
-        # quantize the S new tokens' K and V straight into the ring slots
+        # rotate k, quantize the S new tokens' K and V straight into the ring
         ck, cv = cache["k_q"][i], cache["v_q"][i]                  # (n_kv, n_ctx, hd)
         cks, cvs = cache["k_s"][i], cache["v_s"][i]                # (n_kv, n_ctx)
-        quantize(k, v, ck, cv, cks, cvs, pos_offset)
+        quantize(k, v, *rope, ck, cv, cks, cvs, pos_offset)
     else:
+        k = rope_rotate(k, *rope)
         ck, cv = cache["k"][i], cache["v"][i]                      # (n_kv, n_ctx, hd)
         cks = cvs = None
         ck[:, pos_offset:pos_offset + S] = k.transpose(0, 1).to(ck.dtype)
@@ -239,8 +211,9 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, pos_offset: int,
         h = forward_layers_looped(params, cfg, h, pos_offset, cache, K, fmts)
     else:
         positions = pos_offset + torch.arange(S, device=h.device)
+        rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         for i, layer in enumerate(params.layers):
-            h = _layer(h, layer, i, cache, positions, pos_offset, cfg)
+            h = _layer(h, layer, i, cache, positions, pos_offset, cfg, rope)
     if return_all:
         hn = rms_norm(h, params.out_norm, cfg.rms_eps)
         return linear(hn, params.output).float()

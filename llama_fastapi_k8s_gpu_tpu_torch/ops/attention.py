@@ -37,6 +37,11 @@ HEAD_DIMS = (64, 128)
 _ROWS = 64
 
 
+def flash_takes(head_dim: int, group: int) -> bool:
+    """Whether the flash kernel takes this head size and GQA group."""
+    return head_dim in HEAD_DIMS and _ROWS % group == 0
+
+
 def attention_mask(q_pos: torch.Tensor, key_end: int,
                    sliding_window: int) -> torch.Tensor:
     """(S, key_end) bool: key ``c`` is visible to the query at ``q_pos``."""
@@ -126,7 +131,7 @@ def _launch(wrapper, launcher: str, q: torch.Tensor, k: torch.Tensor,
     name = wrapper.__name__
     S, H, hd = q.shape
     n_kv, n_ctx, _ = k.shape
-    if hd not in HEAD_DIMS or _ROWS % (H // n_kv):
+    if not flash_takes(hd, H // n_kv):
         raise ValueError(f"{name}: kernel takes head_dim in {HEAD_DIMS} "
                          f"and a GQA group dividing {_ROWS}, got hd={hd}, "
                          f"group={H // n_kv}")

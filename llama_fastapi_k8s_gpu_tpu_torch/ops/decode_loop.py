@@ -1,7 +1,7 @@
 """Layer-looped decode: K transformer layers of one decode token per launch.
 
 The per-layer decode step launches every linear, norm, RoPE, ring write and
-attention op of every layer on its own — some 1,300 launches a token at 32
+attention op of every layer on its own — some 2,000 kernels a token at 32
 layers, each costing the host tens of microseconds.  Under
 ``cfg.decode_layer_unroll`` (``LFKT_DECODE_LAYER_UNROLL``) a decode step
 (S == 1) runs the layer stack instead as L/K launches of one kernel
@@ -37,6 +37,7 @@ import weakref
 import torch
 
 from ._kernels import check, library, require_cuda, stream_ptr
+from .rope import rope_cos_sin
 
 #: per params object: its loop plan and, on the card, its weight table
 _PARAMS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -207,8 +208,9 @@ def decode_loop_plain(params, cache: dict, h: torch.Tensor, pos: int, layer0: in
     from .kvquant import kv_quantize_plain
 
     positions = pos + torch.arange(1, device=h.device)
+    rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     for i in range(layer0, layer0 + K):
-        h = _layer(h, params.layers[i], i, cache, positions, pos, cfg,
+        h = _layer(h, params.layers[i], i, cache, positions, pos, cfg, rope,
                    quantize=kv_quantize_plain)
     return h
 
@@ -258,8 +260,6 @@ def decode_loop_step(params, cache: dict, h: torch.Tensor, pos: int, layer0: int
             raise ValueError(f"decode_loop: ring leaf {tuple(t.shape)}, expected {shape}")
     h = h.reshape(-1).clone()
     require_cuda("decode_loop", h, *ring, dtypes=(torch.bfloat16, *dtypes))
-    from ..models.llama import rope_cos_sin
-
     table = _weight_table(params, cfg, w_int8)
     cos, sin = rope_cos_sin(torch.full((1,), pos, device=h.device), hd, cfg.rope_theta)
     kvd = cfg.n_kv_heads * hd

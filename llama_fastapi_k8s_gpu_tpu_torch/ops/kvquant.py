@@ -9,15 +9,17 @@ Only the S new tokens of a pass are quantized; every read of the ring
 moves int8.
 
 ``kv_quantize`` launches the CUDA kernel in ``csrc/kv_quantize.cu`` for
-CUDA tensors — one launch per layer quantizes the new K and V and writes
-values and scales into the ring slots ``[pos_offset, pos_offset + S)`` in
-place — and runs :func:`kv_quantize_plain` for CPU tensors.  Both are
-bit-identical to the JAX package's ``quantize_kv_xla``.
+CUDA tensors — one launch per layer rotates the new K by the pass's RoPE
+table, quantizes it and the new V, and writes values and scales into the
+ring slots ``[pos_offset, pos_offset + S)`` in place — and runs
+:func:`kv_quantize_plain` for CPU tensors.  Both are bit-identical to the
+JAX package's ``rope_interleaved`` on k followed by ``quantize_kv_xla``.
 
 Replaces the Pallas kernel llama_fastapi_k8s_gpu_tpu/ops/pallas/kvquant.py::
-_kvq_kernel (``quantize_kv_pallas``) together with the ring writes that
-follow it in the JAX model.  Unlike the JAX engine there is no startup
-probe that pins a fallback: a kernel that fails to build or launch raises.
+_kvq_kernel (``quantize_kv_pallas``) together with k's rotation before it
+and the ring writes after it in the JAX model.  Unlike the JAX engine there
+is no startup probe that pins a fallback: a kernel that fails to build or
+launch raises.
 """
 
 from __future__ import annotations
@@ -25,6 +27,10 @@ from __future__ import annotations
 import torch
 
 from ._kernels import check, library, require_cuda, stream_ptr
+from .rope import rope_rotate
+
+#: head sizes the CUDA kernel is compiled for
+HEAD_DIMS = (64, 128)
 
 
 def quantize_kv_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -49,24 +55,27 @@ def dequantize_kv(q: torch.Tensor, s: torch.Tensor,
     return (q.float() * s[..., None].float()).to(dtype)
 
 
-def kv_quantize_plain(k: torch.Tensor, v: torch.Tensor, kq: torch.Tensor,
-                      vq: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
-                      pos_offset: int) -> None:
-    """Plain PyTorch version: quantize the head-major slabs of ``k`` and
-    ``v`` and assign them into the ring slots."""
+def kv_quantize_plain(k: torch.Tensor, v: torch.Tensor, cos: torch.Tensor,
+                      sin: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
+                      ks: torch.Tensor, vs: torch.Tensor, pos_offset: int) -> None:
+    """Plain PyTorch version: rotate ``k`` by the table (``rope_rotate``),
+    then quantize the head-major slabs of k and v and assign them into the
+    ring slots."""
     S = k.shape[0]
-    for x, q_ring, s_ring in ((k, kq, ks), (v, vq, vs)):
+    for x, q_ring, s_ring in ((rope_rotate(k, cos, sin), kq, ks), (v, vq, vs)):
         q, s = quantize_kv_plain(x.transpose(0, 1))          # (n_kv, S, hd)
         q_ring[:, pos_offset:pos_offset + S] = q
         s_ring[:, pos_offset:pos_offset + S] = s
 
 
-def kv_quantize(k: torch.Tensor, v: torch.Tensor, kq: torch.Tensor,
-                vq: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+def kv_quantize(k: torch.Tensor, v: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                kq: torch.Tensor, vq: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
                 pos_offset: int) -> None:
-    """k, v (S, n_kv, hd) bf16, one layer's new keys (after RoPE) and
-    values → written in place into that layer's ring: ``kq``/``vq``
-    (n_kv, n_ctx, hd) int8 and ``ks``/``vs`` (n_kv, n_ctx) f32 at slots
+    """k, v (S, n_kv, hd) bf16, one layer's new keys (before RoPE) and
+    values, and the pass's rotation table ``cos``/``sin`` (S, hd/2) f32 (row
+    t: the angles at position ``pos_offset + t``) → k rotated, then both
+    written in place into that layer's ring: ``kq``/``vq`` (n_kv, n_ctx, hd)
+    int8 and ``ks``/``vs`` (n_kv, n_ctx) f32 at slots
     ``pos_offset .. pos_offset+S-1``."""
     S, n_kv, hd = k.shape
     n_ctx = kq.shape[1]
@@ -74,18 +83,27 @@ def kv_quantize(k: torch.Tensor, v: torch.Tensor, kq: torch.Tensor,
             or ks.shape != (n_kv, n_ctx) or vs.shape != ks.shape):
         raise ValueError(f"kv_quantize: k {tuple(k.shape)} / v {tuple(v.shape)} do "
                          f"not fit the ring {tuple(kq.shape)} / {tuple(ks.shape)}")
+    if hd % 2 or cos.shape != (S, hd // 2) or sin.shape != cos.shape:
+        raise ValueError(f"kv_quantize: the RoPE table {tuple(cos.shape)} / "
+                         f"{tuple(sin.shape)} does not fit k {tuple(k.shape)}")
     if pos_offset < 0 or pos_offset + S > n_ctx:
         raise ValueError(f"kv_quantize: positions {pos_offset}..{pos_offset + S} "
                          f"outside the {n_ctx}-slot ring")
     if k.device.type == "cpu":
-        return kv_quantize_plain(k, v, kq, vq, ks, vs, pos_offset)
-    k, v = k.contiguous(), v.contiguous()
-    require_cuda("kv_quantize", k, v, kq, vq, ks, vs,
-                 dtypes=(torch.bfloat16, torch.bfloat16, torch.int8, torch.int8,
-                         torch.float32, torch.float32))
+        return kv_quantize_plain(k, v, cos, sin, kq, vq, ks, vs, pos_offset)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"kv_quantize: the kernel takes head_dim in {HEAD_DIMS}, got {hd}")
+    k, v, cos, sin = k.contiguous(), v.contiguous(), cos.contiguous(), sin.contiguous()
+    require_cuda("kv_quantize", k, v, cos, sin, kq, vq, ks, vs,
+                 dtypes=(torch.bfloat16, torch.bfloat16, torch.float32, torch.float32,
+                         torch.int8, torch.int8, torch.float32, torch.float32))
+    if any(t.data_ptr() % 8 for t in (k, v, cos, sin, kq, vq)):
+        raise ValueError("kv_quantize: k, v, the table and the rings must be 8-byte "
+                         "aligned (a lane loads a row's elements and angles as one word)")
     check(library().lfkt_kv_quantize(
-        k.data_ptr(), v.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(),
-        vs.data_ptr(), S, n_kv, n_ctx, hd, pos_offset, stream_ptr(k)), "kv_quantize")
+        k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(), kq.data_ptr(),
+        vq.data_ptr(), ks.data_ptr(), vs.data_ptr(), S, n_kv, n_ctx, hd, pos_offset,
+        stream_ptr(k)), "kv_quantize")
     kv_quantize.launches += 1
 
 

@@ -31,7 +31,7 @@ class Settings:
     decode_chunk: int = 8              # decode steps per host read
     prefill_buckets: str = "128,256,512,1024"
     weight_format: str = "auto"        # auto | bf16 | int8 | q4k
-    attn_impl: str = "auto"            # auto | xla | flash (prompt passes)
+    attn_impl: str = "auto"            # auto | xla | pallas (= flash) (prompt passes)
     kv_dtype: str = "bf16"             # bf16 | int8 KV cache
     # layers per launch of the layer-looped decode kernel: 0 off, -1 all
     decode_layer_unroll: int = 0

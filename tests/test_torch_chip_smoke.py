@@ -158,3 +158,71 @@ def test_loop_positions_reads_share_and_growth():
     assert got[0]["slots"][1]["pos"] == 1023
     assert got[0]["last_over_first"] == pytest.approx(1.25)
     assert got[1]["last_over_first"] == 1.0
+
+
+@pytest.mark.parametrize("layout,fmt,want", [
+    # fused: token_embd alone, into bf16
+    ("q4km", "auto", {"dequant_q4_k": 1}),
+    ("q5km", "auto", {"dequant_q5_k": 1}),
+    ("q8_0", "auto", {"dequant_q8_0": 1}),
+    ("q6_k", "auto", {"dequant_q6_k": 1}),
+    # bf16: every linear (7 × 32) and the head, and token_embd
+    ("q8_0", "bf16", {"dequant_q8_0": 226}),
+    # int8: the Q4_K linears (5 × 32) and the Q6_K ones (2 × 32 + the head)
+    ("q4km", "int8", {"dequant_q4_k": 161, "dequant_q6_k": 65}),
+])
+def test_load_dequants_counts_a_load(layout, fmt, want):
+    plan = chip_smoke.load_dequants(layout, fmt)
+    got: dict = {}
+    for (name, shape, out), n in plan.items():
+        got[name] = got.get(name, 0) + n
+        assert shape in chip_smoke.DEQUANT_SHAPES
+        # token_embd and the bf16 load come out in bf16, the int8 load in f32
+        assert out == ("float32" if fmt == "int8" and (name, shape, out) != (
+            chip_smoke.DEQUANT_OF[chip_smoke.file_types(layout)["token_embd"]],
+            chip_smoke.HEAD_SHAPE, "bfloat16") else "bfloat16")
+    assert got == want
+
+
+def _dequant_lines(ms_of):
+    return [{"name": name, "shapes": [
+        {"shape": list(shape), "out": out, "graph_ms": ms_of(name, shape), "bound_ms": 1.0}
+        for shape in chip_smoke.DEQUANT_SHAPES for out in ("bfloat16", "float32")]}
+        for name in chip_smoke.DEQUANT_OF.values()]
+
+
+def test_dequant_rank_sums_launches_times_gap_over_the_six_engines():
+    """Made-up times: every shape 1 ms over a 1 ms bound, Q8_0's 4096-row
+    shapes 3 ms; the launches are the six engines' loads (PERF.md §6:
+    162 / 1 / 66 / 227)."""
+    lines = _dequant_lines(lambda name, shape: 3.0 if name == "dequant_q8_0"
+                           and shape[0] == 4096 else 2.0)
+    counters = {"dequant_q4_k": 162, "dequant_q5_k": 1, "dequant_q6_k": 66,
+                "dequant_q8_0": 227, "kv_quantize": 9}
+    got = chip_smoke.dequant_rank(lines, counters)
+    rows = {r["name"]: r for r in got["ranked"]}
+    assert {n: r["launches"] for n, r in rows.items()} == {
+        n: counters[n] for n in rows}
+    assert [r["name"] for r in got["ranked"]] == [
+        "dequant_q8_0", "dequant_q4_k", "dequant_q6_k", "dequant_q5_k"]
+    # Q8_0: 96 launches at 4096 rows (attn_q/output, ffn_down) lose 2 ms each
+    assert rows["dequant_q8_0"]["gap_ms"] == 96 * 2.0 + (227 - 96) * 1.0
+    assert rows["dequant_q4_k"]["gap_ms"] == 162.0
+    assert sum(rows["dequant_q8_0"]["by_shape"].values()) == 227
+    with pytest.raises(AssertionError, match="counters"):
+        chip_smoke.dequant_rank(lines, {**counters, "dequant_q6_k": 65})
+
+
+def test_device_kernels_counts_kernels_not_copies():
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def ev(name, dev):
+        return SimpleNamespace(name=name, device_type=dev)
+
+    events = [ev("aten::mm", DeviceType.CPU), ev("gemv_kernel", DeviceType.CUDA),
+              ev("Memcpy HtoD (Pageable -> Device)", DeviceType.CUDA),
+              ev("Memset (Device)", DeviceType.CUDA), ev("kv_quantize_kernel", DeviceType.CUDA)]
+    assert chip_smoke.device_kernels(events) == 2
+    assert chip_smoke.device_kernels([ev("aten::mm", DeviceType.CPU)]) == 0

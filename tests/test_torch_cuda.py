@@ -8,8 +8,9 @@ no card and no ``nvcc``).  On the GPU machine:
 (``--noconftest``: tests/conftest.py sets up JAX, which the GPU image does
 not carry; this file imports only the port.)  The first test builds the
 kernels from ``csrc/``.  Tolerances: the Q4_K / Q5_K / Q6_K / Q8_0
-dequants (bf16 and f32 outputs), the int8 KV write-quantize and the int8
-linear through ``torch._int_mm`` are bit-exact; the fused matmuls agree
+dequants (bf16 and f32 outputs), the int8 KV write (RoPE on k, then the
+quantize) and the int8 linear through ``torch._int_mm`` are bit-exact; the
+fused matmuls agree
 with the plain f32 product to one bf16 step of the output's scale; flash
 attention, over the bf16 and the int8 ring, to 2·10⁻² max-abs (the kernel
 rounds P to bf16 from its running row max, the plain version from the
@@ -366,6 +367,25 @@ def test_flash_attention_matches_plain(cuda, S, n_ctx, offsets, window, H, n_kv,
         assert (got.float() - want.float()).abs().max() <= 2e-2, off
 
 
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n_out,k_in", [(4096, 4096), (1024, 4096), (14336, 4096),
+                                        (4096, 14336), (128256, 4096)])
+def test_dequant_q8_0_load_shapes_bit_exact(cuda, n_out, k_in, out):
+    """The Q8_0 dequant at every shape an 8B load hands it (a layer's
+    linears, token_embd and the output head), into bf16 and f32: bit for
+    bit the plain version."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import dequant
+
+    raw = _blocks(np.random.default_rng(n_out + k_in), n_out, k_in, 34).to(cuda)
+    before = dequant.dequant_q8_0.launches
+    got, want = dequant.dequant_q8_0(raw, out), dequant.dequant_q8_0_plain(raw, out)
+    torch.cuda.synchronize()
+    assert dequant.dequant_q8_0.launches == before + 1
+    assert got.shape == (n_out * k_in,) and got.dtype == out
+    bits = torch.int16 if out == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
 @pytest.mark.parametrize("n_out,k_in", [(512, 1024), (37, 4352)])
 def test_dequant_q6_k_bit_exact(cuda, n_out, k_in):
     """Odd row counts: the kernel's last block of 8 super-blocks is partial."""
@@ -380,13 +400,17 @@ def test_dequant_q6_k_bit_exact(cuda, n_out, k_in):
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
-@pytest.mark.parametrize("S,pos_offset", [(1, 0), (1, 700), (256, 0), (256, 768), (37, 11)])
+@pytest.mark.parametrize("S,pos_offset", [(1, 0), (1, 700), (256, 0), (256, 256), (256, 768),
+                                          (37, 11)])
 @pytest.mark.parametrize("n_kv,hd", [(8, 128), (4, 64)])
-def test_kv_quantize_bit_exact(cuda, S, pos_offset, n_kv, hd):
-    """Written into a layer's ring in place, bit for bit the plain version's
-    ring, with an all-zero row and a half-way row among the inputs and the
-    other slots left alone."""
+@pytest.mark.parametrize("theta", [10000.0, 500000.0])
+def test_kv_quantize_bit_exact(cuda, S, pos_offset, n_kv, hd, theta):
+    """The un-rotated k and the pass's RoPE table in, written into a
+    layer's ring in place: bit for bit the plain version's ring (the plain
+    rotation, then the plain quantize), with an all-zero row and a half-way
+    row among the inputs and the other slots left alone."""
     from llama_fastapi_k8s_gpu_tpu_torch.ops import kvquant
+    from llama_fastapi_k8s_gpu_tpu_torch.ops.rope import rope_cos_sin
 
     n_ctx = 1024
     g = torch.Generator(device=cuda).manual_seed(S + pos_offset + hd)
@@ -395,17 +419,20 @@ def test_kv_quantize_bit_exact(cuda, S, pos_offset, n_kv, hd):
     k[0, 0] = 0
     v[0, 0] = 0
     v[0, 0, :4] = torch.tensor([127.0, 2.5, -3.5, 0.5])
+    cos, sin = rope_cos_sin(pos_offset + torch.arange(S, device=cuda), hd, theta)
     rings = [torch.full((n_kv, n_ctx, hd), 7, dtype=torch.int8, device=cuda) for _ in range(4)]
     scales = [torch.full((n_kv, n_ctx), 0.5, device=cuda) for _ in range(4)]
     before = kvquant.kv_quantize.launches
-    kvquant.kv_quantize(k, v, rings[0], rings[1], scales[0], scales[1], pos_offset)
-    kvquant.kv_quantize_plain(k, v, rings[2], rings[3], scales[2], scales[3], pos_offset)
+    kvquant.kv_quantize(k, v, cos, sin, rings[0], rings[1], scales[0], scales[1], pos_offset)
+    kvquant.kv_quantize_plain(k, v, cos, sin, rings[2], rings[3], scales[2], scales[3],
+                              pos_offset)
     torch.cuda.synchronize()
     assert kvquant.kv_quantize.launches == before + 1
     assert torch.equal(rings[0], rings[2]) and torch.equal(rings[1], rings[3])
     assert torch.equal(scales[0].view(torch.int32), scales[2].view(torch.int32))
     assert torch.equal(scales[1].view(torch.int32), scales[3].view(torch.int32))
     assert rings[1][0, pos_offset, :4].tolist() == [127, 2, -4, 0]
+    assert not rings[0][0, pos_offset].any() and scales[0][0, pos_offset] == 0
 
 
 @pytest.mark.parametrize("S,n_ctx,offsets", FLASH_SPANS)
@@ -429,7 +456,7 @@ def test_flash_attention_int8_matches_plain(cuda, S, n_ctx, offsets, window, H, 
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    from llama_fastapi_k8s_gpu_tpu_torch.ops import attention, q4k
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import attention, kvquant, q4k
 
     q = torch.zeros(4, 6, 96, dtype=torch.bfloat16, device=cuda)
     kv = torch.zeros(2, 16, 96, dtype=torch.bfloat16, device=cuda)
@@ -447,6 +474,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     w = torch.zeros(8, 144, dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
         q4k.q4k_matmul(torch.zeros(1, 256, device=cuda), w, 8, 256)   # f32 x
+    k96 = torch.zeros(1, 2, 96, dtype=torch.bfloat16, device=cuda)
+    ring = torch.zeros(2, 16, 96, dtype=torch.int8, device=cuda)
+    sc, table = torch.zeros(2, 16, device=cuda), torch.zeros(1, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        kvquant.kv_quantize(k96, k96, table, table, ring, ring, sc, sc, 0)
 
 
 @pytest.mark.parametrize("gtype", ["Q4_K", "Q5_K", "Q6_K", "Q8_0"])

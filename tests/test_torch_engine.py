@@ -121,3 +121,42 @@ def test_looped_int8_engine_matches_its_per_layer_twin(tmp_path):
     b = plain.create_chat_completion(MSGS, temperature=0.0, seed=3)
     assert a["choices"][0]["message"] == b["choices"][0]["message"]
     assert a["usage"]["completion_tokens"] == 12
+
+
+@pytest.mark.parametrize("impl,want", [("auto", "xla"), ("xla", "xla"),
+                                       ("pallas", "flash"), ("flash", "flash")])
+def test_engine_takes_every_reference_attn_impl(tmp_path, impl, want):
+    """The reference's ``attn_impl`` values (auto | xla | pallas) and the
+    port's ``flash`` build an engine; ``pallas`` names the flash path (on
+    the CPU, its plain version), ``auto`` on the CPU the score matrix.
+    Greedy text is the same on every path of the tiny model."""
+    path = str(tmp_path / "tiny.gguf")
+    write_tiny_llama_gguf(path, quant=JGGMLType.F16)
+    eng = Engine(path, n_ctx=256, max_gen_tokens=8, attn_impl=impl, device="cpu")
+    assert eng.cfg.attn_impl == want
+    ref = Engine(path, n_ctx=256, max_gen_tokens=8, attn_impl="xla", device="cpu")
+    got = eng.create_chat_completion(MSGS, temperature=0.0, seed=1)
+    assert got["choices"][0]["message"] == \
+        ref.create_chat_completion(MSGS, temperature=0.0, seed=1)["choices"][0]["message"]
+    with pytest.raises(ValueError, match="attn_impl"):
+        Engine(path, n_ctx=256, attn_impl="mosaic", device="cpu")
+
+
+@pytest.mark.parametrize("n_heads,n_kv,want", [(32, 8, "flash"), (32, 1, "flash"),
+                                               (64, 1, "flash"), (24, 8, "xla"),
+                                               (40, 8, "xla"), (128, 1, "xla")])
+def test_auto_attention_follows_the_flash_kernels_group_limit(n_heads, n_kv, want):
+    """``auto`` picks flash on the GPU for any GQA group dividing the
+    kernel's 64 query rows (groups 4, 32 and 64 here) and the score matrix
+    for a group that does not (3, 5, 128); on the CPU always the score
+    matrix."""
+    from llama_fastapi_k8s_gpu_tpu_torch.engine.engine import resolve_attn_impl
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+    from llama_fastapi_k8s_gpu_tpu_torch.ops.attention import _ROWS
+
+    cfg = ModelConfig(vocab_size=256, dim=n_heads * 128, n_layers=1, n_heads=n_heads,
+                      n_kv_heads=n_kv, ffn_dim=256, n_ctx=64)
+    assert cfg.head_dim == 128
+    assert (want == "flash") == (_ROWS % (n_heads // n_kv) == 0)
+    assert resolve_attn_impl("auto", cfg, torch.device("cuda")) == want
+    assert resolve_attn_impl("auto", cfg, torch.device("cpu")) == "xla"

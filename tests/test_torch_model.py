@@ -170,6 +170,34 @@ def test_greedy_decode_16_tokens_identical_int8_kv(tiny):
     _greedy_16_identical(tiny, "int8")
 
 
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_rope_table_computed_once_per_forward(tiny, monkeypatch, kv_dtype):
+    """The per-layer path computes a pass's RoPE table once, in
+    ``forward``, and every layer rotates from it (over the int8 ring the KV
+    write rotates k from it too): a prompt pass and a decode step of the
+    two-layer tiny model call ``rope_cos_sin`` once each."""
+    import llama_fastapi_k8s_gpu_tpu_torch.models.llama as llama
+
+    _, _, cfg, params = tiny
+    cfg = dataclasses.replace(cfg, kv_dtype=kv_dtype)
+    assert cfg.n_layers == 2
+    calls = []
+    table = llama.rope_cos_sin
+
+    def counted(*args):
+        calls.append(args[0].shape[0])
+        return table(*args)
+
+    monkeypatch.setattr(llama, "rope_cos_sin", counted)
+    cache = init_cache(cfg, CPU)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, 12))
+    with torch.inference_mode():
+        forward(params, cfg, toks, 0, cache)
+        assert calls == [12]
+        lg = decode_step(params, cfg, torch.tensor(5), 12, cache)
+    assert calls == [12, 1] and torch.isfinite(lg).all()
+
+
 def _fused_file_matches_reference(tmp_path, quant, ffn_quant, formats,
                                   kv_dtype="bf16"):
     """A dim-2048 file with ``quant`` attention and ``ffn_quant`` FFN

@@ -7,9 +7,9 @@ Q4_K/Q5_K/Q6_K/Q8_0 matmuls against the Pallas kernels in interpret mode —
 for Q5_K under both of its TPU layouts (``pre``, the default, and ``cur``)
 and for Q6_K under ``pre`` too, each layout a kernel body of its own — the flash
 attention, over the bf16 and the int8 ring, against the Pallas flash kernel
-(interpret) and the XLA score-matrix path, the int8 KV write-quantize and
-the Q6_K dequant against theirs bit for bit, and the model's small f32 ops
-exactly.
+(interpret) and the XLA score-matrix path, the int8 KV write (RoPE on k,
+then the quantize) and the Q6_K dequant against theirs bit for bit, and the
+model's small f32 ops exactly.
 
 Tolerances:
 - fused matmuls, rel-dev ‖y−y_ref‖/‖y_ref‖ ≤ 5·10⁻³ — the reference's own
@@ -22,7 +22,8 @@ Tolerances:
   plain versions round the probabilities (times ``vs`` on the int8 ring)
   to bf16 before P·V as that kernel does, from the global row max where it
   uses its running max;
-- the KV write-quantize and the Q6_K dequant: bit-identical;
+- the KV write (RoPE on k, then the quantize) and the Q6_K dequant:
+  bit-identical;
 - the int8 linear: ``make_linear_int8`` (q and s) and the product itself
   bit-identical to the reference's (the int32 accumulation is exact, and
   the activation quantize and the f32 rescale round at the same steps);
@@ -75,6 +76,7 @@ from llama_fastapi_k8s_gpu_tpu_torch.ops.q4k import q4k_matmul
 from llama_fastapi_k8s_gpu_tpu_torch.ops.q5k import q5k_matmul
 from llama_fastapi_k8s_gpu_tpu_torch.ops.q6k import q6k_matmul
 from llama_fastapi_k8s_gpu_tpu_torch.ops.q8 import q8_matmul
+from llama_fastapi_k8s_gpu_tpu_torch.ops.rope import rope_cos_sin
 
 torch.set_num_threads(1)
 
@@ -337,29 +339,39 @@ def test_quantize_kv_matches_reference_bit_for_bit(seed):
     assert np.abs(q.astype(np.int32) - q1).max() <= 1
 
 
-@pytest.mark.parametrize("S,pos_offset", [(1, 0), (1, 61), (37, 0), (37, 20)])
-def test_kv_quantize_writes_the_reference_ring_slots(S, pos_offset):
-    """The in-place write (the kernel's function, on the CPU its plain
-    version) equals ``quantize_kv_xla`` of the head-major slab followed by
-    the reference's ``dynamic_update_slice``s, and leaves the other slots
-    alone."""
-    n_kv, n_ctx, hd = 4, 64, 128
-    rng = np.random.default_rng(S + pos_offset)
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("theta", [10000.0, 500000.0])
+@pytest.mark.parametrize("S,pos_offset", [(1, 0), (1, 700), (37, 20), (256, 256)])
+def test_kv_quantize_writes_the_reference_ring_slots(S, pos_offset, theta, hd):
+    """The int8 KV write (the kernel's function, on the CPU its plain
+    version) takes the un-rotated k and the pass's RoPE table: the ring
+    equals the reference's ``rope_interleaved`` on k, ``quantize_kv_xla`` of
+    the head-major slabs and its ``dynamic_update_slice``s, bit for bit,
+    and the other slots are left alone."""
+    n_kv, n_ctx = 2, 1024
+    rng = np.random.default_rng(S + pos_offset + hd)
     k = _bf16(rng.standard_normal((S, n_kv, hd)) * 3.0)
     v = _bf16(rng.standard_normal((S, n_kv, hd)))
+    positions = pos_offset + torch.arange(S)
+    cos, sin = rope_cos_sin(positions, hd, theta)
     rings = [torch.full((n_kv, n_ctx, hd), 7, dtype=torch.int8) for _ in range(2)]
     scales = [torch.full((n_kv, n_ctx), 0.5) for _ in range(2)]
-    kv_quantize(k, v, *rings, *scales, pos_offset)
-    for x, ring, sc in ((k, rings[0], scales[0]), (v, rings[1], scales[1])):
-        jq, js = quantize_kv_xla(jnp.asarray(x.float().numpy(), jnp.bfloat16).transpose(1, 0, 2))
+    kv_quantize(k, v, cos, sin, *rings, *scales, pos_offset)
+    jk = j_rope(jnp.asarray(k.float().numpy(), jnp.bfloat16),
+                jnp.asarray(positions.numpy(), jnp.int32), theta)
+    jv = jnp.asarray(v.float().numpy(), jnp.bfloat16)
+    for x, ring, sc in ((jk, rings[0], scales[0]), (jv, rings[1], scales[1])):
+        jq, js = quantize_kv_xla(x.transpose(1, 0, 2))
         want_q = np.full((n_kv, n_ctx, hd), 7, np.int8)
         want_s = np.full((n_kv, n_ctx), 0.5, np.float32)
         want_q[:, pos_offset:pos_offset + S] = np.asarray(jq)
         want_s[:, pos_offset:pos_offset + S] = np.asarray(js)
         assert np.array_equal(ring.numpy(), want_q)
         assert np.array_equal(sc.numpy().view(np.int32), want_s.view(np.int32))
-    with pytest.raises(ValueError):
-        kv_quantize(k, v, *rings, *scales, n_ctx - S + 1)
+    with pytest.raises(ValueError, match="positions"):
+        kv_quantize(k, v, cos, sin, *rings, *scales, n_ctx - S + 1)
+    with pytest.raises(ValueError, match="table"):
+        kv_quantize(k, v, cos[:, :-1], sin[:, :-1], *rings, *scales, pos_offset)
 
 
 @pytest.mark.parametrize("S,offsets", [(1, (0, 64, 511)), (64, (0, 64, 448)),
