@@ -28,7 +28,8 @@ and no result line):
    torch it absorbed (``absorbed_graph_ms``: the table and k's rotation);
    the dequants also at every shape the loads give them, into bf16 and
    f32, from a graph beside the byte bound (a ``dequant_shapes`` line
-   each);
+   each), and at an odd shape (a ``dequant_odd`` line each), the Q4_K and
+   Q5_K ones on blocks whose every header byte is random;
    and, as ``int8_linear`` lines, the int8 linear the int8 engines serve
    (``torch._int_mm``, a library call) at the 8B shapes.  The fused
    matmuls' lines name the launcher's path (``tc``: the tensor-core
@@ -211,6 +212,21 @@ def rand_q5k(rng, n_out: int, k_in: int):
     blk[:, 2:4] = np.array([np.float16(15.5 * float(d))], np.float16).view(np.uint8)
     sc = rng.integers(32, 64, (nb, 8), dtype=np.uint8)
     blk[:, 4:16] = pack_scale_min_k4(sc, sc)
+    return blk.reshape(n_out, -1)
+
+
+def rand_k4_headers(rng, n_out: int, k_in: int, size: int):
+    """(n_out, k_in) weights as Q4_K (``size`` 144) or Q5_K (176) block
+    bytes for the dequant checks: every byte random, so a sub-block's 6-bit
+    scale and min are independent and every bit of the 12 packed bytes
+    counts, with a finite f16 d and dmin drawn for each block.  (The fused
+    matmuls' checks keep :func:`rand_q4k` / :func:`rand_q5k`, whose weights
+    have a matmul's statistics.)"""
+    import numpy as np
+
+    nb = n_out * k_in // 256
+    blk = np.frombuffer(rng.bytes(nb * size), np.uint8).reshape(nb, size).copy()
+    blk[:, 0:4] = rng.uniform(1e-4, 1e-3, (nb, 2)).astype(np.float16).view(np.uint8)
     return blk.reshape(n_out, -1)
 
 
@@ -643,6 +659,14 @@ def check_kv_quantize(rng, S, pos_offset, n_kv=8, hd=128, n_ctx=1024,
     }
 
 
+def dequant_input(name: str, rng, n_out: int, k_in: int):
+    """The (``n_out``, ``k_in``) block bytes a dequant check decodes: the
+    K-quant formats with random headers (:func:`rand_k4_headers`)."""
+    if name in ("dequant_q4_k", "dequant_q5_k"):
+        return rand_k4_headers(rng, n_out, k_in, 144 if name == "dequant_q4_k" else 176)
+    return {"dequant_q6_k": rand_q6k, "dequant_q8_0": rand_q8_0}[name](rng, n_out, k_in)
+
+
 def check_dequant(name, rng, n_out=128256, k_in=4096, dtype="bfloat16",
                   plain: bool = True) -> dict:
     """A dequant kernel against its plain version, bit for bit, on an
@@ -655,11 +679,9 @@ def check_dequant(name, rng, n_out=128256, k_in=4096, dtype="bfloat16",
 
     from llama_fastapi_k8s_gpu_tpu_torch.ops import dequant
 
-    rand = {"dequant_q4_k": rand_q4k, "dequant_q5_k": rand_q5k,
-            "dequant_q6_k": rand_q6k, "dequant_q8_0": rand_q8_0}[name]
     kern, plain_fn = getattr(dequant, name), getattr(dequant, name + "_plain")
     dt = getattr(torch, dtype)
-    raw = torch.from_numpy(np.ascontiguousarray(rand(rng, n_out, k_in))).cuda()
+    raw = torch.from_numpy(np.ascontiguousarray(dequant_input(name, rng, n_out, k_in))).cuda()
     y = kern(raw, dt)
     y_ref = plain_fn(raw, dt)
     torch.cuda.synchronize()
@@ -964,6 +986,8 @@ def route_thresholds(layers: list, launcher: dict) -> list:
 #: the (N, K) the loads hand a dequant: a layer's linears (attn_q/output,
 #: attn_k/v, ffn_gate/up, ffn_down) and token_embd / the output head
 DEQUANT_SHAPES = ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336), HEAD_SHAPE)
+#: an odd shape (37 rows of 17 super-blocks: 629) that the dequants are also held to
+DEQUANT_ODD = (37, 4352)
 #: the dequant kernel of each GGML block type
 DEQUANT_OF = {"Q4_K": "dequant_q4_k", "Q5_K": "dequant_q5_k", "Q6_K": "dequant_q6_k",
               "Q8_0": "dequant_q8_0"}
@@ -1054,6 +1078,10 @@ def phase_kernels(names) -> tuple[dict, list]:
                             for dt in ("bfloat16", "float32")]
             deq_lines.append(dequant_shapes(name, rng, shapes[name]))
             say("dequant_shapes", **deq_lines[-1])
+            # an odd row count: the last CUDA block's lanes past the end
+            for dt in ("bfloat16", "float32"):
+                check_dequant(name, rng, *DEQUANT_ODD, dt, plain=False)
+            say("dequant_odd", name=name, shape=list(DEQUANT_ODD), bit_exact=True)
         elif name == "decode_loop":
             shapes[name] = [check_decode_loop(w8, kv8) for w8 in (False, True)
                             for kv8 in (False, True)]

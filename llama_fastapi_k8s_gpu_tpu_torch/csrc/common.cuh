@@ -41,10 +41,6 @@ __device__ __forceinline__ void load8_a2(const uint8_t* p, uint32_t& lo, uint32_
 __device__ __forceinline__ float lo_bf(uint32_t u) { return __uint_as_float(u << 16); }
 __device__ __forceinline__ float hi_bf(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
 
-// One dequantized value into a bf16 (round to nearest even) or an f32 output
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float y) { *p = __float2bfloat16_rn(y); }
-__device__ __forceinline__ void store_out(float* p, float y) { *p = y; }
-
 // 8 consecutive dequantized values at a 16-byte aligned address: one
 // 16-byte store in bf16 (round to nearest even), two in f32
 __device__ __forceinline__ void store8(__nv_bfloat16* out, const float* y) {
@@ -110,6 +106,23 @@ __device__ __forceinline__ void scale_min_k4(const uint8_t* s, int j, int& sc, i
     } else {
         sc = (s[j + 4] & 0x0F) | ((s[j - 4] >> 6) << 4);
         mn = (s[j + 4] >> 4) | ((s[j] >> 6) << 4);
+    }
+}
+
+// The same from the 12 packed bytes held in registers as three
+// little-endian words: s0 = bytes 0..3, s1 = 4..7, s2 = 8..11.
+__device__ __forceinline__ void scale_min_k4(uint32_t s0, uint32_t s1, uint32_t s2, int j,
+                                             int& sc, int& mn) {
+    const int sh = 8 * (j & 3);
+    const int a = (s0 >> sh) & 0xFF;     // s[j & 3]
+    const int b = (s1 >> sh) & 0xFF;     // s[(j & 3) + 4]
+    const int c = (s2 >> sh) & 0xFF;     // s[(j & 3) + 8]
+    if (j < 4) {
+        sc = a & 63;
+        mn = b & 63;
+    } else {
+        sc = (c & 0x0F) | ((a >> 6) << 4);
+        mn = (c >> 4) | ((b >> 6) << 4);
     }
 }
 

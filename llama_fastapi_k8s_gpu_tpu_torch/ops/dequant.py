@@ -13,7 +13,9 @@ the f32 output feeds the int8 requantization of ``weight_format="int8"``
 Replace the Pallas kernels llama_fastapi_k8s_gpu_tpu/ops/pallas/dequant.py::
 _q4_k_kernel, _q5_k_kernel, _q6_k_kernel and _q8_0_kernel.  Unlike the JAX
 ``device_dequant`` there is no latch that falls back to the host codec: a
-kernel that fails to build or launch raises.
+kernel that fails to build or launch raises, and so does a CUDA tensor
+whose bytes start off the kernel's load alignment (16 bytes for Q4_K and
+Q5_K, 2 for Q6_K and Q8_0; a fresh upload is 256-byte aligned).
 
 The ``*_f32`` helpers are the codecs' arithmetic in PyTorch (each step
 rounded in f32 as numpy rounds it); the fused matmuls' plain versions
@@ -117,10 +119,11 @@ def dequant_q8_0_plain(raw: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 def _dequant(wrapper, plain, launcher: str, raw: torch.Tensor, block_bytes: int,
-             block_elems: int, dtype) -> torch.Tensor:
+             block_elems: int, dtype, align: int) -> torch.Tensor:
     """Raw bytes (any shape, whole blocks) → flat ``dtype`` (bf16 or f32):
-    the kernel for a CUDA tensor (counted on ``wrapper.launches``),
-    ``plain`` for a CPU one."""
+    the kernel for a CUDA tensor (counted on ``wrapper.launches``), whose
+    bytes must start at an ``align``-byte boundary (the kernel's widest
+    load), ``plain`` for a CPU one."""
     name = wrapper.__name__
     if raw.dtype != torch.uint8 or raw.numel() % block_bytes:
         raise ValueError(f"{name}: need uint8 bytes in whole {block_bytes}-byte "
@@ -131,6 +134,9 @@ def _dequant(wrapper, plain, launcher: str, raw: torch.Tensor, block_bytes: int,
         return plain(raw, dtype)
     raw = raw.contiguous()
     require_cuda(name, raw)
+    if raw.data_ptr() % align:
+        raise ValueError(f"{name}: raw bytes not {align}-byte aligned "
+                         f"(the kernel loads {align} bytes at a time)")
     nb = raw.numel() // block_bytes
     out = torch.empty(nb * block_elems, dtype=dtype, device=raw.device)
     check(getattr(library(), launcher)(raw.data_ptr(), out.data_ptr(), nb,
@@ -144,28 +150,28 @@ def dequant_q4_k(raw: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """Raw Q4_K bytes (``numel % 144 == 0``) → flat ``dtype`` (bf16 or f32)
     of ``numel / 144 · 256`` elements."""
     return _dequant(dequant_q4_k, dequant_q4_k_plain, "lfkt_dequant_q4k", raw,
-                    Q4K_BLOCK, QK_K, dtype)
+                    Q4K_BLOCK, QK_K, dtype, 16)
 
 
 def dequant_q5_k(raw: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """Raw Q5_K bytes (``numel % 176 == 0``) → flat ``dtype`` (bf16 or f32)
     of ``numel / 176 · 256`` elements."""
     return _dequant(dequant_q5_k, dequant_q5_k_plain, "lfkt_dequant_q5k", raw,
-                    Q5K_BLOCK, QK_K, dtype)
+                    Q5K_BLOCK, QK_K, dtype, 16)
 
 
 def dequant_q6_k(raw: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """Raw Q6_K bytes (``numel % 210 == 0``) → flat ``dtype`` (bf16 or f32)
     of ``numel / 210 · 256`` elements."""
     return _dequant(dequant_q6_k, dequant_q6_k_plain, "lfkt_dequant_q6k", raw,
-                    Q6K_BLOCK, QK_K, dtype)
+                    Q6K_BLOCK, QK_K, dtype, 2)
 
 
 def dequant_q8_0(raw: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """Raw Q8_0 bytes (``numel % 34 == 0``) → flat ``dtype`` (bf16 or f32)
     of ``numel / 34 · 32`` elements."""
     return _dequant(dequant_q8_0, dequant_q8_0_plain, "lfkt_dequant_q8_0", raw,
-                    Q8_0_BLOCK, QK8_0, dtype)
+                    Q8_0_BLOCK, QK8_0, dtype, 2)
 
 
 dequant_q4_k.launches = 0

@@ -226,3 +226,69 @@ def test_device_kernels_counts_kernels_not_copies():
               ev("Memset (Device)", DeviceType.CUDA), ev("kv_quantize_kernel", DeviceType.CUDA)]
     assert chip_smoke.device_kernels(events) == 2
     assert chip_smoke.device_kernels([ev("aten::mm", DeviceType.CPU)]) == 0
+
+
+@pytest.mark.parametrize("name,size", [("dequant_q4_k", 144), ("dequant_q5_k", 176)])
+def test_dequant_input_randomises_every_k_quant_header(name, size):
+    """The dequant checks' Q4_K / Q5_K blocks: a scale that differs from its
+    min somewhere, every 6-bit value reachable, and a d and dmin per block
+    (a swapped scale and min, or a neighbour's header, would not pass)."""
+    import numpy as np
+
+    from llama_fastapi_k8s_gpu_tpu_torch.gguf.quants import unpack_scale_min_k4
+
+    raw = chip_smoke.dequant_input(name, np.random.default_rng(0), 37, 4352)
+    assert raw.shape == (37, 17 * size) and raw.dtype == np.uint8
+    blk = raw.reshape(-1, size)
+    sc, mn = unpack_scale_min_k4(blk[:, 4:16])
+    assert (sc != mn).any()
+    assert {int(v) for v in np.unique(sc)} == set(range(64))
+    assert {int(v) for v in np.unique(mn)} == set(range(64))
+    d, dmin = (blk[:, a:a + 2].copy().view(np.float16)[:, 0] for a in (0, 2))
+    assert len(np.unique(d)) > 1 and len(np.unique(dmin)) > 1
+    assert np.isfinite(d).all() and np.isfinite(dmin).all()
+    assert (d != dmin).any()
+
+
+def test_dequant_shapes_and_rank_read_every_k_quant_shape(monkeypatch):
+    """Rows 1 and 9b (Q4_K, Q5_K): ``dequant_shapes`` times every load
+    shape into bf16 and f32, and ``dequant_rank`` reads each launched
+    (shape, out) from those lines."""
+    seen = []
+
+    def fake_check(name, rng, n_out=128256, k_in=4096, dtype="bfloat16", plain=True):
+        seen.append((name, (n_out, k_in), dtype))
+        return {"shape": [n_out, k_in], "out": dtype, "ms": 2.0, "graph_ms": 1.5,
+                "bound_ms": 1.0}
+
+    monkeypatch.setattr(chip_smoke, "check_dequant", fake_check)
+    want = {(shape, out) for shape in chip_smoke.DEQUANT_SHAPES
+            for out in ("bfloat16", "float32")}
+    lines = []
+    for name in chip_smoke.DEQUANT_OF.values():
+        head = [fake_check(name, None, dtype=dt) for dt in ("bfloat16", "float32")]
+        seen.clear()
+        line = chip_smoke.dequant_shapes(name, None, head)
+        got = {(tuple(r["shape"]), r["out"]) for r in line["shapes"]}
+        assert got == want and len(line["shapes"]) == len(want)
+        # the head's shape comes from the kernel lines, the others are checked here
+        assert {(s, o) for _, s, o in seen} == want - {(chip_smoke.HEAD_SHAPE, o)
+                                                        for o in ("bfloat16", "float32")}
+        assert all(r["over_bound"] == 1.5 for r in line["shapes"])
+        lines.append(line)
+    rows = {r["name"]: r for r in chip_smoke.dequant_rank(lines)["ranked"]}
+    for name in ("dequant_q4_k", "dequant_q5_k"):
+        plan: dict = {}
+        for layout, fmt in chip_smoke.ENGINES:
+            for (kern, shape, out), n in chip_smoke.load_dequants(layout, fmt).items():
+                if kern == name:
+                    key = f"{shape[0]}x{shape[1]} {out}"
+                    plan[key] = plan.get(key, 0) + n
+        assert rows[name]["by_shape"] == plan
+        assert rows[name]["gap_ms"] == 0.5 * sum(plan.values())
+    # the int8 load's f32 layer shapes and both heads of Q4_K; Q5_K's token_embd
+    assert rows["dequant_q4_k"]["launches"] == 162
+    assert set(rows["dequant_q4_k"]["by_shape"]) == {
+        "4096x4096 float32", "1024x4096 float32", "14336x4096 float32",
+        "128256x4096 bfloat16"}
+    assert rows["dequant_q5_k"]["by_shape"] == {"128256x4096 bfloat16": 1}

@@ -87,15 +87,23 @@ def test_dequant_q4_k_bit_exact(cuda):
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
-@pytest.mark.parametrize("fmt,n_out,k_in", [("q5k", 512, 1024), ("q5k", 37, 4352),
-                                            ("q8", 512, 1024), ("q8", 37, 4128)])
-def test_dequant_q5_k_and_q8_0_bit_exact(cuda, fmt, n_out, k_in):
-    """Bit for bit the plain version (the codec cast to bf16), at an odd
-    number of rows and, for Q8_0, rows of 129 blocks."""
+def _dequant(fmt):
+    """(wrapper, plain version) of a format's load-time dequant."""
     from llama_fastapi_k8s_gpu_tpu_torch.ops import dequant
 
-    kern, plain = ((dequant.dequant_q5_k, dequant.dequant_q5_k_plain) if fmt == "q5k"
-                   else (dequant.dequant_q8_0, dequant.dequant_q8_0_plain))
+    name = {"q4k": "dequant_q4_k", "q5k": "dequant_q5_k", "q6k": "dequant_q6_k",
+            "q8": "dequant_q8_0"}[fmt]
+    return getattr(dequant, name), getattr(dequant, name + "_plain")
+
+
+@pytest.mark.parametrize("fmt,n_out,k_in", [("q4k", 37, 4352), ("q5k", 512, 1024),
+                                            ("q5k", 37, 4352), ("q8", 512, 1024),
+                                            ("q8", 37, 4128)])
+def test_dequant_q4_k_q5_k_and_q8_0_bit_exact(cuda, fmt, n_out, k_in):
+    """Bit for bit the plain version (the codec cast to bf16), at an odd
+    number of rows (629 Q4_K / Q5_K super-blocks: the last CUDA block is
+    partial) and, for Q8_0, rows of 129 blocks."""
+    kern, plain = _dequant(fmt)
     raw = _blocks(np.random.default_rng(n_out), n_out, k_in, SIZES[fmt]).to(cuda)
     before = kern.launches
     got, want = kern(raw), plain(raw)
@@ -370,20 +378,36 @@ def test_flash_attention_matches_plain(cuda, S, n_ctx, offsets, window, H, n_kv,
 @pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n_out,k_in", [(4096, 4096), (1024, 4096), (14336, 4096),
                                         (4096, 14336), (128256, 4096)])
-def test_dequant_q8_0_load_shapes_bit_exact(cuda, n_out, k_in, out):
-    """The Q8_0 dequant at every shape an 8B load hands it (a layer's
-    linears, token_embd and the output head), into bf16 and f32: bit for
-    bit the plain version."""
-    from llama_fastapi_k8s_gpu_tpu_torch.ops import dequant
-
-    raw = _blocks(np.random.default_rng(n_out + k_in), n_out, k_in, 34).to(cuda)
-    before = dequant.dequant_q8_0.launches
-    got, want = dequant.dequant_q8_0(raw, out), dequant.dequant_q8_0_plain(raw, out)
+@pytest.mark.parametrize("fmt", ["q4k", "q5k", "q8"])
+def test_dequant_load_shapes_bit_exact(cuda, fmt, n_out, k_in, out):
+    """The Q4_K, Q5_K and Q8_0 dequants at every shape an 8B load hands
+    them (a layer's linears, token_embd and the output head), into bf16
+    and f32, every header byte random: bit for bit the plain version."""
+    kern, plain = _dequant(fmt)
+    raw = _blocks(np.random.default_rng(n_out + k_in), n_out, k_in, SIZES[fmt]).to(cuda)
+    before = kern.launches
+    got, want = kern(raw, out), plain(raw, out)
     torch.cuda.synchronize()
-    assert dequant.dequant_q8_0.launches == before + 1
+    assert kern.launches == before + 1
     assert got.shape == (n_out * k_in,) and got.dtype == out
     bits = torch.int16 if out == torch.bfloat16 else torch.int32
     assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.parametrize("fmt,off", [("q4k", 8), ("q5k", 8), ("q6k", 1), ("q8", 1)])
+def test_dequant_refuses_a_misaligned_raw_tensor(cuda, fmt, off):
+    """Raw bytes off the kernel's load alignment (16 bytes for Q4_K and
+    Q5_K, 2 for Q6_K and Q8_0) raise, with no copy and no launch."""
+    kern, _ = _dequant(fmt)
+    size = SIZES[fmt]
+    buf = _blocks(np.random.default_rng(0), 8, 1024, size).to(cuda).reshape(-1)
+    raw = torch.empty(buf.numel() + off, dtype=torch.uint8, device=cuda)[off:]
+    raw.copy_(buf)
+    assert raw.is_contiguous() and raw.data_ptr() % 16 == off
+    before = kern.launches
+    with pytest.raises(ValueError, match="aligned"):
+        kern(raw)
+    assert kern.launches == before
 
 
 @pytest.mark.parametrize("n_out,k_in", [(512, 1024), (37, 4352)])
