@@ -60,7 +60,17 @@ and no result line):
    kernel launches go on a line of their own, and so do the launches of
    one decode token and of one 256-token prompt slice (``per_token``,
    ``per_slice``: the port's kernels by their counters, and every CUDA
-   kernel as ``torch.profiler`` records it, ``cuda_kernels``).  Two more engines
+   kernel as ``torch.profiler`` records it, ``cuda_kernels``; ``per_token``
+   also for one graph replay).  Every engine decodes by replays of its
+   captured decode step: a ``graph`` line holds 64 greedy replays against
+   the eager step on a clone of the ring (tokens and every cache leaf
+   bit-identical, or the run fails), a ``replay_trace`` line breaks a
+   replay's device time down by part (``torch.profiler``), and on the
+   Q4_K_M file one more request at the reference's 25 s timeout must
+   return 200 with all 512 tokens (``deadline_request``).  With
+   ``CHIP_SMOKE_REPLIES_OUT`` the run writes every request's token ids;
+   with ``CHIP_SMOKE_REPLIES`` (an earlier run's) it prints a
+   ``reply_change`` line where a reply parts from it.  Two more engines
    serve files already written, with the layer-looped decode armed: the
    Q4_K_M file as int8 weights with one looped launch a token
    (``decode_layer_unroll=-1``), and the Q8_0 file as bf16 weights over the
@@ -79,6 +89,7 @@ The last line is ``{"ok": true, "device": {...}}``.  No JAX anywhere.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -628,12 +639,12 @@ def check_kv_quantize(rng, S, pos_offset, n_kv=8, hd=128, n_ctx=1024,
     scales = [torch.zeros(n_kv, n_ctx, device="cuda") for _ in range(4)]
 
     def kern():
-        kvquant.kv_quantize(k, v, cos, sin, rings[0], rings[1], scales[0], scales[1],
-                            pos_offset)
+        kvquant.kv_quantize(k, v, cos, sin, positions, rings[0], rings[1], scales[0],
+                            scales[1])
 
     def plain():
-        kvquant.kv_quantize_plain(k, v, cos, sin, rings[2], rings[3], scales[2], scales[3],
-                                  pos_offset)
+        kvquant.kv_quantize_plain(k, v, cos, sin, positions, rings[2], rings[3], scales[2],
+                                  scales[3])
 
     kern()
     plain()
@@ -786,8 +797,9 @@ def check_decode_loop(w_int8: bool, kv_int8: bool, K: int = 2, pos: int = 700,
     h = torch.randn(1, cfg.dim, generator=g, device="cuda").to(torch.bfloat16)
     got_c = {k: v.clone() for k, v in cache.items()}
     want_c = {k: v.clone() for k, v in cache.items()}
-    got = decode_loop.decode_loop_step(params, got_c, h, pos, 0, cfg, fmts, K)
-    want = decode_loop.decode_loop_plain(params, want_c, h, pos, 0, cfg, fmts, K)
+    at = torch.tensor([pos], device="cuda")        # the slot, in device memory
+    got = decode_loop.decode_loop_step(params, got_c, h, at, 0, cfg, fmts, K)
+    want = decode_loop.decode_loop_plain(params, want_c, h, at, 0, cfg, fmts, K)
     torch.cuda.synchronize()
     rel = _rel(got, want)
     if not (torch.isfinite(got).all() and rel <= LOOP_TOL):
@@ -803,24 +815,28 @@ def check_decode_loop(w_int8: bool, kv_int8: bool, K: int = 2, pos: int = 700,
         return loop_bound(wbytes, weights, K, cfg.n_kv_heads, cfg.n_heads, cfg.head_dim,
                           cfg.dim, slot + 1, w_int8, kv_int8)
 
+    def at_slot(slot):
+        t = torch.tensor([slot], device="cuda")
+        return {"pos": slot, "bound_ms": bound_at(slot)["bound_ms"],
+                "ms": cuda_ms(lambda: decode_loop.decode_loop_step(params, got_c, h, t, 0, cfg,
+                                                                   fmts, K), 20)}
+
     out = {
         "variant": f"{fmt} weights, {cfg.kv_dtype} ring", "layers": K, "pos": pos,
         "dim": cfg.dim, "ffn": cfg.ffn_dim, "max_abs_err": (got.float() - want.float()).abs().max().item(),
         "h_rel": rel, "tol": LOOP_TOL, **slots,
-        "ms": cuda_ms(lambda: decode_loop.decode_loop_step(params, got_c, h, pos, 0, cfg, fmts, K), 20),
+        "ms": cuda_ms(lambda: decode_loop.decode_loop_step(params, got_c, h, at, 0, cfg, fmts, K), 20),
         # the device time alone: the eager launch also pays the wrapper's
         # host work (the RoPE angles, the checks), which is near the
         # kernel's time at two layers
-        "graph_ms": graph_ms(lambda: decode_loop.decode_loop_step(params, got_c, h, pos, 0, cfg,
+        "graph_ms": graph_ms(lambda: decode_loop.decode_loop_step(params, got_c, h, at, 0, cfg,
                                                                   fmts, K)),
-        "plain_ms": cuda_ms(lambda: decode_loop.decode_loop_plain(params, want_c, h, pos, 0, cfg,
+        "plain_ms": cuda_ms(lambda: decode_loop.decode_loop_plain(params, want_c, h, at, 0, cfg,
                                                                   fmts, K), 5),
         "library_ms": None,
         **bound_at(pos),
         # slots past the filled ones hold zeros: the time does not read them
-        "positions": [{"pos": p, "ms": cuda_ms(lambda: decode_loop.decode_loop_step(
-            params, got_c, h, p, 0, cfg, fmts, K), 20), "bound_ms": bound_at(p)["bound_ms"]}
-            for p in sweep],
+        "positions": [at_slot(p) for p in sweep],
     }
     del params, cache, got_c, want_c
     return out
@@ -1291,21 +1307,304 @@ def _http(port: int, method: str, path: str, payload=None, timeout=300):
         conn.close()
 
 
-def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
-                kv_dtype: str = "bf16", weight_format: str = "auto", unroll: int = 0,
-                label: str | None = None, expect_unroll: int = 0) -> dict:
-    """Serve ``path`` in ``weight_format`` over a ``kv_dtype`` KV cache with
-    ``decode_layer_unroll=unroll`` and return each kernel's launches on that
-    path."""
+@contextlib.contextmanager
+def serving(app):
+    """The in-tree httpd serving ``app`` on its own event loop in a thread,
+    at 127.0.0.1; yields (port, the thread)."""
     import asyncio
 
+    from llama_fastapi_k8s_gpu_tpu_torch.server import httpd
+
+    port = _free_port()
+    loop = asyncio.new_event_loop()
+    up, stop = asyncio.Event(), asyncio.Event()
+    th = threading.Thread(target=loop.run_until_complete, daemon=True,
+                          args=(httpd.serve(app, "127.0.0.1", port, up, stop),))
+    th.start()
+    t_up = time.time()
+    while not up.is_set():
+        if not th.is_alive() or time.time() - t_up > 120:
+            raise RuntimeError("httpd did not come up")
+        time.sleep(0.05)
+    try:
+        yield port, th
+    finally:
+        loop.call_soon_threadsafe(stop.set)
+        th.join(120)
+        loop.close()
+
+
+#: every finished request's prompt and generated ids, by engine (in order)
+REPLIES: list = []
+
+
+def record_replies(eng, ordinal: int, sink: list = REPLIES) -> None:
+    """Wrap ``eng``'s per-request bookkeeping and its completion call: each
+    finished request appends its engine's ``ordinal``, prompt ids,
+    generated ids and ``finish_reason`` to ``sink``."""
+    finish, complete = eng._finish, eng.create_chat_completion
+
+    def finished(ctx):
+        sink.append({"engine": ordinal, "prompt": list(ctx["prompt_ids"]),
+                     "ids": list(ctx["ids"])})
+        return finish(ctx)
+
+    def completion(*args, **kw):
+        out = complete(*args, **kw)
+        if isinstance(out, dict):
+            sink[-1]["finish_reason"] = out["choices"][0]["finish_reason"]
+        return out
+
+    eng._finish, eng.create_chat_completion = finished, completion
+
+
+def reply_key(rec: dict, earlier: list) -> tuple:
+    """(engine, prompt digest, occurrence): a request's key across runs."""
+    digest = hashlib.sha256(json.dumps(rec["prompt"]).encode()).hexdigest()[:16]
+    seen = sum(1 for r in earlier if r["engine"] == rec["engine"]
+               and r["prompt"] == rec["prompt"])
+    return rec["engine"], digest, seen
+
+
+def reply_changes(now: list, before: list) -> list:
+    """Per request of ``now`` whose key ``before`` has with other ids: the
+    record, the first differing index and the two tokens there."""
+    old = {reply_key(r, before[:i]): r for i, r in enumerate(before)}
+    out = []
+    for i, rec in enumerate(now):
+        prev = old.get(reply_key(rec, now[:i]))
+        if prev is None or prev["ids"] == rec["ids"]:
+            continue
+        n = min(len(prev["ids"]), len(rec["ids"]))
+        at = next((j for j in range(n) if prev["ids"][j] != rec["ids"][j]), n)
+        out.append({"rec": rec, "first_diff": at,
+                    "before": prev["ids"][at] if at < len(prev["ids"]) else None,
+                    "now": rec["ids"][at] if at < len(rec["ids"]) else None})
+    return out
+
+
+def top2_margin(eng, prompt: list, ids: list, at: int, sp) -> dict:
+    """The top-2 margin of the served sampling chain's penalized logits at
+    reply token ``at``: one prompt pass over the prompt and the reply's
+    first ``at`` tokens on a scratch ring (the reply's own steps were
+    decode steps, so this reads the same logits to ~10⁻² rel-dev)."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import prefill
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import (
+        apply_penalties,
+        sampling_tensors,
+        seed_window,
+    )
+
+    seq = prompt + ids[:at]
+    ring = {k: torch.zeros_like(v) for k, v in eng._cache.items()}
+    logits = prefill(eng.params, eng.cfg, torch.tensor(seq, device=eng.device), len(seq), ring)
+    window, _ = seed_window(seq, eng.device)
+    pen = apply_penalties(logits.float(), window, sampling_tensors(sp, eng.device))
+    top = torch.topk(pen, 2)
+    return {"top2": top.indices.tolist(), "margin": (top.values[0] - top.values[1]).item(),
+            "margin_rel": ((top.values[0] - top.values[1]) / pen.abs().max()).item()}
+
+
+def check_graph(label: str, eng, ids: list, steps: int = 64) -> dict:
+    """Decode by graph replay against the eager step: prefill ``ids`` into
+    the engine's ring, clone it, then ``steps`` greedy tokens by replays of
+    the engine's captured step (chunks of the engine's size) and by the
+    eager step on the clone, from the same first sample.  Tokens and every
+    cache leaf must be bit-identical; reports the first differing token and
+    ring slot, the capture times, the keys held and replays per token."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import (
+        decode_step,
+        first_sample,
+        generate_chunk,
+        init_state,
+        prefill,
+    )
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import SamplingParams, sampling_tensors
+
+    graphs = eng._graphs
+    sp = SamplingParams(temperature=0.0)
+    with eng._lock, torch.inference_mode():
+        cache = eng._cache
+        logits = prefill(eng.params, eng.cfg, torch.tensor(ids, device=eng.device), len(ids),
+                         cache)
+        ring = {k: v.clone() for k, v in cache.items()}
+        st = graphs.knobs(sampling_tensors(sp, eng.device))
+        state = graphs.state(ids, 0)
+        replays = graphs.replays
+        got = [int(first_sample(logits, state, st))]
+        while len(got) <= steps:
+            got += generate_chunk(eng.params, eng.cfg, state, st,
+                                  min(eng.decode_chunk, steps + 1 - len(got))).tolist()
+        replays = graphs.replays - replays
+        eager = init_state(ring, ids, 0, eng.device)
+        est = sampling_tensors(sp, eng.device)
+        want = [int(first_sample(logits, eager, est))]
+        want += [int(decode_step(eng.params, eng.cfg, eager, est)) for _ in range(steps)]
+        eng._prefix_ids = []            # the ring holds this check's slots now
+        torch.cuda.synchronize()
+        diff_tok = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        diff_slot = {}
+        for name, leaf in cache.items():
+            ne = (leaf != ring[name]).reshape(leaf.shape[0], leaf.shape[1], leaf.shape[2], -1)
+            bad = ne.any(-1).nonzero()
+            if len(bad):
+                layer, head, slot = bad[0].tolist()
+                diff_slot[name] = {"layer": layer, "head": head, "slot": slot}
+    out = {"file": label, "capture_s": graphs.captures, "keys": graphs.keys,
+           "steps": steps, "positions": [len(ids), len(ids) + steps - 1],
+           "replays_per_token": replays / steps,
+           "tokens_identical": diff_tok is None and len(got) == len(want),
+           "first_token_diff": diff_tok, "cache_identical": not diff_slot,
+           "first_cache_diff": diff_slot or None}
+    say("graph", **out)
+    if not (out["tokens_identical"] and out["cache_identical"]):
+        raise AssertionError(f"{label}: graph replay is not bit-identical to the eager step: "
+                             f"{out}")
+    return out
+
+
+#: kernel-name fragments (lower case) of each part of a decode token; the
+#: rest ("other"): norms, RoPE, the residual adds, the embedding gather,
+#: the penalties, index and copy kernels
+KERNEL_PARTS = (
+    ("fused_linears", ("qgemv_kernel", "qmma_kernel")),
+    ("looped_layers", ("decode_loop_kernel",)),
+    ("kv_write", ("kv_quantize_kernel",)),
+    ("cublas", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitkreduce", "cublas")),
+    ("softmax", ("softmax",)),
+    ("sort", ("sort", "radix")),
+)
+
+
+def kernel_part(name: str) -> str:
+    """The part of a decode token a CUDA kernel's name places it in
+    (:data:`KERNEL_PARTS`), else ``other``."""
+    low = name.lower()
+    for part, frags in KERNEL_PARTS:
+        if any(f in low for f in frags):
+            return part
+    return "other"
+
+
+def replay_breakdown(kernels: list, replays: int) -> dict:
+    """Per decode token, from the profiler's CUDA kernels of ``replays``
+    back-to-back replays (each (name, start µs, end µs)): µs and kernels by
+    :func:`kernel_part`, the busy µs (their union), the span from the first
+    start to the last end and the idle µs between kernels."""
+    parts: dict = {}
+    for name, t0, t1 in kernels:
+        p = parts.setdefault(kernel_part(name), {"us": 0.0, "kernels": 0})
+        p["us"] += (t1 - t0) / replays
+        p["kernels"] += 1
+    for p in parts.values():
+        p["kernels"] /= replays
+    busy, end = 0.0, None
+    for t0, t1 in sorted((k[1], k[2]) for k in kernels):
+        if end is None or t0 >= end:
+            busy += t1 - t0
+            end = t1
+        elif t1 > end:
+            busy += t1 - end
+            end = t1
+    span = (max(k[2] for k in kernels) - min(k[1] for k in kernels)) if kernels else 0.0
+    return {"parts": parts, "busy_us": busy / replays, "span_us": span / replays,
+            "idle_us": (span - busy) / replays,
+            "idle_share": (span - busy) / span if span else None}
+
+
+def replay_trace(label: str, eng, slot: int = 700, replays: int = 4, reps: int = 32) -> dict:
+    """One decode token by graph replay on the engine's ring at ``slot``:
+    its device ms by CUDA events over ``reps`` replays, and a
+    ``torch.profiler`` trace of ``replays`` replays broken down by
+    :func:`replay_breakdown`, with the ten costliest kernels; beside them
+    the device ms of the token's sampling and of its decode attention
+    (32 layers of :func:`xla_attention` over the ring, per-layer engines),
+    each alone from a CUDA graph."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import generate_chunk
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import xla_attention
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import (
+        SamplingParams,
+        sample_chain,
+        sampling_tensors,
+    )
+
+    graphs, cfg = eng._graphs, eng.cfg
+    with eng._lock, torch.inference_mode():
+        st = graphs.knobs(sampling_tensors(SamplingParams(temperature=0.0), eng.device))
+        state = graphs.state([5] * slot, 0)
+
+        def token():
+            generate_chunk(eng.params, cfg, state, st, 1)
+
+        token()
+        replay_ms = cuda_ms(token, reps)
+        state = graphs.state([5] * slot, 0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(replays):
+                token()
+            torch.cuda.synchronize()
+        eng._prefix_ids = []
+        kernels = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset"))]
+        logits = torch.randn(cfg.vocab_size, device=eng.device)
+        sampling_ms = graph_ms(lambda: sample_chain(logits, state["window"], None, st))
+        attention_ms = None
+        if not cfg.decode_layer_unroll:
+            pos = torch.tensor([slot], device=eng.device)
+            q = torch.randn(1, cfg.n_heads, cfg.head_dim, device=eng.device).to(torch.bfloat16)
+            c = eng._cache
+            leaves = ((c["k"][0], c["v"][0], None, None) if "k" in c else
+                      (c["k_q"][0], c["v_q"][0], c["k_s"][0], c["v_s"][0]))
+            attention_ms = cfg.n_layers * graph_ms(
+                lambda: xla_attention(q, leaves[0], leaves[1], pos, cfg, torch.bfloat16,
+                                      cks=leaves[2], cvs=leaves[3]))
+    top: dict = {}
+    for name, t0, t1 in kernels:
+        top[name] = top.get(name, 0.0) + (t1 - t0) / replays
+    out = {"file": label, "slot": slot, "replay_ms": replay_ms, "traced_replays": replays,
+           **(replay_breakdown(kernels, replays) if kernels else
+              {"missing": "torch.profiler recorded no CUDA kernel event"}),
+           "sampling_graph_ms": sampling_ms, "attention_graph_ms": attention_ms,
+           "top_kernels_us": dict(sorted(top.items(), key=lambda kv: -kv[1])[:10])}
+    say("replay_trace", **out)
+    return out
+
+
+#: the served requests' sampling settings (the app's at temperature 0, the
+#: engine's defaults for the rest), for :func:`top2_margin`
+def served_sampling(settings):
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import SamplingParams
+
+    return SamplingParams(temperature=settings.temperature, top_p=settings.top_p,
+                          frequency_penalty=settings.frequency_penalty,
+                          presence_penalty=settings.presence_penalty)
+
+
+def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
+                kv_dtype: str = "bf16", weight_format: str = "auto", unroll: int = 0,
+                label: str | None = None, expect_unroll: int = 0, ordinal: int = 0,
+                earlier: list | None = None, deadline_request: bool = False) -> dict:
+    """Serve ``path`` in ``weight_format`` over a ``kv_dtype`` KV cache with
+    ``decode_layer_unroll=unroll`` and return each kernel's launches on that
+    path.  ``ordinal`` numbers the engine for :func:`record_replies`;
+    ``earlier`` holds an earlier run's replies to compare with;
+    ``deadline_request`` adds one request at the reference's 25 s timeout."""
     import torch
 
     from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
     from llama_fastapi_k8s_gpu_tpu_torch.models.generate import prefill, prefill_chunk
     from llama_fastapi_k8s_gpu_tpu_torch.models.llama import decode_step
     from llama_fastapi_k8s_gpu_tpu_torch.models.params import LOOP_LINEARS
-    from llama_fastapi_k8s_gpu_tpu_torch.server import httpd
     from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
     from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
 
@@ -1316,12 +1615,13 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
     # the GPU, auto attention
     eng = Engine(path, kv_dtype=kv_dtype, weight_format=weight_format,
                  decode_layer_unroll=unroll)
+    record_replies(eng, ordinal)
     eng.warmup()
     load_s = time.time() - t0
     formats = eng.params.formats()
     say("load", file=label, seconds=round(load_s, 1), attn_impl=eng.cfg.attn_impl,
         kv_dtype=eng.cfg.kv_dtype, formats=formats, decode_layer_unroll=unroll,
-        weight_gb=round(eng.weight_bytes / 1e9, 3))
+        weight_gb=round(eng.weight_bytes / 1e9, 3), graph_capture_s=eng._graphs.captures)
     want = (served_formats(layout) if weight_format == "auto"
             else dict.fromkeys((*LOOP_LINEARS, "output"), weight_format))
     if formats != want:
@@ -1336,61 +1636,54 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
         raise AssertionError(f"{label}: kv_cache_bytes {eng.kv_cache_bytes}, "
                              f"allocated {live}, expected {ring_bytes}")
     # the reference's serving defaults, greedy, with a timeout that leaves
-    # room for this run's un-tuned kernels
+    # room for the whole reply on any engine
     settings = Settings(temperature=0.0, timeout_seconds=600.0)
     app = create_app(engine=eng, settings=settings)
-    # the in-tree httpd on its own event loop in a thread, at 127.0.0.1
-    port = _free_port()
-    loop = asyncio.new_event_loop()
-    up, stop = asyncio.Event(), asyncio.Event()
-    th = threading.Thread(target=loop.run_until_complete, daemon=True,
-                          args=(httpd.serve(app, "127.0.0.1", port, up, stop),))
-    th.start()
-    t_up = time.time()
-    while not up.is_set():
-        if not th.is_alive() or time.time() - t_up > 120:
-            raise RuntimeError("httpd did not come up")
-        time.sleep(0.05)
     results = []
-    try:
-        short = [("user", "hi"), ("assistant", "hey"), ("user", "how are you?")]
-        story = ("I spent the morning walking by the river, watching the boats "
-                 "and thinking about the trip we planned last summer. ")
-        # a different opening than the short one, so the long prompt shares
-        # no reusable prefix with it and prefills from slot 0 in slices
-        long_ctx = [("user", "hello, I have a long story to tell you.")]
-        for i in range(2):
-            long_ctx += [("assistant", f"tell me more, part {i}."),
-                         ("user", story[:100])]
+    short = [("user", "hi"), ("assistant", "hey"), ("user", "how are you?")]
+    story = ("I spent the morning walking by the river, watching the boats "
+             "and thinking about the trip we planned last summer. ")
+    # a different opening than the short one, so the long prompt shares
+    # no reusable prefix with it and prefills from slot 0 in slices
+    long_ctx = [("user", "hello, I have a long story to tell you.")]
+    for i in range(2):
+        long_ctx += [("assistant", f"tell me more, part {i}."),
+                     ("user", story[:100])]
+    with serving(app) as (port, th):
         for req, ctx in (("short", short), ("long", long_ctx)):
             st, doc = _http(port, "POST", "/response", body(ctx))
-            results.append((req, st, doc, dict(eng.last_timings or {})))
+            results.append((req, st, doc, dict(eng.last_timings or {}), REPLIES[-1]))
         if follow_up:
             follow = long_ctx + [("assistant", results[-1][2].get("response", "")[:40]),
                                  ("user", "and what happened next?")]
             st, doc = _http(port, "POST", "/response", body(follow))
-            results.append(("follow_up", st, doc, dict(eng.last_timings or {})))
+            results.append(("follow_up", st, doc, dict(eng.last_timings or {}), REPLIES[-1]))
         hst, hdoc = _http(port, "GET", "/health")
-    finally:
-        loop.call_soon_threadsafe(stop.set)
-        th.join(120)
+        alive = th.is_alive()
     launches = {name: fn.launches for name, fn in counters.items()}
     say("launches", file=label, **launches)
-    for req, st, doc, tm in results:
+    for req, st, doc, tm, rec in results:
         text = (doc or {}).get("response", "")
         say("request", file=label, label=req, status=st, chars=len(text),
             sha256=hashlib.sha256(text.encode()).hexdigest()[:16],
             prompt_tokens=tm.get("prompt_tokens"), bucket=tm.get("bucket"),
             reused=tm.get("prefix_reused_tokens"), ttft_s=tm.get("ttft_s"),
             completion_tokens=tm.get("completion_tokens"),
+            finish_reason=rec.get("finish_reason"),
             tokens_per_sec=tm.get("tokens_per_sec"), head=text[:60])
         if st != 200 or not text:
             raise AssertionError(f"{req}: status {st}, body {doc}")
+    for ch in reply_changes([r[4] for r in results], earlier or []):
+        rec = ch.pop("rec")
+        say("reply_change", file=label, prompt_tokens=len(rec["prompt"]),
+            completion_tokens=len(rec["ids"]), **ch,
+            **top2_margin(eng, rec["prompt"], rec["ids"], ch["first_diff"],
+                          served_sampling(settings)))
     engine_doc = (hdoc or {}).get("engine") or {}
     say("health", file=label, status=hst, state=(hdoc or {}).get("state"),
         engine=engine_doc)
-    if hst != 200 or th.is_alive():
-        raise AssertionError(f"/health {hst}, httpd stopped: {not th.is_alive()}")
+    if hst != 200 or not alive:
+        raise AssertionError(f"/health {hst}, httpd stopped: {not alive}")
     if (engine_doc.get("kv_dtype"), engine_doc.get("kv_cache_bytes")) != (kv_dtype, ring_bytes):
         raise AssertionError(f"/health reports kv_dtype {engine_doc.get('kv_dtype')} and "
                              f"{engine_doc.get('kv_cache_bytes')} bytes, expected "
@@ -1398,13 +1691,38 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
     if engine_doc.get("decode_layer_unroll") != expect_unroll:
         raise AssertionError(f"/health reports decode_layer_unroll "
                              f"{engine_doc.get('decode_layer_unroll')}, expected {expect_unroll}")
-    loop.close()
     if follow_up and not results[2][3].get("prefix_reused_tokens"):
         raise AssertionError("the follow-up turn did not take prefix reuse")
+    if deadline_request:
+        # the reference's own timeout (Settings' 25 s): the whole default
+        # reply of 512 tokens must come back, neither cut at the deadline
+        # nor answered 408 — greedy, so the reply is the same every run
+        dflt = Settings(temperature=0.0)
+        with serving(create_app(engine=eng, settings=dflt)) as (port, _):
+            t_req = time.time()
+            st, doc = _http(port, "POST", "/response", body(short))
+            wall = time.time() - t_req
+        rec, tm = REPLIES[-1], dict(eng.last_timings or {})
+        say("deadline_request", file=label, timeout_seconds=dflt.timeout_seconds, status=st,
+            completion_tokens=tm.get("completion_tokens"),
+            finish_reason=rec.get("finish_reason"), wall_s=wall, ttft_s=tm.get("ttft_s"),
+            tokens_per_sec=tm.get("tokens_per_sec"))
+        if (st, tm.get("completion_tokens"), rec.get("finish_reason")) != (
+                200, dflt.max_gen_tokens, "length"):
+            raise AssertionError(f"{label}: the {dflt.timeout_seconds} s request returned "
+                                 f"{st} with {tm.get('completion_tokens')} tokens, finish "
+                                 f"{rec.get('finish_reason')}")
 
-    # launches of one decode token and of one 256-token prompt slice, on a
-    # scratch ring (not part of the served path's counts above): the port's
-    # kernels by their counters, and every CUDA kernel by the profiler
+    # the served model's logits, then the graph against the eager step (on
+    # the engine's ring, which nothing serves now), then the launches of one
+    # decode token and one 256-token prompt slice
+    ids = eng.tokenize_messages(
+        [{"role": "user" if t == "user" else "assistant", "content": m}
+         for t, m in long_ctx])
+    check_graph(label, eng, ids)
+    # on a scratch ring (not part of the served path's counts above): the
+    # port's kernels by their counters and every CUDA kernel by the
+    # profiler, for the eager step and for one replay of the captured one
     scratch = {k: torch.zeros_like(v) for k, v in eng._cache.items()}
     per = {}
     for what, fn in (
@@ -1420,12 +1738,14 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
         per[what]["cuda_kernels"] = kernels
         if why:
             per[what]["cuda_kernels_missing"] = why
-    say("per_token", file=label, **per["token"])
+    graph_token = graph_token_kernels(eng, counters)
+    say("per_token", file=label, **per["token"], graph=graph_token)
     say("per_slice", file=label, **per["slice"])
     if expect_unroll and per["token"].get("decode_loop") != cfg.n_layers // expect_unroll:
         raise AssertionError(f"{label}: one decode token launched the looped kernel "
                              f"{per['token'].get('decode_loop')} times, expected "
                              f"{cfg.n_layers // expect_unroll}")
+    replay_trace(label, eng)
 
     # the served model's logits: finite, and the flash prompt pass agrees
     # with the plain score-matrix one on the long prompt (over the int8
@@ -1433,9 +1753,6 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
     # scales).  Tolerance 5e-2 rel-dev: the plain path rounds its
     # probabilities to bf16 before P·V (as the reference does), the kernel
     # keeps them in f32, and the difference passes through every layer.
-    ids = eng.tokenize_messages(
-        [{"role": "user" if t == "user" else "assistant", "content": m}
-         for t, m in long_ctx])
     toks = torch.tensor(ids, device=eng.device)
     cache = scratch
     lg_flash = prefill(eng.params, eng.cfg, toks, len(ids), cache)
@@ -1450,11 +1767,39 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
                              f"flash vs plain rel-dev {rel}")
     if expect_unroll:
         check_looped_path(label, eng, toks)
-    # free this engine's weights before the next file loads
+    # free this engine's weights and graphs before the next file loads
+    eng.close()
     del app, eng, cache, scratch, lg_flash, lg_xla
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def graph_token_kernels(eng, counters: dict) -> dict:
+    """One decode token by graph replay on the engine's ring: the host's
+    graph launches (replays), the port's kernels by their counters (what
+    the replay adds) and every CUDA kernel by ``torch.profiler``."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import generate_chunk
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import SamplingParams, sampling_tensors
+
+    graphs = eng._graphs
+    with eng._lock, torch.inference_mode():
+        st = graphs.knobs(sampling_tensors(SamplingParams(temperature=0.0), eng.device))
+        state = graphs.state([5] * 300, 0)
+        for c in counters.values():
+            c.launches = 0
+        replays = graphs.replays
+        kernels, why = profiled_kernels(
+            lambda: generate_chunk(eng.params, eng.cfg, state, st, 1))
+        eng._prefix_ids = []
+    out = {"host_graph_launches": graphs.replays - replays,
+           **{n: c.launches for n, c in counters.items() if c.launches},
+           "cuda_kernels": kernels}
+    if why:
+        out["cuda_kernels_missing"] = why
+    return out
 
 
 def device_kernels(events) -> int:
@@ -1562,19 +1907,30 @@ def main() -> int:
     kernels, deq_lines = phase_kernels(KERNELS)
     paths = {layout: phase_gguf(layout) for layout in LAYOUTS}
     launches = dict.fromkeys(KERNELS, 0)
-    for layout, path in paths.items():
-        # the prefix-reuse follow-up rides on the Q4_K_M file and, over the
-        # int8 ring, on the Q6_K file
-        served = phase_serve(layout, path, KERNELS, follow_up=layout in ("q4km", "q6_k"),
-                             kv_dtype=KV_DTYPES.get(layout, "bf16"))
+    # an earlier run's replies (CHIP_SMOKE_REPLIES), to print where each
+    # greedy reply of this run parts from it
+    earlier = []
+    if os.environ.get("CHIP_SMOKE_REPLIES"):
+        with open(os.environ["CHIP_SMOKE_REPLIES"]) as fh:
+            earlier = json.load(fh)
+    engines = [(layout, dict(follow_up=layout in ("q4km", "q6_k"),
+                             kv_dtype=KV_DTYPES.get(layout, "bf16"),
+                             deadline_request=layout == "q4km"))
+               for layout in LAYOUTS]
+    # the prefix-reuse follow-up rides on the Q4_K_M file and, over the
+    # int8 ring, on the Q6_K file; the request at the reference's 25 s
+    # timeout on the default Q4_K_M file
+    engines += [(layout, dict(follow_up=False, kv_dtype=kv_dtype, weight_format=fmt,
+                              unroll=unroll, label=label, expect_unroll=expect))
+                for label, layout, fmt, kv_dtype, unroll, expect in LOOPED]
+    for ordinal, (layout, kw) in enumerate(engines):
+        served = phase_serve(layout, paths[layout], KERNELS, ordinal=ordinal,
+                             earlier=earlier, **kw)
         for name, n in served.items():
             launches[name] += n
-    for label, layout, fmt, kv_dtype, unroll, expect in LOOPED:
-        served = phase_serve(layout, paths[layout], KERNELS, follow_up=False,
-                             kv_dtype=kv_dtype, weight_format=fmt, unroll=unroll,
-                             label=label, expect_unroll=expect)
-        for name, n in served.items():
-            launches[name] += n
+    if os.environ.get("CHIP_SMOKE_REPLIES_OUT"):
+        with open(os.environ["CHIP_SMOKE_REPLIES_OUT"], "w") as fh:
+            json.dump(REPLIES, fh)
     say("dequant_rank", **dequant_rank(deq_lines, launches))
     for name, n in launches.items():
         kernels[name]["launches"] = n

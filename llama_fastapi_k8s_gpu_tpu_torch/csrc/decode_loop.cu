@@ -3,6 +3,7 @@
 //   hn = rms_norm(h, attn_norm)                       (f32 -> bf16)
 //   q, k, v = hn Wq^T, hn Wk^T, hn Wv^T               (-> bf16)
 //   q, k = rope(q), rope(k) at `pos`                  (f32 -> bf16)
+//          (`pos`: the token's ring slot, read from device memory at entry)
 //   ring[l][:, pos] = k, v                            (bf16, or int8 + f32 scale)
 //   ctx = softmax(q K^T * hd^-0.5 [* k_s]) [* v_s] V  (f32 scores and softmax,
 //                                                      probabilities -> bf16,
@@ -122,12 +123,13 @@ struct LoopArgs {
     __nv_bfloat16* act;                // scratch (ffn)
     const float* cos_t;                // (hd / 2) at pos
     const float* sin_t;
+    const long long* positions;        // (1) the token's ring slot `pos`, read at entry
     unsigned int* bar;                 // the barrier counter (zero before the first launch)
     float* part;                       // attention partials: (n_heads, max_chunks, hd) sums
                                        // of P.V, (n_heads, max_chunks, 2) of (m, l), then
                                        // (n_heads, n_ctx) scores
     unsigned int* cnt;                 // (2, n_kv) arrivals per KV head (zero between launches)
-    int layer0, n_layers, dim, ffn, n_heads, n_kv, hd, n_ctx, pos, window, max_chunks;
+    int layer0, n_layers, dim, ffn, n_heads, n_kv, hd, n_ctx, window, max_chunks;
     float eps, sm_scale;
 };
 
@@ -427,7 +429,7 @@ __device__ __forceinline__ void linear_rows(const void* const (&w)[R], const voi
 // at pos — bf16, or int8 codes and their scale, bit-exact with
 // kv_quantize — and the same values into the item's staged row.
 template <bool KV8, typename KT>
-__device__ __forceinline__ void new_slot(const LoopArgs& a, int j, bool is_v, KT* ring,
+__device__ __forceinline__ void new_slot(const LoopArgs& a, int pos, int j, bool is_v, KT* ring,
                                          float* scale, KT* staged, float* staged_scale,
                                          int lane) {
     const int hd = a.hd;
@@ -445,7 +447,7 @@ __device__ __forceinline__ void new_slot(const LoopArgs& a, int j, bool is_v, KT
             amax = fmaxf(amax, fmaxf(fabsf(x1), fabsf(x2)));
         }
     }
-    const size_t slot = static_cast<size_t>(j) * a.n_ctx + a.pos;
+    const size_t slot = static_cast<size_t>(j) * a.n_ctx + pos;
     KT* dst = ring + slot * hd;
     if constexpr (KV8) {
         float inv;
@@ -486,9 +488,10 @@ __device__ __forceinline__ int chunk_keys(int lo, int pos, int n_kv, int blocks)
 // P2: the attention of layer `layer` over ring slots [lo, pos], a work item
 // (KV head j x key chunk) a block; see the header for the two steps.
 template <bool KV8>
-__device__ void attention_phase(const LoopArgs& a, int layer, unsigned char* sm, int* flag) {
+__device__ void attention_phase(const LoopArgs& a, int layer, int pos, unsigned char* sm,
+                                int* flag) {
     using KT = typename std::conditional<KV8, int8_t, __nv_bfloat16>::type;
-    const int hd = a.hd, n_kv = a.n_kv, n_ctx = a.n_ctx, pos = a.pos;
+    const int hd = a.hd, n_kv = a.n_kv, n_ctx = a.n_ctx;
     const int group = a.n_heads / n_kv;
     const int rb = hd * static_cast<int>(sizeof(KT));
     const AttnSmem L(group, hd, rb);
@@ -566,12 +569,12 @@ __device__ void attention_phase(const LoopArgs& a, int layer, unsigned char* sm,
         if (c1 == pos + 1 && warp < 2) {
             const int r = pos - c0;
             if (warp == 0)
-                new_slot<KV8>(a, j, false, kring, kscale,
+                new_slot<KV8>(a, pos, j, false, kring, kscale,
                               reinterpret_cast<KT*>(reinterpret_cast<unsigned char*>(kst) +
                                                     r * (rb + 16)),
                               kss + r, lane);
             else
-                new_slot<KV8>(a, j, true, vring, vscale, vst + r * hd, vss + r, lane);
+                new_slot<KV8>(a, pos, j, true, vring, vscale, vst + r * hd, vss + r, lane);
         }
         cp_async_wait_all();
         __syncthreads();
@@ -760,6 +763,13 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) decode_loop_kernel(con
     const int nwarps = gridDim.x * WARPS;
     const int dim = a.dim, ffn = a.ffn;
     const int kvd = a.n_kv * a.hd;
+    // the token's ring slot, from device memory: a launch captured in a CUDA
+    // graph decodes at whatever slot the step's state holds at replay.  Every
+    // block reads the same value, so a slot outside the ring (the caller
+    // checks its host mirror) ends every block here, before any barrier.
+    const long long slot = a.positions[0];
+    if (slot < 0 || slot >= a.n_ctx) return;
+    const int pos = static_cast<int>(slot);
 
     // h[r] += bf16(row r of w . staged x) for every row of h, two rows a warp
     auto residual_rows = [&](const void* w, const void* sw, int K) {
@@ -817,7 +827,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) decode_loop_kernel(con
         grid_sync(a.bar);
 
         // P2: the new K/V slot and the attention over ring slots [lo, pos]
-        attention_phase<KV8>(a, layer, smem, flag);
+        attention_phase<KV8>(a, layer, pos, smem, flag);
         grid_sync(a.bar);
 
         // P3: h += ctx Wo^T
@@ -879,13 +889,13 @@ int launch(const LoopArgs& a, cudaStream_t stream) {
 
 LFKT_API int lfkt_decode_loop(const void* table, void* h, void* kc, void* vc, void* ks, void* vs,
                               void* qkv, void* ctx, void* act, const void* cos_t,
-                              const void* sin_t, void* bar, void* part, void* cnt, int layer0,
-                              int n_layers, int dim, int ffn, int n_heads, int n_kv, int hd,
-                              int n_ctx, int pos, int window, int max_chunks, float eps,
+                              const void* sin_t, const void* positions, void* bar, void* part,
+                              void* cnt, int layer0, int n_layers, int dim, int ffn, int n_heads,
+                              int n_kv, int hd, int n_ctx, int window, int max_chunks, float eps,
                               float sm_scale, int w_int8, int kv_int8, void* stream) {
     if (n_layers <= 0) return 0;
     if ((hd != 32 && hd != 64 && hd != 128 && hd != 256) || n_heads * hd != dim || n_kv <= 0 ||
-        n_heads % n_kv || dim % 16 || ffn % 16 || ffn <= 0 || pos < 0 || pos >= n_ctx ||
+        n_heads % n_kv || dim % 16 || ffn % 16 || ffn <= 0 || n_ctx <= 0 || positions == nullptr ||
         layer0 < 0 || (kv_int8 && (ks == nullptr || vs == nullptr)) || part == nullptr ||
         cnt == nullptr || max_chunks < (n_ctx - 1) / CHUNK_MIN + 1)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -893,9 +903,10 @@ LFKT_API int lfkt_decode_loop(const void* table, void* h, void* kc, void* vc, vo
                vc, static_cast<float*>(ks), static_cast<float*>(vs),
                static_cast<__nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(ctx),
                static_cast<__nv_bfloat16*>(act), static_cast<const float*>(cos_t),
-               static_cast<const float*>(sin_t), static_cast<unsigned int*>(bar),
+               static_cast<const float*>(sin_t), static_cast<const long long*>(positions),
+               static_cast<unsigned int*>(bar),
                static_cast<float*>(part), static_cast<unsigned int*>(cnt), layer0, n_layers, dim,
-               ffn, n_heads, n_kv, hd, n_ctx, pos, window, max_chunks, eps, sm_scale};
+               ffn, n_heads, n_kv, hd, n_ctx, window, max_chunks, eps, sm_scale};
     auto s = static_cast<cudaStream_t>(stream);
     if (w_int8) return kv_int8 ? launch<true, true>(a, s) : launch<true, false>(a, s);
     return kv_int8 ? launch<false, true>(a, s) : launch<false, false>(a, s);

@@ -4,11 +4,16 @@
 //                                    token-major (the model's layout)
 //   cos, sin (S, HD/2)         f32   the pass's rotation table: row t holds
 //                                    the angles of token t (position
-//                                    pos_offset + t); ops/rope.py builds
-//                                    it once a forward pass
+//                                    positions[t]); ops/rope.py builds it
+//                                    once a forward pass
+//   positions (S)              int64 the pass's ring slots, in device memory
 //   kq, vq   (n_kv, n_ctx, HD) int8  the layer's value rings
 //   ks, vs   (n_kv, n_ctx)     f32   the layer's per-head per-token scales
-// Row (token t, head h) lands in slot pos_offset + t of head h.  A K row is
+// Row (token t, head h) lands in slot positions[t] of head h.  The slots are
+// read on the device, never passed by value, so a decode step captured in a
+// CUDA graph writes wherever the step's position tensor points at replay
+// (the caller checks the range on its host mirror; a slot outside the ring
+// is skipped, never written).  A K row is
 // first rotated: pairs (2i, 2i+1) by the table's angle i, rounded to bf16
 // (rope_pair).  Then, over the row's HD (rotated) values:
 //   s = max|x| / 127, inv = s > 0 ? 1/s : 0,
@@ -65,9 +70,10 @@ template <int HD>
 __global__ void __launch_bounds__(WARPS * 32)
 kv_quantize_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
                    const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                   const long long* __restrict__ positions,
                    int8_t* __restrict__ kq, int8_t* __restrict__ vq,
                    float* __restrict__ ks, float* __restrict__ vs,
-                   int S, int n_kv, int n_ctx, int pos_offset) {
+                   int S, int n_kv, int n_ctx) {
     constexpr int E = HD / 32;                                 // elements a lane
     using In = typename Lane<HD>::In;
     using Out = typename Lane<HD>::Out;
@@ -78,6 +84,8 @@ kv_quantize_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __r
     const bool is_v = row >= rows;
     const int r = is_v ? row - rows : row;                     // = t * n_kv + h
     const int t = r / n_kv, h = r % n_kv;
+    const long long pos = positions[t];
+    if (pos < 0 || pos >= n_ctx) return;                       // uniform over the warp
 
     float x[E];
     unpack(*reinterpret_cast<const In*>((is_v ? v : k) + static_cast<size_t>(r) * HD + lane * E),
@@ -99,36 +107,36 @@ kv_quantize_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __r
     for (int e = 0; e < E; ++e)
         codes |= static_cast<Out>(static_cast<uint8_t>(lfkt::kv_quantize_value(x[e], inv)))
                  << (8 * e);
-    const size_t slot = static_cast<size_t>(h) * n_ctx + pos_offset + t;
+    const size_t slot = static_cast<size_t>(h) * n_ctx + static_cast<size_t>(pos);
     *reinterpret_cast<Out*>((is_v ? vq : kq) + slot * HD + lane * E) = codes;
     if (lane == 0) (is_v ? vs : ks)[slot] = s;
 }
 
 template <int HD>
-void launch(const void* k, const void* v, const void* cos_t, const void* sin_t, void* kq,
-            void* vq, void* ks, void* vs, int S, int n_kv, int n_ctx, int pos_offset,
-            cudaStream_t stream) {
+void launch(const void* k, const void* v, const void* cos_t, const void* sin_t,
+            const void* positions, void* kq, void* vq, void* ks, void* vs, int S, int n_kv,
+            int n_ctx, cudaStream_t stream) {
     const int rows = 2 * S * n_kv;
     kv_quantize_kernel<HD><<<(rows + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
         static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-        static_cast<int8_t*>(kq), static_cast<int8_t*>(vq), static_cast<float*>(ks),
-        static_cast<float*>(vs), S, n_kv, n_ctx, pos_offset);
+        static_cast<const long long*>(positions), static_cast<int8_t*>(kq), static_cast<int8_t*>(vq), static_cast<float*>(ks),
+        static_cast<float*>(vs), S, n_kv, n_ctx);
 }
 
 }  // namespace
 
 LFKT_API int lfkt_kv_quantize(const void* k, const void* v, const void* cos_t,
-                              const void* sin_t, void* kq, void* vq, void* ks, void* vs,
-                              int S, int n_kv, int n_ctx, int hd, int pos_offset,
+                              const void* sin_t, const void* positions, void* kq, void* vq,
+                              void* ks, void* vs, int S, int n_kv, int n_ctx, int hd,
                               void* stream) {
     if (S <= 0) return 0;
-    if (n_kv <= 0 || pos_offset < 0 || pos_offset + S > n_ctx) return 1;
+    if (n_kv <= 0 || n_ctx <= 0 || positions == nullptr) return 1;
     auto st = static_cast<cudaStream_t>(stream);
     if (hd == 128)
-        launch<128>(k, v, cos_t, sin_t, kq, vq, ks, vs, S, n_kv, n_ctx, pos_offset, st);
+        launch<128>(k, v, cos_t, sin_t, positions, kq, vq, ks, vs, S, n_kv, n_ctx, st);
     else if (hd == 64)
-        launch<64>(k, v, cos_t, sin_t, kq, vq, ks, vs, S, n_kv, n_ctx, pos_offset, st);
+        launch<64>(k, v, cos_t, sin_t, positions, kq, vq, ks, vs, S, n_kv, n_ctx, st);
     else
         return 1;
     return static_cast<int>(cudaGetLastError());

@@ -17,7 +17,11 @@ streaming chunks — on PyTorch and one GPU:
   the suffix is prefilled (the reference's ``_prefix_reuse_len`` rule);
 - decode: chunks of ``decode_chunk`` steps with on-device sampling; chunk
   k+1 is queued on the device before chunk k's tokens are read, so the
-  host's reading and text emission overlap the device's work; under
+  host's reading and text emission overlap the device's work.  On the
+  card a step is one CUDA-graph replay (models/generate.py
+  ``DecodeGraphs``: captured at :meth:`Engine.warmup` for the default
+  ``top_k``, on first use for another; there is no eager decode on the
+  card); on the CPU the same step runs eagerly.  Under
   ``decode_layer_unroll`` a step's layer stack is L/K launches of the
   layer-looped kernel (ops/decode_loop.py) over bf16 or int8 weights;
 - sampling: the llama.cpp-parity chain (sampling/sample.py).
@@ -41,6 +45,7 @@ import torch
 from ..gguf import GGUFFile
 from ..models.config import ModelConfig
 from ..models.generate import (
+    DecodeGraphs,
     first_sample,
     generate_chunk,
     init_state,
@@ -223,6 +228,9 @@ class Engine:
         if not self.prefill_buckets or self.prefill_buckets[-1] < self.cfg.n_ctx:
             self.prefill_buckets.append(self.cfg.n_ctx)
         self._cache = init_cache(self.cfg, self.device)
+        # the decode step as CUDA graphs over this ring (the card only)
+        self._graphs = (DecodeGraphs(self.params, self.cfg, self._cache)
+                        if self.device.type == "cuda" else None)
         # prompt-prefix KV reuse: the token ids whose KV occupy ring slots
         # [0, len) — read and written only under self._lock
         self._prefix_cache = bool(prefix_cache)
@@ -247,11 +255,27 @@ class Engine:
                    _parts=(params, cfg, tokenizer, template_kind), **kw)
 
     # ------------------------------------------------------------------
+    def close(self) -> None:
+        """Release the decode graphs and their memory pool; the engine
+        takes no request after this."""
+        with self._lock:
+            if self._graphs is not None:
+                self._graphs.close()
+                self._graphs = None
+
     def warmup(self):
         """Build the kernels and size the allocator before the first
-        request: one short greedy completion, then one prompt pass at the
-        largest bucket (the most activation memory a request can take)."""
+        request: on the card, capture the decode step for the default
+        ``top_k`` (before any request can run, so nothing else uses the
+        card during the capture); then one short greedy completion, then
+        one prompt pass at the largest bucket (the most activation memory a
+        request can take)."""
         t0 = time.time()
+        if self._graphs is not None:
+            with self._lock:
+                self._graphs.capture(SamplingParams().top_k)
+                # the capture's warm-up step wrote a ring slot
+                self._prefix_ids = []
         self.create_chat_completion(
             [{"role": "user", "content": "hi hi hi hi hi hi hi hi"}],
             max_tokens=2 * self.decode_chunk + 1, temperature=0.0)
@@ -386,7 +410,13 @@ class Engine:
                                    self._cache)
         else:
             logits = self._prefill_padded(ids, n_prompt, bucket)
-        state = init_state(self._cache, ids, seed, self.device)
+        if self.device.type == "cpu":
+            state = init_state(self._cache, ids, seed, self.device)
+        elif self._graphs is None:
+            raise RuntimeError("the engine is closed")
+        else:
+            st = self._graphs.knobs(st)
+            state = self._graphs.state(ids, seed)
         first = int(first_sample(logits, state, st, top_k=sp.top_k))  # host sync
         ttft_s = time.time() - t0
         return {

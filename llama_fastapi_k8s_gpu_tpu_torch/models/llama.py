@@ -10,15 +10,22 @@ so the two agree at the bf16-rounding scale.
 
 The KV ring is updated **in place**: a forward pass writes the S new
 tokens' slots of every layer into the ``cache`` tensors it was given —
-where JAX donated the cache and got a new one back.  Eager PyTorch has no
-compile step, so no prompt needs padding for the graph's sake; the engine
-still pads to buckets to keep its prefix-reuse decisions those of the
-reference.
+where JAX donated the cache and got a new one back.  The slots are the
+pass's ``positions``, a device tensor (``index_copy_`` over the bf16 ring,
+the int8 write kernel over the int8 one), and a decode step may take its
+position as a 0-d device tensor: then nothing the step launches depends
+on the position's value on the host, and the step can be captured once
+in a CUDA graph and replayed at every position (models/generate.py).
+Prompt passes run eagerly, so no prompt needs padding for a graph's sake;
+the engine still pads to buckets to keep its prefix-reuse decisions those
+of the reference.
 
 Prompt passes (S > 1) go through the flash kernel when ``cfg.attn_impl ==
 "flash"`` (its int8 variant over an int8 ring); decode (S = 1) and
 ``"xla"`` prompt passes use the plain score matrix of :func:`xla_attention`,
 which folds an int8 ring's scales into its products as the reference does.
+Decode scores the whole ring under the mask, as the reference does: a
+shape that does not depend on the position.
 A decode step under ``cfg.decode_layer_unroll`` runs the whole layer stack
 through the layer-looped kernel instead (ops/decode_loop.py), K layers a
 launch.
@@ -115,14 +122,17 @@ def xla_attention(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
 
 
 def _layer(h: torch.Tensor, layer, i: int, cache: dict,
-           positions: torch.Tensor, pos_offset: int,
-           cfg: ModelConfig, rope: tuple, quantize=kv_quantize) -> torch.Tensor:
+           positions: torch.Tensor, pos_offset: int | None,
+           cfg: ModelConfig, rope: tuple, quantize=None) -> torch.Tensor:
     """One transformer block over S tokens; writes the S new K/V slots of
-    layer ``i`` into ``cache`` in place.  ``rope`` is the pass's rotation
+    layer ``i`` — ring slots ``positions`` (S,), a device tensor — into
+    ``cache`` in place.  ``pos_offset`` is the first slot as a host int,
+    which only a prompt pass (S > 1) reads (flash, and the score matrix's
+    key range); a decode step passes None.  ``rope`` is the pass's rotation
     table (cos, sin) at ``positions`` (ops/rope.py): q is rotated by it, and
     k too over the bf16 ring; over the int8 ring ``quantize`` rotates k as
-    it writes it (the kernel's wrapper, or the layer-looped decode's plain
-    version passes ``kv_quantize_plain``)."""
+    it writes it (by default the kernel's wrapper, looked up at the call;
+    the layer-looped decode's plain version passes ``kv_quantize_plain``)."""
     S = h.shape[0]
     n_kv, hd = cfg.n_kv_heads, cfg.head_dim
 
@@ -136,13 +146,13 @@ def _layer(h: torch.Tensor, layer, i: int, cache: dict,
         # rotate k, quantize the S new tokens' K and V straight into the ring
         ck, cv = cache["k_q"][i], cache["v_q"][i]                  # (n_kv, n_ctx, hd)
         cks, cvs = cache["k_s"][i], cache["v_s"][i]                # (n_kv, n_ctx)
-        quantize(k, v, *rope, ck, cv, cks, cvs, pos_offset)
+        (quantize or kv_quantize)(k, v, *rope, positions, ck, cv, cks, cvs)
     else:
         k = rope_rotate(k, *rope)
         ck, cv = cache["k"][i], cache["v"][i]                      # (n_kv, n_ctx, hd)
         cks = cvs = None
-        ck[:, pos_offset:pos_offset + S] = k.transpose(0, 1).to(ck.dtype)
-        cv[:, pos_offset:pos_offset + S] = v.transpose(0, 1).to(cv.dtype)
+        ck.index_copy_(1, positions, k.transpose(0, 1).to(ck.dtype))
+        cv.index_copy_(1, positions, v.transpose(0, 1).to(cv.dtype))
 
     if cfg.attn_impl == "flash" and S > 1:
         if cks is None:
@@ -154,8 +164,10 @@ def _layer(h: torch.Tensor, layer, i: int, cache: dict,
                                        sliding_window=cfg.sliding_window)
         ctx = ctx.reshape(S, cfg.n_heads * hd).to(h.dtype)
     else:
+        # decode scores the whole ring under the mask (the reference's
+        # shapes); a prompt pass stops at its last key
         ctx = xla_attention(q, ck, cv, positions, cfg, h.dtype,
-                            key_end=pos_offset + S, cks=cks, cvs=cvs)
+                            key_end=None if S == 1 else pos_offset + S, cks=cks, cvs=cvs)
     h = h + linear(ctx, layer.wo)
 
     hn = rms_norm(h, layer.ffn_norm, cfg.rms_eps)
@@ -186,34 +198,45 @@ def _loop_unroll(params, cfg: ModelConfig, S: int) -> tuple[int, dict | None]:
     return effective_unroll(cfg), fmts
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor, pos_offset: int,
-            cache: dict, last_idx: int | None = None,
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+            pos_offset: int | torch.Tensor, cache: dict, last_idx: int | None = None,
             return_all: bool = False) -> torch.Tensor:
-    """Run S tokens through the stack, writing their K/V into ``cache`` in
-    place.  Returns f32 logits: (vocab,) at ``last_idx`` (default S-1), or
-    (S, vocab) with ``return_all``.
+    """Run S tokens through the stack from ring slot ``pos_offset``, writing
+    their K/V into ``cache`` in place.  Returns f32 logits: (vocab,) at
+    ``last_idx`` (default S-1), or (S, vocab) with ``return_all``.
+
+    ``pos_offset`` is a host int, range-checked here, or — for one decode
+    token — a 0-d int64 device tensor that is never read on the host (the
+    caller checks the range on its host mirror), so the step can be
+    captured in a CUDA graph.
 
     A decode step (S == 1) under ``cfg.decode_layer_unroll`` runs the layer
     stack as L/K launches of the layer-looped kernel (ops/decode_loop.py);
     the output norm and head stay outside the loop, as in the reference."""
     S = tokens.shape[0]
-    if pos_offset < 0 or pos_offset + S > cfg.n_ctx:
+    if isinstance(pos_offset, torch.Tensor):
+        if S != 1 or pos_offset.shape != () or pos_offset.dtype != torch.int64:
+            raise ValueError(f"a device position takes one token at a 0-d int64 "
+                             f"slot, got {S} tokens at {tuple(pos_offset.shape)} "
+                             f"{pos_offset.dtype}")
+    elif pos_offset < 0 or pos_offset + S > cfg.n_ctx:
         raise ValueError(f"tokens at {pos_offset}..{pos_offset + S} do not fit "
                          f"the {cfg.n_ctx}-slot KV ring")
     if len(params.layers) != cfg.n_layers:
         raise ValueError(f"params have {len(params.layers)} layers but "
                          f"cfg.n_layers={cfg.n_layers}")
     h = params.tok_emb[tokens].to(torch.bfloat16)
+    positions = pos_offset + torch.arange(S, device=h.device)
+    host_offset = None if isinstance(pos_offset, torch.Tensor) else pos_offset
     K, fmts = _loop_unroll(params, cfg, S)
     if K:
         from ..ops.decode_loop import forward_layers_looped
 
-        h = forward_layers_looped(params, cfg, h, pos_offset, cache, K, fmts)
+        h = forward_layers_looped(params, cfg, h, positions, cache, K, fmts)
     else:
-        positions = pos_offset + torch.arange(S, device=h.device)
         rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         for i, layer in enumerate(params.layers):
-            h = _layer(h, layer, i, cache, positions, pos_offset, cfg, rope)
+            h = _layer(h, layer, i, cache, positions, host_offset, cfg, rope)
     if return_all:
         hn = rms_norm(h, params.out_norm, cfg.rms_eps)
         return linear(hn, params.output).float()
@@ -230,7 +253,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, length: int,
     return forward(params, cfg, tokens, 0, cache, last_idx=length - 1)
 
 
-def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: int,
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: int | torch.Tensor,
                 cache: dict) -> torch.Tensor:
-    """One autoregressive step: ``token`` (0-d) at cache position ``pos``."""
+    """One autoregressive step: ``token`` (0-d) at cache position ``pos`` (a
+    host int, or a 0-d device tensor as :func:`forward` takes it)."""
     return forward(params, cfg, token.reshape(1), pos, cache)

@@ -51,8 +51,8 @@ SIGNATURES = {
                              ctypes.c_float, _I, _P],
     "lfkt_flash_attention_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   ctypes.c_float, _I, _P],
-    "lfkt_kv_quantize": [_P] * 8 + [_I] * 5 + [_P],
-    "lfkt_decode_loop": [_P] * 14 + [_I] * 11 + [ctypes.c_float] * 2 + [_I, _I, _P],
+    "lfkt_kv_quantize": [_P] * 9 + [_I] * 4 + [_P],
+    "lfkt_decode_loop": [_P] * 15 + [_I] * 10 + [ctypes.c_float] * 2 + [_I, _I, _P],
 }
 
 _lock = threading.Lock()

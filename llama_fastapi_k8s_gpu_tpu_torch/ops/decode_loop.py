@@ -22,6 +22,12 @@ the fused formats serve per-layer.
   chunks, in plain PyTorch, for the tests;
 - :func:`forward_layers_looped` — the L/K launches of a decode step.
 
+The token's ring slot is a (1,) int64 device tensor, ``positions``, which
+the kernel reads at entry: no launch argument depends on the position, so
+a decode step captured in a CUDA graph replays at the slot its state holds
+(models/generate.py).  The range is the caller's to check, on its host
+mirror of the position.
+
 Replaces the Pallas kernel llama_fastapi_k8s_gpu_tpu/ops/pallas/
 decode_loop.py::_loop_kernel.  The reference's compile probe and its
 degrade-to-per-layer pin (``disable_decode_loop``) are not ported: a kernel
@@ -198,28 +204,28 @@ def split_attention_plain(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor, p
     return ctx.to(torch.bfloat16).reshape(1, cfg.n_heads * hd)
 
 
-def decode_loop_plain(params, cache: dict, h: torch.Tensor, pos: int, layer0: int,
-                      cfg, fmts: dict, K: int) -> torch.Tensor:
+def decode_loop_plain(params, cache: dict, h: torch.Tensor, positions: torch.Tensor,
+                      layer0: int, cfg, fmts: dict, K: int) -> torch.Tensor:
     """Plain PyTorch version: layers ``[layer0, layer0 + K)`` of one decode
     token, one after the other, through the per-layer source with the
-    plain KV quantize.  h (1, dim) bf16 → h; the ring slots at ``pos`` are
-    written in place."""
+    plain KV quantize.  h (1, dim) bf16 → h; the ring slots at
+    ``positions`` (1,) are written in place."""
     from ..models.llama import _layer
     from .kvquant import kv_quantize_plain
 
-    positions = pos + torch.arange(1, device=h.device)
     rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     for i in range(layer0, layer0 + K):
-        h = _layer(h, params.layers[i], i, cache, positions, pos, cfg, rope,
+        h = _layer(h, params.layers[i], i, cache, positions, None, cfg, rope,
                    quantize=kv_quantize_plain)
     return h
 
 
-def decode_loop_step(params, cache: dict, h: torch.Tensor, pos: int, layer0: int,
-                     cfg, fmts: dict, K: int) -> torch.Tensor:
-    """Layers ``[layer0, layer0 + K)`` of one decode token at ring slot
-    ``pos``: h (1, dim) bf16 → the new h; each layer's K/V slot at ``pos``
-    is written into ``cache`` in place.  ``fmts`` is the weight plan
+def decode_loop_step(params, cache: dict, h: torch.Tensor, positions: torch.Tensor,
+                     layer0: int, cfg, fmts: dict, K: int) -> torch.Tensor:
+    """Layers ``[layer0, layer0 + K)`` of one decode token at the ring slot
+    ``positions`` ((1,) int64 on h's device, read by the kernel, never on
+    the host): h (1, dim) bf16 → the new h; each layer's K/V slot there is
+    written into ``cache`` in place.  ``fmts`` is the weight plan
     (:func:`models.params.decode_loop_plan`).  One kernel launch for CUDA
     tensors, the plain version for CPU ones.
 
@@ -229,12 +235,13 @@ def decode_loop_step(params, cache: dict, h: torch.Tensor, pos: int, layer0: int
     L = cfg.n_layers
     if not (K >= 1 and 0 <= layer0 and layer0 + K <= L):
         raise ValueError(f"decode_loop: layers {layer0}..{layer0 + K} outside 0..{L}")
-    if not 0 <= pos < cfg.n_ctx:
-        raise ValueError(f"decode_loop: position {pos} outside the {cfg.n_ctx}-slot ring")
+    if positions.shape != (1,) or positions.dtype != torch.int64:
+        raise ValueError(f"decode_loop: positions {tuple(positions.shape)} "
+                         f"{positions.dtype}, expected (1,) int64")
     if tuple(h.shape) != (1, cfg.dim):
         raise ValueError(f"decode_loop: h is {tuple(h.shape)}, expected (1, {cfg.dim})")
     if h.device.type == "cpu":
-        return decode_loop_plain(params, cache, h, pos, layer0, cfg, fmts, K)
+        return decode_loop_plain(params, cache, h, positions, layer0, cfg, fmts, K)
     kinds = set(fmts.values())
     if len(kinds) != 1 or not kinds <= {"bf16", "int8"}:
         raise ValueError(f"decode_loop: the kernel takes one weight kind, bf16 or "
@@ -259,9 +266,11 @@ def decode_loop_step(params, cache: dict, h: torch.Tensor, pos: int, layer0: int
         if tuple(t.shape) != shape:
             raise ValueError(f"decode_loop: ring leaf {tuple(t.shape)}, expected {shape}")
     h = h.reshape(-1).clone()
-    require_cuda("decode_loop", h, *ring, dtypes=(torch.bfloat16, *dtypes))
+    positions = positions.contiguous()
+    require_cuda("decode_loop", h, positions, *ring,
+                 dtypes=(torch.bfloat16, torch.int64, *dtypes))
     table = _weight_table(params, cfg, w_int8)
-    cos, sin = rope_cos_sin(torch.full((1,), pos, device=h.device), hd, cfg.rope_theta)
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
     kvd = cfg.n_kv_heads * hd
     qkv = torch.empty(cfg.dim + 2 * kvd, dtype=torch.bfloat16, device=h.device)
     ctx = torch.empty(cfg.dim, dtype=torch.bfloat16, device=h.device)
@@ -271,8 +280,9 @@ def decode_loop_step(params, cache: dict, h: torch.Tensor, pos: int, layer0: int
     check(library().lfkt_decode_loop(
         table.data_ptr(), h.data_ptr(), ring[0].data_ptr(), ring[1].data_ptr(), ks, vs,
         qkv.data_ptr(), ctx.data_ptr(), act.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-        _barrier(h.device).data_ptr(), part.data_ptr(), cnt.data_ptr(), layer0, K, cfg.dim,
-        cfg.ffn_dim, cfg.n_heads, cfg.n_kv_heads, hd, cfg.n_ctx, pos, cfg.sliding_window,
+        positions.data_ptr(), _barrier(h.device).data_ptr(), part.data_ptr(), cnt.data_ptr(),
+        layer0, K, cfg.dim, cfg.ffn_dim, cfg.n_heads, cfg.n_kv_heads, hd, cfg.n_ctx,
+        cfg.sliding_window,
         max_chunks, cfg.rms_eps, hd ** -0.5, int(w_int8), int(kv_int8), stream_ptr(h)),
         "decode_loop")
     decode_loop_step.launches += 1
@@ -282,11 +292,12 @@ def decode_loop_step(params, cache: dict, h: torch.Tensor, pos: int, layer0: int
 decode_loop_step.launches = 0
 
 
-def forward_layers_looped(params, cfg, h: torch.Tensor, pos: int, cache: dict,
-                          K: int, fmts: dict) -> torch.Tensor:
-    """The layer stack of one decode token as L/K launches of
-    :func:`decode_loop_step`, in order.  ``K`` divides ``n_layers``
-    (:func:`effective_unroll`) and ``fmts`` is the weight plan."""
+def forward_layers_looped(params, cfg, h: torch.Tensor, positions: torch.Tensor,
+                          cache: dict, K: int, fmts: dict) -> torch.Tensor:
+    """The layer stack of one decode token at the ring slot ``positions``
+    (1,) as L/K launches of :func:`decode_loop_step`, in order.  ``K``
+    divides ``n_layers`` (:func:`effective_unroll`) and ``fmts`` is the
+    weight plan."""
     for layer0 in range(0, cfg.n_layers, K):
-        h = decode_loop_step(params, cache, h, pos, layer0, cfg, fmts, K)
+        h = decode_loop_step(params, cache, h, positions, layer0, cfg, fmts, K)
     return h

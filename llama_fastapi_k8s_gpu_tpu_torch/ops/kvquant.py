@@ -11,8 +11,11 @@ moves int8.
 ``kv_quantize`` launches the CUDA kernel in ``csrc/kv_quantize.cu`` for
 CUDA tensors — one launch per layer rotates the new K by the pass's RoPE
 table, quantizes it and the new V, and writes values and scales into the
-ring slots ``[pos_offset, pos_offset + S)`` in place — and runs
-:func:`kv_quantize_plain` for CPU tensors.  Both are bit-identical to the
+ring slots named by the pass's ``positions`` in place — and runs
+:func:`kv_quantize_plain` for CPU tensors.  The slots are a device tensor,
+read by the kernel, so a decode step captured in a CUDA graph writes at
+the position the step's state holds at replay; the range is the caller's
+to check, on its host mirror of the position (models/llama.py).  Both are bit-identical to the
 JAX package's ``rope_interleaved`` on k followed by ``quantize_kv_xla``.
 
 Replaces the Pallas kernel llama_fastapi_k8s_gpu_tpu/ops/pallas/kvquant.py::
@@ -56,27 +59,26 @@ def dequantize_kv(q: torch.Tensor, s: torch.Tensor,
 
 
 def kv_quantize_plain(k: torch.Tensor, v: torch.Tensor, cos: torch.Tensor,
-                      sin: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
-                      ks: torch.Tensor, vs: torch.Tensor, pos_offset: int) -> None:
+                      sin: torch.Tensor, positions: torch.Tensor, kq: torch.Tensor,
+                      vq: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor) -> None:
     """Plain PyTorch version: rotate ``k`` by the table (``rope_rotate``),
-    then quantize the head-major slabs of k and v and assign them into the
-    ring slots."""
-    S = k.shape[0]
+    then quantize the head-major slabs of k and v and copy them into the
+    ring slots ``positions`` (``index_copy_``)."""
     for x, q_ring, s_ring in ((rope_rotate(k, cos, sin), kq, ks), (v, vq, vs)):
         q, s = quantize_kv_plain(x.transpose(0, 1))          # (n_kv, S, hd)
-        q_ring[:, pos_offset:pos_offset + S] = q
-        s_ring[:, pos_offset:pos_offset + S] = s
+        q_ring.index_copy_(1, positions, q)
+        s_ring.index_copy_(1, positions, s)
 
 
 def kv_quantize(k: torch.Tensor, v: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                kq: torch.Tensor, vq: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
-                pos_offset: int) -> None:
+                positions: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
+                ks: torch.Tensor, vs: torch.Tensor) -> None:
     """k, v (S, n_kv, hd) bf16, one layer's new keys (before RoPE) and
     values, and the pass's rotation table ``cos``/``sin`` (S, hd/2) f32 (row
-    t: the angles at position ``pos_offset + t``) → k rotated, then both
-    written in place into that layer's ring: ``kq``/``vq`` (n_kv, n_ctx, hd)
-    int8 and ``ks``/``vs`` (n_kv, n_ctx) f32 at slots
-    ``pos_offset .. pos_offset+S-1``."""
+    t: the angles at ``positions[t]``) → k rotated, then both written in
+    place into that layer's ring: ``kq``/``vq`` (n_kv, n_ctx, hd) int8 and
+    ``ks``/``vs`` (n_kv, n_ctx) f32 at slots ``positions`` (S,) int64, a
+    tensor on k's device that is never read on the host."""
     S, n_kv, hd = k.shape
     n_ctx = kq.shape[1]
     if (v.shape != k.shape or kq.shape != (n_kv, n_ctx, hd) or vq.shape != kq.shape
@@ -86,23 +88,24 @@ def kv_quantize(k: torch.Tensor, v: torch.Tensor, cos: torch.Tensor, sin: torch.
     if hd % 2 or cos.shape != (S, hd // 2) or sin.shape != cos.shape:
         raise ValueError(f"kv_quantize: the RoPE table {tuple(cos.shape)} / "
                          f"{tuple(sin.shape)} does not fit k {tuple(k.shape)}")
-    if pos_offset < 0 or pos_offset + S > n_ctx:
-        raise ValueError(f"kv_quantize: positions {pos_offset}..{pos_offset + S} "
-                         f"outside the {n_ctx}-slot ring")
+    if positions.shape != (S,) or positions.dtype != torch.int64:
+        raise ValueError(f"kv_quantize: positions {tuple(positions.shape)} "
+                         f"{positions.dtype}, expected ({S},) int64")
     if k.device.type == "cpu":
-        return kv_quantize_plain(k, v, cos, sin, kq, vq, ks, vs, pos_offset)
+        return kv_quantize_plain(k, v, cos, sin, positions, kq, vq, ks, vs)
     if hd not in HEAD_DIMS:
         raise ValueError(f"kv_quantize: the kernel takes head_dim in {HEAD_DIMS}, got {hd}")
     k, v, cos, sin = k.contiguous(), v.contiguous(), cos.contiguous(), sin.contiguous()
-    require_cuda("kv_quantize", k, v, cos, sin, kq, vq, ks, vs,
+    positions = positions.contiguous()
+    require_cuda("kv_quantize", k, v, cos, sin, positions, kq, vq, ks, vs,
                  dtypes=(torch.bfloat16, torch.bfloat16, torch.float32, torch.float32,
-                         torch.int8, torch.int8, torch.float32, torch.float32))
+                         torch.int64, torch.int8, torch.int8, torch.float32, torch.float32))
     if any(t.data_ptr() % 8 for t in (k, v, cos, sin, kq, vq)):
         raise ValueError("kv_quantize: k, v, the table and the rings must be 8-byte "
                          "aligned (a lane loads a row's elements and angles as one word)")
     check(library().lfkt_kv_quantize(
-        k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(), kq.data_ptr(),
-        vq.data_ptr(), ks.data_ptr(), vs.data_ptr(), S, n_kv, n_ctx, hd, pos_offset,
+        k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(), positions.data_ptr(),
+        kq.data_ptr(), vq.data_ptr(), ks.data_ptr(), vs.data_ptr(), S, n_kv, n_ctx, hd,
         stream_ptr(k)), "kv_quantize")
     kv_quantize.launches += 1
 

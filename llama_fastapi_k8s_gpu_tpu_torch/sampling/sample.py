@@ -12,9 +12,13 @@ sampling/sample.py), which follows llama-cpp-python 0.2.77's defaults:
 5. temperature, then a categorical draw from a ``torch.Generator`` — or
    argmax when temperature ≤ 0.
 
-Every step is a tensor op, so a decode loop samples without a host sync.
-The draws come from PyTorch's generator, not JAX's, so sampled tokens
-differ from the reference's; the filtered distribution does not.
+Every step is a tensor op that reads no device value on the host, so a
+decode step samples without a host sync and can be captured in a CUDA
+graph (models/generate.py): the draw is ``argmax(p / e)`` over
+exponential noise ``e`` from the generator — what ``torch.multinomial``
+does for one sample, without its host-side checks of ``p``.  The draws
+come from PyTorch's generator, not JAX's, so sampled tokens differ from
+the reference's; the filtered distribution does not.
 """
 
 from __future__ import annotations
@@ -87,7 +91,7 @@ def candidates(logits: torch.Tensor, window: torch.Tensor, st: dict,
     cum_excl = torch.cumsum(probs, dim=-1) - probs
     keep = cum_excl < st["top_p"]                       # keeps the crossing token
     keep &= probs >= st["min_p"] * probs[0]
-    keep[0] = True                                      # min_keep = 1
+    keep[0].fill_(True)                                 # min_keep = 1
     return idx, torch.where(keep, vals, float("-inf"))
 
 
@@ -98,9 +102,10 @@ def sample_chain(logits: torch.Tensor, window: torch.Tensor,
     idx, masked = candidates(logits, window, st, top_k)
     temp = st["temperature"]
     probs = torch.softmax(masked / torch.clamp(temp, min=1e-6), dim=-1)
-    sampled = torch.multinomial(probs, 1, generator=gen)[0]
+    noise = torch.empty_like(probs).exponential_(1, generator=gen)
+    sampled = torch.argmax(probs / noise, dim=-1, keepdim=True)
     choice = torch.where(temp <= 0, torch.zeros_like(sampled), sampled)
-    return idx[choice]
+    return idx.index_select(0, choice)[0]
 
 
 def seed_window(prompt_ids, device: torch.device) -> tuple[torch.Tensor, int]:

@@ -292,3 +292,63 @@ def test_dequant_shapes_and_rank_read_every_k_quant_shape(monkeypatch):
         "4096x4096 float32", "1024x4096 float32", "14336x4096 float32",
         "128256x4096 bfloat16"}
     assert rows["dequant_q5_k"]["by_shape"] == {"128256x4096 bfloat16": 1}
+
+
+@pytest.mark.parametrize("name,part", [
+    ("void lfkt::qgemv_kernel<(anonymous namespace)::Q4KGemv, 1>(...)", "fused_linears"),
+    ("void qmma_kernel<Q6KDecoder, 128, true>(...)", "fused_linears"),
+    ("void (anonymous namespace)::decode_loop_kernel<true, false>(LoopArgs)", "looped_layers"),
+    ("void (anonymous namespace)::kv_quantize_kernel<128>(...)", "kv_write"),
+    ("sm90_xmma_gemm_f32f32_tf32f32_f32_nn_n_tilesize128x64x32", "cublas"),
+    ("void gemv2T_kernel_val<int, int, float, float, float, 128, 16, 4, 4>", "cublas"),
+    ("nvjet_tst_384x8_64x4_2x1_v_bz_TNT", "cublas"),
+    ("void at::native::(anonymous namespace)::cunn_SoftMaxForward<4, float>", "softmax"),
+    ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<...>", "sort"),
+    ("void at::native::vectorized_elementwise_kernel<4, ...>", "other"),
+])
+def test_kernel_part_names_the_part_of_a_decode_token(name, part):
+    assert chip_smoke.kernel_part(name) == part
+
+
+def test_replay_breakdown_sums_parts_and_idle_per_replay():
+    """Two replays of three kernels: per-replay µs and counts by part, the
+    busy time as the union of the intervals (an overlap counts once) and
+    the idle time between them."""
+    kernels = [("qgemv_kernel<Q4KGemv>", 0.0, 10.0), ("softmax_x", 12.0, 14.0),
+               ("elementwise", 13.0, 16.0),
+               ("qgemv_kernel<Q4KGemv>", 20.0, 30.0), ("softmax_x", 31.0, 33.0),
+               ("elementwise", 34.0, 36.0)]
+    got = chip_smoke.replay_breakdown(kernels, 2)
+    assert got["parts"]["fused_linears"] == {"us": 10.0, "kernels": 1.0}
+    assert got["parts"]["softmax"] == {"us": 2.0, "kernels": 1.0}
+    assert got["parts"]["other"] == {"us": 2.5, "kernels": 1.0}
+    assert got["busy_us"] == (14.0 + 14.0) / 2 and got["span_us"] == 18.0
+    assert got["idle_us"] == 4.0 and got["idle_share"] == 8.0 / 36.0
+
+
+def test_reply_changes_key_by_engine_prompt_and_occurrence():
+    before = [{"engine": 0, "prompt": [1, 2], "ids": [5, 6, 7]},
+              {"engine": 0, "prompt": [3], "ids": [8, 9]},
+              {"engine": 1, "prompt": [1, 2], "ids": [5, 6, 7]}]
+    now = [{"engine": 0, "prompt": [1, 2], "ids": [5, 6, 4]},
+           {"engine": 0, "prompt": [3], "ids": [8, 9]},
+           {"engine": 0, "prompt": [1, 2], "ids": [1]},          # a second occurrence
+           {"engine": 1, "prompt": [1, 2], "ids": [5, 6]}]       # stopped earlier
+    got = chip_smoke.reply_changes(now, before)
+    assert [(c["rec"]["engine"], c["first_diff"], c["before"], c["now"]) for c in got] == [
+        (0, 2, 7, 4), (1, 2, 7, None)]
+
+
+def test_record_replies_appends_prompt_ids_and_finish():
+    class Fake:
+        def _finish(self, ctx):
+            return {"done": True}
+
+        def create_chat_completion(self, **kw):
+            out = self._finish({"prompt_ids": [1, 2], "ids": [3]})
+            return {"choices": [{"finish_reason": "length"}], "inner": out}
+
+    eng, sink = Fake(), []
+    chip_smoke.record_replies(eng, 4, sink)
+    assert eng.create_chat_completion()["inner"] == {"done": True}
+    assert sink == [{"engine": 4, "prompt": [1, 2], "ids": [3], "finish_reason": "length"}]

@@ -425,7 +425,7 @@ def test_dequant_q6_k_bit_exact(cuda, n_out, k_in):
 
 
 @pytest.mark.parametrize("S,pos_offset", [(1, 0), (1, 700), (256, 0), (256, 256), (256, 768),
-                                          (37, 11)])
+                                          (37, 11), (1, 255), (1, 1023)])
 @pytest.mark.parametrize("n_kv,hd", [(8, 128), (4, 64)])
 @pytest.mark.parametrize("theta", [10000.0, 500000.0])
 def test_kv_quantize_bit_exact(cuda, S, pos_offset, n_kv, hd, theta):
@@ -443,13 +443,14 @@ def test_kv_quantize_bit_exact(cuda, S, pos_offset, n_kv, hd, theta):
     k[0, 0] = 0
     v[0, 0] = 0
     v[0, 0, :4] = torch.tensor([127.0, 2.5, -3.5, 0.5])
-    cos, sin = rope_cos_sin(pos_offset + torch.arange(S, device=cuda), hd, theta)
+    positions = pos_offset + torch.arange(S, device=cuda)
+    cos, sin = rope_cos_sin(positions, hd, theta)
     rings = [torch.full((n_kv, n_ctx, hd), 7, dtype=torch.int8, device=cuda) for _ in range(4)]
     scales = [torch.full((n_kv, n_ctx), 0.5, device=cuda) for _ in range(4)]
     before = kvquant.kv_quantize.launches
-    kvquant.kv_quantize(k, v, cos, sin, rings[0], rings[1], scales[0], scales[1], pos_offset)
-    kvquant.kv_quantize_plain(k, v, cos, sin, rings[2], rings[3], scales[2], scales[3],
-                              pos_offset)
+    kvquant.kv_quantize(k, v, cos, sin, positions, rings[0], rings[1], scales[0], scales[1])
+    kvquant.kv_quantize_plain(k, v, cos, sin, positions, rings[2], rings[3], scales[2],
+                              scales[3])
     torch.cuda.synchronize()
     assert kvquant.kv_quantize.launches == before + 1
     assert torch.equal(rings[0], rings[2]) and torch.equal(rings[1], rings[3])
@@ -501,8 +502,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     k96 = torch.zeros(1, 2, 96, dtype=torch.bfloat16, device=cuda)
     ring = torch.zeros(2, 16, 96, dtype=torch.int8, device=cuda)
     sc, table = torch.zeros(2, 16, device=cuda), torch.zeros(1, 48, device=cuda)
+    at = torch.zeros(1, dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        kvquant.kv_quantize(k96, k96, table, table, ring, ring, sc, sc, 0)
+        kvquant.kv_quantize(k96, k96, table, table, at, ring, ring, sc, sc)
 
 
 @pytest.mark.parametrize("gtype", ["Q4_K", "Q5_K", "Q6_K", "Q8_0"])
@@ -581,9 +583,10 @@ def _check_loop_launch(cfg, params, cache, h, pos, layer0, K, w_int8):
     fmts = dict.fromkeys(LOOP_LINEARS, "int8" if w_int8 else "bf16")
     got_cache = {k: v.clone() for k, v in cache.items()}
     want_cache = {k: v.clone() for k, v in cache.items()}
+    at = torch.tensor([pos], device=h.device)
     before = decode_loop.decode_loop_step.launches
-    got = decode_loop.decode_loop_step(params, got_cache, h, pos, layer0, cfg, fmts, K)
-    want = decode_loop.decode_loop_plain(params, want_cache, h, pos, layer0, cfg, fmts, K)
+    got = decode_loop.decode_loop_step(params, got_cache, h, at, layer0, cfg, fmts, K)
+    want = decode_loop.decode_loop_plain(params, want_cache, h, at, layer0, cfg, fmts, K)
     torch.cuda.synchronize()
     where = (pos, layer0, K)
     assert decode_loop.decode_loop_step.launches == before + 1
@@ -654,3 +657,175 @@ def test_decode_loop_8b_width_last_slot(cuda, w_int8, kv_int8):
     cfg8 = dataclasses.replace(LLAMA3_8B, n_layers=1, vocab_size=256, n_ctx=1024)
     cfg, params, cache, h = _loop_case(cuda, w_int8, kv_int8, 0, 1023, cfg=cfg8)
     _check_loop_launch(cfg, params, cache, h, 1023, 0, 1, w_int8)
+
+
+@pytest.mark.parametrize("n_kv,hd", [(8, 128), (4, 64)])
+def test_kv_quantize_reads_its_slot_from_device_memory(cuda, n_kv, hd):
+    """One launch captured in a CUDA graph at slot 0, replayed after the
+    slot tensor is set to 255, 700 and 1023: each replay writes the slot the
+    tensor holds, bit for bit the plain version's ring."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import kvquant
+    from llama_fastapi_k8s_gpu_tpu_torch.ops.rope import rope_cos_sin
+
+    n_ctx = 1024
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    k = (torch.randn(1, n_kv, hd, generator=g, device=cuda) * 4).to(torch.bfloat16)
+    v = torch.randn(1, n_kv, hd, generator=g, device=cuda).to(torch.bfloat16)
+    at = torch.zeros(1, dtype=torch.int64, device=cuda)
+    rings = [torch.full((n_kv, n_ctx, hd), 7, dtype=torch.int8, device=cuda) for _ in range(4)]
+    scales = [torch.full((n_kv, n_ctx), 0.5, device=cuda) for _ in range(4)]
+
+    def write():
+        cos, sin = rope_cos_sin(at, hd, 500000.0)
+        kvquant.kv_quantize(k, v, cos, sin, at, rings[0], rings[1], scales[0], scales[1])
+
+    write()                                        # builds; slot 0 written
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        write()
+    for slot in (0, 255, 700, 1023):
+        at.fill_(slot)
+        graph.replay()
+        cos, sin = rope_cos_sin(at, hd, 500000.0)
+        kvquant.kv_quantize_plain(k, v, cos, sin, at, rings[2], rings[3], scales[2], scales[3])
+        torch.cuda.synchronize()
+        assert torch.equal(rings[0], rings[2]) and torch.equal(rings[1], rings[3]), slot
+        assert torch.equal(scales[0].view(torch.int32), scales[2].view(torch.int32)), slot
+        assert torch.equal(scales[1].view(torch.int32), scales[3].view(torch.int32)), slot
+    assert (scales[0][:, [0, 255, 700, 1023]] != 0.5).all()
+
+
+@pytest.mark.parametrize("w_int8", [False, True])
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_decode_loop_reads_its_slot_from_device_memory(cuda, w_int8, kv_int8):
+    """One Llama-3-8B-width layer over a 1024-slot ring filled to 1023: a
+    launch captured in a CUDA graph at slot 0, replayed with the slot tensor
+    at 0, 255, 700 and 1023 (the ring restored before each), against the
+    plain looped step at that slot as :func:`_check_loop_launch` holds it."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import LLAMA3_8B
+    from llama_fastapi_k8s_gpu_tpu_torch.models.params import LOOP_LINEARS
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import decode_loop
+
+    cfg8 = dataclasses.replace(LLAMA3_8B, n_layers=1, vocab_size=256, n_ctx=1024)
+    cfg, params, base, h = _loop_case(cuda, w_int8, kv_int8, 0, 1023, cfg=cfg8)
+    fmts = dict.fromkeys(LOOP_LINEARS, "int8" if w_int8 else "bf16")
+    at = torch.zeros(1, dtype=torch.int64, device=cuda)
+    cache = {k: v.clone() for k, v in base.items()}
+    out = {}
+
+    def launch():
+        out["h"] = decode_loop.decode_loop_step(params, cache, h, at, 0, cfg, fmts, 1)
+
+    launch()                                        # builds; the scratch exists
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launch()
+    for slot in (0, 255, 700, 1023):
+        for k, v in base.items():
+            cache[k].copy_(v)
+        at.fill_(slot)
+        graph.replay()
+        want_cache = {k: v.clone() for k, v in base.items()}
+        want = decode_loop.decode_loop_plain(params, want_cache, h, torch.tensor([slot], device=cuda),
+                                             0, cfg, fmts, 1)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out["h"]).all() and _rel(out["h"], want) <= 2e-2, slot
+        if kv_int8:
+            for name in ("k", "v"):
+                q, wq = cache[name + "_q"][:, :, slot], want_cache[name + "_q"][:, :, slot]
+                assert (q.int() - wq.int()).abs().max() <= 1, slot
+                assert _rel(cache[name + "_s"][:, :, slot],
+                            want_cache[name + "_s"][:, :, slot]) <= 2e-2, slot
+        else:
+            for name in ("k", "v"):
+                assert _rel(cache[name][:, :, slot], want_cache[name][:, :, slot]) <= 2e-2, slot
+        for name, leaf in cache.items():      # no other slot moved
+            assert torch.equal(leaf[:, :, :slot], base[name][:, :, :slot]), (name, slot)
+            assert torch.equal(leaf[:, :, slot + 1:], base[name][:, :, slot + 1:]), (name, slot)
+
+
+def _tiny_decode(cuda, fmt, kv_dtype, unroll):
+    """A model of random weights (dim 256, 2 layers, 4 query heads of 64
+    over 2 KV heads, vocab 512, a 256-slot ring) on the card."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+    from llama_fastapi_k8s_gpu_tpu_torch.models.params import synth_params
+
+    cfg = ModelConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      ffn_dim=512, n_ctx=256, kv_dtype=kv_dtype, decode_layer_unroll=unroll)
+    return cfg, synth_params(cfg, fmt, seed=11, device=cuda)
+
+
+def _replay_against_eager(cuda, cfg, params, graphs, ids, seed, sp, chunks=2):
+    """One request through ``graphs`` (its ring prefilled with ``ids``, the
+    first sample, ``chunks`` chunks of 8 replays) against the eager step on
+    a clone of the prefilled ring from the same seed: tokens, the state and
+    every cache leaf bit-identical.  Returns the tokens."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import (
+        decode_step,
+        first_sample,
+        generate_chunk,
+        init_state,
+    )
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import forward
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import sampling_tensors
+
+    cache = graphs._state["cache"]
+    with torch.inference_mode():
+        logits = forward(params, cfg, torch.tensor(ids, device=cuda), 0, cache)
+        ring = {k: v.clone() for k, v in cache.items()}
+        st = graphs.knobs(sampling_tensors(sp, cuda))
+        state = graphs.state(ids, seed)
+        got = [int(first_sample(logits, state, st, top_k=sp.top_k))]
+        for _ in range(chunks):
+            got += generate_chunk(params, cfg, state, st, 8, top_k=sp.top_k).tolist()
+        eager = init_state(ring, ids, seed, cuda)
+        est = sampling_tensors(sp, cuda)
+        want = [int(first_sample(logits, eager, est, top_k=sp.top_k))]
+        want += [int(decode_step(params, cfg, eager, est, top_k=sp.top_k))
+                 for _ in range(8 * chunks)]
+    torch.cuda.synchronize()
+    assert got == want
+    for k in ("pos", "wpos", "window", "token"):
+        assert torch.equal(state[k], eager[k]), k
+    for k in cache:
+        assert torch.equal(cache[k], ring[k]), k
+    return got
+
+
+@pytest.mark.parametrize("fmt,kv_dtype,unroll", [("bf16", "bf16", 0), ("bf16", "int8", 0),
+                                                 ("int8", "int8", -1), ("bf16", "bf16", 1)])
+def test_graph_replay_matches_the_eager_step(cuda, fmt, kv_dtype, unroll):
+    """Greedy, then sampled at the default settings, then a second request
+    with another seed and other knobs through the same graph, then one with
+    another ``top_k`` (captured mid-request): replay equals the eager step
+    bit for bit each time, and the kernels' counters grow by their
+    per-replay increment times the replays."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import DecodeGraphs
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import init_cache
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import KERNELS
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import SamplingParams
+
+    cfg, params = _tiny_decode(cuda, fmt, kv_dtype, unroll)
+    graphs = DecodeGraphs(params, cfg, init_cache(cfg, cuda))
+    graphs.capture(40)
+    step = graphs.step_launches(40)
+    per_token = cfg.n_layers // (cfg.n_layers if unroll < 0 else unroll) if unroll else 0
+    assert step == ({"decode_loop": per_token} if unroll
+                    else {"kv_quantize": cfg.n_layers} if kv_dtype == "int8" else {})
+    ids = list(range(3, 40))
+    greedy = _replay_against_eager(cuda, cfg, params, graphs, ids, 1,
+                                   SamplingParams(temperature=0.0))
+    assert len(set(greedy)) > 1
+    before = {name: fn.launches for name, fn in KERNELS.items()}
+    _replay_against_eager(cuda, cfg, params, graphs, ids, 7, SamplingParams(), chunks=1)
+    for name, n in step.items():      # 8 replays, 8 eager steps and the prompt pass
+        prompt = cfg.n_layers if name == "kv_quantize" else 0
+        assert KERNELS[name].launches - before[name] == 8 * n + 8 * n + prompt
+    other = SamplingParams(temperature=0.7, top_p=0.8, min_p=0.1, repeat_penalty=1.3,
+                           frequency_penalty=0.2, presence_penalty=0.1)
+    _replay_against_eager(cuda, cfg, params, graphs, ids[::-1], 99, other)
+    assert graphs.keys == [40]
+    _replay_against_eager(cuda, cfg, params, graphs, ids, 5,
+                          dataclasses.replace(other, top_k=12))
+    assert graphs.keys == [40, 12] and graphs.replays == 16 + 8 + 16 + 16
+    graphs.close()

@@ -239,7 +239,12 @@ def test_decode_loop_step_checks_its_arguments():
     fmts = dict.fromkeys(LOOP_LINEARS, "bf16")
     cache = init_cache(cfg, CPU)
     h = torch.zeros(1, cfg.dim, dtype=torch.bfloat16)
-    for layer0, K, pos, hh in ((3, 2, 0, h), (0, 0, 0, h), (0, 4, 64, h),
-                               (0, 4, 0, h.reshape(-1))):
+    at = torch.zeros(1, dtype=torch.int64)
+    for layer0, K, pos, hh in ((3, 2, at, h), (0, 0, at, h), (0, 4, at.reshape(()), h),
+                               (0, 4, at.int(), h), (0, 4, at, h.reshape(-1))):
         with pytest.raises(ValueError, match="decode_loop"):
             decode_loop.decode_loop_step(params, cache, hh, pos, layer0, cfg, fmts, K)
+    # a slot outside the ring: the host mirror's check, in forward
+    with pytest.raises(ValueError, match="do not fit"):
+        forward(params, dataclasses.replace(cfg, decode_layer_unroll=-1),
+                torch.tensor([1]), cfg.n_ctx, cache)

@@ -356,7 +356,7 @@ def test_kv_quantize_writes_the_reference_ring_slots(S, pos_offset, theta, hd):
     cos, sin = rope_cos_sin(positions, hd, theta)
     rings = [torch.full((n_kv, n_ctx, hd), 7, dtype=torch.int8) for _ in range(2)]
     scales = [torch.full((n_kv, n_ctx), 0.5) for _ in range(2)]
-    kv_quantize(k, v, cos, sin, *rings, *scales, pos_offset)
+    kv_quantize(k, v, cos, sin, positions, *rings, *scales)
     jk = j_rope(jnp.asarray(k.float().numpy(), jnp.bfloat16),
                 jnp.asarray(positions.numpy(), jnp.int32), theta)
     jv = jnp.asarray(v.float().numpy(), jnp.bfloat16)
@@ -369,9 +369,11 @@ def test_kv_quantize_writes_the_reference_ring_slots(S, pos_offset, theta, hd):
         assert np.array_equal(ring.numpy(), want_q)
         assert np.array_equal(sc.numpy().view(np.int32), want_s.view(np.int32))
     with pytest.raises(ValueError, match="positions"):
-        kv_quantize(k, v, cos, sin, *rings, *scales, n_ctx - S + 1)
+        kv_quantize(k, v, cos, sin, torch.arange(S + 1), *rings, *scales)
+    with pytest.raises(ValueError, match="positions"):
+        kv_quantize(k, v, cos, sin, positions.int(), *rings, *scales)
     with pytest.raises(ValueError, match="table"):
-        kv_quantize(k, v, cos[:, :-1], sin[:, :-1], *rings, *scales, pos_offset)
+        kv_quantize(k, v, cos[:, :-1], sin[:, :-1], positions, *rings, *scales)
 
 
 @pytest.mark.parametrize("S,offsets", [(1, (0, 64, 511)), (64, (0, 64, 448)),
