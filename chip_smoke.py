@@ -97,8 +97,10 @@ import hashlib
 import http.client
 import json
 import os
+import re
 import shutil
 import socket
+import struct
 import subprocess
 import sys
 import threading
@@ -1307,6 +1309,86 @@ def _http(port: int, method: str, path: str, payload=None, timeout=300):
         conn.close()
 
 
+def _request(port: int, method: str, path: str, payload=None, timeout=300):
+    """(status, lower-cased headers, body bytes) of one request."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        data = None if payload is None else json.dumps(payload)
+        conn.request(method, path, body=data,
+                     headers={"content-type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, resp.read()
+    finally:
+        conn.close()
+
+
+def _sse(port: int, path: str, payload, timeout=300) -> dict:
+    """One streamed request: its status, headers, the ``data:`` payloads
+    (JSON decoded, ``[DONE]`` kept) and the seconds from sending it to the
+    first event and to the first content delta."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.time()
+        conn.request("POST", path, body=json.dumps(payload),
+                     headers={"content-type": "application/json"})
+        resp = conn.getresponse()
+        events, first_s, content_s = [], None, None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.strip()
+            if not line.startswith(b"data: "):
+                continue
+            data = line[len(b"data: "):].decode()
+            ev = data if data == "[DONE]" else json.loads(data)
+            if first_s is None:
+                first_s = time.time() - t0
+            if content_s is None and isinstance(ev, dict) and any(
+                    c.get("delta", {}).get("content") for c in ev.get("choices", [])):
+                content_s = time.time() - t0
+            events.append(ev)
+        return {"status": resp.status, "headers": {k.lower(): v for k, v in resp.getheaders()},
+                "events": events, "first_event_s": first_s, "first_content_s": content_s}
+    finally:
+        conn.close()
+
+
+def sse_text(events: list) -> tuple[str, str | None]:
+    """(the deltas joined, the last finish_reason) of a chunk stream."""
+    text, finish = "", None
+    for ev in events:
+        for c in (ev.get("choices") or []) if isinstance(ev, dict) else []:
+            text += c.get("delta", {}).get("content", "")
+            finish = c.get("finish_reason") or finish
+    return text, finish
+
+
+def prom_samples(text: str, family: str) -> dict:
+    """{labels: value} of one Prometheus family's samples."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(family + "{") or line.startswith(family + " "):
+            series, _, value = line.rpartition(" ")
+            pairs = re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"', series[len(family):])
+            out[tuple(pairs)] = float(value)
+    return out
+
+
+def spans_within(span: dict, parent: dict | None = None) -> list:
+    """Names of the spans that end after their parent (or start before it;
+    the httpd read window precedes the app by design)."""
+    bad = []
+    if parent is not None:
+        late = span["end"] is None or span["end"] > parent["end"]
+        early = span["name"] != "httpd.read" and span["start"] < parent["start"]
+        if late or early:
+            bad.append(span["name"])
+    for c in span["children"]:
+        bad += spans_within(c, span)
+    return bad
+
+
 @contextlib.contextmanager
 def serving(app):
     """The in-tree httpd serving ``app`` on its own event loop in a thread,
@@ -1582,6 +1664,208 @@ def replay_trace(label: str, eng, slot: int = 700, replays: int = 4, reps: int =
 
 #: the served requests' sampling settings (the app's at temperature 0, the
 #: engine's defaults for the rest), for :func:`top2_margin`
+#: the /v1 conversation of the http phase, and one that shares no prefix
+#: with any request of it (sent before each, so each prefills from slot 0)
+V1_MESSAGES = [{"role": "user", "content": "Tell me a story about a lighthouse keeper."}]
+UNRELATED = [{"role": "system", "content": "Reply with one word."},
+             {"role": "user", "content": "Name a colour."}]
+
+
+def abort_stream(port: int, payload, events: int = 2) -> float:
+    """Open ``/response/stream``, read ``events`` SSE events, then drop the
+    socket with a reset; returns the time of the reset."""
+    raw = json.dumps(payload).encode()
+    s = socket.create_connection(("127.0.0.1", port), timeout=120)
+    try:
+        s.sendall(b"POST /response/stream HTTP/1.1\r\nHost: x\r\n"
+                  b"Content-Type: application/json\r\nContent-Length: "
+                  + str(len(raw)).encode() + b"\r\n\r\n" + raw)
+        buf = b""
+        while buf.count(b"data: ") < events:
+            chunk = s.recv(65536)
+            if not chunk:
+                raise AssertionError(f"stream_abort: the stream ended early: {buf[:200]!r}")
+            buf += chunk
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0))
+    finally:
+        s.close()
+    return time.time()
+
+
+def phase_http(label: str, eng, short_ctx: list, short_reply: str, ring_bytes: int) -> None:
+    """The rest of the HTTP surface over the served engine, greedy at the
+    default settings: ``/v1/chat/completions`` without and with a stream,
+    ``/response/stream``, a stream the client drops, ``/metrics``, a
+    request's trace, and a watchdog drill on a second app.  One line each;
+    any mismatch fails the run.  ``short_reply`` is the engine's
+    ``/response`` reply to ``short_ctx`` from slot 0."""
+    import collections
+
+    from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.faults import FAULTS
+
+    sent = collections.Counter()          # (route, code) of every request
+
+    def note(route: str, status: int):
+        sent[(route, str(status))] += 1
+        return status
+
+    app = create_app(engine=eng, settings=Settings(temperature=0.0))
+    with serving(app) as (port, _):
+        def unrelated():
+            st, _, _ = _request(port, "POST", "/v1/chat/completions",
+                                {"messages": UNRELATED, "max_tokens": 1})
+            if note("/v1/chat/completions", st) != 200:
+                raise AssertionError(f"the separating request returned {st}")
+
+        # 1. the same conversation without a stream and with one
+        unrelated()
+        t0 = time.time()
+        st, hdrs, raw = _request(port, "POST", "/v1/chat/completions",
+                                 {"messages": V1_MESSAGES})
+        wall = time.time() - t0
+        note("/v1/chat/completions", st)
+        answer = json.loads(raw)
+        tm = dict(eng.last_timings or {})
+        content = answer["choices"][0]["message"]["content"] if st == 200 else ""
+        finish = answer["choices"][0]["finish_reason"] if st == 200 else None
+        rid = hdrs.get("x-request-id")
+        say("v1_request", file=label, status=st, wall_s=wall, ttft_s=tm.get("ttft_s"),
+            completion_tokens=tm.get("completion_tokens"), finish_reason=finish,
+            tokens_per_sec=tm.get("tokens_per_sec"), chars=len(content),
+            sha256=hashlib.sha256(content.encode()).hexdigest()[:16], request_id=rid)
+        if st != 200 or not content or not rid:
+            raise AssertionError(f"v1_request: status {st}, body {raw[:300]!r}")
+        if answer["usage"] != {"prompt_tokens": tm["prompt_tokens"],
+                               "completion_tokens": tm["completion_tokens"],
+                               "total_tokens": tm["prompt_tokens"] + tm["completion_tokens"]}:
+            raise AssertionError(f"v1_request: usage {answer['usage']} against {tm}")
+        unrelated()
+        t0 = time.time()
+        got = _sse(port, "/v1/chat/completions", {
+            "messages": V1_MESSAGES, "stream": True,
+            "stream_options": {"include_usage": True}})
+        wall = time.time() - t0
+        note("/v1/chat/completions", got["status"])
+        tm = dict(eng.last_timings or {})
+        events = got["events"]
+        text, s_finish = sse_text(events)
+        usage = events[-2].get("usage") if len(events) > 1 and isinstance(events[-2], dict) else None
+        say("v1_stream", file=label, status=got["status"], events=len(events),
+            first_event_s=got["first_event_s"], first_content_s=got["first_content_s"],
+            wall_s=wall, ttft_s=tm.get("ttft_s"), tokens_per_sec=tm.get("tokens_per_sec"),
+            completion_tokens=tm.get("completion_tokens"), finish_reason=s_finish,
+            equal_to_v1_request=text == content, usage=usage)
+        if got["status"] != 200 or got["headers"].get("content-type") != "text/event-stream":
+            raise AssertionError(f"v1_stream: status {got['status']}, {got['headers']}")
+        if events[-1] != "[DONE]" or (text, s_finish) != (content, finish):
+            raise AssertionError(f"v1_stream: {len(text)} chars, finish {s_finish}, against "
+                                 f"{len(content)} chars, finish {finish} without a stream")
+        if usage != {"prompt_tokens": tm["prompt_tokens"],
+                     "completion_tokens": tm["completion_tokens"],
+                     "total_tokens": tm["prompt_tokens"] + tm["completion_tokens"]}:
+            raise AssertionError(f"v1_stream: usage {usage} against the engine's {tm}")
+
+        # 2. /response/stream against /response, both from slot 0
+        unrelated()
+        got = _sse(port, "/response/stream", body(short_ctx))
+        note("/response/stream", got["status"])
+        tm = dict(eng.last_timings or {})
+        text, s_finish = sse_text(got["events"])
+        say("response_stream", file=label, status=got["status"], events=len(got["events"]),
+            first_event_s=got["first_event_s"], first_content_s=got["first_content_s"],
+            ttft_s=tm.get("ttft_s"), tokens_per_sec=tm.get("tokens_per_sec"),
+            completion_tokens=tm.get("completion_tokens"), finish_reason=s_finish,
+            equal_to_response=text == short_reply)
+        if got["status"] != 200 or got["events"][-1:] != ["[DONE]"] or text != short_reply:
+            raise AssertionError(f"response_stream: status {got['status']}, {len(text)} chars "
+                                 f"against the /response reply's {len(short_reply)}")
+
+        # 3. a stream the client drops after two events
+        t_rst = abort_stream(port, body(short_ctx))
+        note("/response/stream", 200)
+        while eng.heartbeat.busy_count() and time.time() - t_rst < 60:
+            time.sleep(0.001)
+        freed_s = time.time() - t_rst
+        st, _, raw = _request(port, "POST", "/response", body(short_ctx))
+        note("/response", st)
+        say("stream_abort", file=label, engine_free_s=freed_s,
+            decode_chunk=eng.decode_chunk, next_status=st,
+            busy=eng.heartbeat.busy_count())
+        if eng.heartbeat.busy_count() or st != 200:
+            raise AssertionError(f"stream_abort: engine free after {freed_s:.3f}s, "
+                                 f"next /response {st}")
+
+        # 4. /metrics counts what this phase sent
+        st, hdrs, raw = _request(port, "GET", "/metrics")
+        text = raw.decode()
+        counts = {tuple(v for _, v in k): int(n)
+                  for k, n in prom_samples(text, "http_requests_total").items()}
+        health_state = prom_samples(text, "health_state").get(())
+        kv = prom_samples(text, "kv_cache_bytes").get(())
+        families = sorted({ln.split(" ")[2] for ln in text.splitlines()
+                           if ln.startswith("# TYPE ")})
+        say("metrics", file=label, status=st, content_type=hdrs.get("content-type"),
+            http_requests_total={f"{r} {c}": n for (r, c), n in sorted(counts.items())},
+            health_state=health_state, kv_cache_bytes=kv, families=len(families))
+        if (st != 200 or not hdrs.get("content-type", "").startswith("text/plain")
+                or counts != dict(sent) or health_state != 1 or kv != ring_bytes):
+            raise AssertionError(f"metrics: counted {counts}, sent {dict(sent)}, health "
+                                 f"{health_state}, kv {kv} against {ring_bytes}")
+
+        # 5. the trace of the /v1 request
+        st, _, raw = _request(port, "GET", f"/debug/traces/{rid}")
+        doc = json.loads(raw)
+        root = doc.get("root") or {}
+        top = {c["name"]: c for c in root.get("children", [])}
+        engine_span = top.get("engine") or {"children": []}
+        inner = [c["name"] for c in engine_span["children"]]
+        late = spans_within(root) if root else ["root"]
+        say("trace", file=label, status=st, spans=sorted(top), engine=inner[:2],
+            decode_chunks=inner.count("decode_chunk"), finished=doc.get("finished"),
+            outside_parent=late)
+        if (st != 200 or "queue" not in top or inner[:1] != ["prefill"]
+                or not inner.count("decode_chunk") or late or not doc.get("finished")):
+            raise AssertionError(f"trace: {st}, spans {sorted(top)}, engine {inner[:3]}, "
+                                 f"outside their parent {late}")
+
+    # 6. the watchdog drill on a second app over the same engine
+    drill = create_app(engine=eng, settings=Settings(
+        temperature=0.0, watchdog_error_burst=3, watchdog_poll_seconds=0.02,
+        watchdog_backoff_seconds=0.05))
+    ptrs = {k: v.data_ptr() for k, v in eng._cache.items()}
+    graphs = eng._graphs
+    try:
+        with serving(drill) as (port, _):
+            FAULTS.arm("decode_step:error:times=3")
+            codes = [_request(port, "POST", "/response", body(short_ctx))[0]
+                     for _ in range(3)]
+            t_err = time.time()
+            wd = drill.state.watchdog
+            while not (wd.recoveries and drill.state.health.state == "READY") \
+                    and time.time() - t_err < 60:
+                time.sleep(0.005)
+            ready_s = time.time() - t_err
+            FAULTS.disarm()
+            st, _, raw = _request(port, "POST", "/response", body(short_ctx))
+            after = json.loads(raw).get("response", "") if st == 200 else ""
+            trail = [t["to"] for t in drill.state.health.snapshot()["transitions"]]
+            trips, recoveries = wd.trips, wd.recoveries
+    finally:
+        FAULTS.disarm()
+    same_ring = {k: v.data_ptr() for k, v in eng._cache.items()} == ptrs
+    say("watchdog_drill", file=label, codes=codes, trips=trips, recoveries=recoveries,
+        transitions=trail, seconds_to_ready=ready_s, ring_storage_unchanged=same_ring,
+        graphs_kept=eng._graphs is graphs, status=st, reply_unchanged=after == short_reply)
+    if (codes != [500] * 3 or (trips, recoveries) != (1, 1)
+            or trail[-3:] != ["READY", "DEGRADED", "READY"] or not same_ring
+            or eng._graphs is not graphs or st != 200 or after != short_reply):
+        raise AssertionError(f"watchdog_drill: codes {codes}, trips {trips}, recoveries "
+                             f"{recoveries}, {trail}, ring kept {same_ring}, status {st}, "
+                             f"reply equal {after == short_reply}")
+
+
 def served_sampling(settings):
     from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import SamplingParams
 
@@ -1593,12 +1877,14 @@ def served_sampling(settings):
 def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
                 kv_dtype: str = "bf16", weight_format: str = "auto", unroll: int = 0,
                 label: str | None = None, expect_unroll: int = 0, ordinal: int = 0,
-                earlier: list | None = None, deadline_request: bool = False) -> dict:
+                earlier: list | None = None, deadline_request: bool = False,
+                http_phase: bool = False) -> dict:
     """Serve ``path`` in ``weight_format`` over a ``kv_dtype`` KV cache with
     ``decode_layer_unroll=unroll`` and return each kernel's launches on that
     path.  ``ordinal`` numbers the engine for :func:`record_replies`;
     ``earlier`` holds an earlier run's replies to compare with;
-    ``deadline_request`` adds one request at the reference's 25 s timeout."""
+    ``deadline_request`` adds one request at the reference's 25 s timeout,
+    ``http_phase`` the rest of the HTTP surface (:func:`phase_http`)."""
     import torch
 
     from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
@@ -1712,6 +1998,8 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
             raise AssertionError(f"{label}: the {dflt.timeout_seconds} s request returned "
                                  f"{st} with {tm.get('completion_tokens')} tokens, finish "
                                  f"{rec.get('finish_reason')}")
+    if http_phase:
+        phase_http(label, eng, short, results[0][2].get("response", ""), ring_bytes)
 
     # the served model's logits, then the graph against the eager step (on
     # the engine's ring, which nothing serves now), then the launches of one
@@ -1915,11 +2203,12 @@ def main() -> int:
             earlier = json.load(fh)
     engines = [(layout, dict(follow_up=layout in ("q4km", "q6_k"),
                              kv_dtype=KV_DTYPES.get(layout, "bf16"),
-                             deadline_request=layout == "q4km"))
+                             deadline_request=layout == "q4km",
+                             http_phase=layout == "q4km"))
                for layout in LAYOUTS]
     # the prefix-reuse follow-up rides on the Q4_K_M file and, over the
     # int8 ring, on the Q6_K file; the request at the reference's 25 s
-    # timeout on the default Q4_K_M file
+    # timeout and the rest of the HTTP surface on the default Q4_K_M file
     engines += [(layout, dict(follow_up=False, kv_dtype=kv_dtype, weight_format=fmt,
                               unroll=unroll, label=label, expect_unroll=expect))
                 for label, layout, fmt, kv_dtype, unroll, expect in LOOPED]

@@ -24,7 +24,15 @@ streaming chunks — on PyTorch and one GPU:
   card); on the CPU the same step runs eagerly.  Under
   ``decode_layer_unroll`` a step's layer stack is L/K launches of the
   layer-looped kernel (ops/decode_loop.py) over bf16 or int8 weights;
-- sampling: the llama.cpp-parity chain (sampling/sample.py).
+- sampling: the llama.cpp-parity chain (sampling/sample.py);
+- resilience: a :class:`~..utils.health.Heartbeat` the watchdog samples
+  (``enter``/``leave`` around a generation, a ``beat`` once a decode chunk
+  after its tokens are read), the ``prefill`` and ``decode_step`` fault
+  points, and :meth:`Engine.recover`, which zeroes the ring in place (the
+  captured graphs hold its addresses);
+- traces: a request's ``trace`` grows an ``engine`` span with a
+  ``prefill`` child and one ``decode_chunk`` child a chunk.  Every hook
+  runs in the host loop between replays, never inside the captured step.
 
 There is no compile-probe and no fallback: a kernel that fails to build or
 launch raises, and the request fails with it.
@@ -58,6 +66,8 @@ from ..ops.attention import flash_takes
 from ..sampling.sample import SamplingParams, sampling_tensors
 from ..tokenizer import apply_chat_template, detect_chat_template, tokenizer_from_gguf
 from ..utils.device import resolve_device
+from ..utils.faults import FAULTS
+from ..utils.health import EngineUnavailable, Heartbeat
 
 logger = logging.getLogger(__name__)
 
@@ -156,6 +166,7 @@ class Engine:
         *,
         _parts: tuple | None = None,  # (params, cfg, tokenizer, template_kind)
     ):
+        FAULTS.fire("load")   # injection point: a load that fails
         # validated before the file is read: a wrong LFKT_KV_DTYPE fails at
         # once, not after a multi-GB load
         if kv_dtype is not None and kv_dtype not in ("bf16", "int8"):
@@ -179,6 +190,14 @@ class Engine:
         self._requests = 0
         #: per-phase timings of the most recent completed request
         self.last_timings: dict | None = None
+        #: the progress pulse the watchdog samples (engine/watchdog.py)
+        self.heartbeat = Heartbeat()
+        #: a utils.metrics.Metrics the server installs: prefill slices
+        #: observe ``prefill_slice_seconds`` into it
+        self.metrics_sink = None
+        #: the sticky CUDA error that poisoned the context, once recover()
+        #: found one: the engine then refuses every request
+        self._poisoned: BaseException | None = None
         if _parts is not None:
             self.params, self.cfg, self.tokenizer, self.template_kind = _parts
             self.device = self.params.tok_emb.device
@@ -286,10 +305,12 @@ class Engine:
             logits.cpu()
         logger.info("warmup done in %.1fs", time.time() - t0)
 
-    def _prefill_padded(self, ids: list, n_prompt: int, bucket: int):
+    def _prefill_padded(self, ids: list, n_prompt: int, bucket: int, pspan=None):
         """Bucket prefill, whole or sliced; returns the last real token's
         logits.  Slicing stops at the slice holding the last real token:
-        later slices would only write padding that is never attended."""
+        later slices would only write padding that is never attended.  Each
+        slice's host time goes to ``prefill_slice_seconds`` and, traced, to
+        a ``prefill_slice`` event on ``pspan``."""
         padded = torch.zeros(bucket, dtype=torch.int64)
         padded[:n_prompt] = torch.tensor(ids, dtype=torch.int64)
         padded = padded.to(self.device)
@@ -300,12 +321,19 @@ class Engine:
         off = 0
         last = n_prompt - 1
         while off <= last:
+            t_s = time.time()
             n = min(C, bucket - off)
             li = min(max(last - off, 0), n - 1)
             lg = prefill_chunk(self.params, self.cfg, padded[off:off + n], off,
                                li, self._cache)
             if off <= last < off + n:
                 logits = lg
+            dt = time.time() - t_s
+            if self.metrics_sink is not None:
+                self.metrics_sink.observe("prefill_slice_seconds", dt)
+            if pspan is not None:
+                pspan.event("prefill_slice", offset=off, tokens=n,
+                            host_s=round(dt, 6))
             off += n
         return logits
 
@@ -318,6 +346,56 @@ class Engine:
     def _record_timings(self, timings: dict) -> None:
         with self._id_lock:
             self.last_timings = timings
+
+    def _note_error(self, exc: BaseException) -> None:
+        """Record an engine-side failure on the heartbeat for the watchdog's
+        burst detector.  A ``ValueError`` is the client's fault (an
+        oversized prompt, a bad parameter) and never counts; a
+        ``torch.OutOfMemoryError`` (or an injected ``SimulatedOOM``) is the
+        engine's and does."""
+        if isinstance(exc, ValueError):
+            return
+        self.heartbeat.record_error(exc)
+
+    def failure(self) -> BaseException | None:
+        """The fault the engine cannot serve through (the watchdog's
+        ``failure()`` hook): the sticky CUDA error :meth:`recover` found."""
+        return self._poisoned
+
+    def recover(self) -> bool:
+        """Re-initialize the serving state after a watchdog trip.  Refuses
+        (False) while a generation holds the lock, and when the CUDA
+        context is poisoned: a sticky error (an illegal address, a failed
+        launch) makes every later call fail, so only a restart (DEAD)
+        clears it."""
+        FAULTS.fire("recover")   # injection point: a recovery that fails
+        if not self._lock.acquire(blocking=False):
+            return False
+        try:
+            if self._poisoned is None and self.device.type == "cuda":
+                try:
+                    torch.cuda.synchronize(self.device)
+                except Exception as e:  # noqa: BLE001 — a sticky error
+                    logger.error("CUDA context poisoned: %s", e)
+                    self._poisoned = e
+            if self._poisoned is not None:
+                return False
+            self._recover_locked()
+            self.heartbeat.reset()
+            return True
+        finally:
+            self._lock.release()
+
+    def _recover_locked(self) -> None:
+        """Zero the ring in place and drop its prefix claim, with the lock
+        held.  The ring is never reallocated: the captured decode graphs
+        read and write these very tensors, and a new ring would be one the
+        replays never see."""
+        for t in self._cache.values():
+            t.zero_()
+        self._prefix_ids = []
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     @staticmethod
     def _deadline_hit(ctx) -> bool:
@@ -356,12 +434,15 @@ class Engine:
         seed: int | None = None,
         deadline: float | None = None,
         abort=None,
+        trace=None,
     ):
         """OpenAI-chat-shaped completion (dict), or an iterator of chunks
         when ``stream=True``.  Safe to call from a worker thread.
         ``deadline`` (absolute ``time.time()``) and ``abort`` (a callable
         that returns True when the caller gave up) end the generation
-        within one decode chunk with ``finish_reason="deadline"``."""
+        within one decode chunk with ``finish_reason="deadline"``.
+        ``trace`` (an obs.trace.Trace, or None when the request is sampled
+        out) receives the engine's spans."""
         if stop is None:
             stop = []
         elif isinstance(stop, str):
@@ -373,14 +454,19 @@ class Engine:
         )
         if stream:
             return self._generate_stream(messages, sp, max_tokens, stop, seed,
-                                         deadline=deadline, abort=abort)
+                                         deadline=deadline, abort=abort,
+                                         trace=trace)
         return self._generate(messages, sp, max_tokens, stop, seed,
-                              deadline=deadline, abort=abort)
+                              deadline=deadline, abort=abort, trace=trace)
 
     # ------------------------------------------------------------------
-    def _start(self, messages, sp: SamplingParams, seed):
-        """Prefill + first token.  Returns the mutable generation context."""
+    def _start(self, messages, sp: SamplingParams, seed, espan=None):
+        """Prefill + first token.  Returns the mutable generation context.
+        ``espan`` (the traced request's ``engine`` span, or None) grows a
+        ``prefill`` child covering tokenize → first sampled token."""
         t0 = time.time()
+        self.heartbeat.beat()
+        FAULTS.fire("prefill")
         ids = self.tokenize_messages(messages)
         n_prompt = len(ids)
         if n_prompt >= self.cfg.n_ctx:
@@ -397,6 +483,10 @@ class Engine:
         # bf16-rounded cached K/V where a full prefill scores fresh ones,
         # so same-seed calls always take the full prefill
         reuse = 0 if explicit_seed else self._prefix_reuse_len(ids, n_prompt, bucket)
+        pspan = None
+        if espan is not None:
+            pspan = espan.child("prefill", t0=t0)
+            pspan.set(n_prompt=n_prompt, bucket=bucket, reused=reuse)
         # claim nothing while this request is in flight: an exception past
         # here must not leave a claim over a ring of unknown contents
         self._prefix_ids = []
@@ -409,7 +499,7 @@ class Engine:
             logits = prefill_chunk(self.params, self.cfg, tokens, reuse, s - 1,
                                    self._cache)
         else:
-            logits = self._prefill_padded(ids, n_prompt, bucket)
+            logits = self._prefill_padded(ids, n_prompt, bucket, pspan=pspan)
         if self.device.type == "cpu":
             state = init_state(self._cache, ids, seed, self.device)
         elif self._graphs is None:
@@ -419,10 +509,13 @@ class Engine:
             state = self._graphs.state(ids, seed)
         first = int(first_sample(logits, state, st, top_k=sp.top_k))  # host sync
         ttft_s = time.time() - t0
+        if pspan is not None:
+            pspan.set(ttft_s=round(ttft_s, 6))
+            pspan.end()
         return {
             "state": state, "st": st, "sp": sp, "n_prompt": n_prompt,
             "ids": [], "prompt_ids": ids, "first": first, "t0": t0,
-            "reused": reuse, "ttft_s": ttft_s, "bucket": bucket,
+            "reused": reuse, "ttft_s": ttft_s, "bucket": bucket, "span": espan,
         }
 
     def _prefix_reuse_len(self, ids: list, n_prompt: int, bucket: int) -> int:
@@ -448,7 +541,8 @@ class Engine:
         return 0
 
     def _finish(self, ctx) -> dict:
-        """Record the ring's new prefix claim and the request's timings."""
+        """Record the ring's new prefix claim and the request's timings (on
+        the traced request's ``engine`` span too, which it closes)."""
         decode_s = time.time() - ctx["t0"] - ctx["ttft_s"]
         n = len(ctx["ids"])
         if self._prefix_cache:
@@ -468,6 +562,11 @@ class Engine:
             "tokens_per_sec": (n - 1) / decode_s if n > 1 and decode_s > 0 else 0.0,
         }
         self._record_timings(timings)
+        espan = ctx.get("span")
+        if espan is not None:
+            espan.set(**{k: round(v, 6) if isinstance(v, float) else v
+                         for k, v in timings.items()})
+            espan.end()
         return timings
 
     def _token_budget(self, max_tokens, n_prompt):
@@ -538,10 +637,13 @@ class Engine:
         ready, finish, done = em.step(gen, done, finish)
         if ready:
             yield ready, False, finish
+        espan = ctx.get("span")   # None when untraced: no span, no trace lock
         while not done:
             if self._deadline_hit(ctx):
                 finish = "deadline"
                 break
+            FAULTS.fire("decode_step")
+            cspan = espan.child("decode_chunk") if espan is not None else None
             pos += n_cur
             n_nxt = self._next_steps(len(gen) + n_cur, pos, budget)
             nxt = self._decode_chunk(ctx, n_nxt) if n_nxt > 0 else None
@@ -551,9 +653,14 @@ class Engine:
                     done = True
                     break
                 gen.append(t)
+            self.heartbeat.beat()                # the chunk's tokens are in
             pending, n_cur = nxt, n_nxt
             if pending is None:
                 done = True
+            if cspan is not None:
+                cspan.set(tokens=len(gen))
+                cspan.end()
+                ctx["trace"].note(tokens=len(gen))
             ready, finish, done = em.step(gen, done, finish)
             if ready:
                 yield ready, False, finish
@@ -563,19 +670,43 @@ class Engine:
         yield tail, True, finish
 
     # ------------------------------------------------------------------
+    def _engine_span(self, trace, deadline):
+        """Open the traced request's ``engine`` span (None passthrough)."""
+        if trace is None:
+            return None
+        who = {"engine": type(self).__name__, "model": self.model_name}
+        trace.note(deadline=deadline, tokens=0, **who)
+        return trace.span("engine").set(**who)
+
+    def _check_usable(self) -> None:
+        if self._poisoned is not None:
+            raise EngineUnavailable(
+                f"CUDA context poisoned: {type(self._poisoned).__name__}: "
+                f"{self._poisoned}")
+
     def _generate(self, messages, sp, max_tokens, stops, seed,
-                  deadline=None, abort=None) -> dict:
+                  deadline=None, abort=None, trace=None) -> dict:
         with self._lock:
-            t0 = time.time()
-            ctx = self._start(messages, sp, seed)
-            ctx["deadline"] = deadline
-            ctx["abort"] = abort
-            parts = []
-            finish = "stop"
-            for text, _done, fr in self._run(ctx, max_tokens, stops):
-                parts.append(text)
-                finish = fr
-            timings = self._finish(ctx)
+            self._check_usable()
+            self.heartbeat.enter()
+            try:
+                t0 = time.time()
+                ctx = self._start(messages, sp, seed,
+                                  espan=self._engine_span(trace, deadline))
+                ctx["trace"] = trace
+                ctx["deadline"] = deadline
+                ctx["abort"] = abort
+                parts = []
+                finish = "stop"
+                for text, _done, fr in self._run(ctx, max_tokens, stops):
+                    parts.append(text)
+                    finish = fr
+                timings = self._finish(ctx)
+            except Exception as e:  # noqa: BLE001 — burst detection, re-raised
+                self._note_error(e)
+                raise
+            finally:
+                self.heartbeat.leave()
         completion_tokens = len(ctx["ids"])
         logger.info("generation: %.2fs, finish=%s", time.time() - t0, finish)
         return {
@@ -597,9 +728,18 @@ class Engine:
         }
 
     def _generate_stream(self, messages, sp, max_tokens, stops, seed,
-                         deadline=None, abort=None) -> Iterator[dict]:
+                         deadline=None, abort=None, trace=None) -> Iterator[dict]:
         with self._lock:
-            ctx = self._start(messages, sp, seed)
+            self._check_usable()
+            self.heartbeat.enter()
+            try:
+                ctx = self._start(messages, sp, seed,
+                                  espan=self._engine_span(trace, deadline))
+            except Exception as e:  # noqa: BLE001 — burst detection, re-raised
+                self.heartbeat.leave()
+                self._note_error(e)
+                raise
+            ctx["trace"] = trace
             ctx["deadline"] = deadline
             ctx["abort"] = abort
             cid = f"chatcmpl-{uuid.uuid4().hex}"
@@ -629,7 +769,11 @@ class Engine:
                 final = chunk({}, finish=finish)
                 final["lfkt_timings"] = timings
                 yield final
+            except Exception as e:  # noqa: BLE001 — burst detection, re-raised
+                self._note_error(e)
+                raise
             finally:
+                self.heartbeat.leave()
                 if not finished:
                     # closed early (client gone): still record the claim
                     # and timings so the next request sees a consistent ring

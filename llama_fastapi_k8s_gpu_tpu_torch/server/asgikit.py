@@ -4,13 +4,22 @@ The JAX package's copy (llama_fastapi_k8s_gpu_tpu/server/asgikit.py)
 without its pydantic dependency: decorator routing with path parameters,
 request-body validation through :mod:`.schemas` (422 with pydantic's error
 list), ``HTTPException`` with a ``{"detail": ...}`` body,
-``@app.middleware("http")``, ``@app.on_event("startup")`` and
-``app.state``.  The app runs under the in-tree ``httpd`` and is driven
-in-process through raw ASGI calls in tests.
+``@app.middleware("http")``, ``@app.on_event("startup")``, ``app.state``,
+request headers, and JSON, plain-text and streaming responses.  The app
+runs under the in-tree ``httpd`` and is driven in-process through raw ASGI
+calls in tests.
+
+A :class:`StreamingResponse` body is sent as ``http.response.body``
+messages with ``more_body`` while a second task waits on ``receive()``:
+when the client goes away (``http.disconnect``, or a write that fails) the
+body's generator is cancelled and closed at once, so its ``finally`` runs
+— the server's SSE generators cancel their request's future there, and
+the engine stops at its next decode chunk.
 """
 
 from __future__ import annotations
 
+import asyncio
 import inspect
 import json
 import logging
@@ -56,6 +65,16 @@ class Request:
         self.url = URL(scope)
         self.path_params: dict[str, Any] = {}
         self._body = body
+        self._headers: dict[str, str] | None = None
+
+    @property
+    def headers(self) -> dict[str, str]:
+        """Lower-cased header map, built on first use."""
+        if self._headers is None:
+            self._headers = {
+                k.decode("latin-1").lower(): v.decode("latin-1")
+                for k, v in (self.scope.get("headers") or [])}
+        return self._headers
 
     async def json(self):
         return json.loads(self._body or b"null")
@@ -83,6 +102,32 @@ class JSONResponse(Response):
 
     def render(self, content) -> bytes:
         return json.dumps(content).encode()
+
+
+class PlainTextResponse(Response):
+    media_type = "text/plain; charset=utf-8"
+
+
+class StreamingResponse(Response):
+    """A body from an async generator of str or bytes chunks, sent as
+    ``http.response.body`` messages with ``more_body`` (the in-tree httpd
+    frames them with chunked transfer-encoding).  The default media type
+    suits server-sent events."""
+
+    media_type = "text/event-stream"
+
+    def __init__(self, iterator, status_code: int = 200):
+        super().__init__(b"", status_code)
+        self.iterator = iterator
+
+    async def chunks(self):
+        try:
+            async for chunk in self.iterator:
+                yield chunk.encode() if isinstance(chunk, str) else chunk
+        finally:
+            # close the app's generator now, not at garbage collection:
+            # its finally releases what the stream holds
+            await self.iterator.aclose()
 
 
 class _Route:
@@ -267,12 +312,54 @@ class MicroAPI:
                 return
 
         response = await self._handle(Request(self, scope, body))
+        if isinstance(response, StreamingResponse):
+            headers = [(b"content-type", response.media_type.encode()),
+                       (b"cache-control", b"no-cache")]
+            headers += [(k.encode(), v.encode()) for k, v in response.headers.items()]
+            await send({"type": "http.response.start",
+                        "status": response.status_code, "headers": headers})
+            await _stream_body(response, receive, send)
+            return
         headers = [(b"content-type", response.media_type.encode()),
                    (b"content-length", str(len(response.body)).encode())]
         headers += [(k.encode(), v.encode()) for k, v in response.headers.items()]
         await send({"type": "http.response.start",
                     "status": response.status_code, "headers": headers})
         await send({"type": "http.response.body", "body": response.body})
+
+
+async def _stream_body(response: StreamingResponse, receive, send) -> None:
+    """Send the body until it ends or the client goes away, whichever comes
+    first; either way the body's generator is closed before this returns."""
+    chunks = response.chunks()
+
+    async def pump():
+        async for chunk in chunks:
+            await send({"type": "http.response.body", "body": chunk,
+                        "more_body": True})
+        await send({"type": "http.response.body", "body": b""})
+
+    async def watch():
+        while (await receive())["type"] != "http.disconnect":
+            pass
+
+    pumping = asyncio.ensure_future(pump())
+    watching = asyncio.ensure_future(watch())
+    try:
+        await asyncio.wait({pumping, watching},
+                           return_when=asyncio.FIRST_COMPLETED)
+        if not pumping.done():
+            logger.info("client disconnected mid-stream; closing the body")
+            pumping.cancel()
+        try:
+            await pumping
+        except (asyncio.CancelledError, ConnectionError):
+            pass    # the client is gone: nothing more to send
+    finally:
+        watching.cancel()
+        if not pumping.done():
+            pumping.cancel()
+        await chunks.aclose()
 
 
 def _bind_middleware(mw, nxt):

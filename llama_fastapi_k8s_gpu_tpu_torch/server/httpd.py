@@ -16,6 +16,13 @@ connections are force-closed AND their handler tasks cancelled after the
 drain budget, so ``Server.wait_closed`` (which on Python ≥3.12.1 waits for
 ALL connection handlers — including ones blocked inside the app, not on
 socket I/O) cannot hang the process past its pod termination grace period.
+
+Streaming responses go out with chunked transfer-encoding.  Once a
+request's body is delivered, ``receive()`` waits for the client to go away
+(EOF, a reset, or a closed transport) and then answers
+``http.disconnect``, so an app streaming to a dropped socket learns of it
+without having to write first.  The request's read window rides the scope
+as ``lfkt.httpd_read`` (the tracer's ``httpd.read`` span).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import signal
+import time
 
 logger = logging.getLogger(__name__)
 
@@ -53,10 +61,15 @@ async def _reject(writer, status: int, detail: str) -> bool:
     return False
 
 
+#: how often a waiting ``receive()`` looks at the socket
+_DISCONNECT_POLL = 0.02
+
+
 async def _handle_request(app, reader, writer, peer, request_line,
-                          state) -> bool:
+                          state, t_read0=None) -> bool:
     """Serve one request on an open connection.  Returns False when the
-    connection must close (malformed request, read deadline, or draining)."""
+    connection must close (malformed request, read deadline, or draining).
+    ``t_read0`` is when this request's bytes started arriving."""
     try:
         method, target, _version = request_line.decode().split()
     except ValueError:
@@ -135,12 +148,18 @@ async def _handle_request(app, reader, writer, peer, request_line,
         "client": peer,
         "scheme": "http",
     }
+    if t_read0 is not None:
+        scope["lfkt.httpd_read"] = (t_read0, time.time())
 
     messages = [{"type": "http.request", "body": body, "more_body": False}]
 
     async def receive():
         if messages:
             return messages.pop(0)
+        # the body is delivered: answer once the client has gone away
+        while not (reader.at_eof() or reader.exception() is not None
+                   or writer.is_closing()):
+            await asyncio.sleep(_DISCONNECT_POLL)
         return {"type": "http.disconnect"}
 
     # Buffered by default; switches to chunked transfer-encoding the
@@ -216,6 +235,7 @@ async def _handle_connection(app, reader: asyncio.StreamReader,
                 # within the read deadline — a dribbled partial line would
                 # otherwise dodge the header/body slowloris guard entirely
                 # (it never reaches _handle_request)
+                t_read0 = time.time()
                 try:
                     request_line = await asyncio.wait_for(
                         reader.readline(), state["read_timeout"])
@@ -232,6 +252,7 @@ async def _handle_connection(app, reader: asyncio.StreamReader,
                 lead = await reader.read(1)
                 if not lead:
                     break
+                t_read0 = time.time()   # the idle keep-alive wait excluded
                 try:
                     request_line = lead + await asyncio.wait_for(
                         reader.readline(), state["read_timeout"])
@@ -247,7 +268,8 @@ async def _handle_connection(app, reader: asyncio.StreamReader,
             state["busy"].add(writer)
             try:
                 keep = await _handle_request(app, reader, writer, peer,
-                                             request_line, state)
+                                             request_line, state,
+                                             t_read0=t_read0)
             finally:
                 state["active"] -= 1
                 state["busy"].discard(writer)
@@ -282,8 +304,11 @@ async def serve(app, host: str = "0.0.0.0", port: int = 8000,
                 ready_event: asyncio.Event | None = None,
                 stop_event: asyncio.Event | None = None,
                 drain_seconds: float | None = None,
-                read_timeout: float | None = None):
+                read_timeout: float | None = None,
+                on_drain=None):
     """Serve until SIGINT/SIGTERM (or ``stop_event``), then drain.
+    ``on_drain`` (a blocking callable) runs on a worker thread as the
+    drain begins.
 
     ``drain_seconds`` defaults to ``LFKT_DRAIN_SECONDS`` (30 — gunicorn's
     graceful_timeout, the reference's termination behavior at
@@ -332,6 +357,8 @@ async def serve(app, host: str = "0.0.0.0", port: int = 8000,
             from ..utils.health import DRAINING
 
             health.transition(DRAINING, "shutdown signal received")
+        if on_drain is not None:
+            await asyncio.to_thread(on_drain)
         server.close()            # stop accepting; existing tasks continue
         # one short tick before closing "idle" connections: a request whose
         # bytes are already buffered but whose handler is still parked in
@@ -357,5 +384,5 @@ async def serve(app, host: str = "0.0.0.0", port: int = 8000,
     await app.router.shutdown()
 
 
-def run(app, host: str = "0.0.0.0", port: int = 8000):
-    asyncio.run(serve(app, host, port))
+def run(app, host: str = "0.0.0.0", port: int = 8000, on_drain=None):
+    asyncio.run(serve(app, host, port, on_drain=on_drain))

@@ -2,7 +2,7 @@
 
 The same names and defaults as the JAX package's registry
 (llama_fastapi_k8s_gpu_tpu/utils/config.py), limited to what the serial
-``/response`` path reads.  The reference's constants (model dir and name,
+pod reads: its routes, the engine, the watchdog and the tracer.  The reference's constants (model dir and name,
 1024-token context, 25 s timeout, queue of 5) stay the defaults.
 """
 
@@ -19,9 +19,31 @@ class Settings:
     max_context_tokens: int = 1024
     timeout_seconds: float = 25.0
     max_queue_size: int = 5
+    # total wall-clock bound of one streamed response (the per-chunk gap
+    # is timeout_seconds)
+    stream_deadline_seconds: float = 300.0
     # graceful-shutdown budget and slowloris guard of the in-tree httpd
     drain_seconds: float = 30.0
     read_timeout: float = 30.0
+    # the engine watchdog (engine/watchdog.py): a stall (no beat for
+    # watchdog_stall_seconds with a generation in flight) or a burst of
+    # watchdog_error_burst engine errors in watchdog_error_window seconds
+    # trips it to DEGRADED; it recovers with exponential backoff, or goes
+    # DEAD after watchdog_max_recoveries trips
+    watchdog: bool = True
+    watchdog_stall_seconds: float = 60.0
+    watchdog_poll_seconds: float = 1.0
+    watchdog_max_recoveries: int = 3
+    watchdog_error_burst: int = 5
+    watchdog_error_window: float = 30.0
+    watchdog_backoff_seconds: float = 1.0
+    watchdog_backoff_max: float = 60.0
+    # request traces (obs/trace.py): the fraction traced (0 disarms) and
+    # the completed traces kept for /debug/traces; JSON log lines with
+    # request ids (server/__main__.py)
+    trace_sample: float = 1.0
+    trace_ring: int = 256
+    json_logs: bool = True
     # the sampling parameters the reference passes on every request
     temperature: float = 1.2
     top_p: float = 0.9

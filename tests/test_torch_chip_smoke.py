@@ -352,3 +352,41 @@ def test_record_replies_appends_prompt_ids_and_finish():
     chip_smoke.record_replies(eng, 4, sink)
     assert eng.create_chat_completion()["inner"] == {"done": True}
     assert sink == [{"engine": 4, "prompt": [1, 2], "ids": [3], "finish_reason": "length"}]
+
+
+def test_sse_text_joins_deltas_and_keeps_the_last_finish():
+    events = [{"choices": [{"delta": {"role": "assistant"}, "finish_reason": None}]},
+              {"choices": [{"delta": {"content": "he"}, "finish_reason": None}]},
+              {"choices": [{"delta": {"content": "llo"}, "finish_reason": None}]},
+              {"choices": [{"delta": {}, "finish_reason": "length"}]},
+              {"choices": [], "usage": {"prompt_tokens": 3}}, "[DONE]"]
+    assert chip_smoke.sse_text(events) == ("hello", "length")
+    assert chip_smoke.sse_text(["[DONE]"]) == ("", None)
+
+
+def test_prom_samples_reads_one_family_by_labels():
+    text = ("# HELP http_requests_total x\n# TYPE http_requests_total counter\n"
+            'http_requests_total{route="/v1/chat/completions",code="200"} 3\n'
+            'http_requests_total{route="/items/{item_id}",code="422"} 1\n'
+            "http_requests_total_other 9\nhealth_state 1\n"
+            'request_seconds_bucket{route="/a",le="0.5"} 2\n')
+    got = chip_smoke.prom_samples(text, "http_requests_total")
+    assert got == {(("route", "/v1/chat/completions"), ("code", "200")): 3.0,
+                   (("route", "/items/{item_id}"), ("code", "422")): 1.0}
+    assert chip_smoke.prom_samples(text, "health_state") == {(): 1.0}
+    assert chip_smoke.prom_samples(text, "kv_cache_bytes") == {}
+
+
+def _span(name, start, end, *children):
+    return {"name": name, "start": start, "end": end, "children": list(children)}
+
+
+def test_spans_within_names_spans_outside_their_parent():
+    ok = _span("request", 1.0, 9.0, _span("httpd.read", 0.5, 1.0),
+               _span("queue", 1.0, 1.1), _span("engine", 1.1, 8.0,
+                                                _span("prefill", 1.1, 2.0),
+                                                _span("decode_chunk", 2.0, 8.0)))
+    assert chip_smoke.spans_within(ok) == []
+    bad = _span("request", 1.0, 9.0, _span("queue", 0.9, 1.1),
+                _span("engine", 1.1, 9.5, _span("decode_chunk", 2.0, None)))
+    assert chip_smoke.spans_within(bad) == ["queue", "engine", "decode_chunk"]

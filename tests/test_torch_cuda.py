@@ -829,3 +829,78 @@ def test_graph_replay_matches_the_eager_step(cuda, fmt, kv_dtype, unroll):
                           dataclasses.replace(other, top_k=12))
     assert graphs.keys == [40, 12] and graphs.replays == 16 + 8 + 16 + 16
     graphs.close()
+
+
+def _served_engine(cuda, tmp_path, kv_dtype):
+    """An engine as the server runs it on the card, warmed up (its decode
+    step captured): a GGUF of random Q8_0 weights written by
+    ``chip_smoke.write_gguf`` (dim 256, 2 layers, 4 query heads of 64 over
+    2 KV heads, vocab 512), served as bf16 over a 256-slot ring."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      ffn_dim=512, n_ctx=256)
+    path = str(tmp_path / "tiny-q8_0.gguf")
+    chip_smoke.write_gguf(cfg, path, "q8_0")
+    eng = Engine(path, n_ctx=256, max_gen_tokens=48, prefill_buckets=(64, 128, 256),
+                 kv_dtype=kv_dtype, device=cuda)
+    eng.warmup()
+    return eng
+
+
+SERVED_MSGS = [{"role": "user", "content": "tell me about the sea, please"}]
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_stream_closed_after_two_chunks_frees_the_engine(cuda, tmp_path, kv_dtype):
+    """A greedy stream closed after its second chunk (what a client's
+    disconnect does to it) leaves the engine free, and the next greedy
+    reply equals the one from before, byte for byte."""
+    eng = _served_engine(cuda, tmp_path, kv_dtype)
+    want = eng.create_chat_completion(SERVED_MSGS, temperature=0.0, max_tokens=40)
+    it = eng.create_chat_completion(SERVED_MSGS, stream=True, temperature=0.0,
+                                    max_tokens=40)
+    role, first = next(it), next(it)
+    it.close()
+    assert role["choices"][0]["delta"] == {"role": "assistant"}
+    assert want["choices"][0]["message"]["content"].startswith(
+        first["choices"][0]["delta"]["content"])
+    assert eng.heartbeat.busy_count() == 0 and not eng._lock.locked()
+    again = eng.create_chat_completion(SERVED_MSGS, temperature=0.0, max_tokens=40)
+    assert again["choices"] == want["choices"]
+    eng.close()
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_recover_zeroes_the_ring_in_place_under_graphs(cuda, tmp_path, kv_dtype):
+    """A ``decode_step`` fault, then ``recover()``: the ring is zero, every
+    leaf keeps its storage (the captured graphs hold those addresses), the
+    graphs are kept, and the next greedy reply — replays over the ring the
+    prefill writes — equals the one from before the fault."""
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.faults import FAULTS, FaultError
+
+    eng = _served_engine(cuda, tmp_path, kv_dtype)
+    graphs = eng._graphs
+    ptrs = {k: v.data_ptr() for k, v in eng._cache.items()}
+    want = eng.create_chat_completion(SERVED_MSGS, temperature=0.0, max_tokens=40)
+    FAULTS.arm("decode_step:error:times=1")
+    try:
+        with pytest.raises(FaultError):
+            eng.create_chat_completion(SERVED_MSGS, temperature=0.0, max_tokens=40)
+    finally:
+        FAULTS.disarm()
+    assert eng.heartbeat.errors_total == 1 and eng.heartbeat.busy_count() == 0
+    assert eng.recover() is True and eng.failure() is None
+    assert all(not bool(v.any()) for v in eng._cache.values())
+    assert {k: v.data_ptr() for k, v in eng._cache.items()} == ptrs
+    assert eng._graphs is graphs
+    again = eng.create_chat_completion(SERVED_MSGS, temperature=0.0, max_tokens=40)
+    assert again["choices"] == want["choices"]
+    assert graphs.replays > 0
+    eng.close()
