@@ -70,7 +70,13 @@ and no result line):
    return 200 with all 512 tokens (``deadline_request``).  With
    ``CHIP_SMOKE_REPLIES_OUT`` the run writes every request's token ids;
    with ``CHIP_SMOKE_REPLIES`` (an earlier run's) it prints a
-   ``reply_change`` line where a reply parts from it.  Two more engines
+   ``reply_change`` line where a reply parts from it.  On the Q4_K_M
+   file the rest of the HTTP surface follows (the ``http`` lines, ending in
+   a watchdog drill with the incident recorder armed: ``incidents`` and
+   ``slo``), then the device-facing one on a fresh app (the ``obs``
+   lines: ``compiles`` — graph captures as compiles, dispatches, a
+   recompile storm under a low budget —, ``memory``, ``profile``,
+   ``launches_audit``, ``metrics_families``).  Two more engines
    serve files already written, with the layer-looped decode armed: the
    Q4_K_M file as int8 weights with one looped launch a token
    (``decode_layer_unroll=-1``), and the Q8_0 file as bf16 weights over the
@@ -103,6 +109,7 @@ import socket
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1695,12 +1702,15 @@ def abort_stream(port: int, payload, events: int = 2) -> float:
 def phase_http(label: str, eng, short_ctx: list, short_reply: str, ring_bytes: int) -> None:
     """The rest of the HTTP surface over the served engine, greedy at the
     default settings: ``/v1/chat/completions`` without and with a stream,
-    ``/response/stream``, a stream the client drops, ``/metrics``, a
-    request's trace, and a watchdog drill on a second app.  One line each;
-    any mismatch fails the run.  ``short_reply`` is the engine's
+    ``/response/stream``, a stream the client drops (the engine must be
+    free within two decode chunks), ``/metrics``, a request's trace, and a
+    watchdog drill on a second app with the incident recorder armed on a
+    temporary directory: its bundles (``/debug/incidents``) and burn rates
+    (``/debug/slo``).  One line each; any mismatch fails the run.  ``short_reply`` is the engine's
     ``/response`` reply to ``short_ctx`` from slot 0."""
     import collections
 
+    from llama_fastapi_k8s_gpu_tpu_torch.obs.flightrec import FLIGHTREC
     from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
     from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
     from llama_fastapi_k8s_gpu_tpu_torch.utils.faults import FAULTS
@@ -1741,6 +1751,7 @@ def phase_http(label: str, eng, short_ctx: list, short_reply: str, ring_bytes: i
                                "completion_tokens": tm["completion_tokens"],
                                "total_tokens": tm["prompt_tokens"] + tm["completion_tokens"]}:
             raise AssertionError(f"v1_request: usage {answer['usage']} against {tm}")
+        v1_rate = tm["tokens_per_sec"]
         unrelated()
         t0 = time.time()
         got = _sse(port, "/v1/chat/completions", {
@@ -1790,11 +1801,14 @@ def phase_http(label: str, eng, short_ctx: list, short_reply: str, ring_bytes: i
         freed_s = time.time() - t_rst
         st, _, raw = _request(port, "POST", "/response", body(short_ctx))
         note("/response", st)
+        # a decode chunk's seconds at the /v1 request's decode rate
+        chunk_s = eng.decode_chunk / v1_rate
         say("stream_abort", file=label, engine_free_s=freed_s,
-            decode_chunk=eng.decode_chunk, next_status=st,
-            busy=eng.heartbeat.busy_count())
-        if eng.heartbeat.busy_count() or st != 200:
-            raise AssertionError(f"stream_abort: engine free after {freed_s:.3f}s, "
+            decode_chunk=eng.decode_chunk, chunk_s=chunk_s, chunks=freed_s / chunk_s,
+            next_status=st, busy=eng.heartbeat.busy_count())
+        if eng.heartbeat.busy_count() or st != 200 or freed_s >= 2 * chunk_s:
+            raise AssertionError(f"stream_abort: engine free after {freed_s:.3f}s "
+                                 f"({freed_s / chunk_s:.2f} decode chunks), "
                                  f"next /response {st}")
 
         # 4. /metrics counts what this phase sent
@@ -1830,40 +1844,423 @@ def phase_http(label: str, eng, short_ctx: list, short_reply: str, ring_bytes: i
             raise AssertionError(f"trace: {st}, spans {sorted(top)}, engine {inner[:3]}, "
                                  f"outside their parent {late}")
 
-    # 6. the watchdog drill on a second app over the same engine
+    # 6. the watchdog drill on a second app over the same engine, with the
+    # incident recorder armed on a temporary directory
     drill = create_app(engine=eng, settings=Settings(
         temperature=0.0, watchdog_error_burst=3, watchdog_poll_seconds=0.02,
         watchdog_backoff_seconds=0.05))
     ptrs = {k: v.data_ptr() for k, v in eng._cache.items()}
     graphs = eng._graphs
+    incident_dir = tempfile.mkdtemp(prefix="lfkt-incidents-")
+    FLIGHTREC.configure(directory=incident_dir)
     try:
         with serving(drill) as (port, _):
-            FAULTS.arm("decode_step:error:times=3")
+            # three faults trip the watchdog; a one-token request queued
+            # behind the third (its prompt pass held 50 ms) is in flight at
+            # the trip, so its trace must ride the trip's bundle
+            FAULTS.arm("decode_step:error:times=3,prefill:slow:delay=0.05:after=3:times=1")
             codes = [_request(port, "POST", "/response", body(short_ctx))[0]
-                     for _ in range(3)]
-            t_err = time.time()
+                     for _ in range(2)]
+            box: dict = {}
+
+            def third():
+                box["code"] = _request(port, "POST", "/response", body(short_ctx))[0]
+                box["t_err"] = time.time()
+
+            def queued():
+                box["queued"] = _request(port, "POST", "/v1/chat/completions",
+                                         {"messages": UNRELATED, "max_tokens": 1})
+
+            threads = [threading.Thread(target=third), threading.Thread(target=queued)]
+            threads[0].start()
+            time.sleep(0.01)
+            threads[1].start()
+            threads[0].join()
+            codes.append(box["code"])
+            t_err = box["t_err"]
             wd = drill.state.watchdog
             while not (wd.recoveries and drill.state.health.state == "READY") \
                     and time.time() - t_err < 60:
                 time.sleep(0.005)
             ready_s = time.time() - t_err
+            threads[1].join()
             FAULTS.disarm()
             st, _, raw = _request(port, "POST", "/response", body(short_ctx))
             after = json.loads(raw).get("response", "") if st == 200 else ""
             trail = [t["to"] for t in drill.state.health.snapshot()["transitions"]]
             trips, recoveries = wd.trips, wd.recoveries
+            # an injected out-of-memory error: its own bundle, with its trace
+            FAULTS.arm("decode_step:oom:times=1")
+            oom_st, oom_hdrs, _ = _request(port, "POST", "/response", body(short_ctx))
+            FAULTS.disarm()
+            incidents = check_incidents(port, {
+                "watchdog_trip": box["queued"][1].get("x-request-id"),
+                "resource_exhausted": oom_hdrs.get("x-request-id")})
+            # the burn rates over the drill's requests: four 500s of six burn
+            # the error budget, but the pod is fresh, so no breach
+            slo_st, _, raw = _request(port, "GET", "/debug/slo")
+            slo = json.loads(raw)
     finally:
         FAULTS.disarm()
+        FLIGHTREC.configure(directory="")
+        shutil.rmtree(incident_dir, ignore_errors=True)
     same_ring = {k: v.data_ptr() for k, v in eng._cache.items()} == ptrs
     say("watchdog_drill", file=label, codes=codes, trips=trips, recoveries=recoveries,
         transitions=trail, seconds_to_ready=ready_s, ring_storage_unchanged=same_ring,
-        graphs_kept=eng._graphs is graphs, status=st, reply_unchanged=after == short_reply)
+        graphs_kept=eng._graphs is graphs, status=st, reply_unchanged=after == short_reply,
+        queued_status=box["queued"][0])
     if (codes != [500] * 3 or (trips, recoveries) != (1, 1)
             or trail[-3:] != ["READY", "DEGRADED", "READY"] or not same_ring
-            or eng._graphs is not graphs or st != 200 or after != short_reply):
+            or eng._graphs is not graphs or st != 200 or after != short_reply
+            or box["queued"][0] != 200):
         raise AssertionError(f"watchdog_drill: codes {codes}, trips {trips}, recoveries "
                              f"{recoveries}, {trail}, ring kept {same_ring}, status {st}, "
-                             f"reply equal {after == short_reply}")
+                             f"reply equal {after == short_reply}, queued request "
+                             f"{box['queued'][0]}")
+    say("incidents", file=label, oom_status=oom_st, **incidents)
+    if oom_st != 500:
+        raise AssertionError(f"incidents: the injected OOM request returned {oom_st}")
+    burns = worst_burns(slo)
+    say("slo", file=label, status=slo_st, verdict=slo["verdict"],
+        recompile=slo["recompile"]["verdict"], windows=slo["windows"], burns=burns)
+    if (slo_st != 200 or slo["verdict"] == "breach"
+            or burns["error_rate"][slo["windows"][0]] < 1):
+        raise AssertionError(f"slo: {slo_st}, verdict {slo['verdict']}, burns {burns}")
+
+
+def check_incidents(port: int, traced: dict) -> dict:
+    """The recorder's bundles through the app: exactly one of each kind in
+    ``traced`` ({kind: the request id whose trace it must hold}), each
+    valid, read back whole by id, and ``incidents_total`` counting them."""
+    from llama_fastapi_k8s_gpu_tpu_torch.obs.flightrec import validate_bundle
+
+    st, _, raw = _request(port, "GET", "/debug/incidents")
+    listing = json.loads(raw)
+    kinds = sorted(i["kind"] for i in listing["incidents"])
+    out = {"armed": listing["armed"], "kinds": kinds, "bundles": {}}
+    bad = [] if st == 200 and kinds == sorted(traced) else [f"listing {st} {kinds}"]
+    for summary in listing["incidents"]:
+        st, _, raw = _request(port, "GET", f"/debug/incidents/{summary['id']}")
+        doc = json.loads(raw)
+        ids = [t.get("trace_id") for t in doc.get("traces", [])]
+        holds = traced.get(doc.get("kind")) in ids
+        problems = validate_bundle(doc)
+        out["bundles"][summary["id"]] = {
+            "status": st, "reason": doc.get("reason", "")[:80], "valid": not problems,
+            "traces": len(ids), "holds_request_trace": holds,
+            "memory_components": [r["component"] for r in doc["memory"].get("components", [])],
+            "health_trail": [t["to"] for t in (doc.get("health") or {}).get("transitions", [])]}
+        if st != 200 or problems or not holds:
+            bad.append(f"{summary['id']}: {st}, {problems}, trace held {holds}")
+    st, _, raw = _request(port, "GET", "/metrics")
+    out["incidents_total"] = prom_samples(raw.decode(), "incidents_total").get(())
+    if out["incidents_total"] != len(traced):
+        bad.append(f"incidents_total {out['incidents_total']}")
+    if bad:
+        raise AssertionError(f"incidents: {bad}")
+    return out
+
+
+#: the /metrics families of the device-facing surfaces (ROADMAP A.2b)
+OBS_FAMILIES = ("xla_compiles_total", "jit_dispatches_total", "xla_recompile_storms_total",
+                "xla_compile_seconds", "xla_compile_events_dropped_total", "hbm_bytes",
+                "hbm_headroom_bytes", "slo_burn_rate", "incidents_total")
+#: catalog families a /metrics shows only once their event happened on
+#: that app (a 503, a 408, a trip, a prefix reuse...)
+EVENT_FAMILIES = ("requests_rejected_total", "requests_timed_out_total",
+                  "engine_unavailable_total", "engine_errors_total", "watchdog_trips_total",
+                  "watchdog_recoveries_total", "watchdog_escalations_total",
+                  "prefix_cache_hits_total", "prefix_cache_reused_tokens_total",
+                  "streamed_generations_total", "prefill_slice_seconds", "incidents_total")
+
+
+def devtime_delta(before: dict, after: dict) -> dict:
+    """{program: {"compiles", "dispatches"}} grown between two
+    ``DEVTIME.counters()`` snapshots (zero rows left out)."""
+    out = {}
+    for name, c in after.items():
+        b = before.get(name, {})
+        d = {k: c[k] - b.get(k, 0) for k in ("compiles", "dispatches")}
+        if any(d.values()):
+            out[name] = d
+    return out
+
+
+def worst_burns(slo_doc: dict) -> dict:
+    """{slo: {window: burn rate}} of a ``/debug/slo`` document."""
+    return {s["name"]: {w: ev["burn_rate"] for w, ev in s["windows"].items()}
+            for s in slo_doc["slos"]}
+
+
+def profile_trace_stats(path: str) -> dict:
+    """Counts in a ``torch.profiler`` Chrome trace: CUDA kernel events,
+    those of the port's kernels (by name), and graph launches."""
+    with open(path) as fh:
+        text = fh.read()
+    names = re.findall(r'"ph":\s*"X",\s*"cat":\s*"kernel",\s*"name":\s*"([^"]*)"', text)
+    port = [n for n in names if any(f in n for f in (
+        "qgemv_kernel", "qmma_kernel", "flash_attention", "kv_quantize_kernel",
+        "decode_loop_kernel", "dequant"))]
+    return {"bytes": len(text), "cuda_kernels": len(names), "port_kernels": len(port),
+            "port_kernel_names": sorted(set(port))[:4],
+            "graph_launches": len(re.findall(r'"name":\s*"cudaGraphLaunch', text))}
+
+
+def memory_pools() -> dict:
+    """The caching allocator's live and reserved bytes, split between the
+    default pool and the private pools (the decode graphs')."""
+    import torch
+
+    out = {"default_active": 0, "default_reserved": 0, "private_active": 0,
+           "private_reserved": 0}
+    for seg in torch.cuda.memory_snapshot():
+        pool = "default" if tuple(seg.get("segment_pool_id", (0, 0))) == (0, 0) else "private"
+        out[f"{pool}_active"] += seg["active_size"]
+        out[f"{pool}_reserved"] += seg["total_size"]
+    return out
+
+
+def phase_obs(label: str, eng, short_ctx: list, ring_bytes: int, before: dict,
+              at_start: dict, allocated_before: int) -> None:
+    """The device-facing surfaces over the served engine, on a fresh app:
+    ``/debug/compiles`` (graph captures as compiles, a
+    recompile storm under a low budget), ``/debug/memory``,
+    ``/debug/profile`` during a stream, the launch audit of one decode
+    step and the ``/metrics`` families.  ``before`` is the compile
+    registry's counters from before this engine was built, ``at_start``
+    from before the kernel build, ``allocated_before`` the allocator's live
+    bytes before this engine was built.  Every count is a delta between two
+    snapshots: the registries are the process's.  One line each; any
+    mismatch fails the run."""
+    from llama_fastapi_k8s_gpu_tpu_torch.obs.launches import decode_step_launches
+    from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    app = create_app(engine=eng, settings=Settings(temperature=0.0))
+    chunks = []                    # the decode chunks the engine queued
+    queue_chunk = eng._decode_chunk
+
+    def counted(ctx, n_steps):
+        chunks.append(n_steps)
+        return queue_chunk(ctx, n_steps)
+
+    eng._decode_chunk = counted
+    try:
+        with serving(app) as (port, _):
+            check_compiles(label, eng, port, short_ctx, before, at_start, chunks)
+            check_memory(label, eng, port, ring_bytes, allocated_before)
+            check_profile(label, eng, port, short_ctx)
+            check_metrics_families(label, port)
+    finally:
+        del eng._decode_chunk
+    # the launch audit of one eager decode step, against the kernels' counts
+    # in one replay plus the decode attention's two products a layer
+    audit = decode_step_launches(eng.params, eng.cfg)
+    step = eng._graphs.step_launches(40)
+    by = audit["by_prim"]
+    wrappers = {n: by.get(n, 0) + by.get(f"{n}(flat)", 0) for n in step}
+    products = by.get("bmm", 0)
+    say("launches_audit", file=label, total=audit["total"], in_loop=audit["in_loop"],
+        outside=audit["outside"], loop_trips=audit["loop_trips"], by_prim=by,
+        replay_kernels=step, attention_products=products,
+        expected=sum(step.values()) + 2 * eng.cfg.n_layers)
+    if (wrappers != step or products != 2 * eng.cfg.n_layers
+            or audit["total"] != sum(step.values()) + products
+            or audit["loop_trips"] != [eng.cfg.n_layers] or audit["outside"] != 1):
+        raise AssertionError(f"launches_audit: {audit} against a replay's {step} and "
+                             f"{2 * eng.cfg.n_layers} attention products")
+
+
+def check_compiles(label, eng, port, short_ctx, before, at_start, chunks) -> None:
+    """The ``compiles`` line: the registry's counts as deltas (see
+    :func:`phase_obs`); ``chunks`` lists the decode chunks the engine
+    queues."""
+    from llama_fastapi_k8s_gpu_tpu_torch.obs.devtime import DEVTIME
+    from llama_fastapi_k8s_gpu_tpu_torch.obs.trace import TRACER
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import KERNELS
+
+    # the warmup's capture, a request's dispatches, a new top_k's capture,
+    # then a storm under a low budget
+    def programs():
+        st, _, raw = _request(port, "GET", "/debug/compiles")
+        if st != 200:
+            raise AssertionError(f"compiles: /debug/compiles {st}")
+        return {p["name"]: p for p in json.loads(raw)["programs"]}
+
+    def counters(progs):
+        return {n: {"compiles": p["compiles"], "dispatches": p["dispatches"]}
+                for n, p in progs.items()}
+
+    progs = programs()
+    warm = devtime_delta(before, counters(progs))
+    build = devtime_delta(at_start, counters(progs)).get("kernel_build", {})
+    launches_match = {n: progs[n]["dispatches"] == fn.launches for n, fn in KERNELS.items()}
+    del chunks[:]
+    s0 = counters(progs)
+    st, _, _ = _request(port, "POST", "/response", body(short_ctx))
+    request = devtime_delta(s0, counters(programs()))
+    n_chunks = len(chunks)
+    s1 = counters(programs())
+    del chunks[:]
+    eng.create_chat_completion([{"role": "user", "content": "hi"}], temperature=0.0,
+                               top_k=5, max_tokens=17)
+    top5_chunks = len(chunks)
+    capture5_s = eng._graphs.captures[5]
+    progs = programs()
+    top5 = devtime_delta(s1, counters(progs))
+    sig5 = {e["signature"]: e for e in progs["decode_chunk"]["signature_list"]}.get("top_k=5")
+    # the storm: two more top_k fit the budget, a third passes it (and
+    # evicts top_k 5, which comes back as a re-capture)
+    budget = DEVTIME.budget
+    n_sigs = progs["decode_chunk"]["signatures"]
+    storms0 = DEVTIME.storms_total
+    _, _, raw = _request(port, "GET", "/metrics")
+    gauge0 = prom_samples(raw.decode(), "xla_recompile_storms_total").get(())
+    DEVTIME.configure(budget=n_sigs + 2)
+    s2 = counters(progs)
+    storm_events = {}
+    del chunks[:]
+    try:
+        for k in (6, 7, 8, 5):
+            tr = TRACER.start("request")
+            eng.create_chat_completion([{"role": "user", "content": "hi"}], temperature=0.0,
+                                       top_k=k, max_tokens=17, trace=tr)
+            storm_events[k] = [e for e in tr.to_dict()["root"]["events"]
+                               if e["name"] == "recompile_storm"]
+            TRACER.finish(tr)
+        _, _, raw = _request(port, "GET", "/metrics")
+        gauge1 = prom_samples(raw.decode(), "xla_recompile_storms_total").get(())
+        storm = devtime_delta(s2, counters(programs()))
+        storms = DEVTIME.storms_total - storms0
+    finally:
+        DEVTIME.configure(budget=budget)
+    say("compiles", file=label, warmup=warm, kernel_build=build,
+        captures=dict(eng._graphs.captures), request=request, request_status=st,
+        request_chunks=n_chunks, top_k_5=top5, top_k_5_signature=sig5,
+        storm=storm, storm_budget=n_sigs + 2, storms=storms,
+        storms_gauge=[gauge0, gauge1],
+        storm_events={k: len(v) for k, v in storm_events.items()},
+        held=eng._graphs.keys, launches_match_counters=all(launches_match.values()))
+    want_storm = {"compiles": 4, "dispatches": len(chunks)}
+    if (warm.get("decode_chunk", {}).get("compiles") != 1 or build.get("compiles", 0) > 1
+            or st != 200 or request.get("decode_chunk") != {"compiles": 0,
+                                                              "dispatches": n_chunks}
+            or request.get("first_sample", {}).get("dispatches") != 1
+            or top5.get("decode_chunk") != {"compiles": 1, "dispatches": top5_chunks}
+            or sig5 is None
+            or abs(sig5["wall_s"] - capture5_s) > 1e-5
+            or storms != 1 or {k: len(v) for k, v in storm_events.items()} != {
+                6: 0, 7: 0, 8: 1, 5: 0}
+            or storm.get("decode_chunk") != want_storm
+            or gauge1 - gauge0 != 1 or not all(launches_match.values())):
+        raise AssertionError(f"compiles: warmup {warm}, build {build}, request {st} "
+                             f"{request} over {n_chunks} chunks, top_k 5 {top5} {sig5}, "
+                             f"storm {storm} ({storms} storms, events {storm_events}), "
+                             f"launches match {launches_match}")
+
+
+
+def check_memory(label, eng, port, ring_bytes, allocated_before: int) -> None:
+    """The ``memory`` line: ``/debug/memory`` against the allocator;
+    ``allocated_before`` is the allocator's live bytes before the engine
+    was built (what the earlier phases still hold, in the residual too)."""
+    import torch
+
+    st, _, raw = _request(port, "GET", "/debug/memory")
+    mem = json.loads(raw)
+    rows = {r["component"]: r["bytes"] for r in mem.get("components", [])}
+    _, hdoc = _http(port, "GET", "/health")
+    pools = memory_pools()
+    say("memory", file=label, status=st, components=rows, source=mem["ground_truth"]["source"],
+        ground_truth_bytes=mem["ground_truth"]["bytes"], limit=mem["ground_truth"]["limit"],
+        residual_bytes=mem["residual_bytes"],
+        headroom_bytes=(mem.get("headroom") or {}).get("bytes"),
+        weight_bytes=eng.weight_bytes, health_kv_cache_bytes=hdoc["engine"]["kv_cache_bytes"],
+        reserved_bytes=torch.cuda.memory_reserved(), allocated_before_engine=allocated_before,
+        **pools)
+    if (st != 200 or rows.get("weights") != eng.weight_bytes
+            or not rows.get("kv_ring") == ring_bytes == hdoc["engine"]["kv_cache_bytes"]
+            or mem["ground_truth"]["source"] != "torch.cuda.memory_stats"
+            or mem["residual_bytes"] is None or mem["residual_bytes"] < 0
+            or mem.get("headroom") is None):
+        raise AssertionError(f"memory: {st} {mem}")
+
+
+
+def check_profile(label, eng, port, short_ctx) -> None:
+    """The ``profile`` line: ``/debug/profile`` refused without the
+    directory, and during streams one capture that holds the port's
+    kernels and graph launches while a second one meanwhile gets 409."""
+    st403, _, _ = _request(port, "GET", "/debug/profile?seconds=1")
+    prof_dir = tempfile.mkdtemp(prefix="lfkt-profile-")
+    os.environ["LFKT_PROFILE_DIR"] = prof_dir
+    box: dict = {"streams": []}
+    captured = threading.Event()
+    try:
+        def stream():
+            # streams back to back until the capture is done: the profiler's
+            # first start can take longer than one reply
+            t_end = time.time() + 300
+            while not captured.is_set() and time.time() < t_end:
+                box["streams"].append(_sse(port, "/response/stream", body(short_ctx))["status"])
+
+        def capture():
+            try:
+                box["capture"] = _request(port, "GET", "/debug/profile?seconds=1",
+                                          timeout=240)
+            finally:
+                captured.set()
+
+        th_s = threading.Thread(target=stream)
+        th_s.start()
+        t0 = time.time()
+        while not eng.heartbeat.busy_count() and time.time() - t0 < 30:
+            time.sleep(0.005)
+        time.sleep(0.2)                  # decoding by now
+        th_c = threading.Thread(target=capture)
+        th_c.start()
+        time.sleep(0.2)
+        st409, _, _ = _request(port, "GET", "/debug/profile?seconds=1")
+        th_c.join()
+        th_s.join()
+        st200, _, raw = box.get("capture", (None, None, b"{}"))
+        doc = json.loads(raw)
+        stats = profile_trace_stats(doc["trace"]) if st200 == 200 and doc.get("ok") else {}
+    finally:
+        del os.environ["LFKT_PROFILE_DIR"]
+        shutil.rmtree(prof_dir, ignore_errors=True)
+    say("profile", file=label, disabled_status=st403, busy_status=st409, status=st200,
+        seconds=doc.get("seconds"), start_s=doc.get("start_s"), wall_s=doc.get("wall_s"),
+        stream_statuses=box["streams"], **stats)
+    if ((st403, st409, st200) != (403, 409, 200) or not doc.get("ok")
+            or not stats.get("cuda_kernels") or not stats.get("port_kernels")
+            or not stats.get("graph_launches") or set(box["streams"]) != {200}):
+        raise AssertionError(f"profile: {st403}, {st409}, {st200} {doc} {stats}")
+
+
+
+def check_metrics_families(label, port) -> None:
+    """The ``metrics_families`` line: every family of the catalog but those
+    whose event did not happen on this app, and nothing outside it."""
+    from llama_fastapi_k8s_gpu_tpu_torch.obs import catalog
+
+    st, _, raw = _request(port, "GET", "/metrics")
+    text = raw.decode()
+    families = {ln.split(" ")[2] for ln in text.splitlines() if ln.startswith("# TYPE ")}
+    families = {f for f in families if f in catalog.METRICS}
+    rendered_outside = sorted({ln.split(" ")[2] for ln in text.splitlines()
+                               if ln.startswith("# TYPE ")} - families
+                              - {f"{h}_{q}" for h in catalog.METRICS for q in ("p50", "p95", "p99")})
+    missing = sorted(set(catalog.METRICS) - families)
+    say("metrics_families", file=label, status=st, families=len(families),
+        catalog=len(catalog.METRICS), absent_event_families=missing,
+        obs_families=[f for f in OBS_FAMILIES if f in families],
+        outside_catalog=rendered_outside)
+    need = set(OBS_FAMILIES) - {"incidents_total"}      # the recorder is off here
+    if (st != 200 or not need <= families or rendered_outside
+            or not set(missing) <= set(EVENT_FAMILIES)):
+        raise AssertionError(f"metrics_families: {st}, missing {missing}, outside the "
+                             f"catalog {rendered_outside}")
 
 
 def served_sampling(settings):
@@ -1878,25 +2275,30 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
                 kv_dtype: str = "bf16", weight_format: str = "auto", unroll: int = 0,
                 label: str | None = None, expect_unroll: int = 0, ordinal: int = 0,
                 earlier: list | None = None, deadline_request: bool = False,
-                http_phase: bool = False) -> dict:
+                http_phase: bool = False, devtime_at_start: dict | None = None) -> dict:
     """Serve ``path`` in ``weight_format`` over a ``kv_dtype`` KV cache with
     ``decode_layer_unroll=unroll`` and return each kernel's launches on that
     path.  ``ordinal`` numbers the engine for :func:`record_replies`;
     ``earlier`` holds an earlier run's replies to compare with;
     ``deadline_request`` adds one request at the reference's 25 s timeout,
-    ``http_phase`` the rest of the HTTP surface (:func:`phase_http`)."""
+    ``http_phase`` the rest of the HTTP surface (:func:`phase_http`) and the
+    device-facing one (:func:`phase_obs`, its compile counts taken from
+    ``devtime_at_start``, the registry before the kernel build)."""
     import torch
 
     from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
     from llama_fastapi_k8s_gpu_tpu_torch.models.generate import prefill, prefill_chunk
     from llama_fastapi_k8s_gpu_tpu_torch.models.llama import decode_step
     from llama_fastapi_k8s_gpu_tpu_torch.models.params import LOOP_LINEARS
+    from llama_fastapi_k8s_gpu_tpu_torch.obs.devtime import DEVTIME
     from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
     from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
 
     for fn in counters.values():         # the main path starts here: count it
         fn.launches = 0
     label = label or layout
+    devtime_before = DEVTIME.counters()
+    allocated_before = torch.cuda.memory_allocated()
     t0 = time.time()
     # the GPU, auto attention
     eng = Engine(path, kv_dtype=kv_dtype, weight_format=weight_format,
@@ -2000,6 +2402,8 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
                                  f"{rec.get('finish_reason')}")
     if http_phase:
         phase_http(label, eng, short, results[0][2].get("response", ""), ring_bytes)
+        phase_obs(label, eng, short, ring_bytes, devtime_before, devtime_at_start or {},
+                  allocated_before)
 
     # the served model's logits, then the graph against the eager step (on
     # the engine's ring, which nothing serves now), then the launches of one
@@ -2185,12 +2589,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 2
+    from llama_fastapi_k8s_gpu_tpu_torch.obs.devtime import DEVTIME
     from llama_fastapi_k8s_gpu_tpu_torch.ops import KERNELS
 
     # full-f32 products in the plain versions' matmuls (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.time()
     info = phase_device()
+    devtime_at_start = DEVTIME.counters()
     phase_build()
     kernels, deq_lines = phase_kernels(KERNELS)
     paths = {layout: phase_gguf(layout) for layout in LAYOUTS}
@@ -2204,7 +2610,8 @@ def main() -> int:
     engines = [(layout, dict(follow_up=layout in ("q4km", "q6_k"),
                              kv_dtype=KV_DTYPES.get(layout, "bf16"),
                              deadline_request=layout == "q4km",
-                             http_phase=layout == "q4km"))
+                             http_phase=layout == "q4km",
+                             devtime_at_start=devtime_at_start))
                for layout in LAYOUTS]
     # the prefix-reuse follow-up rides on the Q4_K_M file and, over the
     # int8 ring, on the Q6_K file; the request at the reference's 25 s

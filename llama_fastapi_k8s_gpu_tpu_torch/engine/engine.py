@@ -25,6 +25,12 @@ streaming chunks — on PyTorch and one GPU:
   ``decode_layer_unroll`` a step's layer stack is L/K launches of the
   layer-looped kernel (ops/decode_loop.py) over bf16 or int8 weights;
 - sampling: the llama.cpp-parity chain (sampling/sample.py);
+- observability: each call of a host program (``prefill``,
+  ``prefill_chunk``, ``first_sample``, ``decode_chunk``) is one dispatch
+  on the compile registry (obs/devtime.py; a graph capture is its
+  compile); the weights and the ring are the memory ledger's ``weights``
+  and ``kv_ring`` (obs/memledger.py); a non-streamed generation runs
+  under ``maybe_profile`` (utils/tracing.py, ``LFKT_PROFILE_DIR``);
 - resilience: a :class:`~..utils.health.Heartbeat` the watchdog samples
   (``enter``/``leave`` around a generation, a ``beat`` once a decode chunk
   after its tokens are read), the ``prefill`` and ``decode_step`` fault
@@ -62,12 +68,15 @@ from ..models.generate import (
 )
 from ..models.llama import cache_nbytes, init_cache
 from ..models.params import decode_loop_plan, load_params
+from ..obs.devtime import record_dispatch
+from ..obs.memledger import register_component
 from ..ops.attention import flash_takes
 from ..sampling.sample import SamplingParams, sampling_tensors
 from ..tokenizer import apply_chat_template, detect_chat_template, tokenizer_from_gguf
 from ..utils.device import resolve_device
 from ..utils.faults import FAULTS
 from ..utils.health import EngineUnavailable, Heartbeat
+from ..utils.tracing import maybe_profile
 
 logger = logging.getLogger(__name__)
 
@@ -255,6 +264,10 @@ class Engine:
         self._prefix_cache = bool(prefix_cache)
         self._prefix_min = max(1, int(prefix_min))
         self._prefix_ids: list[int] = []
+        # weakly held (a closed engine's rows vanish with it); the providers
+        # read sizes only, at snapshot time
+        register_component("weights", self, lambda eng: eng.weight_bytes)
+        register_component("kv_ring", self, lambda eng: eng.kv_cache_bytes)
 
     @property
     def kv_cache_bytes(self) -> int:
@@ -315,6 +328,7 @@ class Engine:
         padded[:n_prompt] = torch.tensor(ids, dtype=torch.int64)
         padded = padded.to(self.device)
         if bucket <= self._prefill_chunk:
+            record_dispatch("prefill")
             return prefill(self.params, self.cfg, padded, n_prompt, self._cache)
         C = self._prefill_chunk
         logits = None
@@ -324,6 +338,7 @@ class Engine:
             t_s = time.time()
             n = min(C, bucket - off)
             li = min(max(last - off, 0), n - 1)
+            record_dispatch("prefill_chunk")
             lg = prefill_chunk(self.params, self.cfg, padded[off:off + n], off,
                                li, self._cache)
             if off <= last < off + n:
@@ -496,6 +511,7 @@ class Engine:
             sbucket = self._bucket_for(s)
             tokens = torch.tensor(suffix + [0] * (sbucket - s), dtype=torch.int64,
                                   device=self.device)
+            record_dispatch("prefill_chunk")
             logits = prefill_chunk(self.params, self.cfg, tokens, reuse, s - 1,
                                    self._cache)
         else:
@@ -507,6 +523,7 @@ class Engine:
         else:
             st = self._graphs.knobs(st)
             state = self._graphs.state(ids, seed)
+        record_dispatch("first_sample")
         first = int(first_sample(logits, state, st, top_k=sp.top_k))  # host sync
         ttft_s = time.time() - t0
         if pspan is not None:
@@ -604,15 +621,38 @@ class Engine:
         n = min(n, self.cfg.n_ctx - pos - 1)  # cache slots n_prompt..n_ctx-1
         return max(0, n)
 
-    def _decode_chunk(self, ctx, n_steps: int) -> torch.Tensor:
-        return generate_chunk(self.params, self.cfg, ctx["state"], ctx["st"],
+    def _decode_chunk(self, ctx, n_steps: int) -> tuple:
+        """Queue ``n_steps`` decode steps; returns what :meth:`_read_chunk`
+        takes.  On the card the chunk's tokens are copied, behind its
+        replays, into pinned host memory and an event is recorded after
+        the copy: the read then waits for this chunk only, not for the next
+        one, which the loop queues before it reads this one."""
+        record_dispatch("decode_chunk")
+        toks = generate_chunk(self.params, self.cfg, ctx["state"], ctx["st"],
                               n_steps, top_k=ctx["sp"].top_k)
+        if toks.device.type != "cuda":
+            return toks, None
+        host = torch.empty(n_steps, dtype=torch.int64, pin_memory=True)
+        host.copy_(toks, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record()
+        return host, copied
+
+    @staticmethod
+    def _read_chunk(pending: tuple) -> list:
+        """A queued chunk's tokens on the host (the chunk's sync)."""
+        toks, copied = pending
+        if copied is not None:
+            copied.synchronize()
+        return toks.tolist()
 
     def _run(self, ctx, max_tokens, stops):
         """Generate; yields (new_text, done, finish_reason) increments.
 
         Pipelined: chunk k+1 is queued on the device before chunk k's
-        tokens are read.  If a stop lands mid-chunk, the extra chunk's cache
+        tokens are read, and the read waits for chunk k alone, so a cancel,
+        stop or deadline found after it ends the generation while chunk k+1
+        still runs.  If a stop lands mid-chunk, the extra chunk's cache
         writes are harmless: attention masks by position and the next
         request prefills over them."""
         stop_ids = self.tokenizer.stop_ids
@@ -647,7 +687,7 @@ class Engine:
             pos += n_cur
             n_nxt = self._next_steps(len(gen) + n_cur, pos, budget)
             nxt = self._decode_chunk(ctx, n_nxt) if n_nxt > 0 else None
-            for t in pending.tolist():          # host sync, overlapped
+            for t in self._read_chunk(pending):  # host sync, overlapped
                 if t in stop_ids:
                     finish = "stop"
                     done = True
@@ -686,7 +726,7 @@ class Engine:
 
     def _generate(self, messages, sp, max_tokens, stops, seed,
                   deadline=None, abort=None, trace=None) -> dict:
-        with self._lock:
+        with self._lock, maybe_profile("generate"):
             self._check_usable()
             self.heartbeat.enter()
             try:

@@ -18,7 +18,10 @@ engine's registered in-flight work with
 budget: exponential backoff, ``engine.recover()``, escalation to DEAD after
 ``max_recoveries`` trips in one incident window (trips are forgotten after
 ``trip_forget_seconds`` of healthy serving).  DEAD fails the liveness
-probe, and the pod restarts.
+probe, and the pod restarts.  A trip and a DEAD escalation each record an
+incident bundle (obs/flightrec.py, armed by ``LFKT_INCIDENT_DIR``), the
+trip's before the in-flight requests are failed, so the traces of the
+requests the trip interrupts are in it.
 
 The contract is three optional attributes (``heartbeat``, ``recover()``,
 ``fail_inflight(exc)``) plus the optional ``failure()`` hook, so fakes
@@ -31,6 +34,7 @@ import logging
 import threading
 import time
 
+from ..obs import flightrec as _flightrec
 from ..obs.trace import annotate_all_inflight
 from ..utils.health import DEAD, DEGRADED, READY, EngineUnavailable
 
@@ -71,6 +75,9 @@ class Watchdog:
         self._last_trip_at: float | None = None
         self.last_trip_reason: str | None = None
         self._stop = threading.Event()
+        # the incident bundles carry this engine's health trail (weakly
+        # held); installed here too for drills that build no server app
+        _flightrec.FLIGHTREC.install(health=health, engine=engine)
         self._thread = threading.Thread(
             target=self._loop, name="lfkt-watchdog", daemon=True)
 
@@ -105,6 +112,14 @@ class Watchdog:
                     f"in {self.error_window:.0f}s ({hb.last_error})")
         return None
 
+    def _record_incident(self, kind: str, reason: str) -> None:
+        """Bundle this incident; ``extra`` carries the watchdog's own
+        counters (the health trail rides the bundle's top level)."""
+        _flightrec.record_incident(kind, reason, extra={"watchdog": {
+            "trips": self.trips, "trips_window": self.trips_window,
+            "max_recoveries": self.max_recoveries,
+        }})
+
     def handle_trip(self, reason: str) -> None:
         """DEGRADED → fail in-flight → backoff → recover (or escalate)."""
         self.trips += 1
@@ -115,6 +130,8 @@ class Watchdog:
         logger.error("watchdog trip #%d: %s", self.trips, reason)
         annotate_all_inflight("watchdog_trip", trip=self.trips, reason=reason)
         self.health.transition(DEGRADED, reason)
+        # before the in-flight requests are failed: their traces go in
+        self._record_incident("watchdog_trip", reason)
         hb = getattr(self.engine, "heartbeat", None)
         if hb is not None:
             # this trip consumes the burst evidence: a re-trip needs NEW
@@ -136,6 +153,9 @@ class Watchdog:
                          self.trips_window, self.max_recoveries)
             self.health.transition(
                 DEAD, f"max_recoveries_exceeded after: {reason}")
+            # the pod is about to restart: this bundle is what survives it
+            self._record_incident(
+                "dead_escalation", f"max_recoveries_exceeded after: {reason}")
             self._stop.set()
             return
 

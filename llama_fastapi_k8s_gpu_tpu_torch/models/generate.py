@@ -30,10 +30,18 @@ import time
 
 import torch
 
+from ..obs.devtime import ENTRY, record_compile, register_program
 from ..sampling.sample import PENALTY_WINDOW, SamplingParams, sample_chain, seed_window
 from . import llama
 from .config import ModelConfig
 from .llama import forward
+
+
+# the host programs of the compile registry: the engine counts a call of
+# each as a dispatch (a decode chunk is one, whatever its replays)
+for _name in ("prefill", "prefill_chunk", "first_sample", "decode_chunk"):
+    register_program(_name, ENTRY, site="models.generate")
+del _name
 
 
 def init_state(cache: dict, prompt_ids, seed: int,
@@ -169,6 +177,10 @@ class DecodeGraphs:
     on the device: a capture records each counter's increment and takes it
     back (capturing runs nothing), and every replay adds it.
 
+    Each capture is one compile of the ``decode_chunk`` program on the
+    compile registry (obs/devtime.py), signature ``top_k=<k>``, with its
+    seconds; a re-capture after an eviction is one more.
+
     There is no eager fallback: a failed capture or replay raises."""
 
     def __init__(self, params, cfg: ModelConfig, cache: dict):
@@ -265,6 +277,7 @@ class DecodeGraphs:
             del self._graphs[oldest]
         torch.cuda.current_stream(self.gen.device).synchronize()
         self.captures[top_k] = time.time() - t0
+        record_compile("decode_chunk", f"top_k={top_k}", self.captures[top_k])
         return self.captures[top_k]
 
     def step_launches(self, top_k: int) -> dict:

@@ -3,7 +3,14 @@
 The families of the JAX package's catalog
 (llama_fastapi_k8s_gpu_tpu/obs/catalog.py) that the serial pod emits, each
 with the reference's name, type, help text, labels and buckets.  Recording
-a name that is not here raises ``KeyError`` (utils/metrics.py).
+a name that is not here raises ``KeyError`` (utils/metrics.py).  The
+``xla_*`` and ``jit_*`` names stay the reference's (dashboards and the
+chart's alerts key on them): in the port a "compile" is a CUDA-graph
+capture or the kernel library's build, and a "jit dispatch" a call of a
+host program or a kernel's launch (obs/devtime.py).
+
+:data:`MEM_COMPONENTS` is the memory ledger's catalog of the allocation
+surfaces the serial pod registers (obs/memledger.py).
 """
 
 from __future__ import annotations
@@ -20,6 +27,9 @@ LATENCY_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
                    5.0, 10.0, 25.0, 60.0)
 #: decode throughput buckets (tokens/sec)
 RATE_BUCKETS = (1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0, 200.0, 500.0)
+#: compile-wall buckets (seconds)
+COMPILE_BUCKETS = (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+                   30.0, 60.0, 120.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +110,20 @@ METRICS: dict[str, Metric] = _register(
     Metric("engine_error_count", GAUGE, "heartbeat errors_total"),
     # -- capacity ----------------------------------------------------------
     Metric("kv_cache_bytes", GAUGE, "resident KV-cache HBM bytes"),
+    # -- the device memory ledger (obs/memledger.py) -----------------------
+    Metric("hbm_bytes", GAUGE,
+           "live HBM bytes per memory-ledger component and model "
+           "(component=residual carries bytes the ledger cannot "
+           "attribute vs device ground truth; docs/OBSERVABILITY.md "
+           "memory-ledger section)",
+           labels=("component", "model")),
+    Metric("hbm_headroom_bytes", GAUGE,
+           "free device HBM (bytes_limit - bytes_in_use); only exported "
+           "where the backend reports memory_stats"),
+    # -- the incident flight recorder (obs/flightrec.py) -------------------
+    Metric("incidents_total", GAUGE,
+           "incident bundles recorded by the flight recorder this "
+           "process (snapshot; bundles live in LFKT_INCIDENT_DIR)"),
     # -- token metering ------------------------------------------------------
     Metric("tokens_prompt_total", COUNTER,
            "prompt tokens ingested, by model (from the engines' own "
@@ -120,7 +144,66 @@ METRICS: dict[str, Metric] = _register(
     Metric("traces_started_total", GAUGE, "requests that drew a trace"),
     Metric("traces_sampled_out_total", GAUGE,
            "requests skipped by LFKT_TRACE_SAMPLE"),
+    # -- capture and dispatch attribution (obs/devtime.py): the registry
+    # owns the counts, /metrics copies them as snapshots --------------------
+    Metric("xla_compiles_total", GAUGE,
+           "jit compile events per program (devtime snapshot)",
+           labels=("program",)),
+    Metric("jit_dispatches_total", GAUGE,
+           "host dispatches per jit program (devtime snapshot)",
+           labels=("program",)),
+    Metric("xla_recompile_storms_total", GAUGE,
+           "signatures minted past LFKT_RECOMPILE_BUDGET "
+           "(devtime snapshot; docs/RUNBOOK.md recompile-storm runbook)"),
+    Metric("xla_compile_seconds", HISTOGRAM,
+           "wall time of jit compile events, by program (first-dispatch "
+           "wall; replayed from the devtime event ring at scrape time)",
+           buckets=COMPILE_BUCKETS, labels=("program",)),
+    Metric("xla_compile_events_dropped_total", GAUGE,
+           "compile events evicted from the ring before replay — nonzero "
+           "means xla_compile_seconds undercounts vs xla_compiles_total "
+           "(a storm outran the scrape cadence)"),
+    # -- the SLO engine (obs/slo.py) ----------------------------------------
+    Metric("slo_burn_rate", GAUGE,
+           "error-budget burn rate per SLO and window (1.0 = burning "
+           "exactly the budget; sustained >1 on every window = breach); "
+           "scope=pod on replica scrapes, scope=fleet when the router "
+           "evaluates the catalog over federated histograms",
+           labels=("slo", "window", "scope")),
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class MemComponent:
+    """One memory-ledger component: an allocation surface that reports
+    live bytes into ``hbm_bytes{component,model}``.  ``device=False``
+    marks a host tier (listed, not reconciled); ``always=True`` keeps a
+    zero row instead of dropping it."""
+
+    name: str
+    help: str = ""
+    device: bool = True
+    always: bool = False
+
+
+#: the components the serial pod registers, with the reference's help;
+#: ``residual`` is computed (ground truth minus the attributed device
+#: components), never registered.  The decode graphs' private pool and
+#: cuBLAS's workspace are not components: they land in ``residual``.
+MEM_COMPONENTS: dict[str, MemComponent] = {
+    c.name: c for c in (
+        MemComponent("weights",
+                     "per-model resident weight bytes (Engine.weight_bytes"
+                     " — the registry's HBM budget unit)"),
+        MemComponent("kv_ring",
+                     "serial dense KV ring (Engine._cache; allocated on "
+                     "every engine, serving or not)"),
+        MemComponent("residual",
+                     "ground truth minus every attributed device "
+                     "component: bytes the ledger cannot explain "
+                     "(computed, never registered)"),
+    )
+}
 
 
 def lookup(name: str) -> Metric | None:

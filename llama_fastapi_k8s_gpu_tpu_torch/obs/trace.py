@@ -376,6 +376,22 @@ def annotate_all_inflight(name: str, **attrs) -> None:
         t.annotate_inflight(name, **attrs)
 
 
+def all_inflight_trees(limit: int = 32) -> list[dict]:
+    """The span trees of every in-flight trace of every live tracer, at
+    most ``limit`` — the incident recorder's capture (obs/flightrec.py)."""
+    with _REGISTRY_LOCK:
+        tracers = list(_TRACERS)
+    out: list[dict] = []
+    for t in tracers:
+        with t._lock:
+            traces = list(t._inflight.values())
+        for tr in traces:
+            out.append(tr.to_dict())
+            if len(out) >= limit:
+                return out
+    return out
+
+
 #: process-wide default tracer the serving stack shares: the server starts
 #: traces on it (unless create_app was handed a private instance), engines
 #: attach spans to the handed-down Trace objects, and the watchdog/health/

@@ -21,6 +21,7 @@ is a library call, not a kernel of the port.
 Kernels are built from ``csrc/`` at first use (:mod:`._kernels`).
 """
 
+from ..obs.devtime import INNER, register_program
 from .attention import flash_attention, flash_attention_int8
 from .decode_loop import decode_loop_step
 from .dequant import dequant_q4_k, dequant_q5_k, dequant_q6_k, dequant_q8_0
@@ -45,6 +46,13 @@ KERNELS = {
     "dequant_q6_k": dequant_q6_k,
     "decode_loop": decode_loop_step,
 }
+
+# each kernel is an inner program of the compile registry, its launch
+# counter its dispatches
+for _name, _fn in KERNELS.items():
+    register_program(_name, INNER, site=_fn.__module__.split(".", 1)[1],
+                     launches=lambda fn=_fn: fn.launches)
+del _name, _fn
 
 __all__ = ["KERNELS", "decode_loop_step", "dequant_q4_k", "dequant_q5_k", "dequant_q6_k",
            "dequant_q8_0", "flash_attention", "flash_attention_int8",

@@ -9,6 +9,10 @@ digest of the sources and flags, so an edited kernel rebuilds and an
 unchanged one loads at once.  Building happens at first use, never at
 import: the CPU test hosts have no ``nvcc``.
 
+A build is one compile of the ``kernel_build`` program on the compile
+registry (obs/devtime.py), its signature the digest, its wall the build's;
+a library found built records none.
+
 There is no fallback.  A missing toolkit, a compile error or a refused
 launch raises; the wrappers in ``ops/`` take their plain PyTorch version
 only for tensors that live on the CPU.
@@ -24,6 +28,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from ..obs.devtime import ENTRY, record_compile, register_program
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -57,6 +63,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+register_program("kernel_build", ENTRY, site="ops._kernels")
 #: wall seconds and ptxas report of the build this process loaded (its
 #: log also when another process built it)
 build_info: dict = {}
@@ -89,7 +96,7 @@ def nvcc_path() -> str:
     return found
 
 
-def _build(out_dir: str) -> str:
+def _build(out_dir: str, digest: str) -> str:
     """Compile every source in parallel, link, return the library path."""
     nvcc = nvcc_path()
     t0 = time.time()
@@ -119,6 +126,7 @@ def _build(out_dir: str) -> str:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     os.replace(tmp, lib)
     build_info.update(seconds=time.time() - t0, log=log_text, built=True)
+    record_compile("kernel_build", digest, build_info["seconds"])
     return lib
 
 
@@ -128,13 +136,14 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        out_dir = os.path.join(BUILD_ROOT, _digest())
+        digest = _digest()
+        out_dir = os.path.join(BUILD_ROOT, digest)
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, "liblfkt_kernels.so")
         with open(os.path.join(out_dir, ".lock"), "w") as lk:
             fcntl.flock(lk, fcntl.LOCK_EX)   # one builder per digest
             if not os.path.exists(path):
-                _build(out_dir)
+                _build(out_dir, digest)
             else:
                 build_info.setdefault("built", False)
                 build_info.setdefault("seconds", 0.0)

@@ -22,6 +22,13 @@ server keeps it (llama_fastapi_k8s_gpu_tpu/server/app.py):
   ``/health/live`` (503 only in DEAD);
 - ``GET /metrics`` (Prometheus text) and the trace surface
   ``/debug/traces``, ``/debug/traces/{trace_id}`` and ``/debug/requests``;
+- the device-facing surfaces: ``/debug/compiles`` (graph captures, kernel
+  builds and dispatches, obs/devtime.py), ``/debug/slo`` (burn rates,
+  obs/slo.py), ``/debug/memory`` (the memory ledger, obs/memledger.py),
+  ``/debug/incidents`` and ``/debug/incidents/{id}`` (the incident
+  bundles on disk, obs/flightrec.py) and ``/debug/profile`` (a bounded
+  ``torch.profiler`` capture, utils/tracing.py), with their ``/metrics``
+  families;
 - the tracing middleware: a request id minted (or ingested from a
   ``traceparent``) for every request and answered as ``x-request-id``,
   the access log line, and ``request_seconds`` / ``http_requests_total``;
@@ -34,11 +41,16 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import math
 import time
 import uuid
 from datetime import datetime
 
+from ..obs import flightrec as _flightrec
+from ..obs import memledger as _memledger
+from ..obs.devtime import DEVTIME
 from ..obs.logctx import access_logger, bind_request_id
+from ..obs.slo import SLOEngine
 from ..obs.trace import TRACER, Tracer
 from ..utils.config import Settings, get_settings
 from ..utils.faults import FAULTS
@@ -143,6 +155,12 @@ def create_app(engine=None, settings: Settings | None = None,
     app.state.created = int(time.time())   # /v1/models "created"
     app.state.metrics = Metrics()
     app.state.tracer = tracer if tracer is not None else TRACER
+    #: the SLO burn rates over this app's metrics: /metrics exports the
+    #: slo_burn_rate gauges, /debug/slo the verdict
+    app.state.slo = SLOEngine(app.state.metrics)
+    #: /metrics replays each compile event into xla_compile_seconds once
+    #: per app (-1: never read, so an overflow before this app is no drop)
+    app.state.devtime_cursor = -1
     app.state.ready = engine is not None
     #: STARTING until the engine is loaded; the watchdog moves it between
     #: READY, DEGRADED and DEAD
@@ -357,6 +375,9 @@ def create_app(engine=None, settings: Settings | None = None,
         engine = app.state.engine
         if hasattr(engine, "metrics_sink"):
             engine.metrics_sink = app.state.metrics
+        # the incident bundles carry this app's health trail (weakly held;
+        # a later app wins, which is the live one)
+        _flightrec.FLIGHTREC.install(health=app.state.health, engine=engine)
         app.state.ready = True
         app.state.health.transition(READY, "engine loaded")
         if settings.watchdog and getattr(engine, "heartbeat", None) is not None:
@@ -684,10 +705,40 @@ def create_app(engine=None, settings: Settings | None = None,
             wb = getattr(eng, "weight_bytes", 0)
             if wb:
                 m.set_gauge("model_weight_bytes", wb, model=_model_label())
+        # the memory ledger's families are rebuilt whole each scrape (a
+        # vanished row must drop its series); no await between the reset
+        # and the render, so a concurrent scrape never sees them half-built
+        m.reset_family("hbm_bytes")
+        m.reset_family("hbm_headroom_bytes")
+        if _memledger.MEMLEDGER.armed:
+            mdoc = _memledger.MEMLEDGER.snapshot()
+            for row in mdoc["components"]:
+                m.set_gauge("hbm_bytes", row["bytes"],
+                            component=row["component"], model=row["model"])
+            if mdoc["residual_bytes"] is not None:
+                m.set_gauge("hbm_bytes", mdoc["residual_bytes"],
+                            component="residual", model="")
+            if mdoc["headroom"] is not None:
+                m.set_gauge("hbm_headroom_bytes", mdoc["headroom"]["bytes"])
+        if _flightrec.FLIGHTREC.armed:
+            m.set_gauge("incidents_total", _flightrec.FLIGHTREC.recorded_total)
         tstats = app.state.tracer.stats()
         m.set_gauge("trace_ring_used", tstats["ring_used"])
         m.set_gauge("traces_started_total", tstats["started_total"])
         m.set_gauge("traces_sampled_out_total", tstats["sampled_out_total"])
+        # captures and dispatches as snapshots, each compile wall replayed
+        # into the histogram once through this app's cursor
+        for prog, c in DEVTIME.counters().items():
+            m.set_gauge("xla_compiles_total", c["compiles"], program=prog)
+            m.set_gauge("jit_dispatches_total", c["dispatches"], program=prog)
+        m.set_gauge("xla_recompile_storms_total", DEVTIME.storms_total)
+        cursor, events = DEVTIME.events_since(app.state.devtime_cursor)
+        app.state.devtime_cursor = cursor
+        for ev in events:
+            m.observe("xla_compile_seconds", ev["wall_s"], program=ev["program"])
+        m.set_gauge("xla_compile_events_dropped_total", DEVTIME.events_dropped)
+        # the burn rates over the series recorded above
+        app.state.slo.export()
         return PlainTextResponse(m.render())
 
     @app.get("/debug/traces")
@@ -709,6 +760,67 @@ def create_app(engine=None, settings: Settings | None = None,
     async def debug_requests():
         """The requests in flight: engine, deadline left, tokens so far."""
         return {"requests": app.state.tracer.inflight()}
+
+    @app.get("/debug/compiles")
+    async def debug_compiles():
+        """The compile registry: every program with its captures or builds,
+        its dispatches or launches, and the signatures it compiled."""
+        return DEVTIME.snapshot()
+
+    @app.get("/debug/slo")
+    async def debug_slo():
+        """The SLO verdict: per-SLO multi-window burn rates and the
+        recompile-storm state; ``verdict`` is ok | warn | breach."""
+        return app.state.slo.evaluate()
+
+    @app.get("/debug/memory")
+    async def debug_memory():
+        """The memory ledger: per-component bytes, the residual against the
+        device's ground truth, and headroom."""
+        return _memledger.MEMLEDGER.snapshot()
+
+    @app.get("/debug/incidents")
+    async def debug_incidents():
+        """The incident bundles on disk, newest first (read in a worker
+        thread: this is asked for when the pod is already in trouble)."""
+        fr = _flightrec.FLIGHTREC
+        incidents = await asyncio.to_thread(fr.list) if fr.armed else []
+        return {"armed": fr.armed,
+                "recorded_total": fr.recorded_total,
+                "debounced_total": fr.debounced_total,
+                "incidents": incidents}
+
+    @app.get("/debug/incidents/{incident_id}")
+    async def debug_incident(incident_id: str):
+        """One incident bundle, read back from disk."""
+        doc = await asyncio.to_thread(_flightrec.FLIGHTREC.get, incident_id)
+        if doc is None:
+            raise HTTPException(status_code=404,
+                                detail=f"no incident {incident_id!r} in the ring")
+        return doc
+
+    @app.get("/debug/profile")
+    async def debug_profile(request: Request):
+        """A bounded ``torch.profiler`` capture: 403 until LFKT_PROFILE_DIR
+        is set, 409 while another runs; ``?seconds=`` is clamped.  The
+        capture blocks a worker thread, never the event loop."""
+        from urllib.parse import parse_qs
+
+        from ..utils.tracing import ProfileBusy, ProfileDisabled, capture_profile
+
+        q = parse_qs(request.url.query)
+        try:
+            seconds = float(q.get("seconds", ["2.0"])[0])
+        except ValueError:
+            raise HTTPException(status_code=400, detail="seconds must be a number")
+        if not math.isfinite(seconds):
+            raise HTTPException(status_code=400, detail="seconds must be finite")
+        try:
+            return await asyncio.to_thread(capture_profile, seconds)
+        except ProfileDisabled as e:
+            raise HTTPException(status_code=403, detail=str(e))
+        except ProfileBusy as e:
+            raise HTTPException(status_code=409, detail=str(e))
 
     @app.get("/items/{item_id}")
     async def read_item(item_id: int):

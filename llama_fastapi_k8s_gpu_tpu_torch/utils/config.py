@@ -4,6 +4,11 @@ The same names and defaults as the JAX package's registry
 (llama_fastapi_k8s_gpu_tpu/utils/config.py), limited to what the serial
 pod reads: its routes, the engine, the watchdog and the tracer.  The reference's constants (model dir and name,
 1024-token context, 25 s timeout, queue of 5) stay the defaults.
+
+The observability knobs that are no ``Settings`` field (the compile
+registry, the memory ledger, the incident recorder, the SLO engine and
+the profiler) are read with :func:`knob` from the :data:`KNOBS` table,
+with the reference's names and defaults.
 """
 
 from __future__ import annotations
@@ -86,3 +91,55 @@ def get_settings() -> Settings:
     for f in dataclasses.fields(Settings):
         kw[f.name] = _env(f"LFKT_{f.name.upper()}", f.default, type(f.default))
     return Settings(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Knob:
+    """One env knob read outside ``Settings``, with its default."""
+
+    name: str
+    cast: type
+    default: object
+    help: str = ""
+
+
+#: the ad-hoc knobs of the observability layer (the reference's
+#: utils/config.py table, its defaults)
+KNOBS: dict[str, Knob] = {k.name: k for k in (
+    Knob("LFKT_PROFILE_DIR", str, "",
+         "torch.profiler traces per generation (utils/tracing.py) and via "
+         "GET /debug/profile; empty = off"),
+    Knob("LFKT_DEVTIME", bool, True,
+         "graph-capture and dispatch attribution (obs/devtime.py; 0 disarms)"),
+    Knob("LFKT_RECOMPILE_BUDGET", int, 32,
+         "distinct signatures per program before a recompile storm is flagged"),
+    Knob("LFKT_SLO_TTFT_P95_S", float, 1.0,
+         "SLO: TTFT bound (seconds) 95% of requests must beat, per prefill bucket"),
+    Knob("LFKT_SLO_DECODE_FLOOR_TPS", float, 10.0,
+         "SLO: decode tok/s floor 95% of requests must clear"),
+    Knob("LFKT_SLO_ERROR_RATE", float, 0.01,
+         "SLO: 5xx error-rate budget over each burn window"),
+    Knob("LFKT_SLO_QUEUE_P95_S", float, 0.5,
+         "SLO: admission-queue wait bound (seconds) at the 95th percentile"),
+    Knob("LFKT_SLO_WINDOWS", str, "300,3600",
+         "SLO burn-rate windows, csv seconds (short,long)"),
+    Knob("LFKT_MEM_LEDGER", bool, True,
+         "device memory ledger: /debug/memory and the hbm_bytes gauges (0 disarms)"),
+    Knob("LFKT_MEM_PRESSURE_FRACTION", float, 0.05,
+         "device headroom fraction below which memory counts as pressure"),
+    Knob("LFKT_INCIDENT_DIR", str, "",
+         "incident flight-recorder directory (empty = recorder off)"),
+    Knob("LFKT_INCIDENT_RING", int, 16,
+         "incident bundles kept on disk (oldest pruned)"),
+    Knob("LFKT_INCIDENT_DEBOUNCE_S", float, 30.0,
+         "per-kind minimum seconds between incident bundles"),
+    Knob("LFKT_INCIDENT_LOG_LINES", int, 100,
+         "structured log lines kept for a bundle's log_tail"),
+)}
+
+
+def knob(name: str):
+    """The value of registered knob ``name``: its env var, else its
+    default.  An unregistered name raises ``KeyError``."""
+    k = KNOBS[name]
+    return _env(name, k.default, k.cast)

@@ -10,7 +10,9 @@ The same vocabulary as the JAX package's copy
   DEAD, so a watchdog trip sheds traffic without inviting a restart.
 - :class:`Heartbeat` — the progress pulse the engine publishes (one
   ``beat()`` per decode chunk, busy counts, an error ring) and the
-  watchdog samples (engine/watchdog.py).  The engine never imports the
+  watchdog samples (engine/watchdog.py).  A recorded CUDA out-of-memory
+  error is bundled at once as a ``resource_exhausted`` incident
+  (obs/flightrec.py).  The engine never imports the
   watchdog; the heartbeat is the entire interface between them.
 - :class:`EngineUnavailable` / :class:`DeadlineExceeded` — the error
   taxonomy the server maps to 503 / 408, distinct from the generic 500.
@@ -22,6 +24,7 @@ import threading
 import time
 from collections import deque
 
+from ..obs import flightrec as _flightrec
 from ..obs.trace import annotate_all_inflight
 
 STARTING = "STARTING"    # model loading / warmup: not ready, alive
@@ -87,6 +90,14 @@ class Heartbeat:
             self._errors.append(time.monotonic())
             self.errors_total += 1
             self.last_error = msg
+        # a device OOM is the incident the recorder exists for: by the time
+        # a burst trips the watchdog, the allocation state that caused it
+        # is gone, so bundle it at first sight (outside the lock; disarmed,
+        # one attribute read; the debounce keeps a burst at one bundle)
+        if _flightrec.OOM_SIGNATURE in msg:
+            _flightrec.record_incident(
+                "resource_exhausted", msg,
+                extra={"errors_total": self.errors_total})
 
     def clear_errors(self) -> None:
         """Consume the burst evidence (a trip handled it): a re-trip must

@@ -141,6 +141,25 @@ class Metrics:
         with self._lock:
             self._series.pop(name, None)
 
+    def snapshot(self) -> dict:
+        """Every series' raw storage at this moment: ``{name: {labels:
+        value | {"buckets", "sum", "count"}}}``.  The SLO engine diffs two
+        of them: the buckets are cumulative since boot, so a window's
+        delta is an exact event count."""
+        out: dict = {}
+        with self._lock:
+            for name, series in self._series.items():
+                metric = lookup(name)
+                per: dict = {}
+                for key, s in series.items():
+                    if metric.mtype == HISTOGRAM:
+                        per[key] = {"buckets": list(s.buckets),
+                                    "sum": s.total, "count": s.count}
+                    else:
+                        per[key] = s.value
+                out[name] = per
+        return out
+
     # -- exposition ------------------------------------------------------
     @staticmethod
     def _label_str(metric: Metric, key: tuple, extra: str = "") -> str:

@@ -6,6 +6,7 @@ These run on the CPU; the timings themselves need the card."""
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 
@@ -390,3 +391,38 @@ def test_spans_within_names_spans_outside_their_parent():
     bad = _span("request", 1.0, 9.0, _span("queue", 0.9, 1.1),
                 _span("engine", 1.1, 9.5, _span("decode_chunk", 2.0, None)))
     assert chip_smoke.spans_within(bad) == ["queue", "engine", "decode_chunk"]
+
+
+def test_devtime_delta_keeps_what_grew():
+    before = {"decode_chunk": {"compiles": 1, "dispatches": 10, "signatures": 1, "storms": 0},
+              "prefill": {"compiles": 0, "dispatches": 3, "signatures": 0, "storms": 0}}
+    after = {"decode_chunk": {"compiles": 2, "dispatches": 74, "signatures": 2, "storms": 0},
+             "prefill": {"compiles": 0, "dispatches": 3, "signatures": 0, "storms": 0},
+             "kernel_build": {"compiles": 1, "dispatches": 0, "signatures": 1, "storms": 0}}
+    assert chip_smoke.devtime_delta(before, after) == {
+        "decode_chunk": {"compiles": 1, "dispatches": 64},
+        "kernel_build": {"compiles": 1, "dispatches": 0}}
+
+
+def test_worst_burns_reads_each_slo_and_window():
+    doc = {"slos": [{"name": "error_rate", "windows": {"300s": {"burn_rate": 66.7},
+                                                       "3600s": {"burn_rate": 5.0}}},
+                    {"name": "ttft_p95", "windows": {"300s": {"burn_rate": 0.0}}}]}
+    assert chip_smoke.worst_burns(doc) == {"error_rate": {"300s": 66.7, "3600s": 5.0},
+                                           "ttft_p95": {"300s": 0.0}}
+
+
+def test_profile_trace_stats_counts_kernels_port_kernels_and_graph_launches(tmp_path):
+    events = [
+        {"ph": "X", "cat": "kernel", "name": "void qgemv_kernel<Q4KGemv>(...)"},
+        {"ph": "X", "cat": "kernel", "name": "void at::native::reduce_kernel<512>(...)"},
+        {"ph": "X", "cat": "kernel", "name": "void qgemv_kernel<Q6KGemv>(...)"},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch"},
+        {"ph": "X", "cat": "cpu_op", "name": "qgemv_kernel lookalike"},
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}, indent=1))
+    got = chip_smoke.profile_trace_stats(str(path))
+    assert (got["cuda_kernels"], got["port_kernels"], got["graph_launches"]) == (3, 2, 1)
+    assert got["port_kernel_names"] == ["void qgemv_kernel<Q4KGemv>(...)",
+                                        "void qgemv_kernel<Q6KGemv>(...)"]

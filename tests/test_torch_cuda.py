@@ -29,6 +29,7 @@ magnitude.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -903,4 +904,119 @@ def test_recover_zeroes_the_ring_in_place_under_graphs(cuda, tmp_path, kv_dtype)
     again = eng.create_chat_completion(SERVED_MSGS, temperature=0.0, max_tokens=40)
     assert again["choices"] == want["choices"]
     assert graphs.replays > 0
+    eng.close()
+
+
+def test_read_of_a_chunk_returns_before_the_next_chunk_ends(cuda, tmp_path):
+    """The decode loop queues chunk k+1 before it reads chunk k: the read
+    waits for chunk k's copy alone.  A ~0.5 s spin queued on the stream
+    between the two chunks holds chunk k+1 back; chunk k's tokens come
+    back well before it, and equal a plain read of them."""
+    eng = _served_engine(cuda, tmp_path, "bf16")
+    ctx = eng._start(SERVED_MSGS, eng_sampling(), None)
+    first = eng._decode_chunk(ctx, 8)
+    torch.cuda.synchronize()
+    want = first[0].tolist()
+    ctx = eng._start(SERVED_MSGS, eng_sampling(), None)
+    first = eng._decode_chunk(ctx, 8)
+    torch.cuda._sleep(1_000_000_000)         # ~0.5 s at the H100's ~2 GHz
+    second = eng._decode_chunk(ctx, 8)
+    t0 = time.time()
+    got = eng._read_chunk(first)
+    waited = time.time() - t0
+    assert got == want
+    assert not second[1].query(), "chunk k+1 ended before chunk k's read returned"
+    assert waited < 0.25
+    eng._read_chunk(second)
+    eng._prefix_ids = []
+    eng.close()
+
+
+def eng_sampling():
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import SamplingParams
+
+    return SamplingParams(temperature=0.0)
+
+
+def test_a_capture_is_one_compile_and_a_chunk_one_dispatch(cuda, tmp_path):
+    """On the compile registry a graph capture is one compile of
+    ``decode_chunk`` (signature ``top_k=<k>``, its seconds), a chunk of
+    replays one dispatch, and each kernel's launches its wrapper's
+    counter."""
+    from llama_fastapi_k8s_gpu_tpu_torch.obs.devtime import DEVTIME
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import KERNELS
+
+    def progs():
+        return {p["name"]: p for p in DEVTIME.snapshot()["programs"]}
+
+    before = progs().get("decode_chunk", {"compiles": 0, "dispatches": 0})
+    cursor, _ = DEVTIME.events_since(0)
+    eng = _served_engine(cuda, tmp_path, "bf16")
+    warm = progs()["decode_chunk"]
+    assert warm["compiles"] - before["compiles"] == 1
+    _, events = DEVTIME.events_since(cursor)
+    events = [e for e in events if e["program"] == "decode_chunk"]
+    assert [e["signature"] for e in events] == ["top_k=40"]
+    assert abs(events[0]["wall_s"] - eng._graphs.captures[40]) < 1e-5
+    chunks = []
+    queue_chunk = eng._decode_chunk
+    eng._decode_chunk = lambda ctx, n: chunks.append(n) or queue_chunk(ctx, n)
+    eng.create_chat_completion(SERVED_MSGS, temperature=0.0, max_tokens=33)
+    after = progs()["decode_chunk"]
+    assert after["compiles"] == warm["compiles"]
+    assert after["dispatches"] - warm["dispatches"] == len(chunks) > 0
+    eng.create_chat_completion(SERVED_MSGS, temperature=0.0, top_k=7, max_tokens=9)
+    assert progs()["decode_chunk"]["compiles"] == warm["compiles"] + 1
+    assert {n: p["dispatches"] for n, p in progs().items() if n in KERNELS} == \
+        {n: fn.launches for n, fn in KERNELS.items()}
+    eng.close()
+
+
+def test_memory_ground_truth_is_the_cuda_allocator(cuda, tmp_path):
+    """``/debug/memory``'s ledger on the card: the allocator's live bytes,
+    the card's memory as the limit, the engine's weights and ring rows,
+    and a residual that is not negative."""
+    import gc
+
+    from llama_fastapi_k8s_gpu_tpu_torch.obs.memledger import MEMLEDGER
+
+    gc.collect()                  # the engines of earlier tests leave the ledger
+    eng = _served_engine(cuda, tmp_path, "bf16")
+    doc = MEMLEDGER.snapshot()
+    rows = {(r["component"], r["model"]): r["bytes"] for r in doc["components"]}
+    assert rows[("weights", eng.model_name)] == eng.weight_bytes
+    assert rows[("kv_ring", eng.model_name)] == eng.kv_cache_bytes
+    truth = doc["ground_truth"]
+    assert truth["source"] == "torch.cuda.memory_stats"
+    assert truth["bytes"] == torch.cuda.memory_allocated()
+    assert truth["limit"] == torch.cuda.mem_get_info()[1]
+    assert doc["residual_bytes"] >= 0 and doc["headroom"]["bytes"] > 0
+    eng.close()
+
+
+def test_a_profile_holds_cuda_kernel_events(cuda, tmp_path, monkeypatch):
+    """``capture_profile`` during a generation writes a Chrome trace with
+    CUDA kernel events and graph launches; a second capture meanwhile is
+    refused."""
+    import re
+    import threading
+
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.tracing import ProfileBusy, capture_profile
+
+    eng = _served_engine(cuda, tmp_path, "bf16")
+    monkeypatch.setenv("LFKT_PROFILE_DIR", str(tmp_path / "prof"))
+    box = {}
+    th = threading.Thread(target=lambda: box.update(doc=capture_profile(0.5)))
+    th.start()
+    time.sleep(0.1)
+    with pytest.raises(ProfileBusy):
+        capture_profile(0.1)
+    while th.is_alive():
+        eng.create_chat_completion(SERVED_MSGS, stream=False, temperature=0.0, max_tokens=9)
+    th.join()
+    doc = box["doc"]
+    assert doc["ok"], doc
+    text = open(doc["trace"]).read()
+    assert re.search(r'"cat":\s*"kernel"', text)
+    assert re.search(r'"name":\s*"cudaGraphLaunch', text)
     eng.close()
