@@ -46,8 +46,16 @@ and no result line):
    the measurement behind the launchers' thresholds;
 4. gguf: four synthetic Llama-3-8B-width GGUFs (random valid blocks from a
    seed) in the tensor types of a Q4_K_M, a Q5_K_M, a Q8_0 and a Q6_K
-   file, written with the port's own writer into ``.cache/chip_smoke/``
-   and reused when present (about 26 GB);
+   file, a synthetic Mistral-7B file (Mistral-7B-v0.1's published
+   config at full width and depth, Q4_K_M's types, architecture ``llama``
+   with ``llama.attention.sliding_window`` 4096, a seeded 32000-piece
+   SentencePiece vocabulary whose pieces make the prompts' words whole,
+   ``<0xXX>`` byte pieces for the rest, the ``[INST]`` template) and a
+   mixed-type file (Llama-3-8B width, 4 layers, F16, BF16, Q4_0, Q4_1,
+   Q5_0, Q5_1, Q2_K, Q3_K, IQ4_NL and IQ4_XS spread over token_embd,
+   output and the 28 linears, each on two tensors or more), written with
+   the port's own writer into ``.cache/chip_smoke/`` and reused when
+   present (about 33 GB);
 5. serve: per file, the port's ``Engine`` behind its app on the in-tree
    httpd at 127.0.0.1 — the Q6_K file over the int8 KV cache
    (``kv_dtype="int8"``) — ``/response`` requests at temperature 0 (a
@@ -75,20 +83,39 @@ and no result line):
    a watchdog drill with the incident recorder armed: ``incidents`` and
    ``slo``), then the device-facing one on a fresh app (the ``obs``
    lines: ``compiles`` — graph captures as compiles, dispatches, a
-   recompile storm under a low budget —, ``memory``, ``profile``,
-   ``launches_audit``, ``metrics_families``).  Two more engines
+   recompile storm under a low budget —, ``memory``, ``metrics_families``,
+   ``launches_audit``, and ``profile``: a second app started with
+   ``LFKT_PROFILE_DIR`` set pays the profiler's set-up at startup, and its
+   first capture, asked for before a single stream starts, must open
+   within a second and hold the stream's kernels).  Two more engines
    serve files already written, with the layer-looped decode armed: the
    Q4_K_M file as int8 weights with one looped launch a token
    (``decode_layer_unroll=-1``), and the Q8_0 file as bf16 weights over the
    int8 ring with four (``decode_layer_unroll=8``); each checks ``/health``'s
    effective unroll, the looped launches of one token, 16 teacher-forced
    decode steps against the per-layer path on the same weights, and times
-   both paths' decode ms/token;
+   both paths' decode ms/token.  Then the Mistral file at n_ctx 8192,
+   where its 4096-token window bites: ``mistral_q4km`` (fused, bf16 ring)
+   and ``mistral_int8_loop`` (int8 weights, int8 ring, one looped launch a
+   token), each with a short and a ~4,700-token ``/response`` (prompt
+   slices and decode past slot 4096), the first also with the follow-up,
+   ``/v1`` with a system message, without and with a stream (the same
+   text, ``mistral_http``) and the 25 s request; beside the lines above, the
+   flash pass on the slice past slot 4096 against the plain one with the
+   window (``logits``), one decode step past the window against the same
+   step with the window set to 0 on a clone of the ring, which must differ
+   (``window``), and the SPM tokenizer over the served prompts
+   (``tokenizer``: encode seconds and rate, byte-fallback ids, whole-word
+   share, ``decode(encode(text)) == text``).  Last, the mixed-type file
+   under ``auto`` (every linear bf16) and ``int8``: the load's seconds by
+   type (``load_types``: host codec, upload, bytes) and, for one tensor of
+   each type, the plane expanded on the card against the codec's output,
+   bit for bit (``planes``);
 6. a ``dequant_rank`` line: each dequant's launches × (time − bound)
-   over the six engines' loads, shape by shape (launches from the load
-   plan, checked against the wrappers' counters of phase 5), largest
+   over the first six engines' loads, shape by shape (launches from the
+   load plan, checked against the wrappers' counters of phase 5), largest
    first; then a ``kernels`` JSON line with every kernel's launches summed
-   over the engines of phase 5 beside its phase-3 numbers.
+   over the ten engines of phase 5 beside its phase-3 numbers.
 
 The last line is ``{"ok": true, "device": {...}}``.  No JAX anywhere.
 """
@@ -272,6 +299,118 @@ def rand_q6k(rng, n_out: int, k_in: int):
     d = np.float16(k_in ** -0.5 / (11.5 * 18.5))
     blk[:, 208:210] = np.array([d], np.float16).view(np.uint8)
     return blk.reshape(n_out, -1)
+
+
+def _half(rng, n: int, std: float, dtype) -> "np.ndarray":
+    """``n`` N(0, std²) values as float16 (``dtype`` "F16") or bf16 words
+    (the f32's upper halves, "BF16"), as bytes: random draws from a pool of
+    65536 normal values (a pool lookup is several times faster than a
+    normal draw of every value at the 128256×4096 embedding)."""
+    import numpy as np
+
+    pool = rng.standard_normal(65536, dtype=np.float32) * np.float32(std)
+    words = (pool.astype(np.float16).view(np.uint16) if dtype == "F16"
+             else (pool.view(np.uint32) >> 16).astype(np.uint16))
+    return words[np.frombuffer(rng.bytes(2 * n), np.uint16)].view(np.uint8)
+
+
+def rand_f16(rng, n_out: int, k_in: int):
+    """(n_out, k_in) F16 weights, N(0, 1/k_in)."""
+    return _half(rng, n_out * k_in, k_in ** -0.5, "F16").reshape(n_out, -1)
+
+
+def rand_bf16(rng, n_out: int, k_in: int):
+    """(n_out, k_in) BF16 weights (f32 draws truncated), N(0, 1/k_in)."""
+    return _half(rng, n_out * k_in, k_in ** -0.5, "BF16").reshape(n_out, -1)
+
+
+def _legacy_blocks(rng, n_out: int, k_in: int, size: int, d: float, m: float | None):
+    """Q4_0/Q4_1/Q5_0/Q5_1/IQ4_NL block bytes (32 elements a block): random
+    quant bytes under the f16 scale ``d`` (and, Q4_1/Q5_1, the f16 min
+    ``m``)."""
+    import numpy as np
+
+    nb = n_out * k_in // 32
+    blk = np.frombuffer(rng.bytes(nb * size), np.uint8).reshape(nb, size).copy()
+    blk[:, 0:2] = np.array([np.float16(d)], np.float16).view(np.uint8)
+    if m is not None:
+        blk[:, 2:4] = np.array([np.float16(m)], np.float16).view(np.uint8)
+    return blk.reshape(n_out, -1)
+
+
+def rand_q4_0(rng, n_out: int, k_in: int):
+    """Q4_0: w = d·(q − 8), q uniform in 0..15 (std 4.61)."""
+    return _legacy_blocks(rng, n_out, k_in, 18, k_in ** -0.5 / 4.61, None)
+
+
+def rand_q4_1(rng, n_out: int, k_in: int):
+    """Q4_1: w = d·q + m with m = −7.5·d: zero-mean, std 4.61·d."""
+    d = k_in ** -0.5 / 4.61
+    return _legacy_blocks(rng, n_out, k_in, 20, d, -7.5 * d)
+
+
+def rand_q5_0(rng, n_out: int, k_in: int):
+    """Q5_0: w = d·(q − 16), q uniform in 0..31 (std 9.23)."""
+    return _legacy_blocks(rng, n_out, k_in, 22, k_in ** -0.5 / 9.23, None)
+
+
+def rand_q5_1(rng, n_out: int, k_in: int):
+    """Q5_1: w = d·q + m with m = −15.5·d."""
+    d = k_in ** -0.5 / 9.23
+    return _legacy_blocks(rng, n_out, k_in, 24, d, -15.5 * d)
+
+
+def rand_iq4_nl(rng, n_out: int, k_in: int):
+    """IQ4_NL: w = d·table[q], q uniform over the 16 values (rms 65)."""
+    return _legacy_blocks(rng, n_out, k_in, 18, k_in ** -0.5 / 65.0, None)
+
+
+def rand_q2_k(rng, n_out: int, k_in: int):
+    """Q2_K: w = d·sc·q − dmin·m with the scale and min nibbles equal and
+    dmin = 1.5·d, so w = d·sc·(q − 1.5), sc in 8..15, q uniform in 0..3."""
+    import numpy as np
+
+    nb = n_out * k_in // 256
+    blk = np.frombuffer(rng.bytes(nb * 84), np.uint8).reshape(nb, 84).copy()
+    sc = rng.integers(8, 16, (nb, 16), dtype=np.uint8)
+    blk[:, 0:16] = sc | (sc << 4)
+    d = np.float16(k_in ** -0.5 / (11.7 * 1.118))
+    blk[:, 80:82] = np.array([d], np.float16).view(np.uint8)
+    blk[:, 82:84] = np.array([np.float16(1.5 * float(d))], np.float16).view(np.uint8)
+    return blk.reshape(n_out, -1)
+
+
+def rand_q3_k(rng, n_out: int, k_in: int):
+    """Q3_K: w = d·sc·q, sc in 8..15, q uniform in −4..3 (std 2.29)."""
+    import numpy as np
+
+    from llama_fastapi_k8s_gpu_tpu_torch.gguf.quants import _q3k_pack_scales
+
+    nb = n_out * k_in // 256
+    blk = np.frombuffer(rng.bytes(nb * 110), np.uint8).reshape(nb, 110).copy()
+    blk[:, 96:108] = _q3k_pack_scales(rng.integers(40, 48, (nb, 16), dtype=np.uint8))
+    blk[:, 108:110] = np.array([np.float16(k_in ** -0.5 / (11.7 * 2.29))],
+                               np.float16).view(np.uint8)
+    return blk.reshape(n_out, -1)
+
+
+def rand_iq4_xs(rng, n_out: int, k_in: int):
+    """IQ4_XS: w = d·(ls − 32)·table[q], the 6-bit ls and q random (rms of
+    ls − 32: 18.5)."""
+    import numpy as np
+
+    nb = n_out * k_in // 256
+    blk = np.frombuffer(rng.bytes(nb * 136), np.uint8).reshape(nb, 136).copy()
+    blk[:, 0:2] = np.array([np.float16(k_in ** -0.5 / (18.5 * 65.0))],
+                           np.float16).view(np.uint8)
+    return blk.reshape(n_out, -1)
+
+
+#: random valid blocks of each GGML type the synthetic files hold
+RAND = {"Q4_K": rand_q4k, "Q5_K": rand_q5k, "Q6_K": rand_q6k, "Q8_0": rand_q8_0,
+        "F16": rand_f16, "BF16": rand_bf16, "Q4_0": rand_q4_0, "Q4_1": rand_q4_1,
+        "Q5_0": rand_q5_0, "Q5_1": rand_q5_1, "Q2_K": rand_q2_k, "Q3_K": rand_q3_k,
+        "IQ4_NL": rand_iq4_nl, "IQ4_XS": rand_iq4_xs}
 
 
 # ---------------------------------------------------------------------------
@@ -1175,17 +1314,7 @@ def phase_gguf(layout: str, depth: int = DEPTH) -> str:
 
     cfg = dataclasses.replace(LLAMA3_8B, n_layers=depth)
     path = os.path.join(CACHE, f"llama3-8b-width-{layout}-L{depth}-seed0.gguf")
-    os.makedirs(CACHE, exist_ok=True)
-    free_gb = round(shutil.disk_usage(CACHE).free / 1e9, 1)
-    if os.path.exists(path):
-        say("gguf", path=path, reused=True, bytes=os.path.getsize(path),
-            disk_free_gb=free_gb)
-        return path
-    t0 = time.time()
-    write_gguf(cfg, path, layout)
-    say("gguf", path=path, reused=False, layers=depth, bytes=os.path.getsize(path),
-        seconds=round(time.time() - t0, 1), disk_free_gb=free_gb)
-    return path
+    return cached_gguf(path, lambda p: write_gguf(cfg, p, layout), layers=depth)
 
 
 def file_types(layout: str) -> dict:
@@ -1210,22 +1339,19 @@ GGUF_NAMES = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v", "wo": "attn_output
 
 
 def served_formats(layout: str) -> dict:
-    """The Linear kinds a ``layout`` file must serve with: every linear fused."""
+    """The Linear kinds a ``layout`` file must serve with: every linear fused;
+    the mixed file's every linear bf16 (its names mix types)."""
+    if layout == "mixed":
+        return dict.fromkeys(GGUF_NAMES, "bf16")
     kinds = {"Q4_K": "q4k", "Q5_K": "q5k", "Q6_K": "q6k", "Q8_0": "q8"}
     t = file_types(layout)
     return {short: kinds[t[long]] for short, long in GGUF_NAMES.items()}
 
 
-def write_gguf(cfg, path: str, layout: str, seed: int = 0) -> None:
-    """A Llama GGUF of ``cfg``'s shapes with random valid blocks from
-    ``seed`` in ``layout``'s tensor types and a byte-level BPE vocabulary."""
-    import numpy as np
-
-    from llama_fastapi_k8s_gpu_tpu_torch.gguf import GGMLType, GGUFWriter
-
-    rng = np.random.default_rng(seed)
-    # byte-level vocabulary (GPT-2 byte table), padded with inert tokens to
-    # Llama-3's 128256, then its control tokens
+def bpe_metadata(cfg) -> dict:
+    """The tokenizer metadata of the Llama-3-width files: a byte-level
+    vocabulary (GPT-2 byte table), padded with inert tokens to Llama-3's
+    128256, then its control tokens, and the Llama-3 chat template."""
     from llama_fastapi_k8s_gpu_tpu_torch.tokenizer.bpe import bytes_to_unicode
 
     specials = ["<|begin_of_text|>", "<|end_of_text|>", "<|start_header_id|>",
@@ -1233,19 +1359,10 @@ def write_gguf(cfg, path: str, layout: str, seed: int = 0) -> None:
     n_pad = cfg.vocab_size - 256 - len(specials)
     tokens = ([bytes_to_unicode()[b] for b in range(256)]
               + [f"<pad{i}>" for i in range(n_pad)] + specials)
-    types = [1] * (256 + n_pad) + [3] * len(specials)
-    w = GGUFWriter(path + f".tmp{os.getpid()}")
-    md = {
-        "general.architecture": "llama",
-        "general.name": f"llama3-8b-width-synthetic-{layout}",
-        "llama.block_count": cfg.n_layers, "llama.context_length": 8192,
-        "llama.embedding_length": cfg.dim, "llama.feed_forward_length": cfg.ffn_dim,
-        "llama.attention.head_count": cfg.n_heads,
-        "llama.attention.head_count_kv": cfg.n_kv_heads,
-        "llama.attention.layer_norm_rms_epsilon": cfg.rms_eps,
-        "llama.rope.freq_base": cfg.rope_theta, "llama.vocab_size": cfg.vocab_size,
+    return {
         "tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "llama-bpe",
-        "tokenizer.ggml.tokens": tokens, "tokenizer.ggml.token_type": types,
+        "tokenizer.ggml.tokens": tokens,
+        "tokenizer.ggml.token_type": [1] * (256 + n_pad) + [3] * len(specials),
         "tokenizer.ggml.merges": [],
         "tokenizer.ggml.bos_token_id": tokens.index("<|begin_of_text|>"),
         "tokenizer.ggml.eos_token_id": tokens.index("<|eot_id|>"),
@@ -1253,15 +1370,48 @@ def write_gguf(cfg, path: str, layout: str, seed: int = 0) -> None:
             "{{bos_token}}{% for m in messages %}<|start_header_id|>{{m['role']}}"
             "<|end_header_id|>\n\n{{m['content']}}<|eot_id|>{% endfor %}"),
     }
+
+
+def write_gguf(cfg, path: str, layout: str, seed: int = 0, tokenizer: dict | None = None,
+               type_of=None, name: str | None = None) -> None:
+    """A Llama GGUF of ``cfg``'s shapes with random valid blocks from
+    ``seed`` in ``layout``'s tensor types (or ``type_of(kind, layer)``'s,
+    ``layer`` None for token_embd and output) and the ``tokenizer``
+    metadata (default :func:`bpe_metadata`), named ``name``; ``cfg.sliding_window``, when
+    set, goes under ``llama.attention.sliding_window``, as llama.cpp writes
+    Mistral files."""
+    import numpy as np
+
+    from llama_fastapi_k8s_gpu_tpu_torch.gguf import GGMLType, GGUFWriter
+
+    rng = np.random.default_rng(seed)
+    w = GGUFWriter(path + f".tmp{os.getpid()}")
+    md = {
+        "general.architecture": "llama",
+        "general.name": name or f"llama3-8b-width-synthetic-{layout}",
+        "llama.block_count": cfg.n_layers, "llama.context_length": 8192,
+        "llama.embedding_length": cfg.dim, "llama.feed_forward_length": cfg.ffn_dim,
+        "llama.attention.head_count": cfg.n_heads,
+        "llama.attention.head_count_kv": cfg.n_kv_heads,
+        "llama.attention.layer_norm_rms_epsilon": cfg.rms_eps,
+        "llama.rope.freq_base": cfg.rope_theta, "llama.vocab_size": cfg.vocab_size,
+        **({"llama.attention.sliding_window": cfg.sliding_window}
+           if cfg.sliding_window else {}),
+        **(tokenizer or bpe_metadata(cfg)),
+    }
     for k, v in md.items():
         w.add_metadata(k, v)
 
-    types = file_types(layout)
-    rand = {"Q4_K": rand_q4k, "Q5_K": rand_q5k, "Q6_K": rand_q6k, "Q8_0": rand_q8_0}
+    if type_of is None:
+        types = file_types(layout)
+
+        def type_of(kind, layer):
+            return types[kind]
 
     def raw(name, n_out, k_in):
-        kind = types[name.split(".")[-2]]
-        blocks = rand[kind](rng, n_out, k_in)
+        parts = name.split(".")
+        kind = type_of(parts[-2], int(parts[1]) if parts[0] == "blk" else None)
+        blocks = RAND[kind](rng, n_out, k_in)
         w.add_raw_tensor(name, (k_in, n_out), GGMLType[kind], blocks.reshape(-1))
 
     def ones(name):
@@ -1284,6 +1434,301 @@ def write_gguf(cfg, path: str, layout: str, seed: int = 0) -> None:
     raw("output.weight", cfg.vocab_size, cfg.dim)
     w.write()
     os.replace(w.path, path)
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (cont.): the Mistral-7B file and the mixed-type file
+# ---------------------------------------------------------------------------
+
+#: the Mistral engines over the Mistral-7B file: (label, weight format, KV
+#: dtype, decode_layer_unroll, expected effective unroll) — the fused path
+#: over the bf16 ring, and int8 weights with one looped launch a token over
+#: the int8 ring
+MISTRAL = (("mistral_q4km", "auto", "bf16", 0, 0),
+           ("mistral_int8_loop", "int8", "int8", -1, 32))
+#: the Mistral engines' context: twice the window, so the window bites
+MISTRAL_N_CTX = 8192
+#: depth of the mixed-type file (the host codec is slow: a 32-layer Q3_K
+#: file would spend minutes on the host); width is not cut
+MIXED_DEPTH = 4
+#: the types the mixed file spreads over token_embd, output and its
+#: linears: F16, and every type the reference decodes without a kernel
+MIXED_TYPES = ("F16", "BF16", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K", "IQ4_NL",
+               "IQ4_XS")
+#: the mixed file's ffn_down (K = 14336) by layer
+MIXED_FFN_DOWN = ("Q2_K", "Q3_K", "IQ4_XS", "Q4_0")
+
+
+def mistral_config():
+    """Mistral-7B-v0.1's published config (vocab 32000, dim 4096, 32
+    layers, 32/8 heads of 128, ffn 14336, rope_theta 10000, rms_eps 1e-5,
+    sliding_window 4096), served at :data:`MISTRAL_N_CTX`."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import MISTRAL_7B
+
+    return dataclasses.replace(MISTRAL_7B, n_layers=DEPTH, rope_theta=10000.0,
+                               rms_eps=1e-5, sliding_window=4096, n_ctx=MISTRAL_N_CTX)
+
+
+#: text outside ASCII in the Mistral prompts: it takes the byte fallback
+NON_ASCII = "ça va? naïve café, Straße — 東京 🙂"
+MISTRAL_SHORT = [("user", "hi"), ("assistant", "hey"),
+                 ("user", "how are you? " + NON_ASCII)]
+MISTRAL_FOLLOW_UP = "and what happened next?"
+MISTRAL_SYSTEM = [{"role": "system", "content": "You are terse and kind."},
+                  {"role": "user", "content": "Tell me about the river and the boats."}]
+#: the long prompt's words (a story's vocabulary)
+STORY_WORDS = (
+    "the a an and but so then while because after before when where with without "
+    "river boats morning evening summer winter trip plan planned walked walking watched "
+    "watching thought thinking remembered friend friends family sister brother mother "
+    "father village town city market bridge harbour lighthouse keeper light storm rain "
+    "sun wind sea shore sand stones path forest trees birds songs music dinner bread "
+    "coffee tea letter letters book story stories old new long short quiet loud happy "
+    "tired warm cold bright dark early late slowly quickly together alone again never "
+    "always often sometimes every day night week year we I they she he it our their "
+    "was were had have said told asked answered laughed smiled waited found lost kept "
+    "carried opened closed left stayed came went took gave made saw heard knew felt "
+    "small big great little first last next other same different through over under "
+    "along across near far home house door window garden road car train ship sail").split()
+
+
+def mistral_long_context(turns: int = 62, seed: int = 3) -> list:
+    """A conversation of ``turns`` messages of up to ~390 characters each
+    (the app clips a message at 400), seeded sentences of
+    :data:`STORY_WORDS`, with :data:`NON_ASCII` in every eighth: about
+    4,600 prompt tokens behind the reference's persona prompt."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ctx = [("user", "hello, I have a long story to tell you.")]
+    for i in range(1, turns):
+        words = []
+        while len(" ".join(words)) < 360:
+            sentence = [STORY_WORDS[int(j)] for j in
+                        rng.integers(0, len(STORY_WORDS), int(rng.integers(6, 14)))]
+            sentence[0] = sentence[0].capitalize()
+            words += sentence[:-1] + [sentence[-1] + (", " if rng.random() < 0.2 else ".")]
+        text = " ".join(words).replace(",  ", ", ")[:390].rsplit(" ", 1)[0] + "."
+        if i % 8 == 3:
+            text = text[:350].rsplit(" ", 1)[0] + " " + NON_ASCII
+        ctx.append(("user" if i % 2 == 0 else "assistant", text))
+    return ctx
+
+
+def mistral_texts() -> list:
+    """Every text the Mistral engines are sent: the reference's persona
+    prompt, the requests' turns, the /v1 and warm-up messages."""
+    from llama_fastapi_k8s_gpu_tpu_torch.server.app import build_system_prompt
+    from llama_fastapi_k8s_gpu_tpu_torch.server.schemas import BotProfile
+
+    texts = [build_system_prompt(BotProfile(**BOT)), MISTRAL_FOLLOW_UP,
+             "hi hi hi hi hi hi hi hi", "fine"]
+    texts += [m for _, m in MISTRAL_SHORT + mistral_long_context()]
+    texts += [m["content"] for m in MISTRAL_SYSTEM + V1_MESSAGES + UNRELATED]
+    return texts
+
+
+def spm_metadata(texts: list, size: int = 32000, seed: int = 0) -> dict:
+    """A ``size``-piece SentencePiece vocabulary for ``texts`` and its
+    tokenizer metadata: ``<unk>``, ``<s>``, ``</s>``, the 256 ``<0xXX>``
+    byte pieces, every printable ASCII character, then for ``[INST]``,
+    ``[/INST]`` and every ASCII word of ``texts`` ``▁word`` and its prefixes (score = length, so a
+    word's prefix chain outranks every shorter merge and the word comes out
+    whole) and its bare prefixes (after punctuation), every lower-case
+    letter pair, and seeded letter runs at negative scores up to ``size``;
+    characters outside ASCII have no piece and take the byte fallback.
+    With the ``[INST]`` chat template."""
+    import numpy as np
+
+    pieces = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    types = [2, 3, 3] + [6] * 256
+    scores = [0.0] * len(pieces)
+    seen = set(pieces)
+
+    def add(piece: str, score: float) -> None:
+        if piece not in seen and len(pieces) < size:
+            seen.add(piece)
+            pieces.append(piece)
+            types.append(1)
+            scores.append(float(score))
+
+    add("▁", -1.0)
+    for c in range(0x21, 0x7F):
+        add(chr(c), -2.0)
+    words = sorted({w for t in texts for w in re.findall(r"[A-Za-z0-9']+", t)})
+    for w in ("[INST]", "[/INST]", *words):
+        for i in range(1, len(w) + 1):
+            add("▁" + w[:i], i + 1)
+        for i in range(2, len(w) + 1):
+            add(w[:i], i)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    for a in letters:
+        for b in letters:
+            add(a + b, 2)
+    rng = np.random.default_rng(seed)
+    while len(pieces) < size:
+        run = "".join(letters[int(j)] for j in rng.integers(0, 26, int(rng.integers(3, 9))))
+        add(("▁" if rng.random() < 0.5 else "") + run, -5.0 - 10.0 * rng.random())
+    return {
+        "tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": pieces,
+        "tokenizer.ggml.token_type": types, "tokenizer.ggml.scores": scores,
+        "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2,
+        "tokenizer.chat_template": (
+            "{{bos_token}}{% for m in messages %}{% if m['role'] == 'user' %}"
+            "[INST] {{m['content']}} [/INST]{% else %}{{m['content']}}</s>"
+            "{% endif %}{% endfor %}"),
+    }
+
+
+def mixed_type_of(kind: str, layer: int | None) -> str:
+    """The mixed file's type of each weight: token_embd BF16 (its raw
+    view), output F16, ffn_down by :data:`MIXED_FFN_DOWN`, the other 24
+    linears through :data:`MIXED_TYPES` in turn — every type on at least
+    two tensors, every name mixing types across its layers."""
+    if layer is None:
+        return {"token_embd": "BF16", "output": "F16"}[kind]
+    if kind == "ffn_down":
+        return MIXED_FFN_DOWN[layer]
+    order = ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up")
+    return MIXED_TYPES[(layer * len(order) + order.index(kind) + 3) % len(MIXED_TYPES)]
+
+
+def cached_gguf(path: str, write, **info) -> str:
+    """``path``, written by ``write(path)`` unless present; a ``gguf``
+    line either way."""
+    os.makedirs(CACHE, exist_ok=True)
+    free_gb = round(shutil.disk_usage(CACHE).free / 1e9, 1)
+    if os.path.exists(path):
+        say("gguf", path=path, reused=True, bytes=os.path.getsize(path),
+            disk_free_gb=free_gb)
+        return path
+    t0 = time.time()
+    write(path)
+    say("gguf", path=path, reused=False, **info, bytes=os.path.getsize(path),
+        seconds=round(time.time() - t0, 1), disk_free_gb=free_gb)
+    return path
+
+
+def phase_gguf_mistral() -> str:
+    """The synthetic Mistral-7B file: Q4_K_M's tensor types, the SPM
+    vocabulary of :func:`spm_metadata`, the window under
+    ``llama.attention.sliding_window``, architecture ``llama``."""
+    cfg = mistral_config()
+    path = os.path.join(CACHE, f"mistral-7b-width-q4km-L{cfg.n_layers}-seed0.gguf")
+    return cached_gguf(path, lambda p: write_gguf(
+        cfg, p, "q4km", tokenizer=spm_metadata(mistral_texts()),
+        name="mistral-7b-width-synthetic-q4km"), layers=cfg.n_layers)
+
+
+def phase_gguf_mixed() -> str:
+    """The mixed-type file: Llama-3-8B width, :data:`MIXED_DEPTH` layers,
+    the byte-level vocabulary, types by :func:`mixed_type_of`."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import LLAMA3_8B
+
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=MIXED_DEPTH)
+    path = os.path.join(CACHE, f"llama3-8b-width-mixed-L{MIXED_DEPTH}-seed0.gguf")
+    return cached_gguf(path, lambda p: write_gguf(
+        cfg, p, "mixed", type_of=mixed_type_of), layers=MIXED_DEPTH)
+
+
+@contextlib.contextmanager
+def timed_load(sink: dict):
+    """Inside the block, each GGUF tensor's host-codec seconds
+    (``quants.dequantize``) and its whole expansion onto the card
+    (``params._expand``: the codec, the upload, the conversion) summed by
+    GGML type into ``sink``."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.gguf import GGMLType, quants
+    from llama_fastapi_k8s_gpu_tpu_torch.models import params as pm
+
+    deq, expand = quants.dequantize, pm._expand
+
+    def row(gtype):
+        return sink.setdefault(GGMLType(gtype).name, {"tensors": 0, "bytes": 0,
+                                                      "codec_s": 0.0, "expand_s": 0.0})
+
+    def timed_deq(buf, gtype, n):
+        t0 = time.perf_counter()
+        out = deq(buf, gtype, n)
+        row(gtype)["codec_s"] += time.perf_counter() - t0
+        return out
+
+    def timed_expand(t, device, dtype):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = expand(t, device, dtype)
+        torch.cuda.synchronize()
+        r = row(t.ggml_type)
+        r["expand_s"] += time.perf_counter() - t0
+        r["tensors"] += 1
+        r["bytes"] += t.nbytes
+        return out
+
+    quants.dequantize, pm._expand = timed_deq, timed_expand
+    try:
+        yield sink
+    finally:
+        quants.dequantize, pm._expand = deq, expand
+
+
+def load_types(label: str, sink: dict, load_s: float) -> dict:
+    """The ``load_types`` line: per GGML type of the expanded weights, its
+    tensors and bytes, the host codec's seconds, the rest of the expansion
+    (upload and conversion on the card) and the codec's rate; beside the
+    engine's load seconds."""
+    rows = {}
+    for name, r in sorted(sink.items()):
+        if not r["tensors"]:
+            continue                       # the norms: F32, read, not expanded
+        rows[name] = {**r, "upload_s": r["expand_s"] - r["codec_s"],
+                      "codec_mb_per_s": r["bytes"] / r["codec_s"] / 1e6 if r["codec_s"]
+                      else None}
+    out = {"file": label, "engine_load_s": load_s, "types": rows}
+    say("load_types", **out)
+    return out
+
+
+def check_planes(label: str, eng, path: str) -> None:
+    """For one tensor of each type of the mixed file, the plane expanded on
+    the card (``params._expand``, bf16 and f32) against the port codec's
+    numpy output (cast to bf16 for the bf16 plane), bit for bit — and, on a
+    bf16 engine, the served weight against the same plane.  A ``planes``
+    line; any difference fails the run."""
+    import numpy as np
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.gguf import GGUFFile
+    from llama_fastapi_k8s_gpu_tpu_torch.models.params import _expand
+
+    gf = GGUFFile(path)
+    out = {}
+    for gtype in MIXED_TYPES:
+        name = next(n for n, t in gf.tensors.items()
+                    if t.ggml_type.name == gtype and n.startswith("blk."))
+        t = gf[name]
+        # the codec's output as the load takes it: f32 (Q3_K's arithmetic
+        # runs in f64, as the reference's does)
+        host = torch.from_numpy(np.asarray(t.astype_f32(), np.float32))
+        bf = _expand(t, eng.device, torch.bfloat16)
+        f32 = _expand(t, eng.device, torch.float32)
+        row = {"tensor": name, "shape": list(bf.shape),
+               "bf16_bit_exact": torch.equal(bf.cpu().view(torch.int16),
+                                             host.to(torch.bfloat16).view(torch.int16)),
+               "f32_bit_exact": torch.equal(f32.cpu().view(torch.int32),
+                                            host.view(torch.int32))}
+        parts = name.split(".")
+        short = {v: k for k, v in GGUF_NAMES.items()}[parts[2]]
+        served = getattr(eng.params.layers[int(parts[1])], short)
+        if served.kind == "bf16":
+            row["served_bit_exact"] = torch.equal(served.weight.view(torch.int16), bf.view(torch.int16))
+        out[gtype] = row
+        del bf, f32
+    say("planes", file=label, **out)
+    bad = {k: r for k, r in out.items() if not all(v for key, v in r.items()
+                                                     if key.endswith("bit_exact"))}
+    if bad:
+        raise AssertionError(f"{label}: expanded planes differ from the codec: {bad}")
 
 
 # ---------------------------------------------------------------------------
@@ -2049,8 +2494,8 @@ def phase_obs(label: str, eng, short_ctx: list, ring_bytes: int, before: dict,
         with serving(app) as (port, _):
             check_compiles(label, eng, port, short_ctx, before, at_start, chunks)
             check_memory(label, eng, port, ring_bytes, allocated_before)
-            check_profile(label, eng, port, short_ctx)
             check_metrics_families(label, port)
+            check_profile(label, eng, port, short_ctx)
     finally:
         del eng._decode_chunk
     # the launch audit of one eager decode step, against the kernels' counts
@@ -2188,55 +2633,64 @@ def check_memory(label, eng, port, ring_bytes, allocated_before: int) -> None:
 
 
 def check_profile(label, eng, port, short_ctx) -> None:
-    """The ``profile`` line: ``/debug/profile`` refused without the
-    directory, and during streams one capture that holds the port's
-    kernels and graph launches while a second one meanwhile gets 409."""
+    """The ``profile`` line: ``/debug/profile`` refused (403) on this app,
+    whose startup ran without ``LFKT_PROFILE_DIR`` and prepared no
+    profiler; then a second app over the engine, started with the
+    directory set, whose startup pays the profiler's one-time set-up
+    (``prepare_s``); on it one capture is requested, and a single stream
+    starts after the request: the capture opens within a second
+    (``start_s``, the process's first capture) and holds the stream's
+    kernels and graph launches, while a second capture meanwhile gets
+    409.  ``wall_s`` is the stop and the export, as it is."""
+    from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
+    from llama_fastapi_k8s_gpu_tpu_torch.utils import tracing
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
     st403, _, _ = _request(port, "GET", "/debug/profile?seconds=1")
+    unprepared = tracing.profiler_prepared()
     prof_dir = tempfile.mkdtemp(prefix="lfkt-profile-")
     os.environ["LFKT_PROFILE_DIR"] = prof_dir
-    box: dict = {"streams": []}
-    captured = threading.Event()
+    sink = eng.metrics_sink
+    box: dict = {}
     try:
-        def stream():
-            # streams back to back until the capture is done: the profiler's
-            # first start can take longer than one reply
-            t_end = time.time() + 300
-            while not captured.is_set() and time.time() < t_end:
-                box["streams"].append(_sse(port, "/response/stream", body(short_ctx))["status"])
-
-        def capture():
-            try:
-                box["capture"] = _request(port, "GET", "/debug/profile?seconds=1",
-                                          timeout=240)
-            finally:
-                captured.set()
-
-        th_s = threading.Thread(target=stream)
-        th_s.start()
         t0 = time.time()
-        while not eng.heartbeat.busy_count() and time.time() - t0 < 30:
-            time.sleep(0.005)
-        time.sleep(0.2)                  # decoding by now
-        th_c = threading.Thread(target=capture)
-        th_c.start()
-        time.sleep(0.2)
-        st409, _, _ = _request(port, "GET", "/debug/profile?seconds=1")
-        th_c.join()
-        th_s.join()
+        with serving(create_app(engine=eng, settings=Settings(temperature=0.0))) as (p2, _):
+            ready_s = time.time() - t0
+            prepared = tracing.profiler_prepared()
+
+            def capture():
+                box["capture"] = _request(p2, "GET", "/debug/profile?seconds=1", timeout=240)
+
+            th_c = threading.Thread(target=capture)
+            th_c.start()
+            time.sleep(0.1)                  # the stream starts after the request
+            th_s = threading.Thread(target=lambda: box.update(
+                stream=_sse(p2, "/response/stream", body(short_ctx))["status"]))
+            th_s.start()
+            time.sleep(0.3)
+            st409, _, _ = _request(p2, "GET", "/debug/profile?seconds=1")
+            th_c.join()
+            th_s.join()
         st200, _, raw = box.get("capture", (None, None, b"{}"))
         doc = json.loads(raw)
         stats = profile_trace_stats(doc["trace"]) if st200 == 200 and doc.get("ok") else {}
     finally:
         del os.environ["LFKT_PROFILE_DIR"]
+        eng.metrics_sink = sink
         shutil.rmtree(prof_dir, ignore_errors=True)
+    after = tracing.profiler_prepared()
     say("profile", file=label, disabled_status=st403, busy_status=st409, status=st200,
+        prepared_before=unprepared["count"], prepared=prepared["count"],
+        prepare_s=prepared["seconds"], app_ready_s=ready_s, prepared_after=after["count"],
         seconds=doc.get("seconds"), start_s=doc.get("start_s"), wall_s=doc.get("wall_s"),
-        stream_statuses=box["streams"], **stats)
+        stream_status=box.get("stream"), **stats)
     if ((st403, st409, st200) != (403, 409, 200) or not doc.get("ok")
+            or (unprepared["count"], prepared["count"], after["count"]) != (0, 1, 1)
+            or not doc.get("start_s", 99) < 1.0
             or not stats.get("cuda_kernels") or not stats.get("port_kernels")
-            or not stats.get("graph_launches") or set(box["streams"]) != {200}):
-        raise AssertionError(f"profile: {st403}, {st409}, {st200} {doc} {stats}")
-
+            or not stats.get("graph_launches") or box.get("stream") != 200):
+        raise AssertionError(f"profile: {st403}, {st409}, {st200} {doc} {stats} "
+                             f"prepared {unprepared} {prepared} {after}")
 
 
 def check_metrics_families(label, port) -> None:
@@ -2271,19 +2725,158 @@ def served_sampling(settings):
                           presence_penalty=settings.presence_penalty)
 
 
+def record_prompts(eng) -> list:
+    """Wrap ``eng.tokenize_messages`` (the request path's encode): each
+    call appends its messages, ids and seconds to the returned list."""
+    tokenize = eng.tokenize_messages
+    sink: list = []
+
+    def timed(messages):
+        t0 = time.perf_counter()
+        ids = tokenize(messages)
+        sink.append({"messages": [dict(m) for m in messages], "ids": ids,
+                     "seconds": time.perf_counter() - t0})
+        return ids
+
+    eng.tokenize_messages = timed
+    return sink
+
+
+def check_mistral_http(label: str, eng, port: int) -> None:
+    """The ``mistral_http`` line: ``/v1/chat/completions`` with a system
+    message (folded into the first ``[INST]``), then — after a request that
+    shares no prefix with it, so no prefix reuse — the same request
+    streamed, whose joined deltas must equal the non-stream reply (the SPM
+    prefix space dropped once, on the first piece)."""
+    from llama_fastapi_k8s_gpu_tpu_torch.tokenizer.chat_template import render_mistral
+
+    v1 = {"messages": MISTRAL_SYSTEM, "max_tokens": 64}
+    st, doc = _http(port, "POST", "/v1/chat/completions", v1)
+    v1_ids = REPLIES[-1]["prompt"]
+    folded = render_mistral(MISTRAL_SYSTEM) == (
+        f"[INST] {MISTRAL_SYSTEM[0]['content']}\n\n{MISTRAL_SYSTEM[1]['content']} [/INST]")
+    choice = ((doc or {}).get("choices") or [{}])[0]
+    content = choice.get("message", {}).get("content", "")
+    _http(port, "POST", "/v1/chat/completions", {"messages": UNRELATED, "max_tokens": 4})
+    sse = _sse(port, "/v1/chat/completions", {**v1, "stream": True})
+    text, finish = sse_text(sse["events"])
+    out = {"file": label, "v1_status": st, "v1_prompt_tokens": len(v1_ids),
+           "system_folded": folded, "v1_chars": len(content), "v1_head": content[:40],
+           "stream_status": sse["status"], "stream_first_event_s": sse["first_event_s"],
+           "stream_finish": finish, "stream_equals_v1": (text, finish) == (
+               content, choice.get("finish_reason"))}
+    say("mistral_http", **out)
+    if not (st == 200 and content and folded and sse["status"] == 200
+            and out["stream_equals_v1"]):
+        raise AssertionError(f"{label}: mistral_http {out}")
+
+
+def check_window(label: str, eng, toks, cache: dict) -> None:
+    """The sliding window on the served Mistral model past slot 4096, on the
+    scratch ring ``cache``: the prompt ``toks`` through 256-token slices
+    (as the engine's sliced prefill) up to the last whole slice, whose
+    queries sit past slot 4096; that slice by the flash kernel and by the
+    plain score-matrix pass on a clone of the ring (the ``logits`` line,
+    5e-2 rel-dev); then one decode step at the next slot with the window
+    and with the window set to 0 on a clone: the logits must differ
+    (``window`` line; without it nothing shows the mask was applied)."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import prefill_chunk
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import decode_step
+
+    cfg = eng.cfg
+    C = 256
+    start = (len(toks) - C) // C * C
+    if start < cfg.sliding_window:
+        raise AssertionError(f"{label}: the long prompt ({len(toks)} tokens) ends before "
+                             f"a slice past the window {cfg.sliding_window}")
+    with torch.inference_mode():
+        for k in cache.values():
+            k.zero_()
+        for off in range(0, start, C):
+            prefill_chunk(eng.params, cfg, toks[off:off + C], off, C - 1, cache)
+        plain = {k: v.clone() for k, v in cache.items()}
+        lg_flash = prefill_chunk(eng.params, cfg, toks[start:start + C], start, C - 1, cache)
+        lg_xla = prefill_chunk(eng.params, dataclasses.replace(cfg, attn_impl="xla"),
+                               toks[start:start + C], start, C - 1, plain)
+        finite = bool(torch.isfinite(lg_flash).all() and torch.isfinite(lg_xla).all())
+        rel = _rel(lg_flash, lg_xla)
+        say("logits", file=label, shape=list(lg_flash.shape), finite=finite,
+            kv_dtype=cfg.kv_dtype, flash_vs_plain_rel=rel, tokens=start + C,
+            slice=[start, start + C - 1], sliding_window=cfg.sliding_window)
+        if not finite or lg_flash.shape != (cfg.vocab_size,) or rel > 5e-2:
+            raise AssertionError(f"{label}: logits finite={finite} flash vs plain past the "
+                                 f"window rel-dev {rel}")
+        pos = start + C
+        tok = lg_flash.argmax()
+        no_window = {k: v.clone() for k, v in cache.items()}
+        lw = decode_step(eng.params, cfg, tok, pos, cache)
+        l0 = decode_step(eng.params, dataclasses.replace(cfg, sliding_window=0), tok, pos,
+                         no_window)
+        dist = _rel(lw, l0)
+    out = {"file": label, "slot": pos, "sliding_window": cfg.sliding_window,
+           "keys_behind_window": pos + 1 - cfg.sliding_window,
+           "decode_layer_unroll": cfg.decode_layer_unroll,
+           "logits_rel_vs_window_0": dist, "argmax": [int(lw.argmax()), int(l0.argmax())]}
+    say("window", **out)
+    if not (torch.isfinite(lw).all() and dist > 1e-3):
+        raise AssertionError(f"{label}: the window does not bite at slot {pos}: {out}")
+
+
+def check_tokenizer(label: str, eng, prompts: list) -> None:
+    """The ``tokenizer`` line over the served prompts (as
+    :func:`record_prompts` saw them): encode seconds and tokens a second,
+    byte-fallback ids, the share of words that came out as whole
+    ``▁word`` pieces, and ``decode(encode(text)) == text`` for every
+    message and every rendered prompt."""
+    from llama_fastapi_k8s_gpu_tpu_torch.tokenizer import TokenType
+    from llama_fastapi_k8s_gpu_tpu_torch.tokenizer.chat_template import render_mistral
+
+    tok = eng.tokenizer
+    n_tok = sum(len(p["ids"]) for p in prompts)
+    secs = sum(p["seconds"] for p in prompts)
+    byte_ids = sum(1 for p in prompts for i in p["ids"] if tok.token_types[i] == TokenType.BYTE)
+    roundtrip, words, whole = True, 0, 0
+    for p in prompts:
+        texts = [m["content"] for m in p["messages"]] + [render_mistral(p["messages"])]
+        for text in texts:
+            roundtrip &= tok.decode(tok.encode(text, add_bos=False), skip_special=False) == text
+        pieces = {tok.tokens[i] for i in p["ids"]}
+        for w in re.findall(r"(?<= )[A-Za-z']+", texts[-1]):
+            words += 1
+            whole += ("▁" + w) in pieces
+    out = {"file": label, "kind": type(tok).__name__, "prompts": len(prompts),
+           "tokens": n_tok, "longest": max(len(p["ids"]) for p in prompts),
+           "encode_s": secs, "encode_s_longest": max(p["seconds"] for p in prompts),
+           "tokens_per_s": n_tok / secs if secs else None, "byte_fallback_ids": byte_ids,
+           "whole_word_share": whole / words if words else None, "roundtrip": roundtrip}
+    say("tokenizer", **out)
+    if not (roundtrip and byte_ids and out["whole_word_share"] > 0.5):
+        raise AssertionError(f"{label}: tokenizer {out}")
+
+
 def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
                 kv_dtype: str = "bf16", weight_format: str = "auto", unroll: int = 0,
                 label: str | None = None, expect_unroll: int = 0, ordinal: int = 0,
                 earlier: list | None = None, deadline_request: bool = False,
-                http_phase: bool = False, devtime_at_start: dict | None = None) -> dict:
+                http_phase: bool = False, devtime_at_start: dict | None = None,
+                n_ctx: int = 1024, mistral: bool = False, load_probe: bool = False) -> dict:
     """Serve ``path`` in ``weight_format`` over a ``kv_dtype`` KV cache with
-    ``decode_layer_unroll=unroll`` and return each kernel's launches on that
-    path.  ``ordinal`` numbers the engine for :func:`record_replies`;
-    ``earlier`` holds an earlier run's replies to compare with;
-    ``deadline_request`` adds one request at the reference's 25 s timeout,
-    ``http_phase`` the rest of the HTTP surface (:func:`phase_http`) and the
-    device-facing one (:func:`phase_obs`, its compile counts taken from
-    ``devtime_at_start``, the registry before the kernel build)."""
+    ``decode_layer_unroll=unroll`` at ``n_ctx`` and return each kernel's
+    launches on that path.  ``ordinal`` numbers the engine for
+    :func:`record_replies`; ``earlier`` holds an earlier run's replies to
+    compare with; ``deadline_request`` adds one request at the reference's
+    25 s timeout, ``http_phase`` the rest of the HTTP surface
+    (:func:`phase_http`) and the device-facing one (:func:`phase_obs`, its
+    compile counts taken from ``devtime_at_start``, the registry before the
+    kernel build).  ``mistral`` serves the Mistral file's prompts (the long
+    one past the window) and adds its checks: ``/v1`` with a system
+    message, and streamed, held to the non-stream reply
+    (:func:`check_mistral_http`), the window past slot 4096
+    (:func:`check_window`) and the SPM tokenizer (:func:`check_tokenizer`).
+    ``load_probe`` times the load by GGML type (:func:`load_types`) and holds
+    each type's expanded plane to the codec (:func:`check_planes`)."""
     import torch
 
     from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
@@ -2301,9 +2894,13 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
     allocated_before = torch.cuda.memory_allocated()
     t0 = time.time()
     # the GPU, auto attention
-    eng = Engine(path, kv_dtype=kv_dtype, weight_format=weight_format,
-                 decode_layer_unroll=unroll)
+    by_type: dict = {}
+    with timed_load(by_type) if load_probe else contextlib.nullcontext():
+        eng = Engine(path, n_ctx=n_ctx, kv_dtype=kv_dtype, weight_format=weight_format,
+                     decode_layer_unroll=unroll)
+    engine_load_s = time.time() - t0
     record_replies(eng, ordinal)
+    prompts = record_prompts(eng) if mistral else []
     eng.warmup()
     load_s = time.time() - t0
     formats = eng.params.formats()
@@ -2325,7 +2922,7 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
                              f"allocated {live}, expected {ring_bytes}")
     # the reference's serving defaults, greedy, with a timeout that leaves
     # room for the whole reply on any engine
-    settings = Settings(temperature=0.0, timeout_seconds=600.0)
+    settings = Settings(temperature=0.0, timeout_seconds=600.0, max_context_tokens=n_ctx)
     app = create_app(engine=eng, settings=settings)
     results = []
     short = [("user", "hi"), ("assistant", "hey"), ("user", "how are you?")]
@@ -2337,17 +2934,22 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
     for i in range(2):
         long_ctx += [("assistant", f"tell me more, part {i}."),
                      ("user", story[:100])]
+    if mistral:
+        short, long_ctx = MISTRAL_SHORT, mistral_long_context()
     with serving(app) as (port, th):
         for req, ctx in (("short", short), ("long", long_ctx)):
             st, doc = _http(port, "POST", "/response", body(ctx))
             results.append((req, st, doc, dict(eng.last_timings or {}), REPLIES[-1]))
         if follow_up:
             follow = long_ctx + [("assistant", results[-1][2].get("response", "")[:40]),
-                                 ("user", "and what happened next?")]
+                                 ("user", MISTRAL_FOLLOW_UP)]
             st, doc = _http(port, "POST", "/response", body(follow))
             results.append(("follow_up", st, doc, dict(eng.last_timings or {}), REPLIES[-1]))
+        if mistral:
+            check_mistral_http(label, eng, port)
         hst, hdoc = _http(port, "GET", "/health")
         alive = th.is_alive()
+    served_prompts = list(prompts)
     launches = {name: fn.launches for name, fn in counters.items()}
     say("launches", file=label, **launches)
     for req, st, doc, tm, rec in results:
@@ -2372,10 +2974,12 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
         engine=engine_doc)
     if hst != 200 or not alive:
         raise AssertionError(f"/health {hst}, httpd stopped: {not alive}")
-    if (engine_doc.get("kv_dtype"), engine_doc.get("kv_cache_bytes")) != (kv_dtype, ring_bytes):
-        raise AssertionError(f"/health reports kv_dtype {engine_doc.get('kv_dtype')} and "
-                             f"{engine_doc.get('kv_cache_bytes')} bytes, expected "
-                             f"{kv_dtype} and {ring_bytes}")
+    if (engine_doc.get("kv_dtype"), engine_doc.get("kv_cache_bytes"),
+            engine_doc.get("n_ctx")) != (kv_dtype, ring_bytes, n_ctx):
+        raise AssertionError(f"/health reports kv_dtype {engine_doc.get('kv_dtype')}, "
+                             f"{engine_doc.get('kv_cache_bytes')} bytes and n_ctx "
+                             f"{engine_doc.get('n_ctx')}, expected {kv_dtype}, "
+                             f"{ring_bytes} and {n_ctx}")
     if engine_doc.get("decode_layer_unroll") != expect_unroll:
         raise AssertionError(f"/health reports decode_layer_unroll "
                              f"{engine_doc.get('decode_layer_unroll')}, expected {expect_unroll}")
@@ -2437,31 +3041,41 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
         raise AssertionError(f"{label}: one decode token launched the looped kernel "
                              f"{per['token'].get('decode_loop')} times, expected "
                              f"{cfg.n_layers // expect_unroll}")
-    replay_trace(label, eng)
+    # a decode token of the Mistral engines at a slot past the window
+    replay_trace(label, eng, slot=len(ids) if mistral else 700)
 
     # the served model's logits: finite, and the flash prompt pass agrees
     # with the plain score-matrix one on the long prompt (over the int8
     # ring, the int8 flash kernel with the score-matrix path's folded
-    # scales).  Tolerance 5e-2 rel-dev: the plain path rounds its
+    # scales) — on the Mistral file on its slice past slot 4096, with the
+    # window.  Tolerance 5e-2 rel-dev: the plain path rounds its
     # probabilities to bf16 before P·V (as the reference does), the kernel
     # keeps them in f32, and the difference passes through every layer.
     toks = torch.tensor(ids, device=eng.device)
     cache = scratch
-    lg_flash = prefill(eng.params, eng.cfg, toks, len(ids), cache)
-    cfg_x = dataclasses.replace(eng.cfg, attn_impl="xla")
-    lg_xla = prefill(eng.params, cfg_x, toks, len(ids), cache)
-    finite = bool(torch.isfinite(lg_flash).all() and torch.isfinite(lg_xla).all())
-    rel = ((lg_flash - lg_xla).norm() / lg_xla.norm()).item()
-    say("logits", file=label, shape=list(lg_flash.shape), finite=finite,
-        kv_dtype=kv_dtype, flash_vs_plain_rel=rel, tokens=len(ids))
-    if not finite or lg_flash.shape != (eng.cfg.vocab_size,) or rel > 5e-2:
-        raise AssertionError(f"logits finite={finite} shape={tuple(lg_flash.shape)} "
-                             f"flash vs plain rel-dev {rel}")
+    if mistral:
+        check_window(label, eng, toks, cache)
+        check_tokenizer(label, eng, served_prompts)
+    else:
+        lg_flash = prefill(eng.params, eng.cfg, toks, len(ids), cache)
+        cfg_x = dataclasses.replace(eng.cfg, attn_impl="xla")
+        lg_xla = prefill(eng.params, cfg_x, toks, len(ids), cache)
+        finite = bool(torch.isfinite(lg_flash).all() and torch.isfinite(lg_xla).all())
+        rel = ((lg_flash - lg_xla).norm() / lg_xla.norm()).item()
+        say("logits", file=label, shape=list(lg_flash.shape), finite=finite,
+            kv_dtype=kv_dtype, flash_vs_plain_rel=rel, tokens=len(ids))
+        if not finite or lg_flash.shape != (eng.cfg.vocab_size,) or rel > 5e-2:
+            raise AssertionError(f"logits finite={finite} shape={tuple(lg_flash.shape)} "
+                                 f"flash vs plain rel-dev {rel}")
+        del lg_flash, lg_xla
     if expect_unroll:
         check_looped_path(label, eng, toks)
+    if load_probe:
+        load_types(label, by_type, engine_load_s)
+        check_planes(label, eng, path)
     # free this engine's weights and graphs before the next file loads
     eng.close()
-    del app, eng, cache, scratch, lg_flash, lg_xla
+    del app, eng, cache, scratch
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -2600,6 +3214,7 @@ def main() -> int:
     phase_build()
     kernels, deq_lines = phase_kernels(KERNELS)
     paths = {layout: phase_gguf(layout) for layout in LAYOUTS}
+    mistral_path, mixed_path = phase_gguf_mistral(), phase_gguf_mixed()
     launches = dict.fromkeys(KERNELS, 0)
     # an earlier run's replies (CHIP_SMOKE_REPLIES), to print where each
     # greedy reply of this run parts from it
@@ -2619,15 +3234,33 @@ def main() -> int:
     engines += [(layout, dict(follow_up=False, kv_dtype=kv_dtype, weight_format=fmt,
                               unroll=unroll, label=label, expect_unroll=expect))
                 for label, layout, fmt, kv_dtype, unroll, expect in LOOPED]
-    for ordinal, (layout, kw) in enumerate(engines):
-        served = phase_serve(layout, paths[layout], KERNELS, ordinal=ordinal,
+    # the Mistral-7B file at n_ctx 8192 (its window bites): fused over the
+    # bf16 ring with the follow-up, /v1 and the 25 s request, and int8
+    # weights looped over the int8 ring; then the mixed-type file under auto
+    # (every linear bf16) and int8, its load timed by type
+    paths["mistral"], paths["mixed"] = mistral_path, mixed_path
+    engines += [("mistral", dict(layout="q4km", label=label, weight_format=fmt,
+                                 kv_dtype=kv_dtype, unroll=unroll, expect_unroll=expect,
+                                 follow_up=label == "mistral_q4km",
+                                 deadline_request=label == "mistral_q4km",
+                                 n_ctx=MISTRAL_N_CTX, mistral=True))
+                for label, fmt, kv_dtype, unroll, expect in MISTRAL]
+    engines += [("mixed", dict(layout="mixed", label=f"mixed_{fmt}", weight_format=fmt,
+                               follow_up=False, load_probe=True))
+                for fmt in ("auto", "int8")]
+    six = None
+    for ordinal, (key, kw) in enumerate(engines):
+        if ordinal == len(ENGINES):
+            six = dict(launches)       # the dequant plan covers the first six
+        kw.setdefault("layout", key)
+        served = phase_serve(path=paths[key], counters=KERNELS, ordinal=ordinal,
                              earlier=earlier, **kw)
         for name, n in served.items():
             launches[name] += n
     if os.environ.get("CHIP_SMOKE_REPLIES_OUT"):
         with open(os.environ["CHIP_SMOKE_REPLIES_OUT"], "w") as fh:
             json.dump(REPLIES, fh)
-    say("dequant_rank", **dequant_rank(deq_lines, launches))
+    say("dequant_rank", **dequant_rank(deq_lines, six))
     for name, n in launches.items():
         kernels[name]["launches"] = n
     missing = [n for n, c in launches.items() if c <= 0]

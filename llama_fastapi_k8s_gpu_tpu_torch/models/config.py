@@ -3,7 +3,8 @@
 Mirrors the hparams llama.cpp reads when the reference loads a model
 (``Llama(model_path=..., n_ctx=1024)``, reference api.py:24-28), for the
 Llama family (Llama-2/3; Mistral's optional sliding window is one extra
-mask term).
+mask term).  Keys are read under the file's ``general.architecture``
+(``llama``, or ``mistral``), so a Mistral file loads under either name.
 """
 
 from __future__ import annotations
@@ -67,9 +68,13 @@ class ModelConfig:
         )
 
 
-# Canonical full-size config (random-weight synthesis for chip runs; no
+# Canonical full-size configs (random-weight synthesis for chip runs; no
 # network egress, so models are built from these shapes).
 LLAMA3_8B = ModelConfig(
     vocab_size=128256, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
     ffn_dim=14336, n_ctx=1024, rope_theta=500000.0, rms_eps=1e-5,
+)
+MISTRAL_7B = ModelConfig(
+    vocab_size=32000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+    ffn_dim=14336, n_ctx=1024, rope_theta=1000000.0, rms_eps=1e-5,
 )

@@ -24,8 +24,15 @@ Expansion happens on the device, as the reference's ``on_device`` load: a
 Q4_K, Q5_K, Q6_K or Q8_0 tensor (``token_embd``, and every linear under
 ``bf16``/``int8``) is uploaded as its block bytes and expanded by that
 format's dequant kernel — to bf16, or to f32 for the int8 requantization;
-F16/F32 tensors are uploaded as they are and converted by torch; any other
-type goes through the host codec.
+F16/F32 tensors are uploaded as they are and converted by torch; a BF16
+tensor is uploaded as its raw 16-bit words and viewed as bf16 (bit-exact
+with the reference's host decode, and no f32 plane on the host).  The
+types with no kernel — Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, IQ4_NL, IQ4_XS —
+go through the host codec (``gguf/quants.py``) to f32, as in the
+reference, and are uploaded from there.  They are never fusable: under
+``q4k`` a name holding one of them takes bf16 (the reference gives it
+int8: ROADMAP, "envelope difference"), and under ``int8`` it requantizes
+from the codec's f32.
 
 :func:`decode_loop_plan` says whether loaded weights can serve the
 layer-looped decode kernel (ops/decode_loop.py): only bf16 and int8
@@ -143,12 +150,15 @@ def _fused_names(gf: GGUFFile, cfg: ModelConfig) -> dict[str, GGMLType]:
 
 def _expand(t, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """One GGUF tensor → ``dtype`` on ``device``, shaped (out, in): block
-    types through their dequant kernel, F16/F32 converted by torch, any
-    other type through the host codec."""
+    types through their dequant kernel, F16/F32 converted by torch, BF16 by
+    a view of its raw words, any other type through the host codec."""
     shape = tuple(reversed(t.shape))
     if t.ggml_type in _DEQUANT:
         raw = torch.from_numpy(np.array(t.raw(), np.uint8)).to(device)
         return _DEQUANT[t.ggml_type](raw, dtype).reshape(shape)
+    if t.ggml_type == GGMLType.BF16:
+        words = torch.from_numpy(np.array(t.raw(), np.uint8).view(np.int16))
+        return words.to(device).view(torch.bfloat16).to(dtype).reshape(shape)
     if t.ggml_type in _FLOAT:
         a = np.array(t.raw(), np.uint8).view(_FLOAT[t.ggml_type])
     else:

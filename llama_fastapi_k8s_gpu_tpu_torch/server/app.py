@@ -27,8 +27,9 @@ server keeps it (llama_fastapi_k8s_gpu_tpu/server/app.py):
   obs/slo.py), ``/debug/memory`` (the memory ledger, obs/memledger.py),
   ``/debug/incidents`` and ``/debug/incidents/{id}`` (the incident
   bundles on disk, obs/flightrec.py) and ``/debug/profile`` (a bounded
-  ``torch.profiler`` capture, utils/tracing.py), with their ``/metrics``
-  families;
+  ``torch.profiler`` capture, utils/tracing.py; with ``LFKT_PROFILE_DIR``
+  set, startup pays the profiler's set-up before READY), with their
+  ``/metrics`` families;
 - the tracing middleware: a request id minted (or ingested from a
   ``traceparent``) for every request and answered as ``x-request-id``,
   the access log line, and ``request_seconds`` / ``http_requests_total``;
@@ -378,6 +379,12 @@ def create_app(engine=None, settings: Settings | None = None,
         # the incident bundles carry this app's health trail (weakly held;
         # a later app wins, which is the live one)
         _flightrec.FLIGHTREC.install(health=app.state.health, engine=engine)
+        # with LFKT_PROFILE_DIR set, the profiler's one-time set-up (seconds
+        # on the card) is paid here, before READY, and not inside the first
+        # /debug/profile window; unset, no profiler is touched
+        from ..utils.tracing import prepare_profiler
+
+        await asyncio.to_thread(prepare_profiler)
         app.state.ready = True
         app.state.health.transition(READY, "engine loaded")
         if settings.watchdog and getattr(engine, "heartbeat", None) is not None:

@@ -10,7 +10,11 @@ graph launches and copies, through CUPTI), exported as Chrome traces into
   everything the process does, clamped to
   [:data:`MIN_CAPTURE_SECONDS`, :data:`MAX_CAPTURE_SECONDS`];
 - :func:`maybe_profile` — with the directory set, every generation records
-  its own trace; unset, it costs one knob read.
+  its own trace; unset, it costs one knob read;
+- :func:`prepare_profiler` — with the directory set, the app's startup
+  starts and stops one profiler before the pod reports READY, so the
+  process pays kineto's and CUPTI's one-time set-up there and not inside
+  the first capture's window; unset, it touches no profiler.
 
 The profiler is process-global and a second one inside a running one
 raises, so one lock covers both: a capture asked for while another (or a
@@ -36,6 +40,10 @@ MIN_CAPTURE_SECONDS = 0.05
 
 #: one profiler at a time, capture or generation
 _CAPTURE_LOCK = threading.Lock()
+
+#: the process's profiler set-up (:func:`prepare_profiler`): how many times
+#: it ran (at most once a process) and its seconds
+_PREPARED = {"count": 0, "seconds": None}
 
 
 class ProfileDisabled(RuntimeError):
@@ -71,6 +79,40 @@ def _profiler():
         except TypeError:           # an older torch without the option
             continue
         return profile(activities=activities, experimental_config=config)
+
+
+def prepare_profiler() -> dict:
+    """Pay the profiler's one-time set-up now: with ``LFKT_PROFILE_DIR``
+    set, start and stop one profiler (no trace is written) the first time
+    this is called in the process; unset, prepared already, or while a
+    capture holds the profiler (which pays the set-up itself), do nothing.
+    Returns :func:`profiler_prepared`.  A profiler failure is logged, never
+    raised — the capture then reports it."""
+    if not profile_dir() or _PREPARED["count"]:
+        return profiler_prepared()
+    if not _CAPTURE_LOCK.acquire(blocking=False):
+        return profiler_prepared()
+    try:
+        if not _PREPARED["count"]:
+            t0 = time.time()
+            try:
+                prof = _profiler()
+                prof.start()
+                prof.stop()
+            except Exception as e:  # noqa: BLE001 — capture is best-effort
+                logger.warning("profiler set-up failed (%s)", e)
+            _PREPARED["count"] += 1
+            _PREPARED["seconds"] = round(time.time() - t0, 3)
+            logger.info("profiler prepared in %.3fs", _PREPARED["seconds"])
+    finally:
+        _CAPTURE_LOCK.release()
+    return profiler_prepared()
+
+
+def profiler_prepared() -> dict:
+    """``{"count", "seconds"}``: how many times this process ran the
+    profiler's set-up (0 or 1) and how long it took."""
+    return dict(_PREPARED)
 
 
 def _trace_path(d: str, tag: str) -> str:

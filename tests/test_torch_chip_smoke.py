@@ -1,7 +1,9 @@
 """The pure helpers of ``chip_smoke.py`` (the H100 smoke run at the repo
 root): the cold timings' copy count and call rotation, the decode
 token's recipe of fused matmul calls that its ``fused_token`` lines sum,
-and the looped kernel's bound and ``loop_positions`` line.
+the looped kernel's bound and ``loop_positions`` line, the synthetic
+files' random blocks of every type, the mixed-type file's spread and the
+Mistral file's SentencePiece vocabulary.
 These run on the CPU; the timings themselves need the card."""
 
 from __future__ import annotations
@@ -426,3 +428,71 @@ def test_profile_trace_stats_counts_kernels_port_kernels_and_graph_launches(tmp_
     assert (got["cuda_kernels"], got["port_kernels"], got["graph_launches"]) == (3, 2, 1)
     assert got["port_kernel_names"] == ["void qgemv_kernel<Q4KGemv>(...)",
                                         "void qgemv_kernel<Q6KGemv>(...)"]
+
+
+@pytest.mark.parametrize("gtype", sorted(chip_smoke.RAND))
+def test_random_blocks_decode_to_unit_weights(gtype):
+    """Every synthetic file's random blocks: whole blocks of the type, and
+    the codec decodes them to finite weights of std ≈ k_in^-0.5 and mean
+    within a fraction of it (the synthetic model's activations stay in
+    range at any depth)."""
+    import numpy as np
+
+    from llama_fastapi_k8s_gpu_tpu_torch.gguf import GGMLType, quants
+    from llama_fastapi_k8s_gpu_tpu_torch.gguf.constants import tensor_nbytes
+
+    n_out, k_in = 32, 4096
+    blocks = chip_smoke.RAND[gtype](np.random.default_rng(0), n_out, k_in)
+    assert blocks.dtype == np.uint8 and blocks.shape[0] == n_out
+    assert blocks.size == tensor_nbytes(GGMLType[gtype], n_out * k_in)
+    w = quants.dequantize(blocks.reshape(-1), GGMLType[gtype], n_out * k_in)
+    assert np.isfinite(w).all()
+    assert 0.9 < w.std() * k_in ** 0.5 < 1.1
+    assert abs(w.mean()) * k_in ** 0.5 < 0.25
+
+
+def test_mixed_file_spreads_every_type():
+    """The mixed file: every type on two tensors or more, ffn_down (K =
+    14336) carries Q2_K, Q3_K, IQ4_XS and Q4_0, and every linear name mixes
+    types across its layers (so it takes bf16 under ``q4k``)."""
+    import collections
+
+    kinds = ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up", "ffn_down")
+    per_name = {k: [chip_smoke.mixed_type_of(k, i) for i in range(chip_smoke.MIXED_DEPTH)]
+                for k in kinds}
+    counts = collections.Counter(t for ts in per_name.values() for t in ts)
+    counts.update(chip_smoke.mixed_type_of(k, None) for k in ("token_embd", "output"))
+    assert set(counts) == set(chip_smoke.MIXED_TYPES)
+    assert min(counts.values()) >= 2
+    assert {"Q2_K", "Q3_K", "IQ4_XS", "Q4_0"} <= set(per_name["ffn_down"])
+    assert all(len(set(ts)) > 1 for ts in per_name.values())
+
+
+def test_spm_vocabulary_makes_the_prompts_words_whole():
+    """The Mistral file's 32000-piece vocabulary: the persona prompt and the
+    long conversation encode to whole ``▁word`` pieces, ``[INST]`` to one
+    piece, the text outside ASCII to byte pieces, and the rendered long
+    prompt is over 4,600 tokens, past the 4096-token window."""
+    import re
+
+    from llama_fastapi_k8s_gpu_tpu_torch.server.app import build_system_prompt
+    from llama_fastapi_k8s_gpu_tpu_torch.server.schemas import BotProfile
+    from llama_fastapi_k8s_gpu_tpu_torch.tokenizer import SPMTokenizer, TokenType
+    from llama_fastapi_k8s_gpu_tpu_torch.tokenizer.chat_template import apply_chat_template
+
+    md = chip_smoke.spm_metadata(chip_smoke.mistral_texts())
+    tok = SPMTokenizer(md["tokenizer.ggml.tokens"], md["tokenizer.ggml.scores"],
+                       md["tokenizer.ggml.token_type"])
+    assert tok.vocab_size == 32000 and (tok.bos_id, tok.eos_id) == (1, 2)
+    msgs = [{"role": "system", "content": build_system_prompt(BotProfile(**chip_smoke.BOT))}]
+    msgs += [{"role": "user" if t == "user" else "assistant", "content": m}
+             for t, m in chip_smoke.mistral_long_context()]
+    ids = apply_chat_template(tok, msgs, kind="mistral")
+    assert 4600 < len(ids) < 8192 - 512
+    pieces = [tok.tokens[i] for i in ids]
+    assert pieces[:2] == ["<s>", "▁[INST]"]
+    words = re.findall(r"(?<= )[A-Za-z']+", " ".join(m["content"] for m in msgs))
+    assert all("▁" + w in tok.token_to_id for w in words)
+    assert sum(tok.token_types[i] == TokenType.BYTE for i in ids) > 100
+    text = chip_smoke.NON_ASCII
+    assert tok.decode(tok.encode(text, add_bos=False)) == text

@@ -1020,3 +1020,79 @@ def test_a_profile_holds_cuda_kernel_events(cuda, tmp_path, monkeypatch):
     assert re.search(r'"cat":\s*"kernel"', text)
     assert re.search(r'"name":\s*"cudaGraphLaunch', text)
     eng.close()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("offset", [4096, 4352])
+def test_flash_attention_mistral_window_over_an_8192_ring(cuda, int8, offset):
+    """Mistral-7B's window of 4096 over an 8192-slot ring at full width (32
+    query heads over 8 KV heads of 128): 256-query slices at 4096 and 4352,
+    whose first keys fall behind the window in whole 64-key tiles, over
+    the bf16 and the int8 ring, against the plain versions."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import attention, kvquant
+
+    g = torch.Generator(device=cuda).manual_seed(offset + int8)
+    S, n_ctx, hd, window = 256, 8192, 128, 4096
+    q = torch.randn(S, 32, hd, generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn(8, n_ctx, hd, generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn(8, n_ctx, hd, generator=g, device=cuda).to(torch.bfloat16)
+    if int8:
+        (kq, ks), (vq, vs) = kvquant.quantize_kv_plain(k), kvquant.quantize_kv_plain(v)
+        got = attention.flash_attention_int8(q, kq, vq, ks, vs, offset, hd ** -0.5, window)
+        want = attention.flash_attention_int8_plain(q, kq, vq, ks, vs, offset, hd ** -0.5,
+                                                    window)
+        full = attention.flash_attention_int8_plain(q, kq, vq, ks, vs, offset, hd ** -0.5, 0)
+    else:
+        got = attention.flash_attention(q, k, v, offset, hd ** -0.5, window)
+        want = attention.flash_attention_plain(q, k, v, offset, hd ** -0.5, window)
+        full = attention.flash_attention_plain(q, k, v, offset, hd ** -0.5, 0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max() <= 2e-2
+    # the window bites: the kernel's output is nearer the windowed plain
+    # version than the one over every key
+    assert (got.float() - want.float()).norm() < (got.float() - full.float()).norm()
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("pos", [4100, 8191])
+def test_decode_loop_mistral_window_past_4096(cuda, kv_int8, pos):
+    """The looped kernel over one Mistral-7B-width layer (32 query heads
+    over 8 KV heads of 128) at slots 4100 and 8191 of an 8192-slot ring
+    with window 4096: the split attention's chunk range starts mid-ring."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import MISTRAL_7B
+
+    cfg7 = dataclasses.replace(MISTRAL_7B, n_layers=1, vocab_size=256, n_ctx=8192)
+    cfg, params, cache, h = _loop_case(cuda, kv_int8, kv_int8, 4096, pos, cfg=cfg7)
+    _check_loop_launch(cfg, params, cache, h, pos, 0, 1, kv_int8)
+
+
+@pytest.mark.parametrize("gtype", ["BF16", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K",
+                                   "IQ4_NL", "IQ4_XS", "F16"])
+def test_host_codec_types_expand_on_the_card_bit_exact(cuda, gtype, tmp_path):
+    """A 1024×4096 linear of each type without a kernel: the plane the load
+    puts on the card (``_expand``, bf16 and f32) equals the codec's numpy
+    output cast to bf16, bit for bit (BF16 by a view of its raw words)."""
+    from llama_fastapi_k8s_gpu_tpu_torch.gguf import GGMLType, GGUFFile, GGUFWriter
+    from llama_fastapi_k8s_gpu_tpu_torch.models.params import _expand
+
+    rng = np.random.default_rng(3)
+    path = str(tmp_path / "t.gguf")
+    w = GGUFWriter(path)
+    w.add_metadata("general.architecture", "llama")
+    w.add_tensor("w.weight", (rng.standard_normal((1024, 4096)) * 0.02).astype(np.float32),
+                 GGMLType[gtype])
+    w.write()
+    t = GGUFFile(path)["w.weight"]
+    # the codec's output as the load takes it: f32 (the Q3_K codec's own
+    # arithmetic runs in f64, as the reference's does)
+    host = torch.from_numpy(np.asarray(t.astype_f32(), np.float32))
+    want = host.to(torch.bfloat16)
+    got = _expand(t, cuda, torch.bfloat16)
+    assert got.device.type == "cuda" and got.shape == (1024, 4096)
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+    got32 = _expand(t, cuda, torch.float32).cpu()
+    if gtype == "BF16":
+        assert torch.equal(got32, want.float())
+    else:
+        assert torch.equal(got32.view(torch.int32), host.view(torch.int32))

@@ -1,7 +1,8 @@
 """Port GGUF container and codecs against the JAX package's.
 
 Integer and format work must be bit-identical: the reader's header,
-metadata and tensor bytes, the writer's file bytes, the numpy codecs, and
+metadata and tensor bytes, the writer's file bytes, the numpy codecs of
+all fifteen types (both directions; valid blocks and random bytes), and
 the plain Q4_K / Q5_K / Q8_0 → bf16 dequants (what the CUDA kernels are
 held to on the card) against the reference codec followed by its bf16 cast
 and against the reference's Pallas kernels in interpret mode.
@@ -31,19 +32,32 @@ from llama_fastapi_k8s_gpu_tpu_torch.ops.dequant import dequant_q4_k, dequant_q5
 torch.set_num_threads(1)
 
 
+#: byte offsets of each block size's f16 scale fields (Q8_0 34, Q4_0 and
+#: IQ4_NL 18, Q4_1 20, Q5_0 22, Q5_1 24, Q2_K 84, Q3_K 110, IQ4_XS 136,
+#: Q4_K 144, Q5_K 176, Q6_K 210)
+_F16_AT = {34: (0,), 18: (0,), 20: (0, 2), 22: (0,), 24: (0, 2), 84: (80, 82),
+           110: (108,), 136: (0,), 144: (0, 2), 176: (0, 2), 210: (208,)}
+
+#: (GGML type, block bytes, elements a block) of every type the codecs take
+#: beyond F32/F16
+_BLOCKS = [("Q4_K", 144, 256), ("Q6_K", 210, 256), ("Q5_K", 176, 256), ("Q8_0", 34, 32),
+           ("BF16", 2, 1), ("Q4_0", 18, 32), ("Q4_1", 20, 32), ("Q5_0", 22, 32),
+           ("Q5_1", 24, 32), ("Q2_K", 84, 256), ("Q3_K", 110, 256), ("IQ4_NL", 18, 32),
+           ("IQ4_XS", 136, 256)]
+
+
 def _rand_blocks(rng, nb: int, size: int, valid: bool) -> np.ndarray:
-    """Random block bytes (Q4_K 144, Q5_K 176, Q6_K 210, Q8_0 34 bytes);
-    ``valid`` pins the f16 scale fields to finite values (the garbage
-    variant decodes to inf/NaN, also defined)."""
+    """Random block bytes of ``size`` bytes a block (``_F16_AT``; 2 is a
+    BF16 word); ``valid`` pins the f16 scale fields (a BF16 word) to finite
+    values (the garbage variant decodes to inf/NaN, also defined)."""
     blk = rng.integers(0, 256, (nb, size), dtype=np.uint8)
-    if valid:
+    if valid and size == 2:
+        words = rng.standard_normal(nb).astype(np.float32).view(np.uint32) >> 16
+        blk = words.astype(np.uint16).view(np.uint8).reshape(nb, 2)
+    elif valid:
         d = rng.uniform(1e-4, 1e-2, (nb, 2)).astype(np.float16).view(np.uint8)
-        if size in (144, 176):
-            blk[:, 0:4] = d.reshape(nb, 4)
-        elif size == 34:
-            blk[:, 0:2] = d[:, :2]
-        else:
-            blk[:, 208:210] = d[:, :2]
+        for k, off in enumerate(_F16_AT[size]):
+            blk[:, off:off + 2] = d[:, 2 * k:2 * k + 2]
     return blk.reshape(-1)
 
 
@@ -88,7 +102,9 @@ def test_writer_matches_reference(tmp_path):
     assert files[0] == files[1]
 
 
-@pytest.mark.parametrize("gtype", ["F32", "F16", "Q4_K", "Q6_K", "Q5_K", "Q8_0"])
+@pytest.mark.parametrize("gtype", ["F32", "F16", "Q4_K", "Q6_K", "Q5_K", "Q8_0", "BF16",
+                                   "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K",
+                                   "IQ4_NL", "IQ4_XS"])
 def test_codecs_bit_identical(gtype):
     rng = np.random.default_rng(3)
     x = (rng.standard_normal(4096) * 0.05).astype(np.float32)
@@ -98,15 +114,49 @@ def test_codecs_bit_identical(gtype):
                           jq.dequantize(raw, JGGMLType[gtype], x.size))
 
 
-@pytest.mark.parametrize("gtype,size", [("Q4_K", 144), ("Q6_K", 210), ("Q5_K", 176),
-                                        ("Q8_0", 34)])
+@pytest.mark.parametrize("gtype,size", [(t, size) for t, size, _ in _BLOCKS])
 @pytest.mark.parametrize("valid", [True, False])
 def test_dequantize_random_blocks(gtype, size, valid):
     rng = np.random.default_rng(size + valid)
     raw = _rand_blocks(rng, 64, size, valid)
-    n = 64 * (32 if gtype == "Q8_0" else 256)
+    n = 64 * dict((t, e) for t, _, e in _BLOCKS)[gtype]
     assert np.array_equal(quants.dequantize(raw, GGMLType[gtype], n),
                           jq.dequantize(raw, JGGMLType[gtype], n), equal_nan=True)
+
+
+@pytest.mark.parametrize("gtype", ["Q8_1", "Q8_K", "I8", "I16", "I32", "I64", "F64"])
+def test_dequantize_and_quantize_raise_where_the_reference_does(gtype):
+    """Outside the fifteen types, each codec table refuses a type exactly
+    where the reference's does."""
+    for ours, ref, T in ((quants.DEQUANT, jq.DEQUANT, GGMLType),
+                         (quants.QUANT, jq.QUANT, JGGMLType)):
+        assert T[gtype] not in ours and JGGMLType[gtype] not in ref
+    assert set(map(int, quants.DEQUANT)) == set(map(int, jq.DEQUANT))
+    assert set(map(int, quants.QUANT)) == set(map(int, jq.QUANT))
+
+
+@pytest.mark.parametrize("helper", ["q5_high_bits", "q3k_scales", "nearest_iq4nl"])
+def test_new_codec_helpers_bit_identical(helper):
+    """The helpers of the new codecs, on random inputs: Q5_0/Q5_1's fifth
+    bits and packer, Q3_K's scale unpack and pack, IQ4's nearest value."""
+    rng = np.random.default_rng(11)
+    if helper == "q5_high_bits":
+        qh = rng.integers(0, 256, (50, 4), dtype=np.uint8)
+        for a, b in zip(quants._q5_high_bits(qh), jq._q5_high_bits(qh)):
+            assert np.array_equal(a, b)
+        q = rng.integers(0, 32, (50, 32), dtype=np.uint8)
+        d = rng.integers(0, 256, (50, 2), dtype=np.uint8)
+        assert np.array_equal(quants._pack_q5(q, d, d), jq._pack_q5(q, d, d))
+        assert np.array_equal(quants._pack_q5(q, d, None), jq._pack_q5(q, d, None))
+    elif helper == "q3k_scales":
+        sb = rng.integers(0, 256, (50, 12), dtype=np.uint8)
+        assert np.array_equal(quants._q3k_unpack_scales(sb), jq._q3k_unpack_scales(sb))
+        sc = rng.integers(0, 64, (50, 16), dtype=np.uint8)
+        assert np.array_equal(quants._q3k_pack_scales(sc), jq._q3k_pack_scales(sc))
+    else:
+        x = (rng.standard_normal(4096) * 80).astype(np.float32)
+        assert np.array_equal(quants._nearest_iq4nl(x), jq._nearest_iq4nl(x))
+        assert np.array_equal(quants.KVALUES_IQ4NL, jq.KVALUES_IQ4NL)
 
 
 def test_unpack_scale_min_k4():
@@ -116,8 +166,14 @@ def test_unpack_scale_min_k4():
 
 
 def test_unsupported_type_raises():
-    with pytest.raises(NotImplementedError):
-        quants.dequantize(np.zeros(18, np.uint8), GGMLType.Q4_0, 32)
+    """Q8_K (a llama.cpp intermediate, never a file's tensor type) is
+    decoded by neither package: both refuse it in both directions."""
+    for deq, T in ((quants.dequantize, GGMLType), (jq.dequantize, JGGMLType)):
+        with pytest.raises(NotImplementedError):
+            deq(np.zeros(292, np.uint8), T.Q8_K, 256)
+    for q, T in ((quants.quantize, GGMLType), (jq.quantize, JGGMLType)):
+        with pytest.raises(NotImplementedError):
+            q(np.zeros(256, np.float32), T.Q8_K)
 
 
 @pytest.mark.parametrize("nb", [1, 300])

@@ -490,3 +490,56 @@ def test_debug_profile_captures_a_trace(engines, tmp_path, monkeypatch):
     assert set(doc) == {"ok", "dir", "seconds", "wall_s", "start_s", "trace"}
     with open(doc["trace"]) as fh:
         assert "traceEvents" in json.load(fh)
+
+
+@pytest.mark.parametrize("knob", [True, False])
+def test_startup_prepares_the_profiler_once_when_the_knob_is_set(engines, tmp_path,
+                                                                  monkeypatch, knob):
+    """With LFKT_PROFILE_DIR set, the app's startup starts and stops one
+    profiler before READY (the set-up a first capture would otherwise pay
+    inside its window), a second app's startup and a later capture do not
+    prepare it again, and the capture still answers the reference's
+    document; with the knob unset, startup builds no profiler and the
+    capture stays 403."""
+    from llama_fastapi_k8s_gpu_tpu_torch.utils import tracing
+
+    monkeypatch.setattr(tracing, "_PREPARED", {"count": 0, "seconds": None})
+    built = []
+    real = tracing._profiler
+
+    def counted():
+        built.append(1)
+        return real()
+
+    monkeypatch.setattr(tracing, "_profiler", counted)
+    if knob:
+        monkeypatch.setenv("LFKT_PROFILE_DIR", str(tmp_path / "prof"))
+    else:
+        monkeypatch.delenv("LFKT_PROFILE_DIR", raising=False)
+    _, te = engines
+    first, second = (create_app(engine=te, settings=Settings(temperature=0.0))
+                     for _ in range(2))
+    seen = {}
+
+    async def go(apps):
+        seen["startup"] = (tracing.profiler_prepared(), len(built))
+        await second.router.startup()
+        try:
+            seen["second"] = (tracing.profiler_prepared(), len(built))
+            seen["capture"] = await _get(first, "/debug/profile?seconds=0.05")
+        finally:
+            await second.router.shutdown()
+        seen["after"] = (tracing.profiler_prepared(), len(built))
+
+    serve([first], go)
+    (prep, n0), (prep2, n1) = seen["startup"], seen["second"]
+    status, doc = seen["capture"]
+    if knob:
+        assert prep["count"] == 1 and prep["seconds"] is not None and n0 == 1
+        assert prep2["count"] == 1 and n1 == 1
+        assert status == 200 and doc["ok"] and doc["start_s"] is not None
+        assert seen["after"] == ({**prep}, 2)        # the capture's own profiler
+    else:
+        assert prep == {"count": 0, "seconds": None} and n0 == n1 == 0
+        assert status == 403
+        assert seen["after"] == ({"count": 0, "seconds": None}, 0)

@@ -117,3 +117,29 @@ def test_seed_window_identical(n):
     w, pos = seed_window(ids, CPU)
     assert w.tolist() == np.asarray(ref_w).tolist()
     assert pos == int(ref_pos)
+
+
+@pytest.mark.parametrize("tie", [(210, 229), (5, 6, 299), (0, 150)])
+def test_exact_bf16_tie_picks_the_first_index_in_both(tie):
+    """ROADMAP C.2 is a rounding difference, not a rule difference: on logits
+    whose maximum is an exact bf16 tie, ``torch.argmax`` and ``jnp.argmax``
+    both return the first maximal index, and both greedy chains (the
+    reference's ``lax.top_k``, the port's stable sort) pick that id."""
+    rng = np.random.default_rng(len(tie))
+    logits = rng.standard_normal(VOCAB).astype(np.float32)
+    top = np.float32(np.abs(logits).max() + 1.0)
+    logits[list(tie)] = top
+    bf = torch.from_numpy(logits).to(torch.bfloat16)
+    jbf = jnp.asarray(logits, jnp.bfloat16)
+    assert bool((bf[list(tie)] == bf[tie[0]]).all())
+    assert int(torch.argmax(bf)) == int(jnp.argmax(jbf)) == tie[0]
+    as_f32 = bf.float().numpy()
+    window = np.full(PENALTY_WINDOW, -1, np.int64)
+    kw = dict(temperature=0.0, frequency_penalty=0.0, presence_penalty=0.0,
+              repeat_penalty=1.0)
+    ref = j_sample_chain(jnp.asarray(as_f32), jnp.asarray(window, jnp.int32),
+                         jax.random.PRNGKey(0), j_sampling_tensors(JSamplingParams(**kw)))
+    got = sample_chain(torch.from_numpy(as_f32), torch.from_numpy(window),
+                       torch.Generator().manual_seed(0),
+                       sampling_tensors(SamplingParams(**kw), CPU))
+    assert int(got) == int(ref) == tie[0]
