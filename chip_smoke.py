@@ -25,7 +25,11 @@ and no result line):
    (the served requests decode at slots 460–1023), the int8 KV write
    (K's RoPE, then the quantize, into the ring) eager and from a CUDA graph
    (``graph_ms``, its device time) beside the device time of the plain
-   torch it absorbed (``absorbed_graph_ms``: the table and k's rotation);
+   torch it absorbed (``absorbed_graph_ms``: the table and k's rotation),
+   and with its lane axis (``kv_quantize_lanes`` lines: one token in each
+   of B = 1, 3, 8 lanes of a lane-major cache, eager and from a graph
+   replayed with the slots moved, bit-exact, beside the one-ring call's
+   and B one-lane launches' graph times);
    the dequants also at every shape the loads give them, into bf16 and
    f32, from a graph beside the byte bound (a ``dequant_shapes`` line
    each), and at an odd shape (a ``dequant_odd`` line each), the Q4_K and
@@ -110,12 +114,37 @@ and no result line):
    under ``auto`` (every linear bf16) and ``int8``: the load's seconds by
    type (``load_types``: host codec, upload, bytes) and, for one tensor of
    each type, the plane expanded on the card against the codec's output,
-   bit for bit (``planes``);
+   bit for bit (``planes``).  Then three lane engines serve files already
+   written from lanes of the card behind the app (``LFKT_BATCH_SIZE`` > 1):
+   ``lanes_q4km``, the Q4_K_M file from 8 lanes under the continuous
+   scheduler (16 concurrent ``/response`` clients of 128 tokens beside a
+   stream, the follow-up turn's lane-prefix reuse, a dropped stream's
+   lane, and the 512-token request among 7 others at the 25 s timeout:
+   ``lane_deadline``, printed, not gated); ``lanes_q4km_int8``, its
+   weights over the int8 ring, per-layer, from 4 lanes (8 clients beside a
+   stream, the follow-up), where one ``kv_quantize`` launch a layer
+   writes every lane; and ``cycle_q8_0_bf16_loop8``, the Q8_0 file as bf16
+   weights over the int8 ring with the looped kernel 8 layers a launch, 4
+   lanes under the cycle scheduler (8 clients).  Before them, phase 3
+   holds every fused matmul at the lane counts 4 and 8 too
+   (``lane_matmul``).  Each lane engine prints a ``lanes`` line
+   (statuses, finish reasons, aggregate tok/s, TTFT p50/p95, idle
+   lane-seconds, admission slices, cycles, the lane graph's launches a
+   replay against what its path must launch) and, off the served path,
+   ``lane_parity`` (each greedy reply against the serial engine on the
+   same weights, per-layer, on the lanes' own ring, or the bf16 ring for
+   looped lanes: equal, or parting only at a top-2 margin within two bf16
+   steps), ``lane_graph`` (64
+   replays of the lane step against the eager lane step on a cloned
+   state, bit-identical), ``lane_isolation`` (one lane's inputs changed:
+   the other lanes' logits, tokens and rings bit-identical) and
+   ``lane_route`` (each fused linear's route and µs in a replay's
+   profile, beside the decode attention's ms alone);
 6. a ``dequant_rank`` line: each dequant's launches × (time − bound)
    over the first six engines' loads, shape by shape (launches from the
    load plan, checked against the wrappers' counters of phase 5), largest
    first; then a ``kernels`` JSON line with every kernel's launches summed
-   over the ten engines of phase 5 beside its phase-3 numbers.
+   over the engines of phase 5 beside its phase-3 numbers.
 
 The last line is ``{"ok": true, "device": {...}}``.  No JAX anywhere.
 """
@@ -567,6 +596,48 @@ def fused_formats() -> dict:
     }
 
 
+def hold_matmul(name, x, w, n_out, k_in, tol_rel=8e-3) -> tuple:
+    """The fused matmul ``name`` on ``x`` (B, K) bf16 and the packed ``w``
+    against its plain version (the f32 product): finite and within
+    ``tol_rel``·max|y|, or the run fails.  Returns (y, max |kernel-plain|,
+    the tolerance)."""
+    import torch
+
+    kern, plain = fused_formats()[name][:2]
+    y = kern(x, w, n_out, k_in)
+    y_ref = plain(x, w, n_out, k_in)
+    torch.cuda.synchronize()
+    err = (y.float() - y_ref.float()).abs().max().item()
+    tol = tol_rel * y_ref.float().abs().max().item()
+    if not (torch.isfinite(y).all() and err <= tol):
+        raise AssertionError(f"{name} ({n_out},{k_in}) B={x.shape[0]}: max |kernel-plain| "
+                             f"{err} > {tol}")
+    return y, err, tol
+
+
+def check_matmul_lanes(name, rng, n_out, k_in, batches, tol_rel=8e-3) -> list:
+    """The fused matmul at each lane count in ``batches`` (the rows a lane
+    step gives each linear) held to its plain version (:func:`hold_matmul`),
+    one weight for all: the ``lane_matmul`` rows, each with the launcher's
+    route and the device ms from a CUDA graph."""
+    import numpy as np
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import _fused
+
+    kern, _, rand, _ = fused_formats()[name]
+    w = torch.from_numpy(np.ascontiguousarray(rand(rng, n_out, k_in))).cuda()
+    rows = []
+    for B in batches:
+        x = torch.from_numpy(rng.standard_normal((B, k_in), np.float32)).cuda().to(torch.bfloat16)
+        _, err, tol = hold_matmul(name, x, w, n_out, k_in, tol_rel)
+        rows.append({"name": name, "shape": [n_out, k_in], "B": B,
+                     "path": _fused.route(name, B, k_in), "max_abs_err": err, "tol": tol,
+                     "graph_ms": graph_ms(lambda: kern(x, w, n_out, k_in))})
+    del w
+    return rows
+
+
 def check_matmul(name, rng, n_out, k_in, B, tol_rel=8e-3) -> dict:
     """A fused matmul against its plain version (the f32 product) within
     ``tol_rel``·max|y|, timed beside the library call (bf16 ``torch.matmul``
@@ -586,20 +657,13 @@ def check_matmul(name, rng, n_out, k_in, B, tol_rel=8e-3) -> dict:
     kern, plain, rand, dequant_f32 = fused_formats()[name]
     w = torch.from_numpy(np.ascontiguousarray(rand(rng, n_out, k_in))).cuda()
     x = torch.from_numpy(rng.standard_normal((B, k_in), np.float32)).cuda().to(torch.bfloat16)
-    y = kern(x, w, n_out, k_in)
-    y_ref = plain(x, w, n_out, k_in)
+    y, err, tol = hold_matmul(name, x, w, n_out, k_in, tol_rel)
     deq = dequant_f32(w.reshape(-1)).reshape(n_out, k_in).to(torch.bfloat16)
     y_lib = torch.matmul(x, deq.t())
-    torch.cuda.synchronize()
-    err = (y.float() - y_ref.float()).abs().max().item()
-    scale = y_ref.float().abs().max().item()
-    if not (torch.isfinite(y).all() and err <= tol_rel * scale):
-        raise AssertionError(f"{name} ({n_out},{k_in}) B={B}: max |kernel-plain| "
-                             f"{err} > {tol_rel} * {scale}")
     reps = 20 if B == 1 else 5
     out = {
         "shape": [n_out, k_in], "B": B, "path": _fused.route(name, B, k_in),
-        "max_abs_err": err, "tol": tol_rel * scale,
+        "max_abs_err": err, "tol": tol,
         "library_max_abs_err": (y.float() - y_lib.float()).abs().max().item(),
         "ms": cuda_ms(lambda: kern(x, w, n_out, k_in), reps),
         "plain_ms": cuda_ms(lambda: plain(x, w, n_out, k_in), 2),
@@ -816,6 +880,87 @@ def check_kv_quantize(rng, S, pos_offset, n_kv=8, hd=128, n_ctx=1024,
         **bound(2 * k.numel() * 2 + 2 * cos.numel() * 4 + 2 * (k.numel() + 4 * S * n_kv),
                 3.0 * k.numel() + 4.0 * 2 * k.numel()),
     }
+
+
+def check_kv_quantize_lanes(rng, B: int, n_kv=8, hd=128, n_ctx=1024, layers=32,
+                            layer=5, theta=500000.0) -> dict:
+    """Kernel 10 with its lane axis against its plain version, bit for bit:
+    one decode token in each of ``B`` lanes written into layer ``layer`` of
+    a lane-major cache (``B``, ``layers``, n_kv, n_ctx, hd) at the lanes'
+    slots (0, 700, n_ctx-1, ...; at B=8 one lane past the ring, which the
+    kernel skips), eager and from a CUDA graph replayed with the slots moved
+    between replays.  ``graph_ms`` is the lane launch's device time,
+    beside ``stride0_graph_ms`` (the one-ring call: B tokens into one ring,
+    ``lane_stride`` 0) and ``per_lane_graph_ms`` (B one-token launches, one
+    a lane: what a step without the lane axis would take)."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import kvquant
+    from llama_fastapi_k8s_gpu_tpu_torch.ops.rope import rope_cos_sin
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype="float32")
+                                ).cuda().to(torch.bfloat16)
+
+    slots = [0, 700, n_ctx - 1, 5, n_ctx, 511, 999, 1][:B]
+    k, v = rnd(B, n_kv, hd), rnd(B, n_kv, hd)
+    positions = torch.tensor(slots, dtype=torch.int64, device="cuda")
+    cos, sin = rope_cos_sin(positions.clamp(max=n_ctx - 1), hd, theta)
+    q = torch.zeros(2, 2, B, layers, n_kv, n_ctx, hd, dtype=torch.int8, device="cuda")
+    s = torch.zeros(2, 2, B, layers, n_kv, n_ctx, device="cuda")
+    kern_args = (q[0, 0][:, layer], q[0, 1][:, layer], s[0, 0][:, layer], s[0, 1][:, layer])
+    plain_args = (q[1, 0][:, layer], q[1, 1][:, layer], s[1, 0][:, layer], s[1, 1][:, layer])
+
+    def kern():
+        kvquant.kv_quantize(k, v, cos, sin, positions, *kern_args)
+
+    def plain():
+        kvquant.kv_quantize_lanes_plain(k, v, cos, sin, positions, *plain_args)
+
+    def same() -> bool:
+        torch.cuda.synchronize()
+        return bool(torch.equal(q[0], q[1]) and torch.equal(s[0].view(torch.int32),
+                                                             s[1].view(torch.int32)))
+
+    kern()
+    plain()
+    eager_exact = same()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kern()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        kern()
+    positions.copy_(torch.tensor([(x + 37) % n_ctx for x in slots]))
+    graph.replay()
+    plain()
+    graph_exact = same()
+    if not (eager_exact and graph_exact):
+        raise AssertionError(f"kv_quantize lanes B={B}: kernel is not bit-identical to plain "
+                             f"(eager {eager_exact}, graph {graph_exact})")
+    one_q = torch.zeros(2, n_kv, n_ctx, hd, dtype=torch.int8, device="cuda")
+    one_s = torch.zeros(2, n_kv, n_ctx, device="cuda")
+    lane_pos = [positions[b:b + 1] for b in range(B)]
+
+    def stride0():
+        kvquant.kv_quantize(k, v, cos, sin, positions.clamp(max=n_ctx - 1), one_q[0], one_q[1],
+                            one_s[0], one_s[1])
+
+    def per_lane():
+        for b in range(B):
+            kvquant.kv_quantize(k[b:b + 1], v[b:b + 1], cos[b:b + 1], sin[b:b + 1], lane_pos[b],
+                                *(a[b] for a in kern_args))
+
+    out = {"B": B, "slots": slots, "bit_exact": True, "graph_bit_exact": True,
+           "lane_stride": kern_args[2].stride(0), "ms": cuda_ms(kern, 50),
+           "graph_ms": graph_ms(kern), "stride0_graph_ms": graph_ms(stride0),
+           "per_lane_graph_ms": graph_ms(per_lane), "plain_ms": cuda_ms(plain, 10),
+           **bound(2 * k.numel() * 2 + 2 * cos.numel() * 4 + 2 * (k.numel() + 4 * B * n_kv),
+                   3.0 * k.numel() + 4.0 * 2 * k.numel())}
+    del q, s
+    return out
 
 
 def dequant_input(name: str, rng, n_out: int, k_in: int):
@@ -1038,6 +1183,10 @@ MATMUL_SHAPES = {
 #: bucket of short prompts and follow-ups and a 256-token prompt slice
 #: (tensor cores)
 MATMUL_BATCHES = (1, 128, 256)
+#: the lane counts the lane engines serve (:data:`LANES`): each fused
+#: matmul is held to its plain version at them too — at 8 rows Q4_K and
+#: Q5_K take the tensor cores, Q6_K and Q8_0 the multi-row CUDA-core path
+LANE_BATCHES = (4, 8)
 #: the (N, K) of a layer's seven linears (attn_q, attn_k, attn_v,
 #: attn_output, ffn_gate, ffn_up, ffn_down)
 LAYER_SHAPES = {"wq": (4096, 4096), "wk": (1024, 4096), "wv": (1024, 4096),
@@ -1259,9 +1408,14 @@ def phase_kernels(names) -> tuple[dict, list]:
         elif name == "kv_quantize":
             # a decode token at slot 700, a 256-token prompt slice at 256
             shapes[name] = [check_kv_quantize(rng, 1, 700), check_kv_quantize(rng, 256, 256)]
+            for B in (1, 3, 8):          # the lane axis: one token in each of B lanes
+                say("kv_quantize_lanes", **check_kv_quantize_lanes(rng, B))
         else:
             shapes[name] = [check_matmul(name, rng, n, k, B) for B in MATMUL_BATCHES
                             for n, k in MATMUL_SHAPES[name]]
+            for n, k in MATMUL_SHAPES[name]:
+                for row in check_matmul_lanes(name, rng, n, k, LANE_BATCHES):
+                    say("lane_matmul", **row)
     sweeps = []
     for name in _fused.TC_KERNELS:
         for n, k in MATMUL_SHAPES[name][:4]:       # the layers' shapes, not the head
@@ -1736,6 +1890,15 @@ def check_planes(label: str, eng, path: str) -> None:
 # ---------------------------------------------------------------------------
 
 BOT = {"name": "Alice.f", "appearance": "tall,slim,blonde,loves cats,hates rain"}
+#: the served requests' contexts: a short one (460 prompt tokens with the
+#: system prompt) and a long one (745) that opens differently, so it shares
+#: no reusable prefix with the short one and prefills from slot 0 in slices
+SHORT_CTX = [("user", "hi"), ("assistant", "hey"), ("user", "how are you?")]
+STORY = ("I spent the morning walking by the river, watching the boats "
+         "and thinking about the trip we planned last summer. ")
+LONG_CTX = [("user", "hello, I have a long story to tell you."),
+            *(turn for i in range(2) for turn in (("assistant", f"tell me more, part {i}."),
+                                                  ("user", STORY[:100])))]
 
 
 def body(context: list[tuple[str, str]]) -> dict:
@@ -1937,7 +2100,8 @@ def top2_margin(eng, prompt: list, ids: list, at: int, sp) -> dict:
     window, _ = seed_window(seq, eng.device)
     pen = apply_penalties(logits.float(), window, sampling_tensors(sp, eng.device))
     top = torch.topk(pen, 2)
-    return {"top2": top.indices.tolist(), "margin": (top.values[0] - top.values[1]).item(),
+    return {"top2": top.indices.tolist(), "top": top.values[0].item(),
+            "margin": (top.values[0] - top.values[1]).item(),
             "margin_rel": ((top.values[0] - top.values[1]) / pen.abs().max()).item()}
 
 
@@ -2417,6 +2581,12 @@ EVENT_FAMILIES = ("requests_rejected_total", "requests_timed_out_total",
                   "watchdog_recoveries_total", "watchdog_escalations_total",
                   "prefix_cache_hits_total", "prefix_cache_reused_tokens_total",
                   "streamed_generations_total", "prefill_slice_seconds", "incidents_total")
+#: catalog families of the lane engines alone (PR 17): a serial pod never
+#: shows them (``scheduler_`` is the prefix of the continuous scheduler's
+#: gauges, never a family of its own)
+LANE_FAMILIES = {"continuous": ("scheduler_", "admission_budget_tokens", "lane_idle_seconds",
+                                "mem_pressure_events_total"),
+                 "cycle": ("batched_generations_total", "batch_occupancy")}
 
 
 def devtime_delta(before: dict, after: dict) -> dict:
@@ -2711,8 +2881,9 @@ def check_metrics_families(label, port) -> None:
         obs_families=[f for f in OBS_FAMILIES if f in families],
         outside_catalog=rendered_outside)
     need = set(OBS_FAMILIES) - {"incidents_total"}      # the recorder is off here
+    lanes_only = {f for fams in LANE_FAMILIES.values() for f in fams}
     if (st != 200 or not need <= families or rendered_outside
-            or not set(missing) <= set(EVENT_FAMILIES)):
+            or not set(missing) <= set(EVENT_FAMILIES) | lanes_only):
         raise AssertionError(f"metrics_families: {st}, missing {missing}, outside the "
                              f"catalog {rendered_outside}")
 
@@ -2925,15 +3096,7 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
     settings = Settings(temperature=0.0, timeout_seconds=600.0, max_context_tokens=n_ctx)
     app = create_app(engine=eng, settings=settings)
     results = []
-    short = [("user", "hi"), ("assistant", "hey"), ("user", "how are you?")]
-    story = ("I spent the morning walking by the river, watching the boats "
-             "and thinking about the trip we planned last summer. ")
-    # a different opening than the short one, so the long prompt shares
-    # no reusable prefix with it and prefills from slot 0 in slices
-    long_ctx = [("user", "hello, I have a long story to tell you.")]
-    for i in range(2):
-        long_ctx += [("assistant", f"tell me more, part {i}."),
-                     ("user", story[:100])]
+    short, long_ctx = SHORT_CTX, LONG_CTX
     if mistral:
         short, long_ctx = MISTRAL_SHORT, mistral_long_context()
     with serving(app) as (port, th):
@@ -3191,6 +3354,624 @@ def check_looped_path(label: str, eng, toks, steps: int = 16, timed: int = 32) -
                              f"{SERVED_TOL}")
 
 
+# ---------------------------------------------------------------------------
+# phase 5 (cont.): batched serving — lanes of one card
+# ---------------------------------------------------------------------------
+
+#: the lane engines: (label, file, weight format, KV dtype,
+#: decode_layer_unroll, lanes, scheduler, wave clients, the engine whose
+#: weights it serves or None to load the file) — Q4_K_M fused over the
+#: bf16 ring under the continuous scheduler (the default); the same
+#: weights over the int8 ring, per-layer, from 4 lanes (kernel 10's lane
+#: axis: one launch a layer writes every lane); and the Q8_0 file as bf16
+#: weights over the int8 ring with the looped kernel, 8 layers a launch,
+#: under the cycle scheduler
+LANES = (("lanes_q4km", "q4km", "auto", "bf16", 0, 8, "continuous", 16, None),
+         ("lanes_q4km_int8", "q4km", "auto", "int8", 0, 4, "continuous", 8, "lanes_q4km"),
+         ("cycle_q8_0_bf16_loop8", "q8_0", "bf16", "int8", 8, 4, "cycle", 8, None))
+#: the kernels each lane engine's served path must launch
+LANE_KERNELS = {"lanes_q4km": ("dequant_q4_k", "q4k_matmul", "q6k_matmul", "flash_attention"),
+                "lanes_q4km_int8": ("q4k_matmul", "q6k_matmul", "kv_quantize",
+                                    "flash_attention_int8"),
+                "cycle_q8_0_bf16_loop8": ("dequant_q8_0", "kv_quantize", "decode_loop",
+                                          "flash_attention_int8")}
+#: the lane engine that also takes the dropped stream and the 512-token
+#: request at the 25 s timeout
+LANE_DRILLS = "lanes_q4km"
+#: tokens a wave request generates
+WAVE_TOKENS = 128
+#: each linear of a layer in the order a step runs them
+STEP_LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def bf16_step(x: float) -> float:
+    """One bf16 step (ulp) at magnitude ``x``."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 0.0
+
+
+def percentile(xs: list, q: float):
+    """The ``q`` quantile of ``xs`` (nearest rank), or None for none."""
+    if not xs:
+        return None
+    s = sorted(xs)
+    return s[min(len(s) - 1, max(0, int(round(q * (len(s) - 1)))))]
+
+
+def lane_record(eng, sink: list) -> None:
+    """Record every finished request of a lane engine into ``sink``: prompt
+    ids, generated ids, ``finish_reason``, TTFT and reused tokens.  The
+    continuous engine's ``_finish_slot`` carries them; for the cycle engine
+    a cycle's ``tokenize_messages`` and ``_decode_text`` calls are paired in
+    order (one each per answered entry)."""
+    if hasattr(eng, "_finish_slot"):
+        finish = eng._finish_slot
+
+        def finished(slot, why):
+            sink.append({"prompt": list(slot.ids), "ids": list(slot.gens),
+                         "finish_reason": why, "ttft_s": slot.ttft_s,
+                         "reused": slot.reused, "stream": slot.sink is not None})
+            return finish(slot, why)
+
+        eng._finish_slot = finished
+        return
+    tokenize, decode, cycle = eng.tokenize_messages, eng._decode_text, eng._generate_batch
+    seen: dict = {"prompts": [], "gens": []}
+
+    def tok(messages):
+        ids = tokenize(messages)
+        seen["prompts"].append(list(ids))
+        return ids
+
+    def dec(ids):
+        seen["gens"].append(list(ids))
+        return decode(ids)
+
+    def gen(batch_messages, *a, **kw):
+        seen["prompts"], seen["gens"] = [], []
+        out = cycle(batch_messages, *a, **kw)
+        ttft = (eng.last_timings or {}).get("ttft_s")
+        replies = iter(seen["gens"])
+        for prompt, o in zip(seen["prompts"], out):
+            if "error" in o:
+                continue
+            sink.append({"prompt": prompt, "ids": next(replies), "ttft_s": ttft, "reused": 0,
+                         "finish_reason": o["choices"][0]["finish_reason"], "stream": False})
+        return out
+
+    eng.tokenize_messages, eng._decode_text, eng._generate_batch = tok, dec, gen
+
+
+def lane_fill(eng, prompts: list) -> None:
+    """Every lane prefilled with one of ``prompts`` (token ids) and set as an
+    admission leaves it, greedy: what the lane checks start from.  The
+    lanes' claims are dropped (their rings now hold this)."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel.batched import batched_prefill
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import SamplingParams, seed_window
+
+    s, B = eng._bstate, eng.batch_size
+    ids = [prompts[b % len(prompts)][:700 - 40 * b] for b in range(B)]
+    lengths = [len(i) for i in ids]
+    tokens = torch.zeros(B, max(lengths), dtype=torch.int64)
+    for b, row in enumerate(ids):
+        tokens[b, :len(row)] = torch.tensor(row)
+    with torch.inference_mode():
+        logits = batched_prefill(eng.params, eng.cfg, tokens.cuda(), lengths, s["cache"])
+        s["token"].copy_(logits.argmax(-1))
+        s["pos"].copy_(torch.tensor(lengths))
+        windows, wposes = zip(*(seed_window(row, "cpu") for row in ids))
+        s["window"].copy_(torch.stack(windows))
+        s["wpos"].copy_(torch.tensor(wposes))
+        s["slots"] = list(lengths)
+        for b, g in enumerate(s["gens"]):
+            g.manual_seed(b)
+        eng._set_knobs(SamplingParams(temperature=0.0))
+    if hasattr(eng, "_lane_claims"):
+        eng._lane_claims = [None] * B
+
+
+def clone_lanes(state: dict) -> dict:
+    """A copy of a lane state on the card: leaves, generators and mirror."""
+    import torch
+
+    out = {k: state[k].clone() for k in ("pos", "token", "window", "wpos", "out")}
+    out["cache"] = {k: v.clone() for k, v in state["cache"].items()}
+    out["gens"] = []
+    for g in state["gens"]:
+        c = torch.Generator(device=state["pos"].device)
+        c.set_state(g.get_state())
+        out["gens"].append(c)
+    out["slots"] = list(state["slots"])
+    return out
+
+
+def restore_lanes(state: dict, saved: dict) -> None:
+    """Copy ``saved`` (:func:`clone_lanes`) back into ``state`` in place."""
+    import torch
+
+    with torch.inference_mode():
+        for k in ("pos", "token", "window", "wpos", "out"):
+            state[k].copy_(saved[k])
+        for k, v in saved["cache"].items():
+            state["cache"][k].copy_(v)
+    for g, c in zip(state["gens"], saved["gens"]):
+        g.set_state(c.get_state())
+    state["slots"] = list(saved["slots"])
+
+
+def first_diff(a, b) -> dict | None:
+    """Where two same-shaped tensors first differ (index) or None."""
+    ne = (a != b).reshape(-1).nonzero()
+    if not len(ne):
+        return None
+    import numpy as np
+
+    return {"index": [int(i) for i in np.unravel_index(int(ne[0]), tuple(a.shape))]}
+
+
+def check_lane_graph(label: str, eng, prompts: list, steps: int = 64) -> dict:
+    """``steps`` replays of the engine's lane graph (chunks of its size)
+    against the eager lane step on a clone of the state, every lane filled
+    (:func:`lane_fill`): tokens, the bookkeeping and every ring leaf
+    bit-identical, or the run fails; with the capture seconds and what one
+    replay adds to the kernel counters."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel.batched import (
+        generate_chunk_lanes,
+        lane_step,
+    )
+
+    graphs = eng._lane_graphs
+    top_k = graphs.top_k
+    with eng._lock:
+        lane_fill(eng, prompts)
+        s = graphs.state
+        eager = clone_lanes(s)
+        est = {k: v.clone() for k, v in eng._lane_st.items()}
+        got, replays = [], graphs.replays
+        with torch.inference_mode():
+            while len(got) < steps:
+                n = min(eng.decode_chunk, steps - len(got))
+                got += generate_chunk_lanes(eng.params, eng.cfg, s, eng._lane_st, n,
+                                            top_k).rows().tolist()
+            replays = graphs.replays - replays
+            want = [lane_step(eng.params, eng.cfg, eager, est, top_k).tolist()
+                    for _ in range(steps)]
+        torch.cuda.synchronize()
+        diff_tok = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        diff = {k: first_diff(s[k], eager[k]) for k in ("pos", "token", "window", "wpos",
+                                                         "out")}
+        diff.update({k: first_diff(v, eager["cache"][k]) for k, v in s["cache"].items()})
+        diff = {k: v for k, v in diff.items() if v is not None}
+        del eager
+    out = {"file": label, "lanes": eng.batch_size, "steps": steps, "top_k": top_k,
+           "replays": replays, "capture_s": graphs.capture_s,
+           "launches_per_replay": graphs.step_launches(),
+           "tokens_identical": diff_tok is None, "first_token_diff": diff_tok,
+           "state_identical": not diff, "first_state_diff": diff or None}
+    say("lane_graph", **out)
+    if not (out["tokens_identical"] and out["state_identical"]):
+        raise AssertionError(f"{label}: the lane graph is not bit-identical to the eager "
+                             f"lane step: {out}")
+    return out
+
+
+def check_lane_isolation(label: str, eng, prompts: list, lane: int = 2) -> dict:
+    """One replay of the lane graph, then the same replay with ``lane``'s
+    token, slot and knobs changed: every other lane's token and ring
+    leaves bit-identical, and (eager) its logits too."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import forward_lanes
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel.batched import generate_chunk_lanes
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import SamplingParams
+
+    graphs, cfg = eng._lane_graphs, eng.cfg
+    top_k = graphs.top_k
+    others = [b for b in range(eng.batch_size) if b != lane]
+    with eng._lock:
+        lane_fill(eng, prompts)
+        s = graphs.state
+        base = clone_lanes(s)
+        runs = []
+        for changed in (False, True):
+            restore_lanes(s, base)
+            with torch.inference_mode():
+                if changed:
+                    s["token"][lane] = (int(s["token"][lane]) + 17) % cfg.vocab_size
+                    s["pos"][lane] = int(s["pos"][lane]) - 9
+                    s["slots"][lane] -= 9
+                    eng._lane_st["temperature"][lane] = 1.0
+                slots = s["pos"].clamp(max=cfg.n_ctx - 1)
+                ring = {k: v.clone() for k, v in s["cache"].items()}
+                logits = forward_lanes(eng.params, cfg, s["token"].clone(), slots, ring)
+                del ring
+                rows = generate_chunk_lanes(eng.params, cfg, s, eng._lane_st, 1, top_k).rows()
+            runs.append((logits, rows[0], {k: v[others].clone() for k, v in s["cache"].items()}))
+            eng._set_knobs(SamplingParams(temperature=0.0))
+        torch.cuda.synchronize()
+        (la, ta, ca), (lb, tb, cb) = runs
+        out = {"file": label, "lanes": eng.batch_size, "changed_lane": lane,
+               "logits_identical": bool(torch.equal(la[others], lb[others])),
+               "tokens_identical": [int(ta[b]) for b in others] == [int(tb[b]) for b in others],
+               "rings_identical": all(torch.equal(ca[k], cb[k]) for k in ca),
+               "changed_lane_moved": bool(not torch.equal(la[lane], lb[lane]))}
+        del runs, base
+    say("lane_isolation", **out)
+    if not (out["logits_identical"] and out["tokens_identical"] and out["rings_identical"]):
+        raise AssertionError(f"{label}: a lane's change reached its neighbours: {out}")
+    return out
+
+
+def lane_trace(label: str, eng, prompts: list, reps: int = 16, replays: int = 4) -> dict:
+    """One lane-graph replay (every lane filled): its device ms by CUDA
+    events, a ``torch.profiler`` breakdown by part (:func:`replay_breakdown`),
+    each fused linear of the step with its route (``tc`` or ``cuda_core``,
+    ``ops._fused.route`` at the lane count) and its µs in the profile (the
+    step's fused kernels in launch order, 7 a layer and the head), and the
+    device ms of the step's decode attention alone: 32 layers of
+    ``lane_attention`` over the lane rings, from a CUDA graph."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import lane_attention
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import KERNELS, _fused
+    from llama_fastapi_k8s_gpu_tpu_torch.ops.linear import _FUSED
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel.batched import generate_chunk_lanes
+
+    graphs, cfg, B = eng._lane_graphs, eng.cfg, eng.batch_size
+    top_k = graphs.top_k
+    with eng._lock:
+        lane_fill(eng, prompts)
+        s = graphs.state
+
+        def step():
+            generate_chunk_lanes(eng.params, cfg, s, eng._lane_st, 1, top_k)
+
+        with torch.inference_mode():
+            step()
+            replay_ms = cuda_ms(step, reps)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(replays):
+                    step()
+                torch.cuda.synchronize()
+            kernels = sorted(((e.name, e.time_range.start, e.time_range.end)
+                              for e in prof.events() if e.device_type == DeviceType.CUDA
+                              and not e.name.startswith(("Memcpy", "Memset"))),
+                             key=lambda k: k[1])
+            attention_ms = None
+            if not cfg.decode_layer_unroll:
+                c = s["cache"]
+                leaves = ((c["k"][:, 0], c["v"][:, 0], None, None) if "k" in c else
+                          (c["k_q"][:, 0], c["v_q"][:, 0], c["k_s"][:, 0], c["v_s"][:, 0]))
+                q = torch.randn(B, cfg.n_heads, cfg.head_dim, device="cuda").to(torch.bfloat16)
+                slots = s["pos"].clamp(max=cfg.n_ctx - 1)
+                attention_ms = cfg.n_layers * graph_ms(
+                    lambda: lane_attention(q, leaves[0], leaves[1], slots, cfg, torch.bfloat16,
+                                           cks=leaves[2], cvs=leaves[3]))
+    names = {fn: n for n, fn in KERNELS.items()}
+    layer0 = eng.params.layers[0]
+    linears = {n: getattr(layer0, n) for n in STEP_LINEARS}
+    linears["output"] = eng.params.output
+    routes = {}
+    for n, lin in linears.items():
+        kernel = names.get(_FUSED.get(lin.kind))
+        routes[n] = {"kind": lin.kind, "shape": [lin.n_out, lin.k_in],
+                     "route": _fused.route(kernel, B, lin.k_in) if kernel else lin.kind}
+    fused = [k for k in kernels if kernel_part(k[0]) == "fused_linears"]
+    per_replay = len(fused) // replays if replays else 0
+    if fused and per_replay == 7 * cfg.n_layers + 1:
+        order = [*STEP_LINEARS * cfg.n_layers, "output"]
+        for i, (_, t0, t1) in enumerate(fused):
+            r = routes[order[i % per_replay]]
+            r["us"] = r.get("us", 0.0) + (t1 - t0) / replays
+    out = {"file": label, "lanes": B, "decode_layer_unroll": cfg.decode_layer_unroll,
+           "replay_ms": replay_ms, "ms_per_token": replay_ms / B, "traced_replays": replays,
+           "fused_kernels_per_replay": per_replay, "linears": routes,
+           "attention_graph_ms": attention_ms,
+           "attention_share": attention_ms / replay_ms if attention_ms else None,
+           **(replay_breakdown(kernels, replays) if kernels else
+              {"missing": "torch.profiler recorded no CUDA kernel event"})}
+    say("lane_route", **out)
+    return out
+
+
+def serial_reply(serial, prompt: list, n: int, sp) -> list:
+    """The serial engine's ``n`` generated ids for the prompt ids
+    ``prompt`` under the knobs ``sp``: its own request path, its tokenizer
+    bypassed."""
+    got: dict = {}
+    finish = serial._finish
+
+    def finished(ctx):
+        got["ids"] = list(ctx["ids"])
+        return finish(ctx)
+
+    serial._finish, serial.tokenize_messages = finished, lambda messages: list(prompt)
+    try:
+        serial.create_chat_completion(
+            [], temperature=sp.temperature, top_p=sp.top_p, top_k=sp.top_k, min_p=sp.min_p,
+            frequency_penalty=sp.frequency_penalty, presence_penalty=sp.presence_penalty,
+            repeat_penalty=sp.repeat_penalty, max_tokens=n)
+    finally:
+        del serial._finish, serial.tokenize_messages
+    return got["ids"]
+
+
+def check_lane_parity(label: str, eng, records: list, settings, serial_cfg) -> dict:
+    """Each distinct greedy reply of the lanes against the port's serial
+    ``Engine`` on the same weights and prompt (``serial_cfg``: per-layer
+    decode): the same ids, or the first differing token with the
+    serial chain's top-2 margin there (:func:`top2_margin`) — a parting
+    passes only where that margin is within two bf16 steps of the top
+    logit (the lane step's linears take another route than B=1's)."""
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+
+    serial = Engine.from_parts(eng.params, serial_cfg, eng.tokenizer, eng.template_kind,
+                               max_gen_tokens=eng.max_gen_tokens, prefix_cache=False)
+    sp = served_sampling(settings)
+    rows, seen = [], set()
+    try:
+        for rec in records:
+            key = (tuple(rec["prompt"]), tuple(rec["ids"]))
+            if key in seen or not rec["ids"]:
+                continue
+            seen.add(key)
+            want = serial_reply(serial, rec["prompt"], len(rec["ids"]), sp)
+            n = min(len(want), len(rec["ids"]))
+            at = next((i for i in range(n) if rec["ids"][i] != want[i]), None)
+            if at is None and len(want) != len(rec["ids"]):
+                at = n
+            row = {"prompt_tokens": len(rec["prompt"]), "tokens": len(rec["ids"]),
+                   "reused": rec.get("reused", 0), "equal": at is None}
+            if at is not None:
+                m = top2_margin(serial, rec["prompt"], want, at, sp)
+                row.update(first_diff=at, lane=rec["ids"][at] if at < len(rec["ids"]) else None,
+                           serial=want[at] if at < len(want) else None, **m,
+                           near_tie=m["margin"] <= 2 * bf16_step(m["top"]))
+            rows.append(row)
+    finally:
+        serial.close()
+    out = {"file": label, "distinct_replies": len(rows),
+           "equal": sum(r["equal"] for r in rows), "replies": rows,
+           "all_equal_or_near_tie": all(r["equal"] or r["near_tie"] for r in rows)}
+    say("lane_parity", **out)
+    if not out["all_equal_or_near_tie"]:
+        raise AssertionError(f"{label}: a lane reply parts from the serial engine's "
+                             f"away from a near-tie: {rows}")
+    return out
+
+
+def lane_wave(port: int, contexts: list, stream_ctx=None) -> tuple[list, dict | None, float]:
+    """``contexts`` as concurrent ``/response`` clients (and, with
+    ``stream_ctx``, one ``/response/stream`` beside them): each client's
+    (status, body, seconds), the stream's :func:`_sse` result, and the
+    wave's wall seconds."""
+    out: list = [None] * len(contexts)
+    box: dict = {}
+
+    def client(i):
+        t0 = time.time()
+        st, doc = _http(port, "POST", "/response", body(contexts[i]), timeout=900)
+        out[i] = (st, doc, time.time() - t0)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(contexts))]
+    if stream_ctx is not None:
+        threads.append(threading.Thread(target=lambda: box.update(
+            _sse(port, "/response/stream", body(stream_ctx), timeout=900))))
+    t0 = time.time()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(900)
+    return out, (box or None), time.time() - t0
+
+
+def phase_lanes(label: str, layout: str, path: str, counters: dict, weight_format: str,
+                kv_dtype: str, unroll: int, lanes: int, scheduler: str, clients: int,
+                parts: tuple | None = None) -> tuple[dict, tuple]:
+    """Serve ``path`` (or ``parts``, an earlier engine's params, config,
+    tokenizer and template, not loaded again) from ``lanes`` lanes of one
+    card behind the port's app (``batch_size=lanes``, ``scheduler``) and
+    return each kernel's launches on that served path, and the engine's
+    parts.  A wave of ``clients`` concurrent greedy ``/response`` clients
+    (the short and the long prompt, 128 tokens each) — under the continuous
+    scheduler beside one ``/response/stream``, then the long prompt's
+    follow-up turn (lane-prefix reuse) and, on :data:`LANE_DRILLS`, a
+    stream dropped after two events (its lane must free within the chunks
+    in flight) and the 512-token request among 7 others at the reference's
+    25 s timeout (printed, not gated); under the cycle scheduler coalesced
+    into cycles.  The ``lanes`` line sums the wave up, with the lane
+    graph's launches a replay and the replays the wave took: a per-layer
+    int8 ring must write every lane with one ``kv_quantize`` launch a layer,
+    a looped engine launch ``decode_loop`` per lane.  Then, off the served
+    path, ``lane_parity``, ``lane_graph``, ``lane_isolation`` and
+    ``lane_route``."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import ContinuousEngine, MeshEngine
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel.batched import state_nbytes
+    from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    for fn in counters.values():         # the main path starts here: count it
+        fn.launches = 0
+    t0 = time.time()
+    cls = ContinuousEngine if scheduler == "continuous" else MeshEngine
+    common = dict(batch_size=lanes, kv_dtype=kv_dtype, decode_layer_unroll=unroll,
+                  max_gen_tokens=WAVE_TOKENS)
+    eng = (cls(path, n_ctx=1024, weight_format=weight_format, **common) if parts is None
+           else cls.from_parts(*parts, **common))
+    records: list = []
+    lane_record(eng, records)
+    eng.warmup()
+    say("lanes_load", file=label, scheduler=scheduler, lanes=lanes,
+        seconds=round(time.time() - t0, 1), formats=eng.params.formats(),
+        kv_dtype=eng.cfg.kv_dtype, decode_layer_unroll=eng.cfg.decode_layer_unroll,
+        lane_capture_s=eng._lane_graphs.capture_s, kv_lanes_bytes=state_nbytes(eng._bstate),
+        weight_gb=round(eng.weight_bytes / 1e9, 3))
+    del records[:]
+    n = clients
+    settings = Settings(temperature=0.0, timeout_seconds=600.0, max_queue_size=2 * n,
+                        batch_size=lanes, scheduler=scheduler)
+    app = create_app(engine=eng, settings=settings)
+    contexts = [SHORT_CTX if i % 2 == 0 else LONG_CTX for i in range(n)]
+    extra: dict = {}
+    replays0 = eng._lane_graphs.replays
+    with serving(app) as (port, th):
+        idle0 = eng.scheduler_stats().get("lane_idle_seconds", 0.0) if scheduler == "continuous" else 0
+        results, stream, wave_s = lane_wave(
+            port, contexts, SHORT_CTX if scheduler == "continuous" else None)
+        idle = (eng.scheduler_stats()["lane_idle_seconds"] - idle0
+                if scheduler == "continuous" else None)
+        wave = list(records)
+        metrics = _request(port, "GET", "/metrics")[2].decode()
+        slices = sum(prom_samples(metrics, "prefill_slice_seconds_count").values())
+        rendered = {ln.split(" ")[2] for ln in metrics.splitlines() if ln.startswith("# TYPE ")}
+        want = {f if f != "scheduler_" else "scheduler_lanes_live"
+                for f in LANE_FAMILIES[scheduler] if f != "mem_pressure_events_total"}
+        extra["metrics_missing"] = sorted(want - rendered)
+        cycles = sum(prom_samples(metrics, "batch_occupancy_count").values())
+        if scheduler == "continuous":
+            long_reply = next((d.get("response", "") for (st, d, _), c in zip(results, contexts)
+                               if c is LONG_CTX and st == 200), "")
+            follow = LONG_CTX + [("assistant", long_reply[:40]), ("user", MISTRAL_FOLLOW_UP)]
+            st, _ = _http(port, "POST", "/response", body(follow), timeout=900)
+            extra["follow_up"] = {"status": st, "reused": records[-1]["reused"],
+                                  "prompt_tokens": len(records[-1]["prompt"])}
+        if label == LANE_DRILLS:
+            t_drop = abort_stream(port, body(SHORT_CTX), events=2)
+            replays, freed = eng._lane_graphs.replays, None
+            while time.time() - t_drop < 30:
+                if eng.scheduler_stats()["lanes_live"] == 0 and not eng._items:
+                    freed = time.time() - t_drop
+                    break
+                time.sleep(0.002)
+            extra["stream_drop"] = {"lane_free_s": freed,
+                                    "chunks_after_drop": (eng._lane_graphs.replays - replays)
+                                    / eng.decode_chunk}
+        alive = th.is_alive()
+    replays = eng._lane_graphs.replays - replays0
+    if label == LANE_DRILLS:
+        # the 512-token request among 7 others (128 tokens each, /v1) at
+        # the reference's 25 s timeout
+        eng.max_gen_tokens = 512
+        n_before = len(records)
+        dflt = Settings(temperature=0.0, max_queue_size=16, batch_size=lanes,
+                        scheduler=scheduler)
+        with serving(create_app(engine=eng, settings=dflt)) as (port, _):
+            others = []
+
+            def other(i):
+                others.append(_http(port, "POST", "/v1/chat/completions", {
+                    "messages": [{"role": "user", "content": f"neighbour {i}: " + LONG_CTX[-1][1]}],
+                    "max_tokens": WAVE_TOKENS, "temperature": 0.0}, timeout=900)[0])
+
+            ths = [threading.Thread(target=other, args=(i,)) for i in range(7)]
+            for t in ths:
+                t.start()
+            t_req = time.time()
+            st, _ = _http(port, "POST", "/response", body(SHORT_CTX), timeout=900)
+            wall = time.time() - t_req
+            for t in ths:
+                t.join(900)
+        rec = max(records[n_before:], key=lambda r: len(r["ids"]), default={})
+        say("lane_deadline", file=label, timeout_seconds=dflt.timeout_seconds, status=st,
+            completion_tokens=len(rec.get("ids", [])), finish_reason=rec.get("finish_reason"),
+            wall_s=wall, neighbours=sorted(others))
+        eng.max_gen_tokens = WAVE_TOKENS
+    launches = {name: fn.launches for name, fn in counters.items()}
+    say("launches", file=label, **launches)
+    silent = [n for n in LANE_KERNELS[label] if not launches[n]]
+    if silent:
+        raise AssertionError(f"{label}: the lanes' served path never launched {silent}")
+    # what one replay of the lane graph launches: kernel 10 once a layer for
+    # every lane (per-layer over the int8 ring), or the looped kernel once a
+    # lane and launch
+    step = eng._lane_graphs.step_launches()
+    L = eng.cfg.n_layers
+    want = ({"decode_loop": lanes * (L // (L if unroll < 0 else unroll))} if unroll else
+            {"kv_quantize": L} if kv_dtype == "int8" else {})
+    lane_launches = {"replays": replays, "per_replay": step,
+                     "expected": want, "on_the_wave": {k: n * replays for k, n in step.items()}}
+    ttfts = [r["ttft_s"] for r in wave if r["ttft_s"] is not None]
+    tokens = sum(len(r["ids"]) for r in wave)
+    lane_line = {
+        "file": label, "scheduler": scheduler, "lanes": lanes, "requests": len(results),
+        "statuses": [r[0] if r else None for r in results],
+        "finish_reasons": [r["finish_reason"] for r in wave],
+        "wave_s": wave_s, "tokens": tokens, "tokens_per_s": tokens / wave_s,
+        "ttft_p50_s": percentile(ttfts, 0.5), "ttft_p95_s": percentile(ttfts, 0.95),
+        "lane_idle_seconds": idle,
+        "admission_slices": slices, "cycles": cycles if scheduler == "cycle" else None,
+        "lane_launches": lane_launches,
+        "stream": {"status": stream["status"], "events": len(stream["events"]),
+                   "chars": len(sse_text(stream["events"])[0])} if stream else None,
+        **extra}
+    say("lanes", **lane_line)
+    bad = [r for r in results if r is None or r[0] != 200 or not (r[1] or {}).get("response")]
+    if bad or not alive or (stream and stream["status"] != 200) or extra["metrics_missing"]:
+        raise AssertionError(f"{label}: wave requests failed: {bad}, httpd alive {alive}, "
+                             f"/metrics missing {extra['metrics_missing']}")
+    if not replays or any(step.get(k) != n for k, n in want.items()) or \
+            (not unroll and "decode_loop" in step) or (unroll and "kv_quantize" in step):
+        raise AssertionError(f"{label}: the lane graph's launches are not the lane "
+                             f"path's: {lane_launches}")
+    if scheduler == "continuous" and not extra["follow_up"]["reused"]:
+        raise AssertionError(f"{label}: the follow-up took no lane-prefix reuse")
+    if label == LANE_DRILLS:
+        # the chunk in flight, the one queued behind it, and the one whose
+        # harvest sees the abandoned flag (the reference's bound, with slack)
+        if extra["stream_drop"]["lane_free_s"] is None or \
+                extra["stream_drop"]["chunks_after_drop"] > 4:
+            raise AssertionError(f"{label}: the dropped stream's lane did not free: "
+                                 f"{extra['stream_drop']}")
+
+    # per-layer lanes against the serial engine on their own ring; looped
+    # lanes against the per-layer serial engine on the bf16 ring
+    serial_cfg = dataclasses.replace(eng.cfg, decode_layer_unroll=0,
+                                     kv_dtype="bf16" if unroll else eng.cfg.kv_dtype)
+    check_lane_parity(label, eng, wave, settings, serial_cfg)
+    prompts = [wave[0]["prompt"], next(r["prompt"] for r in wave
+                                       if r["prompt"] != wave[0]["prompt"])]
+    check_lane_graph(label, eng, prompts)
+    check_lane_isolation(label, eng, prompts)
+    lane_trace(label, eng, prompts)
+    eng.close()
+    parts = (eng.params, eng.cfg, eng.tokenizer, eng.template_kind)
+    del app, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, parts
+
+
+def phase_all_lanes(paths: dict, counters: dict, names=None) -> dict:
+    """Each lane engine of :data:`LANES` (those in ``names``, all by
+    default) served by :func:`phase_lanes` from ``paths`` (layout → file),
+    an engine's weights held while a later one serves them (one that
+    finds them missing loads the file); returns each kernel's launches
+    summed over them."""
+    launches = dict.fromkeys(counters, 0)
+    held: dict = {}
+    for label, layout, fmt, kv_dtype, unroll, lanes, scheduler, clients, src in LANES:
+        if names is not None and label not in names:
+            continue
+        served, parts = phase_lanes(label, layout, paths[layout], counters, fmt, kv_dtype,
+                                    unroll, lanes, scheduler, clients, parts=held.pop(src, None))
+        if any(row[-1] == label for row in LANES):
+            held[label] = parts
+        del parts
+        for name, n in served.items():
+            launches[name] += n
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "llama_fastapi_k8s_gpu_tpu_torch")):
         print("chip_smoke: run from the root of a checkout of the repository "
@@ -3257,6 +4038,9 @@ def main() -> int:
                              earlier=earlier, **kw)
         for name, n in served.items():
             launches[name] += n
+    # the lane engines: batched serving from lanes of the card
+    for name, n in phase_all_lanes(paths, KERNELS).items():
+        launches[name] += n
     if os.environ.get("CHIP_SMOKE_REPLIES_OUT"):
         with open(os.environ["CHIP_SMOKE_REPLIES_OUT"], "w") as fh:
             json.dump(REPLIES, fh)

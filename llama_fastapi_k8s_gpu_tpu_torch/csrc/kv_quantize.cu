@@ -9,7 +9,13 @@
 //   positions (S)              int64 the pass's ring slots, in device memory
 //   kq, vq   (n_kv, n_ctx, HD) int8  the layer's value rings
 //   ks, vs   (n_kv, n_ctx)     f32   the layer's per-head per-token scales
-// Row (token t, head h) lands in slot positions[t] of head h.  The slots are
+//   lane_stride                      slots between the rings of two tokens
+// Row (token t, head h) lands in slot positions[t] of head h of ring t:
+// scale index t * lane_stride + h * n_ctx + positions[t], value index that
+// times HD.  lane_stride 0 is one ring for every token (a prompt pass); a
+// lane step passes one token a lane, each lane's slot, and the lane ring's
+// slot count (L * n_kv * n_ctx in the lane-major (B, L, n_kv, n_ctx, HD)
+// layout), so the B lanes' writes take one launch a layer.  The slots are
 // read on the device, never passed by value, so a decode step captured in a
 // CUDA graph writes wherever the step's position tensor points at replay
 // (the caller checks the range on its host mirror; a slot outside the ring
@@ -73,7 +79,7 @@ kv_quantize_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __r
                    const long long* __restrict__ positions,
                    int8_t* __restrict__ kq, int8_t* __restrict__ vq,
                    float* __restrict__ ks, float* __restrict__ vs,
-                   int S, int n_kv, int n_ctx) {
+                   int S, int n_kv, int n_ctx, long long lane_stride) {
     constexpr int E = HD / 32;                                 // elements a lane
     using In = typename Lane<HD>::In;
     using Out = typename Lane<HD>::Out;
@@ -107,7 +113,8 @@ kv_quantize_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __r
     for (int e = 0; e < E; ++e)
         codes |= static_cast<Out>(static_cast<uint8_t>(lfkt::kv_quantize_value(x[e], inv)))
                  << (8 * e);
-    const size_t slot = static_cast<size_t>(h) * n_ctx + static_cast<size_t>(pos);
+    const size_t slot = static_cast<size_t>(t) * static_cast<size_t>(lane_stride) +
+                        static_cast<size_t>(h) * n_ctx + static_cast<size_t>(pos);
     *reinterpret_cast<Out*>((is_v ? vq : kq) + slot * HD + lane * E) = codes;
     if (lane == 0) (is_v ? vs : ks)[slot] = s;
 }
@@ -115,13 +122,13 @@ kv_quantize_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __r
 template <int HD>
 void launch(const void* k, const void* v, const void* cos_t, const void* sin_t,
             const void* positions, void* kq, void* vq, void* ks, void* vs, int S, int n_kv,
-            int n_ctx, cudaStream_t stream) {
+            int n_ctx, long long lane_stride, cudaStream_t stream) {
     const int rows = 2 * S * n_kv;
     kv_quantize_kernel<HD><<<(rows + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
         static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
         static_cast<const long long*>(positions), static_cast<int8_t*>(kq), static_cast<int8_t*>(vq), static_cast<float*>(ks),
-        static_cast<float*>(vs), S, n_kv, n_ctx);
+        static_cast<float*>(vs), S, n_kv, n_ctx, lane_stride);
 }
 
 }  // namespace
@@ -129,14 +136,16 @@ void launch(const void* k, const void* v, const void* cos_t, const void* sin_t,
 LFKT_API int lfkt_kv_quantize(const void* k, const void* v, const void* cos_t,
                               const void* sin_t, const void* positions, void* kq, void* vq,
                               void* ks, void* vs, int S, int n_kv, int n_ctx, int hd,
-                              void* stream) {
+                              long long lane_stride, void* stream) {
     if (S <= 0) return 0;
-    if (n_kv <= 0 || n_ctx <= 0 || positions == nullptr) return 1;
+    if (n_kv <= 0 || n_ctx <= 0 || positions == nullptr || lane_stride < 0) return 1;
     auto st = static_cast<cudaStream_t>(stream);
     if (hd == 128)
-        launch<128>(k, v, cos_t, sin_t, positions, kq, vq, ks, vs, S, n_kv, n_ctx, st);
+        launch<128>(k, v, cos_t, sin_t, positions, kq, vq, ks, vs, S, n_kv, n_ctx, lane_stride,
+                    st);
     else if (hd == 64)
-        launch<64>(k, v, cos_t, sin_t, positions, kq, vq, ks, vs, S, n_kv, n_ctx, st);
+        launch<64>(k, v, cos_t, sin_t, positions, kq, vq, ks, vs, S, n_kv, n_ctx, lane_stride,
+                   st);
     else
         return 1;
     return static_cast<int>(cudaGetLastError());

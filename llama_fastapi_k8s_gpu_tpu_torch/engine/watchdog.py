@@ -10,7 +10,9 @@ on:
 - **exception burst** — ≥ ``error_burst`` engine-side errors inside
   ``error_window`` seconds;
 - **engine failure** — the engine's ``failure()`` hook reports a fault it
-  cannot serve through (the port's engine: a poisoned CUDA context).
+  cannot serve through: a poisoned CUDA context, or (``scheduler_died``)
+  the continuous engine's dead scheduler thread, which its ``recover()``
+  restarts.
 
 On a trip the watchdog flips health to DEGRADED with the reason, fails the
 engine's registered in-flight work with
@@ -100,7 +102,10 @@ class Watchdog:
         failure = getattr(self.engine, "failure", None)
         err = failure() if callable(failure) else None
         if err is not None:
-            return f"engine_failed: {type(err).__name__}: {err}"
+            # an engine with a scheduler thread reports the thread's death
+            kind = ("scheduler_died" if callable(getattr(self.engine, "scheduler_stats", None))
+                    else "engine_failed")
+            return f"{kind}: {type(err).__name__}: {err}"
         hb = getattr(self.engine, "heartbeat", None)
         if hb is None:
             return None

@@ -156,6 +156,59 @@ def _counters() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def capture_step(step, state: dict, gens, stream, pool) -> tuple:
+    """Capture ``step()`` — one decode+sample step over ``state`` in place —
+    as a CUDA graph on ``stream`` in the memory pool ``pool``.
+
+    One eager step on the stream first (it builds the kernels and sizes the
+    allocator), undone on the bookkeeping leaves and the generators
+    ``gens``: the ring and ``out`` slots it writes are those the next
+    replay writes with the same inputs.  ``gens`` are registered with the
+    graph, so a replay draws what the eager step draws from the same seed.
+    The kernels' launch counters keep counting on the device: the capture
+    records each counter's increment and takes it back (capturing runs
+    nothing).  Returns ``(graph, increments)``, ``increments`` the
+    counters a replay adds (:func:`replay_step`)."""
+    from ..ops import KERNELS
+
+    saved = {k: state[k].clone() for k in ("pos", "token", "window", "wpos")}
+    rngs = [g.get_state() for g in gens]
+    current = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        step()
+    current.wait_stream(stream)
+    for k, t in saved.items():
+        state[k].copy_(t)
+    for g, r in zip(gens, rngs):
+        g.set_state(r)
+    graph = torch.cuda.CUDAGraph()
+    for g in gens:
+        graph.register_generator_state(g)
+    before = _counters()
+    # thread_local: another engine's thread may use the card meanwhile
+    with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
+        step()
+    increments = {}
+    for name, n in _counters().items():
+        if n != before[name]:
+            increments[name] = n - before[name]
+            KERNELS[name].launches = before[name]
+    current.synchronize()
+    return graph, increments
+
+
+def replay_step(graph, increments: dict, n_steps: int) -> None:
+    """``n_steps`` replays of ``graph``, each kernel counter advanced by its
+    ``increments`` (:func:`capture_step`) a replay."""
+    from ..ops import KERNELS
+
+    for _ in range(n_steps):
+        graph.replay()
+    for name, n in increments.items():
+        KERNELS[name].launches += n * n_steps
+
+
 class DecodeGraphs:
     """The decode step as CUDA graphs over one engine's KV ring.
 
@@ -234,11 +287,8 @@ class DecodeGraphs:
 
     @torch.inference_mode()
     def capture(self, top_k: int = SamplingParams.top_k) -> float:
-        """Capture the step for ``top_k`` if it is not held; returns the
-        seconds taken (0 when held).  One eager step on the capture stream
-        first (it builds the kernels and sizes the allocator), undone on the
-        state and the generator: the ring slot it writes is the one the next
-        replay writes with the same inputs."""
+        """Capture the step for ``top_k`` (:func:`capture_step`) if it is not
+        held; returns the seconds taken (0 when held)."""
         if top_k in self._graphs:
             return 0.0
         if self._st is None:
@@ -246,36 +296,12 @@ class DecodeGraphs:
 
             self.knobs(sampling_tensors(SamplingParams(), self.gen.device))
         t0 = time.time()
-        s = self._state
-        saved = {k: s[k].clone() for k in ("pos", "token", "window", "wpos")}
-        rng = self.gen.get_state()
-        current = torch.cuda.current_stream(self.gen.device)
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
-            decode_step(self.params, self.cfg, s, self._st, top_k)
-        current.wait_stream(self._stream)
-        for k, t in saved.items():
-            s[k].copy_(t)
-        self.gen.set_state(rng)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.gen)
-        before = _counters()
-        # thread_local: another engine's thread may use the card meanwhile
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                              capture_error_mode="thread_local"):
-            decode_step(self.params, self.cfg, s, self._st, top_k)
-        from ..ops import KERNELS
-
-        step = {}
-        for name, n in _counters().items():
-            if n != before[name]:
-                step[name] = n - before[name]
-                KERNELS[name].launches = before[name]    # the capture ran nothing
-        self._graphs[top_k] = (graph, step)
+        self._graphs[top_k] = capture_step(
+            lambda: decode_step(self.params, self.cfg, self._state, self._st, top_k),
+            self._state, [self.gen], self._stream, self._pool)
         while len(self._graphs) > MAX_GRAPHS:
             oldest = list(self._graphs)[1]                 # keep the first (the default)
             del self._graphs[oldest]
-        torch.cuda.current_stream(self.gen.device).synchronize()
         self.captures[top_k] = time.time() - t0
         record_compile("decode_chunk", f"top_k={top_k}", self.captures[top_k])
         return self.captures[top_k]
@@ -292,14 +318,8 @@ class DecodeGraphs:
             raise ValueError("DecodeGraphs.chunk takes the graphs' own state and knobs "
                              "(DecodeGraphs.state, DecodeGraphs.knobs)")
         self.capture(top_k)
-        graph, step = self._graphs[top_k]
         slot = _take_steps(state, n_steps)
-        for _ in range(n_steps):
-            graph.replay()
-        from ..ops import KERNELS
-
-        for name, n in step.items():
-            KERNELS[name].launches += n * n_steps
+        replay_step(*self._graphs[top_k], n_steps)
         self.replays += n_steps
         return state["out"][slot:slot + n_steps]
 

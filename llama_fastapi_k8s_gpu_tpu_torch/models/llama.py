@@ -29,6 +29,17 @@ shape that does not depend on the position.
 A decode step under ``cfg.decode_layer_unroll`` runs the whole layer stack
 through the layer-looped kernel instead (ops/decode_loop.py), K layers a
 launch.
+
+The batched engines keep B lanes' rings in one lane-major cache, each leaf
+``(B, L, n_kv, n_ctx, hd)`` (:func:`init_lane_cache`): lane ``b``'s view
+``leaf[b]`` is exactly a serial ring, so prompt passes and the looped
+kernel run on it unchanged.  :func:`forward_lanes` feeds one token in each
+lane at per-lane slots (a (B,) device tensor): the linears take the (B,
+dim) rows as they are, the bf16 ring write is one indexed write at (lane,
+slot) a layer, the int8 one a single launch of the int8 write kernel over
+the lanes (its lane stride), decode attention is :func:`lane_attention`
+with per-lane masks, and under ``decode_layer_unroll`` the stack is the
+looped kernel once per lane over the lane's own view.
 """
 
 from __future__ import annotations
@@ -79,6 +90,19 @@ def init_cache(cfg: ModelConfig, device: torch.device,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def init_lane_cache(cfg: ModelConfig, batch: int, device: torch.device) -> dict:
+    """B lanes' rings, lane-major: every leaf of :func:`init_cache` with a
+    leading ``batch`` dim, so ``leaf[b]`` is lane ``b``'s contiguous ring."""
+    return {k: torch.zeros((batch, *t.shape), dtype=t.dtype, device=device)
+            for k, t in init_cache(cfg, torch.device("meta")).items()}
+
+
+def lane_view(cache: dict, lane: int) -> dict:
+    """Lane ``lane``'s ring of a lane-major cache: contiguous views shaped
+    as :func:`init_cache`'s leaves."""
+    return {k: t[lane] for k, t in cache.items()}
+
+
 def cache_nbytes(cfg: ModelConfig) -> int:
     """Device bytes of one cache ring under ``cfg``: ``2·hd`` bytes per
     token-head in bf16, ``hd + 4`` in int8 (the reference's formula)."""
@@ -119,6 +143,33 @@ def xla_attention(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
     probs = probs.to(q.dtype)
     ctx = torch.matmul(probs.float(), vv[:, None, :key_end].float()).to(q.dtype)
     return ctx.permute(2, 0, 1, 3).reshape(S, cfg.n_heads * hd).to(out_dtype)
+
+
+def lane_attention(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
+                   slots: torch.Tensor, cfg: ModelConfig, out_dtype,
+                   cks: torch.Tensor | None = None,
+                   cvs: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`xla_attention` of one decode query a lane: q (B, H, hd) over
+    one layer's lane rings ``kk``/``vv`` (B, n_kv, n_ctx, hd) (int8 with
+    ``cks``/``cvs`` (B, n_kv, n_ctx)), lane ``b`` masked at ``slots[b]``.
+    The same arithmetic as the one-sequence path, batched over the lanes:
+    every lane scores its whole ring in f32."""
+    B = q.shape[0]
+    n_kv, group, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    n_ctx = kk.shape[2]
+    qg = q.reshape(B, n_kv, group, 1, hd)
+    scores = torch.matmul(qg.float(), kk[:, :, None].float().transpose(-1, -2)
+                          ) * (hd ** -0.5)                          # (B, n_kv, g, 1, c)
+    if cks is not None:
+        scores = scores * cks[:, :, None, None, :]
+    mask = attention_mask(slots, n_ctx, cfg.sliding_window)        # (B, c)
+    scores = scores.masked_fill(~mask[:, None, None, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    if cvs is not None:
+        probs = probs * cvs[:, :, None, None, :]
+    probs = probs.to(q.dtype)
+    ctx = torch.matmul(probs.float(), vv[:, :, None].float()).to(q.dtype)
+    return ctx.reshape(B, cfg.n_heads * hd).to(out_dtype)
 
 
 def _layer(h: torch.Tensor, layer, i: int, cache: dict,
@@ -168,6 +219,40 @@ def _layer(h: torch.Tensor, layer, i: int, cache: dict,
         # shapes); a prompt pass stops at its last key
         ctx = xla_attention(q, ck, cv, positions, cfg, h.dtype,
                             key_end=None if S == 1 else pos_offset + S, cks=cks, cvs=cvs)
+    h = h + linear(ctx, layer.wo)
+
+    hn = rms_norm(h, layer.ffn_norm, cfg.rms_eps)
+    gated = F.silu(linear(hn, layer.w_gate).float()).to(h.dtype)
+    return h + linear(gated * linear(hn, layer.w_up), layer.w_down)
+
+
+def _lane_layer(h: torch.Tensor, layer, i: int, cache: dict, slots: torch.Tensor,
+                cfg: ModelConfig, rope: tuple) -> torch.Tensor:
+    """One transformer block over one token a lane: h (B, dim); writes each
+    lane's K/V of layer ``i`` at its slot (``slots`` (B,), in range) into
+    the lane-major ``cache`` in place."""
+    B = h.shape[0]
+    n_kv, hd = cfg.n_kv_heads, cfg.head_dim
+
+    hn = rms_norm(h, layer.attn_norm, cfg.rms_eps)
+    q = linear(hn, layer.wq).reshape(B, cfg.n_heads, hd)
+    k = linear(hn, layer.wk).reshape(B, n_kv, hd)
+    v = linear(hn, layer.wv).reshape(B, n_kv, hd)
+    q = rope_rotate(q, *rope)
+
+    if cfg.kv_dtype == "int8":
+        ck, cv = cache["k_q"][:, i], cache["v_q"][:, i]            # (B, n_kv, n_ctx, hd)
+        cks, cvs = cache["k_s"][:, i], cache["v_s"][:, i]          # (B, n_kv, n_ctx)
+        kv_quantize(k, v, *rope, slots, ck, cv, cks, cvs)
+    else:
+        k = rope_rotate(k, *rope)
+        ck, cv = cache["k"][:, i], cache["v"][:, i]
+        cks = cvs = None
+        lanes = torch.arange(B, device=h.device)
+        ck[lanes, :, slots] = k.to(ck.dtype)
+        cv[lanes, :, slots] = v.to(cv.dtype)
+
+    ctx = lane_attention(q, ck, cv, slots, cfg, h.dtype, cks=cks, cvs=cvs)
     h = h + linear(ctx, layer.wo)
 
     hn = rms_norm(h, layer.ffn_norm, cfg.rms_eps)
@@ -244,6 +329,40 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
         last_idx = S - 1
     hn = rms_norm(h[last_idx:last_idx + 1], params.out_norm, cfg.rms_eps)
     return linear(hn, params.output).float()[0]
+
+
+def forward_lanes(params, cfg: ModelConfig, tokens: torch.Tensor, slots: torch.Tensor,
+                  cache: dict) -> torch.Tensor:
+    """One decode token in each of B lanes: ``tokens`` (B,) int64 at ring
+    slots ``slots`` (B,) int64, a device tensor never read on the host and
+    in range (the lane step clamps it), over the lane-major ``cache``
+    (:func:`init_lane_cache`), written in place.  Returns f32 logits (B,
+    vocab).
+
+    Under ``cfg.decode_layer_unroll`` each lane's layer stack is L/K
+    launches of the looped kernel over the lane's own ring view, the lanes
+    one after another on one stream."""
+    B = tokens.shape[0]
+    if slots.shape != (B,) or slots.dtype != torch.int64:
+        raise ValueError(f"forward_lanes: slots {tuple(slots.shape)} {slots.dtype}, "
+                         f"expected ({B},) int64")
+    if len(params.layers) != cfg.n_layers:
+        raise ValueError(f"params have {len(params.layers)} layers but "
+                         f"cfg.n_layers={cfg.n_layers}")
+    h = params.tok_emb[tokens].to(torch.bfloat16)                  # (B, dim)
+    K, fmts = _loop_unroll(params, cfg, 1)
+    if K:
+        from ..ops.decode_loop import forward_layers_looped
+
+        h = torch.cat([forward_layers_looped(params, cfg, h[b:b + 1], slots[b:b + 1],
+                                             lane_view(cache, b), K, fmts)
+                       for b in range(B)])
+    else:
+        rope = rope_cos_sin(slots, cfg.head_dim, cfg.rope_theta)
+        for i, layer in enumerate(params.layers):
+            h = _lane_layer(h, layer, i, cache, slots, cfg, rope)
+    hn = rms_norm(h, params.out_norm, cfg.rms_eps)
+    return linear(hn, params.output).float()
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, length: int,

@@ -10,7 +10,11 @@ capture or the kernel library's build, and a "jit dispatch" a call of a
 host program or a kernel's launch (obs/devtime.py).
 
 :data:`MEM_COMPONENTS` is the memory ledger's catalog of the allocation
-surfaces the serial pod registers (obs/memledger.py).
+surfaces the pod registers (obs/memledger.py).
+
+Families whose members are synthesized at runtime (the continuous
+scheduler's ``scheduler_stats()`` keys) declare a *prefix family*: one
+entry, ``prefix=True``, that governs every name starting with it.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ HISTOGRAM = "histogram"
 #: sits in the 0.05-1 s band and whose tail is the 25 s admission timeout
 LATENCY_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
                    5.0, 10.0, 25.0, 60.0)
+#: requests per batched cycle
+OCCUPANCY_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0)
 #: decode throughput buckets (tokens/sec)
 RATE_BUCKETS = (1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0, 200.0, 500.0)
 #: compile-wall buckets (seconds)
@@ -42,6 +48,7 @@ class Metric:
     help: str = ""
     buckets: tuple = ()
     labels: tuple = ()
+    prefix: bool = False
 
 
 def _register(*metrics: Metric) -> dict[str, Metric]:
@@ -83,7 +90,12 @@ METRICS: dict[str, Metric] = _register(
            "per-request decode throughput, by model",
            buckets=RATE_BUCKETS, labels=("model",)),
     Metric("generated_tokens_total", COUNTER, "completion tokens emitted"),
+    Metric("batched_generations_total", COUNTER,
+           "mesh-batched generation cycles"),
     Metric("streamed_generations_total", COUNTER, "SSE streams served"),
+    Metric("batch_occupancy", HISTOGRAM,
+           "requests coalesced per batched cycle",
+           buckets=OCCUPANCY_BUCKETS),
     # -- prefix reuse --------------------------------------------------------
     Metric("prefix_cache_hits_total", COUNTER,
            "requests served with prompt-prefix KV reuse"),
@@ -94,6 +106,11 @@ METRICS: dict[str, Metric] = _register(
            "host wall of one prefill-slice dispatch (prep + enqueue; "
            "long = device-queue pushback)",
            buckets=LATENCY_BUCKETS),
+    Metric("admission_budget_tokens", GAUGE,
+           "admission controller's live per-wave prefill-token budget"),
+    Metric("lane_idle_seconds", GAUGE,
+           "cumulative idle lane-seconds while other lanes decoded "
+           "(monotonic; the admission controller's raw loss signal)"),
     # -- resilience / error taxonomy ---------------------------------------
     Metric("engine_unavailable_total", COUNTER,
            "503s from watchdog trips / recovery in progress"),
@@ -120,6 +137,10 @@ METRICS: dict[str, Metric] = _register(
     Metric("hbm_headroom_bytes", GAUGE,
            "free device HBM (bytes_limit - bytes_in_use); only exported "
            "where the backend reports memory_stats"),
+    Metric("mem_pressure_events_total", COUNTER,
+           "admission-controller budget cuts triggered by low HBM "
+           "headroom (rising edges, not waves — docs/RUNBOOK.md "
+           "'Diagnosing HBM OOM')"),
     # -- the incident flight recorder (obs/flightrec.py) -------------------
     Metric("incidents_total", GAUGE,
            "incident bundles recorded by the flight recorder this "
@@ -170,6 +191,12 @@ METRICS: dict[str, Metric] = _register(
            "scope=pod on replica scrapes, scope=fleet when the router "
            "evaluates the catalog over federated histograms",
            labels=("slo", "window", "scope")),
+    # -- runtime-synthesized families --------------------------------------
+    Metric("scheduler_", GAUGE,
+           "continuous-scheduler occupancy family "
+           "(ContinuousEngine.scheduler_stats: lanes_live, pending, "
+           "admission_inflight, spec_*, lane_prefix_* / radix_prefix_*)",
+           prefix=True),
 )
 
 
@@ -186,7 +213,7 @@ class MemComponent:
     always: bool = False
 
 
-#: the components the serial pod registers, with the reference's help;
+#: the components the pod registers, with the reference's help;
 #: ``residual`` is computed (ground truth minus the attributed device
 #: components), never registered.  The decode graphs' private pool and
 #: cuBLAS's workspace are not components: they land in ``residual``.
@@ -198,6 +225,12 @@ MEM_COMPONENTS: dict[str, MemComponent] = {
         MemComponent("kv_ring",
                      "serial dense KV ring (Engine._cache; allocated on "
                      "every engine, serving or not)"),
+        MemComponent("kv_lanes",
+                     "batched lane state: the mesh/continuous engines' "
+                     "shared decode pytree (parallel/batched.py)"),
+        MemComponent("kv_scratch",
+                     "the continuous scheduler's persistent prefill "
+                     "scratch ring (engine/continuous.py)"),
         MemComponent("residual",
                      "ground truth minus every attributed device "
                      "component: bytes the ledger cannot explain "
@@ -207,5 +240,14 @@ MEM_COMPONENTS: dict[str, MemComponent] = {
 
 
 def lookup(name: str) -> Metric | None:
-    """The catalog entry for ``name``, or None."""
-    return METRICS.get(name)
+    """The catalog entry governing ``name``: exact match first, then the
+    longest matching declared prefix family."""
+    m = METRICS.get(name)
+    if m is not None:
+        return m
+    best = None
+    for entry in METRICS.values():
+        if entry.prefix and name.startswith(entry.name):
+            if best is None or len(entry.name) > len(best.name):
+                best = entry
+    return best

@@ -150,7 +150,12 @@ def _attention_scratch(device: torch.device, cfg) -> tuple:
     per query head and key chunk the chunk's P·V sums (hd f32) and its
     (max, sum), then per query head its scores over the ring — f32,
     n_heads × (max_chunks × (hd + 2) + n_ctx) — and two arrival counters
-    per KV head, which every launch returns to zero."""
+    per KV head, which every launch returns to zero.
+
+    One set per device and geometry, shared by every launch there — the
+    per-lane launches of a lane step included — so the launches must run
+    one after another on one stream (:func:`decode_loop_step`): two at once
+    would share the counters and a block could wait forever."""
     max_chunks = (cfg.n_ctx - 1) // CHUNK_MIN + 1
     key = (device, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_ctx)
     entry = _ATTENTION.get(key)
@@ -230,8 +235,15 @@ def decode_loop_step(params, cache: dict, h: torch.Tensor, positions: torch.Tens
     tensors, the plain version for CPU ones.
 
     The grid barrier's counter and the attention's scratch and counters are
-    one set per device (and geometry), not per stream: launches on one card
-    must run one after another, never on two streams at once."""
+    one set per device (and geometry), not per stream, so every launch on
+    one card must follow the last on one stream — never two streams at
+    once.  The engines keep that rule: a serial engine runs under its lock
+    on the current stream; a lane step runs this kernel once per lane, the
+    lanes one after another inside one graph replayed on that stream (the
+    capture stream is joined to it before and after); a cycle engine's
+    batch and its serial streams both hold the engine's lock; and a
+    continuous engine makes every device call on its one scheduler
+    thread."""
     L = cfg.n_layers
     if not (K >= 1 and 0 <= layer0 and layer0 + K <= L):
         raise ValueError(f"decode_loop: layers {layer0}..{layer0 + K} outside 0..{L}")

@@ -19,6 +19,14 @@ exponential noise ``e`` from the generator — what ``torch.multinomial``
 does for one sample, without its host-side checks of ``p``.  The draws
 come from PyTorch's generator, not JAX's, so sampled tokens differ from
 the reference's; the filtered distribution does not.
+
+The lane form (:func:`sample_chain_lanes`, for the batched engines) runs
+the same chain over B rows of logits with per-lane knobs (each leaf a
+leading B dim) under one static ``top_k`` ceiling, the per-lane ``top_k``
+a mask below it, as the reference's continuous scheduler does.  Row ``b``
+equals the one-sequence chain on lane ``b``'s inputs, and each lane draws
+its noise from its own generator, so a seeded request's tokens do not
+depend on its lane or its neighbours.
 """
 
 from __future__ import annotations
@@ -57,6 +65,13 @@ def sampling_tensors(sp: SamplingParams, device: torch.device) -> dict:
         "presence_penalty": f32(sp.presence_penalty),
         "repeat_penalty": f32(sp.repeat_penalty),
     }
+
+
+def lane_tensors(sps, device: torch.device) -> dict:
+    """The knobs of B lanes, one :class:`SamplingParams` each, as (B,)
+    device tensors: the leaves of :func:`sampling_tensors` stacked."""
+    per = [sampling_tensors(sp, "cpu") for sp in sps]
+    return {k: torch.stack([t[k] for t in per]).to(device) for k in per[0]}
 
 
 def apply_penalties(logits: torch.Tensor, window: torch.Tensor,
@@ -106,6 +121,55 @@ def sample_chain(logits: torch.Tensor, window: torch.Tensor,
     sampled = torch.argmax(probs / noise, dim=-1, keepdim=True)
     choice = torch.where(temp <= 0, torch.zeros_like(sampled), sampled)
     return idx.index_select(0, choice)[0]
+
+
+def apply_penalties_lanes(logits: torch.Tensor, windows: torch.Tensor,
+                          st: dict) -> torch.Tensor:
+    """:func:`apply_penalties` over B rows: logits (B, V) f32, windows (B,
+    PENALTY_WINDOW), knobs (B,)."""
+    B, vocab = logits.shape
+    valid = windows >= 0
+    idx = windows.clamp(0, vocab - 1)
+    counts = torch.zeros(B, vocab, dtype=torch.float32, device=logits.device
+                         ).scatter_add_(1, idx, valid.float())
+    present = counts > 0
+    rp = st["repeat_penalty"][:, None]
+    logits = torch.where(present,
+                         torch.where(logits > 0, logits / rp, logits * rp),
+                         logits)
+    return (logits - counts * st["frequency_penalty"][:, None]
+            - present.float() * st["presence_penalty"][:, None])
+
+
+def candidates_lanes(logits: torch.Tensor, windows: torch.Tensor, st: dict,
+                     top_k: int = 40) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`candidates` over B rows: (ids (B, top_k), filtered logits (B,
+    top_k)); lane ``b``'s own ``top_k`` masks below the static ceiling."""
+    logits = apply_penalties_lanes(logits.float(), windows, st)
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :top_k], idx[:, :top_k]
+    vals = torch.where(torch.arange(top_k, device=logits.device)[None, :]
+                       < st["top_k"][:, None], vals, float("-inf"))
+    probs = torch.softmax(vals, dim=-1)                 # untempered
+    cum_excl = torch.cumsum(probs, dim=-1) - probs
+    keep = cum_excl < st["top_p"][:, None]              # keeps the crossing token
+    keep &= probs >= st["min_p"][:, None] * probs[:, :1]
+    keep[:, 0].fill_(True)                              # min_keep = 1
+    return idx, torch.where(keep, vals, float("-inf"))
+
+
+def sample_chain_lanes(logits: torch.Tensor, windows: torch.Tensor, gens, st: dict,
+                       top_k: int = 40) -> torch.Tensor:
+    """One sampled token id a lane, (B,) int64: :func:`sample_chain` row by
+    row, lane ``b``'s noise drawn from ``gens[b]``."""
+    idx, masked = candidates_lanes(logits, windows, st, top_k)
+    temp = st["temperature"][:, None]
+    probs = torch.softmax(masked / torch.clamp(temp, min=1e-6), dim=-1)
+    noise = torch.stack([torch.empty(top_k, dtype=probs.dtype, device=probs.device)
+                         .exponential_(1, generator=g) for g in gens])
+    sampled = torch.argmax(probs / noise, dim=-1, keepdim=True)
+    choice = torch.where(temp <= 0, torch.zeros_like(sampled), sampled)
+    return idx.gather(1, choice)[:, 0]
 
 
 def seed_window(prompt_ids, device: torch.device) -> tuple[torch.Tensor, int]:

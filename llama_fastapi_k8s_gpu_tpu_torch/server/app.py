@@ -10,6 +10,14 @@ server keeps it (llama_fastapi_k8s_gpu_tpu/server/app.py):
   control: a bounded queue(5) → 503, one consumer and a semaphore(1) →
   strictly serial generation, a 25 s future timeout → 408 with
   cancellation, engine errors → 500;
+- with ``LFKT_BATCH_SIZE`` > 1, the reference's two batched dispatch
+  paths over lanes of one card: ``LFKT_SCHEDULER=continuous`` (the
+  default) forwards each request to the ``ContinuousEngine``'s scheduler
+  without a barrier, at most ``batch_size`` in flight (so the bounded
+  queue stays the 503 surface), streams included; ``cycle`` coalesces up
+  to ``batch_size`` queued ``/response`` requests into one ``MeshEngine``
+  cycle, while ``/v1`` requests take the per-request path and streams run
+  serially in their FIFO slot;
 - ``POST /response/stream``: the same admission, server-sent events of
   OpenAI chunks ending in ``data: [DONE]``, bounded by a per-chunk gap and
   a total ``stream_deadline_seconds``;
@@ -59,6 +67,7 @@ from ..utils.health import (
     READY,
     STARTING,
     STATE_CODES,
+    DeadlineExceeded,
     EngineUnavailable,
     HealthMonitor,
 )
@@ -174,37 +183,91 @@ def create_app(engine=None, settings: Settings | None = None,
             tr.span("queue", t0=rd["enqueued_at"]).end(now)
 
     async def consumer():
-        """Single drain task: strict FIFO, one generation at a time."""
+        """Single drain task, strict FIFO: one generation at a time; with
+        ``batch_size`` > 1 a continuous engine takes each request without
+        a barrier, and a cycle engine up to ``batch_size`` a cycle."""
         queue = app.state.queue
         while True:
-            rd = await queue.get()
-            try:
+            batch = [await queue.get()]
+            if hasattr(app.state.engine, "submit"):
+                # the slot scheduler admits into free lanes at chunk
+                # boundaries; the in-flight permits (batch_size) keep the
+                # bounded queue the back-pressure surface
+                rd = batch[0]
                 now = time.time()
                 app.state.metrics.observe("queue_wait_seconds", now - rd["enqueued_at"])
                 _queue_span(rd, now)
                 if rd["future"].cancelled():
                     logger.info("Future was cancelled before processing; skipping.")
-                    continue
-                if "stream_queue" in rd:
+                elif "stream_queue" in rd:
+                    await app.state.inflight.acquire()   # released by _stream_task
+                    _spawn(_stream_task(rd))
+                else:
+                    await app.state.inflight.acquire()   # released by _forward_to_scheduler
+                    _spawn(_forward_to_scheduler(rd))
+                queue.task_done()
+                continue
+            can_batch = (settings.batch_size > 1
+                         and hasattr(app.state.engine, "create_chat_completions"))
+            while can_batch and len(batch) < settings.batch_size:
+                try:
+                    batch.append(queue.get_nowait())
+                except asyncio.QueueEmpty:
+                    break
+            try:
+                now = time.time()
+                live, streams = [], []
+                for rd in batch:
+                    app.state.metrics.observe("queue_wait_seconds", now - rd["enqueued_at"])
+                    _queue_span(rd, now)
+                    if rd["future"].cancelled():
+                        logger.info("Future was cancelled before processing; skipping.")
+                    elif "stream_queue" in rd:
+                        streams.append(rd)
+                    else:
+                        live.append(rd)
+                # /v1 requests never coalesce into a cycle: the batched path
+                # truncates the /response way and returns text
+                batchable = [rd for rd in live if can_batch and not rd.get("openai")]
+                solo = [rd for rd in live if rd not in batchable]
+                results: list[tuple] = []          # (request, response, error)
+                if batchable:
                     try:
-                        await _truncate_and_stream(rd)
+                        responses = await _truncate_and_generate_batch(batchable)
+                        results = [(rd, None, r) if isinstance(r, Exception) else (rd, r, None)
+                                   for rd, r in zip(batchable, responses)]
+                    except Exception as e:  # noqa: BLE001 — one cycle, one failure
+                        results = [(rd, None, e) for rd in batchable]
+                for rd in solo:
+                    try:
+                        results.append((rd, await _truncate_and_generate(rd), None))
+                    except Exception as e:  # noqa: BLE001 — handed to the waiter
+                        results.append((rd, None, e))
+                for rd, result, err in results:
+                    if rd["future"].cancelled():
+                        logger.info("Future cancelled during processing; %s dropped.",
+                                    "error" if err else "result")
+                    elif err is not None:
+                        rd["future"].set_exception(err)
+                    else:
+                        rd["future"].set_result(result)
+                for rd in streams:       # streams, serially, in their FIFO slot
+                    try:
+                        await _truncate_and_stream(rd, app.state.semaphore)
                     except Exception as e:  # noqa: BLE001 — surfaced on the stream
                         logger.error("Error during streamed generation: %s", e)
                         rd["stream_queue"].put_nowait(e)
-                    continue
-                try:
-                    result, err = await _truncate_and_generate(rd), None
-                except Exception as e:  # noqa: BLE001 — handed to the waiter
-                    result, err = None, e
-                if rd["future"].cancelled():
-                    logger.info("Future cancelled during processing; %s dropped.",
-                                "error" if err else "result")
-                elif err is not None:
-                    rd["future"].set_exception(err)
-                else:
-                    rd["future"].set_result(result)
             finally:
-                queue.task_done()
+                for _ in batch:
+                    queue.task_done()
+
+    def _spawn(coro) -> asyncio.Task:
+        """A fire-and-forget task, strongly held until it ends (the loop
+        holds tasks weakly)."""
+        task = asyncio.ensure_future(coro)
+        app.state.bg_tasks.add(task)
+        task.add_done_callback(app.state.bg_tasks.discard)
+        return task
 
     def _model_label(obj=None) -> str:
         """The ``model`` label: the response's or timings' model, else the
@@ -313,6 +376,9 @@ def create_app(engine=None, settings: Settings | None = None,
                 logger.error("Engine unavailable: %s", e)
                 raise HTTPException(status_code=503,
                                     detail=f"Engine unavailable: {e}") from e
+            except DeadlineExceeded as e:
+                m.inc("requests_timed_out_total")
+                raise HTTPException(status_code=408, detail="Generation timed out") from e
             except Exception as e:  # noqa: BLE001 — the reference's 500
                 m.inc("engine_errors_total")
                 logger.error("Error during message generation: %s", e)
@@ -320,7 +386,123 @@ def create_app(engine=None, settings: Settings | None = None,
                     status_code=500,
                     detail=f"Error during message generation: {str(e)}") from e
 
-    async def _truncate_and_stream(rd):
+    async def _truncate_and_generate_batch(rds):
+        """One cycle of the ``MeshEngine`` over ``rds``: one entry a request,
+        its text or its own exception (an entry's error fails it alone)."""
+        m = app.state.metrics
+        async with app.state.semaphore:
+            try:
+                batch_messages = [truncate_messages_to_fit_context(
+                    rd["messages"], settings.max_context_tokens) for rd in rds]
+                t0 = time.time()
+                answers = await asyncio.to_thread(
+                    lambda: app.state.engine.create_chat_completions(
+                        batch_messages,
+                        temperature=settings.temperature,
+                        top_p=settings.top_p,
+                        frequency_penalty=settings.frequency_penalty,
+                        presence_penalty=settings.presence_penalty,
+                        deadlines=[rd.get("deadline") for rd in rds],
+                        aborts=[rd["future"].cancelled for rd in rds],
+                        traces=[rd.get("trace") for rd in rds],
+                    ))
+                m.observe("generation_seconds", time.time() - t0, model=_model_label(
+                    next((a for a in answers if isinstance(a, dict)), None)))
+                m.inc("batched_generations_total")
+                m.observe("batch_occupancy", len(batch_messages))
+                _observe_engine_timings(m, next(
+                    (a for a in answers if isinstance(a, dict) and "lfkt_timings" in a), None))
+                out = []
+                for answer in answers:
+                    if isinstance(answer, dict) and "error" in answer:
+                        out.append(HTTPException(
+                            status_code=500,
+                            detail="Error during message generation: "
+                                   f"{answer['error'].get('message', 'unknown')}"))
+                        continue
+                    try:
+                        out.append(_finish_answer({}, answer, m))
+                    except HTTPException as e:
+                        out.append(e)
+                return out
+            except EngineUnavailable as e:
+                m.inc("engine_unavailable_total")
+                logger.error("Engine unavailable: %s", e)
+                raise HTTPException(status_code=503,
+                                    detail=f"Engine unavailable: {e}") from e
+            except Exception as e:  # noqa: BLE001 — the reference's 500
+                m.inc("engine_errors_total")
+                logger.error("Error during batched generation: %s", e)
+                raise HTTPException(
+                    status_code=500,
+                    detail=f"Error during message generation: {str(e)}") from e
+
+    async def _stream_task(rd):
+        """Continuous mode: one stream through a scheduler lane, no global
+        semaphore (the lanes bound concurrency); holds an in-flight permit."""
+        try:
+            await _truncate_and_stream(rd, None)
+        except Exception as e:  # noqa: BLE001 — surfaced on the SSE channel
+            logger.error("Error during streamed generation: %s", e)
+            rd["stream_queue"].put_nowait(e)
+        finally:
+            app.state.inflight.release()
+
+    async def _forward_to_scheduler(rd):
+        """Continuous mode: one request → one scheduler lane, no barrier;
+        holds an in-flight permit.  A cancelled client future (408 or a
+        disconnect) abandons the request, so its lane frees at the next
+        chunk boundary."""
+        m = app.state.metrics
+        try:
+            try:
+                messages = _messages(rd)
+                t0 = time.time()
+                engine = app.state.engine
+                engine_fut = engine.submit(messages, **_gen_kwargs(rd),
+                                           deadline=rd["deadline"], trace=rd["trace"])
+                rd["future"].add_done_callback(
+                    lambda f: engine.abandon(engine_fut) if f.cancelled() else None)
+                answer = await asyncio.wrap_future(engine_fut)
+                m.observe("generation_seconds", time.time() - t0,
+                          model=_model_label(answer))
+                _observe_engine_timings(m, answer)
+                result, err = _finish_answer(rd, answer, m), None
+            except HTTPException as e:
+                result, err = None, e
+            except ValueError as e:
+                if rd.get("openai"):
+                    result, err = None, HTTPException(status_code=400, detail=str(e))
+                else:
+                    m.inc("engine_errors_total")
+                    logger.error("Error during message generation: %s", e)
+                    result, err = None, HTTPException(
+                        status_code=500,
+                        detail=f"Error during message generation: {str(e)}")
+            except EngineUnavailable as e:
+                m.inc("engine_unavailable_total")
+                logger.error("Engine unavailable: %s", e)
+                result, err = None, HTTPException(status_code=503,
+                                                  detail=f"Engine unavailable: {e}")
+            except DeadlineExceeded:
+                m.inc("requests_timed_out_total")
+                result, err = None, HTTPException(status_code=408,
+                                                  detail="Generation timed out")
+            except Exception as e:  # noqa: BLE001 — the reference's 500
+                m.inc("engine_errors_total")
+                logger.error("Error during message generation: %s", e)
+                result, err = None, HTTPException(
+                    status_code=500, detail=f"Error during message generation: {str(e)}")
+            if rd["future"].cancelled():
+                logger.info("Future cancelled during processing; result dropped.")
+            elif err is not None:
+                rd["future"].set_exception(err)
+            else:
+                rd["future"].set_result(result)
+        finally:
+            app.state.inflight.release()
+
+    async def _truncate_and_stream(rd, semaphore):
         """One streaming generation, forwarding the engine's chunks to the
         handler's queue from the worker thread.  When the client gives up
         (timeout or disconnect cancel ``rd["future"]``) the engine's
@@ -352,7 +534,7 @@ def create_app(engine=None, settings: Settings | None = None,
             except Exception as e:  # noqa: BLE001 — surfaced as an SSE error
                 loop.call_soon_threadsafe(chunk_q.put_nowait, e)
 
-        async with app.state.semaphore:
+        async def go():
             t0 = time.time()
             await asyncio.to_thread(run)
             m.observe("generation_seconds", time.time() - t0,
@@ -365,10 +547,20 @@ def create_app(engine=None, settings: Settings | None = None,
                 _meter_tokens(m, t.get("prompt_tokens", 0),
                               t.get("completion_tokens", 0), _model_label(t))
 
+        if semaphore is None:     # continuous mode: a lane, no serialization
+            await go()
+        else:
+            async with semaphore:
+                await go()
+
     @app.on_event("startup")
     async def startup_event():
         app.state.queue = asyncio.Queue(maxsize=settings.max_queue_size)
         app.state.semaphore = asyncio.Semaphore(1)
+        # continuous mode: at most batch_size forwarded-but-unfinished
+        # requests, so the bounded queue stays the back-pressure surface
+        app.state.inflight = asyncio.Semaphore(max(1, settings.batch_size))
+        app.state.bg_tasks = set()
         app.state.health.transition(STARTING, "model loading")
         if app.state.engine is None:
             factory = engine_factory or _default_engine_factory(settings)
@@ -712,6 +904,17 @@ def create_app(engine=None, settings: Settings | None = None,
             wb = getattr(eng, "weight_bytes", 0)
             if wb:
                 m.set_gauge("model_weight_bytes", wb, model=_model_label())
+        stats = getattr(eng, "scheduler_stats", None)
+        if stats is not None:
+            snap = stats()
+            for k, v in snap.items():
+                m.set_gauge(f"scheduler_{k}", v)
+            # the admission controller's live budget and the idle
+            # lane-seconds, promoted out of the scheduler_ family
+            if "adm_budget_tokens" in snap:
+                m.set_gauge("admission_budget_tokens", snap["adm_budget_tokens"])
+            if "lane_idle_seconds" in snap:
+                m.set_gauge("lane_idle_seconds", snap["lane_idle_seconds"])
         # the memory ledger's families are rebuilt whole each scrape (a
         # vanished row must drop its series); no await between the reset
         # and the render, so a concurrent scrape never sees them half-built
@@ -904,10 +1107,13 @@ def _effective_unroll(cfg) -> int | None:
 
 def _default_engine_factory(settings: Settings):
     def factory():
-        from ..engine import Engine
+        from ..engine import ContinuousEngine, Engine, MeshEngine
 
-        eng = Engine(
-            settings.model_path,
+        if settings.scheduler not in ("continuous", "cycle"):
+            raise ValueError(
+                f"LFKT_SCHEDULER must be 'continuous' or 'cycle', "
+                f"got {settings.scheduler!r}")
+        kw = dict(
             n_ctx=settings.max_context_tokens,
             weight_format=settings.weight_format,
             decode_chunk=settings.decode_chunk,
@@ -919,6 +1125,20 @@ def _default_engine_factory(settings: Settings):
             prefix_cache=settings.prefix_cache,
             prefill_chunk=settings.prefill_chunk,
         )
+        if settings.batch_size > 1:
+            if settings.scheduler == "continuous":
+                eng = ContinuousEngine(
+                    settings.model_path, tp=settings.mesh_tp,
+                    batch_size=settings.batch_size,
+                    adm_budget=settings.adm_budget,
+                    adm_controller=settings.adm_controller,
+                    adm_ema_alpha=settings.adm_ema_alpha,
+                    lane_prefix_cache=settings.lane_prefix_cache, **kw)
+            else:
+                eng = MeshEngine(settings.model_path, tp=settings.mesh_tp,
+                                 batch_size=settings.batch_size, **kw)
+        else:
+            eng = Engine(settings.model_path, **kw)
         eng.warmup()
         return eng
     return factory

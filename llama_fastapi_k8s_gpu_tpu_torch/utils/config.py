@@ -1,8 +1,9 @@
 """Env-overridable runtime settings: the ``LFKT_*`` knobs the port reads.
 
 The same names and defaults as the JAX package's registry
-(llama_fastapi_k8s_gpu_tpu/utils/config.py), limited to what the serial
-pod reads: its routes, the engine, the watchdog and the tracer.  The reference's constants (model dir and name,
+(llama_fastapi_k8s_gpu_tpu/utils/config.py), limited to what the pod
+reads: its routes, the engines (serial and batched), the watchdog and
+the tracer.  The reference's constants (model dir and name,
 1024-token context, 25 s timeout, queue of 5) stay the defaults.
 
 The observability knobs that are no ``Settings`` field (the compile
@@ -64,6 +65,28 @@ class Settings:
     decode_layer_unroll: int = 0
     prefix_cache: bool = True          # reuse the previous request's KV prefix
     prefill_chunk: int = 256           # prompt slice size for large buckets
+    #                                    (and the continuous scheduler's
+    #                                    admission slices)
+    # the continuous scheduler's lane-prefix reuse: an admission whose
+    # prompt shares a freed lane's conversation snapshots that lane's ring
+    # and prefills only the suffix slices (explicit seeds bypass it)
+    lane_prefix_cache: bool = True
+    # admission prefill tokens a scheduler wave: the static budget with the
+    # controller off, its base with it on
+    adm_budget: int = 512
+    # the admission controller (engine/continuous.py AdmissionController):
+    # each wave's budget from EMAs of the lane-idle fraction and the decode
+    # pressure, floored at one slice
+    adm_controller: bool = True
+    adm_ema_alpha: float = 0.25        # EMA weight of the controller's signals
+    # > 1 serves batched lanes of one card; scheduler picks the flavour:
+    #   cycle      — MeshEngine: coalesce up to batch_size queued requests a
+    #                generation cycle
+    #   continuous — ContinuousEngine: free lanes admit new requests at
+    #                every chunk boundary
+    batch_size: int = 1
+    scheduler: str = "continuous"
+    mesh_tp: int = 1                   # tensor-parallel width (1: the port has no mesh)
     host: str = "0.0.0.0"
     port: int = 8000
 

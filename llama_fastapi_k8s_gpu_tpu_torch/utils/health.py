@@ -84,6 +84,12 @@ class Heartbeat:
             self._busy = max(0, self._busy - 1)
             self._last_beat = time.monotonic()
 
+    def set_busy(self, n: int) -> None:
+        """The in-flight count outright: the continuous scheduler sets it
+        once a loop pass to its queued and occupied work."""
+        with self._lock:
+            self._busy = max(0, int(n))
+
     def record_error(self, exc: BaseException) -> None:
         msg = f"{type(exc).__name__}: {exc}"
         with self._lock:

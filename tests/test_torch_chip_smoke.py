@@ -496,3 +496,166 @@ def test_spm_vocabulary_makes_the_prompts_words_whole():
     assert sum(tok.token_types[i] == TokenType.BYTE for i in ids) > 100
     text = chip_smoke.NON_ASCII
     assert tok.decode(tok.encode(text, add_bos=False)) == text
+
+
+# ---------------------------------------------------------------------------
+# the lane engines' helpers (batched serving)
+# ---------------------------------------------------------------------------
+
+def test_percentile_is_the_nearest_rank():
+    xs = [0.5, 0.1, 0.3, 0.2, 0.4]
+    assert chip_smoke.percentile(xs, 0.5) == 0.3
+    assert chip_smoke.percentile(xs, 0.95) == 0.5
+    assert chip_smoke.percentile(xs, 0.0) == 0.1
+    assert chip_smoke.percentile([], 0.5) is None
+
+
+@pytest.mark.parametrize("x,step", [(1.0, 2 ** -7), (3.0, 2 ** -6), (-0.75, 2 ** -8), (0.0, 0.0)])
+def test_bf16_step_is_one_ulp_at_the_magnitude(x, step):
+    assert chip_smoke.bf16_step(x) == step
+
+
+def test_first_diff_names_the_first_differing_index():
+    import torch
+
+    a = torch.zeros(2, 3, 4)
+    b = a.clone()
+    assert chip_smoke.first_diff(a, b) is None
+    b[1, 2, 0] = 1
+    b[1, 2, 3] = 1
+    assert chip_smoke.first_diff(a, b) == {"index": [1, 2, 0]}
+
+
+@pytest.fixture(scope="module")
+def tiny_file(tmp_path_factory):
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(vocab_size=512, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                      ffn_dim=128, n_ctx=128)
+    path = str(tmp_path_factory.mktemp("lanes") / "tiny-q8_0.gguf")
+    chip_smoke.write_gguf(cfg, path, "q8_0")
+    return path
+
+
+MSG = [{"role": "user", "content": "tell me about the sea"}]
+KW = dict(n_ctx=128, max_gen_tokens=6, decode_chunk=4, prefill_buckets=(64, 128), device="cpu")
+
+
+def test_lane_record_pairs_a_cycles_prompts_and_replies(tiny_file):
+    """The cycle engine's answered entries, in order: each prompt's ids (the
+    engine's tokenizer), its generated ids (what the reply decodes) and its
+    finish_reason; an oversized entry is left out."""
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import MeshEngine
+
+    eng = MeshEngine(tiny_file, batch_size=3, **KW)
+    msgs = [MSG, [{"role": "user", "content": "x" * 600}],
+            [{"role": "user", "content": "another prompt"}]]
+    want = [eng.tokenize_messages(m) for m in (msgs[0], msgs[2])]
+    sink: list = []
+    chip_smoke.lane_record(eng, sink)
+    outs = eng.create_chat_completions(msgs, temperature=0.0, max_tokens=5)
+    assert [r["prompt"] for r in sink] == want
+    answered = [outs[0], outs[2]]
+    for rec, out in zip(sink, answered):
+        assert len(rec["ids"]) == out["usage"]["completion_tokens"]
+        assert rec["finish_reason"] == out["choices"][0]["finish_reason"]
+        assert eng._decode_text(rec["ids"]) == out["choices"][0]["message"]["content"]
+        assert rec["ttft_s"] > 0 and rec["stream"] is False
+
+
+def test_lane_record_takes_the_continuous_engines_finished_slots(tiny_file):
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import ContinuousEngine
+
+    eng = ContinuousEngine(tiny_file, batch_size=2, **KW)
+    sink: list = []
+    chip_smoke.lane_record(eng, sink)
+    try:
+        out = eng.submit(MSG, temperature=0.0, max_tokens=5).result(timeout=60)
+        list(eng.submit_stream(MSG, temperature=0.0, max_tokens=5))
+    finally:
+        eng.shutdown()
+    assert [r["stream"] for r in sink] == [False, True]
+    assert sink[0]["prompt"] == eng.tokenize_messages(MSG)
+    assert len(sink[0]["ids"]) == out["usage"]["completion_tokens"]
+    assert sink[0]["ids"] == sink[1]["ids"]
+    assert sink[0]["finish_reason"] == out["choices"][0]["finish_reason"]
+
+
+def test_serial_reply_is_the_serial_engines_reply_to_the_ids(tiny_file):
+    """The serial engine fed prompt ids directly generates what it does for
+    the messages those ids encode, under the same knobs; its tokenizer is
+    back afterwards."""
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    eng = Engine(tiny_file, prefix_cache=False, **KW)
+    sp = chip_smoke.served_sampling(Settings(temperature=0.0))
+    sink: list = []
+    chip_smoke.record_replies(eng, 0, sink)
+    eng.create_chat_completion(MSG, temperature=0.0, top_p=sp.top_p,
+                               frequency_penalty=sp.frequency_penalty,
+                               presence_penalty=sp.presence_penalty, max_tokens=5)
+    ids = eng.tokenize_messages(MSG)
+    assert chip_smoke.serial_reply(eng, ids, 5, sp) == sink[0]["ids"]
+    assert eng.tokenize_messages(MSG) == ids and "tokenize_messages" not in vars(eng)
+
+
+def test_clone_and_restore_lanes_round_trip():
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel.batched import init_batched_state
+
+    cfg = ModelConfig(vocab_size=64, dim=64, n_layers=1, n_heads=2, n_kv_heads=1, ffn_dim=96,
+                      n_ctx=16, kv_dtype="int8")
+    state = init_batched_state(cfg, 2, "cpu")
+    saved = chip_smoke.clone_lanes(state)
+    draws = [torch.rand(3, generator=g) for g in state["gens"]]
+    state["pos"] += 5
+    state["cache"]["k_q"].fill_(3)
+    state["slots"] = [9, 9]
+    chip_smoke.restore_lanes(state, saved)
+    assert state["pos"].tolist() == [0, 0] and not state["cache"]["k_q"].any()
+    assert state["slots"] == [0, 0]
+    assert all(torch.equal(torch.rand(3, generator=g), d)
+               for g, d in zip(state["gens"], draws))
+
+
+def test_every_lane_engine_names_its_kernels_and_an_earlier_source():
+    """Each lane engine lists the kernels its served path must launch; one
+    that serves another's weights names an earlier engine of the same
+    file; a per-layer int8-ring engine is among them (kernel 10's lane
+    axis on a served path)."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import KERNELS
+
+    labels = [row[0] for row in chip_smoke.LANES]
+    assert set(chip_smoke.LANE_KERNELS) == set(labels) and chip_smoke.LANE_DRILLS in labels
+    for i, row in enumerate(chip_smoke.LANES):
+        assert set(chip_smoke.LANE_KERNELS[row[0]]) <= set(KERNELS)
+        if row[-1] is not None:
+            src = next(r for r in chip_smoke.LANES[:i] if r[0] == row[-1])
+            assert src[1] == row[1]
+    assert any(r[3] == "int8" and r[4] == 0 and "kv_quantize" in chip_smoke.LANE_KERNELS[r[0]]
+               for r in chip_smoke.LANES)
+
+
+def test_phase_all_lanes_hands_an_engines_weights_to_the_next(monkeypatch):
+    calls = []
+
+    def fake(label, layout, path, counters, fmt, kv_dtype, unroll, lanes, scheduler, clients,
+             parts=None):
+        calls.append((label, path, parts))
+        return {"kv_quantize": 1, "q4k_matmul": 2}, ("weights of", label)
+
+    monkeypatch.setattr(chip_smoke, "phase_lanes", fake)
+    counters = dict.fromkeys(["kv_quantize", "q4k_matmul", "decode_loop"])
+    paths = {"q4km": "a.gguf", "q8_0": "b.gguf"}
+    got = chip_smoke.phase_all_lanes(paths, counters)
+    assert [(c[0], c[2]) for c in calls] == [
+        ("lanes_q4km", None), ("lanes_q4km_int8", ("weights of", "lanes_q4km")),
+        ("cycle_q8_0_bf16_loop8", None)]
+    assert [c[1] for c in calls] == ["a.gguf", "a.gguf", "b.gguf"]
+    assert got == {"kv_quantize": 3, "q4k_matmul": 6, "decode_loop": 0}
+    calls.clear()
+    chip_smoke.phase_all_lanes(paths, counters, ["lanes_q4km_int8"])
+    assert calls == [("lanes_q4km_int8", "a.gguf", None)]

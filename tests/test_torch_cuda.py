@@ -1096,3 +1096,301 @@ def test_host_codec_types_expand_on_the_card_bit_exact(cuda, gtype, tmp_path):
         assert torch.equal(got32, want.float())
     else:
         assert torch.equal(got32.view(torch.int32), host.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# batched serving: kernel 10's lane axis, the lane graphs, the lane engines
+# ---------------------------------------------------------------------------
+
+def _lane_write_case(cuda, B, slots, n_ctx=1024, n_kv=8, hd=128, L=3, layer=1):
+    """B tokens' k/v, their table, and two lane-major caches (B, L, n_kv,
+    n_ctx, hd) of random codes and scales: one for the kernel, one for the
+    plain version."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops.rope import rope_cos_sin
+
+    g = torch.Generator(device=cuda).manual_seed(B * 7 + len(slots))
+    k = (torch.randn(B, n_kv, hd, generator=g, device=cuda) * 4).to(torch.bfloat16)
+    v = torch.randn(B, n_kv, hd, generator=g, device=cuda).to(torch.bfloat16)
+    positions = torch.tensor(slots, dtype=torch.int64, device=cuda)
+    cos, sin = rope_cos_sin(positions.clamp(0, n_ctx - 1), hd, 500000.0)
+    q = torch.randint(-127, 128, (2, B, L, n_kv, n_ctx, hd), generator=g, device=cuda,
+                      dtype=torch.int8)
+    s = torch.rand(2, B, L, n_kv, n_ctx, generator=g, device=cuda)
+    return k, v, cos, sin, positions, q, s, layer
+
+
+@pytest.mark.parametrize("B,slots", [(1, [700]), (3, [0, 700, 1023]),
+                                     (8, [0, 700, 1023, 5, 1024, 511, 999, 1])])
+def test_kv_quantize_lanes_bit_exact(cuda, B, slots):
+    """One launch writes token t into lane t of a layer's lane-major ring at
+    its own slot, bit for bit the plain version's indexed write; a lane whose
+    slot is out of range (1024) keeps its ring; every other slot and layer
+    is untouched; and from a CUDA graph with the slots changed between
+    replays it writes where the slots point."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import kvquant
+
+    k, v, cos, sin, positions, q, s, i = _lane_write_case(cuda, B, slots)
+    want_q, want_s = q.clone(), s.clone()
+    before = kvquant.kv_quantize.launches
+    kvquant.kv_quantize(k, v, cos, sin, positions, q[0][:, i], q[1][:, i], s[0][:, i],
+                        s[1][:, i])
+    kvquant.kv_quantize_lanes_plain(k, v, cos, sin, positions, want_q[0][:, i],
+                                    want_q[1][:, i], want_s[0][:, i], want_s[1][:, i])
+    torch.cuda.synchronize()
+    assert kvquant.kv_quantize.launches == before + 1
+    assert torch.equal(q, want_q)
+    assert torch.equal(s.view(torch.int32), want_s.view(torch.int32))
+    # the plain lane write is B serial writes into each lane's ring
+    serial_q, serial_s = q.clone(), s.clone()
+    for b, slot in enumerate(slots):
+        if slot < 1024:
+            at = positions[b:b + 1]
+            kvquant.kv_quantize_plain(k[b:b + 1], v[b:b + 1], cos[b:b + 1], sin[b:b + 1], at,
+                                      serial_q[0][b, i], serial_q[1][b, i], serial_s[0][b, i],
+                                      serial_s[1][b, i])
+    assert torch.equal(serial_q, q) and torch.equal(serial_s, s)
+    # from a graph, the slots moved between replays
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kvquant.kv_quantize(k, v, cos, sin, positions, q[0][:, i], q[1][:, i], s[0][:, i],
+                            s[1][:, i])
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        kvquant.kv_quantize(k, v, cos, sin, positions, q[0][:, i], q[1][:, i], s[0][:, i],
+                            s[1][:, i])
+    moved = [(x + 37) % 1024 for x in slots]
+    positions.copy_(torch.tensor(moved))
+    graph.replay()
+    kvquant.kv_quantize_lanes_plain(k, v, cos, sin, positions, want_q[0][:, i],
+                                    want_q[1][:, i], want_s[0][:, i], want_s[1][:, i])
+    torch.cuda.synchronize()
+    assert torch.equal(q, want_q)
+    assert torch.equal(s.view(torch.int32), want_s.view(torch.int32))
+
+
+def _tiny_lanes(cuda, fmt, kv_dtype, unroll, B=4, n_ctx=256):
+    """(cfg, params) of :func:`_tiny_decode` and a lane graph set over B
+    lanes with every lane prefilled with its own prompt."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import lane_view
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel.batched import LaneGraphs, batched_prefill
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import PENALTY_WINDOW
+
+    cfg, params = _tiny_decode(cuda, fmt, kv_dtype, unroll)
+    graphs = LaneGraphs(params, cfg, B, cuda)
+    s = graphs.state
+    lengths = [5 + 17 * b for b in range(B)]
+    tokens = torch.zeros(B, max(lengths), dtype=torch.int64, device=cuda)
+    for b, n in enumerate(lengths):
+        tokens[b, :n] = torch.arange(3 + b, 3 + b + n) % cfg.vocab_size
+    with torch.inference_mode():
+        logits = batched_prefill(params, cfg, tokens, lengths, s["cache"])
+        s["token"].copy_(logits.argmax(-1))
+        s["pos"].copy_(torch.tensor(lengths))
+        s["wpos"].copy_(torch.tensor(lengths))
+        s["window"].copy_(torch.arange(B * PENALTY_WINDOW).reshape(B, -1) % 50)
+        s["slots"] = list(lengths)
+        for b, gen in enumerate(s["gens"]):
+            gen.manual_seed(100 + b)
+    assert lane_view(s["cache"], 0)[next(iter(s["cache"]))].is_contiguous()
+    return cfg, params, graphs
+
+
+def _clone_lanes(state, cuda):
+    out = {k: state[k].clone() for k in ("pos", "token", "window", "wpos", "out")}
+    out["cache"] = {k: v.clone() for k, v in state["cache"].items()}
+    out["gens"] = []
+    for g in state["gens"]:
+        c = torch.Generator(device=cuda)
+        c.set_state(g.get_state())
+        out["gens"].append(c)
+    out["slots"] = list(state["slots"])
+    return out
+
+
+@pytest.mark.parametrize("fmt,kv_dtype,unroll", [("bf16", "bf16", 0), ("bf16", "int8", 0),
+                                                 ("bf16", "int8", 1), ("int8", "bf16", -1)])
+def test_lane_graph_replay_matches_the_eager_lane_step(cuda, fmt, kv_dtype, unroll):
+    """16 replays of the lane step against 16 eager lane steps on a clone of
+    the state, the lanes at different slots with different knobs (greedy,
+    sampled, k=1): tokens, the bookkeeping and every ring leaf bit-identical;
+    the counters grow by the per-replay launches (kernel 10 once a layer for
+    all lanes, the looped kernel once a lane and launch)."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import KERNELS
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel.batched import (
+        generate_chunk_lanes,
+        lane_step,
+    )
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import SamplingParams, lane_tensors
+
+    B = 4
+    cfg, params, graphs = _tiny_lanes(cuda, fmt, kv_dtype, unroll, B)
+    sps = [SamplingParams(temperature=0.0), SamplingParams(),
+           SamplingParams(temperature=1.5, top_k=1), SamplingParams(temperature=0.7, top_p=0.5)]
+    with torch.inference_mode():
+        for k, t in lane_tensors(sps, cuda).items():
+            graphs.knobs[k].copy_(t)
+        eager = _clone_lanes(graphs.state, cuda)
+        est = {k: t.clone() for k, t in graphs.knobs.items()}
+        graphs.capture()
+        step = graphs.step_launches()
+        per_lane = cfg.n_layers // (cfg.n_layers if unroll < 0 else unroll) if unroll else 0
+        assert step == ({"decode_loop": B * per_lane} if unroll
+                        else {"kv_quantize": cfg.n_layers} if kv_dtype == "int8" else {})
+        before = {name: fn.launches for name, fn in KERNELS.items()}
+        got = [generate_chunk_lanes(params, cfg, graphs.state, graphs.knobs, 8, 64).rows()
+               for _ in range(2)]
+        after = {name: fn.launches for name, fn in KERNELS.items()}
+        want = [torch.stack([lane_step(params, cfg, eager, est, 64) for _ in range(8)])
+                for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, n in step.items():
+        assert after[name] - before[name] == 16 * n
+    assert [g.tolist() for g in got] == [w.cpu().tolist() for w in want]
+    s = graphs.state
+    for k in ("pos", "wpos", "window", "token", "out"):
+        assert torch.equal(s[k], eager[k]), k
+    for k in s["cache"]:
+        assert torch.equal(s["cache"][k], eager["cache"][k]), k
+    graphs.close()
+
+
+def test_a_lane_step_leaves_the_other_lanes_untouched(cuda):
+    """One replay after lane 2's token and knobs changed: the other lanes'
+    tokens and every one of their ring leaves are bit-identical to a replay
+    without the change."""
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel.batched import generate_chunk_lanes
+
+    cfg, params, graphs = _tiny_lanes(cuda, "bf16", "int8", 0)
+    with torch.inference_mode():
+        base = _clone_lanes(graphs.state, cuda)
+        a = generate_chunk_lanes(params, cfg, graphs.state, graphs.knobs, 1, 64).rows()
+        ring_a = {k: v.clone() for k, v in graphs.state["cache"].items()}
+        s = graphs.state
+        for k in ("pos", "token", "window", "wpos", "out"):
+            s[k].copy_(base[k])
+        for k, v in base["cache"].items():
+            s["cache"][k].copy_(v)
+        for g, c in zip(s["gens"], base["gens"]):
+            g.set_state(c.get_state())
+        s["slots"] = list(base["slots"])
+        s["token"][2] = (int(s["token"][2]) + 1) % cfg.vocab_size
+        graphs.knobs["temperature"][2] = 1.0
+        b = generate_chunk_lanes(params, cfg, s, graphs.knobs, 1, 64).rows()
+    torch.cuda.synchronize()
+    others = [0, 1, 3]
+    assert a[:, others].tolist() == b[:, others].tolist()
+    for k, v in s["cache"].items():
+        assert torch.equal(v[others], ring_a[k][others]), k
+    graphs.close()
+
+
+def test_a_free_lane_at_the_last_slot_replays_then_admits(cuda, tmp_path):
+    """A lane parked at slot n_ctx-1 decodes 64 replays on its clamped slot
+    (no device assert: the context stays usable), its writes stay in its own
+    last slot, and the next admission in that lane serves the serial
+    engine's greedy reply."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import ContinuousEngine, Engine
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      ffn_dim=512, n_ctx=256)
+    path = str(tmp_path / "tiny-q8_0.gguf")
+    chip_smoke.write_gguf(cfg, path, "q8_0")
+    kw = dict(n_ctx=256, max_gen_tokens=48, prefill_buckets=(64, 128, 256), device=cuda)
+    eng = ContinuousEngine(path, batch_size=2, lane_prefix_cache=False, **kw)
+    try:
+        eng.warmup()
+        serial = Engine.from_parts(eng.params, eng.cfg, eng.tokenizer, eng.template_kind)
+        want = serial.create_chat_completion(SERVED_MSGS, temperature=0.0, max_tokens=40)
+        s = eng._bstate
+        ring = {k: v[1].clone() for k, v in s["cache"].items()}
+        with torch.inference_mode():
+            s["pos"][1] = cfg.n_ctx - 1             # lane 1 idle at the ring's end
+        s["slots"][1] = cfg.n_ctx - 1
+        long = eng.submit(SERVED_MSGS, temperature=0.0, max_tokens=40 + 64)
+        long.result(timeout=120)                    # ≥ 64 replays with lane 1 parked
+        torch.cuda.synchronize()
+        assert int(s["pos"][1]) >= cfg.n_ctx - 1 + 64
+        for k, v in s["cache"].items():
+            assert torch.equal(v[1][:, :, :cfg.n_ctx - 1], ring[k][:, :, :cfg.n_ctx - 1]), k
+        got = [eng.submit(SERVED_MSGS, temperature=0.0, max_tokens=40) for _ in range(2)]
+        for f in got:
+            assert f.result(timeout=120)["choices"] == want["choices"]
+        serial.close()
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("fmt,kv_dtype", [("bf16", "bf16"), ("int8", "int8")])
+def test_looped_lanes_within_served_tol_of_per_layer_lanes(cuda, fmt, kv_dtype):
+    """8 lane steps with the looped kernel once per lane against the
+    per-layer lane step on clones of the same state, teacher-forced on the
+    per-layer tokens: logits and the ring slots written within 5·10⁻²
+    rel-dev (chip_smoke's SERVED_TOL)."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import forward_lanes
+
+    cfg, params, graphs = _tiny_lanes(cuda, fmt, kv_dtype, -1)
+    cfg_layer = dataclasses.replace(cfg, decode_layer_unroll=0)
+    s = graphs.state
+    a = {k: v.clone() for k, v in s["cache"].items()}
+    b = {k: v.clone() for k, v in s["cache"].items()}
+    tok, pos = s["token"].clone(), s["pos"].clone()
+    with torch.inference_mode():
+        for _ in range(8):
+            la = forward_lanes(params, cfg, tok, pos, a)
+            lb = forward_lanes(params, cfg_layer, tok, pos, b)
+            assert _rel(la, lb) <= 5e-2
+            tok, pos = lb.argmax(-1), pos + 1
+    torch.cuda.synchronize()
+    for k in a:
+        assert _rel(a[k].float(), b[k].float()) <= 5e-2, k
+    graphs.close()
+
+
+@pytest.mark.parametrize("scheduler", ["continuous", "cycle"])
+def test_lane_engines_greedy_equal_serial_on_the_card(cuda, tmp_path, scheduler):
+    """The continuous and the cycle engine on the card (lane graphs): a wave
+    of greedy requests, more than lanes, each equal to the serial engine's
+    reply on the same weights."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import ContinuousEngine, Engine, MeshEngine
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      ffn_dim=512, n_ctx=256)
+    path = str(tmp_path / "tiny-q8_0.gguf")
+    chip_smoke.write_gguf(cfg, path, "q8_0")
+    kw = dict(n_ctx=256, max_gen_tokens=48, prefill_buckets=(64, 128, 256), device=cuda)
+    prompts = [[{"role": "user", "content": f"wave {i} " * (1 + i % 4)}] for i in range(6)]
+    if scheduler == "continuous":
+        eng = ContinuousEngine(path, batch_size=4, **kw)
+    else:
+        eng = MeshEngine(path, batch_size=4, **kw)
+    try:
+        eng.warmup()
+        serial = Engine.from_parts(eng.params, eng.cfg, eng.tokenizer, eng.template_kind)
+        want = [serial.create_chat_completion(p, temperature=0.0, max_tokens=24)
+                ["choices"][0]["message"]["content"] for p in prompts]
+        if scheduler == "continuous":
+            futs = [eng.submit(p, temperature=0.0, max_tokens=24) for p in prompts]
+            got = [f.result(timeout=120)["choices"][0]["message"]["content"] for f in futs]
+        else:
+            got = [o["choices"][0]["message"]["content"] for i in (0, 4)
+                   for o in eng.create_chat_completions(prompts[i:i + 4], temperature=0.0,
+                                                        max_tokens=24)]
+        assert got == want
+        assert eng._lane_graphs.replays > 0
+        serial.close()
+    finally:
+        eng.close()
