@@ -139,7 +139,28 @@ and no result line):
    state, bit-identical), ``lane_isolation`` (one lane's inputs changed:
    the other lanes' logits, tokens and rings bit-identical) and
    ``lane_route`` (each fused linear's route and µs in a replay's
-   profile, beside the decode attention's ms alone);
+   profile, beside the decode attention's ms alone).  Then the paged KV
+   pool and prompt-lookup speculation on the Q4_K_M weights (not loaded
+   again; pages of 128 tokens): ``paged`` (serial, bf16 ring: the short,
+   long and follow-up requests and a second conversation opening as the
+   short one does, first on a dense engine, then on a paged one — reused
+   tokens and TTFT beside the dense engine's, the pool's occupancy, a
+   4-page restore and store in ms beside their bound, the memory rows,
+   each greedy reply against the dense one), ``restored_graph`` (pages
+   restored into the captured ring, then replays against the eager step,
+   bit-identical), ``paged_int8`` (the int8 ring, the pool one context's
+   8 pages with a 16-page host tier: a conversation spilled and restored,
+   its pages byte-equal to an export before the spill, its reply equal to
+   the one under no pressure), ``paged_lanes`` (4 continuous lanes, 8
+   clients opening alike: cross-lane radix hits, TTFT p50/p95, no lease
+   left), ``spec`` (serial, ``spec_decode=lookup``, D = 8: a repetitive
+   prompt, then an always-hit draft; acceptance, parity with vanilla
+   greedy replies, the verify round's ms from its graph and eager beside a
+   decode replay's, each fused linear's route and µs at 9 rows,
+   ``spec_auto``'s decision on the card), ``verify_graph`` (verify replays
+   against the eager verify, bit-identical) and ``spec_lanes`` (4
+   continuous lanes under speculation, the lanes' replies against the
+   serial vanilla engine's);
 6. a ``dequant_rank`` line: each dequant's launches × (time − bound)
    over the first six engines' loads, shape by shape (launches from the
    load plan, checked against the wrappers' counters of phase 5), largest
@@ -2083,8 +2104,11 @@ def reply_changes(now: list, before: list) -> list:
 def top2_margin(eng, prompt: list, ids: list, at: int, sp) -> dict:
     """The top-2 margin of the served sampling chain's penalized logits at
     reply token ``at``: one prompt pass over the prompt and the reply's
-    first ``at`` tokens on a scratch ring (the reply's own steps were
-    decode steps, so this reads the same logits to ~10⁻² rel-dev)."""
+    first ``at`` tokens on a scratch ring.  The reply's own steps were
+    decode steps, so this re-reads the chain's logits with other
+    arithmetic: on the H100 the two margins differed by up to two bf16
+    steps, with the two tokens ranked the other way round
+    (:func:`chain_margin` reads the chain itself)."""
     import torch
 
     from llama_fastapi_k8s_gpu_tpu_torch.models.generate import prefill
@@ -2105,13 +2129,60 @@ def top2_margin(eng, prompt: list, ids: list, at: int, sp) -> dict:
             "margin_rel": ((top.values[0] - top.values[1]) / pen.abs().max()).item()}
 
 
-def check_graph(label: str, eng, ids: list, steps: int = 64) -> dict:
+def chain_margin(serial, prompt: list, ids: list, at: int, sp) -> dict:
+    """The top-2 margin of the serial engine's own chain at reply token
+    ``at`` (``ids`` is that engine's greedy reply to ``prompt``): the
+    engine serves the first ``at`` tokens again (its ring then holds the
+    prompt and ``ids[:at-1]`` as its decode steps wrote them), then one
+    eager decode step feeds ``ids[at-1]`` — the step a replay runs, bit for
+    bit — and the sampling chain's penalties are applied to its logits.
+    ``serial`` must reuse no prefix (``prefix_cache=False``, not paged).
+    For ``at == 0`` the chain's logits are its prompt pass's
+    (:func:`top2_margin`).  Also gives :func:`top2_margin`'s reading
+    (``prompt_pass_margin``), which re-reads the chain by a prompt pass."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import forward
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import (
+        apply_penalties,
+        sampling_tensors,
+        seed_window,
+    )
+
+    approx = top2_margin(serial, prompt, ids, at, sp)
+    if at == 0:
+        return {**approx, "read": "prompt_pass", "prompt_pass_margin": approx["margin"]}
+    if serial._prefix_cache or getattr(serial, "_kv_paged", False):
+        raise ValueError("chain_margin needs an engine that reuses no prefix")
+    again = serial_reply(serial, prompt, at, sp)
+    if again != ids[:at]:
+        raise AssertionError(f"the serial engine's reply is not reproducible: {again} "
+                             f"against {ids[:at]}")
+    n = len(prompt)
+    with serial._lock, torch.inference_mode():
+        logits = forward(serial.params, serial.cfg,
+                         torch.tensor(ids[at - 1:at], device=serial.device),
+                         torch.tensor(n + at - 1, device=serial.device), serial._cache)
+        window, _ = seed_window(prompt + ids[:at], serial.device)
+        pen = apply_penalties(logits.float(), window, sampling_tensors(sp, serial.device))
+        top = torch.topk(pen, 2)
+    return {"top2": top.indices.tolist(), "top": top.values[0].item(),
+            "margin": (top.values[0] - top.values[1]).item(),
+            "margin_rel": ((top.values[0] - top.values[1]) / pen.abs().max()).item(),
+            "read": "chain", "prompt_pass_margin": approx["margin"]}
+
+
+def check_graph(label: str, eng, ids: list, steps: int = 64, restore: bool = False) -> dict:
     """Decode by graph replay against the eager step: prefill ``ids`` into
     the engine's ring, clone it, then ``steps`` greedy tokens by replays of
     the engine's captured step (chunks of the engine's size) and by the
     eager step on the clone, from the same first sample.  Tokens and every
     cache leaf must be bit-identical; reports the first differing token and
-    ring slot, the capture times, the keys held and replays per token."""
+    ring slot, the capture times, the keys held and replays per token.
+    With ``restore`` (a paged engine) the ring's prefix comes from the
+    pool instead: the longest cached whole-page prefix of ``ids`` copied
+    into the captured ring in place, then the suffix prefilled behind it
+    (line ``restored_graph``)."""
     import torch
 
     from llama_fastapi_k8s_gpu_tpu_torch.models.generate import (
@@ -2125,10 +2196,14 @@ def check_graph(label: str, eng, ids: list, steps: int = 64) -> dict:
 
     graphs = eng._graphs
     sp = SamplingParams(temperature=0.0)
+    reused = 0
     with eng._lock, torch.inference_mode():
         cache = eng._cache
-        logits = prefill(eng.params, eng.cfg, torch.tensor(ids, device=eng.device), len(ids),
-                         cache)
+        if restore:
+            reused, logits = restore_prefill(eng, ids)
+        else:
+            logits = prefill(eng.params, eng.cfg, torch.tensor(ids, device=eng.device),
+                             len(ids), cache)
         ring = {k: v.clone() for k, v in cache.items()}
         st = graphs.knobs(sampling_tensors(sp, eng.device))
         state = graphs.state(ids, 0)
@@ -2153,16 +2228,40 @@ def check_graph(label: str, eng, ids: list, steps: int = 64) -> dict:
                 layer, head, slot = bad[0].tolist()
                 diff_slot[name] = {"layer": layer, "head": head, "slot": slot}
     out = {"file": label, "capture_s": graphs.captures, "keys": graphs.keys,
+           **({"restored_tokens": reused} if restore else {}),
            "steps": steps, "positions": [len(ids), len(ids) + steps - 1],
            "replays_per_token": replays / steps,
            "tokens_identical": diff_tok is None and len(got) == len(want),
            "first_token_diff": diff_tok, "cache_identical": not diff_slot,
            "first_cache_diff": diff_slot or None}
-    say("graph", **out)
-    if not (out["tokens_identical"] and out["cache_identical"]):
-        raise AssertionError(f"{label}: graph replay is not bit-identical to the eager step: "
-                             f"{out}")
+    say("restored_graph" if restore else "graph", **out)
+    if not (out["tokens_identical"] and out["cache_identical"]) or (restore and not reused):
+        raise AssertionError(f"{label}: graph replay is not bit-identical to the eager step "
+                             f"(or nothing was restored): {out}")
     return out
+
+
+def restore_prefill(eng, ids: list) -> tuple:
+    """The paged engine's reuse by hand: the longest cached whole-page
+    prefix of ``ids`` (one token left to prefill) restored from its pool
+    into its ring in place, the suffix prefilled behind it.  Returns
+    (restored tokens, the last token's logits)."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import prefill_chunk
+
+    pool = eng._kvpool
+    T = pool.page_tokens
+    r = (min(pool.match_len(ids), len(ids) - 1) // T) * T
+    lease = pool.acquire(ids, r) if r else None
+    if lease is None:
+        raise AssertionError(f"the pool holds no whole page of these {len(ids)} ids")
+    try:
+        pool.restore(lease, eng._cache)
+    finally:
+        pool.release(lease)
+    suffix = torch.tensor(ids[r:], device=eng.device)
+    return r, prefill_chunk(eng.params, eng.cfg, suffix, r, len(ids) - r - 1, eng._cache)
 
 
 #: kernel-name fragments (lower case) of each part of a decode token; the
@@ -2587,6 +2686,14 @@ EVENT_FAMILIES = ("requests_rejected_total", "requests_timed_out_total",
 LANE_FAMILIES = {"continuous": ("scheduler_", "admission_budget_tokens", "lane_idle_seconds",
                                 "mem_pressure_events_total"),
                  "cycle": ("batched_generations_total", "batch_occupancy")}
+#: catalog families of the paged pool and of speculation alone: a
+#: dense pod without speculation never shows them; the paged and spec
+#: phases check that theirs render
+PAGED_FAMILIES = ("kv_pool_pages_used", "kv_pool_pages_free", "prefix_cache_misses_total",
+                  "prefix_cache_evictions_total", "prefix_cache_spills_total",
+                  "prefix_cache_restores_total", "prefix_reuse_tokens")
+SPEC_FAMILIES = ("spec_drafted_tokens_total", "spec_accepted_tokens_total",
+                 "spec_verify_steps_total", "spec_fallback_steps_total")
 
 
 def devtime_delta(before: dict, after: dict) -> dict:
@@ -2881,9 +2988,10 @@ def check_metrics_families(label, port) -> None:
         obs_families=[f for f in OBS_FAMILIES if f in families],
         outside_catalog=rendered_outside)
     need = set(OBS_FAMILIES) - {"incidents_total"}      # the recorder is off here
-    lanes_only = {f for fams in LANE_FAMILIES.values() for f in fams}
+    others_only = {f for fams in LANE_FAMILIES.values() for f in fams} | set(PAGED_FAMILIES) \
+        | set(SPEC_FAMILIES)
     if (st != 200 or not need <= families or rendered_outside
-            or not set(missing) <= set(EVENT_FAMILIES) | lanes_only):
+            or not set(missing) <= set(EVENT_FAMILIES) | others_only):
         raise AssertionError(f"metrics_families: {st}, missing {missing}, outside the "
                              f"catalog {rendered_outside}")
 
@@ -3708,9 +3816,10 @@ def check_lane_parity(label: str, eng, records: list, settings, serial_cfg) -> d
     """Each distinct greedy reply of the lanes against the port's serial
     ``Engine`` on the same weights and prompt (``serial_cfg``: per-layer
     decode): the same ids, or the first differing token with the
-    serial chain's top-2 margin there (:func:`top2_margin`) — a parting
+    serial chain's top-2 margin there (:func:`chain_margin`) — a parting
     passes only where that margin is within two bf16 steps of the top
-    logit (the lane step's linears take another route than B=1's)."""
+    logit (the lane step's and the verify pass's linears take another
+    route than B=1's)."""
     from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
 
     serial = Engine.from_parts(eng.params, serial_cfg, eng.tokenizer, eng.template_kind,
@@ -3731,7 +3840,7 @@ def check_lane_parity(label: str, eng, records: list, settings, serial_cfg) -> d
             row = {"prompt_tokens": len(rec["prompt"]), "tokens": len(rec["ids"]),
                    "reused": rec.get("reused", 0), "equal": at is None}
             if at is not None:
-                m = top2_margin(serial, rec["prompt"], want, at, sp)
+                m = chain_margin(serial, rec["prompt"], want, at, sp)
                 row.update(first_diff=at, lane=rec["ids"][at] if at < len(rec["ids"]) else None,
                            serial=want[at] if at < len(want) else None, **m,
                            near_tie=m["margin"] <= 2 * bf16_step(m["top"]))
@@ -3915,6 +4024,7 @@ def phase_lanes(label: str, layout: str, path: str, counters: dict, weight_forma
                    "chars": len(sse_text(stream["events"])[0])} if stream else None,
         **extra}
     say("lanes", **lane_line)
+    LANE_LINES[label] = lane_line
     bad = [r for r in results if r is None or r[0] != 200 or not (r[1] or {}).get("response")]
     if bad or not alive or (stream and stream["status"] != 200) or extra["metrics_missing"]:
         raise AssertionError(f"{label}: wave requests failed: {bad}, httpd alive {alive}, "
@@ -3951,12 +4061,14 @@ def phase_lanes(label: str, layout: str, path: str, counters: dict, weight_forma
     return launches, parts
 
 
-def phase_all_lanes(paths: dict, counters: dict, names=None) -> dict:
+def phase_all_lanes(paths: dict, counters: dict, names=None, keep: dict | None = None) -> dict:
     """Each lane engine of :data:`LANES` (those in ``names``, all by
     default) served by :func:`phase_lanes` from ``paths`` (layout → file),
     an engine's weights held while a later one serves them (one that
     finds them missing loads the file); returns each kernel's launches
-    summed over them."""
+    summed over them.  With ``keep``, the weights of :data:`PAGED_SOURCE`
+    are handed out as ``keep["parts"]`` (the paged and speculative
+    phases serve them)."""
     launches = dict.fromkeys(counters, 0)
     held: dict = {}
     for label, layout, fmt, kv_dtype, unroll, lanes, scheduler, clients, src in LANES:
@@ -3966,9 +4078,757 @@ def phase_all_lanes(paths: dict, counters: dict, names=None) -> dict:
                                     unroll, lanes, scheduler, clients, parts=held.pop(src, None))
         if any(row[-1] == label for row in LANES):
             held[label] = parts
+        if keep is not None and label == PAGED_SOURCE:
+            keep["parts"] = parts
         del parts
         for name, n in served.items():
             launches[name] += n
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the paged KV pool and prompt-lookup speculation, on the Q4_K_M weights
+# ---------------------------------------------------------------------------
+
+#: the lane engine whose weights (the Q4_K_M file's, not loaded again) the
+#: paged and speculative phases serve
+PAGED_SOURCE = "lanes_q4km_int8"
+#: each lane engine's ``lanes`` line (its TTFTs beside the paged lanes')
+LANE_LINES: dict = {}
+#: token slots a pool page (the reference's default)
+PAGE_TOKENS = 128
+#: a second conversation that opens as SHORT_CTX does: its first message
+#: and the system prompt behind it are the prefix the two share
+SECOND_CTX = [("user", "hi"), ("assistant", "hello there!"),
+              ("user", "what is your favourite book?")]
+#: two more openings: they push the small int8 pool past its pages
+PRESSURE_CTXS = [[("user", f"good evening, it is {w} here."), ("assistant", "how lovely."),
+                  ("user", STORY[:100])] for w in ("raining", "snowing")]
+#: a prompt that repeats itself, so prompt-lookup drafts hit
+REPEAT_CTX = [("user", "say it again: " + "the boats sail by the old bridge. " * 8)]
+#: the speculative phases' draft length (the reference's default)
+SPEC_DRAFT = 8
+#: the kernels each paged or speculative phase's served path must launch
+PAGED_KERNELS = {
+    "paged": ("q4k_matmul", "q6k_matmul", "flash_attention"),
+    "paged_int8": ("q4k_matmul", "q6k_matmul", "kv_quantize", "flash_attention_int8"),
+    "paged_lanes": ("q4k_matmul", "q6k_matmul", "flash_attention"),
+    "spec": ("q4k_matmul", "q6k_matmul", "flash_attention"),
+    "spec_int8": ("q4k_matmul", "q6k_matmul", "kv_quantize", "flash_attention_int8"),
+    "spec_lanes": ("q4k_matmul", "q6k_matmul", "flash_attention"),
+    "spec_lanes_int8": ("q4k_matmul", "q6k_matmul", "kv_quantize", "flash_attention_int8"),
+}
+
+
+def zero_counters(counters: dict) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_launches(label: str, counters: dict) -> dict:
+    """The kernels' launches since :func:`zero_counters` (a ``launches``
+    line); fails when a kernel of the phase's path never launched."""
+    launches = {name: fn.launches for name, fn in counters.items()}
+    say("launches", file=label, **launches)
+    silent = [n for n in PAGED_KERNELS[label] if not launches[n]]
+    if silent:
+        raise AssertionError(f"{label}: the served path never launched {silent}")
+    return launches
+
+
+def serial_turns(eng, turns: list, settings, families: set | None = None) -> list:
+    """Each ``(name, context)`` of ``turns`` as one ``/response`` through the
+    port's app on the in-tree httpd, in order (a callable context is called
+    with the rows so far): per request its status, reply text, prompt and
+    generated ids, the engine's reused tokens, TTFT and spec counters.
+    ``families``, when given, receives the families ``/metrics`` rendered
+    after the last request."""
+    from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
+
+    recs: list = []
+    record_replies(eng, -1, recs)
+    rows: list = []
+    try:
+        with serving(create_app(engine=eng, settings=settings)) as (port, _):
+            for name, ctx in turns:
+                if callable(ctx):
+                    ctx = ctx(rows)
+                n_before, t0 = len(recs), time.time()
+                st, doc = _http(port, "POST", "/response", body(ctx), timeout=900)
+                t = dict(eng.last_timings or {})
+                rec = recs[-1] if len(recs) > n_before else {"prompt": None, "ids": []}
+                rows.append({"request": name, "ctx": ctx, "status": st,
+                             "reply": doc.get("response", "") if isinstance(doc, dict) else "",
+                             "prompt": rec["prompt"], "ids": rec["ids"],
+                             "reused_tokens": t.get("prefix_reused_tokens"),
+                             "ttft_s": t.get("ttft_s"), "wall_s": time.time() - t0,
+                             "spec": t.get("spec")})
+            if families is not None:
+                text = _request(port, "GET", "/metrics")[2].decode()
+                families.update(ln.split(" ")[2] for ln in text.splitlines()
+                                if ln.startswith("# TYPE "))
+    finally:
+        del eng._finish, eng.create_chat_completion
+    return rows
+
+
+def reply_parity(eng, rows: list, refs: list, sp, margin=None) -> list:
+    """Each reply of ``rows`` against ``refs`` (another engine's replies,
+    request by request): equal, or the first differing token with the top-2
+    margin there read by ``margin`` (default :func:`top2_margin` on
+    ``eng``; :func:`chain_margin` when ``eng`` is the serial engine whose
+    chain gave ``refs``); a parting counts as a near-tie within two bf16
+    steps of the top logit."""
+    out = []
+    for r, ref in zip(rows, refs):
+        row = {"request": r["request"], "same_prompt": r["prompt"] == ref["prompt"],
+               "tokens": len(r["ids"]), "equal": r["ids"] == ref["ids"]}
+        if row["same_prompt"] and not row["equal"]:
+            n = min(len(r["ids"]), len(ref["ids"]))
+            at = next((i for i in range(n) if r["ids"][i] != ref["ids"][i]), n)
+            m = (margin or top2_margin)(eng, ref["prompt"], ref["ids"], at, sp)
+            row.update(first_diff=at, got=r["ids"][at] if at < len(r["ids"]) else None,
+                       want=ref["ids"][at] if at < len(ref["ids"]) else None, **m,
+                       near_tie=m["margin"] <= 2 * bf16_step(m["top"]))
+        out.append(row)
+    return out
+
+
+def parity_holds(rows: list) -> bool:
+    """Every reply equal, or parting at a near-tie (or after an earlier
+    reply parted, when the prompts differ)."""
+    return all(r["equal"] or not r["same_prompt"] or r.get("near_tie") for r in rows)
+
+
+def follow_up_of(ref_rows: list | None = None):
+    """The follow-up turn's context: the long conversation with the first 40
+    characters of its reply (from ``ref_rows``, else the rows it is given)."""
+    def ctx(rows):
+        long = next(r for r in (ref_rows or rows) if r["request"] == "long")
+        return LONG_CTX + [("assistant", long["reply"][:40]), ("user", MISTRAL_FOLLOW_UP)]
+    return ctx
+
+
+def pool_moves(eng, ids: list, pages: int = 4, reps: int = 20) -> dict:
+    """The device copies of a prefix hit and of a commit, ``pages`` pages of
+    ``ids``' cached prefix: a restore into a scratch ring
+    (``KVPool.restore``) and a page store back into the same pages, each
+    in ms by CUDA events beside the byte bound (each byte read once and
+    written once), and the restored bytes against the arena's."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel import kvpool
+
+    pool = eng._kvpool
+    T = pool.page_tokens
+    lease = pool.acquire(ids, pages * T)
+    if lease is None:
+        raise AssertionError(f"the pool holds no {pages} pages of these ids")
+    ring = {k: torch.zeros_like(v) for k, v in eng._cache.items()}
+    try:
+        restore_ms = cuda_ms(lambda: pool.restore(lease, ring), reps)
+        store_ms = cuda_ms(lambda: kvpool._store_pages(pool.arena, ring, lease.page_ids, 0), reps)
+        idx = torch.tensor(lease.page_ids, device=eng.device)
+        equal = all(torch.equal(kvpool._token_block(ring[k], 0, pages, T), a[idx])
+                    for k, a in pool.arena.items())
+        runs = len(kvpool._runs(lease.page_ids))
+    finally:
+        pool.release(lease)
+    nbytes = 2 * pages * pool.page_nbytes
+    return {"pages": pages, "page_bytes": pool.page_nbytes, "runs": runs,
+            "restore_ms": restore_ms, "store_ms": store_ms,
+            "bound_ms": nbytes / HBM_BPS * 1e3, "bound_by": "bytes",
+            "restored_equal": equal}
+
+
+def export_prefix(pool, ids: list) -> list:
+    """Host copies of the pages that cover ``ids``' cached whole-page prefix
+    (one token left to prefill)."""
+    T = pool.page_tokens
+    r = (min(pool.match_len(ids), len(ids) - 1) // T) * T
+    lease = pool.acquire(ids, r)
+    if lease is None:
+        raise AssertionError("the pool holds none of these ids' pages")
+    try:
+        return pool.export_pages(lease)
+    finally:
+        pool.release(lease)
+
+
+@contextlib.contextmanager
+def always_hit_drafts():
+    """Every prompt-lookup draft is the last token repeated (the draft of
+    the reference's tests/test_spec_decode.py greedy-parity case): each
+    round verifies a draft, which greedy decoding mostly rejects."""
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+
+    saved = Engine.__dict__["_lookup_draft"]
+    Engine._lookup_draft = staticmethod(lambda history, D, max_ngram=3: [history[-1]] * D)
+    try:
+        yield
+    finally:
+        Engine._lookup_draft = saved
+
+
+def phase_paged(parts: tuple, counters: dict) -> dict:
+    """``paged``: the Q4_K_M weights, serial, bf16 ring, n_ctx 1024, pages of
+    128.  The short request, the long one, its follow-up and a second
+    conversation that opens as the short one does (its first message and
+    the system prompt behind it shared), through the app — first on a dense
+    engine (the prefix claim), then on a paged one: reused tokens and TTFT
+    per request beside the dense engine's, the pool's occupancy, the ms of
+    a 4-page restore and store, and where each greedy reply parts from the
+    dense engine's, with the margin there.  Then a restore into the
+    captured ring held to the eager step (``restored_graph``)."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+    from llama_fastapi_k8s_gpu_tpu_torch.obs import memledger as _memledger
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    settings = Settings(temperature=0.0, timeout_seconds=600.0)
+    sp = served_sampling(settings)
+    dense = Engine.from_parts(*parts, kv_dtype="bf16", max_gen_tokens=WAVE_TOKENS)
+    dense.warmup()
+    turns = [("short", SHORT_CTX), ("long", LONG_CTX), ("follow_up", follow_up_of()),
+             ("second", SECOND_CTX)]
+    want = serial_turns(dense, turns, settings)
+    dense.close()
+    del dense
+    gc.collect()
+    torch.cuda.synchronize()
+    allocated_before = torch.cuda.memory_allocated()    # the weights and what came before
+    t0 = time.time()
+    eng = Engine.from_parts(*parts, kv_dtype="bf16", kv_paged=True, kv_page_tokens=PAGE_TOKENS,
+                            max_gen_tokens=WAVE_TOKENS)
+    eng.warmup()
+    load_s = time.time() - t0
+    zero_counters(counters)
+    turns[2] = ("follow_up", follow_up_of(want))
+    families: set = set()
+    got = serial_turns(eng, turns, settings, families)
+    launches = read_launches("paged", counters)
+    occ = eng.kv_pool_occupancy()
+    parity = reply_parity(eng, got, want, sp)
+    moves = pool_moves(eng, got[2]["prompt"])
+    gc.collect()                      # the dense engine's rows go with it
+    mem = _memledger.MEMLEDGER.snapshot()
+    # the residual less what the card held before this engine beyond its
+    # (shared) weights: the paged engine's own unattributed bytes
+    before = allocated_before - eng.weight_bytes
+    memory = {"residual_bytes": mem.get("residual_bytes"), "allocated_before_engine": before,
+              "engine_residual_bytes": (mem["residual_bytes"] - before
+                                        if mem.get("residual_bytes") is not None else None),
+              "rows": {f"{r['component']}:{r['model']}": r["bytes"]
+                       for r in mem.get("components", [])
+                       if r["component"] in ("kv_arena_used", "kv_arena_free", "kv_ring")}}
+    out = {"file": "paged", "kv_dtype": "bf16", "page_tokens": PAGE_TOKENS, "setup_s": load_s,
+           "requests": [{"request": g["request"], "status": g["status"],
+                         "prompt_tokens": len(g["prompt"] or []),
+                         "reused_tokens": g["reused_tokens"], "ttft_s": g["ttft_s"],
+                         "dense_reused_tokens": w["reused_tokens"], "dense_ttft_s": w["ttft_s"]}
+                        for g, w in zip(got, want)],
+           "occupancy": occ, "moves": moves, "memory": memory, "parity": parity,
+           "families_missing": [f for f in ("kv_pool_pages_used", "kv_pool_pages_free",
+                                            "prefix_cache_misses_total", "prefix_cache_hits_total",
+                                            "prefix_reuse_tokens") if f not in families]}
+    say("paged", **out)
+    check_graph("paged", eng, got[3]["prompt"], steps=32, restore=True)
+    eng.close()
+    bad = [r["request"] for r in got if r["status"] != 200]
+    if bad or not got[2]["reused_tokens"] or not got[3]["reused_tokens"] \
+            or occ["pages_pinned"] or not moves["restored_equal"] or not parity_holds(parity) \
+            or out["families_missing"]:
+        raise AssertionError(f"paged: failed requests {bad}, or no radix reuse on the "
+                             f"follow-up / the second conversation, pinned pages, unequal "
+                             f"restored bytes, or a reply parting away from a near-tie: {out}")
+    return launches
+
+
+def phase_paged_int8(parts: tuple, counters: dict) -> dict:
+    """``paged_int8``: the same weights over the int8 ring (kernels 10 and 5
+    int8), the pool one context's pages (8) with a 16-page host spill tier.
+    The long request and its follow-up, the follow-up's cached pages
+    exported, two other conversations that push the long one's pages to
+    the host, then the follow-up again: its pages restored from the host,
+    byte-equal to the export, and its reply equal to the first one's (no
+    pressure then)."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    settings = Settings(temperature=0.0, timeout_seconds=600.0)
+    eng = Engine.from_parts(*parts, kv_dtype="int8", kv_paged=True, kv_page_tokens=PAGE_TOKENS,
+                            kv_pool_pages=1024 // PAGE_TOKENS, kv_spill_pages=16,
+                            max_gen_tokens=WAVE_TOKENS)
+    eng.warmup()
+    pool = eng._kvpool
+    zero_counters(counters)
+    first = serial_turns(eng, [("long", LONG_CTX), ("follow_up", follow_up_of())], settings)
+    before = export_prefix(pool, first[1]["prompt"])
+    later = serial_turns(eng, [("pressure_0", PRESSURE_CTXS[0]), ("pressure_1", PRESSURE_CTXS[1]),
+                               ("follow_up_again", first[1]["ctx"])], settings)
+    after = export_prefix(pool, first[1]["prompt"])
+    launches = read_launches("paged_int8", counters)
+    stats, occ = pool.stats(), pool.occupancy()
+    equal = len(before) == len(after) and all(
+        torch.equal(a.view(torch.uint8), b.view(torch.uint8)) for a, b in zip(before, after))
+    rows = first + later
+    out = {"file": "paged_int8", "kv_dtype": "int8", "pool_pages": pool.n_pages,
+           "spill_pages": pool.spill_pages, "page_bytes": pool.page_nbytes,
+           "requests": [{"request": r["request"], "status": r["status"],
+                         "prompt_tokens": len(r["prompt"] or []),
+                         "reused_tokens": r["reused_tokens"], "ttft_s": r["ttft_s"]} for r in rows],
+           "spills": stats["spills"], "restores": stats["restores"],
+           "evictions": stats["evictions"], "exported_pages": before[0].shape[0],
+           "restored_bytes_equal": equal,
+           "reply_equal_to_unpressured": later[2]["ids"] == first[1]["ids"],
+           "occupancy": occ}
+    say("paged_int8", **out)
+    eng.close()
+    bad = [r["request"] for r in rows if r["status"] != 200]
+    if bad or not stats["spills"] or not stats["restores"] or not equal \
+            or not out["reply_equal_to_unpressured"] or occ["pages_pinned"]:
+        raise AssertionError(f"paged_int8: failed requests {bad}, or no spill and restore, "
+                             f"restored bytes unequal, a reply that changed under pressure, "
+                             f"or pinned pages: {out}")
+    return launches
+
+
+def phase_paged_lanes(parts: tuple, counters: dict) -> dict:
+    """``paged_lanes``: the same weights from 4 lanes under the continuous
+    scheduler with the paged pool; eight concurrent clients whose
+    conversations open alike (the first message and the system prompt):
+    cross-lane radix hits, TTFT p50/p95 beside ``lanes_q4km``'s, and no
+    page pinned and no admission in flight at the end."""
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import ContinuousEngine
+    from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    lanes = 4
+    eng = ContinuousEngine.from_parts(*parts, batch_size=lanes, kv_dtype="bf16", kv_paged=True,
+                                      kv_page_tokens=PAGE_TOKENS, max_gen_tokens=WAVE_TOKENS)
+    eng.warmup()
+    records: list = []
+    lane_record(eng, records)
+    settings = Settings(temperature=0.0, timeout_seconds=600.0, max_queue_size=16,
+                        batch_size=lanes)
+    contexts = [[LONG_CTX[0], ("assistant", "go on, I am listening."),
+                 ("user", f"part {i}: " + STORY[:80])] for i in range(8)]
+    hits0 = eng.scheduler_stats().get("radix_prefix_hits", 0)
+    zero_counters(counters)
+    with serving(create_app(engine=eng, settings=settings)) as (port, _):
+        results, _, wave_s = lane_wave(port, contexts)
+    launches = read_launches("paged_lanes", counters)
+    stats, occ = eng.scheduler_stats(), eng.kv_pool_occupancy()
+    ttfts = [r["ttft_s"] for r in records if r["ttft_s"] is not None]
+    base = LANE_LINES.get("lanes_q4km", {})
+    out = {"file": "paged_lanes", "lanes": lanes, "clients": len(contexts),
+           "statuses": [r[0] if r else None for r in results], "wave_s": wave_s,
+           "radix_prefix_hits": stats.get("radix_prefix_hits", 0) - hits0,
+           "reused_per_request": [r["reused"] for r in records],
+           "ttft_p50_s": percentile(ttfts, 0.5), "ttft_p95_s": percentile(ttfts, 0.95),
+           "lanes_q4km_ttft_p50_s": base.get("ttft_p50_s"),
+           "lanes_q4km_ttft_p95_s": base.get("ttft_p95_s"),
+           "pages_pinned": occ["pages_pinned"], "admission_in_flight": eng._adm is not None,
+           "occupancy": occ}
+    say("paged_lanes", **out)
+    eng.close()
+    if any(st != 200 for st in out["statuses"]) or out["radix_prefix_hits"] < 1 \
+            or out["pages_pinned"] or out["admission_in_flight"]:
+        raise AssertionError(f"paged_lanes: failed requests, no cross-lane radix hit, or a "
+                             f"lease left behind: {out}")
+    return launches
+
+
+def verify_trace(eng, ids: list, reps: int = 20, replays: int = 4) -> dict:
+    """The verify round on the card: device ms of one replay of its graph,
+    of the eager verify and of one decode replay (CUDA events, from
+    ``ids`` prefilled), and each fused linear's route at D+1 rows with its
+    µs in a profile of the verify replay (7 a layer and the head)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import first_sample, prefill, spec_verify
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import KERNELS, _fused
+    from llama_fastapi_k8s_gpu_tpu_torch.ops.linear import _FUSED
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import SamplingParams, sampling_tensors
+
+    graphs, cfg, k = eng._graphs, eng.cfg, SamplingParams().top_k
+    D = SPEC_DRAFT
+    with eng._lock, torch.inference_mode():
+        logits = prefill(eng.params, cfg, torch.tensor(ids, device=eng.device), len(ids),
+                         eng._cache)
+        st = graphs.knobs(sampling_tensors(SamplingParams(temperature=0.0), eng.device))
+
+        def reset():
+            first_sample(logits, graphs.state(ids, 0), st)
+
+        graphs.capture_verify(k)
+        graphs._draft.copy_(torch.tensor(ids[-D:]))
+        vgraph, dgraph = graphs._verify[k][0], graphs._graphs[k][0]
+        reset()
+        graph_ms = cuda_ms(vgraph.replay, reps)
+        reset()
+        eager_ms = cuda_ms(lambda: spec_verify(eng.params, cfg, graphs._state, st,
+                                               graphs._draft, k), reps)
+        reset()
+        decode_ms = cuda_ms(dgraph.replay, reps)
+        reset()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(replays):
+                vgraph.replay()
+            torch.cuda.synchronize()
+        eng._prefix_ids = []
+    kernels = sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.name.startswith(("Memcpy", "Memset"))), key=lambda x: x[1])
+    names = {fn: n for n, fn in KERNELS.items()}
+    layer0 = eng.params.layers[0]
+    linears = {n: getattr(layer0, n) for n in STEP_LINEARS}
+    linears["output"] = eng.params.output
+    routes = {}
+    for n, lin in linears.items():
+        kernel = names.get(_FUSED.get(lin.kind))
+        routes[n] = {"kind": lin.kind, "shape": [lin.n_out, lin.k_in],
+                     "route": _fused.route(kernel, D + 1, lin.k_in) if kernel else lin.kind}
+    # the fused kernels of the last whole replays in launch order, 7 a layer
+    # and the head (a trace may drop an event at its start)
+    fused = [x for x in kernels if kernel_part(x[0]) == "fused_linears"]
+    per = 7 * cfg.n_layers + 1
+    whole = min(len(fused) // per, replays)
+    if whole:
+        order = [*STEP_LINEARS * cfg.n_layers, "output"]
+        for i, (_, t0, t1) in enumerate(fused[len(fused) - whole * per:]):
+            r = routes[order[i % per]]
+            r["us"] = r.get("us", 0.0) + (t1 - t0) / whole
+    return {"rows": D + 1, "verify_graph_ms": graph_ms, "verify_eager_ms": eager_ms,
+            "decode_graph_ms": decode_ms, "verify_over_decode": graph_ms / decode_ms,
+            "fused_kernels_traced": len(fused), "whole_replays": whole, "linears": routes,
+            **(replay_breakdown(kernels, replays) if kernels else
+               {"missing": "torch.profiler recorded no CUDA kernel event"})}
+
+
+def check_verify_graph(label: str, eng, ref: dict, rounds: int = 8) -> dict:
+    """Verify rounds by graph replay against the eager verify: ``ref``'s
+    prompt prefilled, the ring cloned, then ``rounds`` greedy rounds on
+    both from the same first sample, each drafting :func:`oracle_draft` of
+    ``ref`` (the vanilla reply: whole rounds accepted until the chains
+    part, always-hit rounds after).  Emitted tokens, counts and every ring
+    leaf must be bit-identical, and some round must emit more than one
+    token (``verify_graph``)."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import (
+        first_sample,
+        init_state,
+        prefill,
+        spec_verify,
+    )
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import SamplingParams, sampling_tensors
+
+    graphs, k, D = eng._graphs, SamplingParams().top_k, SPEC_DRAFT
+    ids = ref["prompt"]
+    sp = SamplingParams(temperature=0.0)
+    with eng._lock, torch.inference_mode():
+        cache = eng._cache
+        logits = prefill(eng.params, eng.cfg, torch.tensor(ids, device=eng.device), len(ids),
+                         cache)
+        ring = {n: v.clone() for n, v in cache.items()}
+        st = graphs.knobs(sampling_tensors(sp, eng.device))
+        state = graphs.state(ids, 0)
+        eager = init_state(ring, ids, 0, eng.device)
+        est = sampling_tensors(sp, eng.device)
+        hist_g = [int(first_sample(logits, state, st))]
+        hist_e = [int(first_sample(logits, eager, est))]
+        got, want = [], []
+        for _ in range(rounds):
+            toks, n = graphs.verify(state, st, oracle_draft([ref], ids + hist_g, D), k)
+            got.append((toks, n))
+            hist_g += toks
+            draft = oracle_draft([ref], ids + hist_e, D)
+            t, c = spec_verify(eng.params, eng.cfg, eager, est,
+                               torch.tensor(draft, device=eng.device), k)
+            c = int(c)
+            want.append((t[:c].tolist(), c))
+            hist_e += t[:c].tolist()
+        torch.cuda.synchronize()
+        cache_equal = all(torch.equal(cache[n], ring[n]) for n in cache)
+        eng._prefix_ids = []
+    out = {"file": label, "rounds": rounds, "draft": D, "kv_dtype": eng.cfg.kv_dtype,
+           "capture_s": graphs.verify_captures, "counts": [n for _, n in got],
+           "tokens_identical": got == want, "cache_identical": cache_equal,
+           "verify_launches": graphs.verify_launches(k)}
+    say("verify_graph", **out)
+    if not (out["tokens_identical"] and cache_equal) or max(out["counts"]) < 2:
+        raise AssertionError(f"{label}: the verify graph is not bit-identical to the eager "
+                             f"verify, or no round accepted a draft: {out}, eager {want}")
+    return out
+
+
+def ring_diff(a: dict, b: dict, lo: int, hi: int) -> dict:
+    """Ring slots ``lo:hi`` of two rings, leaf by leaf, for layer 0 and for
+    all layers: the share of values that differ and the largest difference
+    (int8 codes in codes, bf16 K/V and f32 scales relative to the largest
+    magnitude of ``a``'s slice)."""
+    import torch
+
+    out = {}
+    for k in a:
+        x, y = a[k][:, :, lo:hi], b[k][:, :, lo:hi]      # the token axis is axis 2
+        row = {}
+        for where, (u, v) in (("layer0", (x[0], y[0])), ("all", (x, y))):
+            if u.dtype == torch.int8:
+                d = (u.int() - v.int()).abs()
+                row[where] = {"share_differs": (d != 0).float().mean().item(),
+                              "max_code_diff": int(d.max())}
+            else:
+                d = (u.float() - v.float()).abs()
+                row[where] = {"share_differs": (d != 0).float().mean().item(),
+                              "max_rel_diff": (d.max() / u.float().abs().max()).item()}
+        out[k] = row
+    return out
+
+
+def route_noise(eng, prompt: list, ids: list, D: int = SPEC_DRAFT) -> dict:
+    """How far the verify pass's arithmetic moves the logits and the ring
+    from the decode step's, teacher-forced on one token sequence:
+    ``prompt`` prefilled once, then the tokens ``ids`` fed three ways over
+    copies of that ring — one-row decode steps (the vanilla path), D+1-row
+    verify passes of each token and its always-hit draft that advance one
+    slot (every draft rejected), and D+1-row passes of ``ids`` itself that
+    advance D+1 slots (every draft accepted).  For each verify history,
+    over the positions: the decode logits' top-2 gap minus the verify
+    logits' gap between the same two tokens, in bf16 steps of the top logit
+    (``gap_steps`` max / p95 / p50), the positions whose argmax differs and
+    the largest logit difference; and :func:`ring_diff` of the slots the
+    tokens wrote (layer 0's input is the token's embedding, so there only
+    the linears' route differs).  ``decode_margin_steps_min`` is the
+    smallest top-2 gap of the decode history itself, in the same steps."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import prefill
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import forward
+
+    params, cfg, dev = eng.params, eng.cfg, eng.device
+    vcfg = dataclasses.replace(cfg, attn_impl="xla")     # as spec_verify swaps it
+    n, m = len(prompt), (len(ids) - 1) // (D + 1) * (D + 1)
+    tok = torch.tensor(ids, device=dev)
+    logits = {}
+    with eng._lock, torch.inference_mode():
+        base = {k: torch.zeros_like(v) for k, v in eng._cache.items()}
+        prefill(params, cfg, torch.tensor(prompt, device=dev), n, base)
+        rings = {h: {k: v.clone() for k, v in base.items()}
+                 for h in ("decode", "rejected", "accepted")}
+        del base
+        at = [torch.tensor(n + t, device=dev) for t in range(m)]
+        logits["decode"] = torch.stack([forward(params, cfg, tok[t:t + 1], at[t],
+                                                rings["decode"]) for t in range(m)])
+        logits["rejected"] = torch.stack([
+            forward(params, vcfg, tok[t].repeat(D + 1), at[t], rings["rejected"],
+                    return_all=True)[0] for t in range(m)])
+        logits["accepted"] = torch.cat([
+            forward(params, vcfg, tok[t:t + D + 1], at[t], rings["accepted"], return_all=True)
+            for t in range(0, m, D + 1)])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        dec = logits["decode"]
+        top = dec.topk(2, dim=-1)
+        a, b = top.indices[:, :1], top.indices[:, 1:]
+        steps = torch.tensor([bf16_step(x) for x in top.values[:, 0].tolist()])
+        gap = (top.values[:, 0] - top.values[:, 1]).cpu()
+        out = {"positions": m, "draft": D, "kv_dtype": cfg.kv_dtype,
+               "decode_margin_steps_min": (gap / steps).min().item()}
+        for h in ("rejected", "accepted"):
+            x = logits[h]
+            d = ((gap - (x.gather(1, a) - x.gather(1, b))[:, 0].cpu()).abs() / steps).sort()
+            out[h] = {"gap_steps_max": d.values[-1].item(),
+                      "gap_steps_p95": d.values[int(0.95 * (m - 1))].item(),
+                      "gap_steps_p50": d.values[(m - 1) // 2].item(),
+                      "argmax_differs": int((x.argmax(-1) != dec.argmax(-1)).sum()),
+                      "max_abs_logit_diff": (x - dec).abs().max().item(),
+                      "ring": ring_diff(rings["decode"], rings[h], n, n + m)}
+        eng._prefix_ids = []
+    return out
+
+
+def oracle_draft(refs: list, history: list, D: int) -> list:
+    """The vanilla engine's greedy continuation as a draft: for a history
+    that is one of ``refs``' prompts followed by the start of its reply
+    (``{"prompt", "ids"}``), the reply's next ``D`` tokens (zero-padded, as
+    the lookup pads); past a parting or the reply's end, or for another
+    prompt, the last token repeated (the always-hit draft)."""
+    for ref in refs:
+        p, k = ref["prompt"], len(history) - len(ref["prompt"])
+        if 0 < k < len(ref["ids"]) and history[:len(p)] == p \
+                and history[len(p):] == ref["ids"][:k]:
+            cont = ref["ids"][k:k + D]
+            return cont + [0] * (D - len(cont))
+    return [history[-1]] * D
+
+
+@contextlib.contextmanager
+def oracle_drafts(refs: list):
+    """Every prompt-lookup draft is :func:`oracle_draft`'s: each round the
+    verify accepts what agrees with vanilla greedy decoding, so rounds
+    emit D+1 tokens until a reply parts, and always-hit rounds after."""
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+
+    saved = Engine.__dict__["_lookup_draft"]
+    Engine._lookup_draft = staticmethod(
+        lambda history, D, max_ngram=3: oracle_draft(refs, history, D))
+    try:
+        yield
+    finally:
+        Engine._lookup_draft = saved
+
+
+def phase_spec(parts: tuple, counters: dict, kv_dtype: str = "bf16") -> dict:
+    """``spec`` (the bf16 ring) or ``spec_int8`` (the int8 ring: kernel 10
+    writes each verify pass's D+1 rows): the Q4_K_M weights, serial,
+    ``spec_decode=lookup``, D = 8, through the app.  First the vanilla
+    engine over the same ring serves the long prompt: its greedy reply is
+    the oracle draft's source (:func:`oracle_drafts`).  Then the
+    speculating engine serves, on the bf16 ring, a repetitive prompt
+    (organic lookup hits), and on both the short prompt under the
+    always-hit draft and the long one under the oracle draft (whole rounds
+    accepted until the reply parts).  Verify steps, drafted and accepted
+    per request; each reply against the vanilla engine's greedy reply
+    (where it parts, the vanilla chain's own margin there,
+    :func:`chain_margin`); the verify graph held to the eager verify under
+    oracle drafts (``verify_graph``).  On the bf16
+    ring also the verify round's ms from its graph and eager beside a
+    decode token's, each fused linear's route and µs at 9 rows, and
+    ``spec_auto``'s decision record on this card."""
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+    from llama_fastapi_k8s_gpu_tpu_torch.engine.spec_auto import resolve_auto
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import SamplingParams
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    label = "spec" if kv_dtype == "bf16" else f"spec_{kv_dtype}"
+    settings = Settings(temperature=0.0, timeout_seconds=600.0)
+    sp = served_sampling(settings)
+    vanilla = Engine.from_parts(*parts, kv_dtype=kv_dtype, prefix_cache=False,
+                                max_gen_tokens=WAVE_TOKENS)
+    vanilla.warmup()
+    refs = serial_turns(vanilla, [("oracle", LONG_CTX)], settings)
+    t0 = time.time()
+    eng = Engine.from_parts(*parts, kv_dtype=kv_dtype, spec_decode="lookup",
+                            spec_draft=SPEC_DRAFT, max_gen_tokens=WAVE_TOKENS)
+    eng.warmup()
+    setup_s = time.time() - t0
+    zero_counters(counters)
+    families: set = set()
+    rows = serial_turns(eng, [("repeat", REPEAT_CTX)], settings) if kv_dtype == "bf16" else []
+    with always_hit_drafts():
+        rows += serial_turns(eng, [("always_hit", SHORT_CTX)], settings)
+    with oracle_drafts(refs):
+        rows += serial_turns(eng, [("oracle", LONG_CTX)], settings, families)
+    launches = read_launches(label, counters)
+    want = [{"prompt": r["prompt"], "ids": serial_reply(vanilla, r["prompt"], len(r["ids"]), sp)}
+            for r in rows]
+    parity = reply_parity(vanilla, rows, want, sp, chain_margin)
+    by = {r["request"]: r for r in rows}
+    vanilla.close()
+    del vanilla
+    out = {"file": label, "kv_dtype": kv_dtype, "draft": SPEC_DRAFT, "setup_s": setup_s,
+           "verify_capture_s": eng._graphs.verify_captures,
+           "verify_launches": eng._graphs.verify_launches(SamplingParams().top_k),
+           "requests": [{"request": r["request"], "status": r["status"],
+                         "prompt_tokens": len(r["prompt"] or []), "tokens": len(r["ids"]),
+                         "ttft_s": r["ttft_s"], "wall_s": r["wall_s"], **(r["spec"] or {})}
+                        for r in rows],
+           "parity": parity,
+           "families_missing": [f for f in SPEC_FAMILIES if f not in families]}
+    if kv_dtype == "bf16":
+        out.update(spec_auto=resolve_auto(eng.params)[1],
+                   timing=verify_trace(eng, by["always_hit"]["prompt"]))
+    say(label, **out)
+    check_verify_graph(label, eng, refs[0])
+    eng.close()
+    bad = [r["request"] for r in rows if r["status"] != 200]
+    if kv_dtype == "int8" and out["verify_launches"].get("kv_quantize") != eng.cfg.n_layers:
+        raise AssertionError(f"{label}: a verify replay does not write the int8 ring through "
+                             f"kernel 10 once a layer: {out['verify_launches']}")
+    if bad or not (by["always_hit"]["spec"] or {}).get("verify_steps") \
+            or not (by["oracle"]["spec"] or {}).get("accepted") or not parity_holds(parity) \
+            or out["families_missing"]:
+        raise AssertionError(f"{label}: failed requests {bad}, no verify round under the "
+                             f"always-hit draft, no accepted draft under the oracle, or a "
+                             f"reply parting away from a near-tie: {out}")
+    return launches
+
+
+def phase_spec_lanes(parts: tuple, counters: dict, kv_dtype: str = "bf16") -> dict:
+    """``spec_lanes`` (the bf16 ring) or ``spec_lanes_int8`` (the int8 lane
+    rings: kernel 10 writes each lane's D+1 verify rows): the same weights
+    from 4 lanes under the continuous scheduler with ``spec_decode=lookup``,
+    D = 8.  The vanilla serial engine over the same ring serves the short
+    and the long prompt first; then four concurrent clients — the
+    repetitive prompt twice (always-hit drafts), the short and the long
+    one (oracle drafts of those vanilla replies: lanes whose rounds emit
+    D+1 tokens beside lanes whose rounds emit one).  The lanes' spec
+    counters (some draft must be accepted), then each greedy reply against
+    the serial vanilla engine's (``lane_parity``)."""
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import ContinuousEngine, Engine
+    from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    label = "spec_lanes" if kv_dtype == "bf16" else f"spec_lanes_{kv_dtype}"
+    lanes = 4
+    settings = Settings(temperature=0.0, timeout_seconds=600.0, max_queue_size=16,
+                        batch_size=lanes)
+    vanilla = Engine.from_parts(*parts, kv_dtype=kv_dtype, prefix_cache=False,
+                                max_gen_tokens=WAVE_TOKENS)
+    vanilla.warmup()
+    refs = serial_turns(vanilla, [("short", SHORT_CTX), ("long", LONG_CTX)], settings)
+    vanilla.close()
+    del vanilla
+    eng = ContinuousEngine.from_parts(*parts, batch_size=lanes, kv_dtype=kv_dtype,
+                                      spec_decode="lookup", spec_draft=SPEC_DRAFT,
+                                      max_gen_tokens=WAVE_TOKENS)
+    eng.warmup()
+    records: list = []
+    lane_record(eng, records)
+    spec0 = dict(eng.scheduler_stats()["spec"])
+    zero_counters(counters)
+    with oracle_drafts(refs), serving(create_app(engine=eng, settings=settings)) as (port, _):
+        results, _, wave_s = lane_wave(port, [REPEAT_CTX, SHORT_CTX, LONG_CTX, REPEAT_CTX])
+    launches = read_launches(label, counters)
+    spec = {k: v - spec0.get(k, 0) for k, v in eng.scheduler_stats()["spec"].items()}
+    out = {"file": label, "kv_dtype": kv_dtype, "lanes": lanes, "draft": SPEC_DRAFT,
+           "statuses": [r[0] if r else None for r in results], "wave_s": wave_s,
+           "tokens": sum(len(r["ids"]) for r in records), "spec": spec,
+           "verify_capture_s": eng._lane_graphs.verify_capture_s,
+           "verify_replays": eng._lane_graphs.verify_replays,
+           "verify_launches": eng._lane_graphs.verify_launches()}
+    say(label, **out)
+    writes = out["verify_launches"].get("kv_quantize", 0)
+    if any(st != 200 for st in out["statuses"]) or not spec["verify_steps"] \
+            or not spec["accepted"] or (kv_dtype == "int8") != (writes >= eng.cfg.n_layers):
+        raise AssertionError(f"{label}: failed requests, no verify round, no accepted "
+                             f"draft, or int8 verify rows not written by kernel 10: {out}")
+    check_lane_parity(label, eng, records, settings, eng.cfg)
+    eng.close()
+    return launches
+
+
+def phase_paged_spec(parts: tuple, counters: dict) -> dict:
+    """The paged and speculative phases on ``parts`` (the Q4_K_M weights);
+    returns each kernel's launches summed over their served paths."""
+    import torch
+
+    launches = dict.fromkeys(counters, 0)
+    for phase in (phase_paged, phase_paged_int8, phase_paged_lanes, phase_spec,
+                  functools.partial(phase_spec, kv_dtype="int8"), phase_spec_lanes,
+                  functools.partial(phase_spec_lanes, kv_dtype="int8")):
+        for name, n in phase(parts, counters).items():
+            launches[name] += n
+        gc.collect()
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -4039,7 +4899,11 @@ def main() -> int:
         for name, n in served.items():
             launches[name] += n
     # the lane engines: batched serving from lanes of the card
-    for name, n in phase_all_lanes(paths, KERNELS).items():
+    keep: dict = {}
+    for name, n in phase_all_lanes(paths, KERNELS, keep=keep).items():
+        launches[name] += n
+    # the paged KV pool and prompt-lookup speculation on the Q4_K_M weights
+    for name, n in phase_paged_spec(keep.pop("parts"), KERNELS).items():
         launches[name] += n
     if os.environ.get("CHIP_SMOKE_REPLIES_OUT"):
         with open(os.environ["CHIP_SMOKE_REPLIES_OUT"], "w") as fh:

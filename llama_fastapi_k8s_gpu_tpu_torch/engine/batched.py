@@ -97,7 +97,9 @@ class MeshEngine(Engine):
         if self.device.type == "cuda":
             self._lane_graphs = LaneGraphs(self.params, self.cfg, self.batch_size,
                                            self.device, top_k=self._max_top_k,
-                                           program=self._LANE_PROGRAM)
+                                           program=self._LANE_PROGRAM,
+                                           draft_len=self._spec_draft
+                                           if getattr(self, "_SPEC_LANES", False) else 0)
             self._bstate = self._lane_graphs.state
             self._lane_st = self._lane_graphs.knobs
         else:

@@ -1,8 +1,8 @@
 """Continuous batching: slot-based scheduling over the lanes of one card.
 
 The port of the reference's ``ContinuousEngine`` (llama_fastapi_k8s_gpu_tpu/
-engine/continuous.py) without its paged, speculative and disaggregated
-branches.  :class:`~.batched.MeshEngine` coalesces requests into cycles;
+engine/continuous.py) with its paged and speculative branches, without
+its disaggregated one.  :class:`~.batched.MeshEngine` coalesces requests into cycles;
 here the B lanes are **slots**: at every decode-chunk boundary finished
 lanes are freed and waiting requests admitted into them — a prompt
 prefilled slice by slice into a scratch ring between chunks, its first
@@ -22,6 +22,16 @@ pipelined one chunk deep: chunk k+1 is queued before chunk k's tokens are
 read, and the read waits for chunk k alone (a pinned copy behind it and an
 event), so the host's admissions and harvest overlap the device.
 
+Under ``kv_paged`` the lane claims give way to the pool's radix index
+(parallel/kvpool.py): an admission restores its longest cached prefix,
+aligned to lcm(prefill_chunk, page_tokens), into the scratch ring in
+place and prefills only the suffix slices; a finished lane commits its
+conversation's whole pages straight from the lane.  Under
+``spec_decode="lookup"`` a wave whose live lanes have n-gram drafts runs
+verify rounds (parallel/batched.py ``lane_verify``, on the card one
+replay of the lane verify graph) instead of the pipelined chunk, after
+flushing it: a verify's drafts need the lanes' current histories.
+
 The reference's concurrency model (one generation at a time behind a
 queue of 5 and a semaphore of 1) is the B = 1 case; back-pressure (503)
 and per-request timeouts stay at the server.
@@ -31,6 +41,7 @@ from __future__ import annotations
 
 import codecs
 import logging
+import math
 import queue as queue_mod
 import threading
 import time
@@ -47,11 +58,12 @@ from ..obs import memledger as _memledger
 from ..obs.devtime import ENTRY, record_dispatch, register_program
 from ..obs.memledger import register_component
 from ..obs.trace import annotate_all_inflight
-from ..parallel.batched import generate_chunk_lanes, lane_cache_copy, write_lane
+from ..parallel.batched import generate_chunk_lanes, lane_cache_copy, lane_verify, write_lane
 from ..sampling.sample import SamplingParams, sample_chain, sampling_tensors, seed_window
 from ..utils.faults import FAULTS
 from ..utils.health import DeadlineExceeded, EngineUnavailable
 from .batched import MeshEngine
+from .engine import Engine
 
 logger = logging.getLogger(__name__)
 
@@ -237,6 +249,8 @@ class ContinuousEngine(MeshEngine):
     blocking ``create_chat_completion(s)`` facades route through them."""
 
     _LANE_PROGRAM = "lane_decode_chunk"
+    #: serves spec_decode="lookup" through lane verify rounds
+    _SPEC_LANES = True
 
     def __init__(self, model_path: str | None, *, prefill_chunk: int = 256, adm_budget: int = 512,
                  adm_controller: bool = True, adm_ema_alpha: float = 0.25,
@@ -259,10 +273,21 @@ class ContinuousEngine(MeshEngine):
         # Chunk-aligned, skipped for explicit-seed requests, claims capped
         # at n_ctx-1 (a freed lane keeps decoding past its claim, its slot
         # clamped to n_ctx-1 once it overruns)
-        self._lane_prefix = bool(lane_prefix_cache)
+        self._lane_prefix = bool(lane_prefix_cache) and not self._spec_draft
+        # the paged pool folds the lane claims behind its radix index; an
+        # admission's reuse is aligned to the prefill slice and the page
+        if self._kv_paged:
+            self._lane_prefix = False
+            self._paged_align = math.lcm(self._prefill_chunk, self._kvpool.page_tokens)
         self._lane_claims: list[list | None] = [None] * self.batch_size
-        self._reuse_stat = "lane_prefix"
-        self._prefix_stats = {"lane_prefix_hits": 0, "lane_prefix_reused_tokens": 0}
+        #: realized admission reuse, named for the implementation that
+        #: served it: lane claims or the paged pool's radix index
+        self._reuse_stat = "radix_prefix" if self._kv_paged else "lane_prefix"
+        self._prefix_stats = {f"{self._reuse_stat}_hits": 0,
+                              f"{self._reuse_stat}_reused_tokens": 0}
+        #: lane speculation: verify rounds, drafted and accepted tokens,
+        #: and the plain chunks beside them
+        self._spec_stats = {"verify_steps": 0, "drafted": 0, "accepted": 0, "chunk_steps": 0}
         self._scratch_cache = init_cache(self.cfg, self.device)
         register_component("kv_scratch", self, _ledger_scratch_bytes)
         #: the previous wave's memory-pressure verdict (rising-edge events)
@@ -483,9 +508,8 @@ class ContinuousEngine(MeshEngine):
     def warmup(self):
         """Through the scheduler: a full wave of short greedy requests (on
         the card its first chunk captures the lane step for the ``top_k``
-        ceiling, on the scheduler thread), then a stream, then one request
-        whose prompt fills the largest bucket (every admission slice shape
-        and the lane write)."""
+        ceiling, and under speculation the lane verify round, on the
+        scheduler thread), then a stream."""
         t0 = time.time()
         msgs = [{"role": "user", "content": "hi"}]
         futs = [self.submit(msgs, max_tokens=self.decode_chunk + 1, temperature=0.0)
@@ -513,6 +537,14 @@ class ContinuousEngine(MeshEngine):
         if slots[lane] is slot:
             slots[lane] = None
         keep = min(slot.n_prompt + max(len(slot.gens) - 1, 0), self.cfg.n_ctx - 1)
+        if self._kv_paged:
+            if claim:
+                # the finished conversation's whole pages, straight from the
+                # lane (stream-ordered after every queued chunk, which
+                # writes only past the claim); cached pages deduplicate
+                self._kvpool.commit_lane((list(slot.ids) + slot.gens)[:keep],
+                                         self._bstate["cache"], lane)
+            return
         if not self._lane_prefix:
             return
         if not claim:
@@ -572,6 +604,7 @@ class ContinuousEngine(MeshEngine):
         if item.trace is not None:
             item.trace.span("pending", t0=item.t_enq).end(t0)
             pspan = item.trace.span("prefill", t0=t0)
+        lease = None
         try:
             ids = self.tokenize_messages(item.messages)
             if len(ids) >= self.cfg.n_ctx:
@@ -580,11 +613,28 @@ class ContinuousEngine(MeshEngine):
                     f"of {self.cfg.n_ctx}")
             bucket = self._bucket_for(len(ids))
             reuse, src = 0, None
-            if item.seed is None and self._lane_prefix:
+            if item.seed is None:
                 # explicit seeds take the full prefill (the serial engine's
                 # reproducibility contract)
-                reuse, src = self._find_lane_reuse(ids, len(ids))
-            if reuse:
+                if self._kv_paged:
+                    reuse, lease = self._paged_admission_reuse(ids, pspan)
+                elif self._lane_prefix:
+                    reuse, src = self._find_lane_reuse(ids, len(ids))
+            if lease is not None:
+                # the matched pages into the scratch ring, in place; the
+                # suffix slices then prefill from offset `reuse`
+                if self._scratch_cache is None:
+                    self._scratch_cache = init_cache(self.cfg, self.device)
+                try:
+                    self._kvpool.restore(lease, self._scratch_cache, span=pspan)
+                except BaseException:
+                    # a ring of unknown contents: zeroed in place (a cold
+                    # ring); the lease is released below
+                    with torch.inference_mode():
+                        for t in self._scratch_cache.values():
+                            t.zero_()
+                    raise
+            elif reuse:
                 # snapshot the source lane's ring into the scratch, in place;
                 # stream order puts the copy after every queued chunk, and
                 # the claim region is never written by a freed lane
@@ -601,15 +651,48 @@ class ContinuousEngine(MeshEngine):
                 "bucket": bucket, "padded": padded,
                 "seed": item.seed if item.seed is not None else self._next_seed(),
                 "t0": t0, "offset": reuse, "reused": reuse, "logits": None,
-                "span": pspan,
+                "span": pspan, "lease": lease,
             }
         except Exception as e:  # noqa: BLE001 — per-request isolation
             self._note_error(e)
+            if lease is not None:
+                self._kvpool.release(lease)
             if item.future is not None:
                 item.future.set_exception(e)
             elif item.sink is not None:
                 item.sink.put(e)
             return None
+
+    def _paged_admission_reuse(self, ids: list, pspan=None):
+        """(reuse_tokens, lease | None): the longest cached whole-page prefix
+        aligned to ``_paged_align``, pinned.  No bucket constraint
+        (admissions prefill in slices from the reuse offset): the cap and
+        alignment of :meth:`_find_lane_reuse`, against the radix index."""
+        pool = self._kvpool
+        i = min(pool.match_len(ids), len(ids) - 1)
+        r = (i // self._paged_align) * self._paged_align
+        if r < self._paged_align:
+            pool.note_miss()
+            return 0, None
+        lease = pool.acquire(ids, r, span=pspan)
+        if lease is None:      # raced an eviction, or a spill restore failed
+            return 0, None
+        if pspan is not None:
+            # between the acquire and the handoff a raising span setter is
+            # the one thing that could leak the pinned pages
+            try:
+                pspan.set(reused_pages=len(lease.page_ids), matched_tokens=i)
+            except Exception:  # noqa: BLE001 — telemetry must never pin pages
+                pass
+        return r, lease
+
+    def _release_adm_lease(self, adm) -> None:
+        """Unpin an admission's pool pages (idempotent: the lease is taken
+        out of the admission) — every admission exit calls it: finish,
+        abandon, a dispatch failure, the loop's end."""
+        lease = adm.pop("lease", None) if adm else None
+        if lease is not None:
+            self._kvpool.release(lease)
 
     def _observe_slice(self, dt: float) -> None:
         if self.metrics_sink is not None:
@@ -682,8 +765,8 @@ class ContinuousEngine(MeshEngine):
             slot.pspan = adm.get("span")
             slot.reused = adm.get("reused", 0)
             if slot.reused:     # count only realized reuse (the lane written)
-                self._prefix_stats["lane_prefix_hits"] += 1
-                self._prefix_stats["lane_prefix_reused_tokens"] += slot.reused
+                self._prefix_stats[f"{self._reuse_stat}_hits"] += 1
+                self._prefix_stats[f"{self._reuse_stat}_reused_tokens"] += slot.reused
             if any(s is not None for s in slots):
                 slot.first_token = _HostValue(token)
                 slot.ttft_s = None              # set when read
@@ -705,6 +788,10 @@ class ContinuousEngine(MeshEngine):
                 item.future.set_exception(e)
             elif item.sink is not None:
                 item.sink.put(e)
+        finally:
+            # the restored scratch is in the lane (or the admission failed):
+            # the pages become evictable again
+            self._release_adm_lease(adm)
 
     def _end_prefill_span(self, slot: _Slot) -> None:
         """Close the admission's ``prefill`` span at TTFT (idempotent)."""
@@ -875,6 +962,7 @@ class ContinuousEngine(MeshEngine):
         if adm["item"].abandoned.is_set():       # the caller gave up mid-prefill
             if adm.get("span") is not None:
                 adm["span"].set(abandoned=True).end()
+            self._release_adm_lease(adm)
             self._resolve_skipped(adm["item"])
             self._adm = None
             return 0
@@ -884,6 +972,7 @@ class ContinuousEngine(MeshEngine):
         except Exception as e:  # noqa: BLE001 — a failed admission fails alone
             item = adm["item"]
             self._adm = None
+            self._release_adm_lease(adm)
             self._note_error(e)
             if adm.get("span") is not None:
                 adm["span"].set(error=str(e)).end()
@@ -941,15 +1030,20 @@ class ContinuousEngine(MeshEngine):
         admission in flight, the live admission budget and its EMAs, idle
         lane-seconds, and the lane-prefix counters."""
         out = {"batch_size": self.batch_size, **self._stats}
-        if self._lane_prefix:
+        if self._lane_prefix or self._kv_paged:
             out.update(self._prefix_stats)
+        if self._spec_draft:
+            out["spec"] = dict(self._spec_stats)
         return out
 
-    def _harvest(self, pre: list, chunk: np.ndarray, slots: list) -> None:
+    def _harvest(self, pre: list, chunk: np.ndarray, slots: list,
+                 counts: np.ndarray | None = None) -> None:
         """Fold one read chunk (n_steps, B) into its lanes' slots.  ``pre`` is
         the lane snapshot taken when the chunk was queued; a slot finished
         meanwhile is skipped.  An abandoned, aborted, cancelled or expired
-        request frees its lane here."""
+        request frees its lane here.  ``counts`` (a verify round): lane
+        ``l`` emitted only ``chunk[:counts[l], l]``; later rows were sampled
+        after a rejected draft token and are dropped."""
         stop_ids = self.tokenizer.stop_ids
         now = time.time()
         for lane in range(len(pre)):
@@ -981,7 +1075,10 @@ class ContinuousEngine(MeshEngine):
                 if slot.finished:
                     continue
             finish = None
-            for t in chunk[:, lane].tolist():
+            col = chunk[:, lane]
+            if counts is not None:
+                col = col[:int(counts[lane])]
+            for t in col.tolist():
                 if t in stop_ids:
                     finish = "stop"
                     break
@@ -991,7 +1088,8 @@ class ContinuousEngine(MeshEngine):
                     break
             if slot.dspan is not None:
                 slot.dspan.child("decode_chunk", t0=slot.t_chunk).set(
-                    tokens=len(slot.gens), kind="chunk").end(now)
+                    tokens=len(slot.gens),
+                    kind="verify" if counts is not None else "chunk").end(now)
                 slot.t_chunk = now
                 slot.trace.note(tokens=len(slot.gens))
             if finish is not None:
@@ -1001,6 +1099,53 @@ class ContinuousEngine(MeshEngine):
                 if self._emit_stream(slot, done=False) == "stop":
                     self._finish_slot(slot, "stop")
                     self._free_lane(lane, slot, slots)
+
+    def _spec_drafts(self, slots: list):
+        """(drafts (B, D), hit lanes): zero rows for lanes with no n-gram
+        hit, no budget, a first token still on the device, or no slot (they
+        advance by one true sample).  None when no lane has a hit — the
+        pipelined chunk is better then — and when any live lane lacks the
+        ring room for D+1 slots (+2 for a deferred first token): a verify
+        writes D+1 slots at every lane, and the chunk path serves that lane
+        safely."""
+        D = self._spec_draft
+        drafts = np.zeros((self.batch_size, D), np.int64)
+        hits = []
+        for lane, slot in enumerate(slots):
+            if slot is None or slot.finished:
+                continue
+            pos = slot.n_prompt + len(slot.gens)
+            if pos + D + 2 >= self.cfg.n_ctx:
+                return None
+            if slot.pending_first or slot.budget - len(slot.gens) <= 1:
+                continue
+            d = Engine._lookup_draft(list(slot.ids) + slot.gens, D)
+            if d is not None:
+                drafts[lane] = d
+                hits.append(lane)
+        return (drafts, hits) if hits else None
+
+    def _spec_round(self, slots: list, got: tuple) -> None:
+        """One verify round of every lane (the pipeline flushed by the
+        caller; ``got`` the drafts): queue it, overlap admissions, read the
+        lanes' emitted prefixes and advance the host mirrors of the lanes
+        it served (a lane admitted meanwhile had its mirror rewritten)."""
+        drafts, hits = got
+        pre = list(slots)
+        FAULTS.fire("decode_step")
+        record_dispatch("lane_spec_verify")
+        queued = lane_verify(self.params, self.cfg, self._bstate, self._lane_st, drafts,
+                             top_k=self._max_top_k)
+        self._admit_round(slots)         # admissions overlap the verify
+        toks, cnts = queued.read()
+        mirror = self._bstate["slots"]
+        for lane, slot in enumerate(pre):
+            if slot is not None:
+                mirror[lane] += int(cnts[lane])
+        self._harvest(pre, toks.T, slots, counts=cnts)
+        self._spec_stats["verify_steps"] += 1
+        self._spec_stats["drafted"] += self._spec_draft * len(hits)
+        self._spec_stats["accepted"] += int(sum(max(0, int(cnts[l]) - 1) for l in hits))
 
     def _loop(self):
         B = self.batch_size
@@ -1024,6 +1169,25 @@ class ContinuousEngine(MeshEngine):
                         continue
                     t_prev_wave = time.time()
 
+                # ---- speculation: when a live lane's history has an n-gram
+                # hit, flush the pipeline (drafts need the current
+                # histories) and run verify rounds while drafts hit; not
+                # pipelined, the next drafts need this round's tokens
+                if self._spec_draft and any(s is not None for s in slots):
+                    if self._lane_graphs is not None:
+                        # on the card the verify round is a graph: captured
+                        # here, on the scheduler, at the first wave (0 s
+                        # once held)
+                        self._lane_graphs.capture_verify()
+                    got = self._spec_drafts(slots)
+                    if got is not None and pending is not None:
+                        self._harvest(pending[0], pending[1].rows(), slots)
+                        pending = None
+                        got = self._spec_drafts(slots)  # histories advanced
+                    while not self._stop and got is not None:
+                        self._spec_round(slots, got)
+                        got = self._spec_drafts(slots)
+
                 # ---- one decode chunk of every lane, queued before the
                 # previous chunk is read (pipelined one chunk deep): a lane
                 # whose request finished in the previous chunk decodes one
@@ -1035,6 +1199,7 @@ class ContinuousEngine(MeshEngine):
                     toks = generate_chunk_lanes(self.params, self.cfg, self._bstate,
                                                 self._lane_st, self.decode_chunk,
                                                 top_k=self._max_top_k)
+                    self._spec_stats["chunk_steps"] += 1
                     dispatched = (pre, toks)
                 else:
                     dispatched = None
@@ -1089,6 +1254,7 @@ class ContinuousEngine(MeshEngine):
             err = self._loop_error or RuntimeError("engine has been shut down")
             if self._adm is not None:
                 item = self._adm["item"]
+                self._release_adm_lease(self._adm)
                 self._adm = None
                 if item.sink is not None:
                     item.sink.put(err if self._loop_error else _STREAM_END)

@@ -15,6 +15,15 @@ streaming chunks — on PyTorch and one GPU:
   the slice that holds the last real token;
 - prefix reuse: when a prompt extends the previous request's tokens, only
   the suffix is prefilled (the reference's ``_prefix_reuse_len`` rule);
+  under ``kv_paged`` the process-wide radix index of the paged KV pool
+  (parallel/kvpool.py) takes its place: the longest cached whole-page
+  prefix is copied into the ring in place and pinned for the request, and
+  the finished conversation's pages are committed back;
+- speculative decoding (``spec_decode="lookup"``, or ``"auto"`` decided
+  from the measured dispatch round trip, engine/spec_auto.py): a
+  prompt-lookup draft of ``spec_draft`` tokens verified in one D+1-row
+  forward (models/generate.py ``spec_verify``), on the card one replay of
+  its captured graph a round; greedy output equals the vanilla path's;
 - decode: chunks of ``decode_chunk`` steps with on-device sampling; chunk
   k+1 is queued on the device before chunk k's tokens are read, so the
   host's reading and text emission overlap the device's work.  On the
@@ -65,6 +74,7 @@ from ..models.generate import (
     init_state,
     prefill,
     prefill_chunk,
+    verify_round,
 )
 from ..models.llama import cache_nbytes, init_cache
 from ..models.params import decode_loop_plan, load_params
@@ -168,9 +178,15 @@ class Engine:
         attn_impl: str = "auto",   # auto | xla | pallas (= flash) (prompt passes)
         kv_dtype: str | None = None,  # bf16 | int8 KV cache; None keeps the cfg's
         decode_layer_unroll: int | None = None,  # layers per decode launch; None: settings
+        spec_decode: str = "off",  # off | lookup | auto (prompt-lookup speculation)
+        spec_draft: int = 8,        # draft tokens a verify round
         prefix_cache: bool = True,  # reuse the previous request's KV prefix
         prefix_min: int = 32,       # shortest common prefix worth reusing
         prefill_chunk: int = 256,   # prompt slice size for large buckets
+        kv_paged: bool = False,     # the paged KV pool + radix prefix cache
+        kv_page_tokens: int = 128,  # token slots per pool page
+        kv_pool_pages: int = 0,     # pool size in pages (0 = auto)
+        kv_spill_pages: int = 0,    # host spill tier in pages (0 = off)
         device: str | torch.device | None = None,
         *,
         _parts: tuple | None = None,  # (params, cfg, tokenizer, template_kind)
@@ -178,8 +194,19 @@ class Engine:
         FAULTS.fire("load")   # injection point: a load that fails
         # validated before the file is read: a wrong LFKT_KV_DTYPE fails at
         # once, not after a multi-GB load
+        if spec_decode not in ("off", "lookup", "auto"):
+            raise ValueError(f"spec_decode must be off|lookup|auto, got {spec_decode!r}")
         if kv_dtype is not None and kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be bf16|int8, got {kv_dtype!r}")
+        if spec_decode != "off" and not 1 <= spec_draft < n_ctx - 1:
+            raise ValueError(f"spec_draft must be in [1, n_ctx-2], got {spec_draft}")
+        # "auto" resolves after the load: it needs the weights' bytes
+        self._spec_request = spec_decode
+        self._spec_draft_request = spec_draft
+        #: spec_decode="auto"'s decision record (engine/spec_auto.py)
+        self.spec_auto_decision: dict | None = None
+        self._spec_draft = spec_draft if spec_decode == "lookup" else 0
+        self._warn_spec_unserved("spec_decode='lookup'")
         if decode_layer_unroll is None:
             from ..utils.config import get_settings
 
@@ -252,27 +279,73 @@ class Engine:
         if decode_layer_unroll != self.cfg.decode_layer_unroll:
             self.cfg = dataclasses.replace(self.cfg,
                                            decode_layer_unroll=decode_layer_unroll)
+        if self._spec_request == "auto":
+            from .spec_auto import resolve_auto
+
+            mode, self.spec_auto_decision = resolve_auto(self.params)
+            self._spec_draft = self._spec_draft_request if mode == "lookup" else 0
+            logger.info("spec_decode=auto resolved to %r: %s", mode, self.spec_auto_decision)
+            if mode == "lookup":
+                self._warn_spec_unserved("spec_decode=auto resolved to lookup, but")
         self.prefill_buckets = sorted(b for b in prefill_buckets if b <= self.cfg.n_ctx)
         if not self.prefill_buckets or self.prefill_buckets[-1] < self.cfg.n_ctx:
             self.prefill_buckets.append(self.cfg.n_ctx)
         self._cache = init_cache(self.cfg, self.device)
         # the decode step as CUDA graphs over this ring (the card only)
-        self._graphs = (DecodeGraphs(self.params, self.cfg, self._cache)
+        self._graphs = (DecodeGraphs(self.params, self.cfg, self._cache,
+                                     draft_len=self._spec_draft if self._spec_enabled() else 0)
                         if self.device.type == "cuda" else None)
         # prompt-prefix KV reuse: the token ids whose KV occupy ring slots
-        # [0, len) — read and written only under self._lock
-        self._prefix_cache = bool(prefix_cache)
+        # [0, len) — read and written only under self._lock.  Speculation
+        # excludes every reuse path, as in the reference: verify rounds
+        # leave rejected drafts in ring slots
+        self._prefix_cache = bool(prefix_cache) and not self._spec_draft
         self._prefix_min = max(1, int(prefix_min))
         self._prefix_ids: list[int] = []
+        # the paged KV pool and its radix index (parallel/kvpool.py): one
+        # reuse implementation per mode, so paging replaces the claim above
+        paged = bool(kv_paged) and not self._spec_draft
+        self._kv_paged = paged
+        #: the in-flight request's pinned pool pages (one live lease: one
+        #: request at a time); acquired in _paged_reuse, released by
+        #: _drop_lease on every exit
+        self._paged_lease = None
+        self._kvpool = None
+        if paged:
+            from ..parallel.kvpool import KVPool
+
+            self._prefix_cache = False
+            self._kvpool = KVPool(self.cfg, page_tokens=kv_page_tokens,
+                                  n_pages=kv_pool_pages, spill_pages=kv_spill_pages,
+                                  sink_host=self, device=self.device)
         # weakly held (a closed engine's rows vanish with it); the providers
-        # read sizes only, at snapshot time
+        # read sizes only, at snapshot time.  The pool registers its own rows
         register_component("weights", self, lambda eng: eng.weight_bytes)
-        register_component("kv_ring", self, lambda eng: eng.kv_cache_bytes)
+        register_component("kv_ring", self, lambda eng: cache_nbytes(eng.cfg))
+
+    def _warn_spec_unserved(self, what: str) -> None:
+        """Speculation is served by the serial Engine and the continuous
+        scheduler; any other engine logs that it serves vanilla decode."""
+        if self._spec_draft and type(self) is not Engine \
+                and not getattr(self, "_SPEC_LANES", False):
+            logger.warning("%s %s serves vanilla decode (see _spec_enabled)",
+                           what, type(self).__name__)
 
     @property
     def kv_cache_bytes(self) -> int:
-        """Device bytes of the KV ring (bf16 or int8, as ``cfg.kv_dtype``)."""
-        return cache_nbytes(self.cfg)
+        """Device bytes of the KV ring (bf16 or int8, as ``cfg.kv_dtype``)
+        and of the paged pool's arena when it serves."""
+        pool = getattr(self, "_kvpool", None)
+        return cache_nbytes(self.cfg) + (pool.arena_nbytes if pool is not None else 0)
+
+    def kv_pool_occupancy(self) -> dict | None:
+        """The paged pool's occupancy and event counters (/health
+        ``engine.kv_pool``, the ``kv_pool_pages_*`` gauges); None when the
+        pool is off."""
+        pool = getattr(self, "_kvpool", None)
+        if pool is None:
+            return None
+        return {**pool.occupancy(), **pool.stats()}
 
     @property
     def weight_bytes(self) -> int:
@@ -306,6 +379,8 @@ class Engine:
         if self._graphs is not None:
             with self._lock:
                 self._graphs.capture(SamplingParams().top_k)
+                if self._spec_enabled():
+                    self._graphs.capture_verify(SamplingParams().top_k)
                 # the capture's warm-up step wrote a ring slot
                 self._prefix_ids = []
         self.create_chat_completion(
@@ -403,14 +478,24 @@ class Engine:
 
     def _recover_locked(self) -> None:
         """Zero the ring in place and drop its prefix claim, with the lock
-        held.  The ring is never reallocated: the captured decode graphs
-        read and write these very tensors, and a new ring would be one the
-        replays never see."""
-        for t in self._cache.values():
-            t.zero_()
+        held; under the paged pool also drop the lease and reset the pool
+        (nothing resident is trustworthy after a trip).  The ring is never
+        reallocated: the captured decode graphs read and write these very
+        tensors, and a new ring would be one the replays never see."""
+        self._zero_ring()
         self._prefix_ids = []
+        if self._kvpool is not None:
+            self._drop_lease()
+            self._kvpool.reset()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    @torch.inference_mode()
+    def _zero_ring(self) -> None:
+        """The ring zeroed in place: the port's counterpart of the
+        reference's cold ring."""
+        for t in self._cache.values():
+            t.zero_()
 
     @staticmethod
     def _deadline_hit(ctx) -> bool:
@@ -501,6 +586,11 @@ class Engine:
         pspan = None
         if espan is not None:
             pspan = espan.child("prefill", t0=t0)
+        if self._kv_paged and not explicit_seed:
+            # the radix index replaces the claim: matched pages are copied
+            # into the ring in place and pinned for this request
+            reuse = self._paged_reuse(ids, n_prompt, bucket, pspan)
+        if pspan is not None:
             pspan.set(n_prompt=n_prompt, bucket=bucket, reused=reuse)
         # claim nothing while this request is in flight: an exception past
         # here must not leave a claim over a ring of unknown contents
@@ -557,12 +647,68 @@ class Engine:
                 return r
         return 0
 
+    def _drop_lease(self) -> None:
+        """Unpin the current request's pool pages (idempotent)."""
+        if self._paged_lease is not None:
+            self._kvpool.release(self._paged_lease)
+            self._paged_lease = None
+
+    def _paged_reuse(self, ids: list, n_prompt: int, bucket: int, pspan=None) -> int:
+        """Radix prefix reuse: the longest cached whole-page prefix that
+        fits :meth:`_prefix_reuse_len`'s constraints, page-aligned, copied
+        into the ring in place and pinned for the request.  Returns the
+        reused token count (0 = full prefill).  A failed copy drops the
+        lease, zeroes the ring (its contents are unknown) and raises."""
+        self._drop_lease()   # a prior request's failure may have left one
+        pool = self._kvpool
+        T = pool.page_tokens
+        i = min(pool.match_len(ids), n_prompt - 1)
+        r_fit = 0
+        # the suffix's padded slice must stay inside the ring and land in a
+        # strictly smaller bucket; pages are the restore grain
+        for b in self.prefill_buckets:
+            if b >= bucket:
+                break
+            r = (min(i, self.cfg.n_ctx - b) // T) * T
+            if r >= max(self._prefix_min, T) and n_prompt - r <= b:
+                r_fit = r
+                break
+        if r_fit == 0:
+            pool.note_miss()
+            return 0
+        lease = pool.acquire(ids, r_fit, span=pspan)
+        if lease is None:    # raced an eviction, or a spill restore failed
+            return 0
+        self._paged_lease = lease
+        try:
+            pool.restore(lease, self._cache, span=pspan)
+        except BaseException:
+            self._drop_lease()
+            try:
+                self._zero_ring()
+            except Exception as e:  # noqa: BLE001 — the restore's error wins
+                logger.error("zeroing the ring after a failed restore failed: %s", e)
+            raise
+        if pspan is not None:
+            pspan.set(reused_pages=len(lease.page_ids), matched_tokens=i)
+        return lease.tokens
+
     def _finish(self, ctx) -> dict:
-        """Record the ring's new prefix claim and the request's timings (on
-        the traced request's ``engine`` span too, which it closes)."""
+        """Record the ring's new prefix claim — under the paged pool, commit
+        the conversation's whole pages and unpin the lease — and the
+        request's timings (on the traced request's ``engine`` span too,
+        which it closes)."""
         decode_s = time.time() - ctx["t0"] - ctx["ttft_s"]
         n = len(ctx["ids"])
-        if self._prefix_cache:
+        if self._kv_paged:
+            # ring slots [0, n_prompt + n - 1) hold the prompt and every
+            # generated token but the last; cached pages deduplicate, so a
+            # follow-up turn stores only its delta
+            keep = ctx["n_prompt"] + max(n - 1, 0)
+            self._kvpool.commit((ctx["prompt_ids"] + ctx["ids"])[:keep], self._cache,
+                                span=ctx.get("span"))
+            self._drop_lease()
+        elif self._prefix_cache:
             # ring slots [0, n_prompt + n - 1) hold the prompt and every
             # generated token but the last (it is never fed)
             keep = ctx["n_prompt"] + max(n - 1, 0)
@@ -578,11 +724,13 @@ class Engine:
             # the first token came out of prefill; decode produced n-1
             "tokens_per_sec": (n - 1) / decode_s if n > 1 and decode_s > 0 else 0.0,
         }
+        if "spec" in ctx:      # speculative decoding: acceptance telemetry
+            timings["spec"] = ctx["spec"]
         self._record_timings(timings)
         espan = ctx.get("span")
         if espan is not None:
             espan.set(**{k: round(v, 6) if isinstance(v, float) else v
-                         for k, v in timings.items()})
+                         for k, v in timings.items() if not isinstance(v, dict)})
             espan.end()
         return timings
 
@@ -646,6 +794,110 @@ class Engine:
             copied.synchronize()
         return toks.tolist()
 
+    # -- speculative decoding (prompt-lookup drafts) ----------------------
+    def _spec_enabled(self) -> bool:
+        """Lookup speculation is the serial Engine's (the continuous
+        scheduler serves its own); other engines serve vanilla decode."""
+        return self._spec_draft > 0 and type(self) is Engine
+
+    @staticmethod
+    def _lookup_draft(history: list, D: int, max_ngram: int = 3):
+        """Prompt-lookup draft: the most recent earlier occurrence of the
+        last n-gram (n = max_ngram..1) in ``history``, its continuation
+        zero-padded to exactly ``D`` tokens; None when no n-gram recurs (the
+        caller decodes plainly).  The reference's heuristic, unchanged."""
+        n_hist = len(history)
+        for n in range(max_ngram, 0, -1):
+            if n_hist < n + 1:
+                continue
+            pat = history[-n:]
+            for j in range(n_hist - n - 1, -1, -1):
+                if history[j:j + n] == pat:
+                    cont = history[j + n:j + n + D]
+                    if cont:
+                        return cont + [0] * (D - len(cont))
+        return None
+
+    def _run_spec(self, ctx, max_tokens, stops):
+        """:meth:`_run` under speculation: each round drafts up to
+        ``spec_draft`` tokens from n-gram repetition in prompt and
+        generation, verifies them in one D+1-row forward (on the card one
+        replay of the verify graph) and emits the agreeing prefix and one
+        true sample; a round without a draft decodes one plain chunk.  Not
+        pipelined: the next draft needs this round's tokens on the host."""
+        stop_ids = self.tokenizer.stop_ids
+        budget = self._token_budget(max_tokens, ctx["n_prompt"])
+        gen: list[int] = []
+        em = _TextEmitter(self, stops)
+        finish = "length"
+        first = ctx["first"]
+        if budget <= 0:
+            yield "", True, "length"
+            return
+        if first in stop_ids:
+            yield "", True, "stop"
+            return
+        gen.append(first)
+        history = list(ctx["prompt_ids"]) + gen
+        pos = ctx["n_prompt"]
+        D = self._spec_draft
+        done = len(gen) >= budget
+        # accepted / drafted is the number that says whether speculation pays
+        stats = ctx.setdefault("spec", {"verify_steps": 0, "drafted": 0, "accepted": 0,
+                                        "fallback_steps": 0})
+        ready, finish, done = em.step(gen, done, finish)
+        if ready:
+            yield ready, False, finish
+        espan = ctx.get("span")
+        while not done:
+            if self._deadline_hit(ctx):
+                finish = "deadline"
+                break
+            self.heartbeat.beat()
+            FAULTS.fire("decode_step")
+            cspan = espan.child("decode_chunk") if espan is not None else None
+            remaining = budget - len(gen)
+            capacity = self.cfg.n_ctx - pos - 1   # ring slots left to write
+            draft = (self._lookup_draft(history, D)
+                     if remaining > 1 and capacity > D else None)
+            if draft is not None:
+                record_dispatch("spec_verify")
+                toks, cnt = verify_round(self.params, self.cfg, ctx["state"], ctx["st"],
+                                         draft, top_k=ctx["sp"].top_k)   # host sync
+                toks = toks[:min(cnt, remaining)]
+                pos += cnt
+                stats["verify_steps"] += 1
+                stats["drafted"] += D
+                stats["accepted"] += cnt - 1      # beyond the always-free one
+            else:
+                n = self._next_steps(len(gen), pos, budget)
+                if n <= 0:
+                    break
+                toks = self._read_chunk(self._decode_chunk(ctx, n))
+                pos += n
+                stats["fallback_steps"] += 1
+            for t in toks:
+                if t in stop_ids:
+                    finish = "stop"
+                    done = True
+                    break
+                gen.append(t)
+                history.append(t)
+            if not done and len(gen) >= budget:
+                done = True
+            self.heartbeat.beat()
+            if cspan is not None:
+                cspan.set(tokens=len(gen), kind="verify" if draft is not None else "chunk")
+                cspan.end()
+                ctx["trace"].note(tokens=len(gen))
+            ready, finish, done = em.step(gen, done, finish)
+            if ready:
+                yield ready, False, finish
+
+        ctx["ids"] = gen
+        tail, finish = em.final(gen, finish)
+        yield tail, True, finish
+
     def _run(self, ctx, max_tokens, stops):
         """Generate; yields (new_text, done, finish_reason) increments.
 
@@ -655,6 +907,9 @@ class Engine:
         still runs.  If a stop lands mid-chunk, the extra chunk's cache
         writes are harmless: attention masks by position and the next
         request prefills over them."""
+        if self._spec_enabled():
+            yield from self._run_spec(ctx, max_tokens, stops)
+            return
         stop_ids = self.tokenizer.stop_ids
         budget = self._token_budget(max_tokens, ctx["n_prompt"])
         gen: list[int] = []
@@ -743,6 +998,7 @@ class Engine:
                     finish = fr
                 timings = self._finish(ctx)
             except Exception as e:  # noqa: BLE001 — burst detection, re-raised
+                self._drop_lease()
                 self._note_error(e)
                 raise
             finally:
@@ -776,6 +1032,7 @@ class Engine:
                 ctx = self._start(messages, sp, seed,
                                   espan=self._engine_span(trace, deadline))
             except Exception as e:  # noqa: BLE001 — burst detection, re-raised
+                self._drop_lease()
                 self.heartbeat.leave()
                 self._note_error(e)
                 raise
@@ -810,6 +1067,7 @@ class Engine:
                 final["lfkt_timings"] = timings
                 yield final
             except Exception as e:  # noqa: BLE001 — burst detection, re-raised
+                self._drop_lease()
                 self._note_error(e)
                 raise
             finally:

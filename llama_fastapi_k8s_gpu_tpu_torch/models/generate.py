@@ -26,6 +26,7 @@ advances by exactly the steps queued, so it never needs a device read.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import time
 
 import torch
@@ -39,7 +40,7 @@ from .llama import forward
 
 # the host programs of the compile registry: the engine counts a call of
 # each as a dispatch (a decode chunk is one, whatever its replays)
-for _name in ("prefill", "prefill_chunk", "first_sample", "decode_chunk"):
+for _name in ("prefill", "prefill_chunk", "first_sample", "decode_chunk", "spec_verify"):
     register_program(_name, ENTRY, site="models.generate")
 del _name
 
@@ -112,6 +113,68 @@ def decode_step(params, cfg: ModelConfig, state: dict, st: dict,
     return token
 
 
+@torch.inference_mode()
+def spec_verify(params, cfg: ModelConfig, state: dict, st: dict, draft: torch.Tensor,
+                top_k: int = 40) -> tuple[torch.Tensor, torch.Tensor]:
+    """Speculative-decoding verify step (prompt-lookup drafts), in place.
+
+    Feeds ``[state["token"], draft...]`` — D+1 tokens — through one forward
+    at slots pos..pos+D (the linears read their weights once for D+1
+    rows), then replays the sampling chain over the D+1 logits in order.
+    Position ``i``'s sample is *emitted* while every earlier sample matched
+    its draft token, so the emitted prefix — including the first mismatch,
+    which is the true sample — is what sequential decoding emits: each
+    emitted token is sampled from the same logits' row under the penalty
+    ring and ``wpos`` that sequential decoding would have, and the ring
+    and ``wpos`` advance only for emitted positions (``alive`` is a device
+    mask; nothing is read on the host).
+
+    The generator is the one difference from the reference, whose PRNG key
+    advances only for emitted positions: here every position draws its
+    noise from ``state["gen"]``, so a round advances the generator by D+1
+    draws whatever it emits, and a rejected position consumes draws.  Each
+    emitted token still takes fresh noise, so sampled output is correct in
+    distribution and, per seed, deterministic; greedy output (temperature
+    0, no draw used) equals the vanilla path's.
+
+    The rows score the whole ring under the mask, as a decode step does
+    (the ``flash`` prompt path is swapped for the score matrix, as the
+    reference swaps its Pallas kernel at S = D+1).  Rejected positions leave
+    stale K/V in ring slots past the new ``pos``; the mask is positional,
+    so they are never read and later steps overwrite them.  The caller
+    keeps pos + D inside the ring (the engines' capacity veto).
+
+    Returns ``(tokens (D+1,), count)`` on the device: ``tokens[:count]``
+    are emitted (1 ≤ count ≤ D+1); ``pos`` advanced by ``count``, ``token``
+    is the last emitted token."""
+    D = draft.shape[0]
+    if cfg.attn_impl == "flash":
+        cfg = dataclasses.replace(cfg, attn_impl="xla")
+    seq = torch.cat([state["token"].reshape(1), draft])
+    logits = forward(params, cfg, seq, state["pos"], state["cache"], return_all=True)
+    # position D has no guess to match: it never extends `alive`
+    dpad = torch.cat([draft, draft.new_full((1,), -1)])
+    window, wpos = state["window"], state["wpos"]
+    alive = torch.ones((), dtype=torch.bool, device=seq.device)
+    last, count = state["token"], torch.zeros_like(state["pos"])
+    toks = []
+    for i in range(D + 1):
+        s = sample_chain(logits[i], window, state["gen"], st, top_k=top_k)
+        emit = alive
+        slot = torch.remainder(wpos, PENALTY_WINDOW).reshape(1)
+        window = torch.where(emit, window.index_copy(0, slot, s.reshape(1)), window)
+        wpos = wpos + emit.long()
+        alive = alive & (s == dpad[i])
+        last = torch.where(emit, s, last)
+        count = count + emit.long()
+        toks.append(s)
+    state["window"].copy_(window)
+    state["wpos"].copy_(wpos)
+    state["token"].copy_(last)
+    state["pos"].add_(count)
+    return torch.stack(toks), count
+
+
 def _take_steps(state: dict, n_steps: int) -> int:
     """Advance the host mirror by ``n_steps``; returns the first slot fed.
     The range check of the whole chunk happens here, on the host."""
@@ -143,6 +206,38 @@ def generate_chunk(params, cfg: ModelConfig, state: dict, st: dict,
     for _ in range(n_steps):
         decode_step(params, cfg, state, st, top_k)
     return state["out"][slot:slot + n_steps]
+
+
+def _check_verify(state: dict, D: int) -> None:
+    """The host-side range check of a verify round: its D+1 slots from the
+    host mirror must fit the ring."""
+    n_ctx = state["out"].shape[0]
+    if D < 1 or state["slot"] + D + 1 > n_ctx:
+        raise ValueError(f"a {D}-token verify from slot {state['slot']} does not fit "
+                         f"the {n_ctx}-slot KV ring")
+
+
+@torch.inference_mode()
+def verify_round(params, cfg: ModelConfig, state: dict, st: dict, draft: list,
+                 top_k: int = 40) -> tuple[list, int]:
+    """One verify round of ``draft`` (host ids) over ``state`` in place:
+    :func:`spec_verify`, then its tokens and count read on the host (the
+    round's sync) and the host mirror advanced by the count.  A state of
+    :class:`DecodeGraphs` (the card) replays its captured verify step; any
+    other runs it eagerly, which only the CPU does.  Returns ``(emitted
+    tokens, count)``."""
+    graphs = state.get("graphs")
+    if graphs is not None:
+        return graphs.verify(state, st, draft, top_k)
+    if state["pos"].device.type != "cpu":
+        raise ValueError("a verify round on the card is a graph replay: take the "
+                         "state from DecodeGraphs.state")
+    _check_verify(state, len(draft))
+    toks, count = spec_verify(params, cfg, state, st,
+                              torch.tensor(draft, dtype=torch.int64), top_k)
+    n = int(count)
+    state["slot"] += n
+    return toks[:n].tolist(), n
 
 
 #: graphs one engine keeps (one per ``top_k``); the first, the default's, is
@@ -234,13 +329,20 @@ class DecodeGraphs:
     compile registry (obs/devtime.py), signature ``top_k=<k>``, with its
     seconds; a re-capture after an eviction is one more.
 
+    Under speculative decoding the verify step (:func:`spec_verify`, D+1
+    rows) is captured beside the decode step over the same state, one graph
+    per ``top_k`` (:meth:`capture_verify`, at most :data:`MAX_GRAPHS`),
+    each a compile of ``spec_verify``: the draft, of the ``draft_len``
+    fixed when the graphs are built, goes into a static (D,) buffer, the step writes its tokens and count into a static (D+2,) one,
+    and :meth:`verify` reads that behind an event.
+
     There is no eager fallback: a failed capture or replay raises."""
 
-    def __init__(self, params, cfg: ModelConfig, cache: dict):
+    def __init__(self, params, cfg: ModelConfig, cache: dict, draft_len: int = 0):
         device = next(iter(cache.values())).device
         if device.type != "cuda":
             raise ValueError(f"DecodeGraphs: CUDA graphs need the card, the ring is on {device}")
-        self.params, self.cfg = params, cfg
+        self.params, self.cfg, self.draft_len = params, cfg, draft_len
         self._state = init_state(cache, [], 0, device)
         self._state["graphs"] = self
         self.gen = self._state["gen"]
@@ -253,6 +355,19 @@ class DecodeGraphs:
         self.captures: dict = {}
         #: replays issued since the engine was built
         self.replays = 0
+        #: the verify step's graphs (top_k → (graph, increments)), its
+        #: static draft of ``draft_len`` tokens (0: no speculation), its
+        #: output (tokens, then the count) and that output's pinned host copy
+        self._verify: collections.OrderedDict = collections.OrderedDict()
+        self._draft = self._vout = self._vhost = None
+        if draft_len:
+            self._draft = torch.zeros(draft_len, dtype=torch.int64, device=device)
+            self._vout = torch.zeros(draft_len + 2, dtype=torch.int64, device=device)
+            self._vhost = torch.empty(draft_len + 2, dtype=torch.int64, pin_memory=True)
+        #: top_k → seconds the verify capture took
+        self.verify_captures: dict = {}
+        #: verify replays issued since the engine was built
+        self.verify_replays = 0
 
     @property
     def keys(self) -> list:
@@ -310,6 +425,64 @@ class DecodeGraphs:
         """Each kernel counter's increment in one replay of ``top_k``'s graph."""
         return dict(self._graphs[top_k][1])
 
+    def _verify_step(self, top_k: int) -> None:
+        toks, count = spec_verify(self.params, self.cfg, self._state, self._st,
+                                  self._draft, top_k)
+        self._vout[:-1].copy_(toks)
+        self._vout[-1].copy_(count)
+
+    @torch.inference_mode()
+    def capture_verify(self, top_k: int = SamplingParams.top_k) -> float:
+        """Capture the verify step of the graphs' ``draft_len`` draft tokens
+        for ``top_k`` if it is not held; returns the seconds taken (0 when
+        held)."""
+        if not self.draft_len:
+            raise ValueError("DecodeGraphs: built without a draft length (draft_len=0)")
+        device = self.gen.device
+        if top_k in self._verify:
+            return 0.0
+        if self._st is None:
+            from ..sampling.sample import sampling_tensors
+
+            self.knobs(sampling_tensors(SamplingParams(), device))
+        t0 = time.time()
+        self._verify[top_k] = capture_step(lambda: self._verify_step(top_k), self._state,
+                                           [self.gen], self._stream, self._pool)
+        while len(self._verify) > MAX_GRAPHS:
+            del self._verify[list(self._verify)[1]]
+        self.verify_captures[top_k] = time.time() - t0
+        record_compile("spec_verify", f"top_k={top_k}", self.verify_captures[top_k])
+        return self.verify_captures[top_k]
+
+    def verify_launches(self, top_k: int) -> dict:
+        """Each kernel counter's increment in one replay of ``top_k``'s
+        verify graph."""
+        return dict(self._verify[top_k][1])
+
+    def verify(self, state: dict, st: dict, draft: list, top_k: int) -> tuple[list, int]:
+        """One replay of ``top_k``'s verify graph (captured now if it is not
+        held) over ``draft``; returns the emitted tokens and their count,
+        read behind an event, and advances the host mirror by the count."""
+        if state is not self._state or st is not self._st:
+            raise ValueError("DecodeGraphs.verify takes the graphs' own state and knobs")
+        if len(draft) != self.draft_len:
+            raise ValueError(f"DecodeGraphs: a draft of {len(draft)} tokens, the graphs "
+                             f"take {self.draft_len}")
+        _check_verify(state, len(draft))
+        with torch.inference_mode():
+            self.capture_verify(top_k)
+            self._draft.copy_(torch.tensor(draft, dtype=torch.int64))
+            replay_step(*self._verify[top_k], 1)
+            self._vhost.copy_(self._vout, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        self.verify_replays += 1
+        done.synchronize()
+        vals = self._vhost.tolist()
+        n = vals[-1]
+        state["slot"] += n
+        return vals[:n], n
+
     def chunk(self, state: dict, st: dict, n_steps: int, top_k: int) -> torch.Tensor:
         """``n_steps`` replays of ``top_k``'s graph (captured now if it is not
         held); returns the chunk's tokens, a view of ``out`` that no later
@@ -326,7 +499,8 @@ class DecodeGraphs:
     def close(self) -> None:
         """Release the graphs and their memory pool (after the card has run
         every replay queued)."""
-        if self._graphs:
+        if self._graphs or self._verify:
             torch.cuda.current_stream(self.gen.device).synchronize()
         self._graphs.clear()
+        self._verify.clear()
         self._pool = None

@@ -218,7 +218,8 @@ def _layer(h: torch.Tensor, layer, i: int, cache: dict,
         # decode scores the whole ring under the mask (the reference's
         # shapes); a prompt pass stops at its last key
         ctx = xla_attention(q, ck, cv, positions, cfg, h.dtype,
-                            key_end=None if S == 1 else pos_offset + S, cks=cks, cvs=cvs)
+                            key_end=None if S == 1 or pos_offset is None else pos_offset + S,
+                            cks=cks, cvs=cvs)
     h = h + linear(ctx, layer.wo)
 
     hn = rms_norm(h, layer.ffn_norm, cfg.rms_eps)
@@ -290,20 +291,27 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     their K/V into ``cache`` in place.  Returns f32 logits: (vocab,) at
     ``last_idx`` (default S-1), or (S, vocab) with ``return_all``.
 
-    ``pos_offset`` is a host int, range-checked here, or — for one decode
-    token — a 0-d int64 device tensor that is never read on the host (the
-    caller checks the range on its host mirror), so the step can be
-    captured in a CUDA graph.
+    ``pos_offset`` is a host int, range-checked here, or a 0-d int64 device
+    tensor that is never read on the host (the caller checks the range on
+    its host mirror), so the step can be captured in a CUDA graph.  A
+    device position takes one decode token, or the S rows of a speculative
+    verify pass (models/generate.py ``spec_verify``): those score the whole
+    ring under the mask, as decode does, which the ``flash`` prompt path
+    cannot (it takes a host offset), and their slots are clamped to the
+    ring's last, so a lane whose slot ran past the ring writes nothing
+    outside it.
 
     A decode step (S == 1) under ``cfg.decode_layer_unroll`` runs the layer
     stack as L/K launches of the layer-looped kernel (ops/decode_loop.py);
     the output norm and head stay outside the loop, as in the reference."""
     S = tokens.shape[0]
     if isinstance(pos_offset, torch.Tensor):
-        if S != 1 or pos_offset.shape != () or pos_offset.dtype != torch.int64:
-            raise ValueError(f"a device position takes one token at a 0-d int64 "
-                             f"slot, got {S} tokens at {tuple(pos_offset.shape)} "
-                             f"{pos_offset.dtype}")
+        if pos_offset.shape != () or pos_offset.dtype != torch.int64:
+            raise ValueError(f"a device position is a 0-d int64 slot, got "
+                             f"{tuple(pos_offset.shape)} {pos_offset.dtype}")
+        if S > 1 and cfg.attn_impl == "flash":
+            raise ValueError("a device position takes the score-matrix attention "
+                             "(attn_impl 'xla'): the flash kernel takes a host offset")
     elif pos_offset < 0 or pos_offset + S > cfg.n_ctx:
         raise ValueError(f"tokens at {pos_offset}..{pos_offset + S} do not fit "
                          f"the {cfg.n_ctx}-slot KV ring")
@@ -312,6 +320,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
                          f"cfg.n_layers={cfg.n_layers}")
     h = params.tok_emb[tokens].to(torch.bfloat16)
     positions = pos_offset + torch.arange(S, device=h.device)
+    if S > 1 and isinstance(pos_offset, torch.Tensor):
+        positions = positions.clamp(max=cfg.n_ctx - 1)
     host_offset = None if isinstance(pos_offset, torch.Tensor) else pos_offset
     K, fmts = _loop_unroll(params, cfg, S)
     if K:

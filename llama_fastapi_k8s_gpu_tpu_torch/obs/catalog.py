@@ -33,6 +33,9 @@ LATENCY_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
 OCCUPANCY_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0)
 #: decode throughput buckets (tokens/sec)
 RATE_BUCKETS = (1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0, 200.0, 500.0)
+#: token-count buckets (prefix reuse lengths: one page up to a 32k prompt)
+TOKEN_BUCKETS = (64.0, 128.0, 256.0, 512.0, 1024.0, 2048.0, 4096.0,
+                 8192.0, 16384.0, 32768.0)
 #: compile-wall buckets (seconds)
 COMPILE_BUCKETS = (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
                    30.0, 60.0, 120.0)
@@ -96,11 +99,34 @@ METRICS: dict[str, Metric] = _register(
     Metric("batch_occupancy", HISTOGRAM,
            "requests coalesced per batched cycle",
            buckets=OCCUPANCY_BUCKETS),
-    # -- prefix reuse --------------------------------------------------------
+    # -- speculative decoding / prefix reuse -------------------------------
+    Metric("spec_drafted_tokens_total", COUNTER,
+           "speculative tokens drafted"),
+    Metric("spec_accepted_tokens_total", COUNTER,
+           "speculative tokens accepted"),
+    Metric("spec_verify_steps_total", COUNTER, "speculative verify steps"),
+    Metric("spec_fallback_steps_total", COUNTER,
+           "plain decode steps taken on lookup miss"),
     Metric("prefix_cache_hits_total", COUNTER,
            "requests served with prompt-prefix KV reuse"),
     Metric("prefix_cache_reused_tokens_total", COUNTER,
            "prompt tokens NOT re-prefilled thanks to prefix reuse"),
+    # -- block-paged KV pool + radix prefix cache (parallel/kvpool.py) -----
+    Metric("prefix_cache_misses_total", COUNTER,
+           "requests that consulted the radix prefix index and took a "
+           "full prefill (no usable cached prefix)"),
+    Metric("prefix_cache_evictions_total", COUNTER,
+           "KV pool nodes evicted (LRU, unpinned) to free pages"),
+    Metric("prefix_cache_spills_total", COUNTER,
+           "evicted KV nodes DMA'd to the host-RAM spill tier"),
+    Metric("prefix_cache_restores_total", COUNTER,
+           "spilled KV nodes restored to HBM on a prefix hit"),
+    Metric("prefix_reuse_tokens", HISTOGRAM,
+           "per-hit prompt tokens served from cached KV pages",
+           buckets=TOKEN_BUCKETS),
+    Metric("kv_pool_pages_used", GAUGE,
+           "KV pool pages holding indexed cache content"),
+    Metric("kv_pool_pages_free", GAUGE, "KV pool pages on the free list"),
     # -- prefill pipeline ----------------------------------------------------
     Metric("prefill_slice_seconds", HISTOGRAM,
            "host wall of one prefill-slice dispatch (prep + enqueue; "
@@ -231,6 +257,17 @@ MEM_COMPONENTS: dict[str, MemComponent] = {
         MemComponent("kv_scratch",
                      "the continuous scheduler's persistent prefill "
                      "scratch ring (engine/continuous.py)"),
+        MemComponent("kv_arena_used",
+                     "KV pool arena pages holding indexed cache content, "
+                     "per radix namespace (model); model=(unindexed) is "
+                     "allocated-but-uncommitted in-flight pages"),
+        MemComponent("kv_arena_free",
+                     "KV pool arena pages on the free list (allocated "
+                     "HBM, no content); reported even at 0 — exhaustion "
+                     "is the alert", always=True),
+        MemComponent("host_spill",
+                     "host-RAM KV spill tier (LFKT_KV_SPILL_PAGES)",
+                     device=False),
         MemComponent("residual",
                      "ground truth minus every attributed device "
                      "component: bytes the ledger cannot explain "

@@ -23,7 +23,12 @@ more rows for the linears:
   ``models.generate.DecodeGraphs`` captures), on the CPU the step run
   eagerly.  It
   returns a :class:`LaneChunk`, whose :meth:`LaneChunk.rows` reads the
-  chunk's tokens.
+  chunk's tokens;
+- :func:`batched_spec_verify_perlane`: one speculative verify round of
+  every lane (the continuous scheduler's spec rounds): lane ``b``'s draft
+  verified by ``models.generate.spec_verify`` on the lane's own ring view,
+  a D+1-row pass a lane — the reference's vmapped verify, lane by lane.
+  On the card one replay of a second graph of :class:`LaneGraphs`.
 
 The reference's shared-knob chunk and its per-lane-knob chunk are one
 program here: shared knobs are per-lane knobs that hold the same values.
@@ -39,12 +44,13 @@ import time
 import numpy as np
 import torch
 
-from ..models.generate import capture_step, replay_step
+from ..models.generate import capture_step, replay_step, spec_verify
 from ..models.llama import forward, forward_lanes, init_lane_cache, lane_view
 from ..obs.devtime import ENTRY, record_compile, register_program
 from ..sampling.sample import PENALTY_WINDOW, SamplingParams, lane_tensors, sample_chain_lanes
 
-for _name in ("batched_prefill", "batched_decode_chunk", "lane_decode_chunk"):
+for _name in ("batched_prefill", "batched_decode_chunk", "lane_decode_chunk",
+              "lane_spec_verify"):
     register_program(_name, ENTRY, site="parallel.batched")
 del _name
 
@@ -109,6 +115,69 @@ def lane_step(params, cfg, state: dict, st: dict, top_k: int = 40) -> torch.Tens
     state["wpos"].add_(1)
     state["token"].copy_(tok)
     return tok
+
+
+@torch.inference_mode()
+def batched_spec_verify_perlane(params, cfg, state: dict, st: dict, drafts: torch.Tensor,
+                                top_k: int = 40) -> tuple[torch.Tensor, torch.Tensor]:
+    """One verify round of every lane, in place: ``drafts`` (B, D) int64 on
+    the device, one prompt-lookup draft a lane (zeros for a lane without
+    one: it still advances by its one true sample).  Lane ``b`` runs
+    ``spec_verify`` over its ring view, its ``pos``/``token``/``window``/
+    ``wpos`` rows and its own generator, under its own knobs and the static
+    ``top_k`` ceiling.  A lane that holds no request verifies too, its
+    slots clamped to the ring's last (``models.llama.forward``).  Returns
+    ``(tokens (B, D+1), counts (B,))``: lane ``b`` emits ``tokens[b,
+    :counts[b]]``."""
+    toks, counts = [], []
+    for b in range(drafts.shape[0]):
+        lane = {"cache": lane_view(state["cache"], b), "pos": state["pos"][b],
+                "token": state["token"][b], "window": state["window"][b],
+                "wpos": state["wpos"][b], "gen": state["gens"][b]}
+        t, n = spec_verify(params, cfg, lane, {k: v[b] for k, v in st.items()},
+                           drafts[b], top_k)
+        toks.append(t)
+        counts.append(n)
+    return torch.stack(toks), torch.stack(counts)
+
+
+class LaneVerify:
+    """A queued lane verify round: ``read()`` waits for it and returns
+    ``(tokens (B, D+1), counts (B,))`` as numpy.  On the card the round's
+    output is copied into pinned host memory behind it and an event
+    recorded after the copy."""
+
+    def __init__(self, toks: torch.Tensor, counts: torch.Tensor):
+        out = torch.cat([toks, counts[:, None]], dim=1)
+        if out.device.type == "cuda":
+            self._host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            self._host.copy_(out, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = out.clone(), None
+
+    def read(self) -> tuple[np.ndarray, np.ndarray]:
+        if self._event is not None:
+            self._event.synchronize()
+        out = self._host.numpy()
+        return out[:, :-1], out[:, -1]
+
+
+@torch.inference_mode()
+def lane_verify(params, cfg, state: dict, st: dict, drafts, top_k: int = 40) -> LaneVerify:
+    """:func:`batched_spec_verify_perlane` over ``drafts`` (B, D) host ids:
+    one replay of its :class:`LaneGraphs` verify graph on the card, eager on
+    the CPU.  Returns the queued round; the caller advances the host
+    mirrors of the lanes it serves once the counts are read."""
+    graphs = state.get("graphs")
+    if graphs is not None:
+        return graphs.verify(state, st, drafts, top_k)
+    if state["pos"].device.type != "cpu":
+        raise ValueError("a lane verify on the card is a graph replay: take the state "
+                         "from LaneGraphs.state")
+    d = torch.as_tensor(np.asarray(drafts, dtype=np.int64))
+    return LaneVerify(*batched_spec_verify_perlane(params, cfg, state, st, d, top_k))
 
 
 class LaneChunk:
@@ -186,16 +255,29 @@ class LaneGraphs:
     fallback."""
 
     def __init__(self, params, cfg, batch: int, device, top_k: int = 64,
-                 program: str = "lane_decode_chunk"):
+                 program: str = "lane_decode_chunk", draft_len: int = 0):
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"LaneGraphs: CUDA graphs need the card, got {device}")
         self.params, self.cfg, self.top_k, self.program = params, cfg, top_k, program
+        self.draft_len = draft_len
         with torch.inference_mode():
             self._state = init_batched_state(cfg, batch, device)
             self._st = lane_tensors([SamplingParams()] * batch, device)
         self._state["graphs"] = self
         self._graph = None              # (graph, each counter's increment a replay)
+        #: the verify round's graph, its static drafts (B, D) of
+        #: ``draft_len`` tokens a lane (0: no speculation) and output
+        #: (B, D+2): each lane's tokens, then its count
+        self._verify = None
+        self._drafts = self._vout = None
+        if draft_len:
+            self._drafts = torch.zeros(batch, draft_len, dtype=torch.int64, device=device)
+            self._vout = torch.zeros(batch, draft_len + 2, dtype=torch.int64, device=device)
+        #: seconds the verify capture took, None before it
+        self.verify_capture_s: float | None = None
+        #: verify replays issued since the engine was built
+        self.verify_replays = 0
         self._pool = torch.cuda.graph_pool_handle()
         self._stream = torch.cuda.Stream(device)
         #: seconds the capture took (warm-up step included), None before it
@@ -229,6 +311,49 @@ class LaneGraphs:
         """Each kernel counter's increment in one replay."""
         return dict(self._graph[1])
 
+    def _verify_step(self) -> None:
+        toks, counts = batched_spec_verify_perlane(self.params, self.cfg, self._state,
+                                                   self._st, self._drafts, self.top_k)
+        self._vout[:, :-1].copy_(toks)
+        self._vout[:, -1].copy_(counts)
+
+    @torch.inference_mode()
+    def capture_verify(self) -> float:
+        """Capture the lane verify round of the graphs' ``draft_len`` draft
+        tokens a lane if it is not held; returns the seconds taken (0 when
+        held).  One compile of ``lane_spec_verify``."""
+        if not self.draft_len:
+            raise ValueError("LaneGraphs: built without a draft length (draft_len=0)")
+        if self._verify is not None:
+            return 0.0
+        t0 = time.time()
+        self._verify = capture_step(self._verify_step, self._state, self._state["gens"],
+                                    self._stream, self._pool)
+        self.verify_capture_s = time.time() - t0
+        record_compile("lane_spec_verify", f"top_k={self.top_k}", self.verify_capture_s)
+        return self.verify_capture_s
+
+    def verify_launches(self) -> dict:
+        """Each kernel counter's increment in one replay of the verify graph."""
+        return dict(self._verify[1])
+
+    def verify(self, state: dict, st: dict, drafts, top_k: int) -> LaneVerify:
+        """One replay of the verify graph over ``drafts`` (B, D) host ids."""
+        if state is not self._state or st is not self._st:
+            raise ValueError("LaneGraphs.verify takes the graphs' own state and knobs")
+        if top_k != self.top_k:
+            raise ValueError(f"the lane graph samples under top_k ceiling {self.top_k}, "
+                             f"asked for {top_k}")
+        d = torch.as_tensor(np.asarray(drafts, dtype=np.int64))
+        if d.shape[1] != self.draft_len:
+            raise ValueError(f"LaneGraphs: drafts of {d.shape[1]} tokens, the graph "
+                             f"takes {self.draft_len}")
+        self.capture_verify()
+        self._drafts.copy_(d)
+        replay_step(*self._verify, 1)
+        self.verify_replays += 1
+        return LaneVerify(self._vout[:, :-1], self._vout[:, -1])
+
     def chunk(self, state: dict, st: dict, n_steps: int, top_k: int) -> LaneChunk:
         """``n_steps`` replays of the lane step (captured now if not held)."""
         if state is not self._state or st is not self._st:
@@ -244,9 +369,10 @@ class LaneGraphs:
 
     def close(self) -> None:
         """Release the graph and its memory pool."""
-        if self._graph is not None:
+        if self._graph is not None or self._verify is not None:
             torch.cuda.current_stream(self._stream.device).synchronize()
         self._graph = None
+        self._verify = None
         self._pool = None
 
 

@@ -288,6 +288,12 @@ def create_app(engine=None, settings: Settings | None = None,
             if timings["tokens_per_sec"]:
                 m.observe("engine_decode_tokens_per_sec",
                           timings["tokens_per_sec"], model=model)
+            spec = timings.get("spec")
+            if spec:   # speculative decoding: acceptance is the payoff number
+                m.inc("spec_drafted_tokens_total", spec["drafted"])
+                m.inc("spec_accepted_tokens_total", spec["accepted"])
+                m.inc("spec_verify_steps_total", spec["verify_steps"])
+                m.inc("spec_fallback_steps_total", spec["fallback_steps"])
             reused = timings.get("prefix_reused_tokens", 0)
             if reused:
                 m.inc("prefix_cache_hits_total")
@@ -875,6 +881,14 @@ def create_app(engine=None, settings: Settings | None = None,
             "decode_layer_unroll": _effective_unroll(cfg),
             "device": str(getattr(eng, "device", None)),
         }
+        # the paged pool's occupancy and counters (LFKT_KV_PAGED), beside
+        # kv_cache_bytes
+        occ = getattr(eng, "kv_pool_occupancy", None)
+        if callable(occ):
+            engine_info["kv_pool"] = occ()
+        # spec_decode="auto": the measured decision and its inputs
+        if getattr(eng, "spec_auto_decision", None) is not None:
+            engine_info["spec_auto"] = eng.spec_auto_decision
         return {
             "status": "ok",
             "state": st.health.state,
@@ -904,6 +918,13 @@ def create_app(engine=None, settings: Settings | None = None,
             wb = getattr(eng, "weight_bytes", 0)
             if wb:
                 m.set_gauge("model_weight_bytes", wb, model=_model_label())
+        # the paged pool's gauges (its event counters are incremented at
+        # event time by the pool through the engine's metrics sink)
+        occ = getattr(eng, "kv_pool_occupancy", None)
+        pool = occ() if callable(occ) else None
+        if pool is not None:
+            m.set_gauge("kv_pool_pages_used", pool["pages_used"])
+            m.set_gauge("kv_pool_pages_free", pool["pages_free"])
         stats = getattr(eng, "scheduler_stats", None)
         if stats is not None:
             snap = stats()
@@ -986,8 +1007,24 @@ def create_app(engine=None, settings: Settings | None = None,
     @app.get("/debug/memory")
     async def debug_memory():
         """The memory ledger: per-component bytes, the residual against the
-        device's ground truth, and headroom."""
-        return _memledger.MEMLEDGER.snapshot()
+        device's ground truth, and headroom — and, when the paged pool
+        serves, its occupancy and the arena's fragmentation (the largest
+        run of consecutive free pages against the free count)."""
+        doc = _memledger.MEMLEDGER.snapshot()
+        occ = getattr(app.state.engine, "kv_pool_occupancy", None)
+        pool = occ() if callable(occ) else None
+        if pool is not None and doc.get("armed"):
+            free = pool.get("pages_free")
+            run = pool.get("largest_free_run")
+            doc["kv_pool"] = pool
+            if free and run is not None:
+                doc["fragmentation"] = {
+                    "pages_free": free,
+                    "largest_free_run": run,
+                    # 0 = one contiguous run; toward 1 = shattered
+                    "ratio": round(1.0 - run / free, 4),
+                }
+        return doc
 
     @app.get("/debug/incidents")
     async def debug_incidents():
@@ -1122,8 +1159,14 @@ def _default_engine_factory(settings: Settings):
             attn_impl=settings.attn_impl,
             kv_dtype=settings.kv_dtype,
             decode_layer_unroll=settings.decode_layer_unroll,
+            spec_decode=settings.spec_decode,
+            spec_draft=settings.spec_draft,
             prefix_cache=settings.prefix_cache,
             prefill_chunk=settings.prefill_chunk,
+            kv_paged=settings.kv_paged,
+            kv_page_tokens=settings.kv_page_tokens,
+            kv_pool_pages=settings.kv_pool_pages,
+            kv_spill_pages=settings.kv_spill_pages,
         )
         if settings.batch_size > 1:
             if settings.scheduler == "continuous":

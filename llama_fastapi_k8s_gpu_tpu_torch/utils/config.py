@@ -6,10 +6,11 @@ reads: its routes, the engines (serial and batched), the watchdog and
 the tracer.  The reference's constants (model dir and name,
 1024-token context, 25 s timeout, queue of 5) stay the defaults.
 
-The observability knobs that are no ``Settings`` field (the compile
-registry, the memory ledger, the incident recorder, the SLO engine and
-the profiler) are read with :func:`knob` from the :data:`KNOBS` table,
-with the reference's names and defaults.
+The knobs that are no ``Settings`` field (the compile registry, the
+memory ledger, the incident recorder, the SLO engine, the profiler and
+``spec_decode=auto``'s cost model) are read with :func:`knob` from the
+:data:`KNOBS` table, with the reference's names and defaults — but for
+``LFKT_HBM_GBPS``, whose default is the H100's bandwidth, not the v5e's.
 """
 
 from __future__ import annotations
@@ -63,6 +64,12 @@ class Settings:
     kv_dtype: str = "bf16"             # bf16 | int8 KV cache
     # layers per launch of the layer-looped decode kernel: 0 off, -1 all
     decode_layer_unroll: int = 0
+    # prompt-lookup speculation (engine/engine.py, engine/spec_auto.py):
+    # off | lookup | auto — auto measures the pod's dispatch round trip at
+    # startup and takes lookup iff its breakeven acceptance is under
+    # LFKT_SPEC_AUTO_ACCEPT
+    spec_decode: str = "off"
+    spec_draft: int = 8                # draft tokens per verify step
     prefix_cache: bool = True          # reuse the previous request's KV prefix
     prefill_chunk: int = 256           # prompt slice size for large buckets
     #                                    (and the continuous scheduler's
@@ -71,6 +78,16 @@ class Settings:
     # prompt shares a freed lane's conversation snapshots that lane's ring
     # and prefills only the suffix slices (explicit seeds bypass it)
     lane_prefix_cache: bool = True
+    # the block-paged KV pool and its radix prefix cache (parallel/
+    # kvpool.py): shared system prompts prefill once per process and
+    # multi-turn requests resume from their last committed page on any
+    # lane.  Off by default: the dense ring stays the A/B control
+    kv_paged: bool = False
+    kv_page_tokens: int = 128          # token slots per pool page
+    kv_pool_pages: int = 0             # arena size in pages (0 = auto: four
+    #                                    full contexts' worth)
+    kv_spill_pages: int = 0            # host spill tier in pages (0 = off:
+    #                                    evictions discard)
     # admission prefill tokens a scheduler wave: the static budget with the
     # controller off, its base with it on
     adm_budget: int = 512
@@ -158,6 +175,11 @@ KNOBS: dict[str, Knob] = {k.name: k for k in (
          "per-kind minimum seconds between incident bundles"),
     Knob("LFKT_INCIDENT_LOG_LINES", int, 100,
          "structured log lines kept for a bundle's log_tail"),
+    Knob("LFKT_HBM_GBPS", float, 3350.0,
+         "assumed device memory bandwidth (GB/s) for spec_decode=auto's "
+         "breakeven; the default is the H100 SXM's published 3.35 TB/s"),
+    Knob("LFKT_SPEC_AUTO_ACCEPT", float, 1.0,
+         "assumed lookup acceptance for spec_decode=auto"),
 )}
 
 

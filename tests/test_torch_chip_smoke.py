@@ -659,3 +659,77 @@ def test_phase_all_lanes_hands_an_engines_weights_to_the_next(monkeypatch):
     calls.clear()
     chip_smoke.phase_all_lanes(paths, counters, ["lanes_q4km_int8"])
     assert calls == [("lanes_q4km_int8", "a.gguf", None)]
+
+
+def test_oracle_draft_follows_the_vanilla_reply_then_repeats():
+    """The oracle draft is the reply's next D tokens (zero-padded at its
+    end) while the history follows the reply; past a parting, past the
+    reply's end or for another prompt it is the always-hit draft."""
+    refs = [{"prompt": [1, 2, 3], "ids": [7, 8, 9, 10, 11]},
+            {"prompt": [4, 5], "ids": [6, 6, 6]}]
+    draft = chip_smoke.oracle_draft
+    assert draft(refs, [1, 2, 3, 7], 3) == [8, 9, 10]
+    assert draft(refs, [1, 2, 3, 7, 8, 9, 10], 3) == [11, 0, 0]
+    assert draft(refs, [4, 5, 6], 2) == [6, 6]
+    assert draft(refs, [1, 2, 3, 7, 99], 3) == [99, 99, 99]            # parted
+    assert draft(refs, [1, 2, 3, 7, 8, 9, 10, 11], 2) == [11, 11]      # reply's end
+    assert draft(refs, [9, 9, 9, 9], 2) == [9, 9]                      # another prompt
+
+
+def test_oracle_drafts_patch_the_lookup_and_put_it_back():
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+
+    saved = Engine.__dict__["_lookup_draft"]
+    with chip_smoke.oracle_drafts([{"prompt": [1], "ids": [2, 3, 4]}]):
+        assert Engine._lookup_draft([1, 2], 2) == [3, 4]
+    assert Engine.__dict__["_lookup_draft"] is saved
+    assert Engine._lookup_draft([1, 2, 3, 4], 4) is None
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_route_noise_is_nil_where_both_routes_share_the_arithmetic(tiny_file, kv_dtype):
+    """On the CPU one-row decode steps and D+1-row verify passes run the
+    same plain linears: teacher-forced, they pick the same tokens at the
+    same top-2 gaps and write the same ring (bf16 values, int8 codes and
+    scales), so the card's partings come from its routes and not from the
+    verify's bookkeeping."""
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+
+    eng = Engine(tiny_file, kv_dtype=kv_dtype, prefix_cache=False, **KW)
+    prompt = eng.tokenize_messages(MSG)
+    out = chip_smoke.route_noise(eng, prompt, list(range(5, 46)), D=4)
+    assert out["positions"] == 40 and out["kv_dtype"] == kv_dtype
+    for h in ("rejected", "accepted"):
+        assert out[h]["argmax_differs"] == 0 and out[h]["gap_steps_max"] == 0.0
+        for leaf in out[h]["ring"].values():
+            assert leaf["all"]["share_differs"] == 0.0
+
+
+def test_every_speculative_phase_names_its_kernels():
+    """The speculative phases serve both rings; an int8 phase's path must
+    launch kernel 10 and the int8 flash kernel."""
+    for label in ("spec", "spec_int8", "spec_lanes", "spec_lanes_int8"):
+        kernels = chip_smoke.PAGED_KERNELS[label]
+        assert ("kv_quantize" in kernels) == label.endswith("int8")
+        assert ("flash_attention_int8" in kernels) == label.endswith("int8")
+
+
+def test_chain_margin_reads_the_serial_chains_own_step(tiny_file):
+    """At every reply token the serial chain's own logits (its ring as its
+    steps wrote it, one more eager step) rank that chain's token first."""
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    eng = Engine(tiny_file, prefix_cache=False, **KW)
+    sp = chip_smoke.served_sampling(Settings(temperature=0.0))
+    prompt = eng.tokenize_messages(MSG)
+    ids = chip_smoke.serial_reply(eng, prompt, 6, sp)
+    for at in range(6):
+        m = chip_smoke.chain_margin(eng, prompt, ids, at, sp)
+        assert m["read"] == ("prompt_pass" if at == 0 else "chain")
+        assert m["margin"] >= 0.0 and "prompt_pass_margin" in m
+        if m["margin"] > 0.0:
+            assert m["top2"][0] == ids[at]
+    paged = Engine(tiny_file, kv_paged=True, kv_page_tokens=16, **KW)
+    with pytest.raises(ValueError, match="reuses no prefix"):
+        chip_smoke.chain_margin(paged, prompt, ids, 2, sp)

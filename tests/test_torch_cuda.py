@@ -1170,15 +1170,16 @@ def test_kv_quantize_lanes_bit_exact(cuda, B, slots):
     assert torch.equal(s.view(torch.int32), want_s.view(torch.int32))
 
 
-def _tiny_lanes(cuda, fmt, kv_dtype, unroll, B=4, n_ctx=256):
+def _tiny_lanes(cuda, fmt, kv_dtype, unroll, B=4, n_ctx=256, draft_len=0):
     """(cfg, params) of :func:`_tiny_decode` and a lane graph set over B
-    lanes with every lane prefilled with its own prompt."""
+    lanes (verify rounds of ``draft_len`` drafts) with every lane prefilled
+    with its own prompt."""
     from llama_fastapi_k8s_gpu_tpu_torch.models.llama import lane_view
     from llama_fastapi_k8s_gpu_tpu_torch.parallel.batched import LaneGraphs, batched_prefill
     from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import PENALTY_WINDOW
 
     cfg, params = _tiny_decode(cuda, fmt, kv_dtype, unroll)
-    graphs = LaneGraphs(params, cfg, B, cuda)
+    graphs = LaneGraphs(params, cfg, B, cuda, draft_len=draft_len)
     s = graphs.state
     lengths = [5 + 17 * b for b in range(B)]
     tokens = torch.zeros(B, max(lengths), dtype=torch.int64, device=cuda)
@@ -1394,3 +1395,186 @@ def test_lane_engines_greedy_equal_serial_on_the_card(cuda, tmp_path, scheduler)
         serial.close()
     finally:
         eng.close()
+
+
+# ---------------------------------------------------------------------------
+# the paged KV pool and the speculative verify on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_page_store_and_restore_on_the_card_equal_the_cpu_copies(cuda, kv_dtype):
+    """The same commits, spills, uploads and restores on a card pool and a
+    CPU pool over the same ring bytes: arenas, spilled host stacks, exports
+    and restored rings bit-equal (a page move is a copy)."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import init_cache
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel.kvpool import KVPool
+
+    cfg = ModelConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      ffn_dim=512, n_ctx=256, kv_dtype=kv_dtype)
+    g = torch.Generator().manual_seed(3)
+    ring = {}
+    for k, v in init_cache(cfg, torch.device("cpu")).items():
+        x = torch.randn(v.shape, generator=g) * 40
+        ring[k] = x.to(torch.int8) if v.dtype == torch.int8 else x.to(v.dtype)
+    pools = {d: KVPool(cfg, page_tokens=16, n_pages=6, spill_pages=8, device=d)
+             for d in ("cpu", "cuda")}
+    rings = {"cpu": ring, "cuda": {k: v.to(cuda) for k, v in ring.items()}}
+    ids = [list(range(1 + 100 * n, 49 + 100 * n)) for n in range(3)]     # 3 pages each
+    for d, pool in pools.items():
+        for seq in ids:
+            pool.commit(seq, rings[d])            # the third evicts and spills
+    assert pools["cuda"].stats() == pools["cpu"].stats()
+    assert pools["cuda"].stats()["spills"] >= 1
+    restored = {}
+    for d, pool in pools.items():
+        lease = pool.acquire(ids[0] + [0], 48)    # the spilled first sequence
+        assert lease is not None
+        out = {k: torch.zeros_like(v) for k, v in rings[d].items()}
+        ptrs = {k: v.data_ptr() for k, v in out.items()}
+        pool.restore(lease, out)
+        assert {k: v.data_ptr() for k, v in out.items()} == ptrs
+        restored[d] = ({k: v.cpu() for k, v in out.items()}, pool.export_pages(lease))
+        pool.release(lease)
+    torch.cuda.synchronize()
+    assert pools["cuda"].stats()["restores"] == pools["cpu"].stats()["restores"] >= 1
+    for k in ring:
+        assert torch.equal(restored["cuda"][0][k], restored["cpu"][0][k])
+        assert torch.equal(restored["cuda"][0][k][:, :, :48], ring[k][:, :, :48])
+        assert torch.equal(pools["cuda"].arena[k].cpu(), pools["cpu"].arena[k])
+    for a, b in zip(*(restored[d][1] for d in ("cuda", "cpu"))):
+        assert a.is_pinned() and torch.equal(a, b)
+
+
+def test_restore_into_a_captured_ring_then_replay_equals_the_eager_step(cuda, tmp_path):
+    """A paged engine on the card: a conversation committed, then a second
+    one sharing its prefix restored into the ring its decode graph holds
+    (in place), the suffix prefilled, then replays against the eager step on
+    a clone of that ring: tokens and every ring leaf bit-identical."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      ffn_dim=512, n_ctx=256)
+    path = str(tmp_path / "tiny-q8_0.gguf")
+    chip_smoke.write_gguf(cfg, path, "q8_0")
+    for kv_dtype in ("bf16", "int8"):
+        eng = Engine(path, n_ctx=256, max_gen_tokens=16, prefill_buckets=(64, 128, 256),
+                     kv_dtype=kv_dtype, kv_paged=True, kv_page_tokens=16, prefix_min=16,
+                     device=cuda)
+        eng.warmup()
+        ptrs = {k: v.data_ptr() for k, v in eng._cache.items()}
+        msgs = [{"role": "system", "content": "you are kind and brief. " * 4},
+                {"role": "user", "content": "tell me about the sea"}]
+        eng.create_chat_completion(msgs, temperature=0.0, max_tokens=8)
+        ids = eng.tokenize_messages([msgs[0], {"role": "user", "content": "and boats?"}])
+        out = chip_smoke.check_graph("card", eng, ids, steps=16, restore=True)
+        assert out["restored_tokens"] >= 16
+        assert {k: v.data_ptr() for k, v in eng._cache.items()} == ptrs
+        r = eng.create_chat_completion([msgs[0], {"role": "user", "content": "and boats?"}],
+                                       temperature=0.0, max_tokens=8)
+        assert r["lfkt_timings"]["prefix_reused_tokens"] > 0
+        assert eng._kvpool.occupancy()["pages_pinned"] == 0
+        eng.close()
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_verify_graph_equals_the_eager_verify(cuda, kv_dtype):
+    """The verify step's graph against the eager verify on a clone of the
+    ring, greedy and then sampled, with a perfect-then-wrong and an
+    always-hit draft: emitted tokens, counts, the state and every ring leaf
+    bit-identical; the counters grow by the replay's launches."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import (
+        DecodeGraphs,
+        first_sample,
+        init_state,
+        spec_verify,
+    )
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import forward, init_cache
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import KERNELS
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import SamplingParams, sampling_tensors
+
+    cfg, params = _tiny_decode(cuda, "bf16", kv_dtype, 0)
+    D = 8
+    graphs = DecodeGraphs(params, cfg, init_cache(cfg, cuda), draft_len=D)
+    ids = list(range(3, 40))
+    for sp, seed in ((SamplingParams(temperature=0.0), 1), (SamplingParams(), 7)):
+        cache = graphs._state["cache"]
+        with torch.inference_mode():
+            logits = forward(params, cfg, torch.tensor(ids, device=cuda), 0, cache)
+            ring = {k: v.clone() for k, v in cache.items()}
+            st = graphs.knobs(sampling_tensors(sp, cuda))
+            state = graphs.state(ids, seed)
+            eager = init_state(ring, ids, seed, cuda)
+            est = sampling_tensors(sp, cuda)
+            hist = [int(first_sample(logits, state, st))]
+            assert int(first_sample(logits, eager, est)) == hist[0]
+            graphs.capture_verify(40)
+            step = graphs.verify_launches(40)
+            assert step.get("kv_quantize", 0) == (cfg.n_layers if kv_dtype == "int8" else 0)
+            before = {name: fn.launches for name, fn in KERNELS.items()}
+            got, want = [], []
+            for r in range(6):
+                draft = [hist[-1]] * D if r % 2 else [(hist[-1] + j) % 512 for j in range(D)]
+                toks, n = graphs.verify(state, st, draft, 40)
+                t, c = spec_verify(params, cfg, eager, est, torch.tensor(draft, device=cuda))
+                got.append((toks, n))
+                want.append((t[:int(c)].tolist(), int(c)))
+                hist += toks
+            after = {name: fn.launches for name, fn in KERNELS.items()}
+        torch.cuda.synchronize()
+        assert got == want
+        for k in ("pos", "wpos", "window", "token"):
+            assert torch.equal(state[k], eager[k]), k
+        for k in cache:
+            assert torch.equal(cache[k], ring[k]), k
+        assert state["slot"] == len(ids) + sum(n for _, n in got)
+        for name, n in step.items():       # 6 replays and 6 eager verifies
+            assert after[name] - before[name] == 12 * n
+    graphs.close()
+
+
+def test_lane_verify_graph_equals_the_eager_lane_verify(cuda):
+    """The lanes' verify graph against the eager lane verify on a clone of
+    the state (every lane prefilled, different knobs): tokens, counts, the
+    bookkeeping and every ring leaf bit-identical."""
+    import numpy as np
+
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel.batched import (
+        batched_spec_verify_perlane,
+        lane_verify,
+    )
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import SamplingParams, lane_tensors
+
+    B, D = 4, 8
+    cfg, params, graphs = _tiny_lanes(cuda, "bf16", "int8", 0, B, draft_len=D)
+    sps = [SamplingParams(temperature=0.0), SamplingParams(),
+           SamplingParams(temperature=1.5, top_k=1), SamplingParams(temperature=0.7, top_p=0.5)]
+    with torch.inference_mode():
+        for k, t in lane_tensors(sps, cuda).items():
+            graphs.knobs[k].copy_(t)
+        eager = _clone_lanes(graphs.state, cuda)
+        est = {k: t.clone() for k, t in graphs.knobs.items()}
+        graphs.capture_verify()
+        got, want = [], []
+        for r in range(3):
+            drafts = np.full((B, D), 7 + r, dtype=np.int64)
+            toks, counts = lane_verify(params, cfg, graphs.state, graphs.knobs, drafts, 64).read()
+            t, c = batched_spec_verify_perlane(params, cfg, eager, est,
+                                               torch.tensor(drafts, device=cuda), 64)
+            got.append((toks.tolist(), counts.tolist()))
+            want.append((t.cpu().tolist(), c.cpu().tolist()))
+    torch.cuda.synchronize()
+    assert got == want
+    s = graphs.state
+    for k in ("pos", "wpos", "window", "token"):
+        assert torch.equal(s[k], eager[k]), k
+    for k in s["cache"]:
+        assert torch.equal(s["cache"][k], eager["cache"][k]), k
+    assert graphs.verify_replays == 3
+    graphs.close()
