@@ -58,8 +58,9 @@ and no result line):
    mixed-type file (Llama-3-8B width, 4 layers, F16, BF16, Q4_0, Q4_1,
    Q5_0, Q5_1, Q2_K, Q3_K, IQ4_NL and IQ4_XS spread over token_embd,
    output and the 28 linears, each on two tensors or more), written with
-   the port's own writer into ``.cache/chip_smoke/`` and reused when
-   present (about 33 GB);
+   the port's own writer into ``.cache/chip_smoke/`` by three spawned
+   processes while phase 2 builds (a ``ggufs`` line: the seconds waited
+   after the build), and reused when present (about 33 GB);
 5. serve: per file, the port's ``Engine`` behind its app on the in-tree
    httpd at 127.0.0.1 — the Q6_K file over the int8 KV cache
    (``kv_dtype="int8"``) — ``/response`` requests at temperature 0 (a
@@ -160,7 +161,21 @@ and no result line):
    ``spec_auto``'s decision on the card), ``verify_graph`` (verify replays
    against the eager verify, bit-identical) and ``spec_lanes`` (4
    continuous lanes under speculation, the lanes' replies against the
-   serial vanilla engine's);
+   serial vanilla engine's).  Then multi-model serving and the disagg
+   tier (``phase_tier``, pages of 128, 64-token greedy replies):
+   ``registry`` (the Q4_K_M, Q6_K-over-bf16 and mixed files behind
+   ``LFKT_MODELS``, each first alone: shared and private arenas, no prefix
+   hit across namespaces, every routed reply equal to the file alone,
+   unknown-model 400s, the ``/v1/models`` and ``/health`` rows, a reload
+   that drains and frees one model, adds it back, and one refused over the
+   weight budget), ``registry_looped`` (two int8 K=-1 models at once, as
+   each alone), ``registry_lanes`` (two models × 4 lanes, 8 streamed
+   clients), ``disagg`` and ``disagg_lanes`` (``LFKT_DISAGG_ROLE=both``:
+   pages received equal to pages exported, the reply over them equal to a
+   local hit's, the hop's seconds, bytes and parts) and ``disagg_pods``
+   (prefill and decode server processes on the card: the prefill pod
+   killed mid-transfer and restarted, an int8 decode pod refused at the
+   handshake), each phase's seconds in a ``phase_seconds`` line;
 6. a ``dequant_rank`` line: each dequant's launches × (time − bound)
    over the first six engines' loads, shape by shape (launches from the
    load plan, checked against the wrappers' counters of phase 5), largest
@@ -1784,6 +1799,28 @@ def cached_gguf(path: str, write, **info) -> str:
     return path
 
 
+#: processes writing the synthetic GGUFs at once (numpy on the host, one
+#: core each; a writer holds its file in memory: 21 GB for the largest three)
+GGUF_WORKERS = 3
+
+
+def start_ggufs() -> dict:
+    """Every synthetic GGUF of the run (the four layouts, the Mistral file,
+    the mixed file), written by :data:`GGUF_WORKERS` spawned processes while
+    the caller goes on; returns {key: future of the path}.  The files are
+    the ones the sequential writers make (seeded), ``gguf`` lines each."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=GGUF_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    jobs = {layout: pool.submit(phase_gguf, layout) for layout in LAYOUTS}
+    jobs["mistral"] = pool.submit(phase_gguf_mistral)
+    jobs["mixed"] = pool.submit(phase_gguf_mixed)
+    pool.shutdown(wait=False)
+    return jobs
+
+
 def phase_gguf_mistral() -> str:
     """The synthetic Mistral-7B file: Q4_K_M's tensor types, the SPM
     vocabulary of :func:`spm_metadata`, the window under
@@ -2989,7 +3026,7 @@ def check_metrics_families(label, port) -> None:
         outside_catalog=rendered_outside)
     need = set(OBS_FAMILIES) - {"incidents_total"}      # the recorder is off here
     others_only = {f for fams in LANE_FAMILIES.values() for f in fams} | set(PAGED_FAMILIES) \
-        | set(SPEC_FAMILIES)
+        | set(SPEC_FAMILIES) | set(TIER_FAMILIES)
     if (st != 200 or not need <= families or rendered_outside
             or not set(missing) <= set(EVENT_FAMILIES) | others_only):
         raise AssertionError(f"metrics_families: {st}, missing {missing}, outside the "
@@ -4130,7 +4167,7 @@ def read_launches(label: str, counters: dict) -> dict:
     line); fails when a kernel of the phase's path never launched."""
     launches = {name: fn.launches for name, fn in counters.items()}
     say("launches", file=label, **launches)
-    silent = [n for n in PAGED_KERNELS[label] if not launches[n]]
+    silent = [n for n in {**PAGED_KERNELS, **TIER_KERNELS}[label] if not launches[n]]
     if silent:
         raise AssertionError(f"{label}: the served path never launched {silent}")
     return launches
@@ -4832,6 +4869,723 @@ def phase_paged_spec(parts: tuple, counters: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# multi-model serving (LFKT_MODELS) and disaggregated prefill/decode
+# ---------------------------------------------------------------------------
+
+#: tokens a reply of the registry and disagg phases (greedy, compared byte for
+#: byte across engines)
+TIER_TOKENS = 64
+#: the kernels each phase's served path must launch (its loads included)
+TIER_KERNELS = {
+    "registry": ("dequant_q4_k", "dequant_q6_k", "q4k_matmul", "q6k_matmul", "flash_attention"),
+    "registry_looped": ("decode_loop", "flash_attention"),
+    "registry_lanes": ("q4k_matmul", "q6k_matmul", "flash_attention"),
+    "disagg": ("dequant_q4_k", "q4k_matmul", "q6k_matmul", "flash_attention"),
+    "disagg_lanes": ("q4k_matmul", "q6k_matmul", "flash_attention"),
+}
+#: a raw /v1 user message (no system prompt)
+V1_MSG = "Tell me about the river and the boats on it."
+#: the families only a registry or a disagg role renders (the tier phases)
+TIER_FAMILIES = ("disagg_prefills_served_total", "disagg_pages_sent_total",
+                 "disagg_bytes_sent_total", "disagg_remote_prefills_total",
+                 "disagg_pages_received_total", "disagg_bytes_received_total",
+                 "disagg_local_fallbacks_total", "disagg_handshake_refusals_total",
+                 "disagg_transfer_seconds", "disagg_peer_connected", "model_reloads_total")
+
+
+def tier_settings(**kw):
+    """The registry and disagg phases' pod settings: greedy, paged pool of
+    128-token pages, n_ctx 1024, :data:`TIER_TOKENS` a reply."""
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    base = dict(temperature=0.0, timeout_seconds=600.0, max_queue_size=16, kv_paged=True,
+                kv_page_tokens=PAGE_TOKENS, max_gen_tokens=TIER_TOKENS)
+    return Settings(**{**base, **kw})
+
+
+@contextlib.contextmanager
+def served_settings(settings):
+    """The port's app built from ``settings`` alone — the engine (or the
+    registry) loaded by its own startup, as a pod starts — on the in-tree
+    httpd: yields (port, app, startup seconds); closes the engines after."""
+    from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
+
+    app = create_app(settings=settings)
+    t0 = time.time()
+    try:
+        with serving(app) as (port, _):
+            yield port, app, time.time() - t0
+    finally:
+        eng = app.state.engine
+        app.state.engine = None
+        if eng is not None:
+            (getattr(eng, "close", None) or eng.shutdown)()
+        del eng, app
+        gc.collect()
+
+
+def model_body(ctx: list, model: str | None) -> dict:
+    b = body(ctx)
+    if model is not None:
+        b["model"] = model
+    return b
+
+
+def v1_body(model: str | None, content: str = V1_MSG, **kw) -> dict:
+    out = {"messages": [{"role": "user", "content": content}], "max_tokens": TIER_TOKENS,
+           "temperature": 0.0, **kw}
+    if model is not None:
+        out["model"] = model
+    return out
+
+
+def registry_turns(port: int, eng_of, alias: str | None, turns=("short", "v1")) -> list:
+    """One alias's requests, in order, each of ``turns``: ``short``
+    (``/response``, the short context), ``second`` (``/response``, the
+    second conversation: its opening and the system prompt shared with the
+    short one, a radix hit in the alias's own namespace) and ``v1``
+    (``/v1/chat/completions``); per request the status, the reply and, for
+    ``/response``, the engine's TTFT, tok/s and reused tokens (``eng_of()``
+    is the engine serving the alias)."""
+    rows = []
+    for name in turns:
+        if name == "v1":
+            st, doc = _http(port, "POST", "/v1/chat/completions", v1_body(alias), timeout=900)
+            rows.append({"request": "v1", "status": st,
+                         "reply": doc["choices"][0]["message"]["content"] if st == 200 else doc})
+            continue
+        ctx = SHORT_CTX if name == "short" else SECOND_CTX
+        st, doc = _http(port, "POST", "/response", model_body(ctx, alias), timeout=900)
+        t = dict(eng_of().last_timings or {})
+        rows.append({"request": name, "status": st,
+                     "reply": doc.get("response", "") if isinstance(doc, dict) else "",
+                     "ttft_s": t.get("ttft_s"), "tokens_per_s": t.get("tokens_per_sec"),
+                     "reused_tokens": t.get("prefix_reused_tokens")})
+    return rows
+
+
+def phase_registry(paths: dict, counters: dict) -> dict:
+    """``registry``: ``LFKT_MODELS=q4km=<Q4_K_M>,q6k=<Q6_K>:kv_dtype=bf16,
+    mixed=<mixed>`` behind the port's app, serial, paged (the registry
+    loads all three at startup).  First each file alone, a one-entry
+    manifest (the same engine class and knobs): its replies, load seconds
+    and weight bytes.  Then the three together: q4km and q6k share one
+    arena, the 4-layer mixed file serves from a private pool with the
+    warning; the short prompt under two aliases never hits across their
+    namespaces, the second conversation hits in q4km's own; every greedy
+    ``/response`` and ``/v1`` reply, routed by ``model=``, equals the file
+    alone; an unknown model answers 400 with the live list; ``/v1/models``
+    and the ``/health`` rows; a reload removes q6k (its namespace drained
+    to 0 pages, the card's live bytes down by at least its weight bytes),
+    adds it back (the same bytes again), and one over
+    ``LFKT_HBM_WEIGHT_BUDGET_MB`` is refused with the running set
+    untouched."""
+    import logging
+    import math
+
+    import torch
+
+    manifest = (f"q4km={paths['q4km']},q6k={paths['q6_k']}:kv_dtype=bf16,"
+                f"mixed={paths['mixed']}")
+    aliases = ("q4km", "q6k", "mixed")
+    alone: dict = {}
+    for alias, spec in zip(aliases, manifest.split(",")):
+        with served_settings(tier_settings(models=spec)) as (port, app, load_s):
+            reg = app.state.engine
+            rows = registry_turns(port, lambda: reg.resolve(alias), None,
+                                  ("short", "v1", "second") if alias == "q4km" else
+                                  ("short", "v1"))
+            alone[alias] = {"load_s": load_s, "rows": rows,
+                            "weight_bytes": reg.models()[0]["weight_bytes"],
+                            "quant": reg.models()[0]["quant"]}
+            del reg
+    # the three fit with half the smallest one's bytes to spare: q6k fits back
+    # in after its removal, a fourth model (another Q6_K) does not
+    weights = [a["weight_bytes"] for a in alone.values()]
+    budget_mb = math.ceil((sum(weights) + min(weights) / 2) / 1e6)
+    warned: list = []
+
+    class Warned(logging.Handler):
+        def emit(self, record):
+            if "cannot share the KV page arena" in record.getMessage():
+                warned.append(record.getMessage())
+
+    handler = Warned()
+    engine_log = logging.getLogger("llama_fastapi_k8s_gpu_tpu_torch.engine.engine")
+    engine_log.addHandler(handler)
+    zero_counters(counters)
+    t0 = time.time()
+    try:
+        with served_settings(tier_settings(models=manifest, hbm_weight_budget_mb=budget_mb)) \
+                as (port, app, load_s):
+            reg = app.state.engine
+            pool = reg.resolve("q4km")._kvpool
+            shared = {"q6k_shares": reg.resolve("q6k")._kvpool is pool,
+                      "mixed_private": reg.resolve("mixed")._kvpool is not pool,
+                      "warned": warned[:1]}
+            got: dict = {}
+            hits = []
+            for alias in aliases:     # the short prompt under each alias in turn
+                hits.append(pool.stats()["hits"])
+                got[alias] = registry_turns(port, lambda: reg.resolve(alias), alias)
+            hits.append(pool.stats()["hits"])
+            got["q4km"] += registry_turns(port, lambda: reg.resolve("q4km"), "q4km", ("second",))
+            hits.append(pool.stats()["hits"])
+            routes = {"unknown_response": _http(port, "POST", "/response",
+                                                model_body(SHORT_CTX, "nope")),
+                      "unknown_v1": _http(port, "POST", "/v1/chat/completions", v1_body("nope")),
+                      "v1_models": _http(port, "GET", "/v1/models"),
+                      "health": _http(port, "GET", "/health")}
+            arena = {"pages_by_namespace": dict(pool._ns_pages),
+                     "mixed_pages": dict(reg.resolve("mixed")._kvpool._ns_pages),
+                     "occupancy": reg.kv_pool_occupancy()}
+            launches = read_launches("registry", counters)
+            served_s = time.time() - t0
+            # live reload: q6k out (drained, released), back in, then one over the budget
+            gc.collect()
+            torch.cuda.synchronize()
+            live0 = torch.cuda.memory_allocated()
+            q6k_bytes = next(r["weight_bytes"] for r in reg.models() if r["name"] == "q6k")
+            t_r = time.time()
+            st_rm, rm = _http(port, "POST", "/admin/models/reload",
+                              {"models": f"q4km={paths['q4km']},mixed={paths['mixed']}"})
+            remove_s = time.time() - t_r
+            gc.collect()
+            torch.cuda.synchronize()
+            live1 = torch.cuda.memory_allocated()
+            drained = {"q6k_pages_after": pool._ns_pages.get("q6k", 0),
+                       "q6k_root": "q6k" in pool._roots,
+                       "pinned": pool.occupancy()["pages_pinned"]}
+            gone = _http(port, "POST", "/response", model_body(SHORT_CTX, "q6k"))
+            t_r = time.time()
+            st_add, add = _http(port, "POST", "/admin/models/reload", {"models": manifest})
+            add_s = time.time() - t_r
+            again = registry_turns(port, lambda: reg.resolve("q6k"), "q6k")
+            over = manifest + f",q6k_b={paths['q6_k']}:kv_dtype=bf16"
+            t_r = time.time()
+            st_over, refused = _http(port, "POST", "/admin/models/reload", {"models": over})
+            refuse_s = time.time() - t_r
+            after = _http(port, "GET", "/v1/models")
+            metrics = _request(port, "GET", "/metrics")[2].decode()
+            reloads = {",".join(f"{k}={v}" for k, v in key): n
+                       for key, n in prom_samples(metrics, "model_reloads_total").items()}
+            del reg, pool
+    finally:
+        engine_log.removeHandler(handler)
+    want = {a: [r["reply"] for r in alone[a]["rows"]] for a in aliases}
+    replies = {a: {"equal_alone": [r["reply"] for r in got[a]] == want[a],
+                   "statuses": [r["status"] for r in got[a]]} for a in aliases}
+    health = routes["health"][1]
+    rows = health["engine"]["models"]
+    out = {
+        "manifest": list(aliases), "startup_s": load_s, "served_s": served_s,
+        "budget_mb": budget_mb, "shared_arena": shared,
+        "models": {a: {"weight_bytes": alone[a]["weight_bytes"], "quant": alone[a]["quant"],
+                       "load_s_alone": alone[a]["load_s"],
+                       "ttft_s": [r.get("ttft_s") for r in got[a] if "ttft_s" in r],
+                       "tokens_per_s": [r.get("tokens_per_s") for r in got[a]
+                                        if "tokens_per_s" in r],
+                       "reused_tokens": [r.get("reused_tokens") for r in got[a]
+                                         if "reused_tokens" in r]} for a in aliases},
+        "hits_before_each_alias_and_after_second": hits, "replies": replies,
+        "unknown_model": {"response": routes["unknown_response"][0],
+                          "response_detail": routes["unknown_response"][1].get("detail"),
+                          "v1": routes["unknown_v1"][0],
+                          "v1_code": routes["unknown_v1"][1]["error"]["code"]},
+        "v1_models": [m["id"] for m in routes["v1_models"][1]["data"]],
+        "health_rows": [{k: r[k] for k in ("name", "state", "quant", "weight_bytes", "kv_dtype")}
+                        for r in rows], "default_model": health["engine"]["default_model"],
+        "arena": arena,
+        "reload_remove": {"status": st_rm, "removed": rm.get("removed"), "seconds": remove_s,
+                          "live_bytes_drop": live0 - live1, "q6k_weight_bytes": q6k_bytes,
+                          **drained, "removed_alias_status": gone[0]},
+        "reload_add": {"status": st_add, "added": add.get("added"), "seconds": add_s,
+                       "same_bytes": [r["reply"] for r in again] == want["q6k"]},
+        "reload_over_budget": {"status": st_over, "seconds": refuse_s,
+                               "detail": str(refused.get("detail", ""))[:200],
+                               "models_after": [m["id"] for m in after[1]["data"]]},
+        "reloads_total": reloads}
+    say("registry", **out)
+    bad = []
+    if not (shared["q6k_shares"] and shared["mixed_private"] and warned):
+        bad.append("arena sharing")
+    if not all(r["equal_alone"] and set(r["statuses"]) == {200} for r in replies.values()):
+        bad.append("replies")
+    if len(set(hits[:4])) != 1 or hits[4] != hits[3] + 1 \
+            or not out["models"]["q4km"]["reused_tokens"][1]:
+        bad.append("namespaces")
+    if routes["unknown_response"][0] != 400 or routes["unknown_v1"][0] != 400 \
+            or "q4km, q6k, mixed" not in str(out["unknown_model"]["response_detail"]):
+        bad.append("unknown model")
+    if out["v1_models"] != list(aliases) or [r["name"] for r in rows] != list(aliases) \
+            or any(r["state"] != "ready" for r in rows):
+        bad.append("models rows")
+    rr = out["reload_remove"]
+    if st_rm != 200 or rr["removed"] != [{"name": "q6k", "pages_remaining": 0,
+                                          "inflight_at_release": 0}] \
+            or rr["q6k_pages_after"] or rr["q6k_root"] or rr["pinned"] \
+            or rr["live_bytes_drop"] < q6k_bytes or gone[0] != 400:
+        bad.append("reload remove")
+    if st_add != 200 or add.get("added") != ["q6k"] or not out["reload_add"]["same_bytes"]:
+        bad.append("reload add")
+    if st_over != 409 or "q6k_b" not in out["reload_over_budget"]["detail"] \
+            or sorted(out["reload_over_budget"]["models_after"]) != sorted(aliases):
+        bad.append("reload budget")
+    if bad:
+        raise AssertionError(f"registry: {bad}: {out}")
+    return launches
+
+
+def phase_registry_looped(paths: dict, counters: dict) -> dict:
+    """``registry_looped``: two co-resident models of one geometry, both
+    looped (the Q4_K_M file as int8 weights, ``decode_layer_unroll=-1``,
+    through manifest overrides), each holding its own kernel scratch: the
+    short prompt through each alias alone, then through both at once from
+    two threads — the same greedy bytes."""
+    from llama_fastapi_k8s_gpu_tpu_torch.server.app import _registry_factory
+
+    loop = "weight_format=int8;decode_layer_unroll=-1"
+    settings = tier_settings(models=f"la={paths['q4km']}:{loop},lb={paths['q4km']}:{loop}",
+                             kv_paged=False, prefix_cache=False)
+    zero_counters(counters)
+    t0 = time.time()
+    reg = _registry_factory(settings)
+    load_s = time.time() - t0
+    msgs = [{"role": "user", "content": LONG_CTX[-1][1]}]
+
+    def ask(alias):
+        out = reg.create_chat_completion(msgs, max_tokens=TIER_TOKENS, temperature=0.0,
+                                         model=alias)
+        return out["choices"][0]["message"]["content"]
+
+    try:
+        alone = {a: ask(a) for a in ("la", "lb")}
+        both: dict = {}
+        threads = [threading.Thread(target=lambda a=a: both.update({a: ask(a)}))
+                   for a in ("la", "lb")]
+        t1 = time.time()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        both_s = time.time() - t1
+        unroll = [reg.resolve(a).cfg.decode_layer_unroll for a in ("la", "lb")]
+        launches = read_launches("registry_looped", counters)
+    finally:
+        reg.shutdown()
+        del reg
+        gc.collect()
+    out = {"load_s": load_s, "decode_layer_unroll": unroll, "concurrent_s": both_s,
+           "equal_alone": {a: both.get(a) == alone[a] for a in alone},
+           "chars": {a: len(alone[a]) for a in alone}}
+    say("registry_looped", **out)
+    if not all(out["equal_alone"].values()) or unroll != [-1, -1]:
+        raise AssertionError(f"registry_looped: concurrent looped models part from "
+                             f"each alone: {out}")
+    return launches
+
+
+def lane_clients(port: int, jobs: list) -> tuple[list, float]:
+    """``jobs`` ((alias, content), ...) as concurrent streamed
+    ``/v1/chat/completions`` clients with usage: per client its status,
+    reply, completion tokens and seconds to the first content; the wave's
+    wall seconds."""
+    out: list = [None] * len(jobs)
+
+    def client(i):
+        alias, content = jobs[i]
+        r = _sse(port, "/v1/chat/completions",
+                 v1_body(alias, content, stream=True, stream_options={"include_usage": True}),
+                 timeout=900)
+        usage = next((e.get("usage") for e in r["events"] if isinstance(e, dict)
+                      and e.get("usage")), {}) or {}
+        out[i] = {"model": alias, "status": r["status"], "reply": sse_text(r["events"])[0],
+                  "tokens": usage.get("completion_tokens", 0), "ttft_s": r["first_content_s"]}
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(jobs))]
+    t0 = time.time()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(900)
+    return out, time.time() - t0
+
+
+def phase_registry_lanes(paths: dict, counters: dict) -> dict:
+    """``registry_lanes``: q4km and q6k (one shared arena) under
+    ``LFKT_BATCH_SIZE=4``, continuous: a scheduler thread and a lane graph a
+    model.  Eight streamed clients, four a model, at once: statuses,
+    aggregate tok/s, TTFT p50/p95 per model, and each reply against the
+    same client of a wave on the model alone (a one-entry manifest)."""
+    manifest = f"q4km={paths['q4km']},q6k={paths['q6_k']}:kv_dtype=bf16"
+    contents = [V1_MSG, STORY, "hi, " + STORY[:60], "what do you see on the water?"]
+    kw = dict(batch_size=4, scheduler="continuous")
+    alone: dict = {}
+    for alias, spec in zip(("q4km", "q6k"), manifest.split(",")):
+        with served_settings(tier_settings(models=spec, **kw)) as (port, _, load_s):
+            rows, wall = lane_clients(port, [(alias, c) for c in contents])
+            alone[alias] = {"rows": rows, "wall_s": wall, "load_s": load_s}
+    zero_counters(counters)
+    with served_settings(tier_settings(models=manifest, **kw)) as (port, app, load_s):
+        jobs = [(alias, c) for c in contents for alias in ("q4km", "q6k")]
+        rows, wall = lane_clients(port, jobs)
+        stats = app.state.engine.scheduler_stats()
+        launches = read_launches("registry_lanes", counters)
+    per_model = {}
+    for alias in ("q4km", "q6k"):
+        mine = [r for r in rows if r["model"] == alias]
+        ttfts = [r["ttft_s"] for r in mine if r["ttft_s"] is not None]
+        per_model[alias] = {
+            "statuses": [r["status"] for r in mine],
+            "ttft_p50_s": percentile(ttfts, 0.5), "ttft_p95_s": percentile(ttfts, 0.95),
+            "tokens": sum(r["tokens"] for r in mine),
+            "equal_alone": [r["reply"] == a["reply"] for r, a in zip(mine, alone[alias]["rows"])],
+            "alone_tokens_per_s": sum(a["tokens"] for a in alone[alias]["rows"])
+            / alone[alias]["wall_s"]}
+    tokens = sum(r["tokens"] for r in rows)
+    out = {"lanes": 4, "clients": len(jobs), "startup_s": load_s, "wave_s": wall,
+           "tokens": tokens, "tokens_per_s": tokens / wall, "models": per_model,
+           "scheduler_models": stats.get("models"),
+           "lanes_live_after": {a: stats.get(f"{a}_lanes_live") for a in ("q4km", "q6k")}}
+    say("registry_lanes", **out)
+    if any(r["status"] != 200 for r in rows) or \
+            not all(all(m["equal_alone"]) for m in per_model.values()):
+        raise AssertionError(f"registry_lanes: failed clients, or replies parting from "
+                             f"the model alone: {out}")
+    return launches
+
+
+@contextlib.contextmanager
+def disagg_probes(eng):
+    """Record, while in the block, what the page service exported
+    (``prefill_to_pages``' page stacks, cloned), what the client imported
+    (``import_pages``' stacks), each hop's seconds and its parts' (the
+    tier's ``prefill_to_pages``: prompt pass, commit and the pages' copy to
+    the host; the payload's encoding; the import), and the send queues'
+    peak buffered bytes (the ``disagg_txbuf`` component)."""
+    from llama_fastapi_k8s_gpu_tpu_torch.serving.disagg import prefiller, transport
+
+    box = {"exported": [], "imported": [], "hops": [], "txbuf_peak": 0,
+           "parts_s": {"prefill_to_pages": 0.0, "encode_pages": 0.0, "import_pages": 0.0}}
+    pool, to_pages = eng._kvpool, eng.prefill_to_pages
+    import_pages, put = pool.import_pages, transport.FrameSender.put
+    encode = prefiller.wire.encode_pages
+    client = eng._disagg
+    prefetch = client.prefetch
+
+    def timed(part, fn, *a, **kw):
+        t0 = time.time()
+        try:
+            return fn(*a, **kw)
+        finally:
+            box["parts_s"][part] += time.time() - t0
+
+    def exporting(*a, **kw):
+        got = timed("prefill_to_pages", to_pages, *a, **kw)
+        if got is not None:
+            box["exported"].append([leaf.clone() for leaf in got[0]])
+        return got
+
+    def importing(ids, leaves, **kw):
+        box["imported"].append([leaf.clone() for leaf in leaves])
+        return timed("import_pages", import_pages, ids, leaves, **kw)
+
+    def putting(self, *a, **kw):
+        put(self, *a, **kw)
+        box["txbuf_peak"] = max(box["txbuf_peak"], self.buffered_bytes())
+
+    def hopping(*a, **kw):
+        t0 = time.time()
+        n = prefetch(*a, **kw)
+        box["hops"].append({"seconds": time.time() - t0, "tokens": n})
+        return n
+
+    eng.prefill_to_pages, pool.import_pages = exporting, importing
+    client.prefetch = hopping
+    transport.FrameSender.put = putting
+    prefiller.wire.encode_pages = lambda leaves: timed("encode_pages", encode, leaves)
+    try:
+        yield box
+    finally:
+        transport.FrameSender.put = put
+        prefiller.wire.encode_pages = encode
+        del eng.prefill_to_pages, pool.import_pages, client.prefetch
+
+
+def pages_equal(a: list, b: list) -> bool:
+    """Two page-stack lists equal bit for bit (bf16 as 16-bit words)."""
+    import torch
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    return len(a) == len(b) and all(x.shape == y.shape and torch.equal(bits(x), bits(y))
+                                    for x, y in zip(a, b))
+
+
+def disagg_turns(port: int, eng, box: dict) -> dict:
+    """The long prompt three times as ``/response/stream``: cold with the
+    hop switched off (a local prefill), with the pool emptied and the hop on
+    (the pages cross the loopback wire), and again (a local radix hit, no
+    hop): TTFT to the first content each, the replies, the hop."""
+    pool, client = eng._kvpool, eng._disagg
+    out = {}
+    for name, hop in (("local", False), ("hop", True), ("hit", True)):
+        if name != "hit":
+            pool.reset()
+        eng._disagg = client if hop else None
+        r = _sse(port, "/response/stream", body(LONG_CTX), timeout=900)
+        t = dict(eng.last_timings or {})
+        out[name] = {"status": r["status"], "reply": sse_text(r["events"])[0],
+                     "ttft_s": r["first_content_s"], "reused_tokens": t.get("prefix_reused_tokens")}
+    eng._disagg = client
+    return out
+
+
+def disagg_line(label: str, turns: dict, box: dict, roles) -> dict:
+    st = roles.status()
+    svc, peer = st["prefill_service"], st["peer"]
+    hop = box["hops"][0] if box["hops"] else {}
+    sent = svc["bytes_sent"]
+    out = {"file": label, "role": st["role"],
+           "statuses": {k: v["status"] for k, v in turns.items()},
+           "ttft_s": {k: v["ttft_s"] for k, v in turns.items()},
+           "reused_tokens": {k: v["reused_tokens"] for k, v in turns.items()},
+           "hop_s": hop.get("seconds"), "hop_tokens": hop.get("tokens"), "hops": len(box["hops"]),
+           "hop_parts_s": box["parts_s"],
+           "pages_sent": svc["pages_sent"], "bytes_sent": sent,
+           "mb_per_s": sent / 1e6 / hop["seconds"] if hop.get("seconds") else None,
+           "txbuf_peak_bytes": box["txbuf_peak"],
+           "pages_received_equal_exported": len(box["exported"]) == len(box["imported"]) == 1
+           and pages_equal(box["exported"][0], box["imported"][0]),
+           "reply_hop_equals_local_hit": turns["hop"]["reply"] == turns["hit"]["reply"],
+           "reply_hop_equals_cold_local": turns["hop"]["reply"] == turns["local"]["reply"],
+           "peer": {k: peer[k] for k in ("remote_prefills", "remote_tokens", "local_fallbacks",
+                                         "warm_local_skips", "reconnects", "last_error")}}
+    say(label, **out)
+    if set(out["statuses"].values()) != {200} or not out["pages_received_equal_exported"] \
+            or not out["reply_hop_equals_local_hit"] or peer["remote_prefills"] != 1 \
+            or peer["local_fallbacks"] or not turns["hop"]["reused_tokens"]:
+        raise AssertionError(f"{label}: {out}")
+    return out
+
+
+def phase_disagg(paths: dict, counters: dict) -> dict:
+    """``disagg``: ``LFKT_DISAGG_ROLE=both`` on the serial paged Q4_K_M pod
+    (loaded by the app's startup), then ``disagg_lanes`` on the continuous
+    one (4 lanes, the same weights): the long prompt (745 tokens, 5 pages)
+    cold and local, through the loopback page service, and as a local
+    radix hit.  The pages received must equal the pages exported bit for
+    bit, and the reply over them the local hit's."""
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import ContinuousEngine
+    from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
+
+    d, name = os.path.split(paths["q4km"])
+    launches = dict.fromkeys(counters, 0)
+    zero_counters(counters)
+    settings = tier_settings(model_dir=d, model_name=name, disagg_role="both",
+                             disagg_timeout_seconds=30.0)
+    with served_settings(settings) as (port, app, load_s):
+        eng = app.state.engine
+        with disagg_probes(eng) as box:
+            turns = disagg_turns(port, eng, box)
+        disagg_line("disagg", turns, box, app.state.disagg)
+        parts = (eng.params, eng.cfg, eng.tokenizer, eng.template_kind)
+        del eng
+    for k, n in read_launches("disagg", counters).items():
+        launches[k] += n
+    zero_counters(counters)
+    lanes = tier_settings(disagg_role="both", disagg_timeout_seconds=30.0, batch_size=4)
+    eng = ContinuousEngine.from_parts(*parts, batch_size=4, kv_paged=True,
+                                      kv_page_tokens=PAGE_TOKENS, max_gen_tokens=TIER_TOKENS)
+    eng.warmup()
+    app = create_app(engine=eng, settings=lanes)
+    try:
+        with serving(app) as (port, _):
+            with disagg_probes(eng) as box:
+                turns = disagg_turns(port, eng, box)
+            disagg_line("disagg_lanes", turns, box, app.state.disagg)
+    finally:
+        eng.close()
+    for k, n in read_launches("disagg_lanes", counters).items():
+        launches[k] += n
+    del app, eng, parts
+    gc.collect()
+    return launches
+
+
+class Pod:
+    """One ``python -m llama_fastapi_k8s_gpu_tpu_torch.server`` process on
+    the card, its output in a log file under the cache."""
+
+    def __init__(self, name: str, env: dict):
+        self.name = name
+        self.port = _free_port()
+        self.log = os.path.join(CACHE, "pods", f"{name}.log")
+        os.makedirs(os.path.dirname(self.log), exist_ok=True)
+        path = os.pathsep.join(filter(None, (HERE, os.environ.get("PYTHONPATH"))))
+        full = dict(os.environ, PYTHONPATH=path, LFKT_HOST="127.0.0.1",
+                    LFKT_PORT=str(self.port), LFKT_JSON_LOGS="0", **env)
+        self.t0 = time.time()
+        with open(self.log, "w") as fh:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "llama_fastapi_k8s_gpu_tpu_torch.server"], cwd=HERE,
+                env=full, stdout=fh, stderr=subprocess.STDOUT, start_new_session=True)
+
+    def ready(self, timeout: float = 300) -> float:
+        while time.time() - self.t0 < timeout:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"pod {self.name} exited {self.proc.returncode}: "
+                                     f"{self.tail()}")
+            try:
+                if _http(self.port, "GET", "/health/live", timeout=5)[0] == 200 and \
+                        _http(self.port, "GET", "/health", timeout=5)[0] == 200:
+                    return time.time() - self.t0
+            except OSError:
+                pass
+            time.sleep(0.25)
+        raise AssertionError(f"pod {self.name} not up in {timeout}s: {self.tail()}")
+
+    def get(self, path: str):
+        return _http(self.port, "GET", path, timeout=60)[1]
+
+    def tail(self, n: int = 3000) -> str:
+        with open(self.log, errors="replace") as fh:
+            return fh.read()[-n:]
+
+    def stop(self, kill: bool = False) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill() if kill else self.proc.terminate()
+            try:
+                self.proc.wait(30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(30)
+
+
+def phase_disagg_pods(paths: dict) -> dict:
+    """``disagg_pods``: a prefill pod (``LFKT_DISAGG_ROLE=prefill``) and a
+    decode pod (``decode``, ``LFKT_DISAGG_PEER``) as two server processes on
+    the one card, the Q4_K_M file each.  The decode pod answers
+    ``/response`` through the hop; the prefill pod, its wire slowed by the
+    ``slow_wire`` fault, is killed mid-transfer — the request still answers
+    200 by local prefill, and the decode pod's ``/health`` and
+    ``disagg_local_fallbacks_total`` say why; a restarted prefill pod serves
+    the next hop (READY again); a decode pod over an int8 ring is refused
+    at the handshake, for good, and serves locally."""
+    d, name = os.path.split(paths["q4km"])
+    wire_port = _free_port()
+    common = dict(LFKT_MODEL_DIR=d, LFKT_MODEL_NAME=name, LFKT_KV_PAGED="1",
+                  LFKT_MAX_GEN_TOKENS=str(TIER_TOKENS), LFKT_TEMPERATURE="0",
+                  LFKT_TIMEOUT_SECONDS="600")
+    prefill_env = dict(common, LFKT_DISAGG_ROLE="prefill", LFKT_DISAGG_BIND="127.0.0.1",
+                       LFKT_DISAGG_PORT=str(wire_port))
+    decode_env = dict(common, LFKT_DISAGG_ROLE="decode",
+                      LFKT_DISAGG_PEER=f"127.0.0.1:{wire_port}",
+                      LFKT_DISAGG_TIMEOUT_SECONDS="30")
+    pods: list = []
+    out: dict = {}
+    t0 = time.time()
+    try:
+        pre = Pod("prefill", dict(prefill_env,
+                                  LFKT_FAULTS="slow_wire:slow:delay=1.0:after=1:times=0"))
+        dec = Pod("decode", decode_env)
+        pods += [pre, dec]
+        out["up_s"] = {"prefill": pre.ready(), "decode": dec.ready()}
+        t = time.time()
+        st1, _ = _http(dec.port, "POST", "/response", body(SHORT_CTX), timeout=900)
+        out["through_hop"] = {"status": st1, "seconds": time.time() - t,
+                              "peer": dec.get("/health")["disagg"]["peer"]}
+        sent0 = pre.get("/health")["disagg"]["prefill_service"]["pages_sent"]
+        box: dict = {}
+        th = threading.Thread(target=lambda: box.update(
+            r=_http(dec.port, "POST", "/response", body(LONG_CTX), timeout=900)))
+        t = time.time()
+        th.start()
+        killed_at = None
+        while time.time() - t < 60:
+            svc = pre.get("/health")["disagg"]["prefill_service"]
+            if svc["pages_sent"] >= sent0 + 5:       # the long prompt's 5 pages queued
+                # the slowed wire carries a frame a second: the first group
+                # is across, the second still queued
+                time.sleep(1.3)
+                pre.stop(kill=True)
+                killed_at = time.time() - t
+                break
+            time.sleep(0.02)
+        th.join(900)
+        health = dec.get("/health")
+        metrics = _request(dec.port, "GET", "/metrics")[2].decode()
+        out["killed_mid_transfer"] = {
+            "status": box["r"][0] if "r" in box else None, "killed_at_s": killed_at,
+            "seconds": time.time() - t, "state": health["state"],
+            "reason": health["resilience"]["health"]["reason"],
+            "peer": health["disagg"]["peer"],
+            "fallbacks": {",".join(f"{k}={v}" for k, v in key): n for key, n in
+                          prom_samples(metrics, "disagg_local_fallbacks_total").items()}}
+        pre2 = Pod("prefill_restarted", prefill_env)
+        dec8 = Pod("decode_int8", dict(decode_env, LFKT_KV_DTYPE="int8"))
+        pods += [pre2, dec8]
+        out["restart_up_s"] = {"prefill": pre2.ready(), "decode_int8": dec8.ready()}
+        t = time.time()
+        st3, _ = _http(dec.port, "POST", "/response", body(PRESSURE_CTXS[0]), timeout=900)
+        health = dec.get("/health")
+        out["recovered"] = {"status": st3, "seconds": time.time() - t, "state": health["state"],
+                            "reason": health["resilience"]["health"]["reason"],
+                            "remote_prefills": health["disagg"]["peer"]["remote_prefills"]}
+        sts = [_http(dec8.port, "POST", "/response", body(ctx), timeout=900)[0]
+               for ctx in (SHORT_CTX, SECOND_CTX)]
+        peer8 = dec8.get("/health")["disagg"]["peer"]
+        svc2 = pre2.get("/health")["disagg"]["prefill_service"]
+        out["int8_refused"] = {"statuses": sts, "handshake_refused": peer8["handshake_refused"],
+                               "reconnects": peer8["reconnects"],
+                               "local_fallbacks": peer8["local_fallbacks"],
+                               "prefill_refusals": svc2["handshake_refusals"]}
+    finally:
+        for p in pods:
+            p.stop()
+    out["seconds"] = time.time() - t0
+    say("disagg_pods", **out)
+    k, r, i8 = out["killed_mid_transfer"], out["recovered"], out["int8_refused"]
+    bad = []
+    if st1 != 200 or out["through_hop"]["peer"]["remote_prefills"] != 1:
+        bad.append("hop")
+    if k["status"] != 200 or k["killed_at_s"] is None or k["peer"]["local_fallbacks"] < 1 \
+            or not str(k["peer"]["last_error"]).startswith("peer_dead") \
+            or not any("reason=peer_dead" in key for key in k["fallbacks"]) \
+            or k["state"] != "DEGRADED":
+        bad.append("kill mid-transfer")
+    if st3 != 200 or r["remote_prefills"] != 2 or r["state"] != "READY":
+        bad.append("recovery")
+    if set(i8["statuses"]) != {200} or "geometry mismatch" not in str(i8["handshake_refused"]) \
+            or i8["reconnects"] or i8["prefill_refusals"] != 1:
+        bad.append("int8 refusal")
+    if bad:
+        raise AssertionError(f"disagg_pods: {bad}: {out}; decode log: "
+                             f"{pods[1].tail() if len(pods) > 1 else ''}")
+    return out
+
+
+def phase_tier(paths: dict, counters: dict) -> dict:
+    """The registry and disagg phases on the Q4_K_M, Q6_K and mixed files;
+    returns each kernel's launches summed over their served paths."""
+    import torch
+
+    launches = dict.fromkeys(counters, 0)
+    for phase in (phase_registry, phase_registry_looped, phase_registry_lanes, phase_disagg):
+        t0 = time.time()
+        for name, n in phase(paths, counters).items():
+            launches[name] += n
+        gc.collect()
+        torch.cuda.empty_cache()
+        say("phase_seconds", name=phase.__name__, seconds=round(time.time() - t0, 1))
+    t0 = time.time()
+    phase_disagg_pods(paths)
+    say("phase_seconds", name="phase_disagg_pods", seconds=round(time.time() - t0, 1))
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "llama_fastapi_k8s_gpu_tpu_torch")):
         print("chip_smoke: run from the root of a checkout of the repository "
@@ -4852,10 +5606,14 @@ def main() -> int:
     t0 = time.time()
     info = phase_device()
     devtime_at_start = DEVTIME.counters()
+    # the files are written beside the kernels' build, and are all on disk
+    # before any kernel is timed
+    jobs = start_ggufs()
     phase_build()
+    t_files = time.time()
+    paths = {key: job.result() for key, job in jobs.items()}
+    say("ggufs", waited_s=round(time.time() - t_files, 1), workers=GGUF_WORKERS)
     kernels, deq_lines = phase_kernels(KERNELS)
-    paths = {layout: phase_gguf(layout) for layout in LAYOUTS}
-    mistral_path, mixed_path = phase_gguf_mistral(), phase_gguf_mixed()
     launches = dict.fromkeys(KERNELS, 0)
     # an earlier run's replies (CHIP_SMOKE_REPLIES), to print where each
     # greedy reply of this run parts from it
@@ -4879,7 +5637,6 @@ def main() -> int:
     # bf16 ring with the follow-up, /v1 and the 25 s request, and int8
     # weights looped over the int8 ring; then the mixed-type file under auto
     # (every linear bf16) and int8, its load timed by type
-    paths["mistral"], paths["mixed"] = mistral_path, mixed_path
     engines += [("mistral", dict(layout="q4km", label=label, weight_format=fmt,
                                  kv_dtype=kv_dtype, unroll=unroll, expect_unroll=expect,
                                  follow_up=label == "mistral_q4km",
@@ -4904,6 +5661,9 @@ def main() -> int:
         launches[name] += n
     # the paged KV pool and prompt-lookup speculation on the Q4_K_M weights
     for name, n in phase_paged_spec(keep.pop("parts"), KERNELS).items():
+        launches[name] += n
+    # multi-model serving and the disaggregated prefill/decode tier
+    for name, n in phase_tier(paths, KERNELS).items():
         launches[name] += n
     if os.environ.get("CHIP_SMOKE_REPLIES_OUT"):
         with open(os.environ["CHIP_SMOKE_REPLIES_OUT"], "w") as fh:

@@ -543,7 +543,8 @@ class ContinuousEngine(MeshEngine):
                 # lane (stream-ordered after every queued chunk, which
                 # writes only past the claim); cached pages deduplicate
                 self._kvpool.commit_lane((list(slot.ids) + slot.gens)[:keep],
-                                         self._bstate["cache"], lane)
+                                         self._bstate["cache"], lane,
+                                         namespace=self._kv_ns)
             return
         if not self._lane_prefix:
             return
@@ -612,6 +613,14 @@ class ContinuousEngine(MeshEngine):
                     f"Requested tokens ({len(ids)}) exceed context window "
                     f"of {self.cfg.n_ctx}")
             bucket = self._bucket_for(len(ids))
+            # disagg decode role (serving/disagg/): one bounded remote-
+            # prefill hop an admission — the peer's pages import into the
+            # pool, so the paged reuse below restores them and only the
+            # suffix slices prefill here.  Off, this is one attribute read;
+            # the client bounds the hop by the item's deadline and degrades
+            # every failure to local prefill
+            if self._disagg is not None and item.seed is None:
+                self._remote_prefill_ids(ids, item.deadline, pspan)
             reuse, src = 0, None
             if item.seed is None:
                 # explicit seeds take the full prefill (the serial engine's
@@ -669,12 +678,12 @@ class ContinuousEngine(MeshEngine):
         (admissions prefill in slices from the reuse offset): the cap and
         alignment of :meth:`_find_lane_reuse`, against the radix index."""
         pool = self._kvpool
-        i = min(pool.match_len(ids), len(ids) - 1)
+        i = min(pool.match_len(ids, namespace=self._kv_ns), len(ids) - 1)
         r = (i // self._paged_align) * self._paged_align
         if r < self._paged_align:
             pool.note_miss()
             return 0, None
-        lease = pool.acquire(ids, r, span=pspan)
+        lease = pool.acquire(ids, r, span=pspan, namespace=self._kv_ns)
         if lease is None:      # raced an eviction, or a spill restore failed
             return 0, None
         if pspan is not None:

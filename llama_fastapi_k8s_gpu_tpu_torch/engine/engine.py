@@ -18,7 +18,13 @@ streaming chunks — on PyTorch and one GPU:
   under ``kv_paged`` the process-wide radix index of the paged KV pool
   (parallel/kvpool.py) takes its place: the longest cached whole-page
   prefix is copied into the ring in place and pinned for the request, and
-  the finished conversation's pages are committed back;
+  the finished conversation's pages are committed back.  A multi-model
+  registry (serving/registry.py) hands every compatible engine one shared
+  pool (``kv_pool=``) and each its own radix namespace (``kv_namespace=``);
+- disaggregated prefill/decode (serving/disagg/): with a client installed
+  (:meth:`Engine.install_disagg`) a prompt first hops to the prefill tier,
+  whose pages import into the pool, so the reuse above restores them; the
+  tier's own side is :meth:`Engine.prefill_to_pages`;
 - speculative decoding (``spec_decode="lookup"``, or ``"auto"`` decided
   from the measured dispatch round trip, engine/spec_auto.py): a
   prompt-lookup draft of ``spec_draft`` tokens verified in one D+1-row
@@ -85,7 +91,7 @@ from ..sampling.sample import SamplingParams, sampling_tensors
 from ..tokenizer import apply_chat_template, detect_chat_template, tokenizer_from_gguf
 from ..utils.device import resolve_device
 from ..utils.faults import FAULTS
-from ..utils.health import EngineUnavailable, Heartbeat
+from ..utils.health import DeadlineExceeded, EngineUnavailable, Heartbeat
 from ..utils.tracing import maybe_profile
 
 logger = logging.getLogger(__name__)
@@ -189,6 +195,10 @@ class Engine:
         kv_spill_pages: int = 0,    # host spill tier in pages (0 = off)
         device: str | torch.device | None = None,
         *,
+        kv_pool=None,               # adopt a shared KVPool (the multi-model
+        #                             registry) instead of building a private one
+        kv_namespace: str | None = None,  # this engine's radix namespace in
+        #                             the pool: prefixes never match across them
         _parts: tuple | None = None,  # (params, cfg, tokenizer, template_kind)
     ):
         FAULTS.fire("load")   # injection point: a load that fails
@@ -310,14 +320,39 @@ class Engine:
         #: request at a time); acquired in _paged_reuse, released by
         #: _drop_lease on every exit
         self._paged_lease = None
+        #: the prefix-cache namespace every pool call carries: co-resident
+        #: models sharing one arena never match each other's prefixes (the
+        #: registry passes the manifest alias; a lone engine uses "")
+        self._kv_ns = kv_namespace or ""
         self._kvpool = None
         if paged:
             from ..parallel.kvpool import KVPool
 
             self._prefix_cache = False
-            self._kvpool = KVPool(self.cfg, page_tokens=kv_page_tokens,
-                                  n_pages=kv_pool_pages, spill_pages=kv_spill_pages,
-                                  sink_host=self, device=self.device)
+            if kv_pool is not None and (kv_pool.device != self.device or
+                                        not kv_pool.compatible(self.cfg, kv_page_tokens)):
+                # only an identical per-page geometry can share the arena:
+                # this model serves from a private pool instead of failing
+                # the whole fleet
+                logger.warning(
+                    "model %r (n_layers=%d, n_kv_heads=%d, head_dim=%d, "
+                    "kv_dtype=%s) cannot share the KV page arena: cache "
+                    "page geometry differs from the pool's — serving it "
+                    "from a private pool (docs/MULTIMODEL.md)",
+                    self.model_name, self.cfg.n_layers,
+                    self.cfg.n_kv_heads, self.cfg.head_dim,
+                    self.cfg.kv_dtype)
+                kv_pool = None
+            if kv_pool is not None:
+                self._kvpool = kv_pool
+            else:
+                self._kvpool = KVPool(self.cfg, page_tokens=kv_page_tokens,
+                                      n_pages=kv_pool_pages, spill_pages=kv_spill_pages,
+                                      sink_host=self, device=self.device)
+        #: the decode side's remote-prefill client (serving/disagg/), set by
+        #: install_disagg; None is the off state — the serving paths read
+        #: this one attribute
+        self._disagg = None
         # weakly held (a closed engine's rows vanish with it); the providers
         # read sizes only, at snapshot time.  The pool registers its own rows
         register_component("weights", self, lambda eng: eng.weight_bytes)
@@ -560,14 +595,16 @@ class Engine:
                               deadline=deadline, abort=abort, trace=trace)
 
     # ------------------------------------------------------------------
-    def _start(self, messages, sp: SamplingParams, seed, espan=None):
+    def _start(self, messages, sp: SamplingParams, seed, espan=None, pre_ids=None):
         """Prefill + first token.  Returns the mutable generation context.
         ``espan`` (the traced request's ``engine`` span, or None) grows a
-        ``prefill`` child covering tokenize → first sampled token."""
+        ``prefill`` child covering tokenize → first sampled token.
+        ``pre_ids`` is the prompt the pre-lock disagg hop already
+        tokenized."""
         t0 = time.time()
         self.heartbeat.beat()
         FAULTS.fire("prefill")
-        ids = self.tokenize_messages(messages)
+        ids = pre_ids if pre_ids is not None else self.tokenize_messages(messages)
         n_prompt = len(ids)
         if n_prompt >= self.cfg.n_ctx:
             raise ValueError(
@@ -662,7 +699,7 @@ class Engine:
         self._drop_lease()   # a prior request's failure may have left one
         pool = self._kvpool
         T = pool.page_tokens
-        i = min(pool.match_len(ids), n_prompt - 1)
+        i = min(pool.match_len(ids, namespace=self._kv_ns), n_prompt - 1)
         r_fit = 0
         # the suffix's padded slice must stay inside the ring and land in a
         # strictly smaller bucket; pages are the restore grain
@@ -676,7 +713,7 @@ class Engine:
         if r_fit == 0:
             pool.note_miss()
             return 0
-        lease = pool.acquire(ids, r_fit, span=pspan)
+        lease = pool.acquire(ids, r_fit, span=pspan, namespace=self._kv_ns)
         if lease is None:    # raced an eviction, or a spill restore failed
             return 0
         self._paged_lease = lease
@@ -693,6 +730,116 @@ class Engine:
             pspan.set(reused_pages=len(lease.page_ids), matched_tokens=i)
         return lease.tokens
 
+    # -- disaggregated prefill/decode (serving/disagg/) ---------------------
+    def install_disagg(self, client) -> None:
+        """Arm remote prefill (``LFKT_DISAGG_ROLE`` decode or both): admitted
+        prompts hop to the prefill tier, whose pages import into the local
+        pool's radix, so :meth:`_paged_reuse` (and the continuous
+        scheduler's admission reuse) restores them like any local commit.
+        Requires the paged pool — pages are the wire format."""
+        if self._kvpool is None:
+            raise ValueError(
+                "install_disagg requires LFKT_KV_PAGED=1: the disagg "
+                "wire ships KV pool pages (docs/RUNBOOK.md 'Operating a "
+                "split prefill/decode fleet')")
+        self._disagg = client
+
+    def _remote_prefill(self, messages, deadline, trace) -> list | None:
+        """One bounded remote-prefill hop for the serial path, *before* the
+        generation lock (in ``both`` mode the loopback page service takes
+        that lock to prefill: holding it here would deadlock).  Never
+        raises: the client degrades every wire failure to the local prefill
+        itself.  Returns the tokenized prompt, so :meth:`_start` does not
+        tokenize again (None when tokenizing failed: :meth:`_start` then
+        raises the real error)."""
+        try:
+            ids = self.tokenize_messages(messages)
+        except Exception:  # noqa: BLE001 — _start re-raises the real error
+            return None
+        try:
+            if len(ids) >= self.cfg.n_ctx:
+                return ids              # _start's oversized-prompt error
+            span = trace.span("disagg") if trace is not None else None
+            try:
+                self._disagg.prefetch(ids, namespace=self._kv_ns,
+                                      deadline=deadline, span=span)
+            finally:
+                if span is not None:
+                    span.end()
+        except Exception:  # noqa: BLE001 — the hop is an optimization: any
+            # failure degrades to the local prefill _start runs anyway
+            logger.exception("disagg prefetch failed; serving local prefill")
+        return ids
+
+    def _remote_prefill_ids(self, ids, deadline, span=None) -> None:
+        """The tokenized hop (the continuous scheduler's admission path);
+        the same never-raise contract as :meth:`_remote_prefill`."""
+        try:
+            self._disagg.prefetch(ids, namespace=self._kv_ns,
+                                  deadline=deadline, span=span)
+        except Exception:  # noqa: BLE001 — degrade to local prefill
+            logger.exception("disagg prefetch failed; serving local prefill")
+
+    def prefill_to_pages(self, ids, *, namespace: str = "", deadline=None):
+        """The prefill tier's page service (serving/disagg/prefiller.py):
+        make sure the whole-page prefix of ``ids`` is committed in the local
+        pool — the tier's own radix first, so a system prompt hot across
+        many decode replicas prefills once a tier, else a prompt pass into
+        the serial ring, in place (its graphs hold its addresses) — then pin
+        it, export host page stacks and release.  Returns ``(leaves, tokens,
+        first_token)``, or None when no whole page is exportable;
+        ``first_token`` is the prompt's greedy continuation when this call
+        ran the prompt pass (advisory: the decode side samples its own), else
+        None."""
+        pool = self._kvpool
+        if pool is None:
+            raise ValueError(
+                "prefill_to_pages requires LFKT_KV_PAGED=1 (pages are "
+                "the disagg wire format)")
+        T = pool.page_tokens
+        ids = [int(t) for t in ids]
+        n_prompt = len(ids)
+        if n_prompt >= self.cfg.n_ctx:
+            raise ValueError(
+                f"Requested tokens ({n_prompt}) exceed context window "
+                f"of {self.cfg.n_ctx}")
+        keep = (n_prompt // T) * T
+        if keep < T:
+            return None                  # prompt shorter than one page
+        first_token = None
+        with self._lock:
+            self._check_usable()
+            self.heartbeat.enter()
+            try:
+                have = pool.match_len(ids[:keep], namespace=namespace)
+                if have < keep:
+                    if deadline is not None and time.time() > deadline:
+                        # the decode side already abandoned this request
+                        raise DeadlineExceeded("deadline expired before remote prefill")
+                    self.heartbeat.beat()
+                    FAULTS.fire("prefill")
+                    self._drop_lease()
+                    self._prefix_ids = []
+                    logits = self._prefill_padded(ids, n_prompt, self._bucket_for(n_prompt))
+                    first_token = int(torch.argmax(logits.reshape(-1)))   # host sync
+                    pool.commit(ids[:keep], self._cache, namespace=namespace)
+                # a squeezed pool may have committed only the leading pages
+                # that fit: export what the index truly holds
+                have = min(pool.match_len(ids[:keep], namespace=namespace), keep)
+                if have < T:
+                    return None
+                lease = pool.acquire(ids[:keep], have, namespace=namespace)
+                if lease is None:        # raced an eviction: a miss, not an
+                    return None          # error — the peer falls back
+                try:
+                    leaves = pool.export_pages(lease)
+                    tokens = lease.tokens
+                finally:
+                    pool.release(lease)
+                return leaves, tokens, first_token
+            finally:
+                self.heartbeat.leave()
+
     def _finish(self, ctx) -> dict:
         """Record the ring's new prefix claim — under the paged pool, commit
         the conversation's whole pages and unpin the lease — and the
@@ -706,7 +853,7 @@ class Engine:
             # follow-up turn stores only its delta
             keep = ctx["n_prompt"] + max(n - 1, 0)
             self._kvpool.commit((ctx["prompt_ids"] + ctx["ids"])[:keep], self._cache,
-                                span=ctx.get("span"))
+                                span=ctx.get("span"), namespace=self._kv_ns)
             self._drop_lease()
         elif self._prefix_cache:
             # ring slots [0, n_prompt + n - 1) hold the prompt and every
@@ -981,13 +1128,20 @@ class Engine:
 
     def _generate(self, messages, sp, max_tokens, stops, seed,
                   deadline=None, abort=None, trace=None) -> dict:
+        # disagg decode role: one bounded remote-prefill hop before the
+        # lock (the loopback page service needs it); off, this is one
+        # attribute read.  Explicit seeds bypass it like every reuse path
+        pre_ids = None
+        if self._disagg is not None and seed is None:
+            pre_ids = self._remote_prefill(messages, deadline, trace)
         with self._lock, maybe_profile("generate"):
             self._check_usable()
             self.heartbeat.enter()
             try:
                 t0 = time.time()
                 ctx = self._start(messages, sp, seed,
-                                  espan=self._engine_span(trace, deadline))
+                                  espan=self._engine_span(trace, deadline),
+                                  pre_ids=pre_ids)
                 ctx["trace"] = trace
                 ctx["deadline"] = deadline
                 ctx["abort"] = abort
@@ -1025,12 +1179,17 @@ class Engine:
 
     def _generate_stream(self, messages, sp, max_tokens, stops, seed,
                          deadline=None, abort=None, trace=None) -> Iterator[dict]:
+        # the same pre-lock remote-prefill hop as _generate
+        pre_ids = None
+        if self._disagg is not None and seed is None:
+            pre_ids = self._remote_prefill(messages, deadline, trace)
         with self._lock:
             self._check_usable()
             self.heartbeat.enter()
             try:
                 ctx = self._start(messages, sp, seed,
-                                  espan=self._engine_span(trace, deadline))
+                                  espan=self._engine_span(trace, deadline),
+                                  pre_ids=pre_ids)
             except Exception as e:  # noqa: BLE001 — burst detection, re-raised
                 self._drop_lease()
                 self.heartbeat.leave()

@@ -127,6 +127,41 @@ METRICS: dict[str, Metric] = _register(
     Metric("kv_pool_pages_used", GAUGE,
            "KV pool pages holding indexed cache content"),
     Metric("kv_pool_pages_free", GAUGE, "KV pool pages on the free list"),
+    # -- disaggregated prefill/decode (serving/disagg/) --------------------
+    Metric("disagg_prefills_served_total", COUNTER,
+           "prefill tier: remote prefill requests answered with pages"),
+    Metric("disagg_pages_sent_total", COUNTER,
+           "prefill tier: KV pages streamed to decode replicas"),
+    Metric("disagg_bytes_sent_total", COUNTER,
+           "prefill tier: page payload bytes put on the wire"),
+    Metric("disagg_remote_prefills_total", COUNTER,
+           "decode replica: admissions whose prefix was imported from "
+           "the prefill tier (pages restored instead of local prefill)"),
+    Metric("disagg_pages_received_total", COUNTER,
+           "decode replica: KV pages received from the prefill tier"),
+    Metric("disagg_bytes_received_total", COUNTER,
+           "decode replica: page payload bytes received"),
+    Metric("disagg_local_fallbacks_total", COUNTER,
+           "decode replica: remote prefills degraded to LOCAL prefill, "
+           "by reason (peer_dead, peer_unreachable, refused, import, "
+           "prefill, ...) — nonzero = the split fleet is not splitting",
+           labels=("reason",)),
+    Metric("disagg_handshake_refusals_total", COUNTER,
+           "page-wire handshakes refused (schema/geometry mismatch — "
+           "a mis-deployed tier pair, docs/RUNBOOK.md)"),
+    Metric("disagg_transfer_seconds", HISTOGRAM,
+           "decode replica: one remote-prefill hop's wall (request -> "
+           "pages imported)",
+           buckets=LATENCY_BUCKETS),
+    Metric("disagg_peer_connected", GAUGE,
+           "decode replica: 1 while the prefill peer connection is up"),
+    # -- live manifest reload (serving/registry.py reload_manifest) --------
+    Metric("model_reloads_total", COUNTER,
+           "live-reload actions on the model registry (add = model "
+           "loaded+warmed in place, remove = namespace drained + weights "
+           "released, refused = budget/fit/grammar refusal with the "
+           "running set untouched)",
+           labels=("action",)),
     # -- prefill pipeline ----------------------------------------------------
     Metric("prefill_slice_seconds", HISTOGRAM,
            "host wall of one prefill-slice dispatch (prep + enqueue; "
@@ -267,6 +302,12 @@ MEM_COMPONENTS: dict[str, MemComponent] = {
                      "is the alert", always=True),
         MemComponent("host_spill",
                      "host-RAM KV spill tier (LFKT_KV_SPILL_PAGES)",
+                     device=False),
+        MemComponent("disagg_txbuf",
+                     "disagg page-wire send queues: host bytes buffered "
+                     "between page export and the socket (bounded by "
+                     "LFKT_DISAGG_QUEUE_FRAMES x peers — "
+                     "serving/disagg/transport.py)",
                      device=False),
         MemComponent("residual",
                      "ground truth minus every attributed device "

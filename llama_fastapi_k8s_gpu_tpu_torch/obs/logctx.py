@@ -16,6 +16,23 @@ import contextlib
 import contextvars
 import json
 import logging
+import re
+
+#: control bytes (CR/LF included) that a peer-supplied string must not
+#: carry into a log line or a header
+_CONTROL_BYTES = re.compile(r"[\x00-\x1f\x7f]+")
+
+
+def sanitize_text(value, limit: int = 512) -> str:
+    """``value`` as one bounded, printable line: control bytes collapse to
+    one space and the result is cut at ``limit`` chars (with ``...``).
+    Any type is accepted (peer JSON fields arrive as whatever the peer
+    sent); never raises."""
+    text = value if isinstance(value, str) else str(value)
+    text = _CONTROL_BYTES.sub(" ", text)
+    if len(text) > limit:
+        text = text[:limit] + "..."
+    return text
 
 #: the active request id ("-" outside any request scope)
 _REQUEST_ID: contextvars.ContextVar[str] = contextvars.ContextVar(

@@ -282,6 +282,20 @@ class Tracer:
             self._inflight[tr.trace_id] = tr
         return tr
 
+    def start_linked(self, name: str, traceparent: str | None,
+                     t0: float | None = None) -> Trace | None:
+        """Begin a server-side trace fragment under a remote parent (the
+        disagg page service's REQ), or None.  Parent-based sampling: traced
+        iff armed and the wire carried a valid ``traceparent`` — the
+        client's decision propagates, the counter sampler is not consulted."""
+        if not self._armed or parse_traceparent(traceparent) is None:
+            return None
+        with self._lock:
+            tr = Trace(name, traceparent=traceparent, t0=t0)
+            self.started_total += 1
+            self._inflight[tr.trace_id] = tr
+        return tr
+
     def finish(self, trace: Trace | None) -> None:
         """Close a trace's root span and move it to the ring (idempotent;
         None-tolerant so callers never need their own sampled-out guard).

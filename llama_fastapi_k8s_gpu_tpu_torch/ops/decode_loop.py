@@ -47,11 +47,12 @@ from .rope import rope_cos_sin
 
 #: per params object: its loop plan and, on the card, its weight table
 _PARAMS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-#: per device: the grid barrier's counter (zero before the first launch)
-_BARRIERS: dict = {}
-#: per device and geometry: the attention's scratch and per-KV-head
-#: arrival counters (zero between launches)
-_ATTENTION: dict = {}
+#: per params object (one engine's weights): the grid barrier's counter
+#: (zero before the first launch) and, per geometry, the attention's
+#: scratch and per-KV-head arrival counters (zero between launches).  Two
+#: co-resident models each own a set, so their launches may overlap on two
+#: streams; the set dies with the weights
+_SCRATCH: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 #: the smallest key chunk of an attention item (csrc/decode_loop.cu
 #: CHUNK_MIN): the partials hold ⌈n_ctx / CHUNK_MIN⌉ chunks a query head
 CHUNK_MIN = 8
@@ -138,32 +139,42 @@ def _weight_table(params, cfg, int8: bool) -> torch.Tensor:
     return table
 
 
-def _barrier(device: torch.device) -> torch.Tensor:
-    bar = _BARRIERS.get(device)
+def _scratch(params) -> dict:
+    entry = _SCRATCH.get(params)
+    if entry is None:
+        entry = _SCRATCH[params] = {}
+    return entry
+
+
+def _barrier(params, device: torch.device) -> torch.Tensor:
+    scratch = _scratch(params)
+    bar = scratch.get(device)
     if bar is None:
-        bar = _BARRIERS[device] = torch.zeros(1, dtype=torch.int32, device=device)
+        bar = scratch[device] = torch.zeros(1, dtype=torch.int32, device=device)
     return bar
 
 
-def _attention_scratch(device: torch.device, cfg) -> tuple:
+def _attention_scratch(params, device: torch.device, cfg) -> tuple:
     """(partials, counters, max_chunks) of the kernel's attention phase:
     per query head and key chunk the chunk's P·V sums (hd f32) and its
     (max, sum), then per query head its scores over the ring — f32,
     n_heads × (max_chunks × (hd + 2) + n_ctx) — and two arrival counters
     per KV head, which every launch returns to zero.
 
-    One set per device and geometry, shared by every launch there — the
-    per-lane launches of a lane step included — so the launches must run
-    one after another on one stream (:func:`decode_loop_step`): two at once
-    would share the counters and a block could wait forever."""
+    One set per weights object, device and geometry, shared by every launch
+    of that engine — the per-lane launches of a lane step included — so an
+    engine's launches must run one after another on one stream
+    (:func:`decode_loop_step`): two at once would share the counters and a
+    block could wait forever.  Another engine's launches use their own."""
     max_chunks = (cfg.n_ctx - 1) // CHUNK_MIN + 1
     key = (device, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_ctx)
-    entry = _ATTENTION.get(key)
+    scratch = _scratch(params)
+    entry = scratch.get(key)
     if entry is None:
         part = torch.empty(cfg.n_heads * (max_chunks * (cfg.head_dim + 2) + cfg.n_ctx),
                            dtype=torch.float32, device=device)
         cnt = torch.zeros(2 * cfg.n_kv_heads, dtype=torch.int32, device=device)
-        entry = _ATTENTION[key] = (part, cnt, max_chunks)
+        entry = scratch[key] = (part, cnt, max_chunks)
     return entry
 
 
@@ -235,9 +246,10 @@ def decode_loop_step(params, cache: dict, h: torch.Tensor, positions: torch.Tens
     tensors, the plain version for CPU ones.
 
     The grid barrier's counter and the attention's scratch and counters are
-    one set per device (and geometry), not per stream, so every launch on
-    one card must follow the last on one stream — never two streams at
-    once.  The engines keep that rule: a serial engine runs under its lock
+    one set per weights object (and device and geometry), not per stream,
+    so every launch of one engine must follow its last on one stream —
+    never two streams at once; two engines (a multi-model registry) hold
+    two sets.  The engines keep that rule: a serial engine runs under its lock
     on the current stream; a lane step runs this kernel once per lane, the
     lanes one after another inside one graph replayed on that stream (the
     capture stream is joined to it before and after); a cycle engine's
@@ -288,11 +300,11 @@ def decode_loop_step(params, cache: dict, h: torch.Tensor, positions: torch.Tens
     ctx = torch.empty(cfg.dim, dtype=torch.bfloat16, device=h.device)
     act = torch.empty(cfg.ffn_dim, dtype=torch.bfloat16, device=h.device)
     ks, vs = (ring[2].data_ptr(), ring[3].data_ptr()) if kv_int8 else (None, None)
-    part, cnt, max_chunks = _attention_scratch(h.device, cfg)
+    part, cnt, max_chunks = _attention_scratch(params, h.device, cfg)
     check(library().lfkt_decode_loop(
         table.data_ptr(), h.data_ptr(), ring[0].data_ptr(), ring[1].data_ptr(), ks, vs,
         qkv.data_ptr(), ctx.data_ptr(), act.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-        positions.data_ptr(), _barrier(h.device).data_ptr(), part.data_ptr(), cnt.data_ptr(),
+        positions.data_ptr(), _barrier(params, h.device).data_ptr(), part.data_ptr(), cnt.data_ptr(),
         layer0, K, cfg.dim, cfg.ffn_dim, cfg.n_heads, cfg.n_kv_heads, hd, cfg.n_ctx,
         cfg.sliding_window,
         max_chunks, cfg.rms_eps, hd ** -0.5, int(w_int8), int(kv_int8), stream_ptr(h)),

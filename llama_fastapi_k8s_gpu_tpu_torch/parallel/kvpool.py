@@ -52,6 +52,7 @@ import logging
 import math
 import threading
 import time
+import weakref
 
 import torch
 
@@ -189,7 +190,9 @@ class KVPool:
     ``sink_host`` is the owning engine (any object with a ``metrics_sink``
     attribute): hit, miss, eviction, spill and restore events go into its
     metrics registry when the server installed one, and are dropped
-    otherwise — telemetry never fails serving."""
+    otherwise — telemetry never fails serving.  It is held weakly: a
+    shared pool (the multi-model registry's) outlives a removed owner,
+    whose weights must not stay alive through it."""
 
     def __init__(self, cfg: ModelConfig, page_tokens: int = 128, n_pages: int = 0,
                  spill_pages: int = 0, sink_host=None,
@@ -207,7 +210,7 @@ class KVPool:
             n_pages = 4 * max(1, cfg.n_ctx // T)
         self.n_pages = int(n_pages)
         self.spill_pages = max(0, int(spill_pages))
-        self._sink_host = sink_host
+        self._sink_host = weakref.ref(sink_host) if sink_host is not None else None
         self.device = resolve_device(device)
         specs = _leaf_specs(cfg, T)
         #: the arena: one tensor a ring leaf, page-major (n_pages, L, n_kv,
@@ -255,7 +258,7 @@ class KVPool:
 
     # -- telemetry (never fails serving) -----------------------------------
     def _emit(self, kind: str, name: str, value: float = 1.0) -> None:
-        host = self._sink_host
+        host = self._sink_host() if self._sink_host is not None else None
         m = getattr(host, "metrics_sink", None) if host is not None else None
         if m is None:
             return

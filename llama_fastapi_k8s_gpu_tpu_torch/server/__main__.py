@@ -5,7 +5,8 @@ in one process: the model loads once, onto the GPU, so there is exactly one
 worker.  ``LFKT_HOST`` / ``LFKT_PORT`` choose the address, ``LFKT_MODEL_DIR``
 / ``LFKT_MODEL_NAME`` the GGUF.  Log lines are JSON objects stamped with the
 request id unless ``LFKT_JSON_LOGS=0``.  On SIGTERM the pod drains: the
-watchdog stops first, so no trip fails a request that is finishing.
+watchdog stops first, so no trip fails a request that is finishing, and a
+prefill tier (``LFKT_DISAGG_ROLE=prefill``) stops taking new page-wire peers.
 """
 
 import functools
@@ -13,10 +14,15 @@ import logging
 
 
 def stop_watchdog(app) -> None:
-    """The drain hook: stop ``app``'s engine watchdog, if it runs one."""
+    """The drain hook: stop ``app``'s engine watchdog, if it runs one, and
+    close a prefill tier's page-service listener (in-flight transfers
+    finish; decode replicas re-resolving the service land on a live pod)."""
     watchdog = app.state.watchdog
     if watchdog is not None:
         watchdog.stop()
+    disagg = app.state.disagg
+    if disagg is not None and disagg.server is not None:
+        disagg.server.stop_accepting()
 
 
 def main():

@@ -42,7 +42,15 @@ server keeps it (llama_fastapi_k8s_gpu_tpu/server/app.py):
   ``traceparent``) for every request and answered as ``x-request-id``,
   the access log line, and ``request_seconds`` / ``http_requests_total``;
 - the engine watchdog, started with the app and stopped with it; an
-  ``EngineUnavailable`` from the engine becomes a 503.
+  ``EngineUnavailable`` from the engine becomes a 503;
+- multi-model serving (``LFKT_MODELS``, serving/registry.py): ``model=``
+  routes each request to its engine, ``/v1/models`` lists the routable
+  aliases, ``/health`` carries a ``models`` row a model, and ``POST
+  /admin/models/reload`` (or SIGHUP) converges the registry to a new
+  manifest live; the watchdog does not run over a registry;
+- disaggregated prefill/decode (``LFKT_DISAGG_ROLE``, serving/disagg/): the
+  page service and/or the remote-prefill client armed at startup, with a
+  ``disagg`` block in ``/health`` and the ``disagg_*`` families.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ import asyncio
 import json
 import logging
 import math
+import signal
 import time
 import uuid
 from datetime import datetime
@@ -58,7 +67,7 @@ from datetime import datetime
 from ..obs import flightrec as _flightrec
 from ..obs import memledger as _memledger
 from ..obs.devtime import DEVTIME
-from ..obs.logctx import access_logger, bind_request_id
+from ..obs.logctx import access_logger, bind_request_id, sanitize_text
 from ..obs.slo import SLOEngine
 from ..obs.trace import TRACER, Tracer
 from ..utils.config import Settings, get_settings
@@ -176,6 +185,10 @@ def create_app(engine=None, settings: Settings | None = None,
     #: READY, DEGRADED and DEAD
     app.state.health = HealthMonitor()
     app.state.watchdog = None
+    #: the disagg roles armed at startup from LFKT_DISAGG_ROLE (None: off)
+    app.state.disagg = None
+    #: one live manifest reload at a time (POST /admin/models/reload, SIGHUP)
+    app.state.reload_busy = asyncio.Lock()
 
     def _queue_span(rd, now: float) -> None:
         tr = rd.get("trace")
@@ -345,6 +358,14 @@ def create_app(engine=None, settings: Settings | None = None,
         return {"deadline": rd["deadline"], "abort": rd["future"].cancelled,
                 "trace": rd["trace"]}
 
+    def _is_registry() -> bool:
+        return callable(getattr(app.state.engine, "has_model", None))
+
+    def _model_kw(rd) -> dict:
+        """``model=`` for a registry (its routing key); a single engine
+        never sees it (the alias was checked at admission)."""
+        return {"model": rd.get("model")} if _is_registry() else {}
+
     def _messages(rd) -> list[dict]:
         # /v1 requests ride raw: OpenAI clients own their history
         if rd.get("raw"):
@@ -360,7 +381,7 @@ def create_app(engine=None, settings: Settings | None = None,
                 t0 = time.time()
                 answer = await asyncio.to_thread(
                     lambda: app.state.engine.create_chat_completion(
-                        messages=messages, stream=False,
+                        messages=messages, stream=False, **_model_kw(rd),
                         **_gen_kwargs(rd), **_resilience_kw(rd)))
                 m.observe("generation_seconds", time.time() - t0,
                           model=_model_label(answer))
@@ -465,7 +486,7 @@ def create_app(engine=None, settings: Settings | None = None,
                 messages = _messages(rd)
                 t0 = time.time()
                 engine = app.state.engine
-                engine_fut = engine.submit(messages, **_gen_kwargs(rd),
+                engine_fut = engine.submit(messages, **_gen_kwargs(rd), **_model_kw(rd),
                                            deadline=rd["deadline"], trace=rd["trace"])
                 rd["future"].add_done_callback(
                     lambda f: engine.abandon(engine_fut) if f.cancelled() else None)
@@ -522,7 +543,7 @@ def create_app(engine=None, settings: Settings | None = None,
         def run():
             try:
                 it = app.state.engine.create_chat_completion(
-                    messages=messages, stream=True,
+                    messages=messages, stream=True, **_model_kw(rd),
                     **_gen_kwargs(rd), **_resilience_kw(rd))
                 try:
                     for chunk in it:
@@ -577,6 +598,15 @@ def create_app(engine=None, settings: Settings | None = None,
         # the incident bundles carry this app's health trail (weakly held;
         # a later app wins, which is the live one)
         _flightrec.FLIGHTREC.install(health=app.state.health, engine=engine)
+        # disaggregated prefill/decode: arm the page service and/or the
+        # remote-prefill client; a misconfiguration (no paged pool, a
+        # registry, a decode role without a peer) refuses startup loudly
+        if settings.disagg_role != "off":
+            from ..serving.disagg import build_roles
+
+            app.state.disagg = build_roles(
+                settings.disagg_role, engine, settings,
+                metrics=app.state.metrics, health=app.state.health)
         # with LFKT_PROFILE_DIR set, the profiler's one-time set-up (seconds
         # on the card) is paid here, before READY, and not inside the first
         # /debug/profile window; unset, no profiler is touched
@@ -585,6 +615,13 @@ def create_app(engine=None, settings: Settings | None = None,
         await asyncio.to_thread(prepare_profiler)
         app.state.ready = True
         app.state.health.transition(READY, "engine loaded")
+        if settings.watchdog and getattr(engine, "heartbeat", None) is None \
+                and callable(getattr(engine, "models", None)):
+            # the watchdog is single-engine (one heartbeat, one recovery);
+            # a registry's per-engine failures surface as 503s instead
+            logger.info("multi-model registry loaded: engine watchdog "
+                        "gates off (single-engine contract — "
+                        "docs/MULTIMODEL.md)")
         if settings.watchdog and getattr(engine, "heartbeat", None) is not None:
             from ..engine.watchdog import Watchdog
 
@@ -599,6 +636,15 @@ def create_app(engine=None, settings: Settings | None = None,
                 backoff_max=settings.watchdog_backoff_max,
             ).start()
         app.state.consumer_task = asyncio.create_task(consumer())
+        # SIGHUP re-reads LFKT_MODELS and converges the registry to it (the
+        # twin of POST /admin/models/reload); only where the loop can take
+        # signals (the main thread)
+        if hasattr(signal, "SIGHUP"):
+            try:
+                asyncio.get_running_loop().add_signal_handler(
+                    signal.SIGHUP, lambda: _spawn(_reload_from_env("SIGHUP")))
+            except (NotImplementedError, RuntimeError, ValueError):
+                pass
 
     @app.on_event("shutdown")
     async def shutdown_event():
@@ -606,6 +652,9 @@ def create_app(engine=None, settings: Settings | None = None,
             # stop() joins the thread: off the event loop
             watchdog, app.state.watchdog = app.state.watchdog, None
             await asyncio.to_thread(watchdog.stop)
+        if app.state.disagg is not None:
+            disagg, app.state.disagg = app.state.disagg, None
+            await asyncio.to_thread(disagg.close)
         task = getattr(app.state, "consumer_task", None)
         if task is not None:
             task.cancel()
@@ -616,9 +665,22 @@ def create_app(engine=None, settings: Settings | None = None,
 
     def _validate_model(model: str | None) -> str | None:
         """400 (OpenAI code ``model_not_found``) for a model alias this pod
-        does not serve."""
-        name = getattr(app.state.engine, "model_name", None)
-        if model is not None and name is not None and model != name:
+        does not serve: the registry's live aliases, or the one engine's
+        name."""
+        if model is None:
+            return None
+        eng = app.state.engine
+        if _is_registry():
+            if not eng.has_model(model):
+                e = HTTPException(
+                    status_code=400,
+                    detail=f"unknown model {model!r}; this pod serves: "
+                           f"{', '.join(eng.model_names())}")
+                e.openai_code = "model_not_found"
+                raise e
+            return model
+        name = getattr(eng, "model_name", None)
+        if name is not None and model != name:
             e = HTTPException(
                 status_code=400,
                 detail=f"unknown model {model!r}; this pod serves: {name}")
@@ -768,12 +830,89 @@ def create_app(engine=None, settings: Settings | None = None,
 
     @app.get("/v1/models")
     async def v1_models():
-        """The served model, OpenAI list-shaped."""
-        name = (getattr(app.state.engine, "model_name", None)
-                or settings.model_name)
+        """The served models, OpenAI list-shaped: one row per routable
+        registry alias (rows still loading or draining are /health's), or
+        the one engine's name."""
+        eng = app.state.engine
+        models_fn = getattr(eng, "models", None)
+        if callable(models_fn):
+            names = [r["name"] for r in models_fn()
+                     if r.get("state") in (None, "ready", "loaded")]
+        else:
+            names = [getattr(eng, "model_name", None) or settings.model_name]
         return {"object": "list",
-                "data": [{"id": name, "object": "model",
-                          "created": app.state.created, "owned_by": "lfkt"}]}
+                "data": [{"id": n, "object": "model",
+                          "created": app.state.created, "owned_by": "lfkt"}
+                         for n in names]}
+
+    # -- live manifest reload (serving/registry.py) ---------------------------
+    async def _do_reload(manifest: str, default: str) -> dict:
+        """One registry reload on a worker thread: loads and warmups take
+        seconds to minutes while the live models keep serving."""
+        reload_fn = getattr(app.state.engine, "reload_manifest", None)
+        if not callable(reload_fn):
+            raise HTTPException(
+                status_code=400,
+                detail="live reload requires manifest serving: this pod "
+                       "runs a single engine (set LFKT_MODELS — "
+                       "docs/MULTIMODEL.md)")
+        if not manifest:
+            raise HTTPException(
+                status_code=400,
+                detail="no manifest: pass {\"models\": \"name=path,...\"} "
+                       "or set LFKT_MODELS on the pod")
+        return await asyncio.to_thread(
+            reload_fn, manifest, default,
+            drain_seconds=settings.reload_drain_seconds)
+
+    async def _reload_from_env(origin: str) -> None:
+        """The SIGHUP path: the env is read at signal time, so editing the
+        pod's LFKT_MODELS and then sending SIGHUP converges the registry."""
+        live = get_settings()
+        async with app.state.reload_busy:
+            try:
+                doc = await _do_reload(live.models, live.default_model)
+                logger.info("%s reload: added=%s removed=%s default=%s",
+                            origin, sanitize_text(str(doc["added"])),
+                            sanitize_text(str([r["name"] for r in doc["removed"]])),
+                            sanitize_text(doc["default_model"]))
+            except HTTPException as e:
+                logger.error("%s reload refused: %s", origin, e.detail)
+            except Exception as e:  # noqa: BLE001 — loud, never fatal
+                logger.error("%s reload failed: %s", origin, e)
+
+    @app.post("/admin/models/reload")
+    async def admin_models_reload(request: Request):
+        """Converge the running registry to a new ``LFKT_MODELS`` manifest
+        live: additions load under the fit check and the weight budget (409
+        on a refusal, the running set untouched), removals drain their
+        in-flight requests and radix namespace before their engine is
+        released.  Body (all optional): ``models`` (default: the pod's
+        LFKT_MODELS, re-read) and ``default_model``.  409 while another
+        reload runs."""
+        from ..serving import WeightBudgetError
+
+        try:
+            body = await request.json()
+        except ValueError:
+            raise HTTPException(status_code=400, detail="body must be JSON")
+        body = body if isinstance(body, dict) else {}
+        live = get_settings()
+        manifest = body.get("models") or live.models
+        default = body.get("default_model") or live.default_model
+        if app.state.reload_busy.locked():
+            raise HTTPException(
+                status_code=409,
+                detail="a reload is already in progress; retry after it "
+                       "completes (/health models rows show the "
+                       "transition)")
+        async with app.state.reload_busy:
+            try:
+                return await _do_reload(manifest, default)
+            except WeightBudgetError as e:
+                raise HTTPException(status_code=409, detail=str(e))
+            except ValueError as e:
+                raise HTTPException(status_code=400, detail=str(e))
 
     def _v1_params(body: ChatCompletionRequest) -> dict:
         """The request's explicitly set sampling fields."""
@@ -886,10 +1025,16 @@ def create_app(engine=None, settings: Settings | None = None,
         occ = getattr(eng, "kv_pool_occupancy", None)
         if callable(occ):
             engine_info["kv_pool"] = occ()
+        # a registry: one row per model (name, quant, weight bytes, load
+        # state) and the default alias
+        models_fn = getattr(eng, "models", None)
+        if callable(models_fn):
+            engine_info["models"] = models_fn()
+            engine_info["default_model"] = getattr(eng, "default_model", None)
         # spec_decode="auto": the measured decision and its inputs
         if getattr(eng, "spec_auto_decision", None) is not None:
             engine_info["spec_auto"] = eng.spec_auto_decision
-        return {
+        doc = {
             "status": "ok",
             "state": st.health.state,
             "model_loaded": eng is not None,
@@ -898,6 +1043,11 @@ def create_app(engine=None, settings: Settings | None = None,
             "engine": engine_info,
             "resilience": _resilience_info(),
         }
+        # the disagg tier: the role, the page service's counters and, on the
+        # decode side, the peer and why its pages stopped coming
+        if st.disagg is not None:
+            doc["disagg"] = st.disagg.status()
+        return doc
 
     @app.get("/metrics")
     async def metrics():
@@ -913,7 +1063,13 @@ def create_app(engine=None, settings: Settings | None = None,
         kv_bytes = getattr(eng, "kv_cache_bytes", None)
         if kv_bytes is not None:
             m.set_gauge("kv_cache_bytes", kv_bytes)
-        if eng is not None:
+        models_fn = getattr(eng, "models", None)
+        if callable(models_fn):
+            rows = models_fn()
+            m.set_gauge("models_loaded", len(rows))
+            for r in rows:
+                m.set_gauge("model_weight_bytes", r["weight_bytes"], model=r["name"])
+        elif eng is not None:
             m.set_gauge("models_loaded", 1)
             wb = getattr(eng, "weight_bytes", 0)
             if wb:
@@ -953,6 +1109,11 @@ def create_app(engine=None, settings: Settings | None = None,
                 m.set_gauge("hbm_headroom_bytes", mdoc["headroom"]["bytes"])
         if _flightrec.FLIGHTREC.armed:
             m.set_gauge("incidents_total", _flightrec.FLIGHTREC.recorded_total)
+        # the page wire's liveness (its event counters are incremented at
+        # event time through the roles' sink)
+        dis = app.state.disagg
+        if dis is not None and dis.client is not None:
+            m.set_gauge("disagg_peer_connected", 1.0 if dis.client.connected() else 0.0)
         tstats = app.state.tracer.stats()
         m.set_gauge("trace_ring_used", tstats["ring_used"])
         m.set_gauge("traces_started_total", tstats["started_total"])
@@ -1142,6 +1303,87 @@ def _effective_unroll(cfg) -> int | None:
     return effective_unroll(cfg)
 
 
+def _base_engine_kwargs(settings: Settings) -> dict:
+    """The engine knobs every model of the pod shares."""
+    return dict(
+        n_ctx=settings.max_context_tokens,
+        weight_format=settings.weight_format,
+        decode_chunk=settings.decode_chunk,
+        prefill_buckets=settings.prefill_bucket_list,
+        max_gen_tokens=settings.max_gen_tokens,
+        attn_impl=settings.attn_impl,
+        kv_dtype=settings.kv_dtype,
+        decode_layer_unroll=settings.decode_layer_unroll,
+        spec_decode=settings.spec_decode,
+        spec_draft=settings.spec_draft,
+        prefix_cache=settings.prefix_cache,
+        prefill_chunk=settings.prefill_chunk,
+        kv_paged=settings.kv_paged,
+        kv_page_tokens=settings.kv_page_tokens,
+        kv_pool_pages=settings.kv_pool_pages,
+        kv_spill_pages=settings.kv_spill_pages,
+    )
+
+
+def _registry_factory(settings: Settings):
+    """``LFKT_MODELS`` is set: load the manifest into a ModelRegistry
+    (serving/registry.py) — N engines on one card sharing the paged KV
+    arena (a namespace a model) under an explicit weight budget, all with
+    the same scheduler shape (the process-wide knobs; a model overrides
+    only the whitelisted engine knobs, serving/manifest.py)."""
+    from ..serving import ModelRegistry, parse_manifest, pick_default
+
+    specs = parse_manifest(settings.models)
+    default = pick_default(specs, settings.default_model)
+    if settings.mesh_sp > 1 and settings.batch_size > 1:
+        raise ValueError(
+            "LFKT_MESH_SP > 1 serves sequence-parallel (serial); "
+            "set LFKT_BATCH_SIZE=1 or use dp/tp batching instead")
+    if len(specs) > 1 and settings.mesh_sp > 1:
+        raise ValueError(
+            "LFKT_MESH_SP > 1 gates off multi-model serving: the "
+            "sp-sharded ring serves one model per mesh (run one model "
+            "per pod, or drop to mesh_sp=1)")
+    if len(specs) > 1 and settings.batch_size > 1 \
+            and settings.scheduler != "continuous":
+        raise ValueError(
+            "LFKT_SCHEDULER=cycle gates off multi-model serving: a "
+            "mesh-batched cycle coalesces its whole batch into ONE "
+            "shared device program, which cannot interleave models — "
+            "use the continuous scheduler (docs/MULTIMODEL.md)")
+    if settings.mesh_sp > 1:
+        raise ValueError(
+            f"mesh_sp={settings.mesh_sp}: the port serves one card (sp = 1); "
+            "sequence parallelism is ROADMAP A.8")
+
+    def build(spec, path, shared_pool):
+        from ..engine import ContinuousEngine, Engine, MeshEngine
+
+        kw = _base_engine_kwargs(settings)
+        kw.update(spec.overrides)
+        kw["kv_pool"] = shared_pool
+        kw["kv_namespace"] = spec.name
+        if settings.batch_size > 1:
+            if settings.scheduler == "continuous":
+                return ContinuousEngine(
+                    path, tp=settings.mesh_tp, batch_size=settings.batch_size,
+                    adm_budget=settings.adm_budget,
+                    adm_controller=settings.adm_controller,
+                    adm_ema_alpha=settings.adm_ema_alpha,
+                    lane_prefix_cache=settings.lane_prefix_cache, **kw)
+            # the cycle scheduler with a one-entry manifest: the engine the
+            # single-model factory builds
+            return MeshEngine(path, tp=settings.mesh_tp,
+                              batch_size=settings.batch_size, **kw)
+        return Engine(path, **kw)
+
+    reg = ModelRegistry.from_specs(
+        specs, build, default_model=default, model_dir=settings.model_dir,
+        weight_budget_bytes=int(settings.hbm_weight_budget_mb * 1e6))
+    reg.warmup()
+    return reg
+
+
 def _default_engine_factory(settings: Settings):
     def factory():
         from ..engine import ContinuousEngine, Engine, MeshEngine
@@ -1150,24 +1392,14 @@ def _default_engine_factory(settings: Settings):
             raise ValueError(
                 f"LFKT_SCHEDULER must be 'continuous' or 'cycle', "
                 f"got {settings.scheduler!r}")
-        kw = dict(
-            n_ctx=settings.max_context_tokens,
-            weight_format=settings.weight_format,
-            decode_chunk=settings.decode_chunk,
-            prefill_buckets=settings.prefill_bucket_list,
-            max_gen_tokens=settings.max_gen_tokens,
-            attn_impl=settings.attn_impl,
-            kv_dtype=settings.kv_dtype,
-            decode_layer_unroll=settings.decode_layer_unroll,
-            spec_decode=settings.spec_decode,
-            spec_draft=settings.spec_draft,
-            prefix_cache=settings.prefix_cache,
-            prefill_chunk=settings.prefill_chunk,
-            kv_paged=settings.kv_paged,
-            kv_page_tokens=settings.kv_page_tokens,
-            kv_pool_pages=settings.kv_pool_pages,
-            kv_spill_pages=settings.kv_spill_pages,
-        )
+        if settings.models:
+            # the manifest's registry replaces the single engine
+            return _registry_factory(settings)
+        if settings.mesh_sp > 1:
+            raise ValueError(
+                f"mesh_sp={settings.mesh_sp}: the port serves one card (sp = 1); "
+                "sequence parallelism is ROADMAP A.8")
+        kw = _base_engine_kwargs(settings)
         if settings.batch_size > 1:
             if settings.scheduler == "continuous":
                 eng = ContinuousEngine(

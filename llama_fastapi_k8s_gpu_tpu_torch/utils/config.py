@@ -23,6 +23,17 @@ import os
 class Settings:
     model_dir: str = "models"
     model_name: str = "Lexi-Llama-3-8B-Uncensored_Q4_K_M.gguf"
+    # -- multi-model serving (serving/manifest.py, serving/registry.py) ---
+    # the model manifest: name=path[:knob=value;...] entries, comma-
+    # separated.  Empty (the default) keeps the single-model
+    # LFKT_MODEL_DIR/LFKT_MODEL_NAME path
+    models: str = ""
+    # the alias served when a request names no model= (default: the
+    # manifest's first entry)
+    default_model: str = ""
+    # budget for the fleet's weights on the card, in MB (0 = unlimited):
+    # the registry refuses at load time, naming each model's bytes
+    hbm_weight_budget_mb: float = 0.0
     max_context_tokens: int = 1024
     timeout_seconds: float = 25.0
     max_queue_size: int = 5
@@ -104,6 +115,25 @@ class Settings:
     batch_size: int = 1
     scheduler: str = "continuous"
     mesh_tp: int = 1                   # tensor-parallel width (1: the port has no mesh)
+    mesh_sp: int = 1                   # sequence-parallel width (1: the port has no mesh)
+    # -- disaggregated prefill/decode (serving/disagg/) ---------------------
+    # this process's role: off (the single-process path), prefill (the KV
+    # page service), decode (prompts hop to LFKT_DISAGG_PEER, whose pages
+    # import into this pod's paged arena) or both (service and client on
+    # one engine over loopback).  Any role but off needs LFKT_KV_PAGED=1
+    disagg_role: str = "off"
+    disagg_peer: str = ""              # decode: the page service, host:port
+    disagg_bind: str = "0.0.0.0"       # prefill: the service's bind address
+    disagg_port: int = 8470            # prefill: its port (0 = ephemeral)
+    # one hop's wire budget: a remote prefill that cannot finish within
+    # min(this, the request's remaining deadline) degrades to local prefill
+    disagg_timeout_seconds: float = 5.0
+    # frames queued a peer connection before the page export blocks (the
+    # queued bytes are the memory ledger's disagg_txbuf component)
+    disagg_queue_frames: int = 32
+    # live manifest reload (POST /admin/models/reload, SIGHUP): the bounded
+    # wait for a removed model's in-flight requests and pinned pages
+    reload_drain_seconds: float = 30.0
     host: str = "0.0.0.0"
     port: int = 8000
 

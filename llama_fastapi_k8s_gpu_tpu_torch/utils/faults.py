@@ -3,7 +3,10 @@
 The JAX package's injector (llama_fastapi_k8s_gpu_tpu/utils/faults.py) over
 the points the serial engine runs: ``decode_step`` (once a decode chunk, in
 the host loop), ``prefill``, ``load`` (engine construction) and
-``recover``.  A disarmed point costs one dict lookup.
+``recover``, and the disagg page wire's (serving/disagg/): ``peer_dead``
+(the prefill tier between PAGE groups), ``slow_wire`` and
+``truncated_frame`` (a frame's send).  A disarmed point costs one dict
+lookup.
 
 Arming grammar (``LFKT_FAULTS`` or :meth:`FaultInjector.arm`): a
 comma-separated list of specs, each ``point:mode[:key=value]*``::
@@ -35,7 +38,8 @@ import torch
 logger = logging.getLogger(__name__)
 
 #: the valid injection points (a typo fails at arm time, not silently)
-POINTS = ("decode_step", "prefill", "load", "recover")
+POINTS = ("decode_step", "prefill", "load", "recover",
+          "peer_dead", "slow_wire", "truncated_frame")
 _MODES = ("error", "oom", "slow")
 
 

@@ -8,6 +8,7 @@ These run on the CPU; the timings themselves need the card."""
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import sys
@@ -18,6 +19,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _collect_wrapped_engines():
+    """The recorders under test wrap an engine's methods with closures over
+    the engine (a reference cycle): collect such engines when each test
+    ends, so no later test in the process finds their memory-ledger rows."""
+    yield
+    gc.collect()
 
 
 @pytest.mark.parametrize("nbytes,copies", [
@@ -733,3 +743,33 @@ def test_chain_margin_reads_the_serial_chains_own_step(tiny_file):
     paged = Engine(tiny_file, kv_paged=True, kv_page_tokens=16, **KW)
     with pytest.raises(ValueError, match="reuses no prefix"):
         chip_smoke.chain_margin(paged, prompt, ids, 2, sp)
+
+
+def test_pages_equal_compares_bits_not_values():
+    import torch
+
+    a = torch.tensor([[1.0, float("nan")]], dtype=torch.bfloat16)
+    b = a.clone()
+    assert chip_smoke.pages_equal([a], [b])          # NaN != NaN by value, equal by bits
+    c = b.clone()
+    c.view(torch.int16)[0, 1] ^= 1                   # another NaN pattern
+    assert not chip_smoke.pages_equal([a], [c])
+    assert not chip_smoke.pages_equal([a], [a, a])
+    assert not chip_smoke.pages_equal([a], [a.reshape(2, 1)])
+    i8 = torch.tensor([1, -2], dtype=torch.int8)
+    assert chip_smoke.pages_equal([a, i8], [b, i8.clone()])
+
+
+def test_tier_phases_name_kernels_that_exist_and_route_by_model():
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import KERNELS
+
+    for label, names in chip_smoke.TIER_KERNELS.items():
+        assert names and set(names) <= set(KERNELS), label
+    s = chip_smoke.tier_settings(models="a=x.gguf", batch_size=4)
+    assert (s.kv_paged, s.kv_page_tokens, s.max_gen_tokens, s.temperature, s.batch_size) == \
+        (True, chip_smoke.PAGE_TOKENS, chip_smoke.TIER_TOKENS, 0.0, 4)
+    assert chip_smoke.model_body(chip_smoke.SHORT_CTX, "q6k")["model"] == "q6k"
+    assert "model" not in chip_smoke.model_body(chip_smoke.SHORT_CTX, None)
+    v1 = chip_smoke.v1_body("q4km", "hi", stream=True)
+    assert (v1["model"], v1["messages"], v1["stream"], v1["temperature"]) == \
+        ("q4km", [{"role": "user", "content": "hi"}], True, 0.0)

@@ -1578,3 +1578,90 @@ def test_lane_verify_graph_equals_the_eager_lane_verify(cuda):
         assert torch.equal(s["cache"][k], eager["cache"][k]), k
     assert graphs.verify_replays == 3
     graphs.close()
+
+
+# ---------------------------------------------------------------------------
+# multi-model serving and the page wire
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("w_int8", [False, True])
+def test_two_models_loop_on_two_streams_as_one_after_another(cuda, w_int8):
+    """Two co-resident looped models of one geometry (two weights objects)
+    each hold their own attention scratch and grid barrier: 16 launches of
+    each, interleaved on two streams, leave the same h and ring bits as the
+    same launches one model after the other on one stream."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.params import LOOP_LINEARS
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import decode_loop
+
+    cfg, pa, base, h = _loop_case(cuda, w_int8, False, 0, 100)
+    _, pb, _, _ = _loop_case(cuda, w_int8, False, 0, 100)
+    assert pa is not pb
+    fmts = dict.fromkeys(LOOP_LINEARS, "int8" if w_int8 else "bf16")
+
+    def run(params, cache, n=16):
+        x = h
+        for i in range(n):
+            at = torch.tensor([100 + i], device=cuda)
+            x = decode_loop.decode_loop_step(params, cache, x, at, 0, cfg, fmts, cfg.n_layers)
+        return x
+
+    want = {}
+    for name, p in (("a", pa), ("b", pb)):
+        cache = {k: v.clone() for k, v in base.items()}
+        want[name] = (run(p, cache), cache)
+    torch.cuda.synchronize()
+    assert decode_loop._SCRATCH[pa] is not decode_loop._SCRATCH[pb]
+    caches = {n: {k: v.clone() for k, v in base.items()} for n in ("a", "b")}
+    streams = {n: torch.cuda.Stream(cuda) for n in ("a", "b")}
+    torch.cuda.synchronize()
+    got = {}
+    for n, p in (("a", pa), ("b", pb)):
+        with torch.cuda.stream(streams[n]):
+            got[n] = run(p, caches[n])
+    torch.cuda.synchronize()
+    for n in ("a", "b"):
+        assert torch.equal(got[n], want[n][0]), n
+        for k in base:
+            assert torch.equal(caches[n][k], want[n][1][k]), (n, k)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_pool_pages_cross_the_wire_bit_exact_on_the_card(cuda, kv_dtype):
+    """A committed prefix exported from one pool on the card, encoded as a
+    PAGE payload, decoded and imported into a second pool on the card, and
+    restored into a ring: the ring's slots are the source's, bit for bit."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import init_cache
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel.kvpool import KVPool
+    from llama_fastapi_k8s_gpu_tpu_torch.serving.disagg import wire
+
+    cfg = ModelConfig(vocab_size=64, dim=256, n_layers=4, n_heads=4, n_kv_heads=2,
+                      ffn_dim=512, n_ctx=256, kv_dtype=kv_dtype)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    ring = init_cache(cfg, cuda)
+    for t in ring.values():
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g, device=cuda, dtype=torch.int8))
+        else:
+            t.copy_(torch.randn(t.shape, generator=g, device=cuda).to(t.dtype))
+    ids = list(range(1, 81))
+    src, dst = (KVPool(cfg, page_tokens=16, n_pages=8, device=cuda) for _ in range(2))
+    assert src.commit(ids, ring) == 5
+    lease = src.acquire(ids, 80)
+    leaves = src.export_pages(lease)
+    src.release(lease)
+    geometry = wire.pool_geometry(src)
+    assert wire.geometry_mismatch(wire.pool_geometry(dst), geometry) is None
+    payload = wire.encode_pages(leaves)
+    got = wire.decode_pages(bytearray(payload), 5, geometry)
+    assert dst.import_pages(ids, got) == 80
+    out = init_cache(cfg, cuda)
+    lease = dst.acquire(ids, 80)
+    dst.restore(lease, out)
+    dst.release(lease)
+    torch.cuda.synchronize()
+    for k, t in ring.items():
+        a, b = out[k][:, :, :80], t[:, :, :80]
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b), k
