@@ -175,7 +175,25 @@ and no result line):
    local hit's, the hop's seconds, bytes and parts) and ``disagg_pods``
    (prefill and decode server processes on the card: the prefill pod
    killed mid-transfer and restarted, an int8 decode pod refused at the
-   handshake), each phase's seconds in a ``phase_seconds`` line;
+   handshake), each phase's seconds in a ``phase_seconds`` line.  Then
+   the fleet tier (``phase_fleet_tier``, the Q4_K_M file, pages of 128):
+   ``fleet`` (replicas A and B in this process, each its own engine and
+   tracer, ``LFKT_MIGRATE=1`` on ephemeral ports, behind the port's
+   ``FleetRouter`` on a thread: routed bytes against direct ones, a
+   three-turn conversation on its owner against a round-robin arm, a
+   forged ``x-lfkt-prior-owner`` stripped before a decoy sees it,
+   pull-on-remap with the owner ejected — the pulled pages equal the
+   owner's export bit for bit, the reply the owner's own over its local
+   hit, TTFT beside a cold prefill and the hit —, the owner's decode while
+   a peer pulls from it, the remap turn's stitched trace,
+   ``/metrics/fleet`` against the replicas' sums, and a third replica that
+   pre-pulls A's and B's hot prefixes before READY and hits on a turn it
+   owns) and ``fleet_pods`` (``LFKT_FLEET_ROLE=router`` and two replica
+   processes: the SIGTERM drain hands three conversations to the
+   successor, each next turn a hit there; SIGKILL mid-stream, the next
+   turns served by local prefill with the failed pulls attributed, the
+   router's ejection and its ``fleet_peer_ejected`` bundle; the killed
+   owner restarted, re-admitted fresh, pulling its conversations back);
 6. a ``dequant_rank`` line: each dequant's launches × (time − bound)
    over the first six engines' loads, shape by shape (launches from the
    load plan, checked against the wrappers' counters of phase 5), largest
@@ -1970,32 +1988,32 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _http(port: int, method: str, path: str, payload=None, timeout=300):
+def _http(port: int, method: str, path: str, payload=None, timeout=300, headers=None):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     try:
         data = None if payload is None else json.dumps(payload)
         conn.request(method, path, body=data,
-                     headers={"content-type": "application/json"})
+                     headers={"content-type": "application/json", **(headers or {})})
         resp = conn.getresponse()
         return resp.status, json.loads(resp.read() or b"null")
     finally:
         conn.close()
 
 
-def _request(port: int, method: str, path: str, payload=None, timeout=300):
+def _request(port: int, method: str, path: str, payload=None, timeout=300, headers=None):
     """(status, lower-cased headers, body bytes) of one request."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     try:
         data = None if payload is None else json.dumps(payload)
         conn.request(method, path, body=data,
-                     headers={"content-type": "application/json"})
+                     headers={"content-type": "application/json", **(headers or {})})
         resp = conn.getresponse()
         return resp.status, {k.lower(): v for k, v in resp.getheaders()}, resp.read()
     finally:
         conn.close()
 
 
-def _sse(port: int, path: str, payload, timeout=300) -> dict:
+def _sse(port: int, path: str, payload, timeout=300, headers=None) -> dict:
     """One streamed request: its status, headers, the ``data:`` payloads
     (JSON decoded, ``[DONE]`` kept) and the seconds from sending it to the
     first event and to the first content delta."""
@@ -2003,7 +2021,7 @@ def _sse(port: int, path: str, payload, timeout=300) -> dict:
     try:
         t0 = time.time()
         conn.request("POST", path, body=json.dumps(payload),
-                     headers={"content-type": "application/json"})
+                     headers={"content-type": "application/json", **(headers or {})})
         resp = conn.getresponse()
         events, first_s, content_s = [], None, None
         while True:
@@ -2048,6 +2066,11 @@ def prom_samples(text: str, family: str) -> dict:
     return out
 
 
+def labelled(samples: dict) -> dict:
+    """:func:`prom_samples`' keys as ``k=v,...`` strings (a JSON line's)."""
+    return {",".join(f"{k}={v}" for k, v in key): n for key, n in samples.items()}
+
+
 def spans_within(span: dict, parent: dict | None = None) -> list:
     """Names of the spans that end after their parent (or start before it;
     the httpd read window precedes the app by design)."""
@@ -2063,14 +2086,14 @@ def spans_within(span: dict, parent: dict | None = None) -> list:
 
 
 @contextlib.contextmanager
-def serving(app):
+def serving(app, port: int | None = None):
     """The in-tree httpd serving ``app`` on its own event loop in a thread,
-    at 127.0.0.1; yields (port, the thread)."""
+    at 127.0.0.1 (``port``, else a free one); yields (port, the thread)."""
     import asyncio
 
     from llama_fastapi_k8s_gpu_tpu_torch.server import httpd
 
-    port = _free_port()
+    port = port or _free_port()
     loop = asyncio.new_event_loop()
     up, stop = asyncio.Event(), asyncio.Event()
     th = threading.Thread(target=loop.run_until_complete, daemon=True,
@@ -3026,7 +3049,7 @@ def check_metrics_families(label, port) -> None:
         outside_catalog=rendered_outside)
     need = set(OBS_FAMILIES) - {"incidents_total"}      # the recorder is off here
     others_only = {f for fams in LANE_FAMILIES.values() for f in fams} | set(PAGED_FAMILIES) \
-        | set(SPEC_FAMILIES) | set(TIER_FAMILIES)
+        | set(SPEC_FAMILIES) | set(TIER_FAMILIES) | set(FLEET_FAMILIES)
     if (st != 200 or not need <= families or rendered_outside
             or not set(missing) <= set(EVENT_FAMILIES) | others_only):
         raise AssertionError(f"metrics_families: {st}, missing {missing}, outside the "
@@ -4883,6 +4906,7 @@ TIER_KERNELS = {
     "registry_lanes": ("q4k_matmul", "q6k_matmul", "flash_attention"),
     "disagg": ("dequant_q4_k", "q4k_matmul", "q6k_matmul", "flash_attention"),
     "disagg_lanes": ("q4k_matmul", "q6k_matmul", "flash_attention"),
+    "fleet": ("dequant_q4_k", "q4k_matmul", "q6k_matmul", "flash_attention"),
 }
 #: a raw /v1 user message (no system prompt)
 V1_MSG = "Tell me about the river and the boats on it."
@@ -4892,6 +4916,13 @@ TIER_FAMILIES = ("disagg_prefills_served_total", "disagg_pages_sent_total",
                  "disagg_pages_received_total", "disagg_bytes_received_total",
                  "disagg_local_fallbacks_total", "disagg_handshake_refusals_total",
                  "disagg_transfer_seconds", "disagg_peer_connected", "model_reloads_total")
+#: the families only the fleet router or a migrating replica renders (the
+#: fleet phases)
+FLEET_FAMILIES = ("fleet_requests_total", "fleet_spills_total", "fleet_peer_ejections_total",
+                  "fleet_peers_healthy", "fleet_proxy_seconds", "fleet_probe_seconds",
+                  "kv_migration_pulls_total", "kv_migration_pushes_total",
+                  "kv_migration_pages_total", "kv_migration_failures_total",
+                  "kv_migration_seconds")
 
 
 def tier_settings(**kw):
@@ -4905,16 +4936,18 @@ def tier_settings(**kw):
 
 
 @contextlib.contextmanager
-def served_settings(settings):
+def served_settings(settings, port: int | None = None, tracer=None):
     """The port's app built from ``settings`` alone — the engine (or the
     registry) loaded by its own startup, as a pod starts — on the in-tree
-    httpd: yields (port, app, startup seconds); closes the engines after."""
+    httpd (at ``port``, else a free one; ``tracer`` the app's own, else the
+    process's): yields (port, app, startup seconds); closes the engines
+    after."""
     from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
 
-    app = create_app(settings=settings)
+    app = create_app(settings=settings, tracer=tracer)
     t0 = time.time()
     try:
-        with serving(app) as (port, _):
+        with serving(app, port) as (port, _):
             yield port, app, time.time() - t0
     finally:
         eng = app.state.engine
@@ -5068,8 +5101,7 @@ def phase_registry(paths: dict, counters: dict) -> dict:
             refuse_s = time.time() - t_r
             after = _http(port, "GET", "/v1/models")
             metrics = _request(port, "GET", "/metrics")[2].decode()
-            reloads = {",".join(f"{k}={v}" for k, v in key): n
-                       for key, n in prom_samples(metrics, "model_reloads_total").items()}
+            reloads = labelled(prom_samples(metrics, "model_reloads_total"))
             del reg, pool
     finally:
         engine_log.removeHandler(handler)
@@ -5417,11 +5449,12 @@ def phase_disagg(paths: dict, counters: dict) -> dict:
 
 class Pod:
     """One ``python -m llama_fastapi_k8s_gpu_tpu_torch.server`` process on
-    the card, its output in a log file under the cache."""
+    the card (at ``port``, else a free one), its output in a log file under
+    the cache."""
 
-    def __init__(self, name: str, env: dict):
+    def __init__(self, name: str, env: dict, port: int | None = None):
         self.name = name
-        self.port = _free_port()
+        self.port = port or _free_port()
         self.log = os.path.join(CACHE, "pods", f"{name}.log")
         os.makedirs(os.path.dirname(self.log), exist_ok=True)
         path = os.pathsep.join(filter(None, (HERE, os.environ.get("PYTHONPATH"))))
@@ -5522,8 +5555,7 @@ def phase_disagg_pods(paths: dict) -> dict:
             "seconds": time.time() - t, "state": health["state"],
             "reason": health["resilience"]["health"]["reason"],
             "peer": health["disagg"]["peer"],
-            "fallbacks": {",".join(f"{k}={v}" for k, v in key): n for key, n in
-                          prom_samples(metrics, "disagg_local_fallbacks_total").items()}}
+            "fallbacks": labelled(prom_samples(metrics, "disagg_local_fallbacks_total"))}
         pre2 = Pod("prefill_restarted", prefill_env)
         dec8 = Pod("decode_int8", dict(decode_env, LFKT_KV_DTYPE="int8"))
         pods += [pre2, dec8]
@@ -5565,6 +5597,671 @@ def phase_disagg_pods(paths: dict) -> dict:
         raise AssertionError(f"disagg_pods: {bad}: {out}; decode log: "
                              f"{pods[1].tail() if len(pods) > 1 else ''}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the fleet tier: the prefix-affinity router and warm-page migration
+# ---------------------------------------------------------------------------
+
+#: a conversation's opening: each ``i`` a prefix of its own (the affinity key
+#: is the persona and the first user message)
+FLEET_OPENER = "good morning, I am writing to you from harbour number {i} today."
+#: the assistant's turn in a scripted history: the model's own (random-weight)
+#: replies re-tokenize into far more tokens than they were sampled as, and
+#: would overflow the context in a few turns
+FLEET_ACK = "I see. Please go on."
+#: the user's next messages, turn by turn
+FLEET_FOLLOW = ("tell me more about that.", "and what happened after that?",
+                "how did it end?", "what would you do next?", "one last thing?")
+#: a /v1 user message long enough for two whole pages (the SIGKILL drill's)
+FLEET_V1_MSG = "here is my story: " + STORY * 3
+
+
+def fleet_key(ctx: list) -> str:
+    from llama_fastapi_k8s_gpu_tpu_torch.serving.fleet.affinity import affinity_key
+
+    return affinity_key("/response", {}, json.dumps(body(ctx)).encode())[0]
+
+
+def fleet_conv(owner: str, addrs: list, skip: set, tail: str = "") -> tuple:
+    """(i, one-turn context) of the first conversation not in ``skip`` whose
+    rendezvous owner over ``addrs`` is ``owner``; ``tail`` follows the
+    opening in its first message."""
+    from llama_fastapi_k8s_gpu_tpu_torch.serving.fleet.affinity import rendezvous_rank
+
+    for i in range(512):
+        ctx = [("user", (FLEET_OPENER.format(i=i) + tail)[:400])]
+        if i not in skip and rendezvous_rank(fleet_key(ctx), addrs)[0] == owner:
+            skip.add(i)
+            return i, ctx
+    raise AssertionError(f"no conversation owned by {owner}")
+
+
+def fleet_next(ctx: list, k: int) -> list:
+    """The conversation's next turn: :data:`FLEET_ACK` as the assistant's,
+    then the user's ``k``-th follow-up."""
+    return ctx + [("assistant", FLEET_ACK), ("user", FLEET_FOLLOW[k % len(FLEET_FOLLOW)])]
+
+
+@contextlib.contextmanager
+def serving_router(router):
+    """The port's ``FleetRouter`` on its own event loop in a thread, at
+    127.0.0.1; yields its port.  Stopping it stops its peer table."""
+    import asyncio
+
+    port = _free_port()
+    loop = asyncio.new_event_loop()
+    up, stop = asyncio.Event(), asyncio.Event()
+    th = threading.Thread(target=loop.run_until_complete, daemon=True,
+                          args=(router.serve("127.0.0.1", port, up, stop),))
+    th.start()
+    t_up = time.time()
+    while not up.is_set():
+        if not th.is_alive() or time.time() - t_up > 60:
+            raise RuntimeError("fleet router did not come up")
+        time.sleep(0.02)
+    try:
+        yield port
+    finally:
+        loop.call_soon_threadsafe(stop.set)
+        th.join(60)
+        loop.close()
+
+
+def fleet_turn(port: int, ctx: list, engines: dict, headers=None) -> dict:
+    """One ``/response/stream`` turn at ``port``: status, reply, the client's
+    TTFT (first content), the replicas that served it (``engines``: addr →
+    engine, by whose ``last_timings`` moved), the reused tokens there and
+    the request id."""
+    before = {a: e.last_timings for a, e in engines.items()}
+    r = _sse(port, "/response/stream", body(ctx), timeout=900, headers=headers)
+    served = [a for a, e in engines.items() if e.last_timings is not before[a]]
+    t = dict(engines[served[0]].last_timings or {}) if len(served) == 1 else {}
+    errors = [ev["error"] for ev in r["events"] if isinstance(ev, dict) and "error" in ev]
+    return {"status": r["status"] if not errors else f"error: {errors[0]}",
+            "reply": sse_text(r["events"])[0], "ttft_s": r["first_content_s"],
+            "served": served, "prompt_tokens": t.get("prompt_tokens"),
+            "reused_tokens": t.get("prefix_reused_tokens"),
+            "request_id": r["headers"].get("x-request-id")}
+
+
+def fleet_sums(texts: list, family: str) -> dict:
+    """A counter family's samples summed over Prometheus texts."""
+    out: dict = {}
+    for text in texts:
+        for key, v in prom_samples(text, family).items():
+            out[key] = out.get(key, 0.0) + v
+    return out
+
+
+def owner_export(pool, ids: list, tokens: int) -> list:
+    """``pool``'s page stacks for ``ids[:tokens]`` (pinned for the copy)."""
+    lease = pool.acquire(ids, tokens)
+    if lease is None:
+        return []
+    try:
+        return pool.export_pages(lease)
+    finally:
+        pool.release(lease)
+
+
+def export_stall(port: int, owner_pool_addr: str, ids: list, eng) -> dict:
+    """The owner's decode while a peer pulls from it: a 256-token ``/v1``
+    stream on the owner alone, then again while a puller on the card pulls
+    ``ids``' pages from the owner's page service over and over (into a
+    scratch pool, emptied between pulls).  Per-token ms of each (the
+    engine's decode rate), and the pulls and their seconds."""
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel.kvpool import KVPool
+    from llama_fastapi_k8s_gpu_tpu_torch.serving.fleet.migrate import MigrationManager
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    payload = v1_body(None, user="stall", stream=True, max_tokens=256)
+    scratch = KVPool(eng.cfg, page_tokens=PAGE_TOKENS, n_pages=8, device=eng.device)
+    puller = MigrationManager(scratch, Settings(migrate_timeout_seconds=30.0))
+    out = {}
+    for arm in ("alone", "with_pulls"):
+        done = threading.Event()
+        pulls: list = []
+
+        def pull_loop():
+            while not done.is_set():
+                scratch.reset()
+                t0 = time.time()
+                got = puller.pull(owner_pool_addr, ids, reason="warmup")
+                pulls.append((time.time() - t0, got))
+
+        th = threading.Thread(target=pull_loop, daemon=True) if arm == "with_pulls" else None
+        if th is not None:
+            th.start()
+        r = _sse(port, "/v1/chat/completions", payload, timeout=900)
+        done.set()
+        if th is not None:
+            th.join(60)
+        t = dict(eng.last_timings or {})
+        tps = t.get("tokens_per_sec")
+        secs = sorted(s for s, _ in pulls)
+        out[arm] = {"status": r["status"], "tokens": t.get("completion_tokens"),
+                    "tokens_per_s": tps, "ms_per_token": 1000.0 / tps if tps else None,
+                    "pulls": len(pulls), "pulled_tokens": sorted({g for _, g in pulls}),
+                    "pull_s_median": secs[len(secs) // 2] if secs else None,
+                    "pull_s_max": secs[-1] if secs else None}
+    del scratch, puller
+    return out
+
+
+def phase_fleet(paths: dict, counters: dict) -> dict:
+    """``fleet``: two replica apps A and B in this process, the Q4_K_M file
+    each (its own engine, loaded by its app's startup, and its own tracer),
+    paged, ``LFKT_MIGRATE=1`` with the JAX package's migration budgets, on
+    ephemeral HTTP and page-wire ports, behind the port's ``FleetRouter``
+    (affinity) on a thread.  Parity (routed bytes against direct), affinity
+    over a three-turn conversation against a round-robin arm, the forged
+    prior-owner stamp stripped (a decoy counts no accept), pull-on-remap
+    (the owner ejected: the next turn's pages pulled bit-equal to the
+    owner's export, the reply the owner's own over its local hit; TTFT with
+    the pull beside a cold prefill and the local hit), the owner's decode
+    while a peer pulls from it, one stitched trace, ``/metrics/fleet``
+    against the replicas' sums, and a third replica C started beside them
+    that pre-pulls their hot prefixes before READY and hits on a turn it
+    owns.  Returns each kernel's launches."""
+    from llama_fastapi_k8s_gpu_tpu_torch.obs.trace import Tracer
+    from llama_fastapi_k8s_gpu_tpu_torch.serving.fleet.affinity import (
+        PRIOR_OWNER_HEADER,
+        affinity_key,
+        rendezvous_rank,
+    )
+    from llama_fastapi_k8s_gpu_tpu_torch.serving.fleet.peers import PeerTable
+    from llama_fastapi_k8s_gpu_tpu_torch.serving.fleet.router import FleetRouter
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.metrics import Metrics
+
+    d, name = os.path.split(paths["q4km"])
+    launches = dict.fromkeys(counters, 0)
+    zero_counters(counters)
+
+    def replica(**kw):
+        return tier_settings(model_dir=d, model_name=name, migrate=True,
+                             migrate_bind="127.0.0.1", migrate_port=0, **kw)
+
+    pa, pb = _free_port(), _free_port()
+    A, B = f"127.0.0.1:{pa}", f"127.0.0.1:{pb}"
+    ports = {A: pa, B: pb}
+    out: dict = {}
+    bad: list = []
+    skip: set = set()
+    with contextlib.ExitStack() as stack:
+        t0 = time.time()
+        apps = {A: stack.enter_context(served_settings(replica(), pa, Tracer(1.0, 64)))[1],
+                B: stack.enter_context(served_settings(replica(), pb, Tracer(1.0, 64)))[1]}
+        out["up_s"] = round(time.time() - t0, 2)
+        engines = {a: app.state.engine for a, app in apps.items()}
+        migs = {a: app.state.migration for a, app in apps.items()}
+        # one probe sweep at start: the drill's ejection stays until re-admitted
+        table = PeerTable(peers=[A, B], probe_seconds=600.0).start()
+        router = FleetRouter(table, policy="affinity", metrics=Metrics(),
+                             tracer=Tracer(1.0, 64))
+        rport = stack.enter_context(serving_router(router))
+
+        def owner_of(ctx):
+            return rendezvous_rank(fleet_key(ctx), [A, B])[0]
+
+        # parity: routed bytes against direct, both over the owner's warm pages
+        i0, ctx0 = fleet_conv(A, [A, B], skip)
+        v1 = v1_body(None)
+        v1_owner = rendezvous_rank(affinity_key("/v1/chat/completions", {},
+                                                json.dumps(v1).encode())[0], [A, B])[0]
+        _http(rport, "POST", "/response", body(ctx0), timeout=900)
+        _http(rport, "POST", "/v1/chat/completions", v1, timeout=900)
+        direct = _request(pa, "POST", "/response", body(ctx0), timeout=900)
+        routed = _request(rport, "POST", "/response", body(ctx0), timeout=900)
+        dv1 = _http(ports[v1_owner], "POST", "/v1/chat/completions", v1, timeout=900)[1]
+        rv1 = _http(rport, "POST", "/v1/chat/completions", v1, timeout=900)[1]
+        d_sse = _sse(pa, "/response/stream", body(ctx0), timeout=900)
+        r_sse = _sse(rport, "/response/stream", body(ctx0), timeout=900)
+        out["parity"] = {
+            "response_bytes_equal": direct[0] == routed[0] == 200 and direct[2] == routed[2],
+            "v1_choices_equal": dv1.get("choices") == rv1.get("choices"),
+            "sse_text_equal": sse_text(d_sse["events"])[0] == sse_text(r_sse["events"])[0],
+            "router_ttft_s": r_sse["first_content_s"], "direct_ttft_s": d_sse["first_content_s"]}
+        if not all(out["parity"][k] for k in ("response_bytes_equal", "v1_choices_equal",
+                                              "sse_text_equal")):
+            bad.append("parity")
+
+        # affinity: three turns of one conversation on its owner; the control
+        # arm the same shape of conversation under round-robin
+        arms = {}
+        turns = {}
+        for arm, policy in (("affinity", "affinity"), ("roundrobin", "roundrobin")):
+            i, ctx = fleet_conv(B, [A, B], skip)
+            if policy == "affinity":
+                rp, rtable = rport, table
+            else:
+                rtable = PeerTable(peers=[A, B], probe_seconds=600.0).start()
+                rp = stack.enter_context(serving_router(FleetRouter(rtable, policy=policy)))
+            rows, ctxs = [], []
+            for k in range(3):
+                if k:
+                    ctx = fleet_next(ctx, k - 1)
+                ctxs.append(ctx)
+                rows.append(fleet_turn(rp, ctx, engines))
+            # the fourth turn's context: the pull-on-remap turn
+            turns[arm] = ctxs + [fleet_next(ctx, 2)]
+            arms[arm] = {"conversation": i, "served": [r["served"] for r in rows],
+                         "prompt_tokens": [r["prompt_tokens"] for r in rows],
+                         "reused_tokens": [r["reused_tokens"] for r in rows],
+                         "ttft_s": [r["ttft_s"] for r in rows],
+                         "statuses": [r["status"] for r in rows]}
+        out["affinity"] = arms
+        aff = arms["affinity"]
+        if set(aff["statuses"]) != {200} or aff["served"] != [[B]] * 3 \
+                or not all(aff["reused_tokens"][1:]):
+            bad.append("affinity")
+
+        # a client's forged prior-owner stamp is stripped: no pull, no accept
+        decoy = socket.socket()
+        decoy.bind(("127.0.0.1", 0))
+        decoy.listen(4)
+        decoy.settimeout(0.2)
+        pulls_before = {a: m.status()["counters"]["pulls"] for a, m in migs.items()}
+        # the third turn again (a client's retry), with a forged stamp
+        forged = fleet_turn(rport, turns["affinity"][2], engines, headers={
+            PRIOR_OWNER_HEADER: f"127.0.0.1:{decoy.getsockname()[1]}"})
+        accepts = 0
+        with contextlib.suppress(OSError):
+            while True:
+                decoy.accept()[0].close()
+                accepts += 1
+        decoy.close()
+        out["forged_stamp"] = {"status": forged["status"], "decoy_accepts": accepts,
+                               "pulls": {a: m.status()["counters"]["pulls"] - pulls_before[a]
+                                         for a, m in migs.items()}}
+        if forged["status"] != 200 or accepts or any(out["forged_stamp"]["pulls"].values()):
+            bad.append("forged stamp")
+
+        # pull-on-remap: the owner B ejected while its page service lives; the
+        # next turn lands on A, stamped, and A pulls before its prefill
+        ctx = turns["affinity"][3]
+        pool_a, pool_o = engines[A]._kvpool, engines[B]._kvpool
+        rec: dict = {"imports": [], "pull_s": []}
+        import_pages, pull = pool_a.import_pages, migs[A].pull
+
+        def importing(ids, leaves, **kw):
+            rec["imports"].append((list(ids), [leaf.clone() for leaf in leaves]))
+            return import_pages(ids, leaves, **kw)
+
+        def pulling(*a, **kw):
+            t1 = time.time()
+            try:
+                return pull(*a, **kw)
+            finally:
+                rec["pull_s"].append(time.time() - t1)
+
+        pool_a.import_pages, migs[A].pull = importing, pulling
+        sent0 = migs[B].server.status()["bytes_sent"]
+        table.eject(B, "drill: owner ejected, page service alive")
+        try:
+            remap = fleet_turn(rport, ctx, engines)
+        finally:
+            del pool_a.import_pages, migs[A].pull
+        sent = migs[B].server.status()["bytes_sent"] - sent0
+        hit = fleet_turn(pb, ctx, engines)                       # the owner's local hit
+        pool_a.reset()
+        cold = fleet_turn(pa, ctx, engines)                      # A with nothing cached
+        ids, leaves = rec["imports"][0] if rec["imports"] else ([], [])
+        pulled = leaves[0].shape[0] * PAGE_TOKENS if leaves else 0
+        pull_s = rec["pull_s"][0] if rec["pull_s"] else None
+        out["remap"] = {
+            "statuses": [remap["status"], hit["status"], cold["status"]],
+            "served": remap["served"], "pages": leaves[0].shape[0] if leaves else 0,
+            "bytes": sent, "pull_s": pull_s,
+            "mb_per_s": sent / 1e6 / pull_s if pull_s else None,
+            "pages_equal_owner_export": bool(leaves) and pages_equal(
+                leaves, owner_export(pool_o, ids, pulled)),
+            "reply_equals_owner_hit": remap["reply"] == hit["reply"],
+            "reply_equals_cold": remap["reply"] == cold["reply"],
+            "ttft_s": {"pull": remap["ttft_s"], "owner_hit": hit["ttft_s"],
+                       "cold": cold["ttft_s"]},
+            "reused_tokens": {"pull": remap["reused_tokens"], "owner_hit": hit["reused_tokens"],
+                              "cold": cold["reused_tokens"]},
+            "migration": {k: migs[A].status()["counters"][k]
+                          for k in ("pulls", "pulled_pages", "failures")}}
+        rm = out["remap"]
+        if set(rm["statuses"]) != {200} or rm["served"] != [A] or not rm["pages"] \
+                or not rm["pages_equal_owner_export"] or not rm["reply_equals_owner_hit"] \
+                or rm["migration"]["failures"]:
+            bad.append("pull-on-remap")
+
+        # the owner's decode while a peer pulls its pages (the export holds
+        # the pool's lock across the copy to the host)
+        out["export_stall"] = export_stall(
+            pb, migs[B].wire_addr, ids or pool_o.hot_prefixes(1)[0]["ids"], engines[B])
+
+        # the remap turn's trace: the router's attempt and the replica's spans
+        rid = remap["request_id"]
+        doc: dict = {}
+        t1 = time.time()
+        while time.time() - t1 < 30:
+            st, doc = _http(rport, "GET", f"/debug/fleet/traces/{rid}")
+            if st == 200 and doc.get("fragments", 0) >= 2 and doc.get("finished"):
+                break
+            time.sleep(0.1)
+        attempts = [c for c in (doc.get("root") or {}).get("children", [])
+                    if c.get("name") == "proxy.attempt"]
+        grafted = [c for a in attempts for c in a.get("children", [])
+                   if c.get("attrs", {}).get("hop")]
+        events = [e["name"] for g in grafted for e in g.get("events", [])]
+        out["trace"] = {"fragments": doc.get("fragments"), "processes": doc.get("processes"),
+                        "orphans": doc.get("orphans"), "attempts": len(attempts),
+                        "grafted": len(grafted), "pull_event": "kv_migrate_pull" in events}
+        if not doc.get("stitched") or doc.get("orphans") or not grafted:
+            bad.append("trace")
+
+        # /metrics/fleet: the counters are the replicas' sums (B re-admitted)
+        table._readmit(B)
+        texts = [_request(p, "GET", "/metrics")[2].decode() for p in (pa, pb)]
+        fed = _request(rport, "GET", "/metrics/fleet")[2].decode()
+        fams = ("prefix_cache_hits_total", "prefix_cache_reused_tokens_total",
+                "kv_migration_pulls_total", "kv_migration_pages_total",
+                "kv_migration_pushes_total")
+        out["federation"] = {f: fleet_sums([fed], f) == fleet_sums(texts, f) for f in fams}
+        out["federation"]["slo_fleet"] = 'scope="fleet"' in fed
+        if not all(out["federation"].values()):
+            bad.append("federation")
+
+        # scale-out: C joins owning the conversation, pre-pulls A's and B's
+        # hot prefixes before READY, and the fourth turn, asked again, hits
+        # there
+        key = fleet_key(ctx)
+        while True:
+            pc = _free_port()
+            C = f"127.0.0.1:{pc}"
+            if rendezvous_rank(key, [A, B, C])[0] == C:
+                break
+        t1 = time.time()
+        app_c = stack.enter_context(served_settings(
+            replica(fleet_peers=f"{A},{B}"), pc, Tracer(1.0, 64)))[1]
+        up_c = time.time() - t1
+        warm = app_c.state.migration.status()["counters"]
+        table3 = PeerTable(peers=[A, B, C], probe_seconds=600.0).start()
+        rp3 = stack.enter_context(serving_router(FleetRouter(table3, policy="affinity")))
+        engines[C] = app_c.state.engine
+        nxt = fleet_turn(rp3, ctx, engines)
+        wtext = _request(pc, "GET", "/metrics")[2].decode()
+        out["warm_up"] = {"up_s": round(up_c, 2), "warmup_pulls": warm["warmup_pulls"],
+                          "pulled_pages": warm["pulled_pages"],
+                          "skipped_warm": warm["skipped_warm"],
+                          "pulls_metric": labelled(prom_samples(wtext,
+                                                                "kv_migration_pulls_total")),
+                          "turn": {k: nxt[k] for k in ("status", "served", "reused_tokens",
+                                                       "ttft_s")}}
+        if not warm["warmup_pulls"] or nxt["served"] != [C] or not nxt["reused_tokens"] \
+                or nxt["status"] != 200:
+            bad.append("warm-up")
+        out["pages_pinned"] = {a: e.kv_pool_occupancy()["pages_pinned"]
+                               for a, e in engines.items()}
+        del engines, migs, apps, app_c
+    for k, n in read_launches("fleet", counters).items():
+        launches[k] += n
+    say("fleet", **out)
+    if bad:
+        raise AssertionError(f"fleet: {bad}: {out}")
+    gc.collect()
+    return launches
+
+
+
+def pod_metric(pod, family: str, **labels) -> float:
+    """A pod's ``family`` summed over its samples whose labels include
+    ``labels``."""
+    text = _request(pod.port, "GET", "/metrics")[2].decode()
+    return sum(v for key, v in prom_samples(text, family).items()
+               if all((k, str(x)) in key for k, x in labels.items()))
+
+
+def router_healthy(rpod, n: int, timeout: float = 60) -> float:
+    """Seconds until the router's table holds ``n`` healthy replicas."""
+    t0 = time.time()
+    while time.time() - t0 < timeout:
+        if _http(rpod.port, "GET", "/health")[1]["healthy"] == n:
+            return time.time() - t0
+        time.sleep(0.1)
+    raise AssertionError(f"router: not {n} healthy replicas in {timeout}s: "
+                         f"{_http(rpod.port, 'GET', '/health')[1]}")
+
+
+def stream_killed(port: int, payload: dict, pod) -> dict:
+    """A ``/v1`` stream at ``port``; ``pod`` is SIGKILLed at its first
+    content event.  Events before and after the kill, the seconds from the
+    kill to the stream's end, and how it ended."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    out = {"events_before": 0, "events_after": 0, "ended": None}
+    killed_at = None
+    try:
+        conn.request("POST", "/v1/chat/completions", body=json.dumps(payload),
+                     headers={"content-type": "application/json"})
+        resp = conn.getresponse()
+        out["status"] = resp.status
+        while True:
+            try:
+                line = resp.readline()
+            except (http.client.HTTPException, OSError) as e:
+                out["ended"] = type(e).__name__
+                break
+            if not line:
+                out["ended"] = "eof"
+                break
+            if not line.startswith(b"data: "):
+                continue
+            if killed_at is None:
+                out["events_before"] += 1
+                pod.stop(kill=True)
+                killed_at = time.time()
+            else:
+                out["events_after"] += 1
+                if line.strip() == b"data: [DONE]":
+                    out["ended"] = "done"
+                    break
+    finally:
+        conn.close()
+    out["end_after_kill_s"] = time.time() - killed_at if killed_at else None
+    return out
+
+
+def phase_fleet_pods(paths: dict) -> dict:
+    """``fleet_pods``: a router process (``LFKT_FLEET_ROLE=router``) and two
+    replica server processes on the card, A and B (``LFKT_MIGRATE=1``,
+    ``LFKT_FLEET_PEERS``, ``LFKT_MIGRATE_SELF``), the Q4_K_M file each; the
+    router's added TTFT, direct against routed.  SIGKILL drill: B killed
+    mid-stream (the stream ends, bounded); the next turns answer 200 from A
+    by local prefill with the failed pulls attributed, the router's
+    ``/health`` names the ejection and its recorder holds a
+    ``fleet_peer_ejected`` bundle; B restarted and re-admitted fresh is
+    stamped with the interim owner A, pulls its conversations back
+    (``reason="remap"``) and hits.  SIGTERM drain: the drain's candidate
+    set of conversations on A, which is then SIGTERMed and pushes them to
+    its successor B within its drain budget; each next turn hits on B."""
+    from llama_fastapi_k8s_gpu_tpu_torch.serving.fleet.affinity import rendezvous_rank
+
+    d, name = os.path.split(paths["q4km"])
+    pa, pb = _free_port(), _free_port()
+    A, B = f"127.0.0.1:{pa}", f"127.0.0.1:{pb}"
+    # an arena of eight full contexts (the default holds four): the
+    # successor keeps a whole drain of LFKT_MIGRATE_TOP_K conversations
+    common = dict(LFKT_MODEL_DIR=d, LFKT_MODEL_NAME=name, LFKT_KV_PAGED="1",
+                  LFKT_KV_POOL_PAGES="64",
+                  LFKT_MAX_GEN_TOKENS=str(TIER_TOKENS), LFKT_TEMPERATURE="0",
+                  LFKT_TIMEOUT_SECONDS="600", LFKT_MIGRATE="1",
+                  LFKT_MIGRATE_BIND="127.0.0.1", LFKT_MIGRATE_PORT="0",
+                  LFKT_FLEET_PEERS=f"{A},{B}")
+    incidents = os.path.join(CACHE, "pods", "router_incidents")
+    shutil.rmtree(incidents, ignore_errors=True)
+    router_env = dict(LFKT_FLEET_ROLE="router", LFKT_FLEET_PEERS=f"{A},{B}",
+                      LFKT_FLEET_PROBE_SECONDS="0.5", LFKT_FLEET_EJECT_BACKOFF_SECONDS="0.5",
+                      LFKT_FLEET_EJECT_BACKOFF_MAX="2", LFKT_INCIDENT_DIR=incidents,
+                      LFKT_INCIDENT_DEBOUNCE_S="0")
+    pods: list = []
+    out: dict = {}
+    bad: list = []
+    t0 = time.time()
+    try:
+        pod_a = Pod("fleet_a", dict(common, LFKT_MIGRATE_SELF=A), pa)
+        pod_b = Pod("fleet_b", dict(common, LFKT_MIGRATE_SELF=B), pb)
+        pods += [pod_a, pod_b]
+        out["up_s"] = {"a": pod_a.ready(), "b": pod_b.ready()}
+        rpod = Pod("fleet_router", router_env)
+        pods.append(rpod)
+        out["up_s"]["router"] = rpod.ready()
+        with open(f"/proc/{rpod.proc.pid}/maps") as fh:
+            maps = fh.read()
+        with open(f"/proc/{rpod.proc.pid}/status") as fh:
+            rss = next(ln.split()[1] for ln in fh if ln.startswith("VmRSS"))
+        out["router_process"] = {"libtorch_mapped": "libtorch" in maps, "rss_kb": int(rss)}
+        if out["router_process"]["libtorch_mapped"]:
+            bad.append("router loaded torch")
+
+        # the router's added TTFT: one warm conversation on A, streamed in
+        # turns direct and through the router (the router its own process)
+        skip: set = set()
+        warm = fleet_conv(A, [A, B], skip)[1]
+        _http(rpod.port, "POST", "/response", body(warm), timeout=900)
+        ttft: dict = {"direct": [], "routed": []}
+        for _ in range(3):
+            for arm, port in (("direct", pa), ("routed", rpod.port)):
+                ttft[arm].append(_sse(port, "/response/stream", body(warm),
+                                      timeout=900)["first_content_s"])
+        out["router_ttft_s"] = {k: sorted(v)[1] for k, v in ttft.items()}
+
+        # SIGKILL drill: three /v1 conversations on B, B killed mid-stream
+        users = [u for u in (f"kill-{i}" for i in range(512))
+                 if rendezvous_rank(f"u:{u}", [A, B])[0] == B][:3]
+        hist = {u: [{"role": "user", "content": FLEET_V1_MSG + f" ({u})"}] for u in users}
+
+        def v1_turn(u, port, k):
+            st, _ = _http(port, "POST", "/v1/chat/completions",
+                          v1_body(None, user=u, messages=hist[u]), timeout=900)
+            hist[u] = hist[u] + [{"role": "assistant", "content": FLEET_ACK},
+                                 {"role": "user", "content": FLEET_FOLLOW[k]}]
+            return st
+
+        warm_st = [v1_turn(u, rpod.port, 0) for u in users]
+        killed = stream_killed(rpod.port, v1_body(None, user=users[0], stream=True,
+                                                  max_tokens=400, messages=hist[users[0]]),
+                               pod_b)
+        fails0 = pod_metric(pod_a, "kv_migration_failures_total")
+        t1 = time.time()
+        spill = [v1_turn(u, rpod.port, 1) for u in users]
+        spill_s = time.time() - t1
+        health_a = _http(pa, "GET", "/health")[1]
+        rhealth = _http(rpod.port, "GET", "/health")[1]
+        row_b = next(p for p in rhealth["peers"] if p["addr"] == B)
+        bundles = []
+        for fn in sorted(os.listdir(incidents)) if os.path.isdir(incidents) else []:
+            if fn.endswith("fleet_peer_ejected.json"):
+                with open(os.path.join(incidents, fn)) as fh:
+                    bundles.append(json.load(fh))
+        out["sigkill"] = {
+            "warm_statuses": warm_st, "stream": killed, "spill_statuses": spill,
+            "spill_s": spill_s,
+            "failures": pod_metric(pod_a, "kv_migration_failures_total") - fails0,
+            "failure_reasons": labelled(prom_samples(
+                _request(pa, "GET", "/metrics")[2].decode(), "kv_migration_failures_total")),
+            "last_error": health_a["migration"]["last_error"], "router_row": row_b,
+            "bundles": [{"peer": b["extra"].get("peer"), "reason": b["reason"],
+                         "fleet": b.get("fleet")} for b in bundles]}
+        sk = out["sigkill"]
+        if set(warm_st) != {200} or set(spill) != {200} or killed["ended"] == "done" \
+                or killed["end_after_kill_s"] is None or killed["end_after_kill_s"] > 30 \
+                or sk["failures"] < 1 or not sk["last_error"] or row_b["healthy"] \
+                or not row_b["last_error"] or not any(b["peer"] == B for b in sk["bundles"]):
+            bad.append("sigkill")
+
+        # B restarts; re-admitted fresh, it is stamped with the interim owner
+        # A and pulls its conversations back.  Its warm-up pre-pulls at most
+        # one prefix (LFKT_MIGRATE_TOP_K=1, as the reference's drill), so
+        # what it pulls back is pull-on-remap
+        pod_b2 = Pod("fleet_b_restarted", dict(common, LFKT_MIGRATE_TOP_K="1",
+                                               LFKT_MIGRATE_SELF=B), pb)
+        pods.append(pod_b2)
+        out["restart_up_s"] = pod_b2.ready()
+        out["readmit_s"] = router_healthy(rpod, 2)
+        back = []
+        for u in users:
+            before = pod_metric(pod_b2, "prefix_cache_reused_tokens_total")
+            st = v1_turn(u, rpod.port, 2)
+            back.append({"status": st, "reused_tokens":
+                         pod_metric(pod_b2, "prefix_cache_reused_tokens_total") - before})
+        mig_b = _http(pb, "GET", "/health")[1]["migration"]
+        out["pull_back"] = {
+            "turns": back,
+            "remap_pulls": pod_metric(pod_b2, "kv_migration_pulls_total", reason="remap"),
+            "warmup_pulls": mig_b["counters"]["warmup_pulls"],
+            "pulled_pages": mig_b["counters"]["pulled_pages"],
+            "skipped_warm": mig_b["counters"]["skipped_warm"],
+            "last_error": mig_b["last_error"]}
+        if not all(t["status"] == 200 and t["reused_tokens"] > 0 for t in back) \
+                or out["pull_back"]["remap_pulls"] < 1:
+            bad.append("pull back")
+
+        # SIGTERM drain: the drain's full candidate set (LFKT_MIGRATE_TOP_K,
+        # 8) of long conversations on A (~6 pages each), then A drains to B
+        convs = [fleet_conv(A, [A, B], skip, " " + STORY * 3)[1] for _ in range(8)]
+        firsts = [_http(rpod.port, "POST", "/response", body(c), timeout=900)[0]
+                  for c in convs]
+        records = _http(pa, "GET", "/health")[1]["migration"]["records"]
+        pulls0 = pod_metric(pod_b2, "kv_migration_pulls_total", reason="drain")
+        pages0 = pod_metric(pod_b2, "kv_migration_pages_total", reason="pulled")
+        t1 = time.time()
+        pod_a.stop()                                        # SIGTERM
+        exit_s = time.time() - t1
+        m = re.search(r"drain pushed (\d+)/(\d+) conversations in ([\d.]+)s", pod_a.tail(20000))
+        nexts = []
+        for c in convs:
+            before = pod_metric(pod_b2, "prefix_cache_reused_tokens_total")
+            st2, _ = _http(rpod.port, "POST", "/response", body(fleet_next(c, 0)),
+                           timeout=900)
+            nexts.append({"status": st2,
+                          "reused_tokens": pod_metric(pod_b2, "prefix_cache_reused_tokens_total")
+                          - before})
+        out["sigterm_drain"] = {
+            "first_statuses": firsts, "records_on_owner": records,
+            "pushes": int(m.group(1)) if m else None, "candidates": int(m.group(2)) if m else None,
+            "drain_s": float(m.group(3)) if m else None, "owner_exit_s": exit_s,
+            "exit_code": pod_a.proc.returncode,
+            "drain_pulls": pod_metric(pod_b2, "kv_migration_pulls_total", reason="drain")
+            - pulls0,
+            "pages_pulled": pod_metric(pod_b2, "kv_migration_pages_total", reason="pulled")
+            - pages0, "next_turns": nexts}
+        # the drain hands the newest conversations across first
+        dr = out["sigterm_drain"]
+        pushed = nexts[len(nexts) - (dr["pushes"] or 0):]
+        if set(firsts) != {200} or records < 8 or (dr["pushes"] or 0) < 3 \
+                or dr["drain_pulls"] != dr["pushes"] or not all(n["status"] == 200 for n in nexts) \
+                or not all(n["reused_tokens"] > 0 for n in pushed):
+            bad.append("sigterm drain")
+        out["pages_pinned"] = _http(pb, "GET", "/health")[1]["engine"]["kv_pool"]["pages_pinned"]
+    finally:
+        for p in pods:
+            p.stop()
+    out["seconds"] = time.time() - t0
+    say("fleet_pods", **out)
+    if bad:
+        raise AssertionError(f"fleet_pods: {bad}: {out}; logs: "
+                             + " | ".join(f"{p.name}: {p.tail(1500)}" for p in pods))
+    return out
+
+
+def phase_fleet_tier(paths: dict, counters: dict) -> dict:
+    """The fleet phases on the Q4_K_M file; returns each kernel's launches
+    on the in-process phase's served path."""
+    import torch
+
+    t0 = time.time()
+    launches = phase_fleet(paths, counters)
+    torch.cuda.empty_cache()
+    say("phase_seconds", name="phase_fleet", seconds=round(time.time() - t0, 1))
+    t0 = time.time()
+    phase_fleet_pods(paths)
+    say("phase_seconds", name="phase_fleet_pods", seconds=round(time.time() - t0, 1))
+    return launches
 
 
 def phase_tier(paths: dict, counters: dict) -> dict:
@@ -5664,6 +6361,9 @@ def main() -> int:
         launches[name] += n
     # multi-model serving and the disaggregated prefill/decode tier
     for name, n in phase_tier(paths, KERNELS).items():
+        launches[name] += n
+    # the fleet tier: the router over replicas and warm-page migration
+    for name, n in phase_fleet_tier(paths, KERNELS).items():
         launches[name] += n
     if os.environ.get("CHIP_SMOKE_REPLIES_OUT"):
         with open(os.environ["CHIP_SMOKE_REPLIES_OUT"], "w") as fh:

@@ -155,6 +155,54 @@ METRICS: dict[str, Metric] = _register(
            buckets=LATENCY_BUCKETS),
     Metric("disagg_peer_connected", GAUGE,
            "decode replica: 1 while the prefill peer connection is up"),
+    # -- fleet tier: the prefix-affinity router (serving/fleet/) -----------
+    Metric("fleet_requests_total", COUNTER,
+           "router: requests proxied, by serving replica and affinity-"
+           "key source (header | conversation | prefix | opaque)",
+           labels=("peer", "source")),
+    Metric("fleet_spills_total", COUNTER,
+           "router: requests NOT served by their rendezvous owner, by "
+           "reason (ejected = retried onto the next peer, spilled = "
+           "served off-owner, mid_stream_abort = peer died after bytes "
+           "reached the client, no_replica = whole fleet down -> 503); "
+           "sustained nonzero = conversations are running cold",
+           labels=("reason",)),
+    Metric("fleet_peer_ejections_total", COUNTER,
+           "router: replica ejections (probe failure or proxied-request "
+           "failure), by peer — the /health peers block names the reason",
+           labels=("peer",)),
+    Metric("fleet_peers_healthy", GAUGE,
+           "router: replicas currently accepting traffic"),
+    Metric("fleet_proxy_seconds", HISTOGRAM,
+           "router: one proxied request's wall (client head in -> "
+           "backend response relayed)",
+           buckets=LATENCY_BUCKETS),
+    Metric("fleet_probe_seconds", HISTOGRAM,
+           "router: one health-probe round trip per replica, success or "
+           "failure — the ejection-threshold tuning signal (a peer whose "
+           "probes crawl toward the timeout is about to be ejected)",
+           buckets=LATENCY_BUCKETS, labels=("peer",)),
+    # -- fleet KV migration (serving/fleet/migrate.py) ---------------------
+    Metric("kv_migration_pulls_total", COUNTER,
+           "migration pulls attempted, by trigger (remap = router "
+           "prior-owner hint, warmup = scale-out pre-pull, drain = "
+           "commanded pull from a DRAINING peer)",
+           labels=("reason",)),
+    Metric("kv_migration_pushes_total", COUNTER,
+           "migration page service: pull requests answered with pages "
+           "(this pod was the warm side)"),
+    Metric("kv_migration_pages_total", COUNTER,
+           "KV pages moved by migration, by direction (pulled | pushed)",
+           labels=("reason",)),
+    Metric("kv_migration_failures_total", COUNTER,
+           "migration attempts degraded, by reason (connect, wire, "
+           "refused, deadline, import, drain_push, ...) — every one "
+           "fell back to local recompute or plain termination, with "
+           "this attribution",
+           labels=("reason",)),
+    Metric("kv_migration_seconds", HISTOGRAM,
+           "one migration hop's wall (request -> pages imported)",
+           buckets=LATENCY_BUCKETS),
     # -- live manifest reload (serving/registry.py reload_manifest) --------
     Metric("model_reloads_total", COUNTER,
            "live-reload actions on the model registry (add = model "

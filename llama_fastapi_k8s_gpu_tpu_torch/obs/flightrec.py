@@ -48,8 +48,10 @@ logger = logging.getLogger(__name__)
 #: bundle schema version (:func:`validate_bundle` checks it)
 SCHEMA = 1
 
-#: the reference's incident kinds (the last two belong to its disagg and
-#: fleet tiers, which the port does not have yet)
+#: the reference's incident kinds (``disagg_peer_dead``: a decode
+#: replica's prefill peer died mid-stream — serving/disagg/;
+#: ``fleet_peer_ejected``: the router ejected a replica and pulled
+#: correlated bundle summaries from the peers — obs/fleettrace.py)
 KINDS = ("watchdog_trip", "dead_escalation", "resource_exhausted",
          "slo_breach", "disagg_peer_dead", "fleet_peer_ejected")
 
@@ -116,6 +118,7 @@ class FlightRecorder:
         self._log_handler: _LogRing | None = None
         self._health_ref = None      # weakref: utils/health.HealthMonitor
         self._engine_ref = None      # weakref: the serving engine
+        self._fleet_fn = None        # zero-arg fleet-context provider
         self.armed = False
         self._dir = ""
         self._ring_size = 16
@@ -161,14 +164,18 @@ class FlightRecorder:
             # set LAST: record() keys off this single attribute
             self.armed = armed
 
-    def install(self, health=None, engine=None) -> None:
+    def install(self, health=None, engine=None, fleet=None) -> None:
         """Hand the recorder the health monitor and the serving engine,
-        weakly held, so a discarded app never pins its engine.  The server
-        and the watchdog call it."""
+        weakly held, so a discarded app never pins its engine.  The server,
+        the watchdog and the fleet router call it.  ``fleet`` is a zero-arg
+        callable returning this process's fleet context (role, identity,
+        migration attribution); every bundle captures it under ``fleet``."""
         import weakref
 
         if health is not None:
             self._health_ref = weakref.ref(health)
+        if fleet is not None:
+            self._fleet_fn = fleet
         if engine is not None:
             try:
                 self._engine_ref = weakref.ref(engine)
@@ -232,6 +239,12 @@ class FlightRecorder:
                     health = h.snapshot()
                 except Exception:  # noqa: BLE001 — partial bundles beat none
                     pass
+        fleet = None
+        if self._fleet_fn is not None:
+            try:
+                fleet = self._fleet_fn()
+            except Exception:  # noqa: BLE001 — partial bundles beat none
+                pass
         scheduler = None
         eng = self._engine_ref() if self._engine_ref is not None else None
         stats = getattr(eng, "scheduler_stats", None)
@@ -250,7 +263,7 @@ class FlightRecorder:
             "traces": all_inflight_trees(),
             "scheduler": scheduler,
             "health": health,
-            "fleet": None,
+            "fleet": fleet,
             "recompile": {"storms": DEVTIME.storms(),
                           "storms_total": DEVTIME.storms_total},
             "log_tail": list(self._log_ring or ()),

@@ -72,8 +72,11 @@ class JsonFormatter(logging.Formatter):
         }
         if record.exc_info:
             out["exc"] = self.formatException(record.exc_info)
-        # the access line's structured fields (logger.*(..., extra={...}))
-        for key in ("route", "method", "status", "duration_s"):
+        # the access line's structured fields (logger.*(..., extra={...}));
+        # peer/spills/attempt are the fleet router's, one record per proxy
+        # attempt, joined with the replicas' lines by the request id
+        for key in ("route", "method", "status", "duration_s",
+                    "peer", "spills", "attempt"):
             v = record.__dict__.get(key)
             if v is not None:
                 out[key] = v

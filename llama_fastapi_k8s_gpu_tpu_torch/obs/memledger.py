@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import gc
 import logging
+import sys
 import threading
 import weakref
 
@@ -50,7 +51,10 @@ SCHEMA = 1
 
 def _live_tensor_bytes() -> int:
     """The CPU's ground truth: the storage bytes of every live CPU tensor
-    ``gc`` tracks, each storage once."""
+    ``gc`` tracks, each storage once.  A process that never loaded torch
+    (the fleet router) holds none, and does not load it here."""
+    if "torch" not in sys.modules:
+        return 0
     import torch
 
     seen: dict[int, int] = {}
@@ -181,7 +185,8 @@ class MemLedger:
                 return dict(self.stats_fn() or {})
             except Exception:  # noqa: BLE001 — the seam keeps the contract
                 return {}
-        if self._no_device_stats:
+        if self._no_device_stats or "torch" not in sys.modules:
+            # no card without torch: the router's bundles load none
             return {}
         try:
             stats = self._raw_device_stats()

@@ -403,6 +403,10 @@ class KVPool:
                     f"cover {n_want} (geometry drift on the wire?)")
             stacks = dict(zip(self.arena, leaves))
 
+            # the stacks are pageable host memory (a wire payload): each copy
+            # returns only once the bytes are on the card, and the nodes join
+            # the index after it, so a hit on another thread never reads a
+            # page still in flight
             def upload(pids: list, matched: int, n_tail: int) -> None:
                 _upload_pages(self.arena, {k: torch.as_tensor(v)[matched:matched + n_tail]
                                            for k, v in stacks.items()}, pids)

@@ -6,7 +6,13 @@ worker.  ``LFKT_HOST`` / ``LFKT_PORT`` choose the address, ``LFKT_MODEL_DIR``
 / ``LFKT_MODEL_NAME`` the GGUF.  Log lines are JSON objects stamped with the
 request id unless ``LFKT_JSON_LOGS=0``.  On SIGTERM the pod drains: the
 watchdog stops first, so no trip fails a request that is finishing, and a
-prefill tier (``LFKT_DISAGG_ROLE=prefill``) stops taking new page-wire peers.
+prefill tier (``LFKT_DISAGG_ROLE=prefill``) stops taking new page-wire peers;
+after the in-flight requests finish, a migrating replica (``LFKT_MIGRATE=1``)
+hands its hottest conversations to their successors (server/httpd.py).
+
+``LFKT_FLEET_ROLE=router`` runs the fleet router (serving/fleet/) instead:
+no app, no engine and no torch are loaded; any other role but ``off`` is
+refused.
 """
 
 import functools
@@ -27,8 +33,6 @@ def stop_watchdog(app) -> None:
 
 def main():
     from ..utils.config import get_settings
-    from .app import create_app
-    from .httpd import run
 
     logging.basicConfig(level=logging.INFO)
     settings = get_settings()
@@ -39,6 +43,24 @@ def main():
         for h in list(root.handlers):   # replace basicConfig's text handler
             root.removeHandler(h)
         setup_json_logging()
+    # the fleet router is a placement process: decided before anything
+    # imports the app, the engine or torch
+    if settings.fleet_role == "router":
+        from ..serving.fleet import run_router
+
+        run_router(settings.host, settings.port)
+        return
+    if settings.fleet_role != "off":
+        from ..serving.fleet import FLEET_ROLES
+
+        raise SystemExit(
+            f"LFKT_FLEET_ROLE must be one of {'|'.join(FLEET_ROLES)}, "
+            f"got {settings.fleet_role!r}: replicas stay role=off; only the "
+            "router process changes type (docs/RUNBOOK.md 'Running a "
+            "replica fleet')")
+    from .app import create_app
+    from .httpd import run
+
     app = create_app(settings=settings)
     run(app, settings.host, settings.port,
         on_drain=functools.partial(stop_watchdog, app))

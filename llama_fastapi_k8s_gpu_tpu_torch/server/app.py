@@ -50,7 +50,14 @@ server keeps it (llama_fastapi_k8s_gpu_tpu/server/app.py):
   manifest live; the watchdog does not run over a registry;
 - disaggregated prefill/decode (``LFKT_DISAGG_ROLE``, serving/disagg/): the
   page service and/or the remote-prefill client armed at startup, with a
-  ``disagg`` block in ``/health`` and the ``disagg_*`` families.
+  ``disagg`` block in ``/health`` and the ``disagg_*`` families;
+- warm-page migration between replicas (``LFKT_MIGRATE``,
+  serving/fleet/migrate.py): the page service and the scale-out warm-up
+  before READY, the pull-on-remap admission hook on the fleet router's
+  ``x-lfkt-prior-owner`` stamp, ``GET /admin/migrate/hot`` and ``POST
+  /admin/migrate/pull`` (the receiving half of a peer's SIGTERM drain,
+  server/httpd.py), a ``migration`` block in ``/health`` and the
+  ``kv_migration_*`` families.
 """
 
 from __future__ import annotations
@@ -70,6 +77,7 @@ from ..obs.devtime import DEVTIME
 from ..obs.logctx import access_logger, bind_request_id, sanitize_text
 from ..obs.slo import SLOEngine
 from ..obs.trace import TRACER, Tracer
+from ..serving.fleet.affinity import AFFINITY_KEY_HEADER, PRIOR_OWNER_HEADER
 from ..utils.config import Settings, get_settings
 from ..utils.faults import FAULTS
 from ..utils.health import (
@@ -187,6 +195,9 @@ def create_app(engine=None, settings: Settings | None = None,
     app.state.watchdog = None
     #: the disagg roles armed at startup from LFKT_DISAGG_ROLE (None: off)
     app.state.disagg = None
+    #: warm-page migration (serving/fleet/migrate.py), armed at startup by
+    #: LFKT_MIGRATE (None: off)
+    app.state.migration = None
     #: one live manifest reload at a time (POST /admin/models/reload, SIGHUP)
     app.state.reload_busy = asyncio.Lock()
 
@@ -596,8 +607,17 @@ def create_app(engine=None, settings: Settings | None = None,
         if hasattr(engine, "metrics_sink"):
             engine.metrics_sink = app.state.metrics
         # the incident bundles carry this app's health trail (weakly held;
-        # a later app wins, which is the live one)
-        _flightrec.FLIGHTREC.install(health=app.state.health, engine=engine)
+        # a later app wins, which is the live one) and its fleet context,
+        # read at capture time so it sees the migration manager built below
+        def _replica_fleet_context(state=app.state):
+            out = {"role": "replica", "self": settings.migrate_self or None}
+            mig = getattr(state, "migration", None)
+            if mig is not None:
+                out["migration"] = mig.status()
+            return out
+
+        _flightrec.FLIGHTREC.install(health=app.state.health, engine=engine,
+                                     fleet=_replica_fleet_context)
         # disaggregated prefill/decode: arm the page service and/or the
         # remote-prefill client; a misconfiguration (no paged pool, a
         # registry, a decode role without a peer) refuses startup loudly
@@ -607,6 +627,18 @@ def create_app(engine=None, settings: Settings | None = None,
             app.state.disagg = build_roles(
                 settings.disagg_role, engine, settings,
                 metrics=app.state.metrics, health=app.state.health)
+        # warm-page migration: the page service and the pull client, then the
+        # scale-out warm-up BEFORE the READY flip, bounded by the drain
+        # budget (a cold or absent fleet delays readiness by at most that).
+        # A pull writes the arena only; the rings the graphs hold are written
+        # by a later hit's restore, in place.  No paged pool: refused loudly
+        if settings.migrate:
+            from ..serving.fleet.migrate import build_migration
+
+            app.state.migration = await asyncio.to_thread(
+                build_migration, engine, settings,
+                metrics=app.state.metrics, health=app.state.health)
+            await asyncio.to_thread(app.state.migration.warm_up)
         # with LFKT_PROFILE_DIR set, the profiler's one-time set-up (seconds
         # on the card) is paid here, before READY, and not inside the first
         # /debug/profile window; unset, no profiler is touched
@@ -655,6 +687,9 @@ def create_app(engine=None, settings: Settings | None = None,
         if app.state.disagg is not None:
             disagg, app.state.disagg = app.state.disagg, None
             await asyncio.to_thread(disagg.close)
+        if app.state.migration is not None:
+            migration, app.state.migration = app.state.migration, None
+            await asyncio.to_thread(migration.close)
         task = getattr(app.state, "consumer_task", None)
         if task is not None:
             task.cancel()
@@ -727,21 +762,61 @@ def create_app(engine=None, settings: Settings | None = None,
         m.set_gauge("queue_depth", queue.qsize())
         return rd
 
-    def _admit(request_body: BotMessageRequest, request: Request,
-               extra: dict | None = None) -> dict:
+    async def _migrate_hook(request: Request, messages: list[dict],
+                            raw: bool = False) -> None:
+        """Pull-on-remap (serving/fleet/migrate.py): when the fleet router
+        stamped this request, record the conversation's affinity key (the
+        drain's candidates) and — if a prior owner is named — pull its radix
+        pages over the page wire BEFORE the prefill that would recompute
+        them.  Never raises and never blocks past the hop budget: a failed
+        pull is an attributed degrade to a colder, correct local prefill."""
+        mgr = app.state.migration
+        if mgr is None:
+            return
+        headers = request.headers
+        key = headers.get(AFFINITY_KEY_HEADER, "")
+        prior = headers.get(PRIOR_OWNER_HEADER, "")
+        if not key and not prior:
+            return
+        engine = app.state.engine
+        tokenize = getattr(engine, "tokenize_messages", None)
+        if tokenize is None:
+            return
+        try:
+            # the prompt the engine will see: the reference's truncation
+            # mutates in place, so it runs on copies
+            msgs = messages if raw else truncate_messages_to_fit_context(
+                [dict(m) for m in messages], settings.max_context_tokens)
+            ids = await asyncio.to_thread(tokenize, msgs)
+        except Exception:  # noqa: BLE001 — a tokenizer quirk must not fail
+            # admission; the request just prefills cold
+            return
+        ns = str(getattr(engine, "_kv_ns", "") or "")
+        if key:
+            mgr.record_prompt(key, ns, ids)
+        if prior:
+            await asyncio.to_thread(
+                mgr.pull_for_request, prior, ns, ids,
+                time.time() + settings.timeout_seconds,
+                request.scope.get("lfkt.trace"))
+
+    async def _admit(request_body: BotMessageRequest, request: Request,
+                     extra: dict | None = None) -> dict:
         """Admission of both /response routes: the messages with the system
-        prompt at index 1, the model alias checked, enqueued."""
+        prompt at index 1, the model alias checked, a router-stamped prior
+        owner's pages pulled, enqueued."""
         model = _validate_model(request_body.model)
         messages = [{"role": m.turn, "content": m.message}
                     for m in request_body.context]
         messages.insert(1, {"role": "system",
                             "content": build_system_prompt(request_body.bot_profile)})
+        await _migrate_hook(request, messages)
         return _enqueue_rd(request, messages, extra, model=model)
 
     @app.post("/response")
     async def generate_response(request_body: BotMessageRequest, request: Request):
         m = app.state.metrics
-        future = _admit(request_body, request)["future"]
+        future = (await _admit(request_body, request))["future"]
         try:
             response = await asyncio.wait_for(future, timeout=settings.timeout_seconds)
             return {"response": response}
@@ -825,7 +900,7 @@ def create_app(engine=None, settings: Settings | None = None,
     async def generate_response_stream(request_body: BotMessageRequest,
                                        request: Request):
         """``/response`` as server-sent events of OpenAI chunks."""
-        rd = _admit(request_body, request, extra={"stream_queue": asyncio.Queue()})
+        rd = await _admit(request_body, request, extra={"stream_queue": asyncio.Queue()})
         return _sse(rd, lambda status, msg: {"error": msg})
 
     @app.get("/v1/models")
@@ -914,6 +989,61 @@ def create_app(engine=None, settings: Settings | None = None,
             except ValueError as e:
                 raise HTTPException(status_code=400, detail=str(e))
 
+    def _migration_or_404():
+        mgr = app.state.migration
+        if mgr is None:
+            raise HTTPException(
+                status_code=404,
+                detail="KV migration is off on this pod (LFKT_MIGRATE=1 "
+                       "arms it — docs/RUNBOOK.md 'Surviving pod churn')")
+        return mgr
+
+    @app.get("/admin/migrate/hot")
+    async def admin_migrate_hot(request: Request):
+        """This pod's hottest cached prefixes (``KVPool.hot_prefixes``) —
+        what a scale-out peer pre-pulls in its warm-up.  ``?k=N`` bounds the
+        list (default ``LFKT_MIGRATE_TOP_K``); 404 with migration off."""
+        mgr = _migration_or_404()
+        from urllib.parse import parse_qs
+
+        q = parse_qs(request.url.query)
+        try:
+            k = int(q.get("k", [mgr.top_k])[0])
+        except ValueError:
+            raise HTTPException(status_code=400, detail="k must be an int")
+        pool = getattr(app.state.engine, "_kvpool", None)
+        rows = (await asyncio.to_thread(pool.hot_prefixes, k)
+                if pool is not None else [])
+        return {"prefixes": rows}
+
+    @app.post("/admin/migrate/pull")
+    async def admin_migrate_pull(request: Request):
+        """Commanded pull — the receiving half of a peer's SIGTERM drain
+        (``MigrationManager.drain_push``): the draining pod names its page
+        service (``peer``) and the conversation (``namespace``, ``ids``);
+        this pod pulls the pages while the peer lives.  Deadline-bounded; a
+        failed pull answers ``covered: 0`` with the degrade attributed in
+        this pod's counters.  404 with migration off."""
+        mgr = _migration_or_404()
+        try:
+            body = await request.json()
+        except ValueError:
+            raise HTTPException(status_code=400, detail="body must be JSON")
+        body = body if isinstance(body, dict) else {}
+        peer = str(body.get("peer") or "")
+        ids = body.get("ids")
+        if ":" not in peer or not isinstance(ids, list) or not ids:
+            raise HTTPException(
+                status_code=400,
+                detail="body needs peer (host:port of the drain side's "
+                       "page service) and ids (non-empty token list)")
+        deadline = body.get("deadline")
+        covered = await asyncio.to_thread(
+            mgr.pull, peer, [int(t) for t in ids],
+            namespace=str(body.get("namespace") or ""), reason="drain",
+            deadline=float(deadline) if deadline is not None else None)
+        return {"covered": covered}
+
     def _v1_params(body: ChatCompletionRequest) -> dict:
         """The request's explicitly set sampling fields."""
         return {k: v for k, v in dict(
@@ -939,6 +1069,7 @@ def create_app(engine=None, settings: Settings | None = None,
             params = _v1_params(body)
             messages = [{"role": msg.role, "content": msg.content}
                         for msg in body.messages]
+            await _migrate_hook(request, messages, raw=True)
             if body.stream:
                 rd = _enqueue_rd(request, messages, {"stream_queue": asyncio.Queue()},
                                  model=model, params=params, raw=True, openai=True)
@@ -1047,6 +1178,12 @@ def create_app(engine=None, settings: Settings | None = None,
         # decode side, the peer and why its pages stopped coming
         if st.disagg is not None:
             doc["disagg"] = st.disagg.status()
+        # warm-page migration: the page service's wire address (peers find
+        # it here — an ephemeral port is discovery, not configuration), the
+        # pull and push counters and the last attributed degrade; absent
+        # with LFKT_MIGRATE off
+        if st.migration is not None:
+            doc["migration"] = st.migration.status()
         return doc
 
     @app.get("/metrics")

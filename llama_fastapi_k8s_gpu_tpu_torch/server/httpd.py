@@ -381,6 +381,26 @@ async def serve(app, host: str = "0.0.0.0", port: int = 8000,
         _close_conns(state, only_idle=False)
         for t in list(state["tasks"]):
             t.cancel()
+        # the radix cache's graceful drain (serving/fleet/migrate.py): AFTER
+        # the in-flight requests finished (their pages are committed) and
+        # BEFORE the app's shutdown closes the page service, hand the hottest
+        # conversations to their rendezvous successors.  drain_push bounds
+        # itself to its budget; the wait_for guarantees that a wedged push
+        # never delays termination past budget + 1 s
+        migration = getattr(getattr(app, "state", None), "migration", None)
+        if migration is not None:
+            try:
+                pushed = await asyncio.wait_for(
+                    asyncio.to_thread(migration.drain_push),
+                    migration.drain_budget + 1.0)
+                logger.info("httpd drain: migrated %d conversation(s) to "
+                            "successor peers", pushed)
+            except asyncio.TimeoutError:
+                logger.warning("httpd drain: KV page push overran its "
+                               "budget; terminating without handoff")
+            except Exception as e:  # noqa: BLE001 — a failed handoff
+                # degrades to normal termination, never blocks shutdown
+                logger.warning("httpd drain: KV page push failed: %s", e)
     await app.router.shutdown()
 
 

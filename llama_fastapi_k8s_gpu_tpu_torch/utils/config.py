@@ -2,8 +2,8 @@
 
 The same names and defaults as the JAX package's registry
 (llama_fastapi_k8s_gpu_tpu/utils/config.py), limited to what the pod
-reads: its routes, the engines (serial and batched), the watchdog and
-the tracer.  The reference's constants (model dir and name,
+reads: its routes, the engines (serial and batched), the watchdog, the
+tracer, the disagg and fleet tiers.  The reference's constants (model dir and name,
 1024-token context, 25 s timeout, queue of 5) stay the defaults.
 
 The knobs that are no ``Settings`` field (the compile registry, the
@@ -131,6 +131,41 @@ class Settings:
     # frames queued a peer connection before the page export blocks (the
     # queued bytes are the memory ledger's disagg_txbuf component)
     disagg_queue_frames: int = 32
+    # -- the fleet tier (serving/fleet/) ------------------------------------
+    # "router" turns this process into the prefix-affinity proxy in front of
+    # the replicas (no engine, no torch); "off" is a serving replica
+    fleet_role: str = "off"
+    fleet_peers: str = ""              # router: static replicas, host:port,...
+    # router: headless-Service DNS name:port, re-resolved every probe cycle
+    fleet_dns: str = ""
+    fleet_policy: str = "affinity"     # router placement: affinity | roundrobin
+    fleet_probe_seconds: float = 2.0   # router: /health/ready probe period
+    # router: first ejection backoff (doubles per consecutive failure), cap
+    fleet_eject_backoff_seconds: float = 1.0
+    fleet_eject_backoff_max: float = 30.0
+    # router: backend connect + response-head deadline (the body rides
+    # stream_deadline_seconds)
+    fleet_proxy_timeout_seconds: float = 5.0
+    # router: replicas tried past the owner before a 503 + Retry-After
+    fleet_max_spills: int = 3
+    # -- warm KV-page migration (serving/fleet/migrate.py) -------------------
+    # the page service, pull-on-remap, SIGTERM drain push and scale-out
+    # warm-up on this replica (requires LFKT_KV_PAGED=1)
+    migrate: bool = False
+    migrate_bind: str = "0.0.0.0"      # the page service's bind address
+    # its port (0 = ephemeral; peers find the bound port in /health)
+    migrate_port: int = 8471
+    # this replica's own fleet address host:port (excluded from the drain
+    # successors and the warm-up sources)
+    migrate_self: str = ""
+    # one wire hop's budget, also clipped to the request's deadline
+    migrate_timeout_seconds: float = 2.0
+    migrate_top_k: int = 8             # hottest prefixes a warm-up / drain moves
+    # the drain push's total budget before termination proceeds
+    migrate_drain_seconds: float = 5.0
+    # router: a peer (re)admitted within this window is "fresh" and requests
+    # it owns carry a prior-owner stamp (0 disables)
+    migrate_fresh_seconds: float = 600.0
     # live manifest reload (POST /admin/models/reload, SIGHUP): the bounded
     # wait for a removed model's in-flight requests and pinned pages
     reload_drain_seconds: float = 30.0

@@ -3,10 +3,13 @@
 The JAX package's injector (llama_fastapi_k8s_gpu_tpu/utils/faults.py) over
 the points the serial engine runs: ``decode_step`` (once a decode chunk, in
 the host loop), ``prefill``, ``load`` (engine construction) and
-``recover``, and the disagg page wire's (serving/disagg/): ``peer_dead``
+``recover``, the disagg page wire's (serving/disagg/): ``peer_dead``
 (the prefill tier between PAGE groups), ``slow_wire`` and
-``truncated_frame`` (a frame's send).  A disarmed point costs one dict
-lookup.
+``truncated_frame`` (a frame's send), and warm-page migration's
+(serving/fleet/migrate.py): ``migrate_pull`` (inside the puller's hop),
+``migrate_push`` (the page service between PAGE groups) and
+``drain_push`` (the draining pod's push loop).  A disarmed point costs
+one dict lookup.
 
 Arming grammar (``LFKT_FAULTS`` or :meth:`FaultInjector.arm`): a
 comma-separated list of specs, each ``point:mode[:key=value]*``::
@@ -39,7 +42,8 @@ logger = logging.getLogger(__name__)
 
 #: the valid injection points (a typo fails at arm time, not silently)
 POINTS = ("decode_step", "prefill", "load", "recover",
-          "peer_dead", "slow_wire", "truncated_frame")
+          "peer_dead", "slow_wire", "truncated_frame",
+          "migrate_pull", "migrate_push", "drain_push")
 _MODES = ("error", "oom", "slow")
 
 

@@ -773,3 +773,41 @@ def test_tier_phases_name_kernels_that_exist_and_route_by_model():
     v1 = chip_smoke.v1_body("q4km", "hi", stream=True)
     assert (v1["model"], v1["messages"], v1["stream"], v1["temperature"]) == \
         ("q4km", [{"role": "user", "content": "hi"}], True, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# the fleet phases' helpers
+# ---------------------------------------------------------------------------
+
+def test_fleet_key_is_the_reference_affinity_key_and_stable_across_turns():
+    from llama_fastapi_k8s_gpu_tpu.serving.fleet.affinity import affinity_key
+
+    ctx = [("user", chip_smoke.FLEET_OPENER.format(i=3))]
+    key = chip_smoke.fleet_key(ctx)
+    assert key == affinity_key("/response", {}, json.dumps(chip_smoke.body(ctx)).encode())[0]
+    later = chip_smoke.fleet_next(chip_smoke.fleet_next(ctx, 0), 1)
+    assert later[1:] == [("assistant", chip_smoke.FLEET_ACK), ("user", chip_smoke.FLEET_FOLLOW[0]),
+                         ("assistant", chip_smoke.FLEET_ACK), ("user", chip_smoke.FLEET_FOLLOW[1])]
+    assert chip_smoke.fleet_key(later) == key
+    assert chip_smoke.fleet_key([("user", chip_smoke.FLEET_OPENER.format(i=4))]) != key
+
+
+@pytest.mark.parametrize("owner", [0, 1, 2])
+def test_fleet_conv_picks_conversations_the_owner_owns(owner):
+    from llama_fastapi_k8s_gpu_tpu.serving.fleet.affinity import rendezvous_rank
+
+    addrs = ["127.0.0.1:8001", "127.0.0.1:8002", "127.0.0.1:8003"]
+    skip: set = set()
+    picked = [chip_smoke.fleet_conv(addrs[owner], addrs, skip) for _ in range(3)]
+    assert len({i for i, _ in picked}) == 3 and skip == {i for i, _ in picked}
+    for _i, ctx in picked:
+        assert rendezvous_rank(chip_smoke.fleet_key(ctx), addrs)[0] == addrs[owner]
+
+
+def test_fleet_sums_and_labelled_read_prometheus_text():
+    a = 'x_total{reason="remap"} 2\nx_total{reason="drain"} 1\ny 3\n'
+    b = 'x_total{reason="remap"} 5\n'
+    sums = chip_smoke.fleet_sums([a, b], "x_total")
+    assert sums == {(("reason", "remap"),): 7.0, (("reason", "drain"),): 1.0}
+    assert chip_smoke.labelled(sums) == {"reason=remap": 7.0, "reason=drain": 1.0}
+    assert chip_smoke.fleet_sums([a], "z_total") == {}

@@ -1483,6 +1483,70 @@ def test_restore_into_a_captured_ring_then_replay_equals_the_eager_step(cuda, tm
         eng.close()
 
 
+def test_pull_into_a_live_engine_then_an_immediate_hit(cuda, tmp_path):
+    """Warm-page migration on the card: a replica pulls a conversation's
+    pages from a live owner's page service into its captured engine's arena;
+    at once (no synchronization in between) a restore of the pulled pages
+    holds the owner's bytes, and the engine's next turn of the conversation
+    reuses them and replies with the owner's own reply over its local hit."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import init_cache
+    from llama_fastapi_k8s_gpu_tpu_torch.serving.fleet.migrate import (
+        MigrationManager,
+        MigrationServer,
+    )
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    cfg = ModelConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      ffn_dim=512, n_ctx=256)
+    path = str(tmp_path / "tiny-q8_0.gguf")
+    chip_smoke.write_gguf(cfg, path, "q8_0")
+    kw = dict(n_ctx=256, max_gen_tokens=16, prefill_buckets=(64, 128, 256), kv_paged=True,
+              kv_page_tokens=16, prefix_min=16, device=cuda)
+    owner, puller = Engine(path, **kw), Engine(path, **kw)
+    owner.warmup()
+    puller.warmup()
+    server = MigrationServer(owner._kvpool, host="127.0.0.1", port=0)
+    mgr = MigrationManager(puller._kvpool, Settings(migrate_timeout_seconds=30.0))
+    try:
+        first = [{"role": "system", "content": "you are kind and brief. " * 4},
+                 {"role": "user", "content": "tell me about the sea"}]
+        r1 = owner.create_chat_completion(first, temperature=0.0, max_tokens=8)
+        turn = first + [{"role": "assistant",
+                         "content": r1["choices"][0]["message"]["content"]},
+                        {"role": "user", "content": "and boats?"}]
+        ids = puller.tokenize_messages(turn)
+        got = mgr.pull(f"127.0.0.1:{server.port}", ids)
+        assert got >= 32 and mgr.counters["failures"] == 0
+        lease = puller._kvpool.acquire(ids, got)
+        ring = puller._kvpool.restore(lease, init_cache(puller.cfg, cuda))
+        puller._kvpool.release(lease)
+        olease = owner._kvpool.acquire(ids, got)
+        want = dict(zip(owner._kvpool.arena, owner._kvpool.export_pages(olease)))
+        owner._kvpool.release(olease)
+        T = puller._kvpool.page_tokens
+        for k, pages in want.items():
+            for j in range(got // T):
+                assert torch.equal(ring[k][:, :, j * T:(j + 1) * T].cpu(), pages[j]), (k, j)
+        mine = puller.create_chat_completion(turn, temperature=0.0, max_tokens=8)
+        theirs = owner.create_chat_completion(turn, temperature=0.0, max_tokens=8)
+        assert mine["lfkt_timings"]["prefix_reused_tokens"] == \
+            theirs["lfkt_timings"]["prefix_reused_tokens"] > 0
+        assert mine["choices"] == theirs["choices"]
+        for eng in (owner, puller):
+            assert eng._kvpool.occupancy()["pages_pinned"] == 0
+    finally:
+        server.stop()
+        owner.close()
+        puller.close()
+
+
 @pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
 def test_verify_graph_equals_the_eager_verify(cuda, kv_dtype):
     """The verify step's graph against the eager verify on a clone of the
