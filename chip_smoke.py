@@ -193,7 +193,20 @@ and no result line):
    successor, each next turn a hit there; SIGKILL mid-stream, the next
    turns served by local prefill with the failed pulls attributed, the
    router's ejection and its ``fleet_peer_ejected`` bundle; the killed
-   owner restarted, re-admitted fresh, pulling its conversations back);
+   owner restarted, re-admitted fresh, pulling its conversations back).
+   Then the mesh (``phase_mesh``, the Q4_K_M file at n_ctx 4096, every
+   shard on this card: a mesh over a device list that repeats ``cuda:0``):
+   ``mesh_matmul`` / ``mesh_flash`` (each fused kernel at a tp = 2 shard's
+   8B shapes held to its plain version, timed beside the unsharded shape;
+   flash at a shard's 16 heads over 4), ``mesh_ring`` (``ring_attention``
+   and ``sharded_decode_attention`` against the plain single-device
+   attention), ``mesh_tp`` (a tp = 2 continuous engine over two lanes
+   behind the app: two concurrent ``/response`` clients, a follow-up turn
+   and a stream, each turn's first 16 greedy ids against the one-card lane
+   engine's — equal or parting at a near-tie —, the first step's logits
+   against the one-card engine's) and ``mesh_sp`` (an sp = 2 × tp = 2
+   ``SPEngine``: a prompt of more than 2,304 tokens and 32 greedy tokens
+   against the one-card ``Engine``), each with its ``launches``;
 6. a ``dequant_rank`` line: each dequant's launches × (time − bound)
    over the first six engines' loads, shape by shape (launches from the
    load plan, checked against the wrappers' counters of phase 5), largest
@@ -1652,8 +1665,12 @@ def write_gguf(cfg, path: str, layout: str, seed: int = 0, tokenizer: dict | Non
 #: dtype, decode_layer_unroll, expected effective unroll) — the fused path
 #: over the bf16 ring, and int8 weights with one looped launch a token over
 #: the int8 ring
+#: the Mistral file's depth: 16 of the model's 32 layers, so that the mesh
+#: phase fits the run's time (the window, the ring and the kernels' shapes
+#: are the full model's; at 16 layers ``auto`` still serves it fused)
+MISTRAL_DEPTH = 16
 MISTRAL = (("mistral_q4km", "auto", "bf16", 0, 0),
-           ("mistral_int8_loop", "int8", "int8", -1, 32))
+           ("mistral_int8_loop", "int8", "int8", -1, MISTRAL_DEPTH))
 #: the Mistral engines' context: twice the window, so the window bites
 MISTRAL_N_CTX = 8192
 #: depth of the mixed-type file (the host codec is slow: a 32-layer Q3_K
@@ -1668,12 +1685,13 @@ MIXED_FFN_DOWN = ("Q2_K", "Q3_K", "IQ4_XS", "Q4_0")
 
 
 def mistral_config():
-    """Mistral-7B-v0.1's published config (vocab 32000, dim 4096, 32
-    layers, 32/8 heads of 128, ffn 14336, rope_theta 10000, rms_eps 1e-5,
-    sliding_window 4096), served at :data:`MISTRAL_N_CTX`."""
+    """Mistral-7B-v0.1's published config (vocab 32000, dim 4096, 32/8
+    heads of 128, ffn 14336, rope_theta 10000, rms_eps 1e-5,
+    sliding_window 4096) at :data:`MISTRAL_DEPTH` of its 32 layers, served
+    at :data:`MISTRAL_N_CTX`."""
     from llama_fastapi_k8s_gpu_tpu_torch.models.config import MISTRAL_7B
 
-    return dataclasses.replace(MISTRAL_7B, n_layers=DEPTH, rope_theta=10000.0,
+    return dataclasses.replace(MISTRAL_7B, n_layers=MISTRAL_DEPTH, rope_theta=10000.0,
                                rms_eps=1e-5, sliding_window=4096, n_ctx=MISTRAL_N_CTX)
 
 
@@ -6283,6 +6301,412 @@ def phase_tier(paths: dict, counters: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the mesh phase: tensor parallelism in the lane engines and the
+# sequence-parallel engine, every shard on the one card
+# ---------------------------------------------------------------------------
+
+#: the mesh engines' ring: long enough for the sp arm's prompt to span both
+#: sp shards (2,048 slots each)
+MESH_N_CTX = 4096
+#: greedy tokens of each turn held to the one-card engine's (bf16 ties
+#: past them: ROADMAP C.3)
+MESH_TOKENS = 16
+#: decode tokens of the sp arm's long prompt
+MESH_SP_DECODE = 32
+#: the 8B tp = 2 shard shapes (N × K) of each fused kernel on the Q4_K_M
+#: path: wq and wo, wk, w_gate and w_up (Q4_K); attn_v, w_down, the head (Q6_K)
+MESH_SHAPES = {"q4k_matmul": ((2048, 4096), (512, 4096), (7168, 4096)),
+               "q6k_matmul": ((512, 4096), (2048, 14336), (64128, 4096))}
+#: rows a shard's linear takes: a decode token, a prompt slice
+MESH_BATCHES = (1, 256)
+#: the flash kernel at a tp = 2 shard's heads (16 query heads over 4 kv
+#: heads): S, n_ctx, offset
+MESH_FLASH = ((256, 1024, 0), (256, 1024, 768))
+#: kernels each arm's served path must launch
+MESH_KERNELS = {"mesh_tp": ("dequant_q4_k", "q4k_matmul", "q6k_matmul", "flash_attention"),
+                "mesh_sp": ("dequant_q4_k", "q4k_matmul", "q6k_matmul")}
+#: the first step's logits of a mesh engine against the one-card engine's:
+#: max |Δ| ÷ max |logit|
+MESH_LOGIT_TOL = 2e-2
+#: how far below the one-card engine's top logit a mesh reply's token may
+#: lie, teacher-forced, in bf16 steps of the top
+MESH_TIE_STEPS = 2
+
+
+def check_mesh_kernels(rng) -> list:
+    """Every fused kernel of the Q4_K_M path at its tp = 2 shard shapes,
+    held to its plain version (:func:`check_matmul`: ms, plain, library,
+    graph, bound), beside the same kernel's graph ms at the unsharded
+    shape (2N × K); the flash kernel at a shard's heads beside all 32
+    heads.  ``mesh_matmul`` / ``mesh_flash`` lines; returns them."""
+    import numpy as np
+    import torch
+
+    rows = []
+    for name, shapes in MESH_SHAPES.items():
+        kern, _, rand, _ = fused_formats()[name]
+        for n, k in shapes:
+            full = torch.from_numpy(np.ascontiguousarray(rand(rng, 2 * n, k))).cuda()
+            for B in MESH_BATCHES:
+                line = check_matmul(name, rng, n, k, B)
+                x = torch.from_numpy(rng.standard_normal((B, k), np.float32)).cuda().to(
+                    torch.bfloat16)
+                line.update(name=name, tp=2, unsharded=[2 * n, k],
+                            unsharded_graph_ms=graph_ms(lambda: kern(x, full, 2 * n, k)))
+                if B == 1:
+                    line["unsharded_cold_graph_ms"] = cold_graph_ms(
+                        lambda t: kern(x, t, 2 * n, k), full)
+                say("mesh_matmul", **line)
+                rows.append(line)
+            del full
+    for S, n_ctx, off in MESH_FLASH:
+        line = check_flash(rng, S, n_ctx, off, H=16, n_kv=4)
+        whole = check_flash(rng, S, n_ctx, off)
+        line.update(name="flash_attention", heads=[16, 4], unsharded_heads=[32, 8],
+                    unsharded_graph_ms=whole["graph_ms"])
+        say("mesh_flash", **line)
+        rows.append(line)
+    return rows
+
+
+def check_ring_ops(rng) -> list:
+    """``ring_attention`` (a 2,304-row prompt over the 4,096-slot ring at
+    8B's heads, sp = 2 × tp = 2 on the card) and
+    ``sharded_decode_attention`` (one query at slot 2,304) against their
+    plain single-device version (``flash_attention_plain``: the whole
+    ring's causal softmax, P rounded to bf16), timed beside it and SDPA:
+    ``mesh_ring`` lines."""
+    import torch
+    import torch.nn.functional as F
+
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import attention
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel import ring
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(dp=1, tp=2, sp=2, devices=["cuda:0"] * 4)
+    H, n_kv, hd, n_ctx = 32, 8, 128, MESH_N_CTX
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype="float32")
+                                ).cuda().to(torch.bfloat16)
+
+    k, v = rnd(n_kv, n_ctx, hd), rnd(n_kv, n_ctx, hd)
+    rows = []
+    for name, S, off in (("ring_attention", 2304, 0), ("sharded_decode_attention", 1, 2304)):
+        q = rnd(S, H, hd)
+        sm = hd ** -0.5
+        fn = ring.ring_attention if S > 1 else ring.sharded_decode_attention
+        o = fn(q, k, v, off, sm, mesh=mesh)
+        o_ref = attention.flash_attention_plain(q, k, v, off, sm)
+        torch.cuda.synchronize()
+        err = (o.float() - o_ref.float()).abs().max().item()
+        if not (torch.isfinite(o).all() and err <= 2e-2):
+            raise AssertionError(f"{name}: max |ring-plain| {err} > 2e-2")
+        key_end = off + S
+        group = H // n_kv
+        qh = q.permute(1, 0, 2)[None]
+        kh = k[:, :key_end].repeat_interleave(group, 0)[None]
+        vh = v[:, :key_end].repeat_interleave(group, 0)[None]
+        mask = attention.attention_mask(off + torch.arange(S, device="cuda"), key_end, 0)
+        visible = sum(off + t + 1 for t in range(S))
+        line = {"name": name, "S": S, "n_ctx": n_ctx, "pos_offset": off, "sp": 2, "tp": 2,
+                "max_abs_err": err, "tol": 2e-2,
+                "ms": cuda_ms(lambda: fn(q, k, v, off, sm, mesh=mesh), 5),
+                "graph_ms": graph_ms(lambda: fn(q, k, v, off, sm, mesh=mesh), reps=5),
+                "plain_ms": cuda_ms(lambda: attention.flash_attention_plain(q, k, v, off, sm), 5),
+                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask), 5),
+                **bound(2 * q.numel() * 2 + 2 * n_kv * n_ctx * hd * 2, 4.0 * visible * H * hd)}
+        say("mesh_ring", **line)
+        rows.append(line)
+    del k, v
+    return rows
+
+
+def mesh_long_messages(tokenize, at_least: int = 2304) -> list:
+    """A conversation whose prompt passes ``at_least`` tokens: the story
+    told over and over, a user turn at a time."""
+    msgs = [{"role": "system", "content": "You are terse and kind."}]
+    i = 0
+    while len(tokenize(msgs)) <= at_least:
+        msgs.append({"role": "user" if i % 2 == 0 else "assistant",
+                     "content": f"{i}: " + STORY})
+        i += 1
+    msgs.append({"role": "user", "content": MISTRAL_FOLLOW_UP})
+    return msgs
+
+
+def mesh_bytes(eng) -> dict:
+    """Device bytes a mesh shard holds (its weights and ring shards), by
+    ``Mesh.label``."""
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel.mesh import ring_nbytes_by_device
+
+    out = eng.params.nbytes_by_device()
+    for ring in [eng._cache] + ([eng._bstate["cache"]] if hasattr(eng, "_bstate") else []):
+        for label, b in ring_nbytes_by_device(ring).items():
+            out[label] += b
+    return out
+
+
+def first_logits(eng, ids: list):
+    """The engine's prompt-pass logits at the last of ``ids`` on a fresh
+    ring (the pass padded to a multiple of 8 rows: the sp ring splits its
+    rows)."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.generate import prefill
+
+    ring = eng._new_ring()
+    padded = list(ids) + [0] * (-len(ids) % 8)
+    with torch.inference_mode():
+        out = prefill(eng.params, eng.cfg, torch.tensor(padded, device=eng.device), len(ids),
+                      ring)
+    del ring
+    return out.float()
+
+
+def forced_gaps(serial, prompt: list, ids: list, sp) -> list:
+    """``ids``, a greedy reply to the prompt ids ``prompt``, teacher-forced
+    through the one-card serial engine: its own bucket prefill of the
+    prompt, then one eager decode step a token of ``ids`` fed back — the
+    step a replay runs, bit for bit (:func:`chain_margin`) — each step's
+    logits through the sampling chain's penalties.  Returns, for each
+    position, the gap from the chain's top logit down to ``ids[j]``'s in
+    bf16 steps of the top: 0 where ``ids[j]`` is the one-card choice.
+    ``serial`` must reuse no prefix (``prefix_cache=False``, not paged)."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import forward
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import (
+        apply_penalties,
+        sampling_tensors,
+        seed_window,
+    )
+
+    if serial._prefix_cache or getattr(serial, "_kv_paged", False):
+        raise ValueError("forced_gaps needs an engine that reuses no prefix")
+    n = len(prompt)
+    knobs = sampling_tensors(sp, serial.device)
+    gaps = []
+    with serial._lock, torch.inference_mode():
+        logits = serial._prefill_padded(list(prompt), n, serial._bucket_for(n))
+        for j, tok in enumerate(ids):
+            if j:
+                logits = forward(serial.params, serial.cfg,
+                                 torch.tensor(ids[j - 1:j], device=serial.device),
+                                 torch.tensor(n + j - 1, device=serial.device), serial._cache)
+            window, _ = seed_window(prompt + ids[:j], serial.device)
+            pen = apply_penalties(logits.float(), window, knobs)
+            top = pen.max().item()
+            gaps.append((top - pen[tok].item()) / bf16_step(top))
+    return gaps
+
+
+def held_tokens(rows: list, refs: list, serial, sp, n: int = MESH_TOKENS) -> list:
+    """Each mesh reply's first ``n`` greedy ids against the one-card
+    engines': whether they equal the one-card reply on the same prompt (and
+    where they first part), and the reply teacher-forced through the
+    one-card serial engine (:func:`forced_gaps`).  A turn is held when
+    every one of its ``n`` ids is the one-card choice or within
+    :data:`MESH_TIE_STEPS` bf16 steps of it: a shard's linear sums in
+    another order (the matrix-vector kernel splits K by N), so near-ties
+    can turn, and every token after a parting is checked too."""
+    out = []
+    for r, ref in zip(rows, refs):
+        a, b = r["ids"][:n], ref["ids"][:n]
+        at = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]),
+                  None if len(a) == len(b) else min(len(a), len(b)))
+        gaps = forced_gaps(serial, r["prompt"], a, sp)
+        out.append({"same_prompt": r["prompt"] == ref["prompt"], "tokens": len(a),
+                    "equal": at is None and r["prompt"] == ref["prompt"], "first_diff": at,
+                    "forced_top": sum(g == 0.0 for g in gaps), "max_gap_steps": max(gaps),
+                    "held": bool(a) and len(a) in (n, len(b)) and max(gaps) <= MESH_TIE_STEPS})
+    return out
+
+
+def phase_mesh_tp(path: str, counters: dict, ref) -> dict:
+    """``mesh_tp``: a ``ContinuousEngine`` with tp = 2 and two lanes over
+    ``[cuda:0, cuda:0]``, loaded from the file and served through
+    ``create_app(engine=...)``: two concurrent ``/response`` clients (the
+    short and the long prompt), the long prompt's follow-up turn and one
+    ``/response/stream``.  Each turn's first :data:`MESH_TOKENS` greedy ids
+    against the one-card lane engine's (two lanes, the same weights), and
+    held by :func:`held_tokens`: teacher-forced through the one-card serial
+    engine, every id its choice or within :data:`MESH_TIE_STEPS` bf16 steps
+    of it; the first step's logits
+    against the one-card engine's within :data:`MESH_LOGIT_TOL` rel-dev.
+    Returns the served path's launches."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import ContinuousEngine
+    from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    settings = Settings(temperature=0.0, timeout_seconds=600.0, max_queue_size=8,
+                        batch_size=2, scheduler="continuous")
+    kw = dict(batch_size=2, max_gen_tokens=MESH_TOKENS, prefix_cache=False)
+
+    def drive(eng) -> tuple[list, dict, float]:
+        records: list = []
+        lane_record(eng, records)
+        app = create_app(engine=eng, settings=settings)
+        with serving(app) as (port, _):
+            t0 = time.time()
+            wave, stream, _ = lane_wave(port, [SHORT_CTX, LONG_CTX], SHORT_CTX)
+            long_reply = wave[1][1].get("response", "") if wave[1][0] == 200 else ""
+            follow = LONG_CTX + [("assistant", long_reply[:40]), ("user", MISTRAL_FOLLOW_UP)]
+            st, _ = _http(port, "POST", "/response", body(follow), timeout=900)
+            wall = time.time() - t0
+        statuses = [w[0] for w in wave] + [st, (stream or {}).get("status")]
+        return records, {"statuses": statuses}, wall
+
+    # the one-card reference: two lanes over the reference engine's weights
+    one = ContinuousEngine.from_parts(ref.params, ref.cfg, ref.tokenizer, ref.template_kind, **kw)
+    one.warmup()
+    want, _, _ = drive(one)
+    one.close()
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counters(counters)
+    t0 = time.time()
+    eng = ContinuousEngine(path, tp=2, devices=["cuda:0"] * 2, n_ctx=MESH_N_CTX, **kw)
+    eng.warmup()
+    load_s = time.time() - t0
+    replays0 = eng._lane_graphs.replays
+    got, info, wall = drive(eng)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    replays = eng._lane_graphs.replays - replays0
+    key = lambda r: (tuple(r["prompt"]), r["stream"])   # noqa: E731
+    refs = {key(r): r for r in want}
+    held = held_tokens(got, [refs.get(key(r), {"prompt": None, "ids": []}) for r in got], ref,
+                       served_sampling(settings))
+    lg, lg_ref = first_logits(eng, got[0]["prompt"]), first_logits(ref, got[0]["prompt"])
+    rel = ((lg - lg_ref).abs().max() / lg_ref.abs().max()).item()
+    tokens = sum(len(r["ids"]) for r in got)
+    out = {"file": "q4km", "mesh": eng.mesh.describe(), "load_s": load_s, "seconds": wall,
+           "tokens": tokens, "tokens_per_s": tokens / wall, **info,
+           "graph_replays": replays, "decode_is_graph_replay": replays > 0,
+           "lane_capture_s": eng._lane_graphs.capture_s,
+           "bytes_by_shard": mesh_bytes(eng),
+           "allocated_bytes": torch.cuda.memory_allocated(),
+           "turns": held, "first_logits_rel_dev": rel, "logit_tol": MESH_LOGIT_TOL,
+           "formats": eng.params.formats(),
+           "layout": eng.params.layout}
+    say("mesh_tp", **out)
+    say("launches", file="mesh_tp", **launches)
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    silent = [n for n in MESH_KERNELS["mesh_tp"] if not launches[n]]
+    if (silent or any(s != 200 for s in info["statuses"]) or len(held) < 4
+            or not all(h["held"] for h in held)
+            or not rel <= MESH_LOGIT_TOL or not replays):
+        raise AssertionError(f"mesh_tp: silent kernels {silent}, or turns parting from the "
+                             f"one-card engine's, or logits {rel} off: {out}")
+    return launches
+
+
+def phase_mesh_sp(path: str, counters: dict, ref) -> dict:
+    """``mesh_sp``: an ``SPEngine`` with sp = 2 and tp = 2 at n_ctx 4096
+    over ``[cuda:0] * 4``, loaded from the file: one prompt of more than
+    2,304 tokens (it spans both sp shards) and :data:`MESH_SP_DECODE`
+    greedy tokens, all of them held to the one-card ``Engine``'s at n_ctx
+    4096 by :func:`held_tokens` (teacher-forced, each within
+    :data:`MESH_TIE_STEPS` bf16 steps of its choice).  Returns the
+    launches."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import SPEngine
+    from llama_fastapi_k8s_gpu_tpu_torch.sampling.sample import SamplingParams
+
+    msgs = mesh_long_messages(ref.tokenize_messages)
+    # greedy under the completion call's own penalties, spelled out so
+    # that the teacher-forced reading applies the same ones
+    knobs = dict(temperature=0.0, frequency_penalty=0.0, presence_penalty=0.0,
+                 repeat_penalty=1.1)
+    want: list = []
+    record_replies(ref, -1, want)
+    try:
+        ref.create_chat_completion(msgs, max_tokens=MESH_SP_DECODE, **knobs)
+    finally:
+        del ref._finish, ref.create_chat_completion
+    zero_counters(counters)
+    t0 = time.time()
+    eng = SPEngine(path, sp=2, tp=2, n_ctx=MESH_N_CTX, devices=["cuda:0"] * 4,
+                   max_gen_tokens=MESH_SP_DECODE)
+    eng.warmup()
+    load_s = time.time() - t0
+    got: list = []
+    record_replies(eng, -2, got)
+    replays0 = eng._graphs.replays
+    t0 = time.time()
+    doc = eng.create_chat_completion(msgs, max_tokens=MESH_SP_DECODE, **knobs)
+    wall = time.time() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    replays = eng._graphs.replays - replays0
+    held = held_tokens(got, want, ref, SamplingParams(**knobs), n=MESH_SP_DECODE)
+    lg, lg_ref = first_logits(eng, got[0]["prompt"]), first_logits(ref, got[0]["prompt"])
+    rel = ((lg - lg_ref).abs().max() / lg_ref.abs().max()).item()
+    t = doc["lfkt_timings"]
+    out = {"file": "q4km", "mesh": eng.mesh.describe(), "load_s": load_s, "seconds": wall,
+           "prompt_tokens": doc["usage"]["prompt_tokens"],
+           "completion_tokens": doc["usage"]["completion_tokens"],
+           "ttft_s": t["ttft_s"], "tokens_per_s": t["tokens_per_sec"],
+           "buckets": eng.prefill_buckets, "graph_replays": replays,
+           "decode_is_graph_replay": replays > 0, "captures": eng._graphs.captures,
+           "bytes_by_shard": mesh_bytes(eng), "allocated_bytes": torch.cuda.memory_allocated(),
+           "turn": held[0], "first_logits_rel_dev": rel, "logit_tol": MESH_LOGIT_TOL}
+    say("mesh_sp", **out)
+    say("launches", file="mesh_sp", **launches)
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    silent = [n for n in MESH_KERNELS["mesh_sp"] if not launches[n]]
+    turn = held[0]
+    if (silent or out["prompt_tokens"] <= MESH_N_CTX // 2 or not replays
+            or not turn["held"] or not rel <= MESH_LOGIT_TOL):
+        raise AssertionError(f"mesh_sp: silent kernels {silent}, a short prompt, no replay, "
+                             f"or the reply parting from the one-card engine's: {out}")
+    return launches
+
+
+def phase_mesh(paths: dict, counters: dict) -> dict:
+    """The mesh phase on the Q4_K_M file: the kernels at a tp = 2 shard's
+    shapes and the ring ops (off the served paths), then the ``mesh_tp``
+    and ``mesh_sp`` arms against the one-card engine at n_ctx 4096 (loaded
+    once; closed last).  Returns each kernel's launches summed over the
+    two arms' served paths."""
+    import numpy as np
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+
+    t0 = time.time()
+    rng = np.random.default_rng(21)
+    check_mesh_kernels(rng)
+    check_ring_ops(rng)
+    say("phase_seconds", name="mesh_kernels", seconds=round(time.time() - t0, 1))
+    ref = Engine(paths["q4km"], n_ctx=MESH_N_CTX, prefix_cache=False, max_gen_tokens=MESH_TOKENS)
+    ref.warmup()
+    launches = dict.fromkeys(counters, 0)
+    try:
+        for arm in (phase_mesh_tp, phase_mesh_sp):
+            t0 = time.time()
+            for name, n in arm(paths["q4km"], counters, ref).items():
+                launches[name] += n
+            say("phase_seconds", name=arm.__name__, seconds=round(time.time() - t0, 1))
+    finally:
+        ref.close()
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "llama_fastapi_k8s_gpu_tpu_torch")):
         print("chip_smoke: run from the root of a checkout of the repository "
@@ -6364,6 +6788,10 @@ def main() -> int:
         launches[name] += n
     # the fleet tier: the router over replicas and warm-page migration
     for name, n in phase_fleet_tier(paths, KERNELS).items():
+        launches[name] += n
+    # the mesh: tensor parallelism in the lane engines and the
+    # sequence-parallel engine, every shard on this card
+    for name, n in phase_mesh(paths, KERNELS).items():
         launches[name] += n
     if os.environ.get("CHIP_SMOKE_REPLIES_OUT"):
         with open(os.environ["CHIP_SMOKE_REPLIES_OUT"], "w") as fh:

@@ -1,8 +1,8 @@
 """The cycle scheduler's engine: up to ``batch_size`` chat completions in
-one batched generation on one card.
+one batched generation.
 
 The port of the reference's ``MeshEngine`` (llama_fastapi_k8s_gpu_tpu/
-engine/batched.py) at mesh width 1: the server's consumer coalesces up to
+engine/batched.py): the server's consumer coalesces up to
 ``batch_size`` queued requests into one cycle, each request takes a lane
 of the lane state (parallel/batched.py), the lanes prefill one after
 another on their own ring views, sample their first tokens together, and
@@ -12,8 +12,16 @@ replays of one CUDA graph of the lane step (``LaneGraphs``); on the CPU
 the same step runs eagerly.
 
 ``create_chat_completion`` stays the serial engine's (the server streams
-through it, one stream at a time in its FIFO slot).  There is no mesh:
-``tp`` > 1 raises (ROADMAP A.8), and ``dp`` is 1.
+through it, one stream at a time in its FIFO slot).
+
+Over a dp × tp mesh (``tp`` > 1 or ``dp`` > 1; parallel/mesh.py) the
+weights are tensor-parallel shards, the serial ring a ``ShardedRing`` over
+tp and the lane ring one over dp × tp.  Over an explicit device list
+(which may repeat a device: tests, ``chip_smoke.py``) ``dp`` defaults to
+the devices over ``tp`` that divide ``batch_size``, as the reference's
+does.  With no list ``dp`` defaults to 1 and a ``tp`` > 1 mesh takes the
+pod's cards: too few raise, and several distinct cards raise too (one
+CUDA graph a decode step; ROADMAP A.1).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 
 from ..obs.devtime import ENTRY, record_dispatch, register_program
 from ..obs.memledger import register_component
+from ..parallel.mesh import Mesh, make_mesh, ring_nbytes_by_device, ring_zero_
 from ..parallel.batched import (
     LaneGraphs,
     batched_prefill,
@@ -43,16 +52,23 @@ from ..sampling.sample import (
     seed_window,
 )
 from ..utils.faults import FAULTS
-from .engine import Engine
+from .engine import Engine, ledger_by_shard
 
 logger = logging.getLogger(__name__)
 
 register_program("batched_first_sample", ENTRY, site="engine.batched")
 
 
-def _ledger_lane_bytes(eng: "MeshEngine") -> int:
-    """Memory-ledger provider: the lane state's device bytes."""
-    return state_nbytes(getattr(eng, "_bstate", None))
+def _ledger_lane_bytes(eng: "MeshEngine") -> int | dict:
+    """Memory-ledger provider: the lane state's device bytes — over a mesh,
+    the lane ring a shard (``engine.ledger_by_shard``), the bookkeeping on
+    the first."""
+    state = getattr(eng, "_bstate", None)
+    if state is None or eng.mesh is None:
+        return state_nbytes(state)
+    rows = ledger_by_shard(eng, ring_nbytes_by_device(state["cache"]))
+    rows[next(iter(rows))] += state_nbytes({**state, "cache": {}})
+    return rows
 
 
 @torch.inference_mode()
@@ -75,40 +91,67 @@ def _batched_first_sample(logits: torch.Tensor, state: dict, st: dict, windows: 
 
 class MeshEngine(Engine):
     """An :class:`Engine` that also serves batches of up to ``batch_size``
-    requests in lanes of one card (:meth:`create_chat_completions`)."""
+    requests in lanes (:meth:`create_chat_completions`), on one device or
+    over a dp × tp mesh of ``devices``."""
 
     #: the compile-registry program of this engine's lane chunk
     _LANE_PROGRAM = "batched_decode_chunk"
 
     def __init__(self, model_path: str | None, *, dp: int | None = None, tp: int = 1,
-                 batch_size: int | None = None, max_top_k: int = 64, **kw):
-        if tp != 1:
-            raise ValueError(f"mesh_tp={tp}: the port serves one card (tp = 1); tensor "
-                             f"parallelism is ROADMAP A.8")
-        if dp not in (None, 1):
-            raise ValueError(f"dp={dp}: the port's lanes run on one card (dp = 1)")
-        super().__init__(model_path, **kw)
-        self.batch_size = int(batch_size or 1)
-        if self.batch_size < 1:
+                 batch_size: int | None = None, max_top_k: int = 64, devices=None, **kw):
+        if batch_size is not None and int(batch_size) < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        self._mesh_request = (dp, int(tp), batch_size, devices)
+        super().__init__(model_path, **kw)
         # static top_k ceiling of the lane step; a request's own k masks
         # below it (effectively min(requested, ceiling))
         self._max_top_k = max(max_top_k, SamplingParams().top_k)
         if self.device.type == "cuda":
             self._lane_graphs = LaneGraphs(self.params, self.cfg, self.batch_size,
                                            self.device, top_k=self._max_top_k,
-                                           program=self._LANE_PROGRAM,
+                                           program=self._lane_program,
                                            draft_len=self._spec_draft
-                                           if getattr(self, "_SPEC_LANES", False) else 0)
+                                           if getattr(self, "_SPEC_LANES", False) else 0,
+                                           mesh=self.mesh)
             self._bstate = self._lane_graphs.state
             self._lane_st = self._lane_graphs.knobs
         else:
             self._lane_graphs = None
             with torch.inference_mode():
-                self._bstate = init_batched_state(self.cfg, self.batch_size, self.device)
+                self._bstate = init_batched_state(
+                    self.cfg, self.batch_size, self.device, mesh=self.mesh,
+                    tp_split=getattr(self.params, "tp_heads", True))
                 self._lane_st = lane_tensors([SamplingParams()] * self.batch_size,
                                              self.device)
         register_component("kv_lanes", self, _ledger_lane_bytes)
+
+    def _make_mesh(self) -> Mesh | None:
+        """The reference's geometry over an explicit device list: ``dp``
+        defaults to the largest count of ``len(devices) // tp`` groups that
+        divides ``batch_size`` (all of them without one), and ``batch_size``
+        to ``dp``.  With no list ``dp`` defaults to 1: a mesh over the pod's
+        distinct cards is not served yet (ROADMAP A.1), so the lanes of a
+        pod with several cards stay on the engine's card.  A 1 × 1 mesh is
+        no mesh: the one-device path."""
+        dp, tp, batch_size, devices = self._mesh_request
+        if devices is None and dp is None:
+            dp = 1
+        devs = self._mesh_devices(devices)
+        avail = max(1, len(devs) // tp)
+        if dp is None:
+            dp = (avail if batch_size is None
+                  else max(d for d in range(1, avail + 1) if int(batch_size) % d == 0))
+        self.batch_size = int(batch_size or dp)
+        if self.batch_size % dp:
+            raise ValueError(f"batch_size {self.batch_size} must be divisible by dp={dp}")
+        if dp == 1 and tp == 1:
+            return None
+        return make_mesh(dp=dp, tp=tp, devices=devs)
+
+    @property
+    def _lane_program(self) -> str:
+        """The lane chunk's compile-registry program (``mesh_…`` over a mesh)."""
+        return self._LANE_PROGRAM if self.mesh is None else f"mesh_{self._LANE_PROGRAM}"
 
     def close(self) -> None:
         """Release the lane graphs and the serial engine's."""
@@ -123,8 +166,7 @@ class MeshEngine(Engine):
         """Zero the lane state in place (the lane graphs hold its
         addresses) and put every lane's knobs back to the defaults."""
         s = self._bstate
-        for t in s["cache"].values():
-            t.zero_()
+        ring_zero_(s["cache"])
         for k in ("pos", "token", "wpos", "out"):
             s[k].zero_()
         s["window"].fill_(-1)
@@ -227,9 +269,6 @@ class MeshEngine(Engine):
         return (deadlines is not None and b < len(deadlines)
                 and deadlines[b] is not None and now > deadlines[b])
 
-    def _trace_attrs(self) -> dict:
-        return {"engine": type(self).__name__, "model": self.model_name}
-
     def _generate_batch(self, batch_messages, sp, max_tokens, stops, seed,
                         deadlines=None, aborts=None, traces=None):
         B = self.batch_size
@@ -324,7 +363,7 @@ class MeshEngine(Engine):
             if n_steps <= 0:
                 break
             t_chunk = time.time()
-            record_dispatch(self._LANE_PROGRAM)
+            record_dispatch(self._lane_program)
             chunk = generate_chunk_lanes(self.params, self.cfg, state, self._lane_st,
                                          n_steps, top_k=self._max_top_k).rows()  # host sync
             for b in range(B):

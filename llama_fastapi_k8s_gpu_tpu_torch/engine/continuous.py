@@ -53,11 +53,12 @@ import numpy as np
 import torch
 
 from ..models.generate import prefill_chunk
-from ..models.llama import cache_nbytes, init_cache
+from ..models.llama import cache_nbytes
 from ..obs import memledger as _memledger
 from ..obs.devtime import ENTRY, record_dispatch, register_program
 from ..obs.memledger import register_component
 from ..obs.trace import annotate_all_inflight
+from ..parallel.mesh import ring_zero_
 from ..parallel.batched import generate_chunk_lanes, lane_cache_copy, lane_verify, write_lane
 from ..sampling.sample import SamplingParams, sample_chain, sampling_tensors, seed_window
 from ..utils.faults import FAULTS
@@ -288,7 +289,7 @@ class ContinuousEngine(MeshEngine):
         #: lane speculation: verify rounds, drafted and accepted tokens,
         #: and the plain chunks beside them
         self._spec_stats = {"verify_steps": 0, "drafted": 0, "accepted": 0, "chunk_steps": 0}
-        self._scratch_cache = init_cache(self.cfg, self.device)
+        self._scratch_cache = self._new_ring()
         register_component("kv_scratch", self, _ledger_scratch_bytes)
         #: the previous wave's memory-pressure verdict (rising-edge events)
         self._mem_hot_prev = False
@@ -459,9 +460,8 @@ class ContinuousEngine(MeshEngine):
             self._recover_locked()
         with torch.inference_mode():
             if self._scratch_cache is None:
-                self._scratch_cache = init_cache(self.cfg, self.device)
-            for t in self._scratch_cache.values():
-                t.zero_()
+                self._scratch_cache = self._new_ring()
+            ring_zero_(self._scratch_cache)
         self._loop_error = None
         self._stop = False
         self._adm = None
@@ -633,22 +633,20 @@ class ContinuousEngine(MeshEngine):
                 # the matched pages into the scratch ring, in place; the
                 # suffix slices then prefill from offset `reuse`
                 if self._scratch_cache is None:
-                    self._scratch_cache = init_cache(self.cfg, self.device)
+                    self._scratch_cache = self._new_ring()
                 try:
                     self._kvpool.restore(lease, self._scratch_cache, span=pspan)
                 except BaseException:
                     # a ring of unknown contents: zeroed in place (a cold
                     # ring); the lease is released below
-                    with torch.inference_mode():
-                        for t in self._scratch_cache.values():
-                            t.zero_()
+                    ring_zero_(self._scratch_cache)
                     raise
             elif reuse:
                 # snapshot the source lane's ring into the scratch, in place;
                 # stream order puts the copy after every queued chunk, and
                 # the claim region is never written by a freed lane
                 if self._scratch_cache is None:
-                    self._scratch_cache = init_cache(self.cfg, self.device)
+                    self._scratch_cache = self._new_ring()
                 record_dispatch("lane_cache_copy")
                 lane_cache_copy(self._bstate["cache"], src, self._scratch_cache)
             if pspan is not None:
@@ -715,7 +713,7 @@ class ContinuousEngine(MeshEngine):
         self.heartbeat.beat()
         FAULTS.fire("prefill")
         if self._scratch_cache is None:
-            self._scratch_cache = init_cache(self.cfg, self.device)
+            self._scratch_cache = self._new_ring()
         off = adm["offset"]
         C = min(self._prefill_chunk, adm["bucket"] - off)
         sl = _to_device(torch.from_numpy(adm["padded"][off:off + C]), self.device)
@@ -1204,7 +1202,7 @@ class ContinuousEngine(MeshEngine):
                 if any(s is not None for s in slots):
                     pre = list(slots)
                     FAULTS.fire("decode_step")
-                    record_dispatch(self._LANE_PROGRAM)
+                    record_dispatch(self._lane_program)
                     toks = generate_chunk_lanes(self.params, self.cfg, self._bstate,
                                                 self._lane_st, self.decode_chunk,
                                                 top_k=self._max_top_k)

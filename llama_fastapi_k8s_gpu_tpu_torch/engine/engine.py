@@ -87,6 +87,14 @@ from ..models.params import decode_loop_plan, load_params
 from ..obs.devtime import record_dispatch
 from ..obs.memledger import register_component
 from ..ops.attention import flash_takes
+from ..parallel.mesh import (
+    Mesh,
+    default_devices,
+    init_sharded_cache,
+    ring_nbytes_by_device,
+    ring_zero_,
+    shard_params,
+)
 from ..sampling.sample import SamplingParams, sampling_tensors
 from ..tokenizer import apply_chat_template, detect_chat_template, tokenizer_from_gguf
 from ..utils.device import resolve_device
@@ -166,11 +174,51 @@ def resolve_attn_impl(attn_impl: str, cfg: ModelConfig, device: torch.device) ->
     return ATTN_IMPLS[attn_impl]
 
 
+def ledger_by_shard(eng, nbytes: dict) -> dict:
+    """Memory-ledger rows of a mesh engine: one a shard, the model labelled
+    ``<model>@<shard>`` (``Mesh.label``: ``dp0.tp1.sp0:cuda:0``)."""
+    return {f"{eng.model_name}@{k}": b for k, b in nbytes.items()}
+
+
+def _ledger_ring(eng) -> int | dict:
+    if eng.mesh is None:
+        return cache_nbytes(eng.cfg)
+    return ledger_by_shard(eng, ring_nbytes_by_device(eng._cache))
+
+
+def _ledger_weights(eng) -> int | dict:
+    if eng.mesh is None:
+        return eng.weight_bytes
+    return ledger_by_shard(eng, eng.params.nbytes_by_device())
+
+
 class Engine:
     """Loads a GGUF model and serves chat completions on one device.
 
     ``device`` defaults to the GPU and raises without one; pass
-    ``device="cpu"`` to run the plain PyTorch path (tests)."""
+    ``device="cpu"`` to run the plain PyTorch path (tests).
+
+    A subclass that serves over a mesh (engine/batched.py's tp/dp lane
+    engines, engine/sp.py) returns it from :meth:`_make_mesh`: the weights
+    are then laid over it (``parallel.mesh.shard_params``) and the serial
+    ring is a ``ShardedRing`` (:meth:`_new_ring`) before anything is built
+    over them.  The class flags say what such a ring cannot serve."""
+
+    #: prompts prefill as ``prefill_chunk`` slices past one slice (off:
+    #: one :meth:`_prefill_call` a bucket, as the sequence-parallel ring
+    #: prefills)
+    _SLICE_PREFILL = True
+    #: the paged KV pool can serve this engine (off: ``kv_paged`` is
+    #: logged and the dense ring serves, as in the reference)
+    _KV_PAGED = True
+    #: the layer-looped decode can serve this engine (off: the knob raises)
+    _DECODE_LOOP = True
+    #: the compile-registry program a decode chunk dispatches
+    _DECODE_PROGRAM = "decode_chunk"
+    #: the attention this engine serves, whatever ``attn_impl`` asks (None:
+    #: :func:`resolve_attn_impl`'s choice; the sequence-parallel engine's
+    #: ring)
+    _ATTN_IMPL: str | None = None
 
     def __init__(
         self,
@@ -274,9 +322,16 @@ class Engine:
                         weight_format, self.device, time.time() - t0)
         if kv_dtype is not None and kv_dtype != self.cfg.kv_dtype:
             self.cfg = dataclasses.replace(self.cfg, kv_dtype=kv_dtype)
-        attn_impl = resolve_attn_impl(attn_impl, self.cfg, self.device)
+        attn_impl = self._ATTN_IMPL or resolve_attn_impl(attn_impl, self.cfg, self.device)
         if attn_impl != self.cfg.attn_impl:
             self.cfg = dataclasses.replace(self.cfg, attn_impl=attn_impl)
+        if decode_layer_unroll and not self._DECODE_LOOP:
+            # the reference degrades here with an attribution record; the
+            # port's record_degrade raises, so the knob does (ROADMAP C.3)
+            raise ValueError(
+                f"decode_layer_unroll={decode_layer_unroll}: {type(self).__name__} "
+                "serves ring attention over a slot-sharded KV ring, which one "
+                "looped kernel cannot — set LFKT_DECODE_LAYER_UNROLL=0")
         if decode_layer_unroll:
             # the reference's plan decision: fused layouts serve per-layer
             # decode (logged with the reason); a kernel that then fails to
@@ -300,10 +355,15 @@ class Engine:
         self.prefill_buckets = sorted(b for b in prefill_buckets if b <= self.cfg.n_ctx)
         if not self.prefill_buckets or self.prefill_buckets[-1] < self.cfg.n_ctx:
             self.prefill_buckets.append(self.cfg.n_ctx)
-        self._cache = init_cache(self.cfg, self.device)
+        self.mesh = self._make_mesh()
+        if self.mesh is not None:
+            self._check_mesh(kv_paged, decode_layer_unroll)
+            self.params = shard_params(self.params, self.mesh, self.cfg)
+        self._cache = self._new_ring()
         # the decode step as CUDA graphs over this ring (the card only)
         self._graphs = (DecodeGraphs(self.params, self.cfg, self._cache,
-                                     draft_len=self._spec_draft if self._spec_enabled() else 0)
+                                     draft_len=self._spec_draft if self._spec_enabled() else 0,
+                                     program=self._DECODE_PROGRAM)
                         if self.device.type == "cuda" else None)
         # prompt-prefix KV reuse: the token ids whose KV occupy ring slots
         # [0, len) — read and written only under self._lock.  Speculation
@@ -315,6 +375,11 @@ class Engine:
         # the paged KV pool and its radix index (parallel/kvpool.py): one
         # reuse implementation per mode, so paging replaces the claim above
         paged = bool(kv_paged) and not self._spec_draft
+        if paged and not self._KV_PAGED:
+            logger.warning("LFKT_KV_PAGED=1 requested but %s shards the ring's n_ctx "
+                           "dim; the paged pool needs it whole — serving the dense "
+                           "ring", type(self).__name__)
+            paged = False
         self._kv_paged = paged
         #: the in-flight request's pinned pool pages (one live lease: one
         #: request at a time); acquired in _paged_reuse, released by
@@ -355,8 +420,56 @@ class Engine:
         self._disagg = None
         # weakly held (a closed engine's rows vanish with it); the providers
         # read sizes only, at snapshot time.  The pool registers its own rows
-        register_component("weights", self, lambda eng: eng.weight_bytes)
-        register_component("kv_ring", self, lambda eng: cache_nbytes(eng.cfg))
+        register_component("weights", self, _ledger_weights)
+        register_component("kv_ring", self, _ledger_ring)
+
+    # -- the mesh (subclasses that shard return one) -----------------------
+    def _make_mesh(self) -> Mesh | None:
+        """The mesh this engine serves over; None: one device, unsharded."""
+        return None
+
+    def _mesh_devices(self, devices) -> list:
+        """The device list a mesh is built from: the caller's, else every
+        card (the CPU alone for a CPU engine)."""
+        return list(devices) if devices is not None else default_devices(self.device)
+
+    def _check_mesh(self, kv_paged: bool, decode_layer_unroll: int) -> None:
+        """What a mesh engine cannot serve raises here, before the shards
+        are made."""
+        distinct = self.mesh.distinct
+        if self.device.type == "cuda" and len(distinct) > 1:
+            raise ValueError(
+                f"{self.mesh}: the decode step is one CUDA graph on one card; a mesh "
+                f"over {len(distinct)} cards is not served yet (ROADMAP A.1)")
+        if decode_layer_unroll:
+            raise ValueError(
+                f"decode_layer_unroll={decode_layer_unroll} over {self.mesh}: the "
+                "layer-looped kernel runs one device's whole layer stack; over a mesh "
+                "it is not ported (ROADMAP A.1) — set LFKT_DECODE_LAYER_UNROLL=0")
+        if kv_paged and self._KV_PAGED:
+            raise ValueError(
+                f"kv_paged over {self.mesh}: the paged pool's pages are not sharded "
+                "yet (ROADMAP A.1) — set LFKT_KV_PAGED=0")
+        if self._spec_draft and getattr(self, "_SPEC_LANES", False):
+            raise ValueError(
+                f"spec_decode over {self.mesh}: the lanes' verify rounds over a "
+                "sharded ring are not ported yet (ROADMAP A.1) — set LFKT_SPEC_DECODE=off")
+
+    def _new_ring(self) -> dict:
+        """A fresh serial ring: on the engine's device, or over its mesh
+        (dp group 0's tp × sp shards)."""
+        if self.mesh is None:
+            return init_cache(self.cfg, self.device)
+        return init_sharded_cache(self.cfg, self.mesh, tp_split=self.params.tp_heads)
+
+    def _trace_attrs(self) -> dict:
+        """The ``engine`` span's and /debug/requests' identity of this
+        engine, with the mesh geometry when it serves over one."""
+        who = {"engine": type(self).__name__, "model": self.model_name}
+        if self.mesh is not None:
+            m = self.mesh.describe()
+            who.update(dp=m["dp"], tp=m["tp"], sp=m["sp"], devices=m["devices"])
+        return who
 
     def _warn_spec_unserved(self, what: str) -> None:
         """Speculation is served by the serial Engine and the continuous
@@ -437,9 +550,8 @@ class Engine:
         padded = torch.zeros(bucket, dtype=torch.int64)
         padded[:n_prompt] = torch.tensor(ids, dtype=torch.int64)
         padded = padded.to(self.device)
-        if bucket <= self._prefill_chunk:
-            record_dispatch("prefill")
-            return prefill(self.params, self.cfg, padded, n_prompt, self._cache)
+        if bucket <= self._prefill_chunk or not self._SLICE_PREFILL:
+            return self._prefill_call(padded, n_prompt)
         C = self._prefill_chunk
         logits = None
         off = 0
@@ -461,6 +573,17 @@ class Engine:
                             host_s=round(dt, 6))
             off += n
         return logits
+
+    def _prefill_call(self, tokens: torch.Tensor, length: int) -> torch.Tensor:
+        """One whole-bucket prompt pass from slot 0 into the ring (the
+        sequence-parallel engine reroutes it onto its ring)."""
+        record_dispatch("prefill")
+        return prefill(self.params, self.cfg, tokens, length, self._cache)
+
+    def _decode_chunk_call(self, state: dict, st: dict, n_steps: int,
+                           top_k: int) -> torch.Tensor:
+        """Queue ``n_steps`` decode steps over ``state`` (rerouted likewise)."""
+        return generate_chunk(self.params, self.cfg, state, st, n_steps, top_k=top_k)
 
     def _next_seed(self) -> int:
         with self._id_lock:
@@ -525,12 +648,10 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    @torch.inference_mode()
     def _zero_ring(self) -> None:
         """The ring zeroed in place: the port's counterpart of the
         reference's cold ring."""
-        for t in self._cache.values():
-            t.zero_()
+        ring_zero_(self._cache)
 
     @staticmethod
     def _deadline_hit(ctx) -> bool:
@@ -922,9 +1043,8 @@ class Engine:
         replays, into pinned host memory and an event is recorded after
         the copy: the read then waits for this chunk only, not for the next
         one, which the loop queues before it reads this one."""
-        record_dispatch("decode_chunk")
-        toks = generate_chunk(self.params, self.cfg, ctx["state"], ctx["st"],
-                              n_steps, top_k=ctx["sp"].top_k)
+        record_dispatch(self._DECODE_PROGRAM)
+        toks = self._decode_chunk_call(ctx["state"], ctx["st"], n_steps, ctx["sp"].top_k)
         if toks.device.type != "cuda":
             return toks, None
         host = torch.empty(n_steps, dtype=torch.int64, pin_memory=True)
@@ -1116,7 +1236,7 @@ class Engine:
         """Open the traced request's ``engine`` span (None passthrough)."""
         if trace is None:
             return None
-        who = {"engine": type(self).__name__, "model": self.model_name}
+        who = self._trace_attrs()
         trace.note(deadline=deadline, tokens=0, **who)
         return trace.span("engine").set(**who)
 

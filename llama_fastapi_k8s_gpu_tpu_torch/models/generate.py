@@ -32,6 +32,7 @@ import time
 import torch
 
 from ..obs.devtime import ENTRY, record_compile, register_program
+from ..parallel.mesh import ring_device, ring_n_ctx
 from ..sampling.sample import PENALTY_WINDOW, SamplingParams, sample_chain, seed_window
 from . import llama
 from .config import ModelConfig
@@ -52,7 +53,7 @@ def init_state(cache: dict, prompt_ids, seed: int,
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     n = len(prompt_ids)
-    n_ctx = next(iter(cache.values())).shape[2]
+    n_ctx = ring_n_ctx(cache)
 
     def scalar(v):
         return torch.tensor(v, dtype=torch.int64, device=device)
@@ -338,11 +339,14 @@ class DecodeGraphs:
 
     There is no eager fallback: a failed capture or replay raises."""
 
-    def __init__(self, params, cfg: ModelConfig, cache: dict, draft_len: int = 0):
-        device = next(iter(cache.values())).device
+    def __init__(self, params, cfg: ModelConfig, cache: dict, draft_len: int = 0,
+                 program: str = "decode_chunk"):
+        device = ring_device(cache)
         if device.type != "cuda":
             raise ValueError(f"DecodeGraphs: CUDA graphs need the card, the ring is on {device}")
         self.params, self.cfg, self.draft_len = params, cfg, draft_len
+        #: the compile-registry program a capture is a compile of
+        self.program = program
         self._state = init_state(cache, [], 0, device)
         self._state["graphs"] = self
         self.gen = self._state["gen"]
@@ -418,7 +422,7 @@ class DecodeGraphs:
             oldest = list(self._graphs)[1]                 # keep the first (the default)
             del self._graphs[oldest]
         self.captures[top_k] = time.time() - t0
-        record_compile("decode_chunk", f"top_k={top_k}", self.captures[top_k])
+        record_compile(self.program, f"top_k={top_k}", self.captures[top_k])
         return self.captures[top_k]
 
     def step_launches(self, top_k: int) -> dict:

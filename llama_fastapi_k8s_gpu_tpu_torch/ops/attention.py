@@ -32,6 +32,9 @@ from ._kernels import check, library, require_cuda, stream_ptr
 
 #: head sizes the CUDA kernel is compiled for
 HEAD_DIMS = (64, 128)
+#: the reference's masked score (its flash kernel's value): finite, so a
+#: block or ring chunk with no visible key keeps a finite running maximum
+DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 #: query rows per CUDA block (64/group tokens × the group heads of one KV
 #: head); the GQA group must divide it
 _ROWS = 64

@@ -70,11 +70,18 @@ def kv_quantize_plain(k: torch.Tensor, v: torch.Tensor, cos: torch.Tensor,
                       vq: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor) -> None:
     """Plain PyTorch version: rotate ``k`` by the table (``rope_rotate``),
     then quantize the head-major slabs of k and v and copy them into the
-    ring slots ``positions`` (``index_copy_``)."""
+    ring slots ``positions`` (``index_copy_``).  A slot outside the ring
+    keeps the ring as it was, as the kernel skips it (one chunk of the
+    sequence-parallel ring takes a decode row that falls in another)."""
+    n_ctx = kq.shape[1]
+    valid = (positions >= 0) & (positions < n_ctx)
+    slot = positions.clamp(0, n_ctx - 1)
     for x, q_ring, s_ring in ((rope_rotate(k, cos, sin), kq, ks), (v, vq, vs)):
         q, s = quantize_kv_plain(x.transpose(0, 1))          # (n_kv, S, hd)
-        q_ring.index_copy_(1, positions, q)
-        s_ring.index_copy_(1, positions, s)
+        q_ring.index_copy_(1, slot, torch.where(valid[None, :, None], q,
+                                                q_ring.index_select(1, slot)))
+        s_ring.index_copy_(1, slot, torch.where(valid[None, :], s,
+                                                s_ring.index_select(1, slot)))
 
 
 def kv_quantize_lanes_plain(k: torch.Tensor, v: torch.Tensor, cos: torch.Tensor,

@@ -100,6 +100,15 @@ def _int8_matmul(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(xq, q.t())[:M]
 
 
+def _bf16_matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(M, K) bf16 × (N, K) bf16 → (M, N) f32: on the card one bf16 GEMM
+    with an f32 output, so the weight is never copied to f32; the CPU has
+    no such product and multiplies f32 copies."""
+    if x.device.type == "cpu":
+        return torch.matmul(x.float(), w.float().t())
+    return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+
 def linear_int8(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """x (..., K) bf16 against int8 rows ``q`` (N, K) with scales ``s`` (N,)
     → (..., N) in ``x.dtype``: ``(acc · xs) · s`` in f32 over the exact int32

@@ -2,8 +2,11 @@
 
 The reference (llama_fastapi_k8s_gpu_tpu/parallel/batched.py) ``vmap``s
 its single-sequence model over a batch axis and lays the batch on a mesh.
-The port serves one card (``dp = tp = 1``), and a lane batch is simply
-more rows for the linears:
+Here a lane batch is simply more rows for the linears; over a dp × tp
+mesh (parallel/mesh.py) the lane ring is a ``ShardedRing`` — dp group
+``d``'s lanes on its tp shards, kv heads split — and the lane step runs
+each group's lanes on its shards (``models.llama.forward_lanes_mesh``),
+while the lanes' bookkeeping stays on the mesh's first device:
 
 - the state: a lane-major cache (``models.llama.init_lane_cache``, each
   leaf ``(B, L, n_kv, n_ctx, hd)``) and per-lane ``pos``, ``token``,
@@ -47,10 +50,11 @@ import torch
 from ..models.generate import capture_step, replay_step, spec_verify
 from ..models.llama import forward, forward_lanes, init_lane_cache, lane_view
 from ..obs.devtime import ENTRY, record_compile, register_program
+from .mesh import init_sharded_cache, ring_copy_, ring_tensors
 from ..sampling.sample import PENALTY_WINDOW, SamplingParams, lane_tensors, sample_chain_lanes
 
 for _name in ("batched_prefill", "batched_decode_chunk", "lane_decode_chunk",
-              "lane_spec_verify"):
+              "lane_spec_verify", "mesh_batched_decode_chunk", "mesh_lane_decode_chunk"):
     register_program(_name, ENTRY, site="parallel.batched")
 del _name
 
@@ -58,9 +62,12 @@ del _name
 STATE_LEAVES = ("pos", "token", "window", "wpos", "out")
 
 
-def init_batched_state(cfg, batch: int, device, seed: int = 0) -> dict:
+def init_batched_state(cfg, batch: int, device, seed: int = 0, mesh=None,
+                       tp_split: bool = True) -> dict:
     """A fresh lane state of ``batch`` lanes on ``device``: lane ``b``'s
-    generator seeded with ``seed + b``."""
+    generator seeded with ``seed + b``.  Over a ``mesh`` the lane ring is
+    sharded over its dp × tp devices (the reference's
+    ``state_shardings(batched=True)``; kv heads split when ``tp_split``)."""
     device = torch.device(device)
     gens = []
     for b in range(batch):
@@ -71,7 +78,9 @@ def init_batched_state(cfg, batch: int, device, seed: int = 0) -> dict:
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.int64, device=device)
 
-    return {"cache": init_lane_cache(cfg, batch, device), "pos": zeros(batch),
+    cache = (init_lane_cache(cfg, batch, device) if mesh is None
+             else init_sharded_cache(cfg, mesh, tp_split=tp_split, lanes=batch))
+    return {"cache": cache, "pos": zeros(batch),
             "token": zeros(batch),
             "window": torch.full((batch, PENALTY_WINDOW), -1, dtype=torch.int64,
                                  device=device),
@@ -84,7 +93,7 @@ def state_nbytes(state: dict | None) -> int:
     memory ledger's ``kv_lanes`` row."""
     if state is None:
         return 0
-    leaves = list(state["cache"].values()) + [state[k] for k in STATE_LEAVES]
+    leaves = ring_tensors(state["cache"]) + [state[k] for k in STATE_LEAVES]
     return sum(t.numel() * t.element_size() for t in leaves)
 
 
@@ -255,14 +264,15 @@ class LaneGraphs:
     fallback."""
 
     def __init__(self, params, cfg, batch: int, device, top_k: int = 64,
-                 program: str = "lane_decode_chunk", draft_len: int = 0):
+                 program: str = "lane_decode_chunk", draft_len: int = 0, mesh=None):
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"LaneGraphs: CUDA graphs need the card, got {device}")
         self.params, self.cfg, self.top_k, self.program = params, cfg, top_k, program
         self.draft_len = draft_len
         with torch.inference_mode():
-            self._state = init_batched_state(cfg, batch, device)
+            self._state = init_batched_state(cfg, batch, device, mesh=mesh,
+                                             tp_split=getattr(params, "tp_heads", True))
             self._st = lane_tensors([SamplingParams()] * batch, device)
         self._state["graphs"] = self
         self._graph = None              # (graph, each counter's increment a replay)
@@ -383,8 +393,7 @@ def write_lane(state: dict, lane: int, cache1: dict, pos: int, token: torch.Tens
     copied from ``cache1`` (a serial ring, not consumed), ``pos`` and the
     host mirror at ``pos``, the first sampled ``token`` and ``wpos``.  The
     lane's penalty ring, knobs and generator are the caller's to set."""
-    for k, t in state["cache"].items():
-        t[lane].copy_(cache1[k])
+    ring_copy_(lane_view(state["cache"], lane), cache1)
     state["pos"][lane].fill_(pos)
     state["token"][lane].copy_(token)
     state["wpos"][lane].fill_(wpos)
@@ -395,6 +404,5 @@ def write_lane(state: dict, lane: int, cache1: dict, pos: int, token: torch.Tens
 def lane_cache_copy(cache: dict, lane: int, out: dict) -> dict:
     """Snapshot lane ``lane``'s ring into the serial-shaped ``out`` in place
     (lane-prefix reuse: the copy is the next admission's prefill scratch)."""
-    for k, t in out.items():
-        t.copy_(cache[k][lane])
+    ring_copy_(out, lane_view(cache, lane))
     return out

@@ -1462,6 +1462,34 @@ def _base_engine_kwargs(settings: Settings) -> dict:
     )
 
 
+def _serving_engine(settings: Settings, path: str | None, **kw):
+    """The engine one model serves from, by the pod's shape: ``SPEngine``
+    under ``LFKT_MESH_SP`` > 1 (``LFKT_MESH_TP`` shards heads inside its
+    ring), the lane engines under ``LFKT_BATCH_SIZE`` > 1 (``LFKT_MESH_TP``
+    their tensor parallelism; the scheduler picks the flavour), else the
+    serial ``Engine`` — the JAX package's choice.  A mesh takes the pod's
+    cards, and a pod with fewer than it needs raises."""
+    from ..engine import ContinuousEngine, Engine, MeshEngine, SPEngine
+
+    if settings.mesh_sp > 1:
+        # long context: n_ctx sharded over the sp ring
+        if settings.batch_size > 1:
+            raise ValueError(
+                "LFKT_MESH_SP > 1 serves sequence-parallel (serial); "
+                "set LFKT_BATCH_SIZE=1 or use dp/tp batching instead")
+        return SPEngine(path, sp=settings.mesh_sp, tp=settings.mesh_tp, **kw)
+    if settings.batch_size > 1:
+        if settings.scheduler == "continuous":
+            return ContinuousEngine(
+                path, tp=settings.mesh_tp, batch_size=settings.batch_size,
+                adm_budget=settings.adm_budget,
+                adm_controller=settings.adm_controller,
+                adm_ema_alpha=settings.adm_ema_alpha,
+                lane_prefix_cache=settings.lane_prefix_cache, **kw)
+        return MeshEngine(path, tp=settings.mesh_tp, batch_size=settings.batch_size, **kw)
+    return Engine(path, **kw)
+
+
 def _registry_factory(settings: Settings):
     """``LFKT_MODELS`` is set: load the manifest into a ModelRegistry
     (serving/registry.py) — N engines on one card sharing the paged KV
@@ -1488,31 +1516,15 @@ def _registry_factory(settings: Settings):
             "mesh-batched cycle coalesces its whole batch into ONE "
             "shared device program, which cannot interleave models — "
             "use the continuous scheduler (docs/MULTIMODEL.md)")
-    if settings.mesh_sp > 1:
-        raise ValueError(
-            f"mesh_sp={settings.mesh_sp}: the port serves one card (sp = 1); "
-            "sequence parallelism is ROADMAP A.8")
 
     def build(spec, path, shared_pool):
-        from ..engine import ContinuousEngine, Engine, MeshEngine
-
+        # a one-entry manifest serves the engine the single-model factory
+        # builds (a migration to LFKT_MODELS never swaps schedulers)
         kw = _base_engine_kwargs(settings)
         kw.update(spec.overrides)
         kw["kv_pool"] = shared_pool
         kw["kv_namespace"] = spec.name
-        if settings.batch_size > 1:
-            if settings.scheduler == "continuous":
-                return ContinuousEngine(
-                    path, tp=settings.mesh_tp, batch_size=settings.batch_size,
-                    adm_budget=settings.adm_budget,
-                    adm_controller=settings.adm_controller,
-                    adm_ema_alpha=settings.adm_ema_alpha,
-                    lane_prefix_cache=settings.lane_prefix_cache, **kw)
-            # the cycle scheduler with a one-entry manifest: the engine the
-            # single-model factory builds
-            return MeshEngine(path, tp=settings.mesh_tp,
-                              batch_size=settings.batch_size, **kw)
-        return Engine(path, **kw)
+        return _serving_engine(settings, path, **kw)
 
     reg = ModelRegistry.from_specs(
         specs, build, default_model=default, model_dir=settings.model_dir,
@@ -1523,8 +1535,6 @@ def _registry_factory(settings: Settings):
 
 def _default_engine_factory(settings: Settings):
     def factory():
-        from ..engine import ContinuousEngine, Engine, MeshEngine
-
         if settings.scheduler not in ("continuous", "cycle"):
             raise ValueError(
                 f"LFKT_SCHEDULER must be 'continuous' or 'cycle', "
@@ -1532,25 +1542,8 @@ def _default_engine_factory(settings: Settings):
         if settings.models:
             # the manifest's registry replaces the single engine
             return _registry_factory(settings)
-        if settings.mesh_sp > 1:
-            raise ValueError(
-                f"mesh_sp={settings.mesh_sp}: the port serves one card (sp = 1); "
-                "sequence parallelism is ROADMAP A.8")
-        kw = _base_engine_kwargs(settings)
-        if settings.batch_size > 1:
-            if settings.scheduler == "continuous":
-                eng = ContinuousEngine(
-                    settings.model_path, tp=settings.mesh_tp,
-                    batch_size=settings.batch_size,
-                    adm_budget=settings.adm_budget,
-                    adm_controller=settings.adm_controller,
-                    adm_ema_alpha=settings.adm_ema_alpha,
-                    lane_prefix_cache=settings.lane_prefix_cache, **kw)
-            else:
-                eng = MeshEngine(settings.model_path, tp=settings.mesh_tp,
-                                 batch_size=settings.batch_size, **kw)
-        else:
-            eng = Engine(settings.model_path, **kw)
+        eng = _serving_engine(settings, settings.model_path,
+                              **_base_engine_kwargs(settings))
         eng.warmup()
         return eng
     return factory

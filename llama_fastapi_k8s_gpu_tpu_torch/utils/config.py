@@ -114,8 +114,13 @@ class Settings:
     #                every chunk boundary
     batch_size: int = 1
     scheduler: str = "continuous"
-    mesh_tp: int = 1                   # tensor-parallel width (1: the port has no mesh)
-    mesh_sp: int = 1                   # sequence-parallel width (1: the port has no mesh)
+    # the mesh (parallel/mesh.py), over the pod's cards (too few raise):
+    # mesh_tp shards the lane engines' weights, heads and KV ring over tp
+    # devices (batch_size > 1; dp takes the cards left over); mesh_sp > 1
+    # serves SPEngine, the ring's slots over sp devices with ring attention
+    # (mesh_tp its heads inside the ring; batch_size must be 1)
+    mesh_tp: int = 1
+    mesh_sp: int = 1
     # -- disaggregated prefill/decode (serving/disagg/) ---------------------
     # this process's role: off (the single-process path), prefill (the KV
     # page service), decode (prompts hop to LFKT_DISAGG_PEER, whose pages

@@ -7,8 +7,9 @@ the serial engine's, on the tiny Llama over the bf16 and the int8 ring and
 on the tiny Mistral past its window; then the semantics of
 ``tests/test_batched_engine.py`` (order, padding invariance, overflow,
 timings, an oversized prompt failing alone, per-lane capacity) and the
-port's own: per-entry deadlines, ``tp`` > 1 refused, the lane state zeroed
-in place by ``recover``, the ``kv_lanes`` ledger row.
+port's own: per-entry deadlines, a mesh too large for the host refused,
+the lane state zeroed in place by ``recover``, the ``kv_lanes`` ledger
+row.
 """
 
 from __future__ import annotations
@@ -139,9 +140,12 @@ def test_per_entry_deadline_and_abort_stop_their_entry_alone(mesh_engine):
 
 
 def test_tp_above_one_is_refused(files):
-    with pytest.raises(ValueError, match="A.8"):
+    """On a one-device host a mesh of two is refused, as the JAX package's
+    ``make_mesh`` refuses it (a list of devices serves it:
+    tests/test_torch_mesh.py)."""
+    with pytest.raises(ValueError, match="mesh 1x2x1 needs 2 devices, have 1"):
         MeshEngine(files["llama"], tp=2, batch_size=2, device="cpu", **KW)
-    with pytest.raises(ValueError, match="dp=2"):
+    with pytest.raises(ValueError, match="mesh 2x1x1 needs 2 devices, have 1"):
         MeshEngine(files["llama"], dp=2, batch_size=2, device="cpu", **KW)
 
 

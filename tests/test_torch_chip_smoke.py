@@ -745,6 +745,30 @@ def test_chain_margin_reads_the_serial_chains_own_step(tiny_file):
         chip_smoke.chain_margin(paged, prompt, ids, 2, sp)
 
 
+def test_forced_gaps_read_the_serial_chain_at_every_token(tiny_file):
+    """Teacher-forced through the serial engine, its own greedy reply is
+    its choice at every token (gap 0), and a token swapped for another
+    reads a gap there; a turn is held only within the tie steps."""
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    eng = Engine(tiny_file, prefix_cache=False, **KW)
+    sp = chip_smoke.served_sampling(Settings(temperature=0.0))
+    prompt = eng.tokenize_messages(MSG)
+    ids = chip_smoke.serial_reply(eng, prompt, 6, sp)
+    assert chip_smoke.forced_gaps(eng, prompt, ids, sp) == [0.0] * 6
+    other = ids[:3] + [(ids[3] + 1) % eng.cfg.vocab_size] + ids[4:]
+    gaps = chip_smoke.forced_gaps(eng, prompt, other, sp)
+    assert gaps[:3] == [0.0] * 3 and gaps[3] > 0.0
+    rec = {"prompt": prompt, "ids": other}
+    row, = chip_smoke.held_tokens([rec], [{"prompt": prompt, "ids": ids}], eng, sp, n=6)
+    assert row["first_diff"] == 3 and not row["equal"]
+    assert row["held"] == (row["max_gap_steps"] <= chip_smoke.MESH_TIE_STEPS)
+    paged = Engine(tiny_file, kv_paged=True, kv_page_tokens=16, **KW)
+    with pytest.raises(ValueError, match="reuses no prefix"):
+        chip_smoke.forced_gaps(paged, prompt, ids, sp)
+
+
 def test_pages_equal_compares_bits_not_values():
     import torch
 

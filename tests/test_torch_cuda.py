@@ -1729,3 +1729,246 @@ def test_pool_pages_cross_the_wire_bit_exact_on_the_card(cuda, kv_dtype):
         if a.dtype == torch.bfloat16:
             a, b = a.view(torch.int16), b.view(torch.int16)
         assert torch.equal(a, b), k
+
+
+# ---------------------------------------------------------------------------
+# the mesh on the card: every shard on the one card
+# ---------------------------------------------------------------------------
+
+#: Llama-3-8B's linears (N × K) and how tensor parallelism splits them:
+#: the column-parallel ones and, fused, the row-parallel ones shard N
+TP_SHAPES = {"wq": (4096, 4096), "wk": (1024, 4096), "w_gate": (14336, 4096),
+             "w_down": (4096, 14336), "output": (128256, 4096)}
+
+
+@pytest.mark.parametrize("fmt", ["q4k", "q5k", "q6k", "q8"])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("name", list(TP_SHAPES))
+@pytest.mark.parametrize("B", [1, 256])
+def test_fused_matmul_tp_shards_equal_the_unsharded_rows(cuda, fmt, tp, name, B):
+    """Each tp shard of an 8B linear (its N/tp output rows, K whole, as
+    ``parallel.mesh.shard_params`` cuts the fused layouts) through the
+    kernel equals those rows of the kernel's unsharded result on the card,
+    and its plain version to one bf16 step of the output's scale."""
+    kern, plain = _kernel(fmt)
+    n, k = TP_SHAPES[name]
+    rng = np.random.default_rng(n + k + tp)
+    w = _blocks(rng, n, k, SIZES[fmt]).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((B, k), np.float32)).to(cuda, torch.bfloat16)
+    whole = kern(x, w, n, k).float()
+    rows = n // tp
+    for t in (0, tp - 1):
+        shard = w[t * rows:(t + 1) * rows].contiguous()
+        got = kern(x, shard, rows, k).float()
+        want = plain(x, shard, rows, k).float()
+        torch.cuda.synchronize()
+        scale = want.abs().max()
+        assert torch.isfinite(got).all()
+        assert (got - whole[:, t * rows:(t + 1) * rows]).abs().max() <= 8e-3 * scale
+        assert (got - want).abs().max() <= 8e-3 * scale
+
+
+@pytest.mark.parametrize("S,off,window", [(256, 0, 0), (512, 256, 0), (256, 700, 100)])
+def test_ring_attention_matches_plain_on_the_card(cuda, S, off, window):
+    """``ring_attention`` over an sp = 2 × tp = 2 mesh of the card against
+    the single-device plain attention over the whole ring, 2·10⁻² max-abs
+    (the ring rounds P to bf16 a chunk at a time, from its running max)."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import attention
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel import ring
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(dp=1, tp=2, sp=2, devices=[cuda] * 4)
+    g = torch.Generator(device=cuda).manual_seed(S + off)
+    q = torch.randn(S, 32, 128, generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn(8, 1024, 128, generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn(8, 1024, 128, generator=g, device=cuda).to(torch.bfloat16)
+    got = ring.ring_attention(q, k, v, off, 128 ** -0.5, window, mesh=mesh)
+    want = attention.flash_attention_plain(q, k, v, off, 128 ** -0.5, window)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max() <= 2e-2
+
+
+@pytest.mark.parametrize("pos,window", [(0, 0), (511, 0), (700, 0), (1023, 100)])
+def test_sharded_decode_attention_matches_plain_on_the_card(cuda, pos, window):
+    """``sharded_decode_attention`` of one query over the slot-sharded ring
+    (sp = 2 × tp = 2 on the card) against the plain attention over the
+    whole ring, 2·10⁻² max-abs; a shard with no visible key adds nothing."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import attention
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel import ring
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(dp=1, tp=2, sp=2, devices=[cuda] * 4)
+    g = torch.Generator(device=cuda).manual_seed(pos + 1)
+    q = torch.randn(1, 32, 128, generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn(8, 1024, 128, generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn(8, 1024, 128, generator=g, device=cuda).to(torch.bfloat16)
+    got = ring.sharded_decode_attention(q, k, v, pos, 128 ** -0.5, window, mesh=mesh)
+    want = attention.flash_attention_plain(q, k, v, pos, 128 ** -0.5, window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max() <= 2e-2
+
+
+def _greedy_or_tied(serial, prompt: list, ids: list, steps: int = 4) -> bool:
+    """Whether every id of ``ids`` (a greedy reply to ``prompt`` without
+    penalties) is the one-card engine's choice at its position when the
+    reply is fed back through one prompt pass, or within ``steps`` bf16
+    steps of it: a mesh shard's matrix-vector kernel splits K by its N, so
+    its sums run in another order and near-ties can turn."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import forward, init_cache
+
+    seq = torch.tensor(prompt + ids[:-1], device=serial.device)
+    with torch.inference_mode():
+        rows = forward(serial.params, serial.cfg, seq, 0, init_cache(serial.cfg, serial.device),
+                       return_all=True)[len(prompt) - 1:]
+    top = rows.max(dim=-1).values
+    got = rows[torch.arange(len(ids), device=rows.device), torch.tensor(ids, device=rows.device)]
+    return bool(((top - got) <= steps * 2.0 ** -7 * top.abs()).all())
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_mesh_engines_greedy_match_one_card_on_the_card(cuda, tmp_path, kv_dtype):
+    """A tp = 2 continuous engine, a cycle engine at dp = 2 × tp = 2 and an
+    sp = 2 × tp = 2 ``SPEngine``, every shard on the card and every decode
+    chunk a graph replay: each greedy reply (no penalties) takes the
+    one-card engine's choice at every step, or one within four bf16 steps
+    of it (:func:`_greedy_or_tied`), and starts with the one-card reply's
+    first token (the prompt pass's logits are the one-card pass's)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import (
+        ContinuousEngine,
+        Engine,
+        MeshEngine,
+        SPEngine,
+    )
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      ffn_dim=512, n_ctx=256)
+    path = str(tmp_path / "tiny-q8_0.gguf")
+    chip_smoke.write_gguf(cfg, path, "q8_0")
+    kw = dict(n_ctx=256, max_gen_tokens=24, prefill_buckets=(64, 128, 256), kv_dtype=kv_dtype,
+              device=cuda)
+    knobs = dict(temperature=0.0, repeat_penalty=1.0)
+    prompts = [[{"role": "user", "content": f"wave {i} " * (1 + 7 * i)}] for i in range(4)]
+    serial = Engine(path, prefix_cache=False, **kw)
+    want: list = []
+    chip_smoke.record_replies(serial, 0, want)
+    for p in prompts:
+        serial.create_chat_completion(p, **knobs)
+    del serial._finish, serial.create_chat_completion
+    first = {tuple(r["prompt"]): r["ids"][:1] for r in want}
+
+    def check(records):
+        assert len(records) == len(prompts)
+        for r in records:
+            assert r["ids"][:1] == first[tuple(r["prompt"])]
+            assert not r["ids"] or _greedy_or_tied(serial, r["prompt"], r["ids"])
+
+    try:
+        cont = ContinuousEngine(path, tp=2, batch_size=2, devices=[cuda] * 2, **kw)
+        try:
+            cont.warmup()
+            got: list = []
+            chip_smoke.lane_record(cont, got)
+            for f in [cont.submit(p, **knobs) for p in prompts]:
+                f.result(timeout=120)
+            check(got)
+            assert cont._lane_graphs.replays > 0
+        finally:
+            cont.close()
+        cyc = MeshEngine(path, tp=2, batch_size=4, devices=[cuda] * 4, **kw)
+        try:
+            assert cyc.mesh.shape == {"dp": 2, "tp": 2, "sp": 1}
+            cyc.warmup()
+            got = []
+            chip_smoke.lane_record(cyc, got)
+            cyc.create_chat_completions(prompts, **knobs)
+            check(got)
+        finally:
+            cyc.close()
+        sp = SPEngine(path, sp=2, tp=2, devices=[cuda] * 4, **kw)
+        try:
+            sp.warmup()
+            got = []
+            chip_smoke.record_replies(sp, 1, got)
+            replays = sp._graphs.replays
+            for p in prompts:
+                sp.create_chat_completion(p, **knobs)
+            check(got)
+            assert sp._graphs.replays > replays
+        finally:
+            sp.close()
+    finally:
+        serial.close()
+
+
+def test_bf16_product_with_an_f32_output_on_the_card(cuda):
+    """A row-parallel bf16 shard's product: bf16 operands, an f32 output,
+    no f32 copy of the weight; against the f32 product of the same
+    values."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops.linear import _bf16_matmul_f32
+
+    g = torch.Generator(device=cuda).manual_seed(21)
+    x = torch.randn(5, 2048, generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn(384, 2048, generator=g, device=cuda).to(torch.bfloat16)
+    got = _bf16_matmul_f32(x, w)
+    want = x.float() @ w.float().t()
+    assert got.dtype == torch.float32 and got.shape == (5, 384)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("weight_format", ["bf16", "int8"])
+def test_tp_engine_on_bf16_and_int8_weights_holds_to_one_card(cuda, tmp_path, weight_format):
+    """A tp = 2 continuous engine over ``[cuda:0] * 2`` on bf16 and on int8
+    weights, whose ``wo``/``w_down`` split K (row-parallel: bf16 partials
+    as f32 products summed in f32, int8 with the row's global maximum):
+    every greedy reply starts with the one-card engine's first token and
+    takes its choice at every step, or one within four bf16 steps of it
+    (:func:`_greedy_or_tied`)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import ContinuousEngine, Engine
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      ffn_dim=512, n_ctx=256)
+    path = str(tmp_path / "tiny-q8_0.gguf")
+    chip_smoke.write_gguf(cfg, path, "q8_0")
+    kw = dict(n_ctx=256, max_gen_tokens=24, prefill_buckets=(64, 128, 256),
+              weight_format=weight_format, device=cuda)
+    knobs = dict(temperature=0.0, repeat_penalty=1.0)
+    prompts = [[{"role": "user", "content": f"shard {i} " * (1 + 9 * i)}] for i in range(4)]
+    serial = Engine(path, prefix_cache=False, **kw)
+    try:
+        want: list = []
+        chip_smoke.record_replies(serial, 0, want)
+        for p in prompts:
+            serial.create_chat_completion(p, **knobs)
+        del serial._finish, serial.create_chat_completion
+        first = {tuple(r["prompt"]): r["ids"][:1] for r in want}
+        cont = ContinuousEngine(path, tp=2, batch_size=2, devices=[cuda] * 2, **kw)
+        try:
+            assert cont.params.layout["wo"] == cont.params.layout["w_down"] == "row"
+            assert cont.params.formats() == serial.params.formats()
+            cont.warmup()
+            got: list = []
+            chip_smoke.lane_record(cont, got)
+            for f in [cont.submit(p, **knobs) for p in prompts]:
+                f.result(timeout=120)
+            assert len(got) == len(prompts) and cont._lane_graphs.replays > 0
+            for r in got:
+                assert r["ids"][:1] == first[tuple(r["prompt"])]
+                assert _greedy_or_tied(serial, r["prompt"], r["ids"])
+        finally:
+            cont.close()
+    finally:
+        serial.close()

@@ -1,0 +1,68 @@
+#!/usr/bin/env python3
+"""``chip_smoke.py``'s mesh phase alone, on the GPU.
+
+Run from the root of a checkout on a machine with one NVIDIA GPU:
+
+    python3 tools/port_mesh.py [kernels] [mesh]
+
+Prints the card's name and power limit, builds the kernels, writes (or
+reuses) the synthetic Q4_K_M GGUF under ``.cache/chip_smoke/`` and runs,
+as ``chip_smoke.py`` does: ``kernels`` — the fused kernels at a tp = 2
+shard's 8B shapes beside the unsharded ones and the flash kernel at a
+shard's heads (``mesh_matmul``, ``mesh_flash`` lines), ``ring_attention``
+and ``sharded_decode_attention`` against their plain single-device
+version (``mesh_ring``); ``mesh`` — the whole phase (``mesh_tp``,
+``mesh_sp``, their ``launches``; it runs the kernels first).  ``mesh``
+by default; each with its seconds.  A failed check ends the run with a non-zero exit.
+"""
+
+from __future__ import annotations
+
+import gc
+import os
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+import chip_smoke  # noqa: E402
+
+
+def _kernels(paths, counters):
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    chip_smoke.check_mesh_kernels(rng)
+    chip_smoke.check_ring_ops(rng)
+
+
+PHASES = {"kernels": _kernels, "mesh": chip_smoke.phase_mesh}
+
+
+def main() -> int:
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import KERNELS
+
+    if not torch.cuda.is_available():
+        print("port_mesh: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.time()
+    chip_smoke.phase_device()
+    chip_smoke.phase_build()
+    paths = {"q4km": chip_smoke.phase_gguf("q4km")}
+    chip_smoke.say("phase_seconds", name="setup", seconds=round(time.time() - t0, 1))
+    for name in sys.argv[1:] or ["mesh"]:
+        t1 = time.time()
+        PHASES[name](paths, KERNELS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        chip_smoke.say("phase_seconds", name=name, seconds=round(time.time() - t1, 1))
+    chip_smoke.say("done", seconds=round(time.time() - t0, 1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
