@@ -9,8 +9,27 @@ Phases, one line each (a failing phase ends the run with a non-zero exit
 and no result line):
 
 1. device: the card's name and power limit (``nvidia-smi``) and CUDA;
-2. build: the kernels of ``llama_fastapi_k8s_gpu_tpu_torch/csrc`` with
-   ``nvcc``, timed;
+2. build: the image's build stage — a child process with no card visible
+   (``CUDA_VISIBLE_DEVICES=""``) runs ``python3 -m
+   llama_fastapi_k8s_gpu_tpu_torch.utils.kernelcache`` into
+   ``LFKT_COMPILE_CACHE_DIR=.cache/chip_smoke/kernels``, timed, and must
+   build importing no torch; this process (and every pod after it) then
+   finds that library and loads it without building (``loaded_built``
+   false), the line keeping ``ptxas -v``'s report.  Then, while the card
+   waits for the other files, the image's runtime stage (``image``): from
+   a copy of the port package and the run's kernel cache, both made
+   read-only (``chmod -R a-w``), with no ``nvcc`` on ``PATH`` and no
+   ``CUDA_HOME``/``CUDA_PATH``, a child on an empty cache must fail naming
+   the digest (no fallback), and a ``python -m
+   llama_fastapi_k8s_gpu_tpu_torch.server`` pod on the Q4_K_M file, its
+   pages first dropped from the page cache where the file system lets
+   them go (``resident_evicted``: the share left, 1.0 for a warm read),
+   must reach READY (its seconds: the cold start with a baked library, beside
+   the files' writers) with no ``kernel_build`` compile on
+   ``/debug/compiles``, the cache's library mapped and nothing written
+   into the copy or the cache; its line, printed after the serial engines,
+   holds its greedy short reply against the Q4_K_M engine's, byte for
+   byte, and the library's size and ``NEEDED`` entries (``readelf -d``);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the Llama-3-8B shapes the serving paths give it, with kernel, plain,
    library (one PyTorch call computing the same function) and bound times
@@ -213,6 +232,9 @@ and no result line):
    first; then a ``kernels`` JSON line with every kernel's launches summed
    over the engines of phase 5 beside its phase-3 numbers.
 
+Each top-level phase ends with a ``phase_seconds`` line: its wall seconds
+since the one before ended (``build``, ``image``, ``ggufs``, ``kernels``,
+``serve``, ``lanes``, ``paged_spec``, ``tier``, ``fleet_tier``, ``mesh``).
 The last line is ``{"ok": true, "device": {...}}``.  No JAX anywhere.
 """
 
@@ -238,6 +260,12 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(HERE, ".cache", "chip_smoke")
+#: the port package, by name (the image phase serves a read-only copy)
+PKG = "llama_fastapi_k8s_gpu_tpu_torch"
+#: the kernel cache of the run (LFKT_COMPILE_CACHE_DIR): the build phase's
+#: child builds the library here as an image's build stage does, and every
+#: process of the run (this one, the pods) finds it there
+KERNEL_CACHE = os.path.join(CACHE, "kernels")
 
 #: transformer blocks of the served models (Llama-3-8B has 32; width is never cut)
 DEPTH = 32
@@ -530,12 +558,43 @@ def phase_device() -> dict:
     return info
 
 
-def phase_build() -> None:
-    from llama_fastapi_k8s_gpu_tpu_torch.ops import _kernels
+def imported_modules(importtime_stderr: str) -> set:
+    """The modules a ``python -X importtime`` run imported, from its stderr."""
+    return {ln.split("|")[-1].strip() for ln in importtime_stderr.splitlines()
+            if ln.startswith("import time:") and "|" in ln}
 
+
+def phase_build() -> dict:
+    """The image's build stage, then its first load: a child process with no
+    card (``CUDA_VISIBLE_DEVICES=""``) runs the kernel cache's entry into
+    :data:`KERNEL_CACHE` and must build, importing no torch; then this
+    process loads the library it built, without building.  The knob stays
+    set in this process, so every process the run starts after it (the
+    pods) finds the library there as a pod finds the one its image baked."""
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import _kernels
+    from llama_fastapi_k8s_gpu_tpu_torch.utils import kernelcache
+
+    make_writable(KERNEL_CACHE)           # an earlier run's image phase
+    shutil.rmtree(KERNEL_CACHE, ignore_errors=True)
+    os.environ["LFKT_COMPILE_CACHE_DIR"] = KERNEL_CACHE
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", LFKT_COMPILE_CACHE_DIR=KERNEL_CACHE,
+               PYTHONPATH=os.pathsep.join(filter(None, (HERE, os.environ.get("PYTHONPATH")))))
     t0 = time.time()
+    child = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", f"{PKG}.utils.kernelcache"],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=900)
+    child_s = time.time() - t0
+    if child.returncode != 0:
+        raise AssertionError(f"kernel build child exited {child.returncode}: "
+                             f"{child.stdout[-3000:]}{child.stderr[-6000:]}")
+    doc = json.loads(child.stdout.strip().splitlines()[-1])
+    torch_in_child = sorted(m for m in imported_modules(child.stderr)
+                            if m.split(".")[0] == "torch")
+    t1 = time.time()
     _kernels.library()
-    log = _kernels.build_info.get("log", "").splitlines()
+    load_s = time.time() - t1
+    info = kernelcache.build_info
+    log = info.get("log", "").splitlines()
     ptxas = [ln.strip() for ln in log if "registers" in ln or "spill" in ln]
     # the tensor-core template's instantiations by decoder, tile edge and
     # alignment (Q5KDecoderELi128ELb1: Q5_K, 128 x 128, 16-byte copies):
@@ -549,8 +608,15 @@ def phase_build() -> None:
                              int(key.split("ELi")[1].split("E")[0]))
             qmma[key] = " | ".join([*(x.strip() for x in log[i + 1:i + 3]),
                                     f"{smem} bytes dynamic smem"])
-    say("build", seconds=round(time.time() - t0, 2),
-        built=_kernels.build_info.get("built"), ptxas=ptxas, qmma=qmma)
+    out = dict(seconds=doc["seconds"], child_s=round(child_s, 2), built=doc["built"],
+               digest=doc["digest"], path=doc["path"], nvcc=doc["nvcc"],
+               torch_in_child=torch_in_child, loaded_built=info.get("built"),
+               load_s=round(load_s, 3))
+    say("build", **out, ptxas=ptxas, qmma=qmma)
+    if (not doc["built"] or torch_in_child or info.get("built") is not False
+            or info.get("path") != doc["path"]):
+        raise AssertionError(f"build: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2132,6 +2198,9 @@ def serving(app, port: int | None = None):
 
 #: every finished request's prompt and generated ids, by engine (in order)
 REPLIES: list = []
+#: each served engine's reply text by (label, request): the image phase's
+#: pod must give the ``q4km`` engine's short reply byte for byte
+SERVED: dict = {}
 
 
 def record_replies(eng, ordinal: int, sink: list = REPLIES) -> None:
@@ -2942,7 +3011,7 @@ def check_compiles(label, eng, port, short_ctx, before, at_start, chunks) -> Non
         storm_events={k: len(v) for k, v in storm_events.items()},
         held=eng._graphs.keys, launches_match_counters=all(launches_match.values()))
     want_storm = {"compiles": 4, "dispatches": len(chunks)}
-    if (warm.get("decode_chunk", {}).get("compiles") != 1 or build.get("compiles", 0) > 1
+    if (warm.get("decode_chunk", {}).get("compiles") != 1 or build.get("compiles", 0) != 0
             or st != 200 or request.get("decode_chunk") != {"compiles": 0,
                                                               "dispatches": n_chunks}
             or request.get("first_sample", {}).get("dispatches") != 1
@@ -3303,6 +3372,7 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
     say("launches", file=label, **launches)
     for req, st, doc, tm, rec in results:
         text = (doc or {}).get("response", "")
+        SERVED[(label, req)] = text
         say("request", file=label, label=req, status=st, chars=len(text),
             sha256=hashlib.sha256(text.encode()).hexdigest()[:16],
             prompt_tokens=tm.get("prompt_tokens"), bucket=tm.get("bucket"),
@@ -5468,20 +5538,24 @@ def phase_disagg(paths: dict, counters: dict) -> dict:
 class Pod:
     """One ``python -m llama_fastapi_k8s_gpu_tpu_torch.server`` process on
     the card (at ``port``, else a free one), its output in a log file under
-    the cache."""
+    the cache.  It runs the package under ``root`` (the checkout, else a
+    copy) in ``base_env`` (this process's, else the one given) with ``env``
+    on top."""
 
-    def __init__(self, name: str, env: dict, port: int | None = None):
+    def __init__(self, name: str, env: dict, port: int | None = None, root: str = HERE,
+                 base_env: dict | None = None):
         self.name = name
         self.port = port or _free_port()
         self.log = os.path.join(CACHE, "pods", f"{name}.log")
         os.makedirs(os.path.dirname(self.log), exist_ok=True)
-        path = os.pathsep.join(filter(None, (HERE, os.environ.get("PYTHONPATH"))))
-        full = dict(os.environ, PYTHONPATH=path, LFKT_HOST="127.0.0.1",
+        base = os.environ if base_env is None else base_env
+        path = os.pathsep.join(filter(None, (root, base.get("PYTHONPATH"))))
+        full = dict(base, PYTHONPATH=path, LFKT_HOST="127.0.0.1",
                     LFKT_PORT=str(self.port), LFKT_JSON_LOGS="0", **env)
         self.t0 = time.time()
         with open(self.log, "w") as fh:
             self.proc = subprocess.Popen(
-                [sys.executable, "-m", "llama_fastapi_k8s_gpu_tpu_torch.server"], cwd=HERE,
+                [sys.executable, "-m", "llama_fastapi_k8s_gpu_tpu_torch.server"], cwd=root,
                 env=full, stdout=fh, stderr=subprocess.STDOUT, start_new_session=True)
 
     def ready(self, timeout: float = 300) -> float:
@@ -5614,6 +5688,227 @@ def phase_disagg_pods(paths: dict) -> dict:
     if bad:
         raise AssertionError(f"disagg_pods: {bad}: {out}; decode log: "
                              f"{pods[1].tail() if len(pods) > 1 else ''}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the image's runtime stage: a pod from a read-only package and a read-only
+# kernel cache, with no toolkit
+# ---------------------------------------------------------------------------
+
+def scrub_toolkit(env: dict) -> dict:
+    """``env`` without the CUDA toolkit: no ``PATH`` entry that holds an
+    ``nvcc``, no ``CUDA_HOME``, no ``CUDA_PATH`` (the places the kernel cache
+    looks for nvcc)."""
+    out = {k: v for k, v in env.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
+    keep = [d for d in env.get("PATH", "").split(os.pathsep)
+            if d and not os.access(os.path.join(d, "nvcc"), os.X_OK)]
+    out["PATH"] = os.pathsep.join(keep)
+    return out
+
+
+def make_readonly(path: str) -> None:
+    """``chmod -R a-w path``."""
+    for dirpath, dirs, files in os.walk(path):
+        for name in files:
+            f = os.path.join(dirpath, name)
+            os.chmod(f, os.stat(f).st_mode & ~0o222)
+    for dirpath, _, _ in sorted(os.walk(path), reverse=True):
+        os.chmod(dirpath, os.stat(dirpath).st_mode & ~0o222)
+
+
+def make_writable(path: str) -> None:
+    """``chmod -R u+w path``, where it exists (to clear an earlier run's
+    read-only copies)."""
+    if not os.path.exists(path):
+        return
+    os.chmod(path, os.stat(path).st_mode | 0o200)
+    for dirpath, dirs, files in os.walk(path):
+        for name in dirs + files:
+            f = os.path.join(dirpath, name)
+            if not os.path.islink(f):
+                os.chmod(f, os.stat(f).st_mode | 0o200)
+
+
+def readonly_copy(src: str, dst: str) -> str:
+    """A copy of the package ``src`` at ``dst`` as an image holds it: its
+    sources and ``csrc/``, none of a checkout's ``_build/`` or bytecode,
+    every file and directory without write permission."""
+    make_writable(dst)
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("_build", "__pycache__", "*.pyc"))
+    make_readonly(dst)
+    return dst
+
+
+def tree_state(path: str) -> dict:
+    """{relative path: (size, mtime_ns)} of every file and directory under
+    ``path``: two states differ where anything was written."""
+    out = {}
+    for dirpath, dirs, files in os.walk(path):
+        for name in dirs + files:
+            f = os.path.join(dirpath, name)
+            st = os.lstat(f)
+            out[os.path.relpath(f, path)] = (st.st_size if name in files else 0,
+                                             st.st_mtime_ns)
+    return out
+
+
+def needed_libs(path: str) -> list:
+    """The ``NEEDED`` entries of a shared object, in order, as ``readelf -d``
+    lists them (a file that is no ELF object raises)."""
+    out = subprocess.run(["readelf", "-d", path], capture_output=True, text=True,
+                         check=True).stdout
+    return re.findall(r"\(NEEDED\)\s+Shared library: \[(.+?)\]", out)
+
+
+def resident_share(path: str) -> float:
+    """The share of ``path``'s pages in the page cache (``mincore`` over a
+    read-only mapping of the file)."""
+    import ctypes
+    import mmap
+
+    size = os.path.getsize(path)
+    if not size:
+        return 0.0
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mmap.restype = ctypes.c_void_p
+    libc.mmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_long]
+    libc.mincore.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p]
+    libc.munmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        addr = libc.mmap(None, size, mmap.PROT_READ, mmap.MAP_SHARED, fd, 0)
+        if addr is None or addr == ctypes.c_void_p(-1).value:
+            raise OSError(ctypes.get_errno(), f"mmap {path}")
+        try:
+            pages = -(-size // mmap.PAGESIZE)
+            vec = ctypes.create_string_buffer(pages)
+            if libc.mincore(addr, size, vec) != 0:
+                raise OSError(ctypes.get_errno(), f"mincore {path}")
+            return (pages - vec.raw[:pages].count(0)) / pages
+        finally:
+            libc.munmap(addr, size)
+    finally:
+        os.close(fd)
+
+
+def evict(path: str) -> float:
+    """Make the next read of ``path`` come from the disk: its dirty pages
+    written out, then ``POSIX_FADV_DONTNEED`` on this one file (nothing of
+    the machine's caches else).  Returns the share still resident after."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+    return resident_share(path)
+
+
+def phase_image(path: str) -> dict:
+    """``image``: the image's runtime stage.  A copy of the port package made
+    read-only, the run's kernel cache made read-only, and an environment with
+    no ``nvcc`` on ``PATH`` and no ``CUDA_HOME``/``CUDA_PATH``.  A child on an
+    empty read-only cache (no library, no nvcc: there must be no fallback)
+    runs beside a pod on the Q4_K_M file, ``python -m
+    llama_fastapi_k8s_gpu_tpu_torch.server`` from the copy, which reads the
+    file cold where :func:`evict` can drop its pages and must reach READY, map the cache's library
+    and write nothing into the copy or the cache; its seconds to READY, its
+    ``kernel_build`` compiles, its greedy reply to the short request, the
+    library's size and ``NEEDED`` entries go to :func:`image_verdict`.  The
+    pod is stopped before this returns, so it needs the card only while the
+    run waits for its other files."""
+    from llama_fastapi_k8s_gpu_tpu_torch.utils import kernelcache
+
+    root = os.path.join(CACHE, "image")
+    make_writable(root)
+    shutil.rmtree(root, ignore_errors=True)
+    pkg = readonly_copy(os.path.join(HERE, PKG), os.path.join(root, "app", PKG))
+    app_root = os.path.dirname(pkg)
+    empty = os.path.join(root, "empty-cache")
+    os.makedirs(empty)
+    make_readonly(empty)
+    lib = os.path.join(KERNEL_CACHE, "lfkt-kernels", kernelcache.digest(), kernelcache.LIBRARY)
+    base = scrub_toolkit(os.environ)
+    base.update(PYTHONDONTWRITEBYTECODE="1")
+    out: dict = {"digest": kernelcache.digest(), "library": os.path.realpath(lib),
+                 "library_bytes": os.path.getsize(lib), "needed": needed_libs(lib),
+                 "toolkit_in_path": bool(shutil.which("nvcc", path=base["PATH"]))}
+    make_readonly(KERNEL_CACHE)
+    before = (tree_state(app_root), tree_state(KERNEL_CACHE))
+    neg: dict = {}
+
+    def no_library():
+        t = time.time()
+        r = subprocess.run(
+            [sys.executable, "-c", f"from {PKG}.ops import _kernels; _kernels.library()"],
+            cwd=app_root, capture_output=True, text=True, timeout=300,
+            env=dict(base, LFKT_COMPILE_CACHE_DIR=empty, PYTHONPATH=os.pathsep.join(
+                filter(None, (app_root, base.get("PYTHONPATH"))))))
+        neg.update(rc=r.returncode, seconds=time.time() - t,
+                   error=(r.stderr.strip().splitlines() or [""])[-1])
+
+    child = threading.Thread(target=no_library)
+    pod = None
+    try:
+        child.start()
+        out["resident_before"] = resident_share(path)
+        out["resident_evicted"] = evict(path)
+        d, name = os.path.split(path)
+        pod = Pod("image", dict(LFKT_COMPILE_CACHE_DIR=KERNEL_CACHE, LFKT_MODEL_DIR=d,
+                                LFKT_MODEL_NAME=name, LFKT_TEMPERATURE="0",
+                                LFKT_TIMEOUT_SECONDS="600"),
+                  root=app_root, base_env=base)
+        out["ready_s"] = pod.ready()
+        progs = {p["name"]: p for p in pod.get("/debug/compiles")["programs"]}
+        out["kernel_build_compiles"] = progs.get("kernel_build", {}).get("compiles")
+        with open(f"/proc/{pod.proc.pid}/maps") as fh:
+            out["mapped"] = sorted({ln.split()[-1] for ln in fh if kernelcache.LIBRARY in ln})
+        t = time.time()
+        st, doc = _http(pod.port, "POST", "/response", body(SHORT_CTX), timeout=900)
+        out["reply"] = {"status": st, "seconds": time.time() - t,
+                        "text": (doc or {}).get("response", "")}
+        pod.stop()
+        child.join(300)
+        out["no_library"] = neg
+        after = (tree_state(app_root), tree_state(KERNEL_CACHE))
+        out["writes"] = sorted(
+            {k for b, a in zip(before, after) for k in set(b) | set(a) if b.get(k) != a.get(k)})
+    except BaseException:
+        say("image", **out, log=pod.tail() if pod else "")
+        raise
+    finally:
+        if pod is not None:
+            pod.stop()
+        child.join(300)
+        make_writable(KERNEL_CACHE)
+    return out
+
+
+def image_verdict(out: dict, want_reply: str) -> dict:
+    """The ``image`` line of :func:`phase_image`'s readings, the pod's reply
+    held byte for byte to ``want_reply`` (the in-process ``q4km`` engine's
+    greedy reply to the short request); raises on any failed check."""
+    text = out["reply"].pop("text")
+    out["reply"].update(chars=len(text), sha256=hashlib.sha256(text.encode()).hexdigest()[:16],
+                        equal=text.encode() == want_reply.encode())
+    say("image", **out)
+    bad = []
+    if out["toolkit_in_path"]:
+        bad.append("nvcc left on PATH")
+    if out["no_library"].get("rc", 0) == 0 or "no kernel library for digest" not in out[
+            "no_library"].get("error", "") or out["digest"] not in out["no_library"]["error"]:
+        bad.append("no-library child")
+    if out["kernel_build_compiles"] != 0 or out["mapped"] != [out["library"]]:
+        bad.append("library not found as built")
+    if out["reply"]["status"] != 200 or not out["reply"]["equal"]:
+        bad.append("reply")
+    if out["writes"]:
+        bad.append("writes")
+    if bad:
+        raise AssertionError(f"image: {bad}: {out}")
     return out
 
 
@@ -6724,17 +7019,30 @@ def main() -> int:
 
     # full-f32 products in the plain versions' matmuls (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
-    t0 = time.time()
+    t0 = lap = time.time()
+
+    def timed(name: str) -> None:
+        # the seconds since the last top-level phase ended
+        nonlocal lap
+        say("phase_seconds", name=name, seconds=round(time.time() - lap, 1))
+        lap = time.time()
+
     info = phase_device()
     devtime_at_start = DEVTIME.counters()
     # the files are written beside the kernels' build, and are all on disk
     # before any kernel is timed
     jobs = start_ggufs()
     phase_build()
-    t_files = time.time()
+    timed("build")
+    # the image's runtime stage on the Q4_K_M file, the first one written,
+    # while the card waits for the others
+    image = phase_image(jobs["q4km"].result())
+    timed("image")
     paths = {key: job.result() for key, job in jobs.items()}
-    say("ggufs", waited_s=round(time.time() - t_files, 1), workers=GGUF_WORKERS)
+    say("ggufs", waited_s=round(time.time() - lap, 1), workers=GGUF_WORKERS)
+    timed("ggufs")
     kernels, deq_lines = phase_kernels(KERNELS)
+    timed("kernels")
     launches = dict.fromkeys(KERNELS, 0)
     # an earlier run's replies (CHIP_SMOKE_REPLIES), to print where each
     # greedy reply of this run parts from it
@@ -6776,23 +7084,31 @@ def main() -> int:
                              earlier=earlier, **kw)
         for name, n in served.items():
             launches[name] += n
+    timed("serve")
+    # the image pod's reply, held to the Q4_K_M engine's
+    image_verdict(image, SERVED[("q4km", "short")])
     # the lane engines: batched serving from lanes of the card
     keep: dict = {}
     for name, n in phase_all_lanes(paths, KERNELS, keep=keep).items():
         launches[name] += n
+    timed("lanes")
     # the paged KV pool and prompt-lookup speculation on the Q4_K_M weights
     for name, n in phase_paged_spec(keep.pop("parts"), KERNELS).items():
         launches[name] += n
+    timed("paged_spec")
     # multi-model serving and the disaggregated prefill/decode tier
     for name, n in phase_tier(paths, KERNELS).items():
         launches[name] += n
+    timed("tier")
     # the fleet tier: the router over replicas and warm-page migration
     for name, n in phase_fleet_tier(paths, KERNELS).items():
         launches[name] += n
+    timed("fleet_tier")
     # the mesh: tensor parallelism in the lane engines and the
     # sequence-parallel engine, every shard on this card
     for name, n in phase_mesh(paths, KERNELS).items():
         launches[name] += n
+    timed("mesh")
     if os.environ.get("CHIP_SMOKE_REPLIES_OUT"):
         with open(os.environ["CHIP_SMOKE_REPLIES_OUT"], "w") as fh:
             json.dump(REPLIES, fh)

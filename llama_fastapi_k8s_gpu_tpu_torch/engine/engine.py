@@ -5,9 +5,11 @@ The same contract as the JAX reference's serial ``Engine``
 thread-safe generation one request at a time, OpenAI-shaped responses and
 streaming chunks — on PyTorch and one GPU:
 
-- load: GGUF mmap → weights on the device (``q4k``: fused Q4_K/Q5_K/Q6_K/
-  Q8_0 block bytes for an 8B model on the GPU; ``bf16`` for small models
-  and the CPU; ``int8`` on request);
+- load: on the card, the kernel library first (found under
+  ``LFKT_COMPILE_CACHE_DIR``, else built: utils/kernelcache.py); then GGUF
+  mmap → weights on the device (``q4k``: fused Q4_K/Q5_K/Q6_K/Q8_0 block
+  bytes for an 8B model on the GPU; ``bf16`` for small models and the
+  CPU; ``int8`` on request);
 - KV cache: a head-major ring in bf16, or int8 with per-token scales
   (``kv_dtype="int8"``, ops/kvquant.py);
 - prefill: the prompt padded to a bucket; a bucket larger than
@@ -86,6 +88,7 @@ from ..models.llama import cache_nbytes, init_cache
 from ..models.params import decode_loop_plan, load_params
 from ..obs.devtime import record_dispatch
 from ..obs.memledger import register_component
+from ..ops._kernels import library
 from ..ops.attention import flash_takes
 from ..parallel.mesh import (
     Mesh,
@@ -298,6 +301,11 @@ class Engine:
             self.model_name = "in-memory"
         else:
             self.device = resolve_device(device)
+            if self.device.type == "cuda":
+                # the kernel library before any weight: found (an image's
+                # baked one) or built, so a pod without it fails here and
+                # not at a request, and READY never waits on a build
+                library()
             t0 = time.time()
             gf = GGUFFile(model_path)
             self.model_name = gf.metadata.get("general.name", model_path)

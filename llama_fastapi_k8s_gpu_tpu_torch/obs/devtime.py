@@ -16,7 +16,7 @@ port has no ``jit``, so its programs and compiles are these:
   Prompt passes run eagerly and compile nothing, so ``prefill``,
   ``prefill_chunk`` and ``first_sample`` have dispatches and no compiles,
   and on the CPU (no graphs) nothing compiles at all.
-- **The kernel build** (ops/_kernels.py ``_build``) is the program
+- **The kernel build** (utils/kernelcache.py ``_build``) is the program
   ``kernel_build``: one compile event a build, its signature the sources'
   digest, its wall the build's; a library found built records none.
 - **Inner programs** (the reference's ``register_program`` sites): every

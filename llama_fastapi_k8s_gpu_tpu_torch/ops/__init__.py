@@ -18,7 +18,9 @@ launches in ``<wrapper>.launches``:
 ``torch._int_mm``, which the int8 linear calls on the card (:mod:`.linear`),
 is a library call, not a kernel of the port.
 
-Kernels are built from ``csrc/`` at first use (:mod:`._kernels`).
+The kernels' library is loaded at first use (:mod:`._kernels`): found under
+``LFKT_COMPILE_CACHE_DIR`` or the package's ``_build/``, else built from
+``csrc/`` (``utils/kernelcache.py``).
 """
 
 from ..obs.devtime import INNER, register_program

@@ -1,43 +1,25 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Load the port's CUDA kernels (``csrc/*.cu``) and bind them.
 
 The sources compile with ``nvcc`` into one shared library with a plain C
 interface, loaded with ``ctypes`` — no PyTorch headers, so a build takes
-seconds.  Each ``.cu`` file compiles in its own ``nvcc`` process, all
-started together, and one more ``nvcc`` links the objects.  The library
-lands in ``_build/<digest>/`` inside the package (git-ignored), keyed by a
-digest of the sources and flags, so an edited kernel rebuilds and an
-unchanged one loads at once.  Building happens at first use, never at
-import: the CPU test hosts have no ``nvcc``.
+seconds, not minutes.  Where the library lives, how it is found and how it
+is built is ``utils/kernelcache.py``'s: under ``LFKT_COMPILE_CACHE_DIR``
+(an image bakes it there at build time) or the package's ``_build/``, keyed
+by a digest of the sources and flags, built at first use where no library
+is found and ``nvcc`` is, never at import: the CPU test hosts have no
+``nvcc``.
 
-A build is one compile of the ``kernel_build`` program on the compile
-registry (obs/devtime.py), its signature the digest, its wall the build's;
-a library found built records none.
-
-There is no fallback.  A missing toolkit, a compile error or a refused
-launch raises; the wrappers in ``ops/`` take their plain PyTorch version
-only for tensors that live on the CPU.
+There is no fallback.  No library and no toolkit, a compile error or a
+refused launch raises; the wrappers in ``ops/`` take their plain PyTorch
+version only for tensors that live on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-import time
 
-from ..obs.devtime import ENTRY, record_compile, register_program
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(_PKG, "csrc")
-BUILD_ROOT = os.path.join(_PKG, "_build")
-
-ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              *ARCH_FLAGS]
+from ..utils import kernelcache
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,95 +45,15 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
-register_program("kernel_build", ENTRY, site="ops._kernels")
-#: wall seconds and ptxas report of the build this process loaded (its
-#: log also when another process built it)
-build_info: dict = {}
-
-
-def _sources() -> list[str]:
-    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
-                  if f.endswith(".cu"))
-
-
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(os.listdir(CSRC)):
-        if f.endswith((".cu", ".cuh")):
-            h.update(f.encode())
-            with open(os.path.join(CSRC, f), "rb") as fh:
-                h.update(fh.read())
-    return h.hexdigest()[:16]
-
-
-def nvcc_path() -> str:
-    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
-                 "/usr/local/cuda"):
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the port's CUDA "
-                           "kernels are built from csrc/ at first use")
-    return found
-
-
-def _build(out_dir: str, digest: str) -> str:
-    """Compile every source in parallel, link, return the library path."""
-    nvcc = nvcc_path()
-    t0 = time.time()
-    procs = []
-    for src in _sources():
-        obj = os.path.join(out_dir, os.path.basename(src)[:-3] + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o", obj]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs, failed = [], []
-    for src, obj, p in procs:
-        out, _ = p.communicate()
-        logs.append(f"== {os.path.basename(src)}\n{out}")
-        if p.returncode != 0:
-            failed.append(os.path.basename(src))
-    log_text = "\n".join(logs)
-    with open(os.path.join(out_dir, "build.log"), "w") as fh:
-        fh.write(log_text)
-    if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n{log_text}")
-    lib = os.path.join(out_dir, "liblfkt_kernels.so")
-    tmp = lib + f".tmp{os.getpid()}"
-    link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
-                           *(obj for _, obj, _ in procs)],
-                          capture_output=True, text=True)
-    if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
-    os.replace(tmp, lib)
-    build_info.update(seconds=time.time() - t0, log=log_text, built=True)
-    record_compile("kernel_build", digest, build_info["seconds"])
-    return lib
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if this digest has none."""
+    """The loaded kernel library, found, else built (utils/kernelcache.py)."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        digest = _digest()
-        out_dir = os.path.join(BUILD_ROOT, digest)
-        os.makedirs(out_dir, exist_ok=True)
-        path = os.path.join(out_dir, "liblfkt_kernels.so")
-        with open(os.path.join(out_dir, ".lock"), "w") as lk:
-            fcntl.flock(lk, fcntl.LOCK_EX)   # one builder per digest
-            if not os.path.exists(path):
-                _build(out_dir, digest)
-            else:
-                build_info.setdefault("built", False)
-                build_info.setdefault("seconds", 0.0)
-                log = os.path.join(out_dir, "build.log")
-                if os.path.exists(log):
-                    with open(log) as fh:
-                        build_info.setdefault("log", fh.read())
-        lib = ctypes.CDLL(path)
+        lib = ctypes.CDLL(kernelcache.library_path())
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -6,9 +6,10 @@ reads: its routes, the engines (serial and batched), the watchdog, the
 tracer, the disagg and fleet tiers.  The reference's constants (model dir and name,
 1024-token context, 25 s timeout, queue of 5) stay the defaults.
 
-The knobs that are no ``Settings`` field (the compile registry, the
-memory ledger, the incident recorder, the SLO engine, the profiler and
-``spec_decode=auto``'s cost model) are read with :func:`knob` from the
+The knobs that are no ``Settings`` field (the kernel library's
+directory, the compile registry, the memory ledger, the incident
+recorder, the SLO engine, the profiler and ``spec_decode=auto``'s cost
+model) are read with :func:`knob` from the
 :data:`KNOBS` table, with the reference's names and defaults — but for
 ``LFKT_HBM_GBPS``, whose default is the H100's bandwidth, not the v5e's.
 """
@@ -205,17 +206,24 @@ def get_settings() -> Settings:
 
 @dataclasses.dataclass(frozen=True)
 class Knob:
-    """One env knob read outside ``Settings``, with its default."""
+    """One env knob read outside ``Settings``, with its default.
+    ``serving=True`` marks a knob a deployment sets per pod (the GPU
+    chart, ``helm-gpu/``, names it), as in the reference's registry."""
 
     name: str
     cast: type
     default: object
     help: str = ""
+    serving: bool = False
 
 
-#: the ad-hoc knobs of the observability layer (the reference's
-#: utils/config.py table, its defaults)
+#: the ad-hoc knobs: the kernel library's directory and the observability
+#: layer's (the reference's utils/config.py table, its defaults)
 KNOBS: dict[str, Knob] = {k.name: k for k in (
+    Knob("LFKT_COMPILE_CACHE_DIR", str, "",
+         "where the kernel library is built and found "
+         "(utils/kernelcache.py): <dir>/lfkt-kernels/<digest>/; empty = "
+         "the package's _build/", serving=True),
     Knob("LFKT_PROFILE_DIR", str, "",
          "torch.profiler traces per generation (utils/tracing.py) and via "
          "GET /debug/profile; empty = off"),

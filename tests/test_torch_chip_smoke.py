@@ -11,6 +11,8 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
+import subprocess
 import sys
 
 import pytest
@@ -835,3 +837,114 @@ def test_fleet_sums_and_labelled_read_prometheus_text():
     assert sums == {(("reason", "remap"),): 7.0, (("reason", "drain"),): 1.0}
     assert chip_smoke.labelled(sums) == {"reason=remap": 7.0, "reason=drain": 1.0}
     assert chip_smoke.fleet_sums([a], "z_total") == {}
+
+
+# ---------------------------------------------------------------------------
+# the image phase's helpers: the toolkit scrub, the read-only copy, the
+# NEEDED reader, the page-cache reading, the write check and the build
+# child's import list
+# ---------------------------------------------------------------------------
+
+def test_scrub_toolkit_drops_every_way_to_nvcc(tmp_path):
+    with_nvcc, without = tmp_path / "cuda" / "bin", tmp_path / "usr" / "bin"
+    with_nvcc.mkdir(parents=True)
+    without.mkdir(parents=True)
+    (with_nvcc / "nvcc").write_text("#!/bin/sh\n")
+    (with_nvcc / "nvcc").chmod(0o755)
+    (without / "nvcc").write_text("not executable")
+    env = {"PATH": os.pathsep.join([str(with_nvcc), str(without), ""]),
+           "CUDA_HOME": str(tmp_path / "cuda"), "CUDA_PATH": str(tmp_path / "cuda"),
+           "HOME": "/home/x"}
+    out = chip_smoke.scrub_toolkit(env)
+    assert out == {"PATH": str(without), "HOME": "/home/x"}
+    assert env["CUDA_HOME"] and str(with_nvcc) in env["PATH"]   # the input is left alone
+
+
+def test_readonly_copy_is_the_package_without_builds_or_bytecode(tmp_path):
+    src = tmp_path / "pkg"
+    for rel in ("a.py", "csrc/k.cu", "_build/abc/lib.so", "sub/__pycache__/m.pyc", "sub/m.py"):
+        (src / rel).parent.mkdir(parents=True, exist_ok=True)
+        (src / rel).write_text(rel)
+    dst = chip_smoke.readonly_copy(str(src), str(tmp_path / "img" / "pkg"))
+    files = sorted(os.path.relpath(os.path.join(d, f), dst)
+                   for d, _, fs in os.walk(dst) for f in fs)
+    assert files == ["a.py", "csrc/k.cu", "sub/m.py"]
+    assert open(os.path.join(dst, "csrc/k.cu")).read() == "csrc/k.cu"
+    for d, dirs, fs in os.walk(dst):
+        for name in [d, *(os.path.join(d, f) for f in fs)]:
+            assert os.stat(name).st_mode & 0o222 == 0, name
+    # a second copy over the first clears it (the next run's)
+    (src / "b.py").write_text("b")
+    chip_smoke.readonly_copy(str(src), dst)
+    assert os.path.exists(os.path.join(dst, "b.py"))
+    chip_smoke.make_writable(dst)
+    assert os.stat(os.path.join(dst, "a.py")).st_mode & 0o200
+
+
+def test_tree_state_sees_a_write(tmp_path):
+    (tmp_path / "d").mkdir()
+    (tmp_path / "d" / "f").write_text("x")
+    before = chip_smoke.tree_state(str(tmp_path))
+    assert set(before) == {"d", os.path.join("d", "f")}
+    assert chip_smoke.tree_state(str(tmp_path)) == before
+    (tmp_path / "d" / "__pycache__").mkdir()
+    after = chip_smoke.tree_state(str(tmp_path))
+    assert set(after) - set(before) == {os.path.join("d", "__pycache__")}
+
+
+def _shared_objects() -> list:
+    import _ctypes
+    import sysconfig
+
+    libs = [_ctypes.__file__]
+    ldlib = sysconfig.get_config_var("LDLIBRARY") or ""
+    libdir = sysconfig.get_config_var("LIBDIR") or ""
+    if ldlib.endswith(".so") or ".so." in ldlib:
+        libs.append(os.path.join(libdir, ldlib))
+    import torch
+
+    libs += [os.path.join(os.path.dirname(torch.__file__), "lib", n)
+             for n in ("libc10.so", "libtorch_python.so")]
+    return [p for p in libs if os.path.isfile(p)]
+
+
+@pytest.mark.parametrize("index", range(3))
+def test_needed_libs_reads_what_readelf_lists(index):
+    libs = _shared_objects()
+    if index >= len(libs):
+        pytest.skip("fewer shared objects on this host")
+    needed = chip_smoke.needed_libs(libs[index])
+    assert needed and all(n.endswith(tuple(".so" + s for s in ("", ".1", ".2", ".6")))
+                          or ".so." in n for n in needed), needed
+
+
+def test_needed_libs_refuses_what_is_no_elf(tmp_path):
+    p = tmp_path / "x.so"
+    p.write_bytes(b"#!/bin/sh\n")
+    with pytest.raises(subprocess.CalledProcessError):
+        chip_smoke.needed_libs(str(p))
+
+
+def test_resident_share_and_evict(tmp_path):
+    """A file just written is all in the page cache; after :func:`evict`
+    the share is a fraction (how much the kernel drops depends on the file
+    system: tmpfs keeps every page)."""
+    p = tmp_path / "f.bin"
+    p.write_bytes(os.urandom(5 * 4096 + 17))
+    p.read_bytes()
+    assert chip_smoke.resident_share(str(p)) == 1.0
+    assert 0.0 <= chip_smoke.evict(str(p)) <= 1.0
+    assert p.read_bytes()[:1] and chip_smoke.resident_share(str(p)) == 1.0
+    empty = tmp_path / "empty"
+    empty.write_bytes(b"")
+    assert chip_smoke.resident_share(str(empty)) == 0.0
+
+
+def test_imported_modules_reads_importtime():
+    err = ("import time: self [us] | cumulative | imported package\n"
+           "import time:       120 |        120 |   _io\n"
+           "import time:        80 |       4000 | llama_fastapi_k8s_gpu_tpu_torch.utils.config\n"
+           "import time:        10 |         10 |     torch._C\n"
+           "some other line\n")
+    assert chip_smoke.imported_modules(err) == {
+        "imported package", "_io", "llama_fastapi_k8s_gpu_tpu_torch.utils.config", "torch._C"}

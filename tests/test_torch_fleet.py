@@ -27,6 +27,7 @@ import http.server
 import json
 import os
 import random
+import re
 import socket
 import subprocess
 import sys
@@ -439,26 +440,74 @@ def test_router_affinity_sticks_roundrobin_spreads():
         table2.stop()
 
 
-def test_router_ejects_spills_attributes_and_readmits():
+class _HeldTable(PeerTable):
+    """A peer table whose probe sweeps can be held: a sweep runs under
+    ``hold``, so taking it waits out a sweep under way and stops the next."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.hold = threading.Lock()
+
+    def _probe_sweep(self):
+        with self.hold:
+            super()._probe_sweep()
+
+
+def _spill_reasons(router, since: dict | None = None) -> dict:
+    """``fleet_spills_total`` by reason, as the router's /metrics renders it
+    (what grew ``since`` an earlier reading)."""
+    now = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r'^fleet_spills_total\{reason="([a-z_]+)"\} ([0-9.e+]+)$',
+        router.metrics.render(), re.M)}
+    since = since or {}
+    return {k: v - since.get(k, 0.0) for k, v in now.items() if v != since.get(k, 0.0)}
+
+
+@pytest.mark.parametrize("order", ["probe_first", "attempt_first"])
+def test_router_ejects_spills_attributes_and_readmits(order):
+    """The owner dies; the next request is served by the survivor.  Which
+    of two events ejects the owner is fixed per case: the prober, before
+    the request (one spill, ``spilled``: served off the owner), or the
+    request's own attempt with the prober held (two: ``ejected`` for the
+    failed attempt, then ``spilled``).  The router counts a spill after the
+    relayed response, so the test waits for its count before it reads, and
+    counts from a reading taken once the search for an owned conversation
+    is counted (a spill there, under load, is not this request's)."""
     p1, p2, rp = (_free_port() for _ in range(3))
     s1 = _serve_app(FakeEngine(reply="alpha"), p1)
     s2 = _serve_app(FakeEngine(reply="beta"), p2)
-    table = _table([p1, p2]).start()
+    table = _table([p1, p2], cls=_HeldTable).start()
     router = FleetRouter(table, policy="affinity", metrics=Metrics())
     rs = _serve_router(router, rp)
+    dead_addr = f"127.0.0.1:{p1}"
     try:
-        conv = next(c for c in range(64)
-                    if json.loads(_post(rp, _body(c))[1])["response"] == "alpha")
+        for n, conv in enumerate(range(64), start=1):
+            if json.loads(_post(rp, _body(conv))[1])["response"] == "alpha":
+                break
+        assert _until(lambda: router.counters["proxied"] == n, 15)
+        base, base_spills = _spill_reasons(router), router.counters["spills"]
+        if order == "attempt_first":
+            table.hold.acquire()
+            assert table.is_healthy(dead_addr)
         s1.stop()
+        if order == "probe_first":
+            assert _until(lambda: not table.is_healthy(dead_addr), 15)
         status, raw = _post(rp, _body(conv))
         assert status == 200 and json.loads(raw)["response"] == "beta"
-        assert router.counters["spills"] >= 1
-        assert 'fleet_spills_total{reason="spilled"}' in router.metrics.render()
+        want = ({"spilled": 1.0} if order == "probe_first"
+                else {"ejected": 1.0, "spilled": 1.0})
+        assert _until(lambda: _spill_reasons(router, base) == want, 15), \
+            _spill_reasons(router, base)
+        assert router.counters["spills"] - base_spills == len(want)
         doc = _get_json(rp, "/health")
         assert doc["role"] == "router" and doc["healthy"] == 1
         dead = [p for p in doc["peers"] if not p["healthy"]]
-        assert [d["addr"] for d in dead] == [f"127.0.0.1:{p1}"] and dead[0]["last_error"]
+        assert [d["addr"] for d in dead] == [dead_addr]
+        assert dead[0]["last_error"].startswith(
+            "probe" if order == "probe_first" else "proxy"), dead[0]["last_error"]
         assert _get_json(rp, "/health/ready")["ready"] is True
+        if table.hold.locked():
+            table.hold.release()
         s1b = _serve_app(FakeEngine(reply="alpha"), p1)
         try:
             assert _until(lambda: len(table.healthy()) == 2, 15)
@@ -466,6 +515,8 @@ def test_router_ejects_spills_attributes_and_readmits():
         finally:
             s1b.stop()
     finally:
+        if table.hold.locked():
+            table.hold.release()
         rs.stop()
         table.stop()
         s2.stop()
