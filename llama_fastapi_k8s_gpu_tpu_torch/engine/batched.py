@@ -97,6 +97,13 @@ class MeshEngine(Engine):
     #: the compile-registry program of this engine's lane chunk
     _LANE_PROGRAM = "batched_decode_chunk"
 
+    # the batched state joins the serial ring under the generation mutex
+    # (lfkt-lint LOCK001)
+    _GUARDED_BY = {"_bstate": "_lock"}
+    # the lane state and knobs the lane graph holds by address (lfkt-lint
+    # PIN001): reset in place, never rebound
+    _GRAPH_PINNED = ("_bstate", "_lane_st")
+
     def __init__(self, model_path: str | None, *, dp: int | None = None, tp: int = 1,
                  batch_size: int | None = None, max_top_k: int = 64, devices=None, **kw):
         if batch_size is not None and int(batch_size) < 1:
@@ -153,7 +160,7 @@ class MeshEngine(Engine):
         """The lane chunk's compile-registry program (``mesh_…`` over a mesh)."""
         return self._LANE_PROGRAM if self.mesh is None else f"mesh_{self._LANE_PROGRAM}"
 
-    def close(self) -> None:
+    def close(self) -> None:  # lfkt: blocks-under[_lock] -- close waits for the replays queued on the card before it drops the graphs' memory pool; the lock keeps a generation from replaying a graph being released
         """Release the lane graphs and the serial engine's."""
         super().close()
         with self._lock:
@@ -173,7 +180,7 @@ class MeshEngine(Engine):
         s["slots"] = [0] * self.batch_size
         self._set_knobs(SamplingParams())
 
-    def _recover_locked(self) -> None:
+    def _recover_locked(self) -> None:  # lfkt: holds[_lock]
         """The serial ring and the lane state zeroed in place."""
         super()._recover_locked()
         self._reset_lanes()
@@ -187,7 +194,7 @@ class MeshEngine(Engine):
             self._lane_st[k].fill_(v.item())
 
     # ------------------------------------------------------------------
-    def warmup(self):
+    def warmup(self):  # lfkt: blocks-under[_lock] -- warmup captures and syncs under the engine lock by design: a request must never race a half-warmed cache
         """On the card, capture the lane step (at the ``top_k`` ceiling)
         first; then a full batch of short greedy completions, one batched
         prompt pass at the largest bucket (the most activation memory a
@@ -210,7 +217,7 @@ class MeshEngine(Engine):
                     self.batch_size)
 
     # ------------------------------------------------------------------
-    def create_chat_completions(
+    def create_chat_completions(  # lfkt: blocks-under[_lock] -- the mesh engine serializes whole batches under its lock by design: drill sleeps and incident capture ride the generation path, and _set_knobs' .item() reads a host tensor, not the card
         self,
         batch_messages: Sequence[Sequence[dict]],
         *,
@@ -269,7 +276,7 @@ class MeshEngine(Engine):
         return (deadlines is not None and b < len(deadlines)
                 and deadlines[b] is not None and now > deadlines[b])
 
-    def _generate_batch(self, batch_messages, sp, max_tokens, stops, seed,
+    def _generate_batch(self, batch_messages, sp, max_tokens, stops, seed,  # lfkt: holds[_lock]
                         deadlines=None, aborts=None, traces=None):
         B = self.batch_size
         n_real = len(batch_messages)

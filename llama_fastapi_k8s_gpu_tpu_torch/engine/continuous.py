@@ -253,6 +253,30 @@ class ContinuousEngine(MeshEngine):
     #: serves spec_decode="lookup" through lane verify rounds
     _SPEC_LANES = True
 
+    # -- thread discipline (machine-checked: lfkt-lint LOCK001-004) ------------
+    # The scheduler thread OWNS the device state: unlike MeshEngine (whose
+    # callers mutate _bstate under _lock), every serving-path write to the
+    # state below happens on the lfkt-scheduler thread, so the parent's
+    # lock mapping is replaced by thread confinement.  The only
+    # cross-thread writes are in recover(), which runs strictly after the
+    # thread is proven dead (join + alive/_loop_error guards).
+    _GUARDED_BY = {
+        "_bstate": None,            # scheduler-confined here (see above)
+        "_cache": None,             # serial ring unused on the submit path
+        "_prefix_ids": None,
+        "_req_counter": "_id_lock",
+    }
+    _THREAD_ENTRIES = ("_loop",)
+    _THREAD_CONFINED = (
+        "_bstate", "_lane_st", "_scratch_cache", "_adm", "_lane_claims",
+        "_prefix_stats", "_spec_stats", "_stats", "_loop_error",
+        "_adm_budget", "_lane_idle_s", "_mem_hot_prev",
+    )
+    # cross-thread by design; individual operations are GIL-atomic
+    # (dict/Queue/Event ops) or single reference stores
+    _SHARED_ATOMIC = ("_items", "_pending", "_wake", "_stop", "_shutdown",
+                      "_thread")
+
     def __init__(self, model_path: str | None, *, prefill_chunk: int = 256, adm_budget: int = 512,
                  adm_controller: bool = True, adm_ema_alpha: float = 0.25,
                  lane_prefix_cache: bool = True, **kw):
@@ -433,7 +457,7 @@ class ContinuousEngine(MeshEngine):
             elif item.sink is not None:
                 item.sink.put(exc)
 
-    def recover(self) -> bool:
+    def recover(self) -> bool:  # lfkt: noqa[LOCK002] -- writes scheduler-confined state only after the owning thread is proven dead (join + alive/_loop_error refusal guards above each write)
         """Restart a *dead* scheduler on zeroed lane state (watchdog
         recovery).  Refuses while the loop thread is alive and unfailed (a
         wedged thread may still be using the card), after a deliberate
@@ -457,7 +481,7 @@ class ContinuousEngine(MeshEngine):
         # the fallible device work first: if it raises, _loop_error stays
         # set, the watchdog keeps seeing a dead engine and submit refuses
         with self._lock:
-            self._recover_locked()
+            self._recover_locked()  # lfkt: blocks-under[_lock] -- recovery zeroes the rings in place and drains the card under the engine lock by design: the scheduler is proven dead, and no request may race a half-recovered ring
         with torch.inference_mode():
             if self._scratch_cache is None:
                 self._scratch_cache = self._new_ring()

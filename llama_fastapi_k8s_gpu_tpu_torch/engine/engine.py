@@ -223,6 +223,21 @@ class Engine:
     #: ring)
     _ATTN_IMPL: str | None = None
 
+    # -- lock discipline (machine-checked: lfkt-lint LOCK001-004) ------------
+    # _lock is the single-generator mutex: the KV ring and its prefix
+    # claim may only change under it.  _id_lock is the tiny counter lock
+    # shared with scheduler threads (seed sequence, last-timings swap).
+    _GUARDED_BY = {
+        "_cache": "_lock",
+        "_prefix_ids": "_lock",
+        "_paged_lease": "_lock",
+        "_requests": "_id_lock",
+        "last_timings": "_id_lock",
+    }
+    # the KV ring the decode graphs read and write by address (lfkt-lint
+    # PIN001): recovery zeroes it in place, never reallocates it
+    _GRAPH_PINNED = ("_cache",)
+
     def __init__(
         self,
         model_path: str | None,
@@ -524,7 +539,7 @@ class Engine:
                 self._graphs.close()
                 self._graphs = None
 
-    def warmup(self):
+    def warmup(self):  # lfkt: blocks-under[_lock] -- warmup compiles and syncs under the engine lock by design: a request must never race a half-warmed cache
         """Build the kernels and size the allocator before the first
         request: on the card, capture the decode step for the default
         ``top_k`` (before any request can run, so nothing else uses the
@@ -549,7 +564,7 @@ class Engine:
             logits.cpu()
         logger.info("warmup done in %.1fs", time.time() - t0)
 
-    def _prefill_padded(self, ids: list, n_prompt: int, bucket: int, pspan=None):
+    def _prefill_padded(self, ids: list, n_prompt: int, bucket: int, pspan=None):  # lfkt: holds[_lock]
         """Bucket prefill, whole or sliced; returns the last real token's
         logits.  Slicing stops at the slice holding the last real token:
         later slices would only write padding that is never attended.  Each
@@ -642,7 +657,7 @@ class Engine:
         finally:
             self._lock.release()
 
-    def _recover_locked(self) -> None:
+    def _recover_locked(self) -> None:  # lfkt: holds[_lock]
         """Zero the ring in place and drop its prefix claim, with the lock
         held; under the paged pool also drop the lease and reset the pool
         (nothing resident is trustworthy after a trip).  The ring is never
@@ -724,7 +739,7 @@ class Engine:
                               deadline=deadline, abort=abort, trace=trace)
 
     # ------------------------------------------------------------------
-    def _start(self, messages, sp: SamplingParams, seed, espan=None, pre_ids=None):
+    def _start(self, messages, sp: SamplingParams, seed, espan=None, pre_ids=None):  # lfkt: holds[_lock]
         """Prefill + first token.  Returns the mutable generation context.
         ``espan`` (the traced request's ``engine`` span, or None) grows a
         ``prefill`` child covering tokenize → first sampled token.
@@ -813,13 +828,13 @@ class Engine:
                 return r
         return 0
 
-    def _drop_lease(self) -> None:
+    def _drop_lease(self) -> None:  # lfkt: holds[_lock]
         """Unpin the current request's pool pages (idempotent)."""
         if self._paged_lease is not None:
             self._kvpool.release(self._paged_lease)
             self._paged_lease = None
 
-    def _paged_reuse(self, ids: list, n_prompt: int, bucket: int, pspan=None) -> int:
+    def _paged_reuse(self, ids: list, n_prompt: int, bucket: int, pspan=None) -> int:  # lfkt: holds[_lock]
         """Radix prefix reuse: the longest cached whole-page prefix that
         fits :meth:`_prefix_reuse_len`'s constraints, page-aligned, copied
         into the ring in place and pinned for the request.  Returns the
@@ -909,7 +924,7 @@ class Engine:
         except Exception:  # noqa: BLE001 — degrade to local prefill
             logger.exception("disagg prefetch failed; serving local prefill")
 
-    def prefill_to_pages(self, ids, *, namespace: str = "", deadline=None):
+    def prefill_to_pages(self, ids, *, namespace: str = "", deadline=None):  # lfkt: blocks-under[_lock] -- the serial engine's lock IS the request serialization: prefill syncs and pool spills run under it by design
         """The prefill tier's page service (serving/disagg/prefiller.py):
         make sure the whole-page prefix of ``ids`` is committed in the local
         pool — the tier's own radix first, so a system prompt hot across
@@ -969,7 +984,7 @@ class Engine:
             finally:
                 self.heartbeat.leave()
 
-    def _finish(self, ctx) -> dict:
+    def _finish(self, ctx) -> dict:  # lfkt: holds[_lock]
         """Record the ring's new prefix claim — under the paged pool, commit
         the conversation's whole pages and unpin the lease — and the
         request's timings (on the traced request's ``engine`` span too,
@@ -1254,7 +1269,7 @@ class Engine:
                 f"CUDA context poisoned: {type(self._poisoned).__name__}: "
                 f"{self._poisoned}")
 
-    def _generate(self, messages, sp, max_tokens, stops, seed,
+    def _generate(self, messages, sp, max_tokens, stops, seed,  # lfkt: blocks-under[_lock] -- the serial engine's lock IS the request serialization: the whole generation (device syncs, drill sleeps, incident capture) runs under it by design
                   deadline=None, abort=None, trace=None) -> dict:
         # disagg decode role: one bounded remote-prefill hop before the
         # lock (the loopback page service needs it); off, this is one
@@ -1305,7 +1320,7 @@ class Engine:
             },
         }
 
-    def _generate_stream(self, messages, sp, max_tokens, stops, seed,
+    def _generate_stream(self, messages, sp, max_tokens, stops, seed,  # lfkt: blocks-under[_lock] -- the serial engine's lock IS the request serialization: the whole generation (device syncs, drill sleeps, incident capture) runs under it by design
                          deadline=None, abort=None, trace=None) -> Iterator[dict]:
         # the same pre-lock remote-prefill hop as _generate
         pre_ids = None

@@ -49,6 +49,16 @@ class Watchdog:
     The trip and recovery bookkeeping belongs to the watchdog's thread
     (:meth:`check` and :meth:`handle_trip` are public for tests)."""
 
+    # -- thread discipline (lfkt-lint LOCK002) ------------------------------
+    # the trip/recovery bookkeeping is watchdog-thread-confined: check()/
+    # handle_trip() are public for tests and the drill, but a live serving
+    # process drives them only from _loop.  _stop is a threading.Event
+    # (atomic by design) shared with stop().
+    _THREAD_ENTRIES = ("_loop",)
+    _THREAD_CONFINED = ("trips", "recoveries", "trips_window",
+                        "_last_trip_at", "last_trip_reason")
+    _SHARED_ATOMIC = ("_stop",)
+
     def __init__(self, engine, health, metrics=None, *,
                  stall_seconds: float = 30.0,
                  poll_seconds: float = 1.0,

@@ -33,7 +33,8 @@ import torch
 
 from ..obs.devtime import ENTRY, record_compile, register_program
 from ..parallel.mesh import ring_device, ring_n_ctx
-from ..sampling.sample import PENALTY_WINDOW, SamplingParams, sample_chain, seed_window
+from ..sampling.sample import (PENALTY_WINDOW, SamplingParams, sample_chain, sampling_tensors,
+                               seed_window)
 from . import llama
 from .config import ModelConfig
 from .llama import forward
@@ -339,6 +340,11 @@ class DecodeGraphs:
 
     There is no eager fallback: a failed capture or replay raises."""
 
+    # -- buffers the graphs hold by address (lfkt-lint PIN001-002): the
+    # state over the engine's ring, the sampling knobs, and the verify
+    # step's static draft and output; refilled in place, never rebound
+    _GRAPH_PINNED = ("_state", "_st", "_draft", "_vout")
+
     def __init__(self, params, cfg: ModelConfig, cache: dict, draft_len: int = 0,
                  program: str = "decode_chunk"):
         device = ring_device(cache)
@@ -350,7 +356,8 @@ class DecodeGraphs:
         self._state = init_state(cache, [], 0, device)
         self._state["graphs"] = self
         self.gen = self._state["gen"]
-        self._st = None
+        #: the sampling knobs, the defaults until :meth:`knobs` refills them
+        self._st = sampling_tensors(SamplingParams(), device)
         #: top_k → (graph, each counter's increment a replay)
         self._graphs: collections.OrderedDict = collections.OrderedDict()
         self._pool = torch.cuda.graph_pool_handle()
@@ -382,11 +389,8 @@ class DecodeGraphs:
     def knobs(self, st: dict) -> dict:
         """The graphs' sampling knobs, refilled from ``st``
         (``sampling_tensors``)."""
-        if self._st is None:
-            self._st = {k: v.clone() for k, v in st.items()}
-        else:
-            for k, v in st.items():
-                self._st[k].copy_(v)
+        for k, v in st.items():
+            self._st[k].copy_(v)
         return self._st
 
     @torch.inference_mode()
@@ -410,10 +414,6 @@ class DecodeGraphs:
         held; returns the seconds taken (0 when held)."""
         if top_k in self._graphs:
             return 0.0
-        if self._st is None:
-            from ..sampling.sample import sampling_tensors
-
-            self.knobs(sampling_tensors(SamplingParams(), self.gen.device))
         t0 = time.time()
         self._graphs[top_k] = capture_step(
             lambda: decode_step(self.params, self.cfg, self._state, self._st, top_k),
@@ -442,13 +442,8 @@ class DecodeGraphs:
         held)."""
         if not self.draft_len:
             raise ValueError("DecodeGraphs: built without a draft length (draft_len=0)")
-        device = self.gen.device
         if top_k in self._verify:
             return 0.0
-        if self._st is None:
-            from ..sampling.sample import sampling_tensors
-
-            self.knobs(sampling_tensors(SamplingParams(), device))
         t0 = time.time()
         self._verify[top_k] = capture_step(lambda: self._verify_step(top_k), self._state,
                                            [self.gen], self._stream, self._pool)

@@ -82,6 +82,13 @@ class DevtimeRegistry:
     ``/metrics``, ``/debug/compiles``, ``/debug/slo`` and the incident
     recorder."""
 
+    # every mutable table goes through one mutex (lfkt-lint LOCK001);
+    # _armed is the single hot-path bool, read without the lock by design
+    _GUARDED_BY = {"_programs": "_lock", "_events": "_lock",
+                   "_seq": "_lock", "storms_total": "_lock",
+                   "events_dropped": "_lock", "_floor": "_lock"}
+    _SHARED_ATOMIC = ("_armed", "budget")
+
     def __init__(self, armed: bool | None = None, budget: int | None = None):
         if armed is None or budget is None:
             from ..utils.config import knob
@@ -128,7 +135,7 @@ class DevtimeRegistry:
             self._floor = self._seq
 
     # -- registration ------------------------------------------------------
-    def _program(self, name: str, kind: str, site: str | None) -> _Program:
+    def _program(self, name: str, kind: str, site: str | None) -> _Program:  # lfkt: holds[_lock]
         p = self._programs.get(name)
         if p is None:
             p = self._programs[name] = _Program(name, kind, site)
@@ -161,7 +168,7 @@ class DevtimeRegistry:
         with self._lock:
             self._program(name, ENTRY, None).dispatches += n
 
-    def record_compile(self, name: str, signature: str, wall_s: float) -> None:
+    def record_compile(self, name: str, signature: str, wall_s: float) -> None:  # lfkt: noqa[GRAPH001] -- reached from captured code only through the kernel build's compile event, i.e. the kernel library's first load: capture_step's eager warm-up step runs the captured callable first, so a capture finds the library cached (ops/_kernels.library) and never reaches this
         """Record one compile event.  A signature past the budget flags a
         storm; its log line and trace fan-in run outside the lock."""
         storm = None

@@ -368,6 +368,12 @@ class FleetMetricsView:
     # sides swap or read whole dicts, so a reader sees the old merge or
     # the new one, never a torn one
 
+    # snapshot updates come from whichever thread serves the scrape;
+    # reads may race — both sides swap/read whole dicts (lfkt-lint
+    # LOCK001: attribute swap is atomic, readers see old or new, never
+    # a torn merge)
+    _SHARED_ATOMIC = ("_snap", "gauges")
+
     def __init__(self):
         self._snap: dict = {}
         self.gauges: dict = {}

@@ -93,6 +93,14 @@ class FlightRecorder:
     # the debounce table and the counters go through one mutex.  ``armed``
     # is the one hot-path read, by design.
 
+    # record() runs on watchdog / engine / event-loop threads; the seq,
+    # debounce table and counters go through one mutex.  ``armed`` is the
+    # single hot-path read, by design.
+    _GUARDED_BY = {"_seq": "_lock", "_last_at": "_lock",
+                   "recorded_total": "_lock", "debounced_total": "_lock"}
+    _SHARED_ATOMIC = ("armed", "_dir", "_ring_size", "_debounce_s",
+                      "_swept")
+
     def __init__(self, directory: str | None = None, ring: int | None = None,
                  debounce_s: float | None = None,
                  log_lines: int | None = None):

@@ -73,6 +73,14 @@ def _live_tensor_bytes() -> int:
 class MemLedger:
     """The process-wide ledger (module instance: :data:`MEMLEDGER`)."""
 
+    # the entry table is appended at construction time and pruned at
+    # snapshot time from scrape threads: one mutex (lfkt-lint LOCK001).
+    # _armed / pressure_fraction / the stats latch are single-word
+    # hot-path reads by design.
+    _GUARDED_BY = {"_entries": "_lock"}
+    _SHARED_ATOMIC = ("_armed", "pressure_fraction", "_no_device_stats",
+                      "last_headroom", "stats_fn")
+
     def __init__(self, armed: bool | None = None,
                  pressure_fraction: float | None = None):
         if armed is None or pressure_fraction is None:

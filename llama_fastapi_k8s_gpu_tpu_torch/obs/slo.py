@@ -121,6 +121,14 @@ class SLOEngine:
     # incident-record worker (a racing rollback costs at most one extra
     # record attempt, which the recorder's debounce absorbs)
 
+    # snapshots are appended by whichever thread scrapes/evaluates;
+    # /debug/slo may race a /metrics render (lfkt-lint LOCK001).  The
+    # breach-episode latch is a single bool shared with the short-lived
+    # incident-record worker; a racing rollback costs at most one extra
+    # record attempt, which the recorder's per-kind debounce absorbs.
+    _GUARDED_BY = {"_snaps": "_lock"}
+    _SHARED_ATOMIC = ("_breach_recorded",)
+
     def __init__(self, metrics, windows=None, thresholds: dict | None = None,
                  devtime=None, scope: str = "pod"):
         from ..utils.config import knob
@@ -159,7 +167,7 @@ class SLOEngine:
     def _window_label(w: float) -> str:
         return f"{int(w)}s"
 
-    def _baseline(self, now: float,
+    def _baseline(self, now: float,  # lfkt: holds[_lock]
                   window: float) -> tuple[float, dict]:  # lfkt: holds[_lock]
         """The snapshot at the window's start: the newest one at least
         ``window`` old, else the oldest available (young process: the

@@ -235,6 +235,15 @@ class Tracer:
     # health threads; /debug reads on the loop — all table access is
     # lock-guarded.  _armed is a single bool read on the hot path.
 
+    # start/finish run on the event loop; annotate_inflight on watchdog/
+    # health threads; /debug reads on the loop — all table access is
+    # lock-guarded (lfkt-lint LOCK001).  _armed is a single bool read on
+    # the hot path (GIL-atomic by design).
+    _GUARDED_BY = {"_ring": "_lock", "_inflight": "_lock",
+                   "_count": "_lock", "started_total": "_lock",
+                   "sampled_out_total": "_lock"}
+    _SHARED_ATOMIC = ("_armed",)
+
     def __init__(self, sample: float | None = None, ring: int | None = None):
         if sample is None or ring is None:
             from ..utils.config import get_settings

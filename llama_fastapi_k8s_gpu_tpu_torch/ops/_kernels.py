@@ -47,7 +47,7 @@ _lock = threading.Lock()
 _lib = None
 
 
-def library() -> ctypes.CDLL:
+def library() -> ctypes.CDLL:  # lfkt: blocks-under[_lock] -- one-time lazy library find/build and dlopen: concurrent callers must block until the handle exists, then every call is a cached read  # lfkt: noqa[GRAPH002] -- _lib is set once, at the first load, which capture_step's eager warm-up step runs before the capture; a capture only reads it
     """The loaded kernel library, found, else built (utils/kernelcache.py)."""
     global _lib
     with _lock:

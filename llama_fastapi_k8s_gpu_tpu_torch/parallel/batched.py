@@ -263,6 +263,15 @@ class LaneGraphs:
     compile registry, signature ``top_k=<k>``.  There is no eager
     fallback."""
 
+    # -- buffers the graph holds by address (lfkt-lint PIN001-002): the lane
+    # state, the per-lane knobs, and the verify round's static drafts and
+    # output; refilled in place, never rebound
+    _GRAPH_PINNED = ("_state", "_st", "_drafts", "_vout")
+    # the graphs and their memory pool: set by a capture and dropped by
+    # close(), both on the owning engine's discipline (its lock, or its
+    # scheduler thread) — single reference stores
+    _SHARED_ATOMIC = ("_graph", "_verify", "_pool")
+
     def __init__(self, params, cfg, batch: int, device, top_k: int = 64,
                  program: str = "lane_decode_chunk", draft_len: int = 0, mesh=None):
         device = torch.device(device)

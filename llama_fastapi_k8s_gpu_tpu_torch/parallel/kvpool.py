@@ -194,6 +194,22 @@ class KVPool:
     shared pool (the multi-model registry's) outlives a removed owner,
     whose weights must not stay alive through it."""
 
+    # -- lock discipline (machine-checked: lfkt-lint LOCK001-004) ----------
+    # one mutex guards every mutable: tree, free list, refcounts, arena
+    # reference, counters.  Device copies dispatch under the lock (they
+    # are async enqueues); callers on any thread.
+    _GUARDED_BY = {
+        "arena": "_lock",
+        "_free": "_lock",
+        "_page_refs": "_lock",
+        "_roots": "_lock",
+        "_clock": "_lock",
+        "_spill_used": "_lock",
+        "_busy": "_lock",
+        "counters": "_lock",
+        "_ns_pages": "_lock",
+    }
+
     def __init__(self, cfg: ModelConfig, page_tokens: int = 128, n_pages: int = 0,
                  spill_pages: int = 0, sink_host=None,
                  device: str | torch.device | None = None):
@@ -253,7 +269,7 @@ class KVPool:
         """The default namespace's radix root (white-box tests)."""
         root = self._roots.get("")
         if root is None:
-            root = self._roots.setdefault("", _Node([], [], None, ""))
+            root = self._roots.setdefault("", _Node([], [], None, ""))  # lfkt: noqa[LOCK001] -- GIL-atomic setdefault (a losing racer's node is discarded); taking _lock here would deadlock the white-box callers that already hold it
         return root
 
     # -- telemetry (never fails serving) -----------------------------------
@@ -302,7 +318,7 @@ class KVPool:
             self.counters["misses"] += 1
         self._emit("inc", "prefix_cache_misses_total")
 
-    def acquire(self, ids, tokens: int, span=None, *, namespace: str = "") -> _Lease | None:
+    def acquire(self, ids, tokens: int, span=None, *, namespace: str = "") -> _Lease | None:  # lfkt: blocks-under[_lock] -- spill-tier restore/evict moves pages device<->host: the radix+refcount walk and the copy must be atomic (bounded by page-group size)
         """Pin the pages covering ``ids[:tokens]`` (``tokens`` a multiple of
         the page size, at most :meth:`match_len`).  Spilled pages on the path
         are uploaded into freshly allocated arena slots first; if that cannot
@@ -373,7 +389,7 @@ class KVPool:
                        host_s=round(time.time() - t0, 6))
         return ring
 
-    def export_pages(self, lease: _Lease) -> list:
+    def export_pages(self, lease: _Lease) -> list:  # lfkt: blocks-under[_lock] -- the export gather is a synchronous DMA exactly like the spill path's; the pin+copy must be atomic against eviction
         """Host copies of the lease's pages, one stack a ring leaf in sorted
         leaf order (leading axis = page, in lease order): the unit a peer's
         :meth:`import_pages` takes.  The lease pins the pages, so the copy
@@ -383,7 +399,7 @@ class KVPool:
             self.counters["exported_pages"] += len(lease.page_ids)
         return [host[name] for name in self.arena]
 
-    def import_pages(self, ids, leaves, *, namespace: str = "", span=None) -> int:
+    def import_pages(self, ids, leaves, *, namespace: str = "", span=None) -> int:  # lfkt: blocks-under[_lock] -- wire-page upload indexes into the radix as it copies: the index+arena move must be atomic (bounded by page-group size)
         """Index externally produced pages: the whole-page prefix of ``ids``
         arrives as host page stacks (one per ring leaf in sorted leaf order,
         leading axis = page, :meth:`export_pages`'s layout).  Pages already
@@ -592,13 +608,13 @@ class KVPool:
         T = self.page_tokens
         return [tuple(ids[i * T:(i + 1) * T]) for i in range(len(ids) // T)]
 
-    def _root_for(self, ns: str) -> _Node:
+    def _root_for(self, ns: str) -> _Node:  # lfkt: holds[_lock]
         root = self._roots.get(ns)
         if root is None:
             root = self._roots[ns] = _Node([], [], None, ns)
         return root
 
-    def _match(self, ids: list, ns: str = ""):
+    def _match(self, ids: list, ns: str = ""):  # lfkt: holds[_lock]
         """Greedy page-wise walk of ``ns``'s tree: (matched_pages, path),
         path = [(node, pages matched in it), ...] root first."""
         want = self._pages_of(ids)
@@ -621,14 +637,14 @@ class KVPool:
             node = child
         return i, path
 
-    def _unref(self, pid: int) -> None:
+    def _unref(self, pid: int) -> None:  # lfkt: holds[_lock]
         left = self._page_refs.get(pid, 0) - 1
         if left > 0:
             self._page_refs[pid] = left
         else:
             self._page_refs.pop(pid, None)
 
-    def _restore_node(self, node: _Node, span=None) -> bool:
+    def _restore_node(self, node: _Node, span=None) -> bool:  # lfkt: holds[_lock]
         """Bring a spilled node's pages back into the arena (allocating,
         which may evict).  False when the allocation cannot be had or the
         upload fails — the caller degrades to a miss."""
@@ -655,7 +671,7 @@ class KVPool:
                        host_s=round(time.time() - t0, 6))
         return True
 
-    def _commit_impl(self, ids: list, ring=None, bcache=None, lane=None, span=None,
+    def _commit_impl(self, ids: list, ring=None, bcache=None, lane=None, span=None,  # lfkt: blocks-under[_lock] -- commit indexes the tail into the radix as it stores: spill-tier evictions on the alloc path are part of the atomic move
                      namespace: str = "") -> int:
         with self._lock:
             if len(ids) < self.page_tokens:
@@ -671,7 +687,7 @@ class KVPool:
 
             return self._index_tail(ids, namespace, span, store)[1]
 
-    def _index_tail(self, ids: list, namespace: str, span, store) -> tuple:
+    def _index_tail(self, ids: list, namespace: str, span, store) -> tuple:  # lfkt: holds[_lock]
         """The index-attach skeleton of :meth:`commit`, :meth:`commit_lane`
         and :meth:`import_pages`: match and LRU-touch, busy-pin the match
         path, allocate the tail (halving on failure), split or attach, run
@@ -722,7 +738,7 @@ class KVPool:
         self.counters["stored_pages"] += len(tail)
         return matched, len(tail)
 
-    def _split(self, node: _Node, at: int) -> _Node:
+    def _split(self, node: _Node, at: int) -> _Node:  # lfkt: holds[_lock]
         """Split ``node``'s edge after ``at`` pages; returns the new upper
         node."""
         upper = _Node(node.edge[:at], node.pages[:at] if node.pages is not None else None,
@@ -739,7 +755,7 @@ class KVPool:
         node.parent = upper
         return upper
 
-    def _nodes(self) -> list:
+    def _nodes(self) -> list:  # lfkt: holds[_lock]
         """Every node across every namespace (one LRU clock pool-wide)."""
         out = []
         stack = [c for root in self._roots.values() for c in root.children.values()]
@@ -749,21 +765,21 @@ class KVPool:
             out.append(n)
         return out
 
-    def _evictable(self) -> list:
+    def _evictable(self) -> list:  # lfkt: holds[_lock]
         """Non-busy device-resident nodes with every page unpinned."""
         return [n for n in self._nodes()
                 if n.pages is not None and id(n) not in self._busy
                 and not any(p in self._page_refs for p in n.pages)]
 
-    def _spilled_leaves(self) -> list:
+    def _spilled_leaves(self) -> list:  # lfkt: holds[_lock]
         return [n for n in self._nodes()
                 if n.pages is None and not n.children and id(n) not in self._busy]
 
-    def _unlink(self, node: _Node) -> None:
+    def _unlink(self, node: _Node) -> None:  # lfkt: holds[_lock]
         node.parent.children.pop(node.edge[0], None)
         node.parent = None
 
-    def _evict_one(self, span=None) -> bool:
+    def _evict_one(self, span=None) -> bool:  # lfkt: holds[_lock]
         """Evict one node, LRU first: spill its pages to the host when the
         tier has room (aging out the LRU spilled leaf when it does not, but
         only when aging can make the victim fit), otherwise drop it —
@@ -811,7 +827,7 @@ class KVPool:
             return True
         return False
 
-    def _alloc(self, n: int, span=None):
+    def _alloc(self, n: int, span=None):  # lfkt: holds[_lock]
         """``n`` free page ids, evicting LRU unpinned nodes as needed; None
         when the demand cannot be met (pinned solid)."""
         if n > self.n_pages:

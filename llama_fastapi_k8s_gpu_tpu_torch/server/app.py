@@ -224,10 +224,10 @@ def create_app(engine=None, settings: Settings | None = None,
                 if rd["future"].cancelled():
                     logger.info("Future was cancelled before processing; skipping.")
                 elif "stream_queue" in rd:
-                    await app.state.inflight.acquire()   # released by _stream_task
+                    await app.state.inflight.acquire()  # lfkt: transfers[inflight] -- permit released in _stream_task's finally
                     _spawn(_stream_task(rd))
                 else:
-                    await app.state.inflight.acquire()   # released by _forward_to_scheduler
+                    await app.state.inflight.acquire()  # lfkt: transfers[inflight] -- permit released in _forward_to_scheduler's finally
                     _spawn(_forward_to_scheduler(rd))
                 queue.task_done()
                 continue
@@ -497,8 +497,9 @@ def create_app(engine=None, settings: Settings | None = None,
                 messages = _messages(rd)
                 t0 = time.time()
                 engine = app.state.engine
-                engine_fut = engine.submit(messages, **_gen_kwargs(rd), **_model_kw(rd),
-                                           deadline=rd["deadline"], trace=rd["trace"])
+                engine_fut = engine.submit(  # lfkt: transfers[engine_fut] -- the scheduler owns the lane: it resolves/reclaims the future via its _items registry even when a failure here skips the await
+                    messages, **_gen_kwargs(rd), **_model_kw(rd),
+                    deadline=rd["deadline"], trace=rd["trace"])
                 rd["future"].add_done_callback(
                     lambda f: engine.abandon(engine_fut) if f.cancelled() else None)
                 answer = await asyncio.wrap_future(engine_fut)
@@ -620,12 +621,14 @@ def create_app(engine=None, settings: Settings | None = None,
                                      fleet=_replica_fleet_context)
         # disaggregated prefill/decode: arm the page service and/or the
         # remote-prefill client; a misconfiguration (no paged pool, a
-        # registry, a decode role without a peer) refuses startup loudly
+        # registry, a decode role without a peer) refuses startup loudly.
+        # On a worker thread: a refusal stops the page service it started,
+        # which joins its accept thread — never on the event loop
         if settings.disagg_role != "off":
-            from ..serving.disagg import build_roles
+            from ..serving import disagg
 
-            app.state.disagg = build_roles(
-                settings.disagg_role, engine, settings,
+            app.state.disagg = await asyncio.to_thread(
+                disagg.build_roles, settings.disagg_role, engine, settings,
                 metrics=app.state.metrics, health=app.state.health)
         # warm-page migration: the page service and the pull client, then the
         # scale-out warm-up BEFORE the READY flip, bounded by the drain

@@ -393,7 +393,7 @@ async def serve(app, host: str = "0.0.0.0", port: int = 8000,
                 pushed = await asyncio.wait_for(
                     asyncio.to_thread(migration.drain_push),
                     migration.drain_budget + 1.0)
-                logger.info("httpd drain: migrated %d conversation(s) to "
+                logger.info("httpd drain: migrated %d conversation(s) to "  # lfkt: sanitizes[http-request] -- pushed is drain_push's integer count of conversations handed off; no request bytes reach this record
                             "successor peers", pushed)
             except asyncio.TimeoutError:
                 logger.warning("httpd drain: KV page push overran its "

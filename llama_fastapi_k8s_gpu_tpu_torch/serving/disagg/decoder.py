@@ -56,6 +56,14 @@ class DisaggClient:
     # requests would interleave frames); counters/last_error cross between
     # requesting threads and /health readers under _lock.
 
+    # hops are serialized by _hop_lock (one framed connection: interleaved
+    # requests would interleave frames); counters/last_error cross between
+    # requesting threads and /health readers under _lock.
+    _GUARDED_BY = {"counters": "_lock", "last_error": "_lock",
+                   "_degraded": "_lock"}
+    _SHARED_ATOMIC = ("_conn", "_refused", "_next_retry", "_backoff",
+                      "metrics", "_closed")
+
     def __init__(self, peer: str, pool, timeout_s: float = 5.0,
                  metrics=None, health=None):
         host, _, port = str(peer).rpartition(":")
@@ -151,7 +159,7 @@ class DisaggClient:
                 return 0
             t0 = time.time()
             fresh_dial = self._conn is None
-            conn = self._ensure_conn(budget)
+            conn = self._ensure_conn(budget)  # lfkt: blocks-under[_hop_lock] -- hops serialize on one framed connection: the hop lock IS that serialization, and every wire op is budget-bounded
             if conn is None:
                 if self._refused is None:
                     self._fallback("peer_unreachable",
@@ -169,7 +177,7 @@ class DisaggClient:
                 # wire schema 2: the REQ carries the caller's span context
                 # (None when sampled out) so the prefill tier's span tree
                 # links under the originating request's trace id
-                conn.send_frame(wire.FRAME_REQ, {
+                conn.send_frame(wire.FRAME_REQ, {  # lfkt: blocks-under[_hop_lock] -- hops serialize on one framed connection: the hop lock IS that serialization, and every wire op is budget-bounded
                     "rid": rid, "namespace": namespace,
                     "ids": [int(t) for t in ids], "deadline": deadline,
                     "trace": span_traceparent(span)})
@@ -181,7 +189,7 @@ class DisaggClient:
                     if remaining <= 0:
                         raise socket.timeout("disagg hop budget exhausted")
                     conn.settimeout(remaining)
-                    ftype, hdr, payload = conn.recv_frame()
+                    ftype, hdr, payload = conn.recv_frame()  # lfkt: blocks-under[_hop_lock] -- hops serialize on one framed connection: the hop lock IS that serialization, and every wire op is budget-bounded
                     if hdr.get("rid") not in (rid, None):
                         raise wire.WireError(
                             f"frame for rid {hdr.get('rid')} inside "

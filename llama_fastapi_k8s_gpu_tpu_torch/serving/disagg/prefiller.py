@@ -49,6 +49,13 @@ class PrefillServer:
     # counters cross threads under one mutex.  The listener/stop flag are
     # written once at construction/stop (reference stores).
 
+    # accept loop + one handler thread per peer; the sender registry and
+    # counters cross threads under one mutex.  The listener/stop flag are
+    # written once at construction/stop (reference stores).
+    _GUARDED_BY = {"_senders": "_lock", "counters": "_lock"}
+    _THREAD_ENTRIES = ("_accept_loop", "_serve_conn")
+    _SHARED_ATOMIC = ("_stop", "_sock", "port", "metrics", "_tracer")
+
     def __init__(self, engine, host: str = "0.0.0.0", port: int = 0,
                  queue_frames: int = 32, metrics=None, tracer=None):
         pool = getattr(engine, "_kvpool", None)

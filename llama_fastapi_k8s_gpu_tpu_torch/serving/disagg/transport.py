@@ -125,6 +125,13 @@ class FrameSender:
     # byte counter and the latched error cross between them under _lock.
     # The queue itself is the stdlib's (internally locked).
 
+    # put() runs on the handler thread, _loop on the sender thread; the
+    # byte counter and the latched error cross between them under _lock.
+    # The queue itself is the stdlib's (internally locked).
+    _GUARDED_BY = {"_buffered": "_lock", "_error": "_lock"}
+    _THREAD_ENTRIES = ("_loop",)
+    _SHARED_ATOMIC = ("_q", "_closed")
+
     def __init__(self, conn: FrameConn, max_frames: int = 32):
         self._conn = conn
         self._q: queue_mod.Queue = queue_mod.Queue(

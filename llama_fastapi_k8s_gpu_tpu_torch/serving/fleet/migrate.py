@@ -94,6 +94,13 @@ class MigrationServer:
     # counters cross threads under one mutex.  The listener/stop flag are
     # written once at construction/stop (reference stores).
 
+    # accept loop + one handler thread per peer; the sender registry and
+    # counters cross threads under one mutex.  The listener/stop flag are
+    # written once at construction/stop (reference stores).
+    _GUARDED_BY = {"_senders": "_lock", "counters": "_lock"}
+    _THREAD_ENTRIES = ("_accept_loop", "_serve_conn")
+    _SHARED_ATOMIC = ("_stop", "_sock", "port", "metrics", "_tracer")
+
     def __init__(self, pool, host: str = "0.0.0.0", port: int = 0,
                  queue_frames: int = 32, metrics=None, tracer=None):
         self._pool = pool
@@ -362,6 +369,15 @@ class MigrationManager:
     # counters.  Pull hops use a FRESH connection each (no shared conn
     # state).
 
+    # request-handler threads pull concurrently while the drain/warm-up
+    # paths read the record map; one mutex guards the shared dicts and
+    # counters.  Pull hops use a FRESH connection each (no shared conn
+    # state), so no hop lock exists to rank against.
+    _GUARDED_BY = {"_records": "_lock", "_wire_cache": "_lock",
+                   "counters": "_lock", "last_error": "_lock",
+                   "_last_key_digest": "_lock"}
+    _SHARED_ATOMIC = ("metrics", "_closed")
+
     def __init__(self, pool, settings, metrics=None, health=None,
                  server: MigrationServer | None = None):
         self._pool = pool
@@ -501,7 +517,7 @@ class MigrationManager:
         finally:
             conn.close()
 
-    def _resolve_wire(self, http_addr: str, budget: float) -> str | None:
+    def _resolve_wire(self, http_addr: str, budget: float) -> str | None:  # lfkt: sanitizes[peer-http] -- http_addr comes from the admitted PeerTable (or the router's commanded drain), so the /health doc it fetches is as trusted as the peer set itself; the addr:port shape check below bounds what a misbehaving peer can redirect a pull to
         """A peer's page-service wire addr, via its /health ``migration``
         block (cached; ephemeral ports make this discovery, not config).
         ``http_addr`` is a router stamp or a commanded drain, so the

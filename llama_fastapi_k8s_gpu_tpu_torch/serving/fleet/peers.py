@@ -67,8 +67,12 @@ class _Peer:
 class PeerTable:
     """Thread-safe replica set + prober (see module docstring)."""
 
-    # _peers is guarded by _lock; on_eject is written once at router
-    # construction and read by the prober thread and the event loop
+    # -- lock discipline (lfkt-lint LOCK001-004) ---------------------------
+    _GUARDED_BY = {"_peers": "_lock"}
+    _THREAD_ENTRIES = ("_probe_loop",)
+    # on_eject is written once at router construction, read by the
+    # prober thread and the event loop — a single reference swap
+    _SHARED_ATOMIC = ("on_eject",)
 
     def __init__(self, peers: list[str] | None = None, dns: str = "",
                  probe_seconds: float = 2.0, backoff_seconds: float = 1.0,

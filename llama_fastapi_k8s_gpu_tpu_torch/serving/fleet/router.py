@@ -473,7 +473,7 @@ class FleetRouter:
         extra = "".join(f"{k}: {sanitize_text(v, limit=256)}\r\n"
                         for k, v in (extra_headers or {}).items())
         writer.write(
-            f"HTTP/1.1 {status} {reason}\r\n"
+            f"HTTP/1.1 {status} {reason}\r\n"  # lfkt: sanitizes[http-request,wire-frame] -- the only request-derived value here is extra (x-request-id and friends), and every extra_headers value passes sanitize_text in the join above; status/reason/ctype/len are internal
             f"content-type: {ctype}\r\n"
             f"content-length: {len(body)}\r\n"
             f"{extra}"
@@ -553,7 +553,7 @@ class FleetRouter:
         def build_head(addr: str, span=None) -> bytes:
             # method/target are readline-framed: no LF survives the
             # request-line parse, so neither can splice a header
-            fwd = [f"{method} {target} HTTP/1.1\r\n".encode()]
+            fwd = [f"{method} {target} HTTP/1.1\r\n".encode()]  # lfkt: sanitizes[http-request] -- method/target are readline-framed: no LF can survive request-line parsing, so they cannot splice a header
             fwd.extend(base)
             fwd.append(f"host: {addr}\r\n".encode())
             if body or method in ("POST", "PUT", "PATCH"):

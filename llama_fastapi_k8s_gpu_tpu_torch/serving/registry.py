@@ -101,6 +101,17 @@ class ModelRegistry:
     # whole reload operations (loads run outside _lock — a multi-GB load
     # must not stall resolve())
 
+    # -- lock discipline (lfkt-lint LOCK001-004): one mutex guards the
+    # routing dict, the descriptor rows and the in-flight counters; the
+    # separate _reload_lock serializes whole reload operations (loads
+    # run OUTSIDE _lock — a multi-GB load must not stall resolve())
+    _GUARDED_BY = {
+        "_engines": "_lock",
+        "_model_info": "_lock",
+        "_inflight": "_lock",
+        "_specs": "_lock",
+    }
+
     def __init__(self, engines: dict[str, object], default_model: str,
                  model_info: list[dict] | None = None):
         if not engines:
@@ -238,7 +249,7 @@ class ModelRegistry:
             for e in engines.values():
                 _release(e)
             raise
-        logger.info(
+        logger.info(  # lfkt: sanitizes[manifest] -- used is an integer byte counter (getsize/_describe sums); the only manifest string here is default_model, sanitized below
             "model registry: %d models, %.0fMB weights%s (default=%s)",
             len(engines), used / 1e6,
             f" of {weight_budget_bytes / 1e6:.0f}MB budget"
@@ -396,7 +407,7 @@ class ModelRegistry:
                 if r["name"] == name:
                     r["state"] = state
 
-    def reload_manifest(self, manifest: str, default_model: str = "", *,
+    def reload_manifest(self, manifest: str, default_model: str = "", *,  # lfkt: blocks-under[_reload_lock] -- reloads serialize whole-operation by design; the routing lock (_lock) is never held across loads, so resolve() stays hot
                         drain_seconds: float = 30.0) -> dict:
         """Diff a new ``LFKT_MODELS`` manifest against the running set and
         converge to it WITHOUT a pod restart (``POST /admin/models/reload``

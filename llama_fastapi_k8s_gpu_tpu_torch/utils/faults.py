@@ -77,6 +77,11 @@ class _Fault:
 class FaultInjector:
     """Holds armed faults; the engine calls :meth:`fire` at its points."""
 
+    # arm/disarm (test threads) race fire (engine threads): the table is
+    # written under _lock; fire's first read is a deliberate lock-free
+    # dict probe (disarmed is the hot path) — reads aren't write-checked
+    _GUARDED_BY = {"_by_point": "_lock"}
+
     def __init__(self):
         self._lock = threading.Lock()
         self._by_point: dict[str, _Fault] = {}

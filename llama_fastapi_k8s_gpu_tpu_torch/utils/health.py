@@ -60,6 +60,14 @@ class Heartbeat:
     no beat for N seconds" is the stall signal that catches a wedged decode
     loop and a hung device call alike."""
 
+    # every field is written by engine threads and read by the watchdog
+    # thread: all access goes through _lock (lfkt-lint LOCK001)
+    _GUARDED_BY = {
+        "_last_beat": "_lock", "_busy": "_lock", "_errors": "_lock",
+        "beats_total": "_lock", "errors_total": "_lock",
+        "last_error": "_lock",
+    }
+
     def __init__(self, error_keep: int = 32):
         self._lock = threading.Lock()
         self._last_beat = time.monotonic()
@@ -139,6 +147,13 @@ class HealthMonitor:
     """Thread-safe pod health state machine with reason codes and a
     bounded transition log.  DEAD is terminal, and DRAINING yields only to
     DEAD: a draining pod never re-advertises readiness."""
+
+    # probe handlers, the watchdog and SIGTERM handling all race on the
+    # state: every read/write goes through _lock (lfkt-lint LOCK001)
+    _GUARDED_BY = {
+        "_state": "_lock", "_reason": "_lock", "_since": "_lock",
+        "_log": "_lock",
+    }
 
     def __init__(self):
         self._lock = threading.Lock()

@@ -77,6 +77,10 @@ class _Series:
 
 
 class Metrics:
+    # inc/observe run on handler+engine+watchdog threads concurrently with
+    # the /metrics render: every store goes through _lock (lfkt-lint LOCK001)
+    _GUARDED_BY = {"_series": "_lock"}
+
     # inc/observe run on handler, engine and watchdog threads concurrently
     # with the /metrics render: every store goes through _lock
     def __init__(self):
@@ -102,7 +106,7 @@ class Metrics:
         key = tuple(str(labels[k]) for k in metric.labels)
         return metric, key
 
-    def _get(self, name: str, mtype: str,
+    def _get(self, name: str, mtype: str,  # lfkt: holds[_lock]
              labels: dict) -> tuple[Metric, _Series]:  # under _lock
         metric, key = self._resolve(name, mtype, labels)
         by_label = self._series.setdefault(name, {})

@@ -28,6 +28,7 @@ from __future__ import annotations
 import gc
 import json
 import socket
+import threading
 import time
 
 import numpy as np
@@ -519,3 +520,29 @@ def test_app_health_block_and_families_beside_the_references(path):
             "disagg_peer_connected"} <= names
     rows = {r["component"] for r in got[3]["components"]}
     assert "disagg_txbuf" not in rows or got[3]["armed"]
+
+
+def test_startup_arms_the_roles_off_the_event_loop(path, monkeypatch):
+    """build_roles runs on a worker thread: a refusal stops the page service
+    it started, joining the service's accept thread, which must never stall
+    the event loop (lfkt-lint ASY001)."""
+    import llama_fastapi_k8s_gpu_tpu_torch.serving.disagg as disagg
+
+    threads = {}
+    real = disagg.build_roles
+
+    def spy(*a, **kw):
+        threads["build_roles"] = threading.current_thread()
+        return real(*a, **kw)
+
+    monkeypatch.setattr(disagg, "build_roles", spy)
+    app = create_app(engine=_engine(path),
+                     settings=Settings(temperature=0.0, watchdog=False, disagg_role="both",
+                                       disagg_timeout_seconds=60.0))
+
+    async def go(apps):
+        threads["loop"] = threading.current_thread()
+        return apps[0].state.disagg.role
+
+    assert serve([app], go) == "both"
+    assert threads["build_roles"] is not threads["loop"]

@@ -416,18 +416,25 @@ def test_router_affinity_sticks_roundrobin_spreads():
     rs = _serve_router(FleetRouter(table, policy="affinity", metrics=Metrics()), rp)
     table2 = _table([p1, p2]).start()
     rs2 = _serve_router(FleetRouter(table2, policy="roundrobin"), rp2)
+    addrs = [f"127.0.0.1:{p1}", f"127.0.0.1:{p2}"]
+
+    def owner(conv):
+        return rendezvous_rank(affinity_key("/response", {}, _body(conv))[0], addrs)[0]
+
+    # three conversations each replica owns: the ports are random, so the
+    # first six conversations all hash to one replica in 1 run of 32
+    convs = ([c for c in range(64) if owner(c) == addrs[0]][:3]
+             + [c for c in range(64) if owner(c) == addrs[1]][:3])
     try:
         seen = {}
-        for conv in range(6):
+        for conv in convs:
             answers = {json.loads(_post(rp, _body(conv))[1])["response"] for _ in range(3)}
             assert len(answers) == 1, (conv, answers)
             seen[conv] = answers.pop()
         assert set(seen.values()) == {"alpha", "beta"}
         # each conversation on its rendezvous owner
-        addrs = [f"127.0.0.1:{p1}", f"127.0.0.1:{p2}"]
         for conv, reply in seen.items():
-            owner = rendezvous_rank(affinity_key("/response", {}, _body(conv))[0], addrs)[0]
-            assert reply == ("alpha" if owner == addrs[0] else "beta")
+            assert reply == ("alpha" if owner(conv) == addrs[0] else "beta")
         answers = {json.loads(_post(rp2, _body(0))[1])["response"] for _ in range(4)}
         assert answers == {"alpha", "beta"}
         m = _request(rp, "/metrics")[2].decode()

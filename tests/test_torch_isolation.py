@@ -97,3 +97,33 @@ def test_chip_smoke_refuses_without_the_card_or_the_checkout(tmp_path):
     r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and '"ok": true' not in r.stdout
+
+
+def test_the_lint_imports_no_torch_no_jax():
+    """The port's lint is stdlib only: no module under ``lint/`` imports
+    torch, JAX or the JAX package, and running it loads none of them."""
+    lint_dir = os.path.join(PORT_DIR, "lint")
+    found = []
+    for name in sorted(os.listdir(lint_dir)):
+        if not name.endswith(".py"):
+            continue
+        path = os.path.join(lint_dir, name)
+        for node in ast.walk(ast.parse(open(path, encoding="utf-8").read(), path)):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [(name, n) for n in names if n.split(".")[0] in FORBIDDEN + ("torch",)]
+    assert not found
+    code = ("import sys\n"
+            "from llama_fastapi_k8s_gpu_tpu_torch.lint.__main__ import main\n"
+            "main(['--rule', 'KER001', '--json'])\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('torch',)!r}]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -10,6 +10,7 @@ for the serial engine.
 from __future__ import annotations
 
 import asyncio
+import gc
 import io
 import json
 import logging
@@ -155,6 +156,15 @@ def _drive(mod):
 
 def test_metrics_render_like_the_reference():
     assert _drive(metrics) == _drive(jmetrics)
+
+
+@pytest.fixture(autouse=True)
+def _collect_engines():
+    """Engines of earlier test files in this process may sit in reference
+    cycles until a collection, their memory-ledger rows with them: collect
+    before each test, so ``/debug/memory`` lists this file's engines."""
+    gc.collect()
+    yield
 
 
 @pytest.fixture(scope="module")
