@@ -1731,10 +1731,11 @@ def write_gguf(cfg, path: str, layout: str, seed: int = 0, tokenizer: dict | Non
 #: dtype, decode_layer_unroll, expected effective unroll) — the fused path
 #: over the bf16 ring, and int8 weights with one looped launch a token over
 #: the int8 ring
-#: the Mistral file's depth: 16 of the model's 32 layers, so that the mesh
+#: the Mistral file's depth: 12 of the model's 32 layers, so that the mesh
 #: phase fits the run's time (the window, the ring and the kernels' shapes
-#: are the full model's; at 16 layers ``auto`` still serves it fused)
-MISTRAL_DEPTH = 16
+#: are the full model's; at 12 layers ``auto`` still serves it fused: 5.8 GB
+#: of bf16 linears against its 4 GB line; at 8 it would not)
+MISTRAL_DEPTH = 12
 MISTRAL = (("mistral_q4km", "auto", "bf16", 0, 0),
            ("mistral_int8_loop", "int8", "int8", -1, MISTRAL_DEPTH))
 #: the Mistral engines' context: twice the window, so the window bites
@@ -3491,7 +3492,10 @@ def phase_serve(layout: str, path: str, counters: dict, follow_up: bool,
         check_looped_path(label, eng, toks)
     if load_probe:
         load_types(label, by_type, engine_load_s)
-        check_planes(label, eng, path)
+        if "bf16" in eng.params.formats().values():
+            # the planes are the file's whatever the engine serves: held
+            # once, where the served bf16 weights can be held to them too
+            check_planes(label, eng, path)
     # free this engine's weights and graphs before the next file loads
     eng.close()
     del app, eng, cache, scratch
@@ -6620,7 +6624,14 @@ MESH_BATCHES = (1, 256)
 MESH_FLASH = ((256, 1024, 0), (256, 1024, 768))
 #: kernels each arm's served path must launch
 MESH_KERNELS = {"mesh_tp": ("dequant_q4_k", "q4k_matmul", "q6k_matmul", "flash_attention"),
-                "mesh_sp": ("dequant_q4_k", "q4k_matmul", "q6k_matmul")}
+                "mesh_sp": ("dequant_q4_k", "q4k_matmul", "q6k_matmul"),
+                "mesh_paged": ("q4k_matmul", "q6k_matmul", "flash_attention_int8",
+                               "kv_quantize"),
+                "mesh_spec": ("q4k_matmul", "q6k_matmul", "flash_attention")}
+#: the paged arm's second conversation: it opens as the long one does (the
+#: system prompt and the first message are the prefix the two share)
+MESH_SECOND_CTX = [LONG_CTX[0], ("assistant", "go on, I am listening."),
+                   ("user", "part 1: " + STORY[:80])]
 #: the first step's logits of a mesh engine against the one-card engine's:
 #: max |Δ| ÷ max |logit|
 MESH_LOGIT_TOL = 2e-2
@@ -6969,12 +6980,212 @@ def phase_mesh_sp(path: str, counters: dict, ref) -> dict:
     return launches
 
 
+def mesh_turns(eng, contexts: list, settings) -> list:
+    """Each context of ``contexts`` (a callable one is called with the
+    records so far) as one ``/response`` through the app, in order: the
+    engine's lane records (prompt and generated ids, reused tokens, TTFT)
+    with each request's status."""
+    from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
+
+    records: list = []
+    lane_record(eng, records)
+    statuses = []
+    with serving(create_app(engine=eng, settings=settings)) as (port, _):
+        for ctx in contexts:
+            ctx = ctx(records) if callable(ctx) else ctx
+            st, _ = _http(port, "POST", "/response", body(ctx), timeout=900)
+            statuses.append(st)
+    del eng._finish_slot
+    for r, st in zip(records, statuses):
+        r["status"] = st
+    return records
+
+
+def pool_pages(pool, ids: list) -> list:
+    """Host copies of the pages the pool holds for ``ids``' whole pages."""
+    n = (len(ids) // pool.page_tokens) * pool.page_tokens
+    lease = pool.acquire(ids, n)
+    if lease is None:
+        raise AssertionError(f"the pool holds none of the {n} tokens' pages")
+    try:
+        return pool.export_pages(lease)
+    finally:
+        pool.release(lease)
+
+
+def phase_mesh_paged(path: str, counters: dict, ref) -> dict:
+    """``mesh_paged``: a ``ContinuousEngine`` with tp = 2 and two lanes over
+    ``[cuda:0, cuda:0]``, the paged pool over the int8 ring (pages of
+    :data:`PAGE_TOKENS`, prefill slices as long), on the file's weights as
+    the one-card engine ``ref`` loaded them (``from_parts``: sharded at
+    construction; ``mesh_tp`` and ``mesh_sp`` load the file) and served
+    through ``create_app(engine=...)``: the long conversation, its
+    follow-up turn and a second conversation that opens as it does.  The
+    follow-up and the second conversation must reuse pages; the pages
+    covering the first turn's prompt must be byte-equal to the pages a
+    one-card paged engine on the reference's weights commits for the same
+    ids (a prompt pass over the shards is the one-card pass); each turn's
+    greedy ids are held to that engine's by :func:`held_tokens`,
+    teacher-forced through a one-card serial engine over the int8 ring.
+    Returns the served path's launches."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import ContinuousEngine, Engine
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    settings = Settings(temperature=0.0, timeout_seconds=600.0, max_queue_size=8,
+                        batch_size=2, scheduler="continuous")
+    kw = dict(batch_size=2, max_gen_tokens=MESH_TOKENS, kv_dtype="int8", kv_paged=True,
+              kv_page_tokens=PAGE_TOKENS, prefill_chunk=PAGE_TOKENS)
+    parts = (ref.params, ref.cfg, ref.tokenizer, ref.template_kind)
+
+    def follow(records):
+        long_reply = ref._decode_text(records[0]["ids"])
+        return LONG_CTX + [("assistant", long_reply[:40]), ("user", MISTRAL_FOLLOW_UP)]
+
+    one = ContinuousEngine.from_parts(*parts, **kw)
+    one.warmup()
+    want = mesh_turns(one, [LONG_CTX, follow, MESH_SECOND_CTX], settings)
+    one_pages = pool_pages(one._kvpool, want[0]["prompt"])
+    one_stats = one._kvpool.stats()
+    one.close()
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counters(counters)
+    t0 = time.time()
+    eng = ContinuousEngine.from_parts(*parts, tp=2, devices=["cuda:0"] * 2, **kw)
+    eng.warmup()
+    load_s = time.time() - t0
+    replays0 = eng._lane_graphs.replays
+    t0 = time.time()
+    got = mesh_turns(eng, [LONG_CTX, lambda _: follow(want), MESH_SECOND_CTX], settings)
+    wall = time.time() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    replays = eng._lane_graphs.replays - replays0
+    pages = pool_pages(eng._kvpool, got[0]["prompt"])
+    same = [torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+            for a, b in zip(pages, one_pages)]
+    stats, occ = eng._kvpool.stats(), eng.kv_pool_occupancy()
+    serial8 = Engine.from_parts(*parts, kv_dtype="int8", prefix_cache=False,
+                                max_gen_tokens=MESH_TOKENS)
+    held = held_tokens(got, want, serial8, served_sampling(settings))
+    serial8.close()
+    del serial8
+    out = {"file": "q4km", "mesh": eng.mesh.describe(), "kv_dtype": "int8",
+           "page_tokens": PAGE_TOKENS, "load_s": load_s, "seconds": wall,
+           "statuses": [r["status"] for r in got],
+           "prompt_tokens": [len(r["prompt"]) for r in got],
+           "reused_tokens": [r["reused"] for r in got],
+           "one_card_reused_tokens": [r["reused"] for r in want],
+           "ttft_s": [r["ttft_s"] for r in got],
+           "pool": {k: stats[k] for k in ("hits", "misses", "stored_pages", "restores",
+                                          "reused_tokens", "commits")},
+           "one_card_pool": {k: one_stats[k] for k in ("hits", "stored_pages", "reused_tokens")},
+           "pages_compared": int(pages[0].shape[0]), "leaves": sorted(eng._kvpool.arena),
+           "pages_byte_equal": all(same) and len(same) == len(one_pages),
+           "pages_pinned": occ["pages_pinned"], "graph_replays": replays,
+           "turns": held}
+    say("mesh_paged", **out)
+    say("launches", file="mesh_paged", **launches)
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    silent = [n for n in MESH_KERNELS["mesh_paged"] if not launches[n]]
+    if (silent or any(s != 200 for s in out["statuses"]) or not got[1]["reused"]
+            or not got[2]["reused"] or not out["pages_byte_equal"] or out["pages_pinned"]
+            or not replays or len(held) != 3 or not all(h["held"] for h in held)):
+        raise AssertionError(f"mesh_paged: silent kernels {silent}, no page reuse, pages "
+                             f"unlike the one-card engine's, or turns parting from its: {out}")
+    return launches
+
+
+def phase_mesh_spec(path: str, counters: dict, ref) -> dict:
+    """``mesh_spec``: a ``ContinuousEngine`` with tp = 2 and two lanes over
+    ``[cuda:0, cuda:0]`` with ``spec_decode="lookup"`` (D =
+    :data:`SPEC_DRAFT`), on the file's weights as ``ref`` loaded them
+    (``from_parts``), served through the app:
+    the repeating prompt and the long one as two concurrent clients, each
+    draft the one-card serial engine's greedy reply (:func:`oracle_drafts`,
+    so rounds accept drafts).  The one-card lane engine with lookup on the
+    reference's weights serves them first under the same drafts; each tp
+    reply is held to its by :func:`held_tokens`.  Verify rounds, drafted and
+    accepted tokens and verify-graph replays must all be counted.  Returns
+    the served path's launches."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import ContinuousEngine
+    from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    settings = Settings(temperature=0.0, timeout_seconds=600.0, max_queue_size=8,
+                        batch_size=2, scheduler="continuous")
+    kw = dict(batch_size=2, max_gen_tokens=MESH_TOKENS, spec_decode="lookup",
+              spec_draft=SPEC_DRAFT)
+    contexts = [REPEAT_CTX, LONG_CTX]
+    refs = serial_turns(ref, [("repeat", REPEAT_CTX), ("long", LONG_CTX)], settings)
+
+    def drive(eng) -> tuple[list, list, float]:
+        records: list = []
+        lane_record(eng, records)
+        with oracle_drafts(refs), serving(create_app(engine=eng, settings=settings)) as (port,
+                                                                                         _):
+            results, _, wall = lane_wave(port, contexts)
+        del eng._finish_slot
+        return records, [r[0] if r else None for r in results], wall
+
+    parts = (ref.params, ref.cfg, ref.tokenizer, ref.template_kind)
+    one = ContinuousEngine.from_parts(*parts, **kw)
+    one.warmup()
+    want, _, _ = drive(one)
+    one_spec = one.scheduler_stats()["spec"]
+    one.close()
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counters(counters)
+    t0 = time.time()
+    eng = ContinuousEngine.from_parts(*parts, tp=2, devices=["cuda:0"] * 2, **kw)
+    eng.warmup()
+    load_s = time.time() - t0
+    spec0 = dict(eng.scheduler_stats()["spec"])
+    vreplays0 = eng._lane_graphs.verify_replays
+    got, statuses, wall = drive(eng)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    spec = {k: v - spec0.get(k, 0) for k, v in eng.scheduler_stats()["spec"].items()}
+    vreplays = eng._lane_graphs.verify_replays - vreplays0
+    refs_by_prompt = {tuple(r["prompt"]): r for r in want}
+    held = held_tokens(got, [refs_by_prompt.get(tuple(r["prompt"]), {"prompt": None, "ids": []})
+                             for r in got], ref, served_sampling(settings))
+    tokens = sum(len(r["ids"]) for r in got)
+    out = {"file": "q4km", "mesh": eng.mesh.describe(), "draft": SPEC_DRAFT, "load_s": load_s,
+           "seconds": wall, "statuses": statuses, "tokens": tokens,
+           "tokens_per_s": tokens / wall, "spec": spec, "one_card_spec": one_spec,
+           "verify_replays": vreplays, "verify_capture_s": eng._lane_graphs.verify_capture_s,
+           "verify_launches": eng._lane_graphs.verify_launches(), "turns": held}
+    say("mesh_spec", **out)
+    say("launches", file="mesh_spec", **launches)
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    silent = [n for n in MESH_KERNELS["mesh_spec"] if not launches[n]]
+    if (silent or any(s != 200 for s in statuses) or not spec["verify_steps"]
+            or not spec["drafted"] or not spec["accepted"] or not vreplays
+            or len(held) != 2 or not all(h["held"] for h in held)):
+        raise AssertionError(f"mesh_spec: silent kernels {silent}, no verify round, no "
+                             f"accepted draft, no verify replay, or turns parting from the "
+                             f"one-card engine's: {out}")
+    return launches
+
+
 def phase_mesh(paths: dict, counters: dict) -> dict:
     """The mesh phase on the Q4_K_M file: the kernels at a tp = 2 shard's
-    shapes and the ring ops (off the served paths), then the ``mesh_tp``
-    and ``mesh_sp`` arms against the one-card engine at n_ctx 4096 (loaded
-    once; closed last).  Returns each kernel's launches summed over the
-    two arms' served paths."""
+    shapes and the ring ops (off the served paths), then the ``mesh_tp``,
+    ``mesh_sp``, ``mesh_paged`` and ``mesh_spec`` arms against the one-card
+    engine at n_ctx 4096 (loaded once; closed last).  Returns each
+    kernel's launches summed over the arms' served paths."""
     import numpy as np
     import torch
 
@@ -6989,7 +7200,7 @@ def phase_mesh(paths: dict, counters: dict) -> dict:
     ref.warmup()
     launches = dict.fromkeys(counters, 0)
     try:
-        for arm in (phase_mesh_tp, phase_mesh_sp):
+        for arm in (phase_mesh_tp, phase_mesh_sp, phase_mesh_paged, phase_mesh_spec):
             t0 = time.time()
             for name, n in arm(paths["q4km"], counters, ref).items():
                 launches[name] += n

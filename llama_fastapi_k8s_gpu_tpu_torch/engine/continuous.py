@@ -30,7 +30,11 @@ conversation's whole pages straight from the lane.  Under
 ``spec_decode="lookup"`` a wave whose live lanes have n-gram drafts runs
 verify rounds (parallel/batched.py ``lane_verify``, on the card one
 replay of the lane verify graph) instead of the pipelined chunk, after
-flushing it: a verify's drafts need the lanes' current histories.
+flushing it: a verify's drafts need the lanes' current histories.  Both
+serve over a tp mesh: the scratch ring and the lane ring are then
+``ShardedRing`` s, a restore writes every shard in place, a freed lane
+commits from its dp group's shards, and a verify round runs each lane's
+D+1 rows over its shards (``models.llama.forward_mesh``).
 
 The reference's concurrency model (one generation at a time behind a
 queue of 5 and a semaphore of 1) is the B = 1 case; back-pressure (503)

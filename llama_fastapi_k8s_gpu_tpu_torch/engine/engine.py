@@ -94,6 +94,7 @@ from ..parallel.mesh import (
     Mesh,
     default_devices,
     init_sharded_cache,
+    ring_device,
     ring_nbytes_by_device,
     ring_zero_,
     shard_params,
@@ -380,7 +381,7 @@ class Engine:
             self.prefill_buckets.append(self.cfg.n_ctx)
         self.mesh = self._make_mesh()
         if self.mesh is not None:
-            self._check_mesh(kv_paged, decode_layer_unroll)
+            self._check_mesh(decode_layer_unroll)
             self.params = shard_params(self.params, self.mesh, self.cfg)
         self._cache = self._new_ring()
         # the decode step as CUDA graphs over this ring (the card only)
@@ -417,7 +418,10 @@ class Engine:
             from ..parallel.kvpool import KVPool
 
             self._prefix_cache = False
-            if kv_pool is not None and (kv_pool.device != self.device or
+            # the arena lives on the ring's (first) device, an indexed one:
+            # over a mesh it keeps whole-head pages there (parallel/kvpool.py)
+            pool_device = ring_device(self._cache)
+            if kv_pool is not None and (kv_pool.device != pool_device or
                                         not kv_pool.compatible(self.cfg, kv_page_tokens)):
                 # only an identical per-page geometry can share the arena:
                 # this model serves from a private pool instead of failing
@@ -436,7 +440,7 @@ class Engine:
             else:
                 self._kvpool = KVPool(self.cfg, page_tokens=kv_page_tokens,
                                       n_pages=kv_pool_pages, spill_pages=kv_spill_pages,
-                                      sink_host=self, device=self.device)
+                                      sink_host=self, device=pool_device)
         #: the decode side's remote-prefill client (serving/disagg/), set by
         #: install_disagg; None is the off state — the serving paths read
         #: this one attribute
@@ -456,9 +460,11 @@ class Engine:
         card (the CPU alone for a CPU engine)."""
         return list(devices) if devices is not None else default_devices(self.device)
 
-    def _check_mesh(self, kv_paged: bool, decode_layer_unroll: int) -> None:
+    def _check_mesh(self, decode_layer_unroll: int) -> None:
         """What a mesh engine cannot serve raises here, before the shards
-        are made."""
+        are made: a mesh over distinct cards and the layer-looped decode
+        (ROADMAP A.1).  The paged pool and lane speculation serve over a
+        tp mesh."""
         distinct = self.mesh.distinct
         if self.device.type == "cuda" and len(distinct) > 1:
             raise ValueError(
@@ -469,14 +475,6 @@ class Engine:
                 f"decode_layer_unroll={decode_layer_unroll} over {self.mesh}: the "
                 "layer-looped kernel runs one device's whole layer stack; over a mesh "
                 "it is not ported (ROADMAP A.1) — set LFKT_DECODE_LAYER_UNROLL=0")
-        if kv_paged and self._KV_PAGED:
-            raise ValueError(
-                f"kv_paged over {self.mesh}: the paged pool's pages are not sharded "
-                "yet (ROADMAP A.1) — set LFKT_KV_PAGED=0")
-        if self._spec_draft and getattr(self, "_SPEC_LANES", False):
-            raise ValueError(
-                f"spec_decode over {self.mesh}: the lanes' verify rounds over a "
-                "sharded ring are not ported yet (ROADMAP A.1) — set LFKT_SPEC_DECODE=off")
 
     def _new_ring(self) -> dict:
         """A fresh serial ring: on the engine's device, or over its mesh

@@ -52,7 +52,13 @@ def measure_dispatch_rtt_s(n: int = 7) -> float:
 
 def decode_bytes_per_token(params) -> int:
     """Device bytes one decode token must read: every weight byte but the
-    token-embedding table (a one-row gather)."""
+    token-embedding table (a one-row gather).  Over a mesh
+    (``parallel.mesh.MeshParams``) the whole model's bytes, each weight
+    counted once however it is laid out — what the reference counts over
+    its global arrays."""
+    if hasattr(params, "whole_nbytes"):
+        emb = params.shard().tok_emb
+        return max(params.whole_nbytes() - emb.numel() * emb.element_size(), 1)
     emb = params.tok_emb
     return max(params.nbytes() - emb.numel() * emb.element_size(), 1)
 

@@ -20,6 +20,15 @@ On a prefix hit the matched pages are copied contiguously into the front
 of an ordinary ring and the suffix prefills from there: the prompt pass,
 the decode step and their kernels see the dense ring they always see.
 
+Over a tp mesh (parallel/mesh.py) the ring is a ``ShardedRing`` whose
+shards hold the kv heads split (or replicated, where tp does not divide
+them); the arena keeps the whole-head layout on the mesh's first device.
+A store fills each page's heads from the shard that holds them and a
+restore writes every shard in place (``ShardedRing.head_shards``), so a
+page committed over a mesh is byte for byte the page one device commits
+for the same ids: export, import, the disagg wire and a shared arena take
+it unchanged.
+
 The page moves are plain tensor copies on the arena's device, **in
 place** both ways: a restore writes into the ring the caller passes (the
 engines' rings, whose addresses their CUDA graphs hold, are never
@@ -57,9 +66,10 @@ import weakref
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import init_cache
+from ..models.llama import init_cache, lane_view
 from ..obs.memledger import register_component
 from ..utils.device import resolve_device
+from .mesh import ShardedRing
 
 logger = logging.getLogger(__name__)
 
@@ -86,32 +96,48 @@ def _token_block(leaf: torch.Tensor, start: int, n: int, T: int) -> torch.Tensor
     return leaf[:, :, start:start + n * T].unflatten(2, (n, T)).movedim(2, 0)
 
 
+def _head_parts(ring: dict, name: str, write: bool) -> list:
+    """Leaf ``name`` of ``ring`` as ``[(tensor, heads)]``: a plain ring is
+    its one tensor holding every head; a ``ShardedRing`` is its tp shards,
+    each with the slice of the whole ring's kv heads it holds
+    (``ShardedRing.head_shards``: a write reaches every replica, a read
+    comes from one)."""
+    if isinstance(ring, ShardedRing):
+        return [(ring[name][i], heads) for i, heads in ring.head_shards(write)]
+    return [(ring[name], slice(None))]
+
+
 @torch.inference_mode()
 def _store_pages(arena: dict, ring: dict, page_ids: list, offset: int) -> None:
     """Copy ring token slots [offset, offset + n·T) into arena pages
-    ``page_ids``, in place."""
+    ``page_ids``, in place.  A sharded ring's shards each fill their heads
+    of the whole-head pages, so a page is the same bytes whatever mesh
+    committed it."""
     for name, al in arena.items():
         T = al.shape[3]
-        for pid, j, r in _runs(page_ids):
-            al[pid:pid + r].copy_(_token_block(ring[name], offset + j * T, r, T))
+        for leaf, heads in _head_parts(ring, name, write=False):
+            for pid, j, r in _runs(page_ids):
+                al[pid:pid + r, :, heads].copy_(_token_block(leaf, offset + j * T, r, T))
 
 
 @torch.inference_mode()
 def _store_lane_pages(arena: dict, bcache: dict, lane: int, page_ids: list,
                       offset: int) -> None:
     """As :func:`_store_pages`, reading lane ``lane`` of a lane-major cache
-    (parallel/batched.py): its ring is a view, nothing is gathered."""
-    _store_pages(arena, {k: t[lane] for k, t in bcache.items()}, page_ids, offset)
+    (parallel/batched.py; over a mesh, the lane's dp group's shards): its
+    ring is a view, nothing is gathered."""
+    _store_pages(arena, lane_view(bcache, lane), page_ids, offset)
 
 
 @torch.inference_mode()
 def _restore_pages(arena: dict, ring: dict, page_ids: list, offset: int) -> None:
     """Copy arena pages ``page_ids`` into ring token slots [offset, offset
-    + n·T), contiguously and in place."""
+    + n·T), contiguously and in place (every shard of a sharded ring)."""
     for name, al in arena.items():
         T = al.shape[3]
-        for pid, j, r in _runs(page_ids):
-            _token_block(ring[name], offset + j * T, r, T).copy_(al[pid:pid + r])
+        for leaf, heads in _head_parts(ring, name, write=True):
+            for pid, j, r in _runs(page_ids):
+                _token_block(leaf, offset + j * T, r, T).copy_(al[pid:pid + r, :, heads])
 
 
 @torch.inference_mode()

@@ -37,7 +37,9 @@ linear is one (N, ·) plane of bf16, int8 or GGUF block rows,
 
 The KV ring shards its kv heads over ``tp`` (a lane ring its lanes over
 ``dp`` too, the sequence-parallel ring its slots over ``sp``): a
-:class:`ShardedRing` holds each leaf as its list of shards.
+:class:`ShardedRing` holds each leaf as its list of shards, and
+:meth:`ShardedRing.head_shards` maps a whole-head slice of it onto one dp
+group's tp shards and back (the paged pool keeps whole-head pages).
 """
 
 from __future__ import annotations
@@ -259,6 +261,23 @@ class MeshParams(nn.Module):
         """Device bytes of every shard's weights, over the whole mesh."""
         return sum(p.nbytes() for p in self.shard_list)
 
+    def whole_nbytes(self) -> int:
+        """Bytes of the model the shards hold, each weight once: a split
+        buffer summed over one row block's tp shards, a replicated one (the
+        norms, ``tok_emb``, a ``rep`` linear, a row-parallel int8 weight's
+        whole scale) counted from shard 0."""
+        tp = self.mesh.shape["tp"]
+        block = [dict(self.shard(0, t, 0).named_buffers()) for t in range(tp)]
+        total = 0
+        for name, buf in block[0].items():
+            parts = name.split(".")
+            lin = parts[-2] if parts[-1] in ("weight", "scale") else None
+            mode = self.layout.get(lin, "rep")
+            split = mode == "col" or (mode == "row" and parts[-1] == "weight")
+            for b in (block if split else block[:1]):
+                total += b[name].numel() * b[name].element_size()
+        return total
+
     def nbytes_by_device(self) -> dict:
         """Weight bytes a shard, by :meth:`Mesh.label`."""
         return {self.mesh.label(c): p.nbytes() for c, p in zip(self.coords, self.shard_list)}
@@ -344,6 +363,26 @@ class ShardedRing(dict):
         return ShardedRing({k: [v[i][local] for i in idx] for k, v in self.items()},
                            [self.coords[i] for i in idx], self.mesh, self.n_ctx,
                            self.tp_split)
+
+    def head_shards(self, write: bool) -> list:
+        """Where the whole-head ring lives on this serial ring's tp shards:
+        ``[(shard index, heads)]``, ``heads`` the slice of the whole ring's
+        kv heads (dim 1 of every leaf, the int8 scales' too) that the shard
+        holds.  Split heads: shard ``t`` holds ``[t·n_kv/tp, (t+1)·n_kv/tp)``.
+        Heads that tp does not divide are replicated: a write goes to every
+        shard, a read comes from shard 0.  The paged pool moves whole-head
+        pages through this map (parallel/kvpool.py)."""
+        if self.lanes:
+            raise ValueError("head_shards takes a serial ring: take a lane's with lane(b)")
+        if len({c[0] for c in self.coords}) != 1 or any(c[2] for c in self.coords):
+            raise ValueError(f"head_shards takes one dp group's tp shards, got {self.coords}")
+        if not self.tp_split:
+            return [(i, slice(None)) for i in range(len(self.coords) if write else 1)]
+        out = []
+        for i, (_, t, _) in enumerate(self.coords):
+            h = next(iter(self.values()))[i].shape[1]
+            out.append((i, slice(t * h, (t + 1) * h)))
+        return out
 
 
 def _local_ring_shape(cfg: ModelConfig, mesh: Mesh, tp_split: bool) -> tuple:

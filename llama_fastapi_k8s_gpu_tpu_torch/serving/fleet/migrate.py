@@ -592,7 +592,12 @@ class MigrationManager:
             # slow mode eats the budget (the deadline math below must
             # still bound the hop — never a hang)
             FAULTS.fire("migrate_pull")
-            conn = connect(host, int(port), max(0.1, budget))
+            # a hop whose budget ran out before the dial is the deadline's,
+            # whatever the wire would have done in the time left
+            if budget - (time.time() - t0) <= 0:
+                return self._fail("deadline", f"pull from {peer_wire} overran its "
+                                              f"{budget:.1f}s budget before the dial")
+            conn = connect(host, int(port), max(0.1, budget - (time.time() - t0)))
             conn.send_frame(wire.FRAME_HELLO, self._geometry)
             ftype, hdr, _ = conn.recv_frame()
             if ftype == wire.FRAME_ERR:

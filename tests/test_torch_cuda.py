@@ -1972,3 +1972,128 @@ def test_tp_engine_on_bf16_and_int8_weights_holds_to_one_card(cuda, tmp_path, we
             cont.close()
     finally:
         serial.close()
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_tp_paged_engine_commits_the_one_cards_pages_on_the_card(cuda, tmp_path, kv_dtype):
+    """A tp = 2 continuous engine over ``[cuda:0] * 2`` under paging, on a
+    Q4_K_M file served fused: the follow-up turn restores its pages into
+    the sharded scratch ring and reuses them; the pages covering the first
+    turn's prompt are the one-card paged engine's, byte for byte (the
+    fused layouts split N only, so a prompt pass's K/V is the one-card
+    pass's; over bf16 weights a row-parallel product rounds once after an
+    f32 sum of the shards and is not); each reply starts with the one-card
+    reply's first token and takes its choice, or one within four bf16
+    steps of it."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import ContinuousEngine, Engine
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      ffn_dim=512, n_ctx=512)
+    path = str(tmp_path / "tiny-q4km.gguf")
+    chip_smoke.write_gguf(cfg, path, "q4km")
+    kw = dict(n_ctx=512, max_gen_tokens=12, prefill_buckets=(64, 128, 256, 512),
+              kv_dtype=kv_dtype, weight_format="q4k", device=cuda)
+    paged = dict(kv_paged=True, kv_page_tokens=16, prefill_chunk=64, batch_size=2)
+    knobs = dict(temperature=0.0, repeat_penalty=1.0)
+    msgs = [{"role": "system", "content": "You answer carefully. " * 12},
+            {"role": "user", "content": "Tell me something."}]
+    serial = Engine(path, prefix_cache=False, **kw)
+    one = ContinuousEngine(path, **kw, **paged)
+    tp = ContinuousEngine(path, tp=2, devices=[cuda] * 2, **kw, **paged)
+    try:
+        assert tp.params.formats() == one.params.formats()
+        assert "q4k" in one.params.formats().values()
+        one.warmup()
+        tp.warmup()
+        replies = {}
+        for name, eng in (("one", one), ("tp", tp)):
+            got: list = []
+            chip_smoke.lane_record(eng, got)
+            t1 = eng.submit(msgs, **knobs).result(timeout=120)
+            follow = msgs + [{"role": "assistant", "content": "Sure."},
+                             {"role": "user", "content": "More, please."}]
+            t2 = eng.submit(follow, **knobs).result(timeout=120)
+            assert t1["lfkt_timings"]["prefix_reused_tokens"] == 0
+            assert t2["lfkt_timings"]["prefix_reused_tokens"] > 0
+            replies[name] = got
+        assert tp._kvpool.stats()["hits"] == one._kvpool.stats()["hits"] >= 1
+        ids = tp.tokenize_messages(msgs)
+        n = (len(ids) // 16) * 16
+        pages = []
+        for eng in (one, tp):
+            lease = eng._kvpool.acquire(ids, n)
+            assert lease is not None
+            try:
+                pages.append(eng._kvpool.export_pages(lease))
+            finally:
+                eng._kvpool.release(lease)
+        for a, b in zip(*pages):
+            assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+        for r_one, r_tp in zip(replies["one"], replies["tp"]):
+            assert r_one["prompt"] == r_tp["prompt"] and r_tp["ids"][:1] == r_one["ids"][:1]
+            assert _greedy_or_tied(serial, r_tp["prompt"], r_tp["ids"])
+        assert tp._kvpool.occupancy()["pages_pinned"] == 0
+    finally:
+        for eng in (one, tp):
+            eng.close()
+        serial.close()
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_tp_lane_verify_graph_on_the_card(cuda, tmp_path, monkeypatch, kv_dtype):
+    """A tp = 2 continuous engine over ``[cuda:0] * 2`` with lookup
+    speculation under the always-hit draft: every wave is a replay of the
+    lane verify graph over the sharded lane ring (captured once), and each
+    greedy reply starts with the one-card engine's first token and takes
+    its choice at every step, or one within four bf16 steps of it."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import ContinuousEngine, Engine
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      ffn_dim=512, n_ctx=256)
+    path = str(tmp_path / "tiny-q8_0.gguf")
+    chip_smoke.write_gguf(cfg, path, "q8_0")
+    kw = dict(n_ctx=256, max_gen_tokens=24, prefill_buckets=(64, 128, 256), kv_dtype=kv_dtype,
+              device=cuda)
+    knobs = dict(temperature=0.0, repeat_penalty=1.0)
+    prompts = [[{"role": "user", "content": f"draft {i} " * (2 + 5 * i)}] for i in range(3)]
+    serial = Engine(path, prefix_cache=False, **kw)
+    try:
+        want: list = []
+        chip_smoke.record_replies(serial, 0, want)
+        for p in prompts:
+            serial.create_chat_completion(p, **knobs)
+        del serial._finish, serial.create_chat_completion
+        first = {tuple(r["prompt"]): r["ids"][:1] for r in want}
+        monkeypatch.setattr(Engine, "_lookup_draft",
+                            staticmethod(lambda history, D, max_ngram=3: [history[-1]] * D))
+        cont = ContinuousEngine(path, tp=2, batch_size=2, devices=[cuda] * 2,
+                                spec_decode="lookup", spec_draft=4, **kw)
+        try:
+            cont.warmup()
+            got: list = []
+            chip_smoke.lane_record(cont, got)
+            for f in [cont.submit(p, **knobs) for p in prompts]:
+                f.result(timeout=120)
+            stats = cont.scheduler_stats()["spec"]
+            assert stats["verify_steps"] > 0 and cont._lane_graphs.verify_replays > 0
+            assert cont._lane_graphs.verify_capture_s is not None
+            assert len(got) == len(prompts)
+            for r in got:
+                assert r["ids"][:1] == first[tuple(r["prompt"])]
+                assert _greedy_or_tied(serial, r["prompt"], r["ids"])
+        finally:
+            cont.close()
+    finally:
+        serial.close()

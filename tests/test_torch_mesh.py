@@ -363,14 +363,15 @@ def test_lane_engines_over_a_mesh_reply_as_jax(tiny_path):
         cont.shutdown()
 
 
-@pytest.mark.parametrize("knob,match", [(dict(kv_paged=True), "kv_paged"),
-                                        (dict(spec_decode="lookup"), "spec_decode"),
-                                        (dict(weight_format="bf16", decode_layer_unroll=-1),
+@pytest.mark.parametrize("knob,match", [(dict(weight_format="bf16", decode_layer_unroll=-1),
                                          "decode_layer_unroll")])
 def test_lane_engines_over_a_mesh_refuse_what_they_do_not_serve(tiny_path, knob, match):
-    """The paged pool, lane speculation and the layer-looped decode over a
-    tp mesh are not ported: each raises, naming the ROADMAP item, before
-    any shard is made; nothing serves them quietly on one device."""
+    """What a mesh still does not serve raises, naming the ROADMAP item,
+    before any shard is made: the layer-looped decode over a tp mesh
+    (here), and a mesh over distinct cards (only on the card: a CPU list
+    is one device).  Nothing serves them quietly on one device.  The paged
+    pool and lane speculation serve over a tp mesh
+    (tests/test_torch_mesh_paged.py, tests/test_torch_mesh_spec.py)."""
     from llama_fastapi_k8s_gpu_tpu_torch.engine import ContinuousEngine
 
     with pytest.raises(ValueError, match=f"{match}.*ROADMAP A.1"):

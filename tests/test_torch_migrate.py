@@ -181,10 +181,14 @@ def test_fault_points_degrade_attributed():
         t0 = time.time()
         assert dst.pull(src.wire_addr, ids, namespace="m") == 0
         assert time.time() - t0 < dst.timeout + 2.0 and dst.counters["failures"] == 2
-        FAULTS.arm("migrate_pull:slow:delay=1.0:times=1")
+        # the deadline (0.3 s) falls inside the slow hop's delay: the pull
+        # ends as the delay does, attributed to the deadline, and never
+        # spends the hop knob's budget after it
+        delay = 1.0
+        FAULTS.arm(f"migrate_pull:slow:delay={delay}:times=1")
         t0 = time.time()
         assert dst.pull(src.wire_addr, ids, namespace="m", deadline=time.time() + 0.3) == 0
-        assert time.time() - t0 < 3.0
+        assert time.time() - t0 < delay + dst.timeout
         assert dst.counters["failures"] == 3 and dst.last_error.startswith("deadline")
         FAULTS.disarm()
         assert dst.pull(src.wire_addr, ids, namespace="m") == 24

@@ -3,7 +3,8 @@
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
-    python3 tools/port_mesh.py [kernels] [mesh]
+    python3 tools/port_mesh.py [kernels] [mesh] [mesh_tp] [mesh_sp] [mesh_paged]
+                               [mesh_spec]
 
 Prints the card's name and power limit, builds the kernels, writes (or
 reuses) the synthetic Q4_K_M GGUF under ``.cache/chip_smoke/`` and runs,
@@ -12,8 +13,10 @@ shard's 8B shapes beside the unsharded ones and the flash kernel at a
 shard's heads (``mesh_matmul``, ``mesh_flash`` lines), ``ring_attention``
 and ``sharded_decode_attention`` against their plain single-device
 version (``mesh_ring``); ``mesh`` — the whole phase (``mesh_tp``,
-``mesh_sp``, their ``launches``; it runs the kernels first).  ``mesh``
-by default; each with its seconds.  A failed check ends the run with a non-zero exit.
+``mesh_sp``, ``mesh_paged``, ``mesh_spec``, their ``launches``; it runs
+the kernels first); ``mesh_tp``, ``mesh_sp``, ``mesh_paged`` or
+``mesh_spec`` — that arm alone, against the one-card engine at n_ctx 4096
+as the phase builds it.  ``mesh`` by default; each with its seconds.  A failed check ends the run with a non-zero exit.
 """
 
 from __future__ import annotations
@@ -37,7 +40,24 @@ def _kernels(paths, counters):
     chip_smoke.check_ring_ops(rng)
 
 
-PHASES = {"kernels": _kernels, "mesh": chip_smoke.phase_mesh}
+def _arm(fn):
+    """One arm of the mesh phase against the phase's one-card engine."""
+    def run(paths, counters):
+        from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+
+        ref = Engine(paths["q4km"], n_ctx=chip_smoke.MESH_N_CTX, prefix_cache=False,
+                     max_gen_tokens=chip_smoke.MESH_TOKENS)
+        ref.warmup()
+        try:
+            fn(paths["q4km"], counters, ref)
+        finally:
+            ref.close()
+    return run
+
+
+PHASES = {"kernels": _kernels, "mesh": chip_smoke.phase_mesh,
+          **{name: _arm(getattr(chip_smoke, f"phase_{name}"))
+             for name in ("mesh_tp", "mesh_sp", "mesh_paged", "mesh_spec")}}
 
 
 def main() -> int:
