@@ -3057,13 +3057,20 @@ def check_memory(label, eng, port, ring_bytes, allocated_before: int) -> None:
 
 
 
+#: the tokens of the stream the ``profile`` line captures: two decode
+#: chunks, all inside the 1 s window (a 512-token stream filled it with
+#: ~200 MB of kernel events, ~23 s to export and parse)
+PROFILE_TOKENS = 16
+
+
 def check_profile(label, eng, port, short_ctx) -> None:
     """The ``profile`` line: ``/debug/profile`` refused (403) on this app,
     whose startup ran without ``LFKT_PROFILE_DIR`` and prepared no
     profiler; then a second app over the engine, started with the
     directory set, whose startup pays the profiler's one-time set-up
     (``prepare_s``); on it one capture is requested, and a single stream
-    starts after the request: the capture opens within a second
+    of :data:`PROFILE_TOKENS` tokens starts after the request: the capture
+    opens within a second
     (``start_s``, the process's first capture) and holds the stream's
     kernels and graph launches, while a second capture meanwhile gets
     409.  ``wall_s`` is the stop and the export, as it is."""
@@ -3075,7 +3082,8 @@ def check_profile(label, eng, port, short_ctx) -> None:
     unprepared = tracing.profiler_prepared()
     prof_dir = tempfile.mkdtemp(prefix="lfkt-profile-")
     os.environ["LFKT_PROFILE_DIR"] = prof_dir
-    sink = eng.metrics_sink
+    sink, budget = eng.metrics_sink, eng.max_gen_tokens
+    eng.max_gen_tokens = PROFILE_TOKENS
     box: dict = {}
     try:
         t0 = time.time()
@@ -3101,7 +3109,7 @@ def check_profile(label, eng, port, short_ctx) -> None:
         stats = profile_trace_stats(doc["trace"]) if st200 == 200 and doc.get("ok") else {}
     finally:
         del os.environ["LFKT_PROFILE_DIR"]
-        eng.metrics_sink = sink
+        eng.metrics_sink, eng.max_gen_tokens = sink, budget
         shutil.rmtree(prof_dir, ignore_errors=True)
     after = tracing.profiler_prepared()
     say("profile", file=label, disabled_status=st403, busy_status=st409, status=st200,
@@ -4220,7 +4228,8 @@ def phase_all_lanes(paths: dict, counters: dict, names=None, keep: dict | None =
     finds them missing loads the file); returns each kernel's launches
     summed over them.  With ``keep``, the weights of :data:`PAGED_SOURCE`
     are handed out as ``keep["parts"]`` (the paged and speculative
-    phases serve them)."""
+    phases serve them), and those of :data:`MESH_LOOPED_SOURCE` as
+    ``keep["looped"]`` (the mesh phase's looped arm shards them)."""
     launches = dict.fromkeys(counters, 0)
     held: dict = {}
     for label, layout, fmt, kv_dtype, unroll, lanes, scheduler, clients, src in LANES:
@@ -4232,6 +4241,8 @@ def phase_all_lanes(paths: dict, counters: dict, names=None, keep: dict | None =
             held[label] = parts
         if keep is not None and label == PAGED_SOURCE:
             keep["parts"] = parts
+        if keep is not None and label == MESH_LOOPED_SOURCE:
+            keep["looped"] = parts
         del parts
         for name, n in served.items():
             launches[name] += n
@@ -6627,7 +6638,20 @@ MESH_KERNELS = {"mesh_tp": ("dequant_q4_k", "q4k_matmul", "q6k_matmul", "flash_a
                 "mesh_sp": ("dequant_q4_k", "q4k_matmul", "q6k_matmul"),
                 "mesh_paged": ("q4k_matmul", "q6k_matmul", "flash_attention_int8",
                                "kv_quantize"),
-                "mesh_spec": ("q4k_matmul", "q6k_matmul", "flash_attention")}
+                "mesh_spec": ("q4k_matmul", "q6k_matmul", "flash_attention"),
+                "mesh_looped": ("kv_quantize", "flash_attention_int8", "decode_loop")}
+#: the looped kernel over tp = 2 shard tables (``mesh_loop`` lines): layers
+#: a launch and the ring slot, as the one-card kernel's row is timed
+MESH_LOOP_LAYERS = 2
+MESH_LOOP_POS = 700
+#: a sharded launch's h against the one-card launch's over bf16 weights:
+#: the looped kernel's agreement figure (PERF.md §6); int8 weights must be
+#: bit-equal (int32 partials are exact)
+MESH_LOOP_TOL = 3.3e-3
+#: the lane engine whose weights (the Q8_0 file as bf16, not loaded again)
+#: the ``mesh_looped`` arm shards, and its knobs
+MESH_LOOPED_SOURCE = "cycle_q8_0_bf16_loop8"
+MESH_LOOPED_UNROLL = 8
 #: the paged arm's second conversation: it opens as the long one does (the
 #: system prompt and the first message are the prefix the two share)
 MESH_SECOND_CTX = [LONG_CTX[0], ("assistant", "go on, I am listening."),
@@ -6673,7 +6697,109 @@ def check_mesh_kernels(rng) -> list:
                     unsharded_graph_ms=whole["graph_ms"])
         say("mesh_flash", **line)
         rows.append(line)
+    for w_int8 in (False, True):
+        for kv_int8 in (False, True):
+            line = check_mesh_loop(w_int8, kv_int8)
+            say("mesh_loop", **line)
+            rows.append(line)
     return rows
+
+
+def check_mesh_loop(w_int8: bool, kv_int8: bool, K: int = MESH_LOOP_LAYERS,
+                    pos: int = MESH_LOOP_POS, n_ctx: int = 1024) -> dict:
+    """Kernel 11 over tp = 2 shard tables (``[cuda:0] * 2``): K Llama-3-8B
+    layers of random weights (:func:`check_decode_loop`'s), laid over the
+    shards by the mesh's rules (``wo``/``w_down`` split K, the rest N), and
+    their ring written into a sharded ring through the paged pool's head
+    map; one token at slot ``pos``.  The launch against the one-card launch
+    over the whole weights and ring: h bit-equal for int8 weights, within
+    :data:`MESH_LOOP_TOL` rel-dev for bf16, and the ring read back whole
+    (``read_shards_plain``) likewise; against the plain mesh version (the
+    per-layer mesh source) as :func:`check_decode_loop` holds one card.
+    ms, graph ms, the one-card graph ms, the plain ms; the bound is the
+    whole stack's (the shards hold the same bytes)."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import LLAMA3_8B
+    from llama_fastapi_k8s_gpu_tpu_torch.models.llama import init_cache
+    from llama_fastapi_k8s_gpu_tpu_torch.models.params import LOOP_LINEARS, synth_params
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import decode_loop, kvquant
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel import mesh as pmesh
+
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=K, vocab_size=256, n_ctx=n_ctx,
+                              kv_dtype="int8" if kv_int8 else "bf16")
+    fmt = "int8" if w_int8 else "bf16"
+    params = synth_params(cfg, fmt, seed=3, device="cuda")
+    fmts = dict.fromkeys(LOOP_LINEARS, fmt)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cache = init_cache(cfg, torch.device("cuda"))
+    for n in ("k", "v"):
+        x = torch.randn((K, cfg.n_kv_heads, pos, cfg.head_dim), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        if kv_int8:
+            cache[n + "_q"][:, :, :pos], cache[n + "_s"][:, :, :pos] = kvquant.quantize_kv_plain(x)
+        else:
+            cache[n][:, :, :pos] = x
+    h = torch.randn(1, cfg.dim, generator=g, device="cuda").to(torch.bfloat16)
+    mesh = pmesh.make_mesh(tp=2, devices=["cuda:0"] * 2)
+    mp = pmesh.shard_params(params, mesh, cfg)
+
+    def sharded_ring():
+        ring = pmesh.init_sharded_cache(cfg, mesh, tp_split=mp.tp_heads)
+        for i, heads in ring.head_shards(write=True):
+            for name in ring:
+                ring[name][i].copy_(cache[name][:, heads])
+        return ring
+
+    one, ring, plain_ring = {k: v.clone() for k, v in cache.items()}, sharded_ring(), \
+        sharded_ring()
+    at = torch.tensor([pos], device="cuda")
+    want = decode_loop.decode_loop_step(params, one, h, at, 0, cfg, fmts, K)
+    got = decode_loop.decode_loop_step(mp, ring, h, at, 0, cfg, fmts, K)
+    plain = decode_loop.decode_loop_plain(mp, plain_ring, h, at, 0, cfg, fmts, K)
+    torch.cuda.synchronize()
+    desc = decode_loop.describe_shards(mp, cfg, ring)
+    whole = decode_loop.read_shards_plain(desc, [ring.part(i) for i in range(2)])[1]
+    plain_whole = decode_loop.read_shards_plain(desc, [plain_ring.part(i) for i in range(2)])[1]
+    bits = torch.equal(got.view(torch.int16), want.view(torch.int16))
+    ring_bits = all(torch.equal(whole[n].view(torch.uint8), one[n].view(torch.uint8))
+                    for n in one)
+    one_rel = _rel(got, want)
+    rel = _rel(got, plain)
+    if not (torch.isfinite(got).all() and rel <= LOOP_TOL and one_rel <= MESH_LOOP_TOL
+            and (bits and ring_bits or not w_int8)):
+        raise AssertionError(f"mesh_loop w_int8={w_int8} kv_int8={kv_int8}: h rel-dev {one_rel} "
+                             f"from the one-card launch (bit-equal {bits}, ring {ring_bits}), "
+                             f"{rel} from the plain mesh version")
+    where = (slice(None), slice(None), pos)
+    one_slots = check_slots(whole, one, where, MESH_LOOP_TOL, codes=True)
+    slots = check_slots(whole, plain_whole, where, LOOP_TOL, codes=True)
+    wbytes = sum(b.numel() * b.element_size() for layer in params.layers
+                 for b in layer.buffers())
+    weights = sum(getattr(layer, n).weight.numel() for layer in params.layers
+                  for n in LOOP_LINEARS)
+    out = {
+        "name": "decode_loop", "variant": f"{fmt} weights, {cfg.kv_dtype} ring", "tp": 2,
+        "layout": {n: mp.layout[n] for n in LOOP_LINEARS}, "layers": K, "pos": pos,
+        "h_bit_equal_one_card": bits, "ring_bit_equal_one_card": ring_bits,
+        "h_rel_one_card": one_rel, "one_card_tol": MESH_LOOP_TOL,
+        "one_card_slot_rel": one_slots["slot_rel"],
+        "max_abs_err": (got.float() - plain.float()).abs().max().item(), "h_rel": rel,
+        "tol": LOOP_TOL, **slots,
+        "ms": cuda_ms(lambda: decode_loop.decode_loop_step(mp, ring, h, at, 0, cfg, fmts, K), 20),
+        "graph_ms": graph_ms(lambda: decode_loop.decode_loop_step(mp, ring, h, at, 0, cfg,
+                                                                  fmts, K)),
+        "one_card_graph_ms": graph_ms(lambda: decode_loop.decode_loop_step(
+            params, one, h, at, 0, cfg, fmts, K)),
+        "plain_ms": cuda_ms(lambda: decode_loop.decode_loop_plain(mp, plain_ring, h, at, 0, cfg,
+                                                                  fmts, K), 5),
+        "library_ms": None,
+        **loop_bound(wbytes, weights, K, cfg.n_kv_heads, cfg.n_heads, cfg.head_dim, cfg.dim,
+                     pos + 1, w_int8, kv_int8),
+    }
+    del params, mp, cache, one, ring, plain_ring
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_ring_ops(rng) -> list:
@@ -7180,12 +7306,116 @@ def phase_mesh_spec(path: str, counters: dict, ref) -> dict:
     return launches
 
 
-def phase_mesh(paths: dict, counters: dict) -> dict:
-    """The mesh phase on the Q4_K_M file: the kernels at a tp = 2 shard's
-    shapes and the ring ops (off the served paths), then the ``mesh_tp``,
-    ``mesh_sp``, ``mesh_paged`` and ``mesh_spec`` arms against the one-card
-    engine at n_ctx 4096 (loaded once; closed last).  Returns each
-    kernel's launches summed over the arms' served paths."""
+def looped_parts(path: str) -> tuple:
+    """The Q8_0 file loaded as :data:`MESH_LOOPED_SOURCE` loads it (bf16
+    weights, n_ctx 1024): its parts, for the ``mesh_looped`` arm run alone
+    (``tools/port_mesh.py``); the full run hands the lane engine's on."""
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import Engine
+
+    t0 = time.time()
+    eng = Engine(path, n_ctx=1024, weight_format="bf16", kv_dtype="int8")
+    parts = (eng.params, eng.cfg, eng.tokenizer, eng.template_kind)
+    eng.close()
+    say("mesh_looped_load", file="q8_0", seconds=round(time.time() - t0, 1))
+    return parts
+
+
+def phase_mesh_looped(parts: tuple, counters: dict) -> dict:
+    """``mesh_looped``: a ``ContinuousEngine`` with tp = 2 and two lanes
+    over ``[cuda:0, cuda:0]`` on the Q8_0 file's bf16 weights as
+    :data:`MESH_LOOPED_SOURCE` loaded them (``parts``: sharded at
+    construction, not loaded again), over the int8 ring with
+    ``decode_layer_unroll`` = :data:`MESH_LOOPED_UNROLL`: every decode token
+    of a lane 32/8 launches of kernel 11, each reading both shards, inside
+    the lane graph.  Served through ``create_app(engine=...)`` as
+    ``mesh_tp`` is (two concurrent clients, a stream, a follow-up turn);
+    each turn's first :data:`MESH_TOKENS` ids against the one-card looped
+    lane engine's on the same weights, held by :func:`held_tokens`
+    (teacher-forced through a one-card serial looped engine, every id its
+    choice or within :data:`MESH_TIE_STEPS` bf16 steps of it).  Returns the
+    served path's launches."""
+    import torch
+
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import ContinuousEngine, Engine
+    from llama_fastapi_k8s_gpu_tpu_torch.ops.decode_loop import effective_unroll
+    from llama_fastapi_k8s_gpu_tpu_torch.server.app import create_app
+    from llama_fastapi_k8s_gpu_tpu_torch.utils.config import Settings
+
+    settings = Settings(temperature=0.0, timeout_seconds=600.0, max_queue_size=8,
+                        batch_size=2, scheduler="continuous")
+    kw = dict(batch_size=2, max_gen_tokens=MESH_TOKENS, prefix_cache=False, kv_dtype="int8",
+              decode_layer_unroll=MESH_LOOPED_UNROLL)
+
+    def drive(eng) -> tuple[list, list, float]:
+        records: list = []
+        lane_record(eng, records)
+        with serving(create_app(engine=eng, settings=settings)) as (port, _):
+            t0 = time.time()
+            wave, stream, _ = lane_wave(port, [SHORT_CTX, LONG_CTX], SHORT_CTX)
+            long_reply = wave[1][1].get("response", "") if wave[1][0] == 200 else ""
+            follow = LONG_CTX + [("assistant", long_reply[:40]), ("user", MISTRAL_FOLLOW_UP)]
+            st, _ = _http(port, "POST", "/response", body(follow), timeout=900)
+            wall = time.time() - t0
+        return records, [w[0] for w in wave] + [st, (stream or {}).get("status")], wall
+
+    one = ContinuousEngine.from_parts(*parts, **kw)
+    one.warmup()
+    want, _, _ = drive(one)
+    one.close()
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counters(counters)
+    t0 = time.time()
+    eng = ContinuousEngine.from_parts(*parts, tp=2, devices=["cuda:0"] * 2, **kw)
+    eng.warmup()
+    load_s = time.time() - t0
+    replays0 = eng._lane_graphs.replays
+    got, statuses, wall = drive(eng)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    replays = eng._lane_graphs.replays - replays0
+    step = eng._lane_graphs.step_launches()
+    key = lambda r: (tuple(r["prompt"]), r["stream"])   # noqa: E731
+    refs = {key(r): r for r in want}
+    serial = Engine.from_parts(*parts, kv_dtype="int8", prefix_cache=False,
+                               decode_layer_unroll=MESH_LOOPED_UNROLL, max_gen_tokens=MESH_TOKENS)
+    held = held_tokens(got, [refs.get(key(r), {"prompt": None, "ids": []}) for r in got], serial,
+                       served_sampling(settings))
+    serial.close()
+    del serial
+    tokens = sum(len(r["ids"]) for r in got)
+    per_lane = eng.cfg.n_layers // effective_unroll(eng.cfg)
+    out = {"file": "q8_0", "mesh": eng.mesh.describe(), "weights": eng.params.formats(),
+           "kv_dtype": eng.cfg.kv_dtype, "decode_layer_unroll": eng.cfg.decode_layer_unroll,
+           "layout": eng.params.layout, "shard_s": load_s, "seconds": wall, "tokens": tokens,
+           "tokens_per_s": tokens / wall, "statuses": statuses, "graph_replays": replays,
+           "lane_capture_s": eng._lane_graphs.capture_s,
+           "lane_launches": {"per_replay": step, "expected": {"decode_loop": 2 * per_lane}},
+           "decode_loop_launches": launches["decode_loop"], "turns": held}
+    say("mesh_looped", **out)
+    say("launches", file="mesh_looped", **launches)
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    silent = [n for n in MESH_KERNELS["mesh_looped"] if not launches[n]]
+    if (silent or any(s != 200 for s in statuses) or len(held) < 4
+            or not all(h["held"] for h in held) or not replays
+            or step.get("decode_loop") != 2 * per_lane or "kv_quantize" in step):
+        raise AssertionError(f"mesh_looped: silent kernels {silent}, a lane graph that is not "
+                             f"the looped path's, or turns parting from the one-card "
+                             f"engine's: {out}")
+    return launches
+
+
+def phase_mesh(paths: dict, counters: dict, parts: tuple | None = None) -> dict:
+    """The mesh phase: the kernels at a tp = 2 shard's shapes and the ring
+    ops (off the served paths), then, on the Q4_K_M file, the ``mesh_tp``,
+    ``mesh_sp``, ``mesh_paged`` and ``mesh_spec`` arms against the
+    one-card engine at n_ctx 4096 (loaded once; closed last), and the
+    ``mesh_looped`` arm on ``parts``, the Q8_0 file's bf16 weights (loaded
+    from ``paths["q8_0"]`` when not given).  Returns each kernel's launches
+    summed over the arms' served paths."""
     import numpy as np
     import torch
 
@@ -7196,9 +7426,16 @@ def phase_mesh(paths: dict, counters: dict) -> dict:
     check_mesh_kernels(rng)
     check_ring_ops(rng)
     say("phase_seconds", name="mesh_kernels", seconds=round(time.time() - t0, 1))
+    launches = dict.fromkeys(counters, 0)
+    t0 = time.time()
+    for name, n in phase_mesh_looped(parts or looped_parts(paths["q8_0"]), counters).items():
+        launches[name] += n
+    parts = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("phase_seconds", name="phase_mesh_looped", seconds=round(time.time() - t0, 1))
     ref = Engine(paths["q4km"], n_ctx=MESH_N_CTX, prefix_cache=False, max_gen_tokens=MESH_TOKENS)
     ref.warmup()
-    launches = dict.fromkeys(counters, 0)
     try:
         for arm in (phase_mesh_tp, phase_mesh_sp, phase_mesh_paged, phase_mesh_spec):
             t0 = time.time()
@@ -7303,6 +7540,13 @@ def main() -> int:
     for name, n in phase_all_lanes(paths, KERNELS, keep=keep).items():
         launches[name] += n
     timed("lanes")
+    # the mesh: tensor parallelism in the lane engines and the
+    # sequence-parallel engine, every shard on this card; its looped arm
+    # shards the looped lane engine's weights, so it runs before they are
+    # held through the later phases
+    for name, n in phase_mesh(paths, KERNELS, keep.pop("looped")).items():
+        launches[name] += n
+    timed("mesh")
     # the paged KV pool and prompt-lookup speculation on the Q4_K_M weights
     for name, n in phase_paged_spec(keep.pop("parts"), KERNELS).items():
         launches[name] += n
@@ -7315,11 +7559,6 @@ def main() -> int:
     for name, n in phase_fleet_tier(paths, KERNELS).items():
         launches[name] += n
     timed("fleet_tier")
-    # the mesh: tensor parallelism in the lane engines and the
-    # sequence-parallel engine, every shard on this card
-    for name, n in phase_mesh(paths, KERNELS).items():
-        launches[name] += n
-    timed("mesh")
     if os.environ.get("CHIP_SMOKE_REPLIES_OUT"):
         with open(os.environ["CHIP_SMOKE_REPLIES_OUT"], "w") as fh:
             json.dump(REPLIES, fh)

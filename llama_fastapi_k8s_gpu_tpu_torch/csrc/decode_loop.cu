@@ -82,6 +82,21 @@
 // the grid streaming two rows at once (their loads interleaved, four of
 // each in flight a lane), the activation staged with 16-byte loads.
 //
+// Over a tensor-parallel mesh (every shard on the launching card) one launch
+// still runs the whole layer stack, reading each layer from its tp shards:
+// the table holds tp rows of 16 pointers a layer, and each linear is laid
+// out one of three ways (LoopArgs::modes, parallel/mesh.py's rules):
+//   col  output row r lives in shard r / (N/tp), at local row r % (N/tp);
+//   row  input column c lives in shard c / (K/tp), at local column c % (K/tp)
+//        (wo, w_down only); a warp walks the K segments shard by shard in
+//        the one-shard column order, so the dot is summed as one card sums
+//        it and rounded once; an int8 row keeps its whole scale on shard 0;
+//   rep  shard 0 holds the whole weight.
+// The norms are read from shard 0.  The ring's KV heads are split over the
+// shards (head j in shard j / (n_kv/tp)) or, where tp does not divide them,
+// replicated: the new slot is written to every shard and read from shard 0.
+// At tp = 1 this is the one-card table and launch.
+//
 // Arithmetic: the reference's per-layer source (decode_loop.py:182-233)
 // step by step.  The int8 activation quantize and the KV ring quantize are
 // bit-exact with the plain versions (IEEE-rounded divisions, rintf; see
@@ -102,23 +117,31 @@ constexpr int BLOCKS_PER_SM = 2;
 // CHUNK_MAX] (ops/decode_loop.py sizes the partials for CHUNK_MIN)
 constexpr int CHUNK_MIN = 8;
 constexpr int CHUNK_MAX = 64;
+// tp shards a launch reads, at most
+constexpr int MAX_TP = 8;
 
-// the 16 pointers of one layer in the weight table
+// the 16 pointers of one layer's shard in the weight table
 enum : int {
     T_WQ = 0, T_WK, T_WV, T_WO, T_WG, T_WU, T_WD,       // weight rows (bf16 or int8)
     T_SQ, T_SK, T_SV, T_SO, T_SG, T_SU, T_SD,           // int8 row scales (f32)
     T_ATTN_NORM, T_FFN_NORM,                            // f32 norm weights
     TABLE
 };
+// the seven linears, in table order
+constexpr int LINEARS = T_SQ;
+
+// how a linear lies over the tp shards: 2 bits a linear in LoopArgs::modes
+enum : int { M_REP = 0, M_COL = 1, M_ROW = 2 };
 
 struct LoopArgs {
-    const unsigned long long* table;   // (n_layers_total, TABLE) device pointers
+    const unsigned long long* table;   // (n_layers_total, tp, TABLE) device pointers
     __nv_bfloat16* h;                  // (dim) residual, in and out
-    void* kc;                          // ring K of layer 0: bf16 or int8 (L, n_kv, n_ctx, hd)
-    void* vc;                          // ring V, the same layout
-    float* ks;                         // int8 ring scales (L, n_kv, n_ctx); null for bf16
-    float* vs;
-    __nv_bfloat16* qkv;                // scratch (dim + 2 * n_kv * hd): raw q | k | v
+    void* rk[MAX_TP];                  // each shard's ring K of layer 0: bf16 or int8
+                                       // (L, n_kv_local, n_ctx, hd)
+    void* rv[MAX_TP];                  // ring V, the same layout
+    float* rks[MAX_TP];                // int8 ring scales (L, n_kv_local, n_ctx); null for bf16
+    float* rvs[MAX_TP];
+    __nv_bfloat16* qkv;              // scratch (dim + 2 * n_kv * hd): raw q | k | v
     __nv_bfloat16* ctx;                // scratch (dim)
     __nv_bfloat16* act;                // scratch (ffn)
     const float* cos_t;                // (hd / 2) at pos
@@ -130,8 +153,38 @@ struct LoopArgs {
                                        // (n_heads, n_ctx) scores
     unsigned int* cnt;                 // (2, n_kv) arrivals per KV head (zero between launches)
     int layer0, n_layers, dim, ffn, n_heads, n_kv, hd, n_ctx, window, max_chunks;
+    int tp;                            // shards a layer and a ring have
+    int modes;                         // M_* of linear w at bits 2w, 2w + 1
+    int kv_split;                      // the ring's heads split over tp (else replicated)
+    int n_kv_local;                    // heads a ring shard holds
     float eps, sm_scale;
 };
+
+// Where row r of linear w (n_out rows of k_in inputs) lies: its shard `sh`
+// and local row `row`, its inputs in `nseg` segments of `kt` columns,
+// segment s in shard sh + s.
+__device__ __forceinline__ void locate(const LoopArgs& a, int w, int r, int n_out, int k_in,
+                                       int& sh, int& row, int& nseg, int& kt) {
+    const int m = (a.modes >> (2 * w)) & 3;
+    sh = 0;
+    row = r;
+    nseg = 1;
+    kt = k_in;
+    if (m == M_COL) {
+        const int nt = n_out / a.tp;
+        sh = r / nt;
+        row = r - sh * nt;
+    } else if (m == M_ROW) {
+        nseg = a.tp;
+        kt = k_in / a.tp;
+    }
+}
+
+// the shard that holds KV head j for reading, and j's index there
+__device__ __forceinline__ void head_at(const LoopArgs& a, int j, int& t, int& jl) {
+    t = a.kv_split ? j / a.n_kv_local : 0;
+    jl = j - t * a.n_kv_local * a.kv_split;
+}
 
 // The attention phase's shared memory, laid over the linears' staging area:
 // byte offsets for `group` query heads of hd and ring rows of rb bytes.
@@ -361,63 +414,87 @@ __device__ void stage_copy(const __nv_bfloat16* src, int n, __nv_bfloat16* xb, i
     quantize_staged<W8>(xb, n, xq, xs, red);
 }
 
+// a pointer of the weight table
+__device__ __forceinline__ const void* tab_ptr(const unsigned long long* tab, int sh, int i) {
+    return reinterpret_cast<const void*>(__ldg(tab + sh * TABLE + i));
+}
+
+// the first input a lane takes in the segment [kb, kb + kt) of a row, its
+// inputs being lane * V, lane * V + 32 * V, ... of the whole row: a row
+// split over shards is read in the one-shard order
+template <int V>
+__device__ __forceinline__ int first_input(int lane, int kb) {
+    const int k = lane * V;
+    return k >= kb ? k : k + (kb - k + 32 * V - 1) / (32 * V) * (32 * V);
+}
+
 // R outputs of linears over the staged activation, by one warp (R = 1 or
-// 2): row row[i] of weight w[i] (scales sw[i]; K inputs), the R rows' loads
-// interleaved.  Each y[i] is the f32 value before its bf16 rounding;
-// K % 16 == 0 and every row 16-byte aligned (the launcher checks).
+// 2): local row row[i] of linear wi[i] in the layer's table `tab`, from
+// shard sh[i], its inputs in `nseg` segments of `kt` columns on shards
+// sh[i], sh[i] + 1, ... (:func:`locate`), the R rows' loads interleaved.
+// Each y[i] is the f32 value before its bf16 rounding; kt % 16 == 0 and
+// every row 16-byte aligned (the launcher checks).
 template <bool W8, int R>
-__device__ __forceinline__ void linear_rows(const void* const (&w)[R], const void* const (&sw)[R],
-                                            const int (&row)[R], int K, const __nv_bfloat16* xb,
-                                            const int8_t* xq, float xs, int lane, float (&y)[R]) {
+__device__ __forceinline__ void linear_rows(const unsigned long long* tab, const int (&wi)[R],
+                                            const int (&sh)[R], const int (&row)[R], int nseg,
+                                            int kt, const __nv_bfloat16* xb, const int8_t* xq,
+                                            float xs, int lane, float (&y)[R]) {
     if constexpr (W8) {
-        const int8_t* wr[R];
         int acc[R];
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
-            wr[i] = static_cast<const int8_t*>(w[i]) + static_cast<size_t>(row[i]) * K;
-            acc[i] = 0;
-        }
-#pragma unroll 4
-        for (int k = lane * 16; k < K; k += 32 * 16) {
-            const int4 b = *reinterpret_cast<const int4*>(xq + k);
+        for (int i = 0; i < R; ++i) acc[i] = 0;
+        for (int s = 0, kb = 0; s < nseg; ++s, kb += kt) {
+            const int8_t* wr[R];
 #pragma unroll
-            for (int i = 0; i < R; ++i) {
-                const int4 a = __ldg(reinterpret_cast<const int4*>(wr[i] + k));
-                acc[i] = __dp4a(a.x, b.x, acc[i]);
-                acc[i] = __dp4a(a.y, b.y, acc[i]);
-                acc[i] = __dp4a(a.z, b.z, acc[i]);
-                acc[i] = __dp4a(a.w, b.w, acc[i]);
+            for (int i = 0; i < R; ++i)
+                wr[i] = static_cast<const int8_t*>(tab_ptr(tab, sh[i] + s, T_WQ + wi[i])) +
+                        static_cast<size_t>(row[i]) * kt;
+#pragma unroll 4
+            for (int k = first_input<16>(lane, kb); k < kb + kt; k += 32 * 16) {
+                const int4 b = *reinterpret_cast<const int4*>(xq + k);
+#pragma unroll
+                for (int i = 0; i < R; ++i) {
+                    const int4 a = __ldg(reinterpret_cast<const int4*>(wr[i] + (k - kb)));
+                    acc[i] = __dp4a(a.x, b.x, acc[i]);
+                    acc[i] = __dp4a(a.y, b.y, acc[i]);
+                    acc[i] = __dp4a(a.z, b.z, acc[i]);
+                    acc[i] = __dp4a(a.w, b.w, acc[i]);
+                }
             }
         }
 #pragma unroll
         for (int i = 0; i < R; ++i) {
 #pragma unroll
             for (int o = 16; o > 0; o >>= 1) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
-            const float s = __ldg(static_cast<const float*>(sw[i]) + row[i]);
+            const float s = __ldg(static_cast<const float*>(tab_ptr(tab, sh[i], T_SQ + wi[i])) +
+                                  row[i]);
             y[i] = __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), xs), s);
         }
     } else {
-        const __nv_bfloat16* wr[R];
         float acc[R];
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
-            wr[i] = static_cast<const __nv_bfloat16*>(w[i]) + static_cast<size_t>(row[i]) * K;
-            acc[i] = 0.f;
-        }
-#pragma unroll 4
-        for (int k = lane * 8; k < K; k += 32 * 8) {
-            const uint4 b = *reinterpret_cast<const uint4*>(xb + k);
+        for (int i = 0; i < R; ++i) acc[i] = 0.f;
+        for (int s = 0, kb = 0; s < nseg; ++s, kb += kt) {
+            const __nv_bfloat16* wr[R];
 #pragma unroll
-            for (int i = 0; i < R; ++i) {
-                const uint4 a = __ldg(reinterpret_cast<const uint4*>(wr[i] + k));
-                acc[i] = fmaf(lo_bf(a.x), lo_bf(b.x), acc[i]);
-                acc[i] = fmaf(hi_bf(a.x), hi_bf(b.x), acc[i]);
-                acc[i] = fmaf(lo_bf(a.y), lo_bf(b.y), acc[i]);
-                acc[i] = fmaf(hi_bf(a.y), hi_bf(b.y), acc[i]);
-                acc[i] = fmaf(lo_bf(a.z), lo_bf(b.z), acc[i]);
-                acc[i] = fmaf(hi_bf(a.z), hi_bf(b.z), acc[i]);
-                acc[i] = fmaf(lo_bf(a.w), lo_bf(b.w), acc[i]);
-                acc[i] = fmaf(hi_bf(a.w), hi_bf(b.w), acc[i]);
+            for (int i = 0; i < R; ++i)
+                wr[i] = static_cast<const __nv_bfloat16*>(tab_ptr(tab, sh[i] + s, T_WQ + wi[i])) +
+                        static_cast<size_t>(row[i]) * kt;
+#pragma unroll 4
+            for (int k = first_input<8>(lane, kb); k < kb + kt; k += 32 * 8) {
+                const uint4 b = *reinterpret_cast<const uint4*>(xb + k);
+#pragma unroll
+                for (int i = 0; i < R; ++i) {
+                    const uint4 a = __ldg(reinterpret_cast<const uint4*>(wr[i] + (k - kb)));
+                    acc[i] = fmaf(lo_bf(a.x), lo_bf(b.x), acc[i]);
+                    acc[i] = fmaf(hi_bf(a.x), hi_bf(b.x), acc[i]);
+                    acc[i] = fmaf(lo_bf(a.y), lo_bf(b.y), acc[i]);
+                    acc[i] = fmaf(hi_bf(a.y), hi_bf(b.y), acc[i]);
+                    acc[i] = fmaf(lo_bf(a.z), lo_bf(b.z), acc[i]);
+                    acc[i] = fmaf(hi_bf(a.z), hi_bf(b.z), acc[i]);
+                    acc[i] = fmaf(lo_bf(a.w), lo_bf(b.w), acc[i]);
+                    acc[i] = fmaf(hi_bf(a.w), hi_bf(b.w), acc[i]);
+                }
             }
         }
 #pragma unroll
@@ -425,16 +502,17 @@ __device__ __forceinline__ void linear_rows(const void* const (&w)[R], const voi
     }
 }
 
-// The new slot of KV head j, by one warp: k after RoPE (or v) into the ring
-// at pos — bf16, or int8 codes and their scale, bit-exact with
-// kv_quantize — and the same values into the item's staged row.
+// The new slot of KV head j, by one warp: k after RoPE (or v) into layer
+// `layer` of the ring at pos — bf16, or int8 codes and their scale,
+// bit-exact with kv_quantize — on every shard that holds head j (its own,
+// or all of them for a head tp does not divide), and the same values into
+// the item's staged row.
 template <bool KV8, typename KT>
-__device__ __forceinline__ void new_slot(const LoopArgs& a, int pos, int j, bool is_v, KT* ring,
-                                         float* scale, KT* staged, float* staged_scale,
-                                         int lane) {
+__device__ __forceinline__ void new_slot(const LoopArgs& a, int layer, int pos, int j, bool is_v,
+                                         KT* staged, float* staged_scale, int lane) {
     const int hd = a.hd;
     const __nv_bfloat16* src = a.qkv + a.dim + (is_v ? a.n_kv * hd : 0) + j * hd;
-    float x[8];                                  // this lane's pairs i = lane + 32 p
+    float x[8] = {};                             // this lane's pairs i = lane + 32 p
     float amax = 0.f;
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
@@ -447,33 +525,41 @@ __device__ __forceinline__ void new_slot(const LoopArgs& a, int pos, int j, bool
             amax = fmaxf(amax, fmaxf(fabsf(x1), fabsf(x2)));
         }
     }
-    const size_t slot = static_cast<size_t>(j) * a.n_ctx + pos;
-    KT* dst = ring + slot * hd;
+    int t0, jl;
+    head_at(a, j, t0, jl);
+    const int t1 = a.kv_split ? t0 + 1 : a.tp;
+    const size_t slot = (static_cast<size_t>(layer) * a.n_kv_local + jl) * a.n_ctx + pos;
+    KT v[8];
+    float s = 0.f;
     if constexpr (KV8) {
         float inv;
-        const float s = lfkt::kv_row_scale(amax, inv);
+        s = lfkt::kv_row_scale(amax, inv);
 #pragma unroll
-        for (int p = 0; p < 4; ++p) {
-            const int i = lane + 32 * p;
-            if (2 * i < hd) {
-                const int8_t q1 = lfkt::kv_quantize_value(x[2 * p], inv);
-                const int8_t q2 = lfkt::kv_quantize_value(x[2 * p + 1], inv);
-                dst[2 * i] = staged[2 * i] = q1;
-                dst[2 * i + 1] = staged[2 * i + 1] = q2;
-            }
-        }
-        if (lane == 0) scale[slot] = *staged_scale = s;
+        for (int e = 0; e < 8; ++e) v[e] = lfkt::kv_quantize_value(x[e], inv);
+        if (lane == 0) *staged_scale = s;
     } else {
 #pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16_rn(x[e]);
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+        const int i = lane + 32 * p;
+        if (2 * i < hd) {
+            staged[2 * i] = v[2 * p];
+            staged[2 * i + 1] = v[2 * p + 1];
+        }
+    }
+    for (int t = t0; t < t1; ++t) {
+        KT* dst = static_cast<KT*>(is_v ? a.rv[t] : a.rk[t]) + slot * hd;
+#pragma unroll
         for (int p = 0; p < 4; ++p) {
             const int i = lane + 32 * p;
             if (2 * i < hd) {
-                const __nv_bfloat16 b1 = __float2bfloat16_rn(x[2 * p]);
-                const __nv_bfloat16 b2 = __float2bfloat16_rn(x[2 * p + 1]);
-                dst[2 * i] = staged[2 * i] = b1;
-                dst[2 * i + 1] = staged[2 * i + 1] = b2;
+                dst[2 * i] = v[2 * p];
+                dst[2 * i + 1] = v[2 * p + 1];
             }
         }
+        if (KV8 && lane == 0) (is_v ? a.rvs[t] : a.rks[t])[slot] = s;
     }
 }
 
@@ -503,11 +589,20 @@ __device__ void attention_phase(const LoopArgs& a, int layer, int pos, unsigned 
     float* sc = reinterpret_cast<float*>(sm + L.sc);
     float* ml = reinterpret_cast<float*>(sm + L.ml);
 
-    const size_t ring_layer = static_cast<size_t>(n_kv) * n_ctx * hd;
-    KT* kring = static_cast<KT*>(a.kc) + layer * ring_layer;
-    KT* vring = static_cast<KT*>(a.vc) + layer * ring_layer;
-    float* kscale = KV8 ? a.ks + static_cast<size_t>(layer) * n_kv * n_ctx : nullptr;
-    float* vscale = KV8 ? a.vs + static_cast<size_t>(layer) * n_kv * n_ctx : nullptr;
+    // head j's rows of this layer, K or V, on the shard it is read from,
+    // and their scales (int8 ring)
+    auto head_rows = [&](int j, bool v) -> const KT* {
+        int t, jl;
+        head_at(a, j, t, jl);
+        return static_cast<const KT*>(v ? a.rv[t] : a.rk[t]) +
+               (static_cast<size_t>(layer) * a.n_kv_local + jl) * n_ctx * hd;
+    };
+    auto head_scales = [&](int j, bool v) -> const float* {
+        if constexpr (!KV8) return nullptr;
+        int t, jl;
+        head_at(a, j, t, jl);
+        return (v ? a.rvs[t] : a.rks[t]) + (static_cast<size_t>(layer) * a.n_kv_local + jl) * n_ctx;
+    };
     const size_t heads_chunks = static_cast<size_t>(a.n_heads) * a.max_chunks;
     float* po = a.part;                          // (n_heads, max_chunks, hd) P.V sums
     float* pml = po + heads_chunks * hd;         // (n_heads, max_chunks, 2) (m, l)
@@ -552,9 +647,9 @@ __device__ void attention_phase(const LoopArgs& a, int layer, int pos, unsigned 
         int j, ci, c0, c1;
         item(it, j, ci, c0, c1);
         const int n = c1 - c0;
-        const size_t row0 = static_cast<size_t>(j) * n_ctx + c0;     // ring row of c0
-        stage_rows(kring, kst, rb + 16, kscale, kss, row0, n, c0, pos);
-        stage_rows(vring, vst, rb, vscale, vss, row0, n, c0, pos);
+        stage_rows(head_rows(j, false), kst, rb + 16, head_scales(j, false), kss, c0, n, c0,
+                   pos);
+        stage_rows(head_rows(j, true), vst, rb, head_scales(j, true), vss, c0, n, c0, pos);
         // the group's query rows after RoPE
         const int half = hd >> 1;
         for (int i = threadIdx.x; i < group * half; i += THREADS) {
@@ -569,12 +664,12 @@ __device__ void attention_phase(const LoopArgs& a, int layer, int pos, unsigned 
         if (c1 == pos + 1 && warp < 2) {
             const int r = pos - c0;
             if (warp == 0)
-                new_slot<KV8>(a, pos, j, false, kring, kscale,
+                new_slot<KV8>(a, layer, pos, j, false,
                               reinterpret_cast<KT*>(reinterpret_cast<unsigned char*>(kst) +
                                                     r * (rb + 16)),
                               kss + r, lane);
             else
-                new_slot<KV8>(a, pos, j, true, vring, vscale, vst + r * hd, vss + r, lane);
+                new_slot<KV8>(a, layer, pos, j, true, vst + r * hd, vss + r, lane);
         }
         cp_async_wait_all();
         __syncthreads();
@@ -649,8 +744,7 @@ __device__ void attention_phase(const LoopArgs& a, int layer, int pos, unsigned 
         if (it != last) {
             // an earlier item of this block: its V rows (slot pos is in the
             // ring by now) and its scores again
-            const size_t row0 = static_cast<size_t>(j) * n_ctx + c0;
-            stage_rows(vring, vst, rb, vscale, vss, row0, n, c0, -1);
+            stage_rows(head_rows(j, true), vst, rb, head_scales(j, true), vss, c0, n, c0, -1);
             for (int i = threadIdx.x; i < group * n; i += THREADS) {
                 const int g = i / n, c = i - g * n;
                 sc[g * CHUNK_MAX + c] = __ldcg(ps + static_cast<size_t>(j * group + g) * n_ctx + c0 + c);
@@ -771,15 +865,20 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) decode_loop_kernel(con
     if (slot < 0 || slot >= a.n_ctx) return;
     const int pos = static_cast<int>(slot);
 
-    // h[r] += bf16(row r of w . staged x) for every row of h, two rows a warp
-    auto residual_rows = [&](const void* w, const void* sw, int K) {
+    // h[r] += bf16(row r of linear w . staged x) for every row of h, two
+    // rows a warp (both rows of one linear: the same K segments)
+    auto residual_rows = [&](const unsigned long long* tab, int w, int K) {
         for (int r = gwarp; r < dim; r += 2 * nwarps) {
+            int sh0, row0, sh1, row1, nseg, kt;
+            locate(a, w, r, dim, K, sh0, row0, nseg, kt);
             float y[2];
             if (r + nwarps < dim) {
-                linear_rows<W8, 2>({w, w}, {sw, sw}, {r, r + nwarps}, K, xb, xq, *xs, lane, y);
+                locate(a, w, r + nwarps, dim, K, sh1, row1, nseg, kt);
+                linear_rows<W8, 2>(tab, {w, w}, {sh0, sh1}, {row0, row1}, nseg, kt, xb, xq, *xs,
+                                   lane, y);
             } else {
                 float y1[1];
-                linear_rows<W8, 1>({w}, {sw}, {r}, K, xb, xq, *xs, lane, y1);
+                linear_rows<W8, 1>(tab, {w}, {sh0}, {row0}, nseg, kt, xb, xq, *xs, lane, y1);
                 y[0] = y1[0];
             }
             if (lane == 0) {
@@ -792,35 +891,36 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) decode_loop_kernel(con
 
     for (int l = 0; l < a.n_layers; ++l) {
         const int layer = a.layer0 + l;
-        const unsigned long long* tab = a.table + static_cast<size_t>(layer) * TABLE;
-        auto ptr = [&](int i) { return reinterpret_cast<const void*>(__ldg(tab + i)); };
+        // the layer's tp rows of the table; the norms are shard 0's
+        const unsigned long long* tab = a.table + static_cast<size_t>(layer) * a.tp * TABLE;
 
         // P1: hn = rms_norm(h); raw q | k | v rows
-        stage_norm<W8>(a.h, static_cast<const float*>(ptr(T_ATTN_NORM)), dim, a.eps, xb, xq,
-                       xs, red);
-        // row r of q | k | v: (matrix, row in it)
-        auto qkv_row = [&](int r, int& which, int& row) {
+        stage_norm<W8>(a.h, static_cast<const float*>(tab_ptr(tab, 0, T_ATTN_NORM)), dim, a.eps,
+                       xb, xq, xs, red);
+        // row r of q | k | v: its linear, shard and local row (K = dim whole:
+        // q, k and v are never row-split)
+        auto qkv_row = [&](int r, int& which, int& sh, int& row) {
             which = r < dim ? 0 : (r < dim + kvd ? 1 : 2);
-            row = which == 0 ? r : r - dim - (which - 1) * kvd;
+            int nseg, kt;
+            locate(a, which, which == 0 ? r : r - dim - (which - 1) * kvd, which ? kvd : dim,
+                   dim, sh, row, nseg, kt);
         };
         for (int r = gwarp; r < dim + 2 * kvd; r += 2 * nwarps) {
-            int w0, row0;
-            qkv_row(r, w0, row0);
+            int w0, sh0, row0;
+            qkv_row(r, w0, sh0, row0);
             if (r + nwarps < dim + 2 * kvd) {
-                int w1, row1;
-                qkv_row(r + nwarps, w1, row1);
+                int w1, sh1, row1;
+                qkv_row(r + nwarps, w1, sh1, row1);
                 float y[2];
-                linear_rows<W8, 2>({ptr(T_WQ + w0), ptr(T_WQ + w1)},
-                                   {ptr(T_SQ + w0), ptr(T_SQ + w1)}, {row0, row1}, dim, xb, xq,
-                                   *xs, lane, y);
+                linear_rows<W8, 2>(tab, {w0, w1}, {sh0, sh1}, {row0, row1}, 1, dim, xb, xq, *xs,
+                                   lane, y);
                 if (lane == 0) {
                     a.qkv[r] = __float2bfloat16_rn(y[0]);
                     a.qkv[r + nwarps] = __float2bfloat16_rn(y[1]);
                 }
             } else {
                 float y[1];
-                linear_rows<W8, 1>({ptr(T_WQ + w0)}, {ptr(T_SQ + w0)}, {row0}, dim, xb, xq,
-                                   *xs, lane, y);
+                linear_rows<W8, 1>(tab, {w0}, {sh0}, {row0}, 1, dim, xb, xq, *xs, lane, y);
                 if (lane == 0) a.qkv[r] = __float2bfloat16_rn(y[0]);
             }
         }
@@ -832,16 +932,19 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) decode_loop_kernel(con
 
         // P3: h += ctx Wo^T
         stage_copy<W8>(a.ctx, dim, xb, xq, xs, red);
-        residual_rows(ptr(T_WO), ptr(T_SO), dim);
+        residual_rows(tab, T_WO, dim);
         grid_sync(a.bar);
 
-        // P4: hn = rms_norm(h); act = bf16(silu(gate)) * up
-        stage_norm<W8>(a.h, static_cast<const float*>(ptr(T_FFN_NORM)), dim, a.eps, xb, xq,
-                       xs, red);
+        // P4: hn = rms_norm(h); act = bf16(silu(gate)) * up (K = dim whole)
+        stage_norm<W8>(a.h, static_cast<const float*>(tab_ptr(tab, 0, T_FFN_NORM)), dim, a.eps,
+                       xb, xq, xs, red);
         for (int r = gwarp; r < ffn; r += nwarps) {
+            int shg, rowg, shu, rowu, nseg, kt;
+            locate(a, T_WG, r, ffn, dim, shg, rowg, nseg, kt);
+            locate(a, T_WU, r, ffn, dim, shu, rowu, nseg, kt);
             float y[2];
-            linear_rows<W8, 2>({ptr(T_WG), ptr(T_WU)}, {ptr(T_SG), ptr(T_SU)}, {r, r}, dim, xb,
-                               xq, *xs, lane, y);
+            linear_rows<W8, 2>(tab, {T_WG, T_WU}, {shg, shu}, {rowg, rowu}, 1, dim, xb, xq, *xs,
+                               lane, y);
             const float g = round_bf(y[0]), u = round_bf(y[1]);
             if (lane == 0) {
                 const float sg = round_bf(__fdiv_rn(g, 1.0f + expf(-g)));
@@ -852,7 +955,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) decode_loop_kernel(con
 
         // P5: h += act Wd^T
         stage_copy<W8>(a.act, ffn, xb, xq, xs, red);
-        residual_rows(ptr(T_WD), ptr(T_SD), ffn);
+        residual_rows(tab, T_WD, ffn);
         if (l + 1 < a.n_layers) grid_sync(a.bar);
     }
 }
@@ -887,26 +990,71 @@ int launch(const LoopArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-LFKT_API int lfkt_decode_loop(const void* table, void* h, void* kc, void* vc, void* ks, void* vs,
-                              void* qkv, void* ctx, void* act, const void* cos_t,
-                              const void* sin_t, const void* positions, void* bar, void* part,
-                              void* cnt, int layer0, int n_layers, int dim, int ffn, int n_heads,
-                              int n_kv, int hd, int n_ctx, int window, int max_chunks, float eps,
-                              float sm_scale, int w_int8, int kv_int8, void* stream) {
+// `ring`: a host array of tp x 4 addresses, each shard's K, V, K scale and
+// V scale (the scales 0 over a bf16 ring); `modes`: M_* of linear w at bits
+// 2w, 2w + 1 (row only for wo and w_down); `kv_split`: the ring's heads
+// split over tp, else every shard holds all of them
+LFKT_API int lfkt_decode_loop(const void* table, void* h, const void* ring, void* qkv, void* ctx,
+                              void* act, const void* cos_t, const void* sin_t,
+                              const void* positions, void* bar, void* part, void* cnt, int layer0,
+                              int n_layers, int dim, int ffn, int n_heads, int n_kv, int hd,
+                              int n_ctx, int window, int max_chunks, int tp, int modes,
+                              int kv_split, float eps, float sm_scale, int w_int8, int kv_int8,
+                              void* stream) {
     if (n_layers <= 0) return 0;
     if ((hd != 32 && hd != 64 && hd != 128 && hd != 256) || n_heads * hd != dim || n_kv <= 0 ||
         n_heads % n_kv || dim % 16 || ffn % 16 || ffn <= 0 || n_ctx <= 0 || positions == nullptr ||
-        layer0 < 0 || (kv_int8 && (ks == nullptr || vs == nullptr)) || part == nullptr ||
-        cnt == nullptr || max_chunks < (n_ctx - 1) / CHUNK_MIN + 1)
+        layer0 < 0 || part == nullptr || cnt == nullptr ||
+        max_chunks < (n_ctx - 1) / CHUNK_MIN + 1 || tp < 1 || tp > MAX_TP || ring == nullptr ||
+        (kv_split && n_kv % tp) || (modes >> (2 * LINEARS)))
         return static_cast<int>(cudaErrorInvalidValue);
-    LoopArgs a{static_cast<const unsigned long long*>(table), static_cast<__nv_bfloat16*>(h), kc,
-               vc, static_cast<float*>(ks), static_cast<float*>(vs),
-               static_cast<__nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(ctx),
-               static_cast<__nv_bfloat16*>(act), static_cast<const float*>(cos_t),
-               static_cast<const float*>(sin_t), static_cast<const long long*>(positions),
-               static_cast<unsigned int*>(bar),
-               static_cast<float*>(part), static_cast<unsigned int*>(cnt), layer0, n_layers, dim,
-               ffn, n_heads, n_kv, hd, n_ctx, window, max_chunks, eps, sm_scale};
+    const int kvd = n_kv * hd;
+    const int n_out[LINEARS] = {dim, kvd, kvd, dim, ffn, ffn, dim};
+    const int k_in[LINEARS] = {dim, dim, dim, dim, dim, dim, ffn};
+    for (int w = 0; w < LINEARS; ++w) {
+        const int m = (modes >> (2 * w)) & 3;
+        const bool row_ok = (w == T_WO || w == T_WD) && k_in[w] % tp == 0 && (k_in[w] / tp) % 16 == 0;
+        if (m > M_ROW || (m == M_COL && n_out[w] % tp) || (m == M_ROW && !row_ok))
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+    LoopArgs a{};
+    const auto* rt = static_cast<const unsigned long long*>(ring);
+    for (int t = 0; t < tp; ++t) {
+        a.rk[t] = reinterpret_cast<void*>(rt[4 * t]);
+        a.rv[t] = reinterpret_cast<void*>(rt[4 * t + 1]);
+        a.rks[t] = reinterpret_cast<float*>(rt[4 * t + 2]);
+        a.rvs[t] = reinterpret_cast<float*>(rt[4 * t + 3]);
+        if (a.rk[t] == nullptr || a.rv[t] == nullptr ||
+            (kv_int8 && (a.rks[t] == nullptr || a.rvs[t] == nullptr)))
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+    a.table = static_cast<const unsigned long long*>(table);
+    a.h = static_cast<__nv_bfloat16*>(h);
+    a.qkv = static_cast<__nv_bfloat16*>(qkv);
+    a.ctx = static_cast<__nv_bfloat16*>(ctx);
+    a.act = static_cast<__nv_bfloat16*>(act);
+    a.cos_t = static_cast<const float*>(cos_t);
+    a.sin_t = static_cast<const float*>(sin_t);
+    a.positions = static_cast<const long long*>(positions);
+    a.bar = static_cast<unsigned int*>(bar);
+    a.part = static_cast<float*>(part);
+    a.cnt = static_cast<unsigned int*>(cnt);
+    a.layer0 = layer0;
+    a.n_layers = n_layers;
+    a.dim = dim;
+    a.ffn = ffn;
+    a.n_heads = n_heads;
+    a.n_kv = n_kv;
+    a.hd = hd;
+    a.n_ctx = n_ctx;
+    a.window = window;
+    a.max_chunks = max_chunks;
+    a.tp = tp;
+    a.modes = modes;
+    a.kv_split = kv_split ? 1 : 0;
+    a.n_kv_local = kv_split ? n_kv / tp : n_kv;
+    a.eps = eps;
+    a.sm_scale = sm_scale;
     auto s = static_cast<cudaStream_t>(stream);
     if (w_int8) return kv_int8 ? launch<true, true>(a, s) : launch<true, false>(a, s);
     return kv_int8 ? launch<false, true>(a, s) : launch<false, false>(a, s);

@@ -21,11 +21,13 @@ tp and the lane ring one over dp × tp.  Over an explicit device list
 the devices over ``tp`` that divide ``batch_size``, as the reference's
 does.  With no list ``dp`` defaults to 1 and a ``tp`` > 1 mesh takes the
 pod's cards: too few raise, and several distinct cards raise too (one
-CUDA graph a decode step; ROADMAP A.1), as the layer-looped decode over
-a mesh does.  Under ``kv_paged`` the serial and stream paths consult the
-radix index over the sharded serial ring (whole-head pages,
-parallel/kvpool.py); the cycles leave their lane rings alone, as the
-reference's do.
+CUDA graph a decode step; ROADMAP A.1).  Under ``kv_paged`` the serial
+and stream paths consult the radix index over the sharded serial ring
+(whole-head pages, parallel/kvpool.py); the cycles leave their lane rings
+alone, as the reference's do.  Under ``decode_layer_unroll`` a decode
+step over the mesh is the layer-looped kernel once per lane (the serial
+path: once a token), each launch reading every tp shard of its dp group
+(ops/decode_loop.py).
 """
 
 from __future__ import annotations
@@ -143,9 +145,10 @@ class MeshEngine(Engine):
         to ``dp``.  With no list ``dp`` defaults to 1: a mesh over the pod's
         distinct cards is not served yet (ROADMAP A.1), so the lanes of a
         pod with several cards stay on the engine's card.  A 1 × 1 mesh is
-        no mesh: the one-device path.  Over the mesh the paged pool and
-        (in the continuous engine) lane speculation serve; the looped
-        decode raises (``Engine._check_mesh``)."""
+        no mesh: the one-device path.  Over the mesh the paged pool, the
+        layer-looped decode and (in the continuous engine) lane
+        speculation serve; a mesh over distinct cards raises
+        (``Engine._check_mesh``)."""
         dp, tp, batch_size, devices = self._mesh_request
         if devices is None and dp is None:
             dp = 1

@@ -381,7 +381,7 @@ class Engine:
             self.prefill_buckets.append(self.cfg.n_ctx)
         self.mesh = self._make_mesh()
         if self.mesh is not None:
-            self._check_mesh(decode_layer_unroll)
+            self._check_mesh()
             self.params = shard_params(self.params, self.mesh, self.cfg)
         self._cache = self._new_ring()
         # the decode step as CUDA graphs over this ring (the card only)
@@ -460,21 +460,17 @@ class Engine:
         card (the CPU alone for a CPU engine)."""
         return list(devices) if devices is not None else default_devices(self.device)
 
-    def _check_mesh(self, decode_layer_unroll: int) -> None:
+    def _check_mesh(self) -> None:
         """What a mesh engine cannot serve raises here, before the shards
-        are made: a mesh over distinct cards and the layer-looped decode
-        (ROADMAP A.1).  The paged pool and lane speculation serve over a
-        tp mesh."""
+        are made: a mesh over distinct cards (ROADMAP A.1).  The paged pool,
+        lane speculation and the layer-looped decode serve over a tp mesh
+        (the looped kernel reads every shard of a layer in one launch, all
+        of them on the one card)."""
         distinct = self.mesh.distinct
         if self.device.type == "cuda" and len(distinct) > 1:
             raise ValueError(
                 f"{self.mesh}: the decode step is one CUDA graph on one card; a mesh "
                 f"over {len(distinct)} cards is not served yet (ROADMAP A.1)")
-        if decode_layer_unroll:
-            raise ValueError(
-                f"decode_layer_unroll={decode_layer_unroll} over {self.mesh}: the "
-                "layer-looped kernel runs one device's whole layer stack; over a mesh "
-                "it is not ported (ROADMAP A.1) — set LFKT_DECODE_LAYER_UNROLL=0")
 
     def _new_ring(self) -> dict:
         """A fresh serial ring: on the engine's device, or over its mesh

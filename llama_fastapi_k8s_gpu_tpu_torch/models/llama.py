@@ -381,12 +381,14 @@ def _loop_unroll(params, cfg: ModelConfig, S: int) -> tuple[int, dict | None]:
     """(layers per looped launch, weight plan) for a pass of S tokens —
     (0, None) selects the per-layer path: the loop is off, the pass is a
     prompt pass (S > 1), or the weights refuse it (a fused layout; the
-    reason is logged once)."""
+    reason is logged once).  ``params`` may be laid over a mesh."""
     if not cfg.decode_layer_unroll or S != 1:
         return 0, None
     from ..ops.decode_loop import effective_unroll, loop_plan
+    from ..parallel.mesh import MeshParams
 
-    fmts, reason = loop_plan(params, cfg)
+    # a mesh's shards share its kinds: the plan of shard 0
+    fmts, reason = loop_plan(params.shard() if isinstance(params, MeshParams) else params, cfg)
     if reason is not None:
         if reason not in _REFUSALS:
             _REFUSALS.add(reason)
@@ -571,6 +573,24 @@ def _sp_write(k: torch.Tensor, v: torch.Tensor, part: dict, i: int, positions: t
     return ck, cv
 
 
+def _tp_layers(g: _Shards, h: list, layers, parts: list, at: _PerDevice,
+               host_offset: int | None, lcfg: ModelConfig, heads_split: bool, eps: float,
+               quantize=None) -> list:
+    """The blocks ``layers`` of one row block over its tp shards ``g`` (an
+    sp = 1 ring): each shard's local heads (``lcfg``) attend over its ring
+    ``parts[t]``, written in place at the pass's positions (``at``); h is
+    replicated over the shards.  ``quantize`` as :func:`_layer` takes it."""
+    for i in layers:
+        q, k, v = g.qkv(h, g.layers(i), lcfg, heads_split)
+        ctx = []
+        for t, dev in enumerate(g.devs):
+            pos, rope = at(dev)
+            ctx.append(_attention(rope_rotate(q[t], *rope), k[t], v[t], i, parts[t], pos,
+                                  host_offset, lcfg, rope, torch.bfloat16, quantize=quantize))
+        h = g.post(h, ctx, heads_split, g.layers(i), eps)
+    return h
+
+
 def forward_mesh(mp, cfg: ModelConfig, tokens: torch.Tensor, pos_offset,
                  cache, last_idx: int | None = None, return_all: bool = False) -> torch.Tensor:
     """:func:`forward` over tensor-parallel weights (``parallel.mesh.
@@ -581,16 +601,22 @@ def forward_mesh(mp, cfg: ModelConfig, tokens: torch.Tensor, pos_offset,
     ring sharded over sp needs ``cfg.attn_impl == "ring"``: a prompt pass
     splits its S rows over sp (S % sp == 0) and attends through
     :func:`parallel.ring.ring_attention_shards`; a decode row is replicated
-    over sp and attends through the sharded log-sum-exp.  Returns f32
-    logits on the ring's first device."""
+    over sp and attends through the sharded log-sum-exp.  Under
+    ``cfg.decode_layer_unroll`` a decode row over an sp = 1 ring runs the
+    layer stack as L/K looped launches that read every tp shard
+    (``ops.decode_loop.forward_layers_looped_mesh``); prompt passes and
+    verify rows stay per-layer.  Returns f32 logits on the ring's first
+    device."""
     from ..parallel.ring import ring_attention_shards, sharded_decode_attention_shards
 
     S = tokens.shape[0]
     d = cache.coords[0][0]
     sp = len({c[2] for c in cache.coords})
     tp = mp.mesh.shape["tp"]
-    if cfg.decode_layer_unroll:
-        raise ValueError("layer-looped decode over a mesh is not ported (ROADMAP A.1)")
+    K, fmts = _loop_unroll(mp, cfg, S)
+    if K and sp > 1:
+        raise ValueError(f"the layer-looped decode reads whole rings; a ring sharded over "
+                         f"sp={sp} attends by ring attention")
     if sp > 1 and cfg.attn_impl != "ring":
         raise ValueError(f"a ring sharded over sp={sp} takes attn_impl 'ring', "
                          f"got {cfg.attn_impl!r}")
@@ -619,36 +645,38 @@ def forward_mesh(mp, cfg: ModelConfig, tokens: torch.Tensor, pos_offset,
     h = [[p.tok_emb[rows(tokens, s).to(dev)].to(torch.bfloat16)
           for p, dev in zip(g.ps, g.devs)] for s, g in enumerate(groups)]
     C = cfg.n_ctx // sp
-    for i in range(cfg.n_layers):
-        qkv = [g.qkv(h[s], g.layers(i), lcfg, heads_split) for s, g in enumerate(groups)]
-        ctx = [[None] * tp for _ in range(sp)]
-        for t in range(tp):
-            if not ring:
-                g, part = groups[0], cache.part(cache.index(d, t, 0))
-                q, k, v = (x[t] for x in qkv[0])
-                pos, rope = at(g.devs[t])
-                ctx[0][t] = _attention(rope_rotate(q, *rope), k, v, i, part, pos, host_offset,
-                                       lcfg, rope, torch.bfloat16)
-                continue
-            devs = [g.devs[t] for g in groups]
-            ks = [qkv[s][1][t] for s in range(sp)]
-            vs = [qkv[s][2][t] for s in range(sp)]
-            if row_split:                  # every shard sees every new row
-                ks, vs = all_gather(ks, 0, devs), all_gather(vs, 0, devs)
-            kc, vc, qs = [], [], []
-            for s, dev in enumerate(devs):
-                pos, rope = at(dev)
-                ck, cv = _sp_write(ks[s], vs[s], cache.part(cache.index(d, t, s)), i, pos,
-                                   rope, host_offset, s * C, C, lcfg)
-                kc.append(ck)
-                vc.append(cv)
-                qs.append(rope_rotate(qkv[s][0][t], *(rows(r, s) for r in rope)))
-            attend = ring_attention_shards if row_split else sharded_decode_attention_shards
-            out = attend(qs, kc, vc, pos_offset, cfg.head_dim ** -0.5, cfg.sliding_window, devs)
-            for s in range(sp):
-                ctx[s][t] = out[s].reshape(out[s].shape[0], -1).to(torch.bfloat16)
-        h = [g.post(h[s], ctx[s], heads_split, g.layers(i), cfg.rms_eps)
-             for s, g in enumerate(groups)]
+    if K:
+        from ..ops.decode_loop import forward_layers_looped_mesh
+
+        h[0] = forward_layers_looped_mesh(mp, cfg, h[0], positions, cache, K, fmts)
+    elif not ring:
+        h[0] = _tp_layers(groups[0], h[0], range(cfg.n_layers),
+                          [cache.part(cache.index(d, t, 0)) for t in range(tp)], at,
+                          host_offset, lcfg, heads_split, cfg.rms_eps)
+    else:
+        for i in range(cfg.n_layers):
+            qkv = [g.qkv(h[s], g.layers(i), lcfg, heads_split) for s, g in enumerate(groups)]
+            ctx = [[None] * tp for _ in range(sp)]
+            for t in range(tp):
+                devs = [g.devs[t] for g in groups]
+                ks = [qkv[s][1][t] for s in range(sp)]
+                vs = [qkv[s][2][t] for s in range(sp)]
+                if row_split:                  # every shard sees every new row
+                    ks, vs = all_gather(ks, 0, devs), all_gather(vs, 0, devs)
+                kc, vc, qs = [], [], []
+                for s, dev in enumerate(devs):
+                    pos, rope = at(dev)
+                    ck, cv = _sp_write(ks[s], vs[s], cache.part(cache.index(d, t, s)), i, pos,
+                                       rope, host_offset, s * C, C, lcfg)
+                    kc.append(ck)
+                    vc.append(cv)
+                    qs.append(rope_rotate(qkv[s][0][t], *(rows(r, s) for r in rope)))
+                attend = ring_attention_shards if row_split else sharded_decode_attention_shards
+                out = attend(qs, kc, vc, pos_offset, cfg.head_dim ** -0.5, cfg.sliding_window, devs)
+                for s in range(sp):
+                    ctx[s][t] = out[s].reshape(out[s].shape[0], -1).to(torch.bfloat16)
+            h = [g.post(h[s], ctx[s], heads_split, g.layers(i), cfg.rms_eps)
+                 for s, g in enumerate(groups)]
     if return_all:
         return torch.cat([g.head(h[s], g.ps, cfg.rms_eps).to(out_dev)
                           for s, g in enumerate(groups)])
@@ -662,9 +690,10 @@ def forward_lanes_mesh(mp, cfg: ModelConfig, tokens: torch.Tensor, slots: torch.
     """:func:`forward_lanes` over a lane ring sharded over dp × tp: dp group
     ``d`` runs its B/dp lanes on its tp shards (local heads, the rules'
     gathers and sums), and the groups' logits are stacked on the ring's
-    first device."""
-    if cfg.decode_layer_unroll:
-        raise ValueError("layer-looped decode over a mesh is not ported (ROADMAP A.1)")
+    first device.  Under ``cfg.decode_layer_unroll`` each lane's stack is
+    L/K looped launches over its own ring (``cache.lane(b)``), the lanes
+    and the groups one after another."""
+    K, fmts = _loop_unroll(mp, cfg, 1)
     tp = mp.mesh.shape["tp"]
     heads_split = mp.tp_heads and cache.tp_split
     lcfg = _local_cfg(cfg, tp, heads_split)
@@ -676,14 +705,23 @@ def forward_lanes_mesh(mp, cfg: ModelConfig, tokens: torch.Tensor, slots: torch.
         lanes = slice(d * per, (d + 1) * per)
         at = _PerDevice(slots[lanes], cfg)
         h = [p.tok_emb[tokens[lanes].to(dev)].to(torch.bfloat16) for p, dev in zip(g.ps, g.devs)]
-        for i in range(cfg.n_layers):
-            q, k, v = g.qkv(h, g.layers(i), lcfg, heads_split)
-            ctx = []
-            for t, dev in enumerate(g.devs):
-                pos, rope = at(dev)
-                ctx.append(_lane_attention(rope_rotate(q[t], *rope), k[t], v[t], i,
-                                           cache.part(cache.index(d, t, 0)), pos, lcfg, rope,
-                                           torch.bfloat16))
-            h = g.post(h, ctx, heads_split, g.layers(i), cfg.rms_eps)
+        if K:
+            from ..ops.decode_loop import forward_layers_looped_mesh
+
+            rows = [forward_layers_looped_mesh(mp, cfg, [x[j:j + 1] for x in h],
+                                               slots[b:b + 1].to(g.devs[0]), cache.lane(b),
+                                               K, fmts)
+                    for j, b in enumerate(range(lanes.start, lanes.stop))]
+            h = [torch.cat([r[t] for r in rows]) for t in range(tp)]
+        else:
+            for i in range(cfg.n_layers):
+                q, k, v = g.qkv(h, g.layers(i), lcfg, heads_split)
+                ctx = []
+                for t, dev in enumerate(g.devs):
+                    pos, rope = at(dev)
+                    ctx.append(_lane_attention(rope_rotate(q[t], *rope), k[t], v[t], i,
+                                               cache.part(cache.index(d, t, 0)), pos, lcfg, rope,
+                                               torch.bfloat16))
+                h = g.post(h, ctx, heads_split, g.layers(i), cfg.rms_eps)
         out.append(g.head(h, g.ps, cfg.rms_eps).to(cache.device))
     return torch.cat(out)

@@ -40,7 +40,7 @@ SIGNATURES = {
     "lfkt_flash_attention_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   ctypes.c_float, _I, _P],
     "lfkt_kv_quantize": [_P] * 9 + [_I] * 4 + [ctypes.c_longlong, _P],
-    "lfkt_decode_loop": [_P] * 15 + [_I] * 10 + [ctypes.c_float] * 2 + [_I, _I, _P],
+    "lfkt_decode_loop": [_P] * 12 + [_I] * 13 + [ctypes.c_float] * 2 + [_I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -20,7 +20,14 @@ the fused formats serve per-layer.
   looped forward is therefore bit-identical to the per-layer forward;
 - :func:`split_attention_plain` — the kernel's attention split over key
   chunks, in plain PyTorch, for the tests;
-- :func:`forward_layers_looped` — the L/K launches of a decode step.
+- :func:`forward_layers_looped` — the L/K launches of a decode step;
+- :func:`forward_layers_looped_mesh` — the same over one dp group's tp
+  shards (``parallel.mesh.MeshParams`` and a ``ShardedRing``), every shard
+  on the launching card: the kernel reads each layer's weights and kv
+  heads from their shards in one launch (:func:`describe_shards` says
+  where each lies; :func:`read_shards_plain` reads them back whole, as the
+  kernel indexes them, for the tests).  A shard on another device raises:
+  a mesh over distinct cards is not served.
 
 The token's ring slot is a (1,) int64 device tensor, ``positions``, which
 the kernel reads at entry: no launch argument depends on the position, so
@@ -60,6 +67,10 @@ CHUNK_MIN = 8
 _TABLE = 16
 #: head sizes the kernel takes
 HEAD_DIMS = (32, 64, 128, 256)
+#: tp shards one launch reads, at most (csrc/decode_loop.cu MAX_TP)
+MAX_TP = 8
+#: the kernel's code of each sharding mode (csrc/decode_loop.cu M_*)
+_MODE_CODES = {"rep": 0, "col": 1, "row": 2}
 
 
 def effective_unroll(cfg) -> int:
@@ -101,42 +112,170 @@ def loop_plan(params, cfg):
     return entry[key]
 
 
-def _weight_table(params, cfg, int8: bool) -> torch.Tensor:
-    """(L, 16) int64 on the card: each layer's seven weight planes, their
-    seven int8 scale vectors (0 for bf16) and its two norms, by address —
-    built once per params object, checked as it is built."""
+def describe_shards(params, cfg, ring=None) -> dict:
+    """Where the looped kernel finds one dp group's layer stack: a pure
+    description of the shards, no device work.
+
+    ``params`` is a ``LlamaParams`` (one device: tp = 1, every linear
+    ``rep``) or a ``parallel.mesh.MeshParams`` with ``ring`` a serial
+    ``ShardedRing`` of one dp group (sp = 1).  Returns
+
+    - ``tp``, ``group`` (the dp group) and ``modes``: each of
+      :data:`models.params.LOOP_LINEARS`' layout over tp (``col``: its N
+      rows split, ``row``: its K columns split, ``rep``: whole on every
+      shard; ``MeshParams.layout``);
+    - ``layers``: per layer, ``linears`` (name → its ``Linear`` on each
+      shard, in tp order) and the two norms, read from shard 0;
+    - ``kv_split`` and ``heads``: for each whole kv head j, ``(shard,
+      local, writes)``: the shard it is read from, its index there, and
+      every shard whose ring holds it and must be written (split heads:
+      shard ``j // (n_kv/tp)`` alone; heads tp does not divide: read from
+      shard 0, written to all)."""
+    from ..models.params import LOOP_LINEARS
+    from ..parallel.mesh import MeshParams
+
+    if not isinstance(params, MeshParams):
+        shards, tp, group, split = [params], 1, 0, False
+        modes = dict.fromkeys(LOOP_LINEARS, "rep")
+    else:
+        if ring is None or ring.lanes or len(ring.dp_groups) != 1 \
+                or any(c[2] for c in ring.coords):
+            raise ValueError("decode_loop: a mesh's looped decode takes one dp group's "
+                             "serial tp ring (sp = 1); take a lane's with lane(b)")
+        tp = params.mesh.shape["tp"]
+        group = ring.coords[0][0]
+        if [c[1] for c in ring.coords] != list(range(tp)):
+            raise ValueError(f"decode_loop: ring shards {ring.coords}, expected tp 0..{tp - 1}")
+        shards = [params.shard(group, t, 0) for t in range(tp)]
+        split = bool(params.tp_heads and ring.tp_split)
+        modes = {n: params.layout[n] for n in LOOP_LINEARS}
+    layers = [{"linears": {n: [getattr(p.layers[i], n) for p in shards] for n in LOOP_LINEARS},
+               "attn_norm": shards[0].layers[i].attn_norm,
+               "ffn_norm": shards[0].layers[i].ffn_norm}
+              for i in range(len(shards[0].layers))]
+    n_kv = cfg.n_kv_heads
+    if split:
+        per = n_kv // tp
+        heads = [(j // per, j % per, (j // per,)) for j in range(n_kv)]
+    else:
+        heads = [(0, j, tuple(range(tp))) for j in range(n_kv)]
+    return {"tp": tp, "group": group, "modes": modes, "layers": layers,
+            "kv_split": split, "heads": heads}
+
+
+def read_shards_plain(desc: dict, parts: list) -> tuple[list, dict]:
+    """The plain reader of a shard description, for the tests (the main
+    path never calls it): each layer's whole weights, name → ``(weight,
+    scale)``, and the whole-head ring (every leaf of ``parts``, the
+    shards' ring dicts, back to ``(L, n_kv, n_ctx, hd)``), each element
+    read where the kernel reads it — output row r of a ``col`` linear from
+    shard ``r // (N/tp)`` at row ``r % (N/tp)``, input column c of a
+    ``row`` linear from shard ``c // (K/tp)`` at column ``c % (K/tp)`` (an
+    int8 row's scale whole on shard 0), a ``rep`` linear and the norms
+    from shard 0, kv head j from ``desc["heads"][j]``'s read shard."""
+    def whole(mode, xs, scale):
+        if mode == "col":
+            nt = xs[0].shape[0]
+            r = torch.arange(nt * len(xs))
+            return torch.stack(xs)[r // nt, r % nt]
+        if mode == "row" and not scale:
+            kt = xs[0].shape[1]
+            c = torch.arange(kt * len(xs))
+            return torch.stack(xs)[c // kt, :, c % kt].transpose(0, 1).contiguous()
+        return xs[0]
+
+    layers = []
+    for layer in desc["layers"]:
+        out = {}
+        for name, lins in layer["linears"].items():
+            mode = desc["modes"][name]
+            scales = [lin.scale for lin in lins]
+            out[name] = (whole(mode, [lin.weight for lin in lins], False),
+                         None if scales[0] is None else whole(mode, scales, True))
+        layers.append(out)
+    ring = {leaf: torch.stack([parts[t][leaf][:, jl] for t, jl, _ in desc["heads"]], dim=1)
+            for leaf in parts[0]}
+    return layers, ring
+
+
+def _description(params, cfg, ring) -> dict:
+    """:func:`describe_shards`, kept per params object and dp group."""
+    from ..parallel.mesh import ShardedRing
+
+    key = ("shards", ring.coords[0][0], ring.tp_split) if isinstance(ring, ShardedRing) \
+        else ("shards",)
+    entry = _entry(params)
+    if key not in entry:
+        entry[key] = describe_shards(params, cfg,
+                                     ring if isinstance(ring, ShardedRing) else None)
+    return entry[key]
+
+
+def _shard_table(params, desc: dict, cfg, int8: bool, device: torch.device) -> torch.Tensor:
+    """(L, tp, 16) int64 on ``device``, the launching card: for each layer
+    and shard its seven weight planes, their seven int8 scale vectors (0
+    for bf16) and its two norms, by address — at tp = 1 the one-device
+    table, (L, 16).  Built once per params object and dp group, each
+    shard's shape, dtype and device checked as it is built: a shard on
+    another device raises."""
     from ..models.params import LOOP_LINEARS
 
     entry = _entry(params)
-    table = entry.get("table")
+    key = ("table", desc["group"])
+    table = entry.get(key)
     if table is not None:
+        if table.device != device:
+            raise ValueError(f"decode_loop: the weight table is on {table.device}, the "
+                             f"launch on {device}")
         return table
+    tp = desc["tp"]
     kvd = cfg.n_kv_heads * cfg.head_dim
     shapes = {"wq": (cfg.dim, cfg.dim), "wk": (kvd, cfg.dim), "wv": (kvd, cfg.dim),
               "wo": (cfg.dim, cfg.dim), "w_gate": (cfg.ffn_dim, cfg.dim),
               "w_up": (cfg.ffn_dim, cfg.dim), "w_down": (cfg.dim, cfg.ffn_dim)}
     wdtype = torch.int8 if int8 else torch.bfloat16
+    probe = torch.empty(0, device=device)
     rows = []
-    for i, layer in enumerate(params.layers):
-        lins = [getattr(layer, n) for n in LOOP_LINEARS]
-        for n, lin in zip(LOOP_LINEARS, lins):
-            if tuple(lin.weight.shape) != shapes[n]:
-                raise ValueError(f"decode_loop: layer {i} {n} is {tuple(lin.weight.shape)}, "
-                                 f"expected {shapes[n]}")
-            require_cuda(f"decode_loop: layer {i} {n}", lin.weight, dtypes=(wdtype,))
-            if int8:
-                require_cuda(f"decode_loop: layer {i} {n} scale", lin.scale,
-                             dtypes=(torch.float32,))
-        norms = (layer.attn_norm, layer.ffn_norm)
-        require_cuda(f"decode_loop: layer {i} norms", *norms,
-                     dtypes=(torch.float32, torch.float32))
-        rows.append([lin.weight.data_ptr() for lin in lins]
-                    + [lin.scale.data_ptr() if int8 else 0 for lin in lins]
-                    + [t.data_ptr() for t in norms])
-    device = params.layers[0].wq.weight.device
+    for i, layer in enumerate(desc["layers"]):
+        per_shard = []
+        for t in range(tp):
+            lins = [layer["linears"][n][t] for n in LOOP_LINEARS]
+            for n, lin in zip(LOOP_LINEARS, lins):
+                mode = desc["modes"][n]
+                N, K = shapes[n]
+                want = {"col": (N // tp, K), "row": (N, K // tp), "rep": (N, K)}[mode]
+                if tuple(lin.weight.shape) != want:
+                    raise ValueError(f"decode_loop: layer {i} {n} shard {t} ({mode}) is "
+                                     f"{tuple(lin.weight.shape)}, expected {want}")
+                require_cuda(f"decode_loop: layer {i} {n} shard {t}", probe, lin.weight,
+                             dtypes=(None, wdtype))
+                if int8:
+                    rows_n = N // tp if mode == "col" else N
+                    if tuple(lin.scale.shape) != (rows_n,):
+                        raise ValueError(f"decode_loop: layer {i} {n} shard {t} scale is "
+                                         f"{tuple(lin.scale.shape)}, expected ({rows_n},)")
+                    require_cuda(f"decode_loop: layer {i} {n} shard {t} scale", probe,
+                                 lin.scale, dtypes=(None, torch.float32))
+            norms = (layer["attn_norm"], layer["ffn_norm"])
+            require_cuda(f"decode_loop: layer {i} norms", probe, *norms,
+                         dtypes=(None, torch.float32, torch.float32))
+            per_shard.append([lin.weight.data_ptr() for lin in lins]
+                             + [lin.scale.data_ptr() if int8 else 0 for lin in lins]
+                             + [x.data_ptr() for x in norms])
+        rows.append(per_shard)
     table = torch.tensor(rows, dtype=torch.int64).to(device)
-    entry["table"] = table
+    entry[key] = table
     return table
+
+
+def _modes(desc: dict) -> int:
+    """The kernel's ``modes`` word: linear w's code at bits 2w, 2w + 1."""
+    from ..models.params import LOOP_LINEARS
+
+    if desc["tp"] > 1 and any(desc["modes"][n] == "row" for n in LOOP_LINEARS
+                              if n not in ("wo", "w_down")):
+        raise ValueError(f"decode_loop: only wo and w_down split K, got {desc['modes']}")
+    return sum(_MODE_CODES[desc["modes"][n]] << (2 * w) for w, n in enumerate(LOOP_LINEARS))
 
 
 def _scratch(params) -> dict:
@@ -146,28 +285,30 @@ def _scratch(params) -> dict:
     return entry
 
 
-def _barrier(params, device: torch.device) -> torch.Tensor:
+def _barrier(params, device: torch.device, group: int) -> torch.Tensor:
     scratch = _scratch(params)
-    bar = scratch.get(device)
+    key = ("bar", device, group)
+    bar = scratch.get(key)
     if bar is None:
-        bar = scratch[device] = torch.zeros(1, dtype=torch.int32, device=device)
+        bar = scratch[key] = torch.zeros(1, dtype=torch.int32, device=device)
     return bar
 
 
-def _attention_scratch(params, device: torch.device, cfg) -> tuple:
+def _attention_scratch(params, device: torch.device, group: int, cfg) -> tuple:
     """(partials, counters, max_chunks) of the kernel's attention phase:
     per query head and key chunk the chunk's P·V sums (hd f32) and its
     (max, sum), then per query head its scores over the ring — f32,
     n_heads × (max_chunks × (hd + 2) + n_ctx) — and two arrival counters
     per KV head, which every launch returns to zero.
 
-    One set per weights object, device and geometry, shared by every launch
-    of that engine — the per-lane launches of a lane step included — so an
-    engine's launches must run one after another on one stream
-    (:func:`decode_loop_step`): two at once would share the counters and a
-    block could wait forever.  Another engine's launches use their own."""
+    One set per weights object (a mesh's: per dp group), device and
+    geometry, shared by every launch of that engine — the per-lane launches
+    of a lane step included — so an engine's launches must run one after
+    another on one stream (:func:`decode_loop_step`): two at once would
+    share the counters and a block could wait forever.  Another engine's
+    launches use their own."""
     max_chunks = (cfg.n_ctx - 1) // CHUNK_MIN + 1
-    key = (device, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_ctx)
+    key = (device, group, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_ctx)
     scratch = _scratch(params)
     entry = scratch.get(key)
     if entry is None:
@@ -225,15 +366,41 @@ def decode_loop_plain(params, cache: dict, h: torch.Tensor, positions: torch.Ten
     """Plain PyTorch version: layers ``[layer0, layer0 + K)`` of one decode
     token, one after the other, through the per-layer source with the
     plain KV quantize.  h (1, dim) bf16 → h; the ring slots at
-    ``positions`` (1,) are written in place."""
+    ``positions`` (1,) are written in place.  Over a mesh (``cache`` a
+    ``ShardedRing``) :func:`decode_loop_mesh_plain`."""
     from ..models.llama import _layer
+    from ..parallel.mesh import ShardedRing
     from .kvquant import kv_quantize_plain
 
+    if isinstance(cache, ShardedRing):
+        return decode_loop_mesh_plain(params, cache, h, positions, layer0, cfg, K)
     rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     for i in range(layer0, layer0 + K):
         h = _layer(h, params.layers[i], i, cache, positions, None, cfg, rope,
                    quantize=kv_quantize_plain)
     return h
+
+
+def decode_loop_mesh_plain(mp, ring, h: torch.Tensor, positions: torch.Tensor, layer0: int,
+                           cfg, K: int) -> torch.Tensor:
+    """Plain PyTorch version over a mesh: layers ``[layer0, layer0 + K)`` of
+    one decode token through the per-layer mesh source
+    (``models.llama._tp_layers``: each shard's local heads, the gathers and
+    the row-parallel sums of ``_Shards``) with the plain KV quantize, over
+    ``ring``, one dp group's serial tp ring, written in place.  h (1, dim)
+    bf16 → h.  On the CPU it is the per-layer ``forward_mesh`` bit for
+    bit."""
+    from ..models.llama import _local_cfg, _PerDevice, _Shards, _tp_layers
+    from .kvquant import kv_quantize_plain
+
+    d = ring.coords[0][0]
+    g = _Shards.of(mp, d, 0)
+    heads_split = mp.tp_heads and ring.tp_split
+    parts = [ring.part(ring.index(d, t, 0)) for t in range(g.tp)]
+    hs = _tp_layers(g, [h.to(dev) for dev in g.devs], range(layer0, layer0 + K), parts,
+                    _PerDevice(positions, cfg), None, _local_cfg(cfg, g.tp, heads_split),
+                    heads_split, cfg.rms_eps, quantize=kv_quantize_plain)
+    return hs[0]
 
 
 def decode_loop_step(params, cache: dict, h: torch.Tensor, positions: torch.Tensor,
@@ -245,17 +412,23 @@ def decode_loop_step(params, cache: dict, h: torch.Tensor, positions: torch.Tens
     (:func:`models.params.decode_loop_plan`).  One kernel launch for CUDA
     tensors, the plain version for CPU ones.
 
+    ``params`` and ``cache`` are one device's weights and ring, or a
+    ``MeshParams`` and one dp group's serial ``ShardedRing``: the launch
+    then reads each layer and kv head from its tp shard
+    (:func:`describe_shards`), every shard on h's card — a shard elsewhere
+    raises.  The one-device launch is the tp = 1 case of the same launch.
+
     The grid barrier's counter and the attention's scratch and counters are
-    one set per weights object (and device and geometry), not per stream,
-    so every launch of one engine must follow its last on one stream —
-    never two streams at once; two engines (a multi-model registry) hold
-    two sets.  The engines keep that rule: a serial engine runs under its lock
-    on the current stream; a lane step runs this kernel once per lane, the
-    lanes one after another inside one graph replayed on that stream (the
-    capture stream is joined to it before and after); a cycle engine's
-    batch and its serial streams both hold the engine's lock; and a
-    continuous engine makes every device call on its one scheduler
-    thread."""
+    one set per weights object (a mesh's: per dp group; and device and
+    geometry), not per stream, so every launch of one engine must follow
+    its last on one stream — never two streams at once; two engines (a
+    multi-model registry) hold two sets.  The engines keep that rule: a
+    serial engine runs under its lock on the current stream; a lane step
+    runs this kernel once per lane, the lanes (and a mesh's dp groups) one
+    after another inside one graph replayed on that stream (the capture
+    stream is joined to it before and after); a cycle engine's batch and
+    its serial streams both hold the engine's lock; and a continuous engine
+    makes every device call on its one scheduler thread."""
     L = cfg.n_layers
     if not (K >= 1 and 0 <= layer0 and layer0 + K <= L):
         raise ValueError(f"decode_loop: layers {layer0}..{layer0 + K} outside 0..{L}")
@@ -275,39 +448,53 @@ def decode_loop_step(params, cache: dict, h: torch.Tensor, positions: torch.Tens
             or cfg.dim % 16 or cfg.ffn_dim % 16):
         raise ValueError(f"decode_loop: unsupported geometry dim {cfg.dim}, ffn "
                          f"{cfg.ffn_dim}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {hd}")
+    from ..parallel.mesh import ShardedRing
+
+    desc = _description(params, cfg, cache)
+    tp = desc["tp"]
+    if tp > MAX_TP:
+        raise ValueError(f"decode_loop: tp={tp} over {MAX_TP} shards")
     w_int8 = kinds == {"int8"}
     kv_int8 = cfg.kv_dtype == "int8"
-    ring_shape = (L, cfg.n_kv_heads, cfg.n_ctx, hd)
-    if kv_int8:
-        ring = (cache["k_q"], cache["v_q"], cache["k_s"], cache["v_s"])
-        dtypes = (torch.int8, torch.int8, torch.float32, torch.float32)
-        shapes = (ring_shape, ring_shape, ring_shape[:-1], ring_shape[:-1])
-    else:
-        ring = (cache["k"], cache["v"])
-        dtypes = (torch.bfloat16, torch.bfloat16)
-        shapes = (ring_shape, ring_shape)
-    for t, shape in zip(ring, shapes):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"decode_loop: ring leaf {tuple(t.shape)}, expected {shape}")
+    n_kv = cfg.n_kv_heads // tp if desc["kv_split"] else cfg.n_kv_heads
+    ring_shape = (L, n_kv, cfg.n_ctx, hd)
+    names = ("k_q", "v_q", "k_s", "v_s") if kv_int8 else ("k", "v")
+    dtypes = ((torch.int8, torch.int8, torch.float32, torch.float32) if kv_int8
+              else (torch.bfloat16, torch.bfloat16))
+    shapes = ((ring_shape, ring_shape, ring_shape[:-1], ring_shape[:-1]) if kv_int8
+              else (ring_shape, ring_shape))
+    parts = ([{n: cache[n][t] for n in names} for t in range(tp)]
+             if isinstance(cache, ShardedRing) else [cache])
     h = h.reshape(-1).clone()
+    rows = []
+    for t, part in enumerate(parts):
+        ring = [part[n] for n in names]
+        for x, shape in zip(ring, shapes):
+            if tuple(x.shape) != shape:
+                raise ValueError(f"decode_loop: ring shard {t} leaf {tuple(x.shape)}, "
+                                 f"expected {shape}")
+        require_cuda(f"decode_loop: ring shard {t}", h, *ring,
+                     dtypes=(torch.bfloat16, *dtypes))
+        rows.append([x.data_ptr() for x in ring] + [0] * (4 - len(ring)))
+    # the shards' ring leaves by address: read by the launcher on the host
+    ring_table = torch.tensor(rows, dtype=torch.int64)
     positions = positions.contiguous()
-    require_cuda("decode_loop", h, positions, *ring,
-                 dtypes=(torch.bfloat16, torch.int64, *dtypes))
-    table = _weight_table(params, cfg, w_int8)
+    require_cuda("decode_loop", h, positions, dtypes=(torch.bfloat16, torch.int64))
+    table = _shard_table(params, desc, cfg, w_int8, h.device)
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
     kvd = cfg.n_kv_heads * hd
     qkv = torch.empty(cfg.dim + 2 * kvd, dtype=torch.bfloat16, device=h.device)
     ctx = torch.empty(cfg.dim, dtype=torch.bfloat16, device=h.device)
     act = torch.empty(cfg.ffn_dim, dtype=torch.bfloat16, device=h.device)
-    ks, vs = (ring[2].data_ptr(), ring[3].data_ptr()) if kv_int8 else (None, None)
-    part, cnt, max_chunks = _attention_scratch(params, h.device, cfg)
+    group = desc["group"]
+    part, cnt, max_chunks = _attention_scratch(params, h.device, group, cfg)
     check(library().lfkt_decode_loop(
-        table.data_ptr(), h.data_ptr(), ring[0].data_ptr(), ring[1].data_ptr(), ks, vs,
-        qkv.data_ptr(), ctx.data_ptr(), act.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-        positions.data_ptr(), _barrier(params, h.device).data_ptr(), part.data_ptr(), cnt.data_ptr(),
+        table.data_ptr(), h.data_ptr(), ring_table.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
+        act.data_ptr(), cos.data_ptr(), sin.data_ptr(), positions.data_ptr(),
+        _barrier(params, h.device, group).data_ptr(), part.data_ptr(), cnt.data_ptr(),
         layer0, K, cfg.dim, cfg.ffn_dim, cfg.n_heads, cfg.n_kv_heads, hd, cfg.n_ctx,
-        cfg.sliding_window,
-        max_chunks, cfg.rms_eps, hd ** -0.5, int(w_int8), int(kv_int8), stream_ptr(h)),
+        cfg.sliding_window, max_chunks, tp, _modes(desc), int(desc["kv_split"]),
+        cfg.rms_eps, hd ** -0.5, int(w_int8), int(kv_int8), stream_ptr(h)),
         "decode_loop")
     decode_loop_step.launches += 1
     return h.reshape(1, cfg.dim)
@@ -325,3 +512,14 @@ def forward_layers_looped(params, cfg, h: torch.Tensor, positions: torch.Tensor,
     for layer0 in range(0, cfg.n_layers, K):
         h = decode_loop_step(params, cache, h, positions, layer0, cfg, fmts, K)
     return h
+
+
+def forward_layers_looped_mesh(mp, cfg, h: list, positions: torch.Tensor, ring, K: int,
+                               fmts: dict) -> list:
+    """:func:`forward_layers_looped` over one dp group's tp shards: ``h``
+    the token's (1, dim) rows replicated over the shards, ``ring`` the
+    group's serial ``ShardedRing`` (sp = 1), ``positions`` (1,) on the
+    first shard's device.  The L/K launches read every shard (every shard
+    on that card); the new h is replicated over the shards again."""
+    x = forward_layers_looped(mp, cfg, h[0], positions, ring, K, fmts)
+    return [x.to(ring.mesh.device(*c)) for c in ring.coords]

@@ -2097,3 +2097,224 @@ def test_tp_lane_verify_graph_on_the_card(cuda, tmp_path, monkeypatch, kv_dtype)
             cont.close()
     finally:
         serial.close()
+
+
+# ---------------------------------------------------------------------------
+# the layer-looped kernel over a tp mesh: one launch reads every shard
+# ---------------------------------------------------------------------------
+
+#: small loop geometries over tp: 8 query heads of 32 over 4 kv heads
+#: (split at tp = 2 and 4) and 4 of 64 over 2 (tp = 4 does not divide them:
+#: replicated heads and ``rep`` q/k/v)
+MESH_LOOP_GEOMETRIES = {"split": dict(n_heads=8, n_kv_heads=4),
+                        "replicated": dict(n_heads=4, n_kv_heads=2)}
+
+
+def _mesh_loop_case(cuda, tp, w_int8, kv_int8, window, pos, cfg):
+    """:func:`_loop_case`'s model and ring, the weights laid over tp shards
+    of ``[cuda] * tp`` and the ring written into a sharded ring through
+    the paged pool's head map (every replica of a replicated head)."""
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel import mesh as pmesh
+
+    cfg, params, cache, h = _loop_case(cuda, w_int8, kv_int8, window, pos, cfg=cfg)
+    mesh = pmesh.make_mesh(tp=tp, devices=[cuda] * tp)
+    mp = pmesh.shard_params(params, mesh, cfg)
+    ring = pmesh.init_sharded_cache(cfg, mesh, tp_split=mp.tp_heads)
+    for i, heads in ring.head_shards(write=True):
+        for name in ring:
+            ring[name][i].copy_(cache[name][:, heads])
+    return cfg, params, cache, h, mp, ring
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int16 if x.element_size() == 2 else
+                  torch.int32 if x.element_size() == 4 else torch.int8)
+
+
+def _check_mesh_loop_launch(cfg, params, cache, h, mp, ring, pos, layer0, K, w_int8):
+    """One launch over the tp shards against the one-card launch over the
+    whole weights and ring, each on its own copy: h and every ring leaf
+    (read back whole through :func:`ops.decode_loop.read_shards_plain`, and
+    every replica of a head) bit-equal — the shards are read in the
+    one-card order, row-split dots summed as one card sums them (int8: the
+    int32 partials are exact anyway); then against the plain mesh version
+    (the per-layer mesh source) as :func:`_check_loop_launch` holds the
+    one-card kernel to its plain version."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.params import LOOP_LINEARS
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import decode_loop
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel import mesh as pmesh
+
+    fmts = dict.fromkeys(LOOP_LINEARS, "int8" if w_int8 else "bf16")
+    tp = mp.mesh.shape["tp"]
+    one = {k: v.clone() for k, v in cache.items()}
+    plain_ring = pmesh.init_sharded_cache(cfg, mp.mesh, tp_split=ring.tp_split)
+    pmesh.ring_copy_(plain_ring, ring)
+    at = torch.tensor([pos], device=h.device)
+    before = decode_loop.decode_loop_step.launches
+    want = decode_loop.decode_loop_step(params, one, h, at, layer0, cfg, fmts, K)
+    got = decode_loop.decode_loop_step(mp, ring, h, at, layer0, cfg, fmts, K)
+    plain = decode_loop.decode_loop_plain(mp, plain_ring, h, at, layer0, cfg, fmts, K)
+    torch.cuda.synchronize()
+    where = (tp, pos, layer0, K)
+    assert decode_loop.decode_loop_step.launches == before + 2
+    assert torch.equal(_bits(got), _bits(want)), where
+    desc = decode_loop.describe_shards(mp, cfg, ring)
+    parts = [ring.part(i) for i in range(tp)]
+    _, whole = decode_loop.read_shards_plain(desc, parts)
+    for name, leaf in one.items():
+        assert torch.equal(_bits(whole[name]), _bits(leaf)), (name, where)
+        for j, (_, jl, writes) in enumerate(desc["heads"]):
+            for t in writes:
+                assert torch.equal(_bits(parts[t][name][:, jl]), _bits(leaf[:, j])), (name, j, t)
+    assert torch.isfinite(got).all() and _rel(got, plain) <= 2e-2, where
+    _, plain_whole = decode_loop.read_shards_plain(desc, [plain_ring.part(i) for i in range(tp)])
+    layers = slice(layer0, layer0 + K)
+    if cfg.kv_dtype == "int8":
+        for name in ("k", "v"):
+            q, wq = whole[name + "_q"][layers, :, pos], plain_whole[name + "_q"][layers, :, pos]
+            assert (q.int() - wq.int()).abs().max() <= 1, where
+            assert _rel(whole[name + "_s"][layers, :, pos],
+                        plain_whole[name + "_s"][layers, :, pos]) <= 2e-2, where
+    else:
+        for name in ("k", "v"):
+            assert _rel(whole[name][layers, :, pos], plain_whole[name][layers, :, pos]) <= 2e-2
+
+
+@pytest.mark.parametrize("w_int8", [False, True])
+@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("tp,geometry,window", [(2, "split", 0), (4, "split", 16),
+                                                (4, "replicated", 0), (4, "replicated", 16)])
+def test_decode_loop_tp_shards_equal_the_one_card_launch(cuda, w_int8, kv_int8, tp, geometry,
+                                                         window):
+    """Small geometries over tp = 2 and 4 (split heads; heads tp does not
+    divide, with q/k/v replicated; a sliding window): two layers at slots
+    100 and 9, held by :func:`_check_mesh_loop_launch`."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+
+    for pos in (100, 9):
+        cfg = ModelConfig(vocab_size=64, dim=256, n_layers=4, ffn_dim=512, n_ctx=128,
+                          **MESH_LOOP_GEOMETRIES[geometry])
+        case = _mesh_loop_case(cuda, tp, w_int8, kv_int8, window, pos, cfg)
+        assert case[4].tp_heads == (geometry == "split")
+        _check_mesh_loop_launch(*case, pos, 2, 2, w_int8)
+
+
+@pytest.mark.parametrize("w_int8", [False, True])
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_decode_loop_tp2_shards_at_8b_width(cuda, w_int8, kv_int8):
+    """Two Llama-3-8B-width layers (32 query heads over 8 kv heads of 128,
+    ffn 14336) over tp = 2 at slot 700 of a 1024-slot ring: ``wo`` and
+    ``w_down`` split K at 2048 and 7168."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import LLAMA3_8B
+
+    cfg8 = dataclasses.replace(LLAMA3_8B, n_layers=2, vocab_size=256, n_ctx=1024)
+    case = _mesh_loop_case(cuda, 2, w_int8, kv_int8, 0, 700, cfg8)
+    assert case[4].layout["wo"] == case[4].layout["w_down"] == "row"
+    _check_mesh_loop_launch(*case, 700, 0, 2, w_int8)
+
+
+def test_decode_loop_refuses_shards_on_another_device(cuda):
+    """The launching card is h's: a weight shard or a ring shard elsewhere
+    (the CPU here, and the second card where there is one) raises before
+    any launch — a mesh over distinct cards is not served."""
+    from llama_fastapi_k8s_gpu_tpu_torch.models.params import LOOP_LINEARS
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import decode_loop
+    from llama_fastapi_k8s_gpu_tpu_torch.parallel import mesh as pmesh
+
+    cfg, params, cache, h = _loop_case(cuda, False, False, 0, 10)
+    fmts = dict.fromkeys(LOOP_LINEARS, "bf16")
+    at = torch.tensor([10], device=cuda)
+    others = [torch.device("cpu")] + ([torch.device("cuda", 1)]
+                                      if torch.cuda.device_count() > 1 else [])
+    before = decode_loop.decode_loop_step.launches
+    for other in others:
+        on_card = pmesh.make_mesh(tp=2, devices=[cuda] * 2)
+        mixed = pmesh.make_mesh(tp=2, devices=[cuda, other])
+        mp = pmesh.shard_params(params, mixed, cfg)
+        ring = pmesh.init_sharded_cache(cfg, on_card, tp_split=mp.tp_heads)
+        with pytest.raises(ValueError, match=f"shard 1.*on {other}"):
+            decode_loop.decode_loop_step(mp, ring, h, at, 0, cfg, fmts, 1)
+        mp = pmesh.shard_params(params, on_card, cfg)
+        ring = pmesh.init_sharded_cache(cfg, mixed, tp_split=mp.tp_heads)
+        with pytest.raises(ValueError, match=f"ring shard 1.*on {other}"):
+            decode_loop.decode_loop_step(mp, ring, h, at, 0, cfg, fmts, 1)
+    assert decode_loop.decode_loop_step.launches == before
+
+
+@pytest.mark.parametrize("weight_format", ["bf16", "int8"])
+def test_tp_looped_engines_hold_to_the_one_card_looped_engine(cuda, tmp_path, weight_format):
+    """A tp = 2 continuous engine and a tp = 2 serial engine over
+    ``[cuda:0] * 2`` with ``decode_layer_unroll=-1`` over the int8 ring:
+    every decode token one looped launch (a lane, in the lane graph; the
+    serial path's decode graph) reading both shards.  Each reply starts
+    with the one-card looped engine's first token and takes its choice at
+    every step or one within four bf16 steps of it
+    (:func:`_greedy_or_tied`): over bf16 weights the prompt pass's
+    row-split sums round once after an f32 sum.  Over int8 weights the
+    serial tp engine replies as the one-card serial engine id for id: its
+    prompt pass over the shards is the one-card pass (int32 partials are
+    exact), and the sharded launch the one-card launch bit for bit."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import ContinuousEngine, Engine, MeshEngine
+    from llama_fastapi_k8s_gpu_tpu_torch.models.config import ModelConfig
+    from llama_fastapi_k8s_gpu_tpu_torch.ops import decode_loop
+
+    cfg = ModelConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      ffn_dim=512, n_ctx=256)
+    path = str(tmp_path / "tiny-q8_0.gguf")
+    chip_smoke.write_gguf(cfg, path, "q8_0")
+    kw = dict(n_ctx=256, max_gen_tokens=24, prefill_buckets=(64, 128, 256),
+              weight_format=weight_format, kv_dtype="int8", decode_layer_unroll=-1,
+              device=cuda)
+    knobs = dict(temperature=0.0, repeat_penalty=1.0)
+    prompts = [[{"role": "user", "content": f"loop {i} " * (1 + 9 * i)}] for i in range(4)]
+    serial = Engine(path, prefix_cache=False, **kw)
+    try:
+        want: list = []
+        chip_smoke.record_replies(serial, 0, want)
+        for p in prompts:
+            serial.create_chat_completion(p, **knobs)
+        del serial._finish, serial.create_chat_completion
+        refs = {tuple(r["prompt"]): r["ids"] for r in want}
+
+        def check(records, exact=False):
+            assert len(records) == len(prompts)
+            for r in records:
+                ref = refs[tuple(r["prompt"])]
+                assert r["ids"][:1] == ref[:1]
+                assert _greedy_or_tied(serial, r["prompt"], r["ids"])
+                assert not exact or r["ids"] == ref
+
+        cont = ContinuousEngine(path, tp=2, batch_size=2, devices=[cuda] * 2, **kw)
+        try:
+            assert cont.cfg.decode_layer_unroll == -1
+            cont.warmup()
+            got: list = []
+            chip_smoke.lane_record(cont, got)
+            before = decode_loop.decode_loop_step.launches
+            for f in [cont.submit(p, **knobs) for p in prompts]:
+                f.result(timeout=120)
+            assert cont._lane_graphs.replays > 0
+            assert decode_loop.decode_loop_step.launches > before
+            check(got)
+        finally:
+            cont.close()
+        tp_serial = MeshEngine(path, tp=2, batch_size=1, devices=[cuda] * 2,
+                               prefix_cache=False, **kw)
+        try:
+            tp_serial.warmup()
+            got = []
+            chip_smoke.record_replies(tp_serial, 1, got)
+            replays = tp_serial._graphs.replays
+            for p in prompts:
+                tp_serial.create_chat_completion(p, **knobs)
+            assert tp_serial._graphs.replays > replays
+            check(got, exact=weight_format == "int8")
+        finally:
+            tp_serial.close()
+    finally:
+        serial.close()

@@ -364,19 +364,20 @@ def test_lane_engines_over_a_mesh_reply_as_jax(tiny_path):
 
 
 @pytest.mark.parametrize("knob,match", [(dict(weight_format="bf16", decode_layer_unroll=-1),
-                                         "decode_layer_unroll")])
+                                         "decode_layer_unroll=-1.*slot-sharded KV ring")])
 def test_lane_engines_over_a_mesh_refuse_what_they_do_not_serve(tiny_path, knob, match):
-    """What a mesh still does not serve raises, naming the ROADMAP item,
-    before any shard is made: the layer-looped decode over a tp mesh
-    (here), and a mesh over distinct cards (only on the card: a CPU list
-    is one device).  Nothing serves them quietly on one device.  The paged
-    pool and lane speculation serve over a tp mesh
-    (tests/test_torch_mesh_paged.py, tests/test_torch_mesh_spec.py)."""
-    from llama_fastapi_k8s_gpu_tpu_torch.engine import ContinuousEngine
+    """What a mesh still does not serve raises before any shard is made:
+    the layer-looped decode over the sequence-parallel engine's slot-sharded
+    ring (here: the reference degrades there, the port's degrade raises),
+    and a mesh over distinct cards (only on the card: a CPU list is one
+    device; ROADMAP A.1).  Nothing serves them quietly on one device.  The
+    paged pool, lane speculation and the looped decode serve over a tp mesh
+    (tests/test_torch_mesh_paged.py, tests/test_torch_mesh_spec.py,
+    tests/test_torch_mesh_loop.py)."""
+    from llama_fastapi_k8s_gpu_tpu_torch.engine import SPEngine
 
-    with pytest.raises(ValueError, match=f"{match}.*ROADMAP A.1"):
-        ContinuousEngine(tiny_path, tp=2, batch_size=2, devices=[CPU] * 2, device="cpu",
-                         n_ctx=128, **knob)
+    with pytest.raises(ValueError, match=match):
+        SPEngine(tiny_path, sp=2, tp=2, devices=[CPU] * 4, device="cpu", n_ctx=128, **knob)
 
 
 @pytest.mark.parametrize("scheduler", ["cycle", "continuous"])

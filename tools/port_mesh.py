@@ -4,19 +4,24 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 tools/port_mesh.py [kernels] [mesh] [mesh_tp] [mesh_sp] [mesh_paged]
-                               [mesh_spec]
+                               [mesh_spec] [mesh_looped]
 
 Prints the card's name and power limit, builds the kernels, writes (or
 reuses) the synthetic Q4_K_M GGUF under ``.cache/chip_smoke/`` and runs,
 as ``chip_smoke.py`` does: ``kernels`` — the fused kernels at a tp = 2
 shard's 8B shapes beside the unsharded ones and the flash kernel at a
-shard's heads (``mesh_matmul``, ``mesh_flash`` lines), ``ring_attention``
-and ``sharded_decode_attention`` against their plain single-device
-version (``mesh_ring``); ``mesh`` — the whole phase (``mesh_tp``,
-``mesh_sp``, ``mesh_paged``, ``mesh_spec``, their ``launches``; it runs
-the kernels first); ``mesh_tp``, ``mesh_sp``, ``mesh_paged`` or
-``mesh_spec`` — that arm alone, against the one-card engine at n_ctx 4096
-as the phase builds it.  ``mesh`` by default; each with its seconds.  A failed check ends the run with a non-zero exit.
+shard's heads (``mesh_matmul``, ``mesh_flash`` lines), the looped kernel
+over tp = 2 shard tables (``mesh_loop``), ``ring_attention`` and
+``sharded_decode_attention`` against their plain single-device version
+(``mesh_ring``); ``mesh`` — the whole phase (``mesh_looped``,
+``mesh_tp``, ``mesh_sp``, ``mesh_paged``, ``mesh_spec``, their
+``launches``; it runs the kernels first); ``mesh_tp``, ``mesh_sp``,
+``mesh_paged`` or ``mesh_spec`` — that arm alone, against the one-card
+engine at n_ctx 4096 as the phase builds it; ``mesh_looped`` — the looped
+arm alone, on the Q8_0 file (written or reused) loaded as bf16, which the
+full run takes from its looped lane engine instead (``mesh_looped_load``:
+the load's seconds).  ``mesh`` by default; each with its seconds.  A
+failed check ends the run with a non-zero exit.
 """
 
 from __future__ import annotations
@@ -55,7 +60,11 @@ def _arm(fn):
     return run
 
 
-PHASES = {"kernels": _kernels, "mesh": chip_smoke.phase_mesh,
+def _looped(paths, counters):
+    chip_smoke.phase_mesh_looped(chip_smoke.looped_parts(paths["q8_0"]), counters)
+
+
+PHASES = {"kernels": _kernels, "mesh": chip_smoke.phase_mesh, "mesh_looped": _looped,
           **{name: _arm(getattr(chip_smoke, f"phase_{name}"))
              for name in ("mesh_tp", "mesh_sp", "mesh_paged", "mesh_spec")}}
 
@@ -72,9 +81,12 @@ def main() -> int:
     t0 = time.time()
     chip_smoke.phase_device()
     chip_smoke.phase_build()
+    names = sys.argv[1:] or ["mesh"]
     paths = {"q4km": chip_smoke.phase_gguf("q4km")}
+    if {"mesh", "mesh_looped"} & set(names):
+        paths["q8_0"] = chip_smoke.phase_gguf("q8_0")
     chip_smoke.say("phase_seconds", name="setup", seconds=round(time.time() - t0, 1))
-    for name in sys.argv[1:] or ["mesh"]:
+    for name in names:
         t1 = time.time()
         PHASES[name](paths, KERNELS)
         gc.collect()
