@@ -212,7 +212,16 @@ and no result line):
    successor, each next turn a hit there; SIGKILL mid-stream, the next
    turns served by local prefill with the failed pulls attributed, the
    router's ejection and its ``fleet_peer_ejected`` bundle; the killed
-   owner restarted, re-admitted fresh, pulling its conversations back).
+   owner restarted, re-admitted fresh, pulling its conversations back;
+   one traced request through the router rendered by ``python -m
+   llama_fastapi_k8s_gpu_tpu_torch.tools.fleet_trace``, one stitched tree
+   over the router and the owner with no orphan fragment (``fleet_trace``
+   line), and ``tools.incident_report --validate`` over the router's
+   incident directory, at least one bundle, exit 0).  Then ``drills``:
+   ``python -m llama_fastapi_k8s_gpu_tpu_torch.tools.chaos_drill torn-wire
+   slow-wire reload`` over the Q4_K_M file, two replica server processes a
+   scenario behind the drill's router, a ``drills`` line a scenario with
+   the invariants it held and its seconds.
    Then the mesh (``phase_mesh``, the Q4_K_M file at n_ctx 4096, every
    shard on this card: a mesh over a device list that repeats ``cuda:0``):
    ``mesh_matmul`` / ``mesh_flash`` (each fused kernel at a tp = 2 shard's
@@ -234,7 +243,8 @@ and no result line):
 
 Each top-level phase ends with a ``phase_seconds`` line: its wall seconds
 since the one before ended (``build``, ``image``, ``ggufs``, ``kernels``,
-``serve``, ``lanes``, ``paged_spec``, ``tier``, ``fleet_tier``, ``mesh``).
+``serve``, ``lanes``, ``paged_spec``, ``tier``, ``fleet_tier``, ``drills``,
+``mesh``).
 The last line is ``{"ok": true, "device": {...}}``.  No JAX anywhere.
 """
 
@@ -250,6 +260,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import socket
 import struct
 import subprocess
@@ -5877,6 +5888,7 @@ def phase_image(path: str) -> dict:
                                 LFKT_TIMEOUT_SECONDS="600"),
                   root=app_root, base_env=base)
         out["ready_s"] = pod.ready()
+        out["tools"] = tool_imports(app_root, base)
         progs = {p["name"]: p for p in pod.get("/debug/compiles")["programs"]}
         out["kernel_build_compiles"] = progs.get("kernel_build", {}).get("compiles")
         with open(f"/proc/{pod.proc.pid}/maps") as fh:
@@ -5902,6 +5914,31 @@ def phase_image(path: str) -> dict:
     return out
 
 
+#: the operator tools (``python -m llama_fastapi_k8s_gpu_tpu_torch.tools.*``):
+#: the first four load no torch, the drills load it only to serve a model
+STDLIB_TOOLS = ("incident_report", "fleet_trace", "lint_report", "ci_gate")
+TOOLS = (*STDLIB_TOOLS, "fault_drill", "chaos_drill")
+
+
+def tool_imports(app_root: str, env: dict) -> dict:
+    """Each operator tool imported, in turn, in one child in the image's
+    runtime stage (``env`` over the copy at ``app_root``): the child's exit
+    code and, after each import, which of torch and jax it had loaded."""
+    code = ("import importlib, json, sys\n"
+            "seen = {}\n"
+            f"for m in {list(TOOLS)!r}:\n"
+            f"    importlib.import_module('{PKG}.tools.' + m)\n"
+            "    seen[m] = sorted(x for x in ('torch', 'jax') if x in sys.modules)\n"
+            "print(json.dumps(seen))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=app_root, capture_output=True,
+                       text=True, timeout=120,
+                       env=dict(env, PYTHONPATH=os.pathsep.join(
+                           filter(None, (app_root, env.get("PYTHONPATH"))))))
+    lines = r.stdout.strip().splitlines()
+    return {"rc": r.returncode, "loaded": json.loads(lines[-1]) if lines else None,
+            "error": r.stderr[-1500:] if r.returncode else ""}
+
+
 def image_verdict(out: dict, want_reply: str) -> dict:
     """The ``image`` line of :func:`phase_image`'s readings, the pod's reply
     held byte for byte to ``want_reply`` (the in-process ``q4km`` engine's
@@ -5922,6 +5959,11 @@ def image_verdict(out: dict, want_reply: str) -> dict:
         bad.append("reply")
     if out["writes"]:
         bad.append("writes")
+    tools = out["tools"]
+    if tools["rc"] != 0 or set(tools["loaded"] or {}) != set(TOOLS) \
+            or any("jax" in tools["loaded"][m] for m in TOOLS) \
+            or any(tools["loaded"][m] for m in STDLIB_TOOLS):
+        bad.append("tools")
     if bad:
         raise AssertionError(f"image: {bad}: {out}")
     return out
@@ -6394,6 +6436,59 @@ def stream_killed(port: int, payload: dict, pod) -> dict:
     return out
 
 
+def run_tool(name: str, *args: str, timeout: float = 120) -> subprocess.CompletedProcess:
+    """``python -m llama_fastapi_k8s_gpu_tpu_torch.tools.<name> args`` from
+    the checkout, its output captured, in a process group of its own: past
+    ``timeout`` the whole group (a drill's replicas too) is killed and
+    ``TimeoutExpired`` raised."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (HERE, os.environ.get("PYTHONPATH")))))
+    argv = [sys.executable, "-m", f"{PKG}.tools.{name}", *args]
+    proc = subprocess.Popen(argv, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return subprocess.CompletedProcess(argv, proc.returncode, out, err)
+
+
+def traced_fleet_request(rport: int, addrs: list) -> dict:
+    """One ``/v1`` request through the router at ``rport``, its trace pulled
+    by ``tools.fleet_trace`` (``--json`` until both fragments are in and the
+    tree is finished, then rendered): the stitched tree's processes,
+    fragments, orphans and the rendered lines; ``ok`` when the tree spans
+    the router and the request's owner with no orphan fragment."""
+    from llama_fastapi_k8s_gpu_tpu_torch.serving.fleet.affinity import rendezvous_rank
+
+    user = "trace-0"
+    owner = rendezvous_rank(f"u:{user}", addrs)[0]
+    st, headers, _ = _request(rport, "POST", "/v1/chat/completions",
+                              v1_body(None, user=user), timeout=900)
+    rid = headers.get("x-request-id", "")
+    router = ("--router", f"http://127.0.0.1:{rport}", "--trace", rid)
+    doc = None
+    t0 = time.time()
+    while time.time() - t0 < 30:
+        r = run_tool("fleet_trace", *router, "--json")
+        if r.returncode == 0:
+            doc = json.loads(r.stdout)
+            if doc.get("fragments", 0) >= 2 and doc.get("finished"):
+                break
+        time.sleep(0.2)
+    render = run_tool("fleet_trace", *router)
+    out = {"status": st, "trace_id": rid, "owner": owner, "exit": render.returncode,
+           "fragments": (doc or {}).get("fragments"), "processes": (doc or {}).get("processes"),
+           "orphans": len((doc or {}).get("orphans") or ()), "tree": render.stdout.splitlines()}
+    out["ok"] = bool(st == 200 and render.returncode == 0 and doc and doc.get("stitched")
+                     and not doc.get("orphans") and doc.get("fragments", 0) >= 2
+                     and "router" in doc.get("processes", ()) and owner in doc["processes"]
+                     and "WARNING" not in render.stdout)
+    return out
+
+
 def phase_fleet_pods(paths: dict) -> dict:
     """``fleet_pods``: a router process (``LFKT_FLEET_ROLE=router``) and two
     replica server processes on the card, A and B (``LFKT_MIGRATE=1``,
@@ -6458,6 +6553,15 @@ def phase_fleet_pods(paths: dict) -> dict:
                                       timeout=900)["first_content_s"])
         out["router_ttft_s"] = {k: sorted(v)[1] for k, v in ttft.items()}
 
+        # one traced request through the router, rendered by the operator
+        # tool: one stitched tree over the router and its owner
+        traced = traced_fleet_request(rpod.port, [A, B])
+        say("fleet_trace", **{k: v for k, v in traced.items() if k != "tree"})
+        print("\n".join("  " + ln for ln in traced["tree"]), flush=True)
+        out["fleet_trace"] = {k: traced[k] for k in ("ok", "fragments", "orphans")}
+        if not traced["ok"]:
+            bad.append("fleet_trace")
+
         # SIGKILL drill: three /v1 conversations on B, B killed mid-stream
         users = [u for u in (f"kill-{i}" for i in range(512))
                  if rendezvous_rank(f"u:{u}", [A, B])[0] == B][:3]
@@ -6495,6 +6599,14 @@ def phase_fleet_pods(paths: dict) -> dict:
             "last_error": health_a["migration"]["last_error"], "router_row": row_b,
             "bundles": [{"peer": b["extra"].get("peer"), "reason": b["reason"],
                          "fleet": b.get("fleet")} for b in bundles]}
+        # the operator tool's schema gate over the router's bundles
+        report = run_tool("incident_report", "--validate", "--dir", incidents)
+        verdict = (report.stdout.strip().splitlines() or [""])[-1]
+        m = re.search(r"\((\d+) bundle\(s\), (\d+) violation", verdict)
+        out["incident_report"] = {"exit": report.returncode, "verdict": verdict,
+                                  "bundles": int(m.group(1)) if m else None}
+        if report.returncode != 0 or not m or int(m.group(1)) < 1 or int(m.group(2)):
+            bad.append("incident_report")
         sk = out["sigkill"]
         if set(warm_st) != {200} or set(spill) != {200} or killed["ended"] == "done" \
                 or killed["end_after_kill_s"] is None or killed["end_after_kill_s"] > 30 \
@@ -6574,6 +6686,33 @@ def phase_fleet_pods(paths: dict) -> dict:
     if bad:
         raise AssertionError(f"fleet_pods: {bad}: {out}; logs: "
                              + " | ".join(f"{p.name}: {p.tail(1500)}" for p in pods))
+    return out
+
+
+#: the chaos drill's scenarios on the card; ``sigkill`` and ``drain``, which
+#: :func:`phase_fleet_pods` drills on the same file, are not repeated
+DRILLS = ("torn-wire", "slow-wire", "reload")
+
+
+def phase_drills(paths: dict) -> dict:
+    """``drills``: ``python -m llama_fastapi_k8s_gpu_tpu_torch.tools.chaos_drill``
+    over the Q4_K_M file, a child process whose scenarios (:data:`DRILLS`)
+    each boot two replica server processes on the card behind the drill's
+    router; a ``drills`` line a scenario (the invariants it held, its
+    seconds), the replicas' logs under ``.cache/chip_smoke/pods/drills``."""
+    d, name = os.path.split(paths["q4km"])
+    logs = os.path.join(CACHE, "pods", "drills")
+    shutil.rmtree(logs, ignore_errors=True)
+    t0 = time.time()
+    r = run_tool("chaos_drill", *DRILLS, "--model-dir", d, "--model-name", name,
+                 "--json", "--log-dir", logs, timeout=900)
+    rows = [json.loads(ln) for ln in r.stdout.splitlines() if ln.startswith("{")]
+    for row in rows:
+        say("drills", **row)
+    out = {"exit": r.returncode, "seconds": time.time() - t0,
+           "held": [row["drill"] for row in rows if row["ok"]]}
+    if r.returncode != 0 or out["held"] != list(DRILLS):
+        raise AssertionError(f"drills: {out}: {r.stdout[-4000:]}{r.stderr[-4000:]}")
     return out
 
 
@@ -7559,6 +7698,9 @@ def main() -> int:
     for name, n in phase_fleet_tier(paths, KERNELS).items():
         launches[name] += n
     timed("fleet_tier")
+    # the chaos drill's wire and reload scenarios on replica processes
+    phase_drills(paths)
+    timed("drills")
     if os.environ.get("CHIP_SMOKE_REPLIES_OUT"):
         with open(os.environ["CHIP_SMOKE_REPLIES_OUT"], "w") as fh:
             json.dump(REPLIES, fh)

@@ -232,6 +232,7 @@ class Engine:
         "_cache": "_lock",
         "_prefix_ids": "_lock",
         "_paged_lease": "_lock",
+        "recoveries": "_lock",
         "_requests": "_id_lock",
         "last_timings": "_id_lock",
     }
@@ -311,6 +312,8 @@ class Engine:
         #: the sticky CUDA error that poisoned the context, once recover()
         #: found one: the engine then refuses every request
         self._poisoned: BaseException | None = None
+        #: successful recover() calls (the fault drill reads it)
+        self.recoveries = 0
         if _parts is not None:
             self.params, self.cfg, self.tokenizer, self.template_kind = _parts
             self.device = self.params.tok_emb.device
@@ -647,6 +650,7 @@ class Engine:
                 return False
             self._recover_locked()
             self.heartbeat.reset()
+            self.recoveries += 1
             return True
         finally:
             self._lock.release()

@@ -2,8 +2,9 @@
 
 Serves the app on the in-tree ``httpd`` (the GPU image carries no uvicorn)
 in one process: the model loads once, onto the GPU, so there is exactly one
-worker.  ``LFKT_HOST`` / ``LFKT_PORT`` choose the address, ``LFKT_MODEL_DIR``
-/ ``LFKT_MODEL_NAME`` the GGUF.  Log lines are JSON objects stamped with the
+worker (``LFKT_WORKERS`` other than 1 is refused before anything loads).
+``LFKT_HOST`` / ``LFKT_PORT`` choose the address, ``LFKT_MODEL_DIR`` /
+``LFKT_MODEL_NAME`` the GGUF.  Log lines are JSON objects stamped with the
 request id unless ``LFKT_JSON_LOGS=0``.  On SIGTERM the pod drains: the
 watchdog stops first, so no trip fails a request that is finishing, and a
 prefill tier (``LFKT_DISAGG_ROLE=prefill``) stops taking new page-wire peers;
@@ -32,8 +33,22 @@ def stop_watchdog(app) -> None:
 
 
 def main():
-    from ..utils.config import get_settings
+    from ..utils.config import get_settings, knob
 
+    # the reference scales with `gunicorn -w N`; here a worker is a process
+    # that loads the model onto the card, so N workers would hold N copies
+    # of the weights on one card.  Refused before anything loads
+    workers = knob("LFKT_WORKERS")
+    if workers != 1:
+        raise SystemExit(
+            f"LFKT_WORKERS={workers} refused: one worker per process is "
+            "load-bearing (the model loads once per process, onto the "
+            "card). Scale within a card with LFKT_BATCH_SIZE lanes; "
+            "across processes by ROLE, not by copy: LFKT_DISAGG_ROLE="
+            "prefill|decode splits prefill and decode into cooperating "
+            "processes streaming KV pages; across cards and hosts with k8s "
+            "replicas (helm-gpu/ replicaCount) behind the fleet router "
+            "(LFKT_FLEET_ROLE=router).")
     logging.basicConfig(level=logging.INFO)
     settings = get_settings()
     if settings.json_logs:

@@ -1443,9 +1443,11 @@ def _effective_unroll(cfg) -> int | None:
     return effective_unroll(cfg)
 
 
-def _base_engine_kwargs(settings: Settings) -> dict:
-    """The engine knobs every model of the pod shares."""
+def _base_engine_kwargs(settings: Settings, device: str | None = None) -> dict:
+    """The engine knobs every model of the pod shares, on ``device`` (None:
+    the card)."""
     return dict(
+        device=device,
         n_ctx=settings.max_context_tokens,
         weight_format=settings.weight_format,
         decode_chunk=settings.decode_chunk,
@@ -1493,12 +1495,13 @@ def _serving_engine(settings: Settings, path: str | None, **kw):
     return Engine(path, **kw)
 
 
-def _registry_factory(settings: Settings):
+def _registry_factory(settings: Settings, device: str | None = None):
     """``LFKT_MODELS`` is set: load the manifest into a ModelRegistry
     (serving/registry.py) — N engines on one card sharing the paged KV
     arena (a namespace a model) under an explicit weight budget, all with
     the same scheduler shape (the process-wide knobs; a model overrides
-    only the whitelisted engine knobs, serving/manifest.py)."""
+    only the whitelisted engine knobs, serving/manifest.py).  ``device``
+    is every engine's (None: the card), live reloads' too."""
     from ..serving import ModelRegistry, parse_manifest, pick_default
 
     specs = parse_manifest(settings.models)
@@ -1523,7 +1526,7 @@ def _registry_factory(settings: Settings):
     def build(spec, path, shared_pool):
         # a one-entry manifest serves the engine the single-model factory
         # builds (a migration to LFKT_MODELS never swaps schedulers)
-        kw = _base_engine_kwargs(settings)
+        kw = _base_engine_kwargs(settings, device)
         kw.update(spec.overrides)
         kw["kv_pool"] = shared_pool
         kw["kv_namespace"] = spec.name
@@ -1536,7 +1539,10 @@ def _registry_factory(settings: Settings):
     return reg
 
 
-def _default_engine_factory(settings: Settings):
+def _default_engine_factory(settings: Settings, device: str | None = None):
+    """The server's engine loader: the registry under ``LFKT_MODELS``, else
+    the pod's one engine, warmed up, on ``device`` (None: the card; the
+    drills' CPU replicas pass ``cpu``)."""
     def factory():
         if settings.scheduler not in ("continuous", "cycle"):
             raise ValueError(
@@ -1544,9 +1550,9 @@ def _default_engine_factory(settings: Settings):
                 f"got {settings.scheduler!r}")
         if settings.models:
             # the manifest's registry replaces the single engine
-            return _registry_factory(settings)
+            return _registry_factory(settings, device)
         eng = _serving_engine(settings, settings.model_path,
-                              **_base_engine_kwargs(settings))
+                              **_base_engine_kwargs(settings, device))
         eng.warmup()
         return eng
     return factory

@@ -6,8 +6,8 @@ reads: its routes, the engines (serial and batched), the watchdog, the
 tracer, the disagg and fleet tiers.  The reference's constants (model dir and name,
 1024-token context, 25 s timeout, queue of 5) stay the defaults.
 
-The knobs that are no ``Settings`` field (the kernel library's
-directory, the compile registry, the memory ledger, the incident
+The knobs that are no ``Settings`` field (the worker count, the kernel
+library's directory, the compile registry, the memory ledger, the incident
 recorder, the SLO engine, the profiler and ``spec_decode=auto``'s cost
 model) are read with :func:`knob` from the
 :data:`KNOBS` table, with the reference's names and defaults — but for
@@ -217,9 +217,13 @@ class Knob:
     serving: bool = False
 
 
-#: the ad-hoc knobs: the kernel library's directory and the observability
-#: layer's (the reference's utils/config.py table, its defaults)
+#: the ad-hoc knobs: the worker count the server refuses to raise, the
+#: kernel library's directory and the observability layer's (the
+#: reference's utils/config.py table, its defaults)
 KNOBS: dict[str, Knob] = {k.name: k for k in (
+    Knob("LFKT_WORKERS", int, 1,
+         "must stay 1: one model per process (server/__main__.py refuses "
+         "any other value)"),
     Knob("LFKT_COMPILE_CACHE_DIR", str, "",
          "where the kernel library is built and found "
          "(utils/kernelcache.py): <dir>/lfkt-kernels/<digest>/; empty = "

@@ -4,11 +4,13 @@ its entry points run on the GPU unless told otherwise."""
 from __future__ import annotations
 
 import ast
+import json
 import os
 import pkgutil
 import shutil
 import subprocess
 import sys
+import tempfile
 
 import pytest
 import torch
@@ -127,3 +129,54 @@ def test_the_lint_imports_no_torch_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+TOOLS = ("incident_report", "fleet_trace", "lint_report", "ci_gate", "fault_drill",
+         "chaos_drill")
+#: the operator tools an operator runs beside a wedged engine: no torch
+STDLIB_TOOLS = TOOLS[:4]
+
+
+def test_the_scan_walks_the_operator_tools():
+    sources = {os.path.relpath(p, PORT_DIR) for p in _port_sources()}
+    assert {os.path.join("tools", f"{t}.py") for t in TOOLS} <= sources
+    assert {f"{port.__name__}.tools.{t}" for t in TOOLS} <= set(_port_modules())
+
+
+_HELP = r"""
+import json, runpy, sys
+sys.argv = [{name!r}, "--help"]
+try:
+    runpy.run_module("llama_fastapi_k8s_gpu_tpu_torch.tools." + {name!r}, run_name="__main__")
+except SystemExit as e:
+    code = e.code
+print(json.dumps({{"code": code, "loaded": sorted(m for m in ("torch", "jax", "jaxlib",
+                 "llama_fastapi_k8s_gpu_tpu") if m in sys.modules)}}))
+"""
+
+
+@pytest.mark.parametrize("name", TOOLS)
+def test_tool_help_loads_no_jax_and_the_stdlib_tools_no_torch(name):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", _HELP.format(name=name)], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert f"usage: {name}" in r.stdout
+    doc = json.loads(r.stdout.strip().splitlines()[-1])
+    assert doc["code"] == 0
+    assert not {"jax", "jaxlib", "llama_fastapi_k8s_gpu_tpu"} & set(doc["loaded"])
+    if name in STDLIB_TOOLS:
+        assert doc["loaded"] == []
+
+
+@pytest.mark.parametrize("name", ["fault_drill", "chaos_drill"])
+def test_model_loading_drills_need_cuda_without_device_cpu(name, monkeypatch, tmp_path):
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    drill = importlib.import_module(f"{port.__name__}.tools.{name}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        drill.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        drill.main(["--device", "cuda"])
